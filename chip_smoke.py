@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
    version in bf16 on the card, at small edge shapes and at the main
    path's shape (B 2, Hq 32, Hkv 8, S 4096, D 128), with per-row limits
    (RTOL), check that those limits reject planted loop-bound faults at the
-   main shape, and time kernel, plain version and the library yardstick;
+   main shape with tiles of 64 and of 128 rows, and time kernel, plain
+   version and the library yardstick;
 3. the main path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
    to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
@@ -47,8 +48,9 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 RTOL = 1.5e-2
 ATOL = 1e-4
 LSE_ATOL = 1e-3
-# the tile of the planted faults below (the kernels' tile)
-FAULT_TILE = 64
+# the tiles of the planted faults below: 128 is the Hopper kernels' block
+# (query rows of the forward, keys of dK/dV), 64 the finer, harder case
+FAULT_TILES = (64, 128)
 
 MAIN_SHAPE = dict(B=2, Sq=4096, Sk=4096, Hq=32, Hkv=8, D=128, causal=True,
                   q_offset=0, window=0)
@@ -59,6 +61,12 @@ EDGE_SHAPES = [
     dict(B=1, Sq=192, Sk=256, Hq=8, Hkv=2, D=128, causal=False, q_offset=0, window=0),
     dict(B=1, Sq=256, Sk=192, Hq=4, Hkv=4, D=128, causal=True, q_offset=-64, window=48),
     dict(B=1, Sq=128, Sk=256, Hq=4, Hkv=1, D=64, causal=True, q_offset=64, window=48),
+    # one 64-row tile, smaller than a 128-row block
+    dict(B=1, Sq=64, Sk=64, Hq=4, Hkv=2, D=128, causal=True, q_offset=0, window=0),
+    # ragged last 128-row tiles under the window's floor, n_rep 4
+    dict(B=1, Sq=320, Sk=320, Hq=8, Hkv=2, D=128, causal=True, q_offset=0, window=96),
+    # ragged query and key tiles, shifted diagonal
+    dict(B=1, Sq=192, Sk=320, Hq=4, Hkv=2, D=64, causal=True, q_offset=128, window=0),
 ]
 
 
@@ -139,7 +147,7 @@ def _err(got, ref, name: str, where: str, ratios: dict) -> float:
     return e
 
 
-def planted_faults(q, k, v, dout, g_lse, tile: int = FAULT_TILE) -> dict:
+def planted_faults(q, k, v, dout, g_lse, tile: int) -> dict:
     """Hold the outputs of three faulty kernels against the plain versions
     with the limits above, on causal self-attention inputs (q_offset 0,
     no window); every fault must fail. The faults are the ones a loop bound
@@ -294,9 +302,10 @@ def phase_kernels(main_shape=MAIN_SHAPE):
     log(f"[kernels] main shape {main_shape}: max-abs {errs}, error over limit {ratios}")
     log(f"[kernels] main shape timings {times}")
     worst = {k: max(worst[k], errs[k]) for k in worst}
-    faults = planted_faults(*inputs)
-    log(f"[kernels] planted faults at the main shape, error over limit (all must "
-        f"exceed 1): {faults}")
+    for tile in FAULT_TILES:
+        faults = planted_faults(*inputs, tile=tile)
+        log(f"[kernels] planted faults of tile {tile} at the main shape, error over "
+            f"limit (all must exceed 1): {faults}")
     return worst, times
 
 
@@ -378,7 +387,7 @@ def main() -> int:
     source = {
         "flash_fwd": "nexus_tpu_torch/csrc/flash_fwd.cu",
         "flash_bwd_dq": "nexus_tpu_torch/csrc/flash_bwd.cu",
-        "flash_bwd_dkv": "nexus_tpu_torch/csrc/flash_bwd.cu",
+        "flash_bwd_dkv": "nexus_tpu_torch/csrc/flash_bwd_dkv.cu",
     }
     kernels = []
     for w in A.KERNEL_WRAPPERS:

@@ -1,7 +1,9 @@
-// Shared device helpers for the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): bf16 tensor-core products through mma.sync m16n8k16 with
-// fp32 accumulators, fragment loads from padded shared-memory tiles, and
-// the causal / sliding-window visibility rule.
+// Shared device helpers for the flash-attention kernels: bf16 tensor-core
+// products through mma.sync m16n8k16 with fp32 accumulators and fragment
+// loads from padded shared-memory tiles (the dQ kernel, flash_bwd.cu); the
+// packing of accumulators into A fragments, the causal / sliding-window
+// visibility rule and the tile ranges it leaves (all kernels; the Hopper
+// building blocks of flash_fwd.cu and flash_bwd_dkv.cu are in hopper.cuh).
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4*g + t, g = lane/4, t = lane%4):
 //   A (16x16, row-major):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -124,12 +126,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Key tiles [*begin, *end) of width bn that hold a key visible to some query
 // row in [m0, m0 + bm). Derived from the mask itself: the newest row bounds
 // the causal edge, the oldest row the window's floor; clamped to the array.
+// A tile that passes the end of the keys (sk not a multiple of bn) counts;
+// its kernel masks the keys past sk.
 __device__ __forceinline__ void key_tile_range(int m0, int bm, int bn, int sk,
                                                int causal, int q_offset,
                                                int window, int* begin,
                                                int* end) {
   *begin = 0;
-  *end = sk / bn;
+  *end = (sk + bn - 1) / bn;  // a last tile may pass the end of the keys
   if (!causal) return;
   long kend = (long)m0 + bm - 1 + q_offset + 1;  // exclusive
   kend = kend < 0 ? 0 : (kend > sk ? sk : kend);

@@ -159,7 +159,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "nexus_flash_fwd": ("flash_fwd.cu", [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]),
     "nexus_flash_bwd_dq": ("flash_bwd.cu", [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]),
-    "nexus_flash_bwd_dkv": ("flash_bwd.cu", [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
+    "nexus_flash_bwd_dkv": ("flash_bwd_dkv.cu", [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
 }
 
 

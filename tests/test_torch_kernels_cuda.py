@@ -25,6 +25,10 @@ SHAPES = [
     (2, 192, 192, 8, 2, 128, True, -64, 0),
     (1, 128, 256, 4, 1, 128, True, 64, 48),
     (1, 192, 256, 8, 2, 64, False, 0, 0),
+    # 128-row blocks with a ragged last tile, under three masks
+    (1, 64, 64, 4, 2, 128, True, 0, 0),
+    (1, 320, 320, 8, 2, 128, True, 0, 96),
+    (1, 192, 320, 4, 2, 64, True, 128, 0),
 ]
 
 

@@ -228,16 +228,18 @@ def test_tile_ok_is_the_jax_shape_rule(sq, sk, d, dtype, ok):
     assert tattn.tile_ok(q, k) is ok
 
 
-def test_planted_kernel_faults_fail_the_chip_smoke_limits():
+@pytest.mark.parametrize("tile", [64, 128])
+def test_planted_kernel_faults_fail_the_chip_smoke_limits(tile):
     """chip_smoke.py's limits reject the faults a loop bound makes (a key
     tile skipped for the last query tile; the last query tile skipped for
-    the dK/dV tiles), here at S 512 on the plain versions in bf16."""
+    the dK/dV tiles), here at S 512 on the plain versions in bf16, for
+    tiles of 64 rows and of 128 (the Hopper kernels' block)."""
     from chip_smoke import planted_faults
 
     g = torch.Generator().manual_seed(0)
     q, dout = (torch.randn(1, 512, 4, 64, generator=g).to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(1, 512, 2, 64, generator=g).to(torch.bfloat16) for _ in range(2))
-    ratios = planted_faults(q, k, v, dout, torch.randn(1, 4, 512, generator=g))
+    ratios = planted_faults(q, k, v, dout, torch.randn(1, 4, 512, generator=g), tile=tile)
     assert min(ratios.values()) > 1.0, ratios
 
 
