@@ -1,14 +1,13 @@
-// Shared device helpers for the flash-attention kernels: bf16 tensor-core
-// products through mma.sync m16n8k16 with fp32 accumulators and fragment
-// loads from padded shared-memory tiles (the dQ kernel, flash_bwd.cu); the
-// packing of accumulators into A fragments, the causal / sliding-window
-// visibility rule and the tile ranges it leaves (all kernels; the Hopper
-// building blocks of flash_fwd.cu and flash_bwd_dkv.cu are in hopper.cuh).
+// Shared device helpers for the flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu, flash_bwd_dkv.cu; their Hopper building blocks are in
+// hopper.cuh): the packing of fp32 accumulators into bf16 A fragments, the
+// causal / sliding-window visibility rule and the tile ranges it leaves,
+// and the reductions over the four lanes that share a row.
 //
-// Fragment layout of mma.sync.m16n8k16 (lane = 4*g + t, g = lane/4, t = lane%4):
-//   A (16x16, row-major):  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   B (16x8, k by n):      b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
+// Accumulator and A fragment layouts, per 16 rows and per 8 (C) or 16 (A)
+// columns (lane = 4*g + t, g = lane/4, t = lane%4):
 //   C (16x8, f32):         c0,c1 (g, 2t..2t+1)   c2,c3 (g+8, 2t..2t+1)
+//   A (16x16, bf16 pairs): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
 // A C fragment pair over 16 columns is, packed to bf16, exactly an A fragment
 // over the same 16 columns: a probability tile computed by one product feeds
 // the next product from registers.
@@ -23,77 +22,9 @@ namespace nexus {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // four warps, sixteen tile rows each
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 values from two rows of one column
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p0, const bf16* p1) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p0);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p1);
-  return lo | (hi << 16);
-}
-
-// Copy ROWS rows of D bf16 (row r at base + (row0 + r) * row_stride) into a
-// shared tile with leading dimension LD = D + 8. The pad of 16 bytes puts
-// the eight rows a fragment load touches on distinct banks.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long row_stride, int row0) {
-  constexpr int LD = D + 8;
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < ROWS * VEC; i += kThreads) {
-    int r = i / VEC, c = (i % VEC) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LD + c) =
-        *reinterpret_cast<const uint4*>(base + (long)(row0 + r) * row_stride + c);
-  }
-}
-
-// A fragment: rows row0..row0+15, columns 16*kk.. of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int row0,
-                                       int kk, int g, int t) {
-  const bf16* p = s + (row0 + g) * LD + kk * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B fragment when the tile holds B transposed, one row per n:
-// n-block nb, k-chunk kk (the K tile in Q K^T)
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t* b, const bf16* s, int nb,
-                                          int kk, int g, int t) {
-  const bf16* p = s + (nb * 8 + g) * LD + kk * 16 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment when the tile holds B as it is, one row per k:
-// k-chunk kk, n-block nb (the V tile in P V)
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t* b, const bf16* s, int kk,
-                                          int nb, int g, int t) {
-  const bf16* p = s + (kk * 16 + 2 * t) * LD + nb * 8 + g;
-  b[0] = ld_pair(p, p + LD);
-  b[1] = ld_pair(p + 8 * LD, p + 9 * LD);
 }
 
 // The C fragments of n-blocks 2kk and 2kk+1, packed as one A fragment.

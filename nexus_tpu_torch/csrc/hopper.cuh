@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the warp-specialised flash kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu), in raw PTX:
-//   * mbarriers, and TMA copies that complete on them; named barriers;
-//     setmaxnreg;
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu), in raw PTX:
+//   * mbarriers, and TMA copies that complete on them; TMA stores from
+//     swizzled tiles; named barriers; setmaxnreg;
 //   * wgmma.mma_async, bf16 in, fp32 accumulators, with A and B from shared
 //     memory (ss) or A from registers (rs);
 //   * shared-memory descriptors of tiles in the 128-byte swizzled layout
@@ -17,8 +17,8 @@
 //
 // Accumulator layout of wgmma.m64nNk16 (warp w of the warpgroup, lane =
 // 4g + t): register 4i + e holds row 16w + g + 8(e >> 1), column
-// 8i + 2t + (e & 1), the mma.sync C layout of flash_common.cuh repeated
-// over N/8 column blocks; so c_to_a packs two column blocks of an
+// 8i + 2t + (e & 1), the 16x8 accumulator layout of flash_common.cuh
+// repeated over N/8 column blocks; so c_to_a packs two column blocks of an
 // accumulator into the A register fragment of the next product.
 #pragma once
 
@@ -112,6 +112,36 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// one box from shared memory to a 4-d tensor map at coordinates (c0 .. c3);
+// rows past the tensor's end are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// close the group of this thread's TMA stores, and wait until all are done
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// make this thread's ordinary shared-memory writes visible to the TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of `off` (from a 1024-byte aligned base, rows of 128 bytes)
+// in the 128-byte swizzle that a TMA box of 64 bf16 columns uses: the
+// 16-byte chunk of a row is XORed with the row's index mod 8.
+__device__ __forceinline__ uint32_t sw128_offset(uint32_t off) {
+  return off ^ ((off >> 3) & 0x70);
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -3,7 +3,9 @@
 These need an NVIDIA Hopper card and nvcc: they carry the ``cuda`` marker
 and skip where no card is visible. Run them on the card with
 
-    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
+
+(``tests/conftest.py`` imports JAX, which the card's machine need not have.)
 
 bf16 inputs, held with chip_smoke.py's limits: per vector over the head
 dim, ||kernel - plain|| <= 1.5e-2 ||plain|| + 1e-4 sqrt(D) for outputs and
@@ -29,6 +31,8 @@ SHAPES = [
     (1, 64, 64, 4, 2, 128, True, 0, 0),
     (1, 320, 320, 8, 2, 128, True, 0, 96),
     (1, 192, 320, 4, 2, 64, True, 128, 0),
+    # a ragged last 128-row query block, n_rep 8, no mask
+    (1, 448, 192, 8, 1, 128, False, 0, 0),
 ]
 
 
