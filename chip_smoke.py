@@ -4,21 +4,36 @@
 
 Phases, each of which raises on failure:
 
-1. build the CUDA kernels from ``nexus_tpu_torch/csrc`` (nvcc, sm_90a);
-2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
-   version in bf16 on the card, at small edge shapes and at the main
+1. build the CUDA kernels from ``nexus_tpu_torch/csrc`` (nvcc, sm_90a, one
+   process per source, all at once);
+2. hold each flash kernel (forward, dQ, dK/dV) against its plain PyTorch
+   version in bf16 on the card, at small edge shapes and at the train
    path's shape (B 2, Hq 32, Hkv 8, S 4096, D 128), with per-row limits
    (RTOL), check that those limits reject planted loop-bound faults at the
    main shape with tiles of 64 and of 128 rows, and time kernel (one call,
    ``ms``, and a loop of calls, ``device_ms``), plain version and the
    library yardstick;
-3. the main path: ``run_template_runtime`` in ``mode: train``, family
+3. the same for the paged-decode kernel: edge cases (T 1 to 16, D 64 and
+   128, n_rep 1 to 8, bf16 and int8 pools, ragged and stale tables, shared
+   runs, windows), the serve shape (Llama-3-8B widths, 8 rows at depths
+   512..4096, a 256-position shared run) at T 1 and T 8, and two planted
+   faults (a skipped last slot, an ignored Hydragen split);
+4. the train path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
    to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
-   fall, and every kernel must have launched during the run;
-4. a second run, 2 layers of the same widths, with full-block remat and the
+   fall, and every flash kernel must have launched during the run;
+5. a second run, 2 layers of the same widths, with full-block remat and the
    vocab-chunked loss (ce_chunk 8192);
-5. the kernel line (JSON, one object per kernel), the card's name and power
+6. ``mode: infer`` at Llama-3-8B, all 32 layers: 8 rows, a 512-token
+   prompt, 64 greedy new tokens, 2 timed iterations; finite logits and the
+   output's shape;
+7. ``mode: serve`` at Llama-3-8B, all 32 layers, through the paged,
+   prefix-cached engine: 32 requests (prompts 320..512 with a 256-token
+   shared preamble, budgets 32..128) over 8 rows, the fused path; every
+   request ok, the committed tokens equal the budgets, a leak-free pool,
+   and the paged-decode kernel launched; then 8 requests on the int8 pool,
+   and (for information) the same queue on the gather path;
+8. the kernel line (JSON, one object per kernel), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
@@ -109,6 +124,33 @@ def _cuda_loop_ms(fn, calls: int = 20, reps: int = 3) -> float:
         a.record()
         for _ in range(calls):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def _cuda_graph_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """The device's time per ``fn()`` with no host time at all: ``calls``
+    calls captured in one CUDA graph, replayed ``reps`` times between two
+    events (median, over ``calls``). For kernels whose device work is
+    shorter than the wrapper's host time, where ``_cuda_loop_ms`` reads
+    the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
@@ -295,6 +337,242 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
     return errs, times, inputs
 
 
+# ------------------------------------------------ the paged-decode kernel (D1)
+#
+# A case: per-row depths (the cache length after this feed of T tokens, so
+# start = depth - T), ``shared`` leading blocks common to every row, the
+# Hydragen split length handed to the kernel (``split``; None = no split
+# operands), a window, the pool's dtype, and whether table entries past a
+# row's blocks are stale (live block ids) or the scratch block. Held with the
+# per-vector limits above: the kernel and the plain version differ in the
+# bf16 rounding of the output and the order of the sums.
+
+DECODE_EDGE_SHAPES = [
+    dict(B=3, T=1, Hq=4, Hkv=4, D=64, Bs=32, depths=(1, 200, 97), shared=0, split=None,
+         window=0, int8=False, stale=True),
+    dict(B=4, T=8, Hq=32, Hkv=8, D=128, Bs=32, depths=(8, 300, 129, 64), shared=0, split=0,
+         window=0, int8=True, stale=True),
+    # a partial split over 4 shared blocks; a row shallower than the run
+    dict(B=4, T=1, Hq=16, Hkv=2, D=128, Bs=32, depths=(130, 257, 400, 33), shared=4, split=2,
+         window=48, int8=False, stale=False),
+    # n_rep 8, the whole run split off, 16-position blocks
+    dict(B=2, T=8, Hq=8, Hkv=1, D=64, Bs=16, depths=(40, 300), shared=2, split=2,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=1, Hq=8, Hkv=8, D=128, Bs=32, depths=(520, 2000), shared=8, split=8,
+         window=48, int8=True, stale=True),
+    # 64 query rows (two row groups), 64-position blocks (two tiles each)
+    dict(B=5, T=8, Hq=32, Hkv=4, D=128, Bs=64, depths=(8, 70, 500, 1000, 64), shared=1,
+         split=1, window=0, int8=False, stale=False),
+    dict(B=1, T=16, Hq=8, Hkv=2, D=64, Bs=8, depths=(300,), shared=0, split=None,
+         window=48, int8=False, stale=True),
+]
+# the serve path's shape: Llama-3-8B widths, 8 rows at depths 512..4096, a
+# 256-position shared preamble (8 blocks of 32) split off as Hydragen does
+DECODE_MAIN_SHAPE = dict(B=8, T=1, Hq=32, Hkv=8, D=128, Bs=32,
+                         depths=(512, 1024, 1536, 2048, 2560, 3072, 3584, 4096),
+                         shared=8, split=8, window=0, int8=False, stale=False)
+
+
+def decode_case(shape, gen, seed: int = 0, alias: bool = True):
+    """Inputs of the paged-decode kernel on the card, as a dict of its
+    keyword arguments. ``alias=False`` gives every row its own blocks under
+    the shared slots, so only the split's ``shared_table`` reads the run."""
+    import numpy as np
+    import torch
+
+    b, t, hq, hkv, d, bs = (shape[x] for x in ("B", "T", "Hq", "Hkv", "D", "Bs"))
+    depths = np.asarray(shape["depths"])
+    nbs = np.maximum(1, -(-depths // bs))
+    sh = shape["shared"]
+    m = int(max(nbs.max(), sh)) + 2
+    own = int(sum(max(0, nb - sh) for nb in nbs)) + (0 if alias else b * sh)
+    n = sh + own + 4 + 1  # a few spare blocks, the scratch block last
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n - 1)
+    common, nxt = perm[:sh], sh
+    table = np.full((b, m), n - 1, np.int32)
+    for r in range(b):
+        k = int(min(sh, nbs[r]))
+        if alias:
+            table[r, :k] = common[:k]
+        else:
+            table[r, :k] = perm[nxt:nxt + k]
+            nxt += k
+        table[r, k:nbs[r]] = perm[nxt:nxt + nbs[r] - k]
+        nxt += nbs[r] - k
+        if shape["stale"]:
+            table[r, nbs[r]:] = rng.choice(n - 1, m - nbs[r])
+    shared_table = np.full((m,), n - 1, np.int32)
+    shared_table[:sh] = common
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+
+    q = rnd(b, t, hq, d).to(torch.bfloat16)
+    if shape["int8"]:
+        def pool():
+            return torch.randint(-127, 128, (n, bs, hkv, d), generator=gen, device="cuda",
+                                 dtype=torch.int8)
+
+        def scale():
+            return 0.005 + 0.015 * torch.rand(n, bs, hkv, generator=gen, device="cuda")
+
+        k_pool, v_pool, k_scale, v_scale = pool(), pool(), scale(), scale()
+    else:
+        k_pool, v_pool = rnd(n, bs, hkv, d).to(torch.bfloat16), rnd(n, bs, hkv, d).to(torch.bfloat16)
+        k_scale = v_scale = None
+    dev = torch.device("cuda")
+    split = shape["split"]
+    return dict(
+        q=q, k_pool=k_pool, v_pool=v_pool, k_scale=k_scale, v_scale=v_scale,
+        block_table=torch.as_tensor(table, device=dev),
+        start=torch.as_tensor(np.maximum(depths - t, 0), dtype=torch.int32, device=dev),
+        n_blocks=torch.as_tensor(nbs, dtype=torch.int32, device=dev),
+        window=shape["window"],
+        shared_blocks=None if split is None else torch.tensor(split, dtype=torch.int32, device=dev),
+        shared_table=None if split is None else torch.as_tensor(shared_table, device=dev),
+    )
+
+
+def _visible_slots(shape) -> list:
+    """Per row, the slots the mask leaves (the kernel's own range)."""
+    t, bs, w = shape["T"], shape["Bs"], shape["window"]
+    out = []
+    for dep in shape["depths"]:
+        nb = max(1, -(-dep // bs))
+        st = max(dep - t, 0)
+        hi = min(nb, (st + t - 1) // bs + 1)
+        lo = (st - w + 1) // bs if w > 0 and st - w + 1 > 0 else 0
+        out.append(max(0, hi - lo))
+    return out
+
+
+def decode_bound_ms(shape) -> float:
+    """Least time of one call: the visible K+V blocks read once per (row, kv
+    head), plus q and out, over the HBM rate (the products, 4·D FLOP per
+    (query, position), are far below the bytes' time on any unit)."""
+    t, hq, hkv, d, bs = (shape[x] for x in ("T", "Hq", "Hkv", "D", "Bs"))
+    per_pos = 2 * hkv * (d * (1 if shape["int8"] else 2) + (4 if shape["int8"] else 0))
+    nbytes = sum(_visible_slots(shape)) * bs * per_pos + 2 * (2 * shape["B"] * t * hq * d)
+    return 1e3 * nbytes / PEAK_HBM_BYTES
+
+
+def _sdpa_view(c):
+    """SDPA's inputs for the same function: each row's virtual view of the
+    table gathered contiguous (slots under the split read the shared
+    table), cut at the deepest row, with the kernel's mask."""
+    import torch
+
+    from nexus_tpu_torch.ops import attention as A
+
+    q, bs = c["q"], c["k_pool"].shape[1]
+    b, t = q.shape[:2]
+    table = c["block_table"].clone()
+    if c["shared_blocks"] is not None:
+        s = int(c["shared_blocks"])
+        table[:, :s] = c["shared_table"][:s]
+    n_max = int(c["n_blocks"].max())
+    table = table[:, :n_max]
+    kv = []
+    for pool, sc in ((c["k_pool"], c["k_scale"]), (c["v_pool"], c["v_scale"])):
+        x = A.gather_kv_blocks(pool, table)
+        if sc is not None:
+            x = (x.float() * A.gather_kv_blocks(sc, table)[..., None]).to(q.dtype)
+        kv.append(x.transpose(1, 2).contiguous())
+    pos = torch.arange(n_max * bs, device=q.device)
+    q_pos = c["start"].long()[:, None] + torch.arange(t, device=q.device)[None, :]
+    vis = pos[None, None, :] <= q_pos[..., None]
+    vis &= pos[None, None, :] < (c["n_blocks"].long() * bs)[:, None, None]
+    if c["window"] > 0:
+        vis &= pos[None, None, :] > q_pos[..., None] - c["window"]
+    return q.transpose(1, 2).contiguous(), kv[0], kv[1], vis[:, None]
+
+
+def check_decode(shape, gen, ratios: dict, timed: bool = False):
+    """The paged-decode kernel against its plain version on one case;
+    returns (max-abs error, timings or None, the case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nexus_tpu_torch.ops import attention as A
+
+    where = " ".join(f"{k}={v}" for k, v in shape.items())
+    c = decode_case(shape, gen)
+    out = A.fused_paged_decode_attention(**c)
+    ref = A.fused_paged_decode_attention_plain(**c)
+    torch.cuda.synchronize()
+    err = _err(out, ref, "out", where, ratios)
+    if not timed:
+        return err, None, c
+    # device_ms from a CUDA graph: the kernel's device time is shorter than
+    # the wrapper's host time, which a loop of calls would read instead
+    # (kept as loop_ms)
+    times = dict(ms=_cuda_time_ms(lambda: A.fused_paged_decode_attention(**c)),
+                 device_ms=_cuda_graph_ms(lambda: A.fused_paged_decode_attention(**c)),
+                 loop_ms=_cuda_loop_ms(lambda: A.fused_paged_decode_attention(**c)),
+                 plain_ms=_cuda_time_ms(lambda: A.fused_paged_decode_attention_plain(**c), reps=3))
+    qt, kt, vt, mask = _sdpa_view(c)
+    times["library_ms"] = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    times["library_note"] = ("SDPA over the table's view gathered contiguous beforehand "
+                             "(gather not timed), same mask")
+    times["bound_ms"] = decode_bound_ms(shape)
+    return err, times, c
+
+
+def decode_planted_faults(shape, gen) -> dict:
+    """Two faults a paged-decode kernel could make, each the plain version
+    on what the faulty kernel would read; both must fail the limits: the
+    shallowest row skips its last valid slot, and every row ignores the
+    Hydragen split (on a case whose rows hold their own blocks under the
+    shared slots, so the split is what reads the shared run)."""
+    import numpy as np
+
+    from nexus_tpu_torch.ops import attention as A
+
+    c = decode_case(shape, gen, seed=1, alias=False)
+    ref = A.fused_paged_decode_attention_plain(**c)
+    r = int(np.argmin(shape["depths"]))
+    short = dict(c, n_blocks=c["n_blocks"].clone())
+    short["n_blocks"][r] -= 1
+    no_split = dict(c, shared_blocks=None, shared_table=None)
+    ratios = {
+        "skip_last_slot": excess(A.fused_paged_decode_attention_plain(**short)[r], ref[r], "out")[1],
+        "ignore_split": excess(A.fused_paged_decode_attention_plain(**no_split), ref, "out")[1],
+    }
+    passed = [k for k, v in ratios.items() if v <= 1.0]
+    if passed:
+        raise AssertionError(f"planted decode faults pass the limits in {passed}: {ratios}")
+    return ratios
+
+
+def phase_decode_kernel():
+    """D1 on the edge cases, at the serve shape (T 1, then T 8) with its
+    timings, and the planted faults; returns (worst max-abs, T 1 timings)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    worst = 0.0
+    for shape in DECODE_EDGE_SHAPES:
+        ratios = {}
+        err, _, _ = check_decode(shape, gen, ratios)
+        log(f"[decode] edge {shape}: max-abs {err:.3g}, error over limit {ratios}")
+        worst = max(worst, err)
+    times = {}
+    for t in (1, 8):
+        shape = dict(DECODE_MAIN_SHAPE, T=t)
+        ratios = {}
+        err, times[t], _ = check_decode(shape, gen, ratios, timed=True)
+        worst = max(worst, err)
+        log(f"[decode] serve shape T={t}: max-abs {err:.3g}, error over limit {ratios}, "
+            f"timings {times[t]}")
+    faults = decode_planted_faults(DECODE_MAIN_SHAPE, gen)
+    log(f"[decode] planted faults at the serve shape, error over limit (all must exceed 1): "
+        f"{faults}")
+    return worst, times
+
+
 def phase_build() -> float:
     from nexus_tpu_torch.ops import _kernels
 
@@ -344,6 +622,20 @@ def _train_spec(n_layers: int, steps: int, **extra):
     }
 
 
+def _launches_during(run, must_launch):
+    """Run ``run()`` with every kernel count set to 0 just before it; the
+    counts just after, and a failure if a kernel of ``must_launch`` (the
+    kernels the path runs) never launched."""
+    from nexus_tpu_torch.ops import attention as A
+
+    for w in A.KERNEL_WRAPPERS:
+        w.launches = 0
+    out = run()
+    launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+    missing = [w.__name__ for w in must_launch if launches[w.__name__] == 0]
+    return out, launches, missing
+
+
 def phase_train(name: str, spec) -> dict:
     import math
 
@@ -352,13 +644,10 @@ def phase_train(name: str, spec) -> dict:
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
-    for w in A.KERNEL_WRAPPERS:
-        w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    m = run_template_runtime(spec)
+    m, launches, missing = _launches_during(lambda: run_template_runtime(spec), A.TRAIN_KERNELS)
     wall = time.monotonic() - t0
-    launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
     hist = m["loss_history"]
     log(f"[{name}] wall {wall:.1f} s, tokens_per_sec {m['tokens_per_sec']}, "
         f"mfu {m['mfu']}, loss_history {hist}, launches {launches}, "
@@ -367,9 +656,86 @@ def phase_train(name: str, spec) -> dict:
         raise AssertionError(f"{name}: final loss {m['final_loss']} is not finite")
     if not all(math.isfinite(x) for x in hist) or not hist[-1] < hist[0]:
         raise AssertionError(f"{name}: loss did not fall: {hist}")
-    missing = [k for k, n in launches.items() if n == 0]
     if missing:
-        raise AssertionError(f"{name}: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{name}: kernels never launched on the train path: {missing}")
+    m["launches"] = launches
+    return m
+
+
+def _free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+INFER_SPEC = {
+    "kind": "jax_xla", "mode": "infer",
+    "model": {"family": "llama", "preset": "8b"},  # all 32 layers
+    "train": {"batchSize": 8, "seed": 0},
+    "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 2, "temperature": 0.0},
+}
+
+
+def phase_infer() -> dict:
+    """``mode: infer`` at Llama-3-8B, full depth: greedy decode of 64 new
+    tokens after a 512-token prompt, 8 rows, the dense KV cache."""
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    _free_card()
+    t0 = time.monotonic()
+    m = run_template_runtime(INFER_SPEC)
+    log(f"[infer] wall {time.monotonic() - t0:.1f} s, decode_tokens_per_sec "
+        f"{m['decode_tokens_per_sec']}, iteration_seconds {m['iteration_seconds']}, "
+        f"output_shape {m['output_shape']}, last_logits_finite {m['last_logits_finite']}")
+    if not m["last_logits_finite"]:
+        raise AssertionError("infer: the last logits are not finite")
+    if m["output_shape"] != [8, 512 + 64]:
+        raise AssertionError(f"infer: output shape {m['output_shape']} != [8, 576]")
+    return m
+
+
+def _serve_spec(num_requests: int = 32, **extra):
+    serve = {"numRequests": num_requests, "promptLengthMin": 320, "promptLengthMax": 512,
+             "sharedPrefixLength": 256, "maxNewMin": 32, "maxNewMax": 128, "chunk": 8,
+             "prefillChunk": 8, "kvBlockSize": 32, "attentionPath": "fused",
+             "prefixCache": True}
+    serve.update(extra)
+    return {"kind": "jax_xla", "mode": "serve",
+            "model": {"family": "llama", "preset": "8b"},  # all 32 layers
+            "train": {"batchSize": 8, "seed": 0}, "serve": serve}
+
+
+def phase_serve(name: str, spec, must_launch=True) -> dict:
+    """``mode: serve`` through the paged, prefix-cached engine; gates: every
+    request served ok, the committed tokens equal the queue's budgets, a
+    leak-free pool at the end, and (fused path) the paged-decode kernel
+    launched."""
+    from nexus_tpu_torch.ops import attention as A
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    _free_card()
+    t0 = time.monotonic()
+    m, launches, missing = _launches_during(
+        lambda: run_template_runtime(spec), A.SERVE_KERNELS if must_launch else ())
+    keys = ("tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
+            "request_latency_p95_s", "slot_utilization", "committed_tokens", "decode_chunks",
+            "prefix_hit_tokens", "prefix_cow_copies", "hydragen_waves", "kv_num_blocks",
+            "kv_peak_allocated_blocks", "wall_s")
+    log(f"[{name}] wall {time.monotonic() - t0:.1f} s, "
+        + ", ".join(f"{k} {m.get(k)}" for k in keys) + f", launches {launches}")
+    if m["ok_requests"] != m["requests"] or m["finished_requests"] != m["requests"]:
+        raise AssertionError(f"{name}: {m['ok_requests']} of {m['requests']} requests ok")
+    if m["committed_tokens"] != m["budget_tokens"]:
+        raise AssertionError(f"{name}: committed {m['committed_tokens']} tokens, the queue's "
+                             f"budgets are {m['budget_tokens']}")
+    if (m["kv_allocated_blocks_final"], m["kv_reserved_blocks_final"]) != (0, 0) or (
+            m["kv_free_blocks_final"] + m["kv_parked_blocks_final"] != m["kv_num_blocks"]):
+        raise AssertionError(f"{name}: the pool leaks: {m}")
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched on the serve path: {missing}")
     m["launches"] = launches
     return m
 
@@ -395,37 +761,65 @@ def main() -> int:
 
     build_s = phase_build()
     worst, times = phase_kernels()
+    worst["fused_paged_decode_attention"], decode_times = phase_decode_kernel()
     main_run = phase_train("main", _train_spec(n_layers=4, steps=8))
     phase_train("remat", _train_spec(n_layers=2, steps=4, remat=True,
                                      remat_policy="full", ce_chunk=8192))
+    infer_run = phase_infer()
+    serve_run = phase_serve("serve", _serve_spec())
+    phase_serve("serve-int8", _serve_spec(num_requests=8, kvPoolDtype="int8"))
+    # for information, not a gate: bf16 rounding may flip late near-ties
+    gather = phase_serve("serve-gather", _serve_spec(attentionPath="gather"), must_launch=False)
+    pairs = list(zip(serve_run["completion_ids"], gather["completion_ids"]))
+    same = sum(a == b for a, b in pairs)
+    first_diff = sorted(next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                        for a, b in pairs if a != b)
+    log(f"[serve] requests whose tokens equal the gather path's: {same} of {len(pairs)}; "
+        f"first differing new token of the others: {first_diff}")
 
     from nexus_tpu_torch.ops import attention as A
 
     bounds = _bounds_ms(MAIN_SHAPE)
+    times["fused_paged_decode_attention"] = dict(decode_times[1])
+    bounds["fused_paged_decode_attention"] = (times["fused_paged_decode_attention"].pop("bound_ms"), "bytes")
     replaces = {
         "flash_fwd": "nexus_tpu/ops/attention.py:534",
         "flash_bwd_dq": "nexus_tpu/ops/attention.py:858",
         "flash_bwd_dkv": "nexus_tpu/ops/attention.py:893",
+        "fused_paged_decode_attention": "nexus_tpu/ops/attention.py:1292 (plain JAX, no pallas_call)",
     }
     source = {
         "flash_fwd": "nexus_tpu_torch/csrc/flash_fwd.cu",
         "flash_bwd_dq": "nexus_tpu_torch/csrc/flash_bwd.cu",
         "flash_bwd_dkv": "nexus_tpu_torch/csrc/flash_bwd_dkv.cu",
+        "fused_paged_decode_attention": "nexus_tpu_torch/csrc/paged_decode.cu",
     }
+    # each kernel's launches on its own path: the train run, the serve run
+    launches = dict(main_run["launches"])
+    launches["fused_paged_decode_attention"] = (
+        serve_run["launches"]["fused_paged_decode_attention"])
     kernels = []
     for w in A.KERNEL_WRAPPERS:
         n = w.__name__
         kernels.append({
             "name": n, "route": "cuda", "source": source[n], "replaces": replaces[n],
-            "launches": main_run["launches"][n], "max_abs_err": worst[n],
+            "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
             "plain_ms": times[n]["plain_ms"],
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
             "library_ms": times[n]["library_ms"], "library_note": times[n]["library_note"],
         })
     log("[summary] " + json.dumps({
-        "kernel_shape": MAIN_SHAPE, "build_s": build_s,
+        "kernel_shape": MAIN_SHAPE, "decode_kernel_shape": DECODE_MAIN_SHAPE,
+        "decode_kernel_T8": decode_times[8], "build_s": build_s,
         "main": {k: main_run[k] for k in ("tokens_per_sec", "mfu", "final_loss", "param_count")},
+        "infer": {k: infer_run[k] for k in ("decode_tokens_per_sec", "iteration_seconds")},
+        "serve": {k: serve_run.get(k) for k in (
+            "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
+            "request_latency_p95_s", "slot_utilization", "prefix_hit_tokens", "hydragen_waves",
+            "committed_tokens", "wall_s", "launches")},
+        "serve_gather_tokens_per_sec": gather["tokens_per_sec"],
+        "serve_same_tokens_as_gather": f"{same}/{len(gather['completion_ids'])}",
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -1,0 +1,319 @@
+"""Shared autoregressive decode scaffold for the decoder families
+(counterpart of ``nexus_tpu/models/decoding.py``).
+
+The KV cache is a dict of tensors, in one of three layouts:
+
+* dense, scalar length: (L, B, S+1, Hkv, D) buffers and ``length`` a
+  Python int — every row at one depth (``autoregressive_generate``);
+* dense, vector length: the same buffers with ``length`` a (B,) tensor —
+  per-row depths;
+* paged: (L, N, Bs, Hkv, D) block POOLS read through a (B, M) int32
+  ``block_table``, ``length`` (B,); pool block N-1 is scratch (table
+  entries past a row's blocks point there, and every read masks it).
+
+Each layout may be int8, with f32 per-(position, head) scale planes
+``k_scale`` / ``v_scale`` beside the values.
+
+Unlike the JAX package, whose arrays are immutable, the decode scaffold
+updates the cache's K/V buffers IN PLACE and returns a dict holding the
+same buffers (and a new ``length``): the caller's cache dict is stale
+after a call only in its ``length``. Writes JAX drops (padding slots past
+``n_valid``, positions past capacity) go where no read ever looks instead,
+so they can never collide with a real write: the scratch block of a paged
+pool, and one sink position past ``max_len`` (the S+1-th) of a dense row.
+Nothing here syncs with the host on the vector-length paths; the fused
+paged read keeps its loop bounds on the device (ops/attention.py).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from nexus_tpu_torch.ops.attention import (
+    decode_attention,
+    fused_paged_decode_attention,
+    paged_decode_attention,
+)
+from nexus_tpu_torch.ops.norms import rms_norm
+from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.ops.sampling import sample_logits
+
+_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def init_kv_cache(n_layers: int, n_kv_heads: int, head_dim: int, dtype, batch: int,
+                  max_len: int, quantized: bool = False, device="cpu") -> Dict[str, Any]:
+    """Dense KV append buffer of ``max_len`` positions per row (plus the
+    sink position), scalar ``length`` 0. ``quantized``: int8 K/V with f32
+    per-(position, head) scales."""
+    shape = (n_layers, batch, max_len + 1, n_kv_heads, head_dim)
+    cache: Dict[str, Any] = {"length": 0}
+    _add_planes(cache, shape, dtype, quantized, device)
+    return cache
+
+
+def _add_planes(cache, shape, dtype, quantized, device):
+    if quantized:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    else:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(B, T, H, D) → (int8 values, (B, T, H) f32 per-vector scales)."""
+    scale = x.float().abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x.float() / safe[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def init_paged_kv_cache(n_layers: int, n_kv_heads: int, head_dim: int, dtype, batch: int,
+                        num_blocks: int, block_size: int, blocks_per_row: int,
+                        quantized: bool = False, device="cpu") -> Dict[str, Any]:
+    """Paged KV cache: a pool of ``num_blocks`` blocks of ``block_size``
+    positions per layer and a (batch, blocks_per_row) table, every entry
+    at the scratch block ``num_blocks - 1``; vector ``length`` zeros."""
+    cache: Dict[str, Any] = {
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "block_table": torch.full((batch, blocks_per_row), num_blocks - 1, dtype=torch.int32,
+                                  device=device),
+    }
+    _add_planes(cache, (n_layers, num_blocks, block_size, n_kv_heads, head_dim), dtype,
+                quantized, device)
+    return cache
+
+
+def copy_kv_blocks(cache: Dict[str, Any], src: torch.Tensor, dst: torch.Tensor) -> Dict[str, Any]:
+    """Copy pool blocks ``src[i] -> dst[i]`` across every K/V plane of a
+    paged cache, in place (the device half of copy-on-write). A pair with an
+    out-of-range ``dst`` is padding: it copies the scratch block onto
+    itself."""
+    n = cache["k"].shape[1]
+    scratch = n - 1
+    dst = dst.to(device=cache["k"].device, dtype=torch.int64)
+    src = src.to(device=cache["k"].device, dtype=torch.int64)
+    pad = (dst < 0) | (dst >= n)
+    dst = torch.where(pad, torch.full_like(dst, scratch), dst)
+    src = torch.where(pad, torch.full_like(src, scratch), src.clamp(0, n - 1))
+    for key in _KV_KEYS:
+        if key in cache:
+            buf = cache[key]
+            buf.index_copy_(1, dst, buf.index_select(1, src))
+    return cache
+
+
+_ROPE: Dict[tuple, tuple] = {}
+
+
+def _rope_tables(max_len: int, dim: int, theta: float, device):
+    """cos/sin tables for a whole buffer, built once per shape and device."""
+    key = (max_len, dim, float(theta), str(device))
+    if key not in _ROPE:
+        _ROPE[key] = rope_cos_sin(max_len, dim, theta, device=device)
+    return _ROPE[key]
+
+
+@torch.no_grad()
+def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tensor,
+                           cache: Dict[str, Any], layer_fn: Callable,
+                           rope_dims: Optional[int] = None,
+                           finalize: Optional[Callable] = None):
+    """Incremental decode: tokens (B, T) appended at ``cache['length']`` →
+    (logits (B, T, V) f32, cache). The family supplies its per-layer block
+    as ``layer_fn(cfg, x, layer, attend, cos, sin)``, where ``attend(q, k,
+    v)`` writes k/v into the cache and attends over it.
+
+    Consumed cache keys, never returned (as in the JAX scaffold):
+    ``n_valid`` (B,) — per-row count of real tokens in this feed (requires a
+    vector length); slots past it are padding: their K/V writes go nowhere
+    read, and ``length`` advances by ``n_valid``. ``shared_blocks`` (a 0-d
+    device tensor) with ``shared_table`` (M,) — selects the fused paged read
+    (ops/attention.py::fused_paged_decode_attention) with its Hydragen
+    split; without them a paged cache reads through the gather path. The
+    scaffold derives each row's valid-block count ceil((length + real
+    tokens) / Bs) on the device and hands it to the fused read."""
+    b, t = tokens.shape
+    start = cache["length"]
+    n_valid = cache.get("n_valid")
+    block_table = cache.get("block_table")
+    shared_blocks = cache.get("shared_blocks")
+    shared_table = cache.get("shared_table")
+    paged = block_table is not None
+    fused = paged and shared_blocks is not None
+    vector_len = isinstance(start, torch.Tensor) and start.dim() == 1
+    if n_valid is not None and not vector_len:
+        raise ValueError("n_valid requires a vector (per-row) cache length")
+    if paged and not vector_len:
+        raise ValueError("a paged KV cache requires a vector (per-row) cache length")
+    dev = tokens.device
+    if paged:
+        num_blocks, block_size = cache["k"].shape[1], cache["k"].shape[2]
+        m_slots = block_table.shape[1]
+        max_len = m_slots * block_size
+        fed = n_valid if n_valid is not None else t
+        valid_blocks = torch.clamp((start + fed + block_size - 1) // block_size, 1, m_slots)
+    else:
+        max_len = cache["k"].shape[2] - 1  # the last position is the sink
+    if not vector_len:
+        start = int(start)
+        if start + t > max_len:
+            raise ValueError(f"a feed of {t} at length {start} overruns the cache ({max_len})")
+
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    cos_full, sin_full = _rope_tables(max_len, rope_dims or cfg.head_dim, cfg.rope_theta, dev)
+    steps = torch.arange(t, device=dev)
+    if vector_len:
+        pos = start.long()[:, None] + steps[None, :]  # (B, T)
+        rope_pos = pos.clamp(0, max_len - 1)
+        cos, sin = cos_full[rope_pos], sin_full[rope_pos]
+        keep = pos < max_len
+        if n_valid is not None:
+            keep = keep & (steps[None, :] < n_valid.long()[:, None])
+        if paged:
+            blk = torch.gather(block_table.long(), 1, (pos // block_size).clamp(0, m_slots - 1))
+            phys = torch.where(keep, blk, torch.full_like(blk, num_blocks - 1))
+            flat = (phys * block_size + pos % block_size).reshape(-1)
+        else:
+            rows = torch.arange(b, device=dev)[:, None].expand(b, t).reshape(-1)
+            cols = torch.where(keep, pos, torch.full_like(pos, max_len)).reshape(-1)
+    else:
+        cos, sin = cos_full[start:start + t], sin_full[start:start + t]
+
+    def write(buf, new):
+        """Write ``new`` (B, T, ...) into one layer's plane ``buf``."""
+        if not vector_len:
+            buf[:, start:start + t] = new.to(buf.dtype)
+        elif paged:
+            buf.view((-1,) + tuple(buf.shape[2:])).index_copy_(
+                0, flat, new.reshape((b * t,) + tuple(new.shape[2:])).to(buf.dtype))
+        else:
+            buf.index_put_((rows, cols), new.reshape((b * t,) + tuple(new.shape[2:])).to(buf.dtype))
+
+    quantized = "k_scale" in cache
+    window = getattr(cfg, "sliding_window", 0)
+    calls = []
+
+    def make_attend(li):
+        def attend(q, k, v):
+            calls.append(li)
+            planes = {key: cache[key][li] for key in _KV_KEYS if key in cache}
+            if quantized:
+                kq, ks = _quantize_kv(k)
+                vq, vs = _quantize_kv(v)
+                for key, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+                    write(planes[key], new)
+            else:
+                write(planes["k"], k)
+                write(planes["v"], v)
+            scales = dict(k_scale=planes.get("k_scale"), v_scale=planes.get("v_scale"))
+            if fused:
+                return fused_paged_decode_attention(
+                    q, planes["k"], planes["v"], block_table, start, window=window,
+                    n_blocks=valid_blocks, shared_blocks=shared_blocks,
+                    shared_table=shared_table, **scales)
+            if paged:
+                return paged_decode_attention(q, planes["k"], planes["v"], block_table, start,
+                                              window=window, **scales)
+            dense = {key: p[:, :max_len] for key, p in planes.items()}
+            return decode_attention(q, dense["k"], dense["v"], start, window=window,
+                                    k_scale=dense.get("k_scale"), v_scale=dense.get("v_scale"))
+        return attend
+
+    names = list(params["layers"])
+    for li, stacked in enumerate(zip(*(params["layers"][k].unbind(0) for k in names))):
+        before = len(calls)
+        x = layer_fn(cfg, x, dict(zip(names, stacked)), make_attend(li), cos, sin)
+        if len(calls) != before + 1:
+            raise ValueError(f"layer_fn must call attend() exactly once, got {len(calls) - before}")
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps) if finalize is None else finalize(params, x)
+    logits = (x @ params["lm_head"]).float()
+    advance = t if n_valid is None else n_valid
+    new_cache = {key: cache[key] for key in _KV_KEYS if key in cache}
+    new_cache["length"] = start + advance
+    if paged:
+        new_cache["block_table"] = block_table
+    return logits, new_cache
+
+
+def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable):
+    """Llama-block decode (RMSNorm → roped GQA → residual → ``ffn``) over
+    the generic scaffold."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def layer_fn(cfg, x, layer, attend, cos, sin):
+        b, t = x.shape[0], x.shape[1]
+        h = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+        q = apply_rope((h @ layer["wq"]).reshape(b, t, hq, hd), cos, sin)
+        k = apply_rope((h @ layer["wk"]).reshape(b, t, hkv, hd), cos, sin)
+        v = (h @ layer["wv"]).reshape(b, t, hkv, hd)
+        x = x + attend(q, k, v).reshape(b, t, hq * hd) @ layer["wo"]
+        h2 = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
+        return x + ffn(cfg, h2, layer)
+
+    return generic_forward_decode(params, cfg, tokens, cache, layer_fn)
+
+
+PREFILL_CHUNK = 512
+
+
+def _chunked_prefill(forward_decode, params, cfg, prompt, cache, chunk: int = PREFILL_CHUNK):
+    """Prefill ``prompt`` (B, P) in windows of ``chunk`` tokens → (last
+    position's logits (B, V), cache): the same values as one P-token feed
+    (every query attends the same keys under the same mask), with the
+    per-feed logits bounded by (B, chunk, max_len)."""
+    logits = None
+    for s in range(0, prompt.shape[1], chunk):
+        logits, cache = forward_decode(params, cfg, prompt[:, s:s + chunk], cache)
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def autoregressive_generate(forward_decode: Callable, params, cfg, prompt: torch.Tensor,
+                            max_new_tokens: int, max_len: Optional[int] = None,
+                            temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                            generator: Optional[torch.Generator] = None,
+                            stop_token_id: int = -1, return_logits: bool = False):
+    """prompt (B, P) → (B, P + max_new_tokens): chunked prefill, then one
+    width-1 feed per new token. Greedy by default; ``temperature > 0``
+    samples from ``generator`` (required) with top-k / top-p
+    (ops/sampling.py). ``stop_token_id >= 0``: a row that emitted it emits
+    it forever after (static shapes; callers trim). No host sync per step.
+    ``return_logits``: also return the last choice's logits (B, V)."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires an explicit torch.Generator — a silent "
+                         "fixed seed would make 'stochastic' sampling deterministic")
+    b, p = prompt.shape
+    needed = p + max_new_tokens
+    max_len = needed if max_len is None else max_len
+    if max_len < needed or needed > cfg.max_seq_len:
+        raise ValueError(f"prompt ({p}) + max_new_tokens ({max_new_tokens}) needs {needed} "
+                         f"cache slots but max_len={max_len}, cfg.max_seq_len={cfg.max_seq_len}")
+    cache = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, max_len,
+                          quantized=getattr(cfg, "kv_cache_quantized", False),
+                          device=prompt.device)
+
+    def pick(logits):
+        return sample_logits(logits, generator, temperature, top_k, top_p).to(prompt.dtype)
+
+    last, cache = _chunked_prefill(forward_decode, params, cfg, prompt, cache)
+    tok = pick(last)
+    stopping = stop_token_id >= 0
+    done = tok == stop_token_id if stopping else None
+    out = [prompt, tok[:, None]]
+    for _ in range(1, max_new_tokens):
+        logits, cache = forward_decode(params, cfg, tok[:, None], cache)
+        last = logits[:, -1]
+        nxt = pick(last)
+        if stopping:
+            nxt = torch.where(done, torch.full_like(nxt, stop_token_id), nxt)
+            done = done | (nxt == stop_token_id)
+        tok = nxt
+        out.append(tok[:, None])
+    tokens = torch.cat(out, dim=1)
+    return (tokens, last) if return_logits else tokens

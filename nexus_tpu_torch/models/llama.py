@@ -7,7 +7,8 @@ weights stacked along a leading layer dim, ``(L, d_in, d_out)``, applied as
 The layer loop is a Python loop over ``unbind(0)`` of the stacks (one
 backward op per stack, not one full-size gradient per layer). Attention
 dispatches to the CUDA flash kernels on the card (``ops/attention.py``).
-The decode functions belong to the serving slice.
+The decode entry points (``forward_decode``, ``generate``) run the shared
+scaffold of ``models/decoding.py``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ class LlamaConfig:
     # vocab-chunked exact cross entropy: 0 = dense logits, >0 = chunk width
     ce_chunk: int = 0
     remat_policy: str = "full"
+    # int8 KV cache (models/decoding.py): K/V stored int8 with f32
+    # per-(position, head) scales
+    kv_cache_quantized: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -206,3 +210,37 @@ def loss_fn(params: Dict[str, Any], cfg: LlamaConfig,
     else:
         loss = dense_softmax_xent(hidden, params["lm_head"], targets)
     return loss, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())}
+
+
+# ------------------------------------------------------------------ decode
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cpu") -> Dict[str, Any]:
+    from nexus_tpu_torch.models.decoding import init_kv_cache as _init
+
+    return _init(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, batch, max_len,
+                 quantized=cfg.kv_cache_quantized, device=device)
+
+
+def _swiglu_ffn(cfg: LlamaConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (F.silu(h @ layer["w_gate"]) * (h @ layer["w_up"])) @ layer["w_down"]
+
+
+def forward_decode(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
+                   cache: Dict[str, Any]):
+    """Incremental decode: tokens (B, T) appended at cache['length'] →
+    (logits (B, T, V) f32, cache), the cache updated in place
+    (models/decoding.py)."""
+    from nexus_tpu_torch.models.decoding import scanned_forward_decode
+
+    return scanned_forward_decode(params, cfg, tokens, cache, _swiglu_ffn)
+
+
+def generate(params: Dict[str, Any], cfg: LlamaConfig, prompt: torch.Tensor,
+             max_new_tokens: int, **sampling) -> torch.Tensor:
+    """prompt (B, P) → (B, P + max_new_tokens); sampling knobs
+    (temperature / top_k / top_p / generator / stop_token_id):
+    models/decoding.py::autoregressive_generate."""
+    from nexus_tpu_torch.models.decoding import autoregressive_generate
+
+    return autoregressive_generate(forward_decode, params, cfg, prompt, max_new_tokens, **sampling)

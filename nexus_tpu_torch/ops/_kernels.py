@@ -22,7 +22,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu", "paged_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +44,8 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if not found:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the flash-attention kernels are "
-            "built from nexus_tpu_torch/csrc at first use"
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+            "nexus_tpu_torch/csrc at first use"
         )
     return found
 

@@ -1,4 +1,4 @@
-"""Causal attention: plain PyTorch reference + hand-written CUDA flash kernels.
+"""Causal attention: plain PyTorch reference + hand-written CUDA kernels.
 
 Counterpart of ``nexus_tpu/ops/attention.py``. ``attention_xla`` is the
 always-correct dense reference (same masking convention as the JAX one:
@@ -10,10 +10,19 @@ kernels (``nexus_tpu_torch/csrc``):
 * ``flash_bwd_dq``  — dQ;
 * ``flash_bwd_dkv`` — dK and dV, already summed over each GQA group.
 
+The decode side (the serving engine's attention over its KV cache) is
+plain PyTorch — ``decode_attention`` (dense cache), ``gather_kv_blocks`` +
+``paged_decode_attention`` (the gather-then-attend block-table read), the
+blockwise online-softmax partials and their log-sum-exp merge — except
+``fused_paged_decode_attention``, whose CUDA version is a fourth kernel:
+
+* ``fused_paged_decode_attention`` — attention THROUGH the block table
+  with the Hydragen shared-prefix split, reading the valid-block counts on
+  the device.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and computes
 the same function with its plain PyTorch version for CPU tensors, and
-counts its launches in ``<wrapper>.launches``. The decode and paged
-attention functions of the JAX module belong to the serving slice.
+counts its launches in ``<wrapper>.launches``.
 
 Layouts: q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D); GQA query head h reads kv
 head h // (Hq // Hkv). The kernels' logsumexp is a compact (B, Hq, Sq) f32
@@ -160,6 +169,7 @@ _SIGNATURES = {
     "nexus_flash_fwd": ("flash_fwd.cu", [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]),
     "nexus_flash_bwd_dq": ("flash_bwd.cu", [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]),
     "nexus_flash_bwd_dkv": ("flash_bwd_dkv.cu", [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
+    "nexus_paged_decode": ("paged_decode.cu", [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P]),
 }
 
 
@@ -281,7 +291,10 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, q_offset=0, window=0):
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
-KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+# the kernels each path runs: training through the flash kernels, the
+# serving engine's paged block pool through the paged-decode kernel
+# (SERVE_KERNELS, defined with it below)
+TRAIN_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 # ------------------------------------------------------------------ autograd
@@ -375,3 +388,356 @@ def attention(
         "(ring attention is not ported yet: ROADMAP 'Port to PyTorch/CUDA', "
         "multi-chip item)"
     )
+
+
+# ------------------------------------------------------------------ decode
+#
+# Two cache layouts (models/decoding.py): the dense (B, S, Hkv, D) append
+# buffer, and the paged (N, Bs, Hkv, D) block pool read through a (B, M)
+# block table. Table entries past a row's mapped blocks point at the
+# scratch block N-1, which every read masks.
+
+
+def _starts(start, b: int, device) -> torch.Tensor:
+    """A scalar or (B,) start → (B,) int64 on ``device``. A Python int is
+    filled on the device: copying it from the host would wait for the
+    device's queue on every call."""
+    if isinstance(start, int):
+        return torch.full((b,), start, dtype=torch.int64, device=device)
+    return torch.as_tensor(start, device=device).to(torch.int64).reshape(-1).expand(b)
+
+
+def decode_attention(q, k_buf, v_buf, start, window: int = 0, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
+    """Length-masked attention of q's T tokens over the whole cache buffer.
+
+    q (B, T, Hq, D); k_buf/v_buf (B, L, Hkv, D), int8 with f32 (B, L, Hkv)
+    scales or q's dtype; ``start`` a scalar or (B,) per-row depth: query t
+    of row b sits at position start[b] + t and sees positions <= it (and,
+    with ``window``, > it - window). Grouped einsums against the raw Hkv
+    heads; logits in f32 masked with the finite mask value; softmax cast
+    to the value dtype before the PV product, as in the JAX function."""
+    b, t, hq, hd = q.shape
+    max_len, hkv = k_buf.shape[1], k_buf.shape[2]
+    n_rep = hq // hkv
+    if k_scale is not None:
+        k_buf = (k_buf.float() * k_scale[..., None]).to(q.dtype)
+        v_buf = (v_buf.float() * v_scale[..., None]).to(q.dtype)
+    qg = q.reshape(b, t, hkv, n_rep, hd)
+    logits = torch.einsum("btgrd,bkgd->bgrtk", qg.float(), k_buf.float()) * hd ** -0.5
+    q_pos = _starts(start, b, q.device)[:, None] + torch.arange(t, device=q.device)[None, :]
+    pos = torch.arange(max_len, device=q.device)
+    visible = pos[None, None, :] <= q_pos[..., None]  # (B, T, L)
+    if window > 0:
+        visible = visible & (pos[None, None, :] > q_pos[..., None] - window)
+    logits = torch.where(visible[:, None, None], logits,
+                         torch.full_like(logits, DEFAULT_MASK_VALUE))
+    probs = torch.softmax(logits, dim=-1).to(v_buf.dtype)
+    out = torch.einsum("bgrtk,bkgd->btgrd", probs, v_buf)
+    return out.reshape(b, t, hq, hd).to(q.dtype)
+
+
+def gather_kv_blocks(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(N, Bs, ...) pool + (B, M) table → (B, M·Bs, ...): each row's blocks
+    in table order (the gather-then-attend reference read)."""
+    b, m = block_table.shape
+    gathered = pool[block_table.long()]  # (B, M, Bs, ...)
+    return gathered.reshape((b, m * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, start, window: int = 0,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """``decode_attention`` over the virtual view the block table gathers."""
+    ks = gather_kv_blocks(k_scale, block_table) if k_scale is not None else None
+    vs = gather_kv_blocks(v_scale, block_table) if v_scale is not None else None
+    return decode_attention(
+        q, gather_kv_blocks(k_pool, block_table), gather_kv_blocks(v_pool, block_table),
+        start, window=window, k_scale=ks, v_scale=vs)
+
+
+# -------------------------------------------- fused block-table decode, plain
+#
+# The blockwise online softmax of the JAX package's fused path, slot group
+# by slot group, with the same masks, the same finite mask value and the
+# same Hydragen prefix/suffix split: what a CPU tensor gets, and what
+# chip_smoke.py holds the paged-decode kernel against on the card. Only the
+# softmax reduction order differs from decode_attention.
+
+# positions one loop iteration covers (the JAX package's SLOT_GROUP_SPAN):
+# the plain version folds the same groups, so its sums run in the JAX order
+SLOT_GROUP_SPAN = 128
+
+
+def _slots_per_group(block_size: int) -> int:
+    return max(1, SLOT_GROUP_SPAN // int(block_size))
+
+
+def _online_softmax_init(b, hkv, n_rep, t, hd, device):
+    """(m, l, acc): m at the finite mask value, so an all-masked block folds
+    as exp(0) = 1 against an explicit zero probability (no NaN)."""
+    return (
+        torch.full((b, hkv, n_rep, t), DEFAULT_MASK_VALUE, dtype=torch.float32, device=device),
+        torch.zeros((b, hkv, n_rep, t), dtype=torch.float32, device=device),
+        torch.zeros((b, hkv, n_rep, t, hd), dtype=torch.float32, device=device),
+    )
+
+
+def _fold_block(carry, s, v_blk, visible):
+    """Fold one group's masked logits s (B, Hkv, rep, T, S) and values
+    (B, S, Hkv, D) per row, or (S, Hkv, D) shared by every row, into the
+    running softmax. Invisible positions take probability exactly 0."""
+    m_prev, l_prev, acc = carry
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    p = torch.where(visible[:, None, None], torch.exp(s - m_new[..., None]),
+                    torch.zeros_like(s))
+    alpha = torch.exp(m_prev - m_new)
+    l_new = alpha * l_prev + p.sum(dim=-1)
+    if v_blk.dim() == 4:
+        pv = torch.einsum("bgrts,bsgd->bgrtd", p, v_blk.float())
+    else:
+        pv = torch.einsum("bgrts,sgd->bgrtd", p, v_blk.float())
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def merge_attention_partials(a, b):
+    """Exact log-sum-exp combination of two partial softmax states over
+    disjoint key sets (the Hydragen prefix/suffix merge)."""
+    m1, l1, a1 = a
+    m2, l2, a2 = b
+    m = torch.maximum(m1, m2)
+    e1, e2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    return m, l1 * e1 + l2 * e2, a1 * e1[..., None] + a2 * e2[..., None]
+
+
+def finalize_attention_partials(parts, out_dtype) -> torch.Tensor:
+    """(m, l, acc) → (B, T, Hq, D); a row that saw nothing (l == 0) → 0."""
+    _, l, acc = parts
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    b, hkv, n_rep, t, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hkv * n_rep, hd).to(out_dtype)
+
+
+def _dequant_block(blk, blk_scale, dtype):
+    """int8 block → compute dtype: f32 multiply, then cast (bitwise the
+    dense path's dequant)."""
+    return (blk.float() * blk_scale[..., None]).to(dtype)
+
+
+def _group_visibility(slots, bs, q_pos, slot_ok, window):
+    """(B, T, G·Bs) visibility of a slot group's positions: causal length,
+    sliding window, and per-slot validity ``slot_ok`` (B, G)."""
+    g = slots.shape[0]
+    pos = (slots[:, None] * bs + torch.arange(bs, device=slots.device)[None, :]).reshape(g * bs)
+    vis = pos[None, None, :] <= q_pos[..., None]
+    if window > 0:
+        vis = vis & (pos[None, None, :] > q_pos[..., None] - window)
+    ok = slot_ok.repeat_interleave(bs, dim=-1)  # (B, G·Bs)
+    return vis & ok[:, None, :]
+
+
+def _attend_group(carry, qg, k_blk, v_blk, vis, scale):
+    eq = "btgrd,bsgd->bgrts" if k_blk.dim() == 4 else "btgrd,sgd->bgrts"
+    s = torch.einsum(eq, qg.float(), k_blk.float()) * scale
+    s = torch.where(vis[:, None, None], s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    return _fold_block(carry, s, v_blk, vis)
+
+
+def paged_attention_partials(q, k_pool, v_pool, block_table, start, lo: int, hi: int,
+                             n_blocks, window: int = 0, k_scale=None, v_scale=None):
+    """Per-row partials over table slots lo <= slot < hi. Slots at or past
+    a row's ``n_blocks`` are masked and read the scratch block N-1."""
+    b, t, hq, hd = q.shape
+    bs, hkv = k_pool.shape[1], k_pool.shape[2]
+    n_rep = hq // hkv
+    m_slots = block_table.shape[1]
+    q_pos = _starts(start, b, q.device)[:, None] + torch.arange(t, device=q.device)[None, :]
+    qg = q.reshape(b, t, hkv, n_rep, hd)
+    scratch = k_pool.shape[0] - 1
+    G = _slots_per_group(bs)
+    carry = _online_softmax_init(b, hkv, n_rep, t, hd, q.device)
+    for i in range(-(-(hi - lo) // G)):
+        slots = lo + i * G + torch.arange(G, device=q.device)
+        slot_ok = (slots[None, :] < n_blocks[:, None]) & (slots < hi)[None, :]
+        blk = block_table[:, slots.clamp(0, m_slots - 1)].long()
+        blk = torch.where(slot_ok, blk, torch.full_like(blk, scratch))
+        k_blk = k_pool[blk].reshape(b, G * bs, hkv, hd)
+        v_blk = v_pool[blk].reshape(b, G * bs, hkv, hd)
+        if k_scale is not None:
+            k_blk = _dequant_block(k_blk, k_scale[blk].reshape(b, G * bs, hkv), q.dtype)
+            v_blk = _dequant_block(v_blk, v_scale[blk].reshape(b, G * bs, hkv), q.dtype)
+        vis = _group_visibility(slots, bs, q_pos, slot_ok, window)
+        carry = _attend_group(carry, qg, k_blk, v_blk, vis, hd ** -0.5)
+    return carry
+
+
+def shared_prefix_attention_partials(q, k_pool, v_pool, shared_table, n_shared: int, start,
+                                     n_blocks, window: int = 0, k_scale=None, v_scale=None):
+    """Hydragen prefix partials: every row's queries over the ``n_shared``
+    leading blocks ``shared_table`` (M,) names, each block read once for
+    the whole batch; the masks are the per-row loop's."""
+    b, t, hq, hd = q.shape
+    bs, hkv = k_pool.shape[1], k_pool.shape[2]
+    n_rep = hq // hkv
+    m_slots = shared_table.shape[0]
+    q_pos = _starts(start, b, q.device)[:, None] + torch.arange(t, device=q.device)[None, :]
+    qg = q.reshape(b, t, hkv, n_rep, hd)
+    scratch = k_pool.shape[0] - 1
+    G = _slots_per_group(bs)
+    carry = _online_softmax_init(b, hkv, n_rep, t, hd, q.device)
+    for i in range(-(-n_shared // G)):
+        slots = i * G + torch.arange(G, device=q.device)
+        in_run = slots < n_shared
+        blk = shared_table[slots.clamp(0, m_slots - 1)].long()
+        blk = torch.where(in_run, blk, torch.full_like(blk, scratch))
+        k_blk = k_pool[blk].reshape(G * bs, hkv, hd)
+        v_blk = v_pool[blk].reshape(G * bs, hkv, hd)
+        if k_scale is not None:
+            k_blk = _dequant_block(k_blk, k_scale[blk].reshape(G * bs, hkv), q.dtype)
+            v_blk = _dequant_block(v_blk, v_scale[blk].reshape(G * bs, hkv), q.dtype)
+        slot_ok = in_run[None, :] & (slots[None, :] < n_blocks[:, None])
+        vis = _group_visibility(slots, bs, q_pos, slot_ok, window)
+        carry = _attend_group(carry, qg, k_blk, v_blk, vis, hd ** -0.5)
+    return carry
+
+
+def fused_paged_decode_attention_plain(q, k_pool, v_pool, block_table, start, window: int = 0,
+                                       k_scale=None, v_scale=None, n_blocks=None,
+                                       shared_blocks=None, shared_table=None) -> torch.Tensor:
+    """The plain version of ``fused_paged_decode_attention`` (reads its loop
+    bounds on the host)."""
+    b, t = q.shape[0], q.shape[1]
+    bs, m_slots = k_pool.shape[1], block_table.shape[1]
+    starts = _starts(start, b, q.device)
+    if n_blocks is None:  # the blocks covering start + T
+        n_blocks = -(-(starts + t) // bs)
+    n_blocks = torch.as_tensor(n_blocks, device=q.device).to(torch.int64).clamp(1, m_slots)
+    hi = int(n_blocks.max())
+    common = dict(window=window, k_scale=k_scale, v_scale=v_scale)
+    if shared_table is not None and shared_blocks is not None:
+        s_eff = min(max(int(shared_blocks), 0), hi)
+        prefix = shared_prefix_attention_partials(
+            q, k_pool, v_pool, shared_table, s_eff, starts, n_blocks, **common)
+        suffix = paged_attention_partials(
+            q, k_pool, v_pool, block_table, starts, s_eff, hi, n_blocks, **common)
+        parts = merge_attention_partials(prefix, suffix)
+    else:
+        parts = paged_attention_partials(
+            q, k_pool, v_pool, block_table, starts, 0, hi, n_blocks, **common)
+    return finalize_attention_partials(parts, q.dtype)
+
+
+# ------------------------------------------------- paged-decode CUDA wrapper
+
+# query tokens per feed the kernel takes (decode: 1; chunked prefill: 8)
+DECODE_MAX_T = 16
+# the number of CTAs the kernel's slot split aims for (4 per SM of an H100)
+_DECODE_TARGET_CTAS = 4 * 132
+_DECODE_ROWS_PER_CTA = 32  # query rows (n_rep · T) one CTA holds
+
+
+def decode_splits(b: int, hkv: int, rows: int, m_slots: int) -> int:
+    """How many CTAs share one (row, kv head)'s slot range: enough that
+    the grid fills the card, at most 16 and at most the table width."""
+    groups = -(-rows // _DECODE_ROWS_PER_CTA)
+    return max(1, min(16, m_slots, -(-_DECODE_TARGET_CTAS // (b * hkv * groups))))
+
+
+def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
+    if q.dim() != 4 or k_pool.dim() != 4 or block_table.dim() != 2:
+        raise ValueError("the paged-decode kernel takes q (B,T,Hq,D), pools (N,Bs,Hkv,D), table (B,M)")
+    b, t, hq, d = q.shape
+    _, _, hkv, _ = k_pool.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != d or block_table.shape[0] != b:
+        raise ValueError(f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} and table "
+                         f"{tuple(block_table.shape)} disagree")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the paged-decode kernel takes bfloat16 queries, got {q.dtype} ({_UNPORTED})")
+    if k_pool.dtype not in (torch.bfloat16, torch.int8) or v_pool.dtype != k_pool.dtype:
+        raise NotImplementedError(
+            f"the paged-decode kernel takes bfloat16 or int8 pools, got {k_pool.dtype} ({_UNPORTED})")
+    if (k_pool.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError("an int8 pool needs its scales, and only an int8 pool takes them")
+    if k_scale is not None and (
+            k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]
+            or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("the paged-decode kernel takes float32 (N, Bs, Hkv) scales")
+    if d not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the paged-decode kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d} ({_UNPORTED})")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if not 1 <= t <= DECODE_MAX_T:
+        raise ValueError(f"the paged-decode kernel takes 1 to {DECODE_MAX_T} query tokens, got {t}")
+    if block_table.dtype != torch.int32:
+        raise TypeError("the paged-decode kernel takes an int32 block table")
+    for x in (q, k_pool, v_pool, block_table, k_scale, v_scale):
+        if x is None:
+            continue
+        if x.device != q.device:
+            raise ValueError(f"the paged-decode kernel: tensors on {x.device} and {q.device}")
+        if not x.is_contiguous():
+            raise ValueError("the paged-decode kernel takes contiguous tensors only")
+
+
+def _int32_on(x, device, shape) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int32).reshape(-1).expand(shape).contiguous()
+
+
+def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: int = 0,
+                                 k_scale=None, v_scale=None, n_blocks=None,
+                                 shared_blocks=None, shared_table=None) -> torch.Tensor:
+    """``paged_decode_attention`` without the gather: a blockwise online
+    softmax THROUGH the block table, same signature and semantics, plus
+
+    ``n_blocks`` (B,) per-row valid-block counts (default ceil((start +
+    T) / Bs)), clipped to [1, M]: slots at or past a row's count are
+    invisible and read nothing but the scratch block;
+
+    ``shared_blocks`` (a 0-d device tensor) + ``shared_table`` (M,): the
+    Hydragen split. Slots below s_eff = clip(shared_blocks, 0, max
+    n_blocks) read ``shared_table[s]`` for every row, the rest the row's
+    own table; the two partial softmaxes merge by log-sum-exp.
+
+    CUDA tensors go through the paged-decode kernel, one launch (a
+    slot-split pass and its log-sum-exp merge) that reads start, n_blocks
+    and shared_blocks on the device: no host sync. CPU tensors go through
+    the plain version."""
+    if q.device.type == "cpu":
+        return fused_paged_decode_attention_plain(
+            q, k_pool, v_pool, block_table, start, window, k_scale, v_scale, n_blocks,
+            shared_blocks, shared_table)
+    _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale)
+    b, t, hq, d = q.shape
+    n, bs, hkv, _ = k_pool.shape
+    m_slots = block_table.shape[1]
+    dev = q.device
+    starts = _int32_on(start, dev, (b,))
+    if n_blocks is None:
+        n_blocks = (starts + (t + bs - 1)) // bs
+    n_blocks = _int32_on(n_blocks, dev, (b,))
+    split = (shared_table is not None and shared_blocks is not None)
+    if split:
+        shared_table = _int32_on(shared_table, dev, (m_slots,))
+        shared_blocks = _int32_on(shared_blocks, dev, (1,))
+    splits = decode_splits(b, hkv, (hq // hkv) * t, m_slots)
+    out = torch.empty_like(q)
+    part_ml = torch.empty((2, b, hq, t, splits), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hq, t, splits, d), dtype=torch.float32, device=dev)
+    int8 = k_pool.dtype == torch.int8
+    err = _entry("nexus_paged_decode")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+        block_table.data_ptr(), starts.data_ptr(), n_blocks.data_ptr(),
+        shared_table.data_ptr() if split else None, shared_blocks.data_ptr() if split else None,
+        out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
+        b, t, hq, hkv, d, n, bs, m_slots, int(window), splits, int(int8),
+        d ** -0.5, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "fused_paged_decode_attention")
+    fused_paged_decode_attention.launches += 1
+    return out
+
+
+fused_paged_decode_attention.launches = 0
+SERVE_KERNELS = (fused_paged_decode_attention,)
+KERNEL_WRAPPERS = TRAIN_KERNELS + SERVE_KERNELS

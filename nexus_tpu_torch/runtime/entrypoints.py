@@ -1,27 +1,37 @@
 """Runtime entry point of the port (counterpart of
 ``nexus_tpu/runtime/entrypoints.py``): execute a template's runtime block
-in ``mode: train`` on one device and return the same metrics dict as the
-JAX package (tokens/sec, MFU, loss history, …).
+on one device and return the same metrics dict as the JAX package —
+``mode: train`` (tokens/sec, MFU, loss history, …), ``mode: infer``
+(timed autoregressive decode, ``decode_tokens_per_sec``) and ``mode:
+serve`` (a synthetic request queue through the continuous-batching engine,
+``tokens_per_sec``, ttft and latency percentiles, the KV ledger).
 
 This slice runs on one device. A declared parallelism over more chips is
-re-planned to one device and logged. Checkpointing, profiling and the
-``infer`` / ``serve`` modes are not ported yet and raise, naming their
-ROADMAP item.
+re-planned to one device and logged. Weights come from random init only.
+Features not ported yet raise ``NotImplementedError`` naming their ROADMAP
+item: checkpointing, profiling, pretrained weights, and on the serving
+side speculation, the host spill tier, open-loop arrivals, the
+observability hooks and fleet replicas.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import time
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 from nexus_tpu_torch.models.registry import get_family
+from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine, not_ported
 from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
 from nexus_tpu_torch.train.trainer import Trainer, build_optimizer, init_train_state, make_train_step
-from nexus_tpu_torch.utils.hw import device_kind, resolve_device
+from nexus_tpu_torch.utils.hw import device_kind, resolve_device, sync_host
+from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
 
 logger = logging.getLogger("nexus_tpu_torch.runtime")
 
@@ -38,17 +48,13 @@ def run_template_runtime(
     """Execute a runtime block (a ``JaxXlaRuntime`` or its dict form);
     returns a JSON-serialisable metrics dict. ``device`` defaults to CUDA
     and raises when no card is visible; pass ``"cpu"`` to run on the CPU.
-    ``cancel``: object with ``cancelled()``, checked at step boundaries.
-    ``heartbeat``: called with the completed-step count at each boundary."""
+    ``cancel``: object with ``cancelled()``, checked at step (train) or
+    chunk (serve) boundaries. ``heartbeat``: called with the completed-step
+    (train) or committed-token (serve) count at each boundary."""
     if not isinstance(runtime, JaxXlaRuntime):
         runtime = JaxXlaRuntime.from_dict(runtime)
     dev = resolve_device(device)
-    if runtime.mode in ("infer", "serve"):
-        raise NotImplementedError(
-            f"mode {runtime.mode!r} is not ported yet ({_ROADMAP}, item 1: the "
-            "serving slice)"
-        )
-    if runtime.mode != "train":
+    if runtime.mode not in ("train", "infer", "serve"):
         raise ValueError(f"unknown runtime mode {runtime.mode!r}")
     if runtime.checkpoint.enabled:
         raise NotImplementedError(
@@ -59,6 +65,11 @@ def run_template_runtime(
         raise NotImplementedError(
             "profile.enabled is not ported yet: the port has no profiler "
             f"capture window ({_ROADMAP}, open items)"
+        )
+    if runtime.model.weights is not None:
+        raise NotImplementedError(
+            f"model.weights is not ported yet ({_ROADMAP}, item 5: runtime/weights.py); "
+            "the port runs random weights from train.seed"
         )
     declared = runtime.parallelism.total()
     if declared != 1:
@@ -72,6 +83,10 @@ def run_template_runtime(
     if runtime.train.remat and "remat" not in overrides:
         overrides["remat"] = True
     cfg = family.config(runtime.model.preset, **overrides)
+    if runtime.mode == "infer":
+        return _run_infer(runtime, family, cfg, dev)
+    if runtime.mode == "serve":
+        return _run_serve(runtime, family, cfg, dev, cancel=cancel, heartbeat=heartbeat)
     return _run_train(runtime, family, cfg, dev, max_steps, cancel, heartbeat)
 
 
@@ -139,3 +154,170 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         "model_flops_per_token": fpt,
         "mfu": mfu(result.tokens_per_sec, fpt, device_kind(dev)),
     }
+
+
+def _decode_params(family, cfg, dev, seed: int):
+    """Random weights from ``seed`` for decoding, with no autograd state."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = family.init(gen, cfg, dev)
+    for t in family.leaves(params):
+        t.requires_grad_(False)
+    return params
+
+
+def _run_infer(runtime, family, cfg, dev):
+    """Timed autoregressive decode: ``infer.iterations`` timed decodes of
+    ``infer.maxNewTokens`` new tokens after one untimed warm-up; the
+    metric is decode tokens/sec over the best iteration."""
+    tr, inf = runtime.train, runtime.infer
+    if inf.draft is not None or inf.prompt_lookup_ngram > 0:
+        raise not_ported("speculation", "speculative infer (infer.draft / promptLookupNgram)")
+    if inf.prompt:
+        raise ValueError("infer.prompt (text) requires model.weights.tokenizer "
+                         "(a tokenizer.json path) so it can be tokenized")
+    ctx = cfg.max_seq_len
+    prompt_len = min(inf.prompt_length, ctx - 1)
+    ids = None
+    if inf.prompt_token_ids:
+        ids = [int(t) for t in inf.prompt_token_ids]
+        bad = [t for t in ids if not 0 <= t < cfg.vocab_size]
+        if bad:
+            raise ValueError(f"infer.promptTokenIds outside vocab {cfg.vocab_size}: {bad[:5]}")
+        ids = ids[: ctx - 1]
+        prompt_len = len(ids)
+    max_new = min(inf.max_new_tokens, ctx - prompt_len)
+    if max_new <= 0:
+        raise ValueError(f"infer shapes don't fit: prompt {prompt_len} + new tokens "
+                         f"{inf.max_new_tokens} vs effective max_seq_len {ctx}")
+    params = _decode_params(family, cfg, dev, tr.seed)
+    if ids is not None:
+        prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
+    else:
+        g = torch.Generator().manual_seed(tr.seed)
+        prompt = torch.randint(0, cfg.vocab_size, (tr.batch_size, prompt_len), generator=g,
+                               dtype=torch.int32)
+    prompt = prompt.contiguous().to(dev)
+    sampling = {"stop_token_id": inf.stop_token_id}
+    gen = None
+    if inf.temperature > 0:
+        gen = torch.Generator(device=dev)
+        sampling.update(temperature=inf.temperature, generator=gen)
+
+    def run_once():
+        if gen is not None:
+            gen.manual_seed(tr.seed + 7)  # every iteration draws the same stream
+        return family.generate(params, cfg, prompt, max_new, return_logits=True, **sampling)
+
+    with torch.inference_mode():
+        out, last = run_once()  # first-use costs: kernel loads, allocator growth
+        sync_host(dev)
+        times = []
+        for _ in range(max(1, inf.iterations)):
+            t0 = time.monotonic()
+            out, last = run_once()
+            sync_host(dev)
+            times.append(time.monotonic() - t0)
+        finite = bool(torch.isfinite(last).all())
+    new_tokens = tr.batch_size * max_new
+    best = min(times)
+    return {
+        "mode": "infer",
+        "family": runtime.model.family,
+        "preset": runtime.model.preset,
+        "weights_loaded": False,
+        "restored_step": -1,
+        "decode_tokens_per_sec": new_tokens / best,
+        "decode_tokens_per_sec_mean": new_tokens * len(times) / sum(times),
+        "iteration_seconds": [round(t, 4) for t in times],
+        "batch_size": tr.batch_size,
+        "prompt_len": prompt_len,
+        "new_tokens": max_new,
+        "n_devices": 1,
+        "device": str(dev),
+        "device_kind": device_kind(dev),
+        "output_shape": list(out.shape),
+        "last_logits_finite": finite,
+    }
+
+
+def _synthetic_queue(sv, tr, cfg):
+    """The JAX entry point's closed-loop synthetic queue, drawn from the
+    same numpy stream (train.seed): the same prompts and budgets."""
+    pmax = min(sv.prompt_length_max, cfg.max_seq_len // 2)
+    pmin = min(sv.prompt_length_min, pmax)
+    rng = np.random.RandomState(tr.seed)
+    common = None
+    if sv.shared_prefix_length > 0:
+        common = rng.randint(0, cfg.vocab_size,
+                             size=min(sv.shared_prefix_length, max(0, pmax - 1))).astype(np.int32)
+    requests = []
+    for _ in range(sv.num_requests):
+        p = int(rng.randint(pmin, pmax + 1))
+        n = int(rng.randint(sv.max_new_min, sv.max_new_max + 1))
+        ids = rng.randint(0, cfg.vocab_size, size=p).astype(np.int32)
+        if common is not None:
+            s = min(len(common), p - 1)
+            ids[:s] = common[:s]
+        requests.append(ServeRequest(prompt=ids.tolist(), max_new_tokens=n,
+                                     temperature=sv.temperature, seed=len(requests),
+                                     deadline_s=sv.request_deadline_s))
+    return requests
+
+
+def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
+    """Continuous-batching serving of the synthetic closed-loop queue
+    (deterministic from train.seed) through runtime/serving.py's engine
+    with ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
+    sizes."""
+    sv, tr = runtime.serve, runtime.train
+    if sv.prompt_lookup_ngram > 0 or sv.draft is not None:
+        raise not_ported("speculation", "speculative serving (serve.promptLookupNgram / draft)")
+    if sv.host_cache_bytes > 0:
+        raise not_ported("host_cache", "serve.hostCacheBytes > 0")
+    if sv.arrival != "closed":
+        raise not_ported("traffic", f"serve.arrival {sv.arrival!r}")
+    if sv.replicas > 1:
+        raise not_ported("fleet", "serve.replicas > 1")
+    if os.environ.get("NEXUS_SERVE_TRACE", "").strip():
+        raise not_ported("obs", "the NEXUS_SERVE_TRACE span dump")
+    if sv.prompts:
+        raise ValueError("serve.prompts requires model.weights.tokenizer")
+    params = _decode_params(family, cfg, dev, tr.seed)
+    requests = _synthetic_queue(sv, tr, cfg)
+    engine = ServingEngine(
+        family.forward_decode, params, cfg,
+        batch_size=tr.batch_size, max_len=cfg.max_seq_len, stop_token_id=sv.stop_token_id,
+        chunk=sv.chunk, prefill_chunk=sv.prefill_chunk, kv_block_size=sv.kv_block_size,
+        # the ONE sizing formula validate() also uses
+        kv_num_blocks=sv.kv_pool_blocks(tr.batch_size, cfg.max_seq_len),
+        prefix_cache=sv.prefix_cache, max_queue_depth=sv.max_queue_depth,
+        max_queue_delay_s=sv.max_queue_delay_s, attention_path=sv.attention_path,
+        admission_policy=sv.admission_policy, admission_aging_waves=sv.admission_aging_waves,
+        kv_pool_dtype=sv.kv_pool_dtype,
+    )
+    with torch.inference_mode():
+        results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
+    latencies = sorted(r.latency_s for r in results if r is not None and r.status == STATUS_OK)
+    out = {
+        **metrics,
+        "mode": "serve",
+        "family": runtime.model.family,
+        "preset": runtime.model.preset,
+        "weights_loaded": False,
+        "restored_step": -1,
+        "finished_requests": sum(1 for r in results if r is not None),
+        "batch_rows": tr.batch_size,
+        "n_devices": 1,
+        "device": str(dev),
+        "device_kind": device_kind(dev),
+        # the queue's trimmed decode budgets, and each request's new token
+        # ids (None when it was not served): what a caller checks the run by
+        "budget_tokens": sum(engine.request_budget(r) for r in requests),
+        "completion_ids": [None if r is None else r.tokens[len(q.prompt):]
+                           for q, r in zip(requests, results)],
+    }
+    if latencies:
+        out["request_latency_p50_s"] = round(latencies[len(latencies) // 2], 4)
+        out["request_latency_p95_s"] = round(percentile_nearest_rank(latencies, 0.95), 4)
+    return out

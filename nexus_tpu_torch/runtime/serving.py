@@ -1,0 +1,1072 @@
+"""Continuous-batching serving engine (counterpart of
+``nexus_tpu/runtime/serving.py``, its plain, non-speculative engine).
+
+A request queue decodes through a fixed batch of rows with per-row KV
+depths; finished rows are refilled at chunk boundaries:
+
+* the KV cache is PAGED by default (``kv_block_size > 0``): a block pool
+  read through per-row block tables, a host-side ref-counted allocator
+  (``BlockAllocator``) maps blocks lazily as rows grow, and admission
+  reserves a request's worst case in blocks up front (eviction-free);
+* blocks are shared across requests through a radix-tree prefix index
+  (runtime/prefix_cache.py): admission maps a prompt's longest cached
+  prefix, starts prefill past it, copies the last block on a full-prompt
+  hit (copy-on-write), and a finished row's decoded blocks enter the tree;
+  the wait queue is ordered by runtime/scheduling.py's policy;
+* prompts stream through the decode chunk itself, ``prefill_chunk``
+  tokens per step for an admitting row, while the other rows decode
+  (the scaffold's per-row ``n_valid``);
+* a chunk is ``chunk`` steps run back to back on device tensors: no host
+  sync inside it (the fused paged read keeps its loop bounds on the
+  device); the host reads the chunk's tokens once, at its end.
+
+Exactness: a request's output is a function of the request alone. At
+temperature 0 it is the model's greedy decode of the prompt. At
+temperature > 0 the token at buffer position ``pos`` is a Gumbel-max draw
+keyed by (engine seed, request seed, pos) through a counter-based hash on
+the device — deterministic and batch-invariant, but not JAX's threefry
+numbers (``_gumbel``).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+speculation (prompt lookup, draft model), the host-RAM spill tier, the
+observability hooks (span tracer, flight recorder, live gauges; their
+metric keys report their off values), and streamed arrivals.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from nexus_tpu_torch.api.runtime_spec import serve_dispatch_slack
+from nexus_tpu_torch.models.decoding import (
+    copy_kv_blocks,
+    init_kv_cache,
+    init_paged_kv_cache,
+)
+from nexus_tpu_torch.runtime.prefix_cache import PrefixCacheIndex, chain_keys
+from nexus_tpu_torch.runtime.scheduling import make_admission_policy
+from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
+
+KV_POOL_DTYPES = ("native", "int8")
+_ROADMAP = "ROADMAP 'Port to PyTorch/CUDA', item 1"
+NOT_PORTED = {
+    "speculation": f"{_ROADMAP}a: speculation (prompt lookup and draft tiers)",
+    "host_cache": f"{_ROADMAP}b: the host-RAM spill tier (runtime/host_cache.py)",
+    "traffic": f"{_ROADMAP}c: open-loop traffic (runtime/traffic.py)",
+    "obs": f"{_ROADMAP}d: the observability hooks (nexus_tpu/obs)",
+    "fleet": f"{_ROADMAP}e: fleet replicas",
+}
+
+
+def not_ported(feature: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: left out of the serving slice ({NOT_PORTED[feature]})")
+
+
+class BlockAllocator:
+    """Host-side ref-counted free-list allocator over the paged KV pool
+    (the JAX engine's, without the host tier).
+
+    ``admit`` succeeds only when the pool can promise a row's whole
+    worst-case PRIVATE block count; blocks are drawn lazily against that
+    reservation (``_BlockLease.grow_to``), so residency tracks actual
+    lengths. Mapped blocks carry a refcount; with a prefix index, a
+    released block whose content is indexed PARKS (refcount 0, LRU) for
+    future hits and is evicted leaf-first only under pool pressure.
+    Invariant: free + parked >= reserved, so an in-reservation grow never
+    fails."""
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 prefix_index: Optional[PrefixCacheIndex] = None):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self._free = list(range(self.num_blocks - 1, -1, -1))  # pop() → ascending ids
+        self._ref = [0] * self.num_blocks
+        self._reserved = 0
+        self.index = prefix_index
+        self.peak_allocated = 0
+        self.evictions = 0
+
+    @property
+    def scratch_block(self) -> int:
+        """The block never handed out (the cache has num_blocks + 1)."""
+        return self.num_blocks
+
+    def blocks_for(self, positions: int) -> int:
+        return max(0, -(-int(positions) // self.block_size))
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def cached_blocks(self) -> int:
+        """Parked blocks: refcount 0, content indexed, evictable."""
+        return self.index.parked_count if self.index is not None else 0
+
+    @property
+    def allocated_blocks(self) -> int:
+        return self.num_blocks - len(self._free) - self.cached_blocks
+
+    @property
+    def available_blocks(self) -> int:
+        """Free plus evictable, minus outstanding reservations."""
+        return len(self._free) + self.cached_blocks - self._reserved
+
+    @property
+    def reserved_blocks(self) -> int:
+        return self._reserved
+
+    def pool_partition(self) -> dict:
+        """The leak audit: free + parked + allocated == the pool; after
+        every lease released, allocated and reserved are 0."""
+        return {"free": self.free_blocks, "parked": self.cached_blocks,
+                "allocated": self.allocated_blocks, "reserved": self._reserved,
+                "total": self.num_blocks}
+
+    def match_prefix(self, keys, prompt_len: int):
+        """Longest cached prefix of a prompt with chain keys ``keys`` →
+        (shared blocks, matched tokens, cow_src). ``matched`` is capped at
+        prompt_len - 1 (one position must still run for the first token's
+        logits): a full-prompt hit returns its last block as ``cow_src``
+        for the engine to copy into a private block."""
+        if self.index is None or not keys:
+            return [], 0, None
+        blocks = self.index.match(keys)
+        if not blocks:
+            return [], 0, None
+        matched = len(blocks) * self.block_size
+        cow_src = None
+        if matched > prompt_len - 1:
+            cow_src = blocks[-1]
+            blocks = blocks[:-1]
+            matched = prompt_len - 1
+        return blocks, matched, cow_src
+
+    def admit(self, need_blocks: int, shared=()) -> Optional["_BlockLease"]:
+        """Reserve ``need_blocks`` private blocks and map ``shared``
+        (refcount bumps); None, mutating nothing, when the pool cannot
+        promise the privates plus the parked blocks this would revive."""
+        revive = sum(1 for b in shared if self._ref[b] == 0)
+        if need_blocks + revive > self.available_blocks:
+            return None
+        for b in shared:
+            if self._ref[b] == 0:
+                self.index.unpark(b)
+            self._ref[b] += 1
+        self._reserved += need_blocks
+        return _BlockLease(self, need_blocks, list(shared))
+
+    def register_block(self, key: bytes, blk: int, parent: Optional[bytes] = None) -> bool:
+        """Publish a fully-written block under ``parent`` (first writer
+        wins; an orphan is refused)."""
+        if self.index is not None:
+            return self.index.insert(key, blk, parent=parent)
+        return False
+
+    def _take_block(self) -> int:
+        if self._free:
+            return self._free.pop()
+        self.evictions += 1
+        return self.index.evict_lru()
+
+    def _alloc_one(self) -> int:
+        blk = self._take_block()
+        self._ref[blk] += 1
+        self._reserved -= 1
+        self.peak_allocated = max(self.peak_allocated, self.allocated_blocks)
+        return blk
+
+    def _deref(self, blk: int) -> None:
+        self._ref[blk] -= 1
+        if self._ref[blk] == 0:
+            if self.index is not None and self.index.holds(blk):
+                self.index.park(blk)
+            else:
+                self._free.append(blk)
+
+
+class _BlockLease:
+    """One row's slice of the pool: shared prefix blocks first, then its
+    private blocks, in virtual-position order."""
+
+    def __init__(self, allocator: BlockAllocator, reservation: int, shared=None):
+        self._a = allocator
+        self.reservation = int(reservation)
+        self.shared: List[int] = list(shared or [])
+        self._private: List[int] = []
+        self._released = False
+
+    @property
+    def blocks(self) -> List[int]:
+        return self.shared + self._private
+
+    def grow_to(self, n_blocks: int) -> List[int]:
+        """Map at least ``n_blocks`` blocks in all (within the reservation)."""
+        if self._released:
+            raise RuntimeError("grow_to on a released lease")
+        n = min(int(n_blocks) - len(self.shared), self.reservation)
+        while len(self._private) < n:
+            self._private.append(self._a._alloc_one())
+        return self.blocks
+
+    def release(self) -> None:
+        """One deref per mapped block, and the unused headroom back."""
+        if self._released:
+            return
+        self._released = True
+        for b in self.shared + self._private:
+            self._a._deref(b)
+        self._a._reserved -= self.reservation - len(self._private)
+        self.shared, self._private = [], []
+
+
+STATUS_OK = "ok"
+STATUS_DEADLINE_EXCEEDED = "deadline_exceeded"
+STATUS_SHED = "shed"
+
+
+@dataclass
+class ServeRequest:
+    """One queued generation request (the JAX engine's fields).
+    ``temperature > 0`` samples, keyed by (engine seed, ``seed``, buffer
+    position); ``deadline_s`` > 0 bounds its time from engine start;
+    ``priority`` orders load shedding (lowest sheds first)."""
+
+    prompt: Sequence[int]
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    seed: int = 0
+    deadline_s: float = 0.0
+    priority: int = 0
+    arrival_s: float = 0.0
+
+
+@dataclass
+class ServeResult:
+    """Prompt + generated ids, timings from arrival, and the terminal
+    ``status`` (ok, deadline_exceeded, shed)."""
+
+    tokens: List[int]
+    new_tokens: int
+    finished_by_stop: bool
+    latency_s: float
+    ttft_s: float = 0.0
+    queue_s: float = 0.0
+    status: str = STATUS_OK
+
+
+@dataclass
+class DrainedRequest:
+    """A request drained off a cancelled engine: its queue index, the
+    tokens it had committed, whether it held a row, and the engine's
+    elapsed time."""
+
+    request_idx: int
+    committed: List[int] = field(default_factory=list)
+    admitted: bool = False
+    elapsed_s: float = 0.0
+
+
+@dataclass
+class _RowState:
+    request_idx: int
+    budget: int
+    emitted: List[int] = field(default_factory=list)
+    stopped: bool = False
+    admitted_t: float = 0.0
+    first_tok_t: float = 0.0
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer on int64 tensors holding values below
+    2^32 (multipliers below 2^31, so no product leaves int64)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def _gumbel(engine_seed: int, seeds: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, V) standard Gumbel noise, a function of (engine seed, request
+    seed, buffer position, token id) only: the port's sampling rule."""
+    key = _mix32(torch.full_like(seeds, engine_seed & _M32))
+    key = _mix32(key ^ (seeds & _M32))
+    key = _mix32(key ^ (pos & _M32))
+    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    bits = _mix32(key[:, None] ^ _mix32((ids * 0x9E3779B1) & _M32))
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+class ServingEngine:
+    """The plain serving engine. Arguments follow the JAX engine's
+    (``batch_size`` rows, ``chunk`` steps per dispatch, ``prefill_chunk``
+    prompt tokens per step, ``kv_block_size`` / ``kv_num_blocks`` for the
+    paged pool (0 = dense rows / the dense-equivalent pool),
+    ``prefix_cache``, ``attention_path`` "fused" (the paged-decode kernel
+    with the Hydragen split) or "gather", ``admission_policy``,
+    ``kv_pool_dtype`` "native" or "int8", queue bounds and an injectable
+    ``clock``). The engine's tensors live on the device of
+    ``params['embed']``; the KV state (pool, radix tree) persists across
+    ``serve`` calls, ``reset_cache`` drops it."""
+
+    def __init__(self, forward_decode: Callable, params: Any, cfg: Any, batch_size: int,
+                 max_len: Optional[int] = None, stop_token_id: int = -1, chunk: int = 8,
+                 sample_seed: int = 0, lookup_ngram: int = 0, num_speculative: int = 4,
+                 prefill_chunk: int = 8, kv_block_size: int = 32, kv_num_blocks: int = 0,
+                 prefix_cache: bool = True, max_queue_depth: int = 0,
+                 max_queue_delay_s: float = 0.0, clock: Callable[[], float] = time.monotonic,
+                 attention_path: str = "fused", admission_policy: Any = "cache-aware",
+                 admission_aging_waves: int = 8, prefix_completions: bool = True,
+                 kv_pool_dtype: str = "native", host_cache_bytes: int = 0,
+                 draft_forward: Optional[Callable] = None, tracer: Any = None,
+                 flight_recorder: Any = None, live_gauges: bool = False):
+        if lookup_ngram or draft_forward is not None:
+            raise not_ported("speculation", "speculative serving")
+        if host_cache_bytes:
+            raise not_ported("host_cache", "host_cache_bytes > 0")
+        if tracer is not None or flight_recorder not in (None, False) or live_gauges:
+            raise not_ported("obs", "the serve tracer, flight recorder and live gauges")
+        self._fwd = forward_decode
+        self._params = params
+        self._cfg = cfg
+        self._dev = params["embed"].device
+        self._b = int(batch_size)
+        self._max_len = int(max_len or cfg.max_seq_len)
+        if self._max_len > cfg.max_seq_len:
+            raise ValueError(f"max_len {self._max_len} exceeds model max_seq_len "
+                             f"{cfg.max_seq_len}")
+        self._stop = int(stop_token_id)
+        self._chunk = int(chunk)
+        self._seed = int(sample_seed)
+        self._t = int(prefill_chunk)
+        if self._t < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self._max_queue_depth = int(max_queue_depth)
+        if self._max_queue_depth < 0:
+            raise ValueError(f"max_queue_depth must be >= 0, got {max_queue_depth}")
+        self._max_queue_delay = float(max_queue_delay_s)
+        if self._max_queue_delay < 0:
+            raise ValueError(f"max_queue_delay_s must be >= 0, got {max_queue_delay_s}")
+        self._clock = clock
+        self.last_drain: Optional[List[DrainedRequest]] = None
+        self._block_size = int(kv_block_size)
+        if self._block_size < 0:
+            raise ValueError(f"kv_block_size must be >= 0, got {kv_block_size}")
+        self._paged = self._block_size > 0
+        if self._paged:
+            self._blocks_per_row = -(-self._max_len // self._block_size)
+            self._num_blocks = int(kv_num_blocks) or self._b * self._blocks_per_row
+            if self._num_blocks < 1:
+                raise ValueError(f"kv_num_blocks must be >= 1, got {kv_num_blocks}")
+        else:
+            self._blocks_per_row = 0
+            self._num_blocks = 0
+        self._prefix = bool(prefix_cache) and self._paged
+        if attention_path not in ("fused", "gather"):
+            raise ValueError(f"attention_path must be 'fused' or 'gather', got "
+                             f"{attention_path!r}")
+        self._attn_path = attention_path
+        self._fused = self._paged and attention_path == "fused"
+        self._policy = make_admission_policy(admission_policy,
+                                             aging_waves=admission_aging_waves)
+        self._prefix_completions = bool(prefix_completions)
+        if kv_pool_dtype not in KV_POOL_DTYPES:
+            raise ValueError(f"kv_pool_dtype must be one of {KV_POOL_DTYPES}, got "
+                             f"{kv_pool_dtype!r}")
+        if kv_pool_dtype == "int8" and not self._paged:
+            raise ValueError("kv_pool_dtype='int8' sizes the paged block pool; the dense "
+                             "layout quantizes via cfg.kv_cache_quantized")
+        self._quantized = bool(getattr(cfg, "kv_cache_quantized", False)) or (
+            kv_pool_dtype == "int8")
+        # worst-case growth past a row's finish inside one dispatch: the ONE
+        # formula shared with ServeSpec.serve_slack()
+        self._slack = serve_dispatch_slack(self._chunk, 0, num_speculative)
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        per_elem = cfg.head_dim * 1 + 4 if self._quantized else cfg.head_dim * itemsize
+        self._pos_bytes = cfg.n_layers * cfg.n_kv_heads * per_elem * 2
+        self._warmed = False
+        self._serve_calls = 0
+        self.cache_resets = 0
+        self._build_kv_state()
+
+    # ---------------------------------------------------------------- state
+
+    def _build_kv_state(self) -> None:
+        self._alloc = (
+            BlockAllocator(self._num_blocks, self._block_size,
+                           prefix_index=PrefixCacheIndex() if self._prefix else None)
+            if self._paged else None)
+        self.last_prefix_index = self._alloc.index if self._alloc is not None else None
+        self._table_np = np.full((self._b, self._blocks_per_row or 1), self._num_blocks,
+                                 dtype=np.int32)
+        self._kv_cache = None
+        self._kv_fresh = True
+
+    def reset_cache(self) -> None:
+        """Drop every engine-lifetime KV state (pool, radix tree)."""
+        self._build_kv_state()
+        self.cache_resets += 1
+
+    def _vec(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self._dev)
+
+    def _fresh_cache(self):
+        b, cfg = self._b, self._cfg
+        if self._paged:
+            return init_paged_kv_cache(
+                cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, self._num_blocks + 1,
+                self._block_size, self._blocks_per_row, quantized=self._quantized,
+                device=self._dev)
+        c = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b,
+                          self._max_len, quantized=self._quantized, device=self._dev)
+        c["length"] = torch.zeros((b,), dtype=torch.int32, device=self._dev)
+        return c
+
+    # ---------------------------------------------------------- the chunk
+
+    def _pick_wave(self, logits, temps, seeds, pos, sampling: bool):
+        """Per-row choice: argmax at temperature 0, else a Gumbel-max draw
+        from logits / temperature keyed by (seed, pos). ``sampling`` (a host
+        fact: some row's request samples) skips the noise wholesale; greedy
+        rows take the argmax either way."""
+        greedy = logits.argmax(dim=-1)
+        if not sampling:
+            return greedy.to(torch.int32)
+        noise = _gumbel(self._seed, seeds.long(), pos.long(), logits.shape[-1])
+        safe = torch.clamp(temps, min=1e-6)[:, None]
+        drawn = (logits.float() / safe + noise).argmax(dim=-1)
+        return torch.where(temps > 0.0, drawn, greedy).to(torch.int32)
+
+    def _decode_chunk(self, cache, tok, ptr, done, buf, plen, temp, seed, shared_ops,
+                      width: int, sampling: bool):
+        """``chunk`` steps at feed width ``width``, each a (B, width) window:
+        decode rows feed their held token, admitting rows up to ``width``
+        prompt tokens from ``buf`` at ``ptr``; ``done`` rows emit their held
+        token and keep their depth. All on the device; returns (cache, tok,
+        ptr, toks (C, B), emits (C, B))."""
+        max_len = self._max_len
+        steps = torch.arange(width, device=self._dev)
+        toks, emits = [], []
+        for _ in range(self._chunk):
+            prefilling = (ptr < plen) & ~done
+            n_valid = torch.where(prefilling, torch.clamp(plen - ptr, max=width),
+                                  torch.ones_like(ptr)).to(torch.int32)
+            pos = (ptr.long()[:, None] + steps[None, :]).clamp(0, max_len - 1)
+            feed = torch.where(prefilling[:, None], torch.gather(buf, 1, pos), tok[:, None])
+            cache_in = dict(cache)
+            cache_in["n_valid"] = n_valid
+            if self._fused:
+                cache_in["shared_blocks"], cache_in["shared_table"] = shared_ops
+            logits, out = self._fwd(self._params, self._cfg, feed, cache_in)
+            out = dict(out)
+            out["length"] = torch.where(done, cache["length"], out["length"])
+            cache = out
+            last = (n_valid.long() - 1)[:, None, None].expand(-1, 1, logits.shape[-1])
+            nxt = self._pick_wave(torch.gather(logits, 1, last)[:, 0], temp, seed,
+                                  out["length"], sampling).to(tok.dtype)
+            finish = prefilling & (plen - ptr <= width)
+            emit = ~done & (finish | ~prefilling)
+            tok = torch.where(emit, nxt, tok)
+            ptr = torch.where(prefilling, ptr + n_valid, ptr)
+            toks.append(tok)
+            emits.append(emit)
+        return cache, tok, ptr, torch.stack(toks), torch.stack(emits)
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Run each chunk program once on a fresh cache (first-use costs:
+        the kernels' build and load, the allocator's growth) so serve()'s
+        clock measures serving. Idempotent."""
+        if self._warmed:
+            return
+        b, m_slots = self._b, self._blocks_per_row or 1
+        zi = lambda: torch.zeros((b,), dtype=torch.int32, device=self._dev)  # noqa: E731
+        shared = (torch.zeros((), dtype=torch.int32, device=self._dev),
+                  torch.full((m_slots,), self._num_blocks, dtype=torch.int32, device=self._dev))
+        done = torch.ones((b,), dtype=torch.bool, device=self._dev)
+        buf = torch.zeros((b, self._max_len), dtype=torch.int32, device=self._dev)
+        temp = torch.zeros((b,), dtype=torch.float32, device=self._dev)
+        for width in sorted({self._t, 1}):
+            out = self._decode_chunk(self._fresh_cache(), zi(), zi(), done, buf, zi(), temp,
+                                     zi(), shared, width, sampling=False)
+            out[3].cpu()
+        self._warmed = True
+
+    def _validate_request(self, req: ServeRequest, req_idx: int):
+        """→ (prompt, p, budget); the budget leaves one dispatch's overrun
+        + 1 below the cache's end."""
+        prompt = np.asarray(req.prompt, dtype=np.int32)
+        p = int(prompt.shape[0])
+        if p < 1:
+            raise ValueError(f"request {req_idx}: empty prompt")
+        budget = min(int(req.max_new_tokens), self._max_len - 1 - p - self._slack)
+        if budget < 1:
+            raise ValueError(f"request {req_idx}: prompt ({p}) + chunk slack ({self._slack}) "
+                             f"leaves no decode budget within max_len {self._max_len}")
+        if self._paged:
+            need = -(-self._row_cap(p, budget) // self._block_size)
+            if need > self._num_blocks:
+                raise ValueError(
+                    f"request {req_idx}: needs {need} KV blocks (prompt {p} + budget {budget}"
+                    f" + slack {self._slack}) but the pool has only {self._num_blocks}; raise "
+                    "kv_num_blocks, run the int8 pool, or shrink the request")
+        return prompt, p, budget
+
+    def request_budget(self, req: ServeRequest) -> int:
+        """The decode budget the engine grants ``req`` (its max_new_tokens
+        trimmed to the cache)."""
+        return self._validate_request(req, -1)[2]
+
+    def _row_cap(self, p: int, budget: int) -> int:
+        """Worst-case cache positions one admitted request can touch."""
+        return min(self._max_len, p + budget + self._slack + 1)
+
+    # -------------------------------------------------------------- serve
+
+    @torch.no_grad()
+    def serve(self, requests: Sequence[ServeRequest], cancel=None, heartbeat=None, source=None):
+        """Run the queue to completion → (results, metrics); results[i]
+        answers requests[i] (None if drained). ``cancel`` (an object with
+        ``cancelled()``) stops at the next chunk boundary, releases every
+        lease and records ``last_drain``; ``heartbeat`` gets the committed
+        token count after every chunk."""
+        if source is not None:
+            raise not_ported("traffic", "streamed arrivals (serve(source=...))")
+        b, max_len = self._b, self._max_len
+        requests = list(requests)
+        if self._kv_cache is None and not self._kv_fresh:
+            self.reset_cache()  # a prior call died mid-run: its pool is gone
+        alloc = self._alloc
+        pre_keys = (frozenset(alloc.index.indexed_keys())
+                    if alloc is not None and alloc.index is not None else frozenset())
+        self.warmup()
+
+        t0 = self._clock()
+        self.last_drain = None
+        interrupted = False
+        dev = self._dev
+        m_slots = self._blocks_per_row or 1
+        zero_shared = (torch.zeros((), dtype=torch.int32, device=dev),
+                       torch.full((m_slots,), self._num_blocks, dtype=torch.int32, device=dev))
+        if self._kv_cache is not None:
+            cache, self._kv_cache = self._kv_cache, None
+        else:
+            cache = self._fresh_cache()
+        self._kv_fresh = False
+        buf = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+        tok_vec = torch.zeros((b,), dtype=torch.int32, device=dev)
+        ptr_vec = torch.zeros_like(tok_vec)
+        plen_vec = torch.zeros_like(tok_vec)
+        seed_vec = torch.zeros((b,), dtype=torch.int64, device=dev)
+        temp_vec = torch.zeros((b,), dtype=torch.float32, device=dev)
+        rows: List[Optional[_RowState]] = [None] * b
+        prefill_left = [0] * b
+        results: List[Optional[ServeResult]] = [None] * len(requests)
+        pending = deque(range(len(requests)))
+        arrive_t = [t0 + float(r.arrival_s or 0.0) for r in requests]
+
+        def dl_anchor(req_idx: int) -> float:
+            return max(arrive_t[req_idx], t0)
+
+        committed = scheduled_slots = chunks = 0
+        shed_count = deadline_miss_count = deadline_cancelled_rows = 0
+        queue_depth_peak = 0
+        insert_dispatches = prefill_steps = prefill_steps_saved = 0
+        leases: List[Optional[_BlockLease]] = [None] * b
+        caps = [0] * b
+        plen_host = [0] * b
+        scratch = self._num_blocks
+        table_np = self._table_np
+        reserved_blocks_total = 0
+        alloc_block_steps = 0
+        table_dirty = [True]
+        row_keys: List[List[bytes]] = [[] for _ in range(b)]
+        indexed_upto = [0] * b
+        pf_ptr = [0] * b
+        keys_cache: dict = {}
+        hit_tokens = hit_requests = cross_hit_tokens = cross_hit_requests = 0
+        cow_copies = 0
+        hit_depth_hist: dict = {}
+        completion_blocks_registered = 0
+        passed_over: dict = {}
+        admission_overtakes = 0
+        hydragen_waves = hydragen_shared_slots = 0
+        ttfts: List[float] = []
+        queues: List[float] = []
+
+        def grow_and_push_tables():
+            """Map every active row's next-dispatch coverage and push the
+            table when it changed."""
+            nonlocal cache
+            for r in range(b):
+                state = rows[r]
+                if state is None or leases[r] is None:
+                    continue
+                cover = min(caps[r], plen_host[r] + len(state.emitted) + self._slack)
+                before = len(leases[r].blocks)
+                blks = leases[r].grow_to(alloc.blocks_for(cover))
+                if len(blks) != before:
+                    table_np[r, : len(blks)] = blks
+                    table_dirty[0] = True
+            if table_dirty[0]:
+                cache = dict(cache)
+                cache["block_table"] = torch.from_numpy(table_np.copy()).to(dev)
+                table_dirty[0] = False
+
+        def detect_shared_run():
+            """Hydragen detection: the longest run of leading table entries
+            every live row shares (>= 2 live rows), capped at the shallowest
+            mapping → (length, device operands)."""
+            if not self._fused:
+                return 0, zero_shared
+            live = [r for r in range(b) if rows[r] is not None and leases[r] is not None]
+            if len(live) < 2:
+                return 0, zero_shared
+            s = min(len(leases[r].blocks) for r in live)
+            head = table_np[live[0]]
+            for r in live[1:]:
+                neq = np.nonzero(table_np[r, :s] != head[:s])[0]
+                if neq.size:
+                    s = int(neq[0])
+                if s == 0:
+                    return 0, zero_shared
+            return s, (torch.tensor(s, dtype=torch.int32).to(dev),
+                       torch.from_numpy(head.copy()).to(dev))
+
+        def finish(state: _RowState, status: str = STATUS_OK) -> None:
+            nonlocal committed
+            committed += len(state.emitted)
+            arr = arrive_t[state.request_idx]
+            ttft = max(0.0, state.first_tok_t - state.admitted_t)
+            queue_s = max(0.0, state.admitted_t - arr)
+            if status == STATUS_OK:
+                ttfts.append(max(0.0, state.first_tok_t - arr))
+                queues.append(queue_s)
+            done_t = self._clock()
+            req = requests[state.request_idx]
+            results[state.request_idx] = ServeResult(
+                tokens=[int(x) for x in np.asarray(req.prompt, dtype=np.int32)] + state.emitted,
+                new_tokens=len(state.emitted), finished_by_stop=state.stopped,
+                latency_s=max(0.0, done_t - arr), ttft_s=round(ttft, 6),
+                queue_s=round(queue_s, 6), status=status)
+
+        def finish_queued(req_idx: int, status: str) -> None:
+            req = requests[req_idx]
+            results[req_idx] = ServeResult(
+                tokens=[int(x) for x in np.asarray(req.prompt, dtype=np.int32)], new_tokens=0,
+                finished_by_stop=False, latency_s=max(0.0, self._clock() - arrive_t[req_idx]),
+                status=status)
+
+        def police_deadlines() -> None:
+            """Queued requests past their deadline end deadline_exceeded;
+            those queued longer than max_queue_delay_s shed."""
+            nonlocal shed_count, deadline_miss_count
+            now = self._clock()
+            for req_idx in list(pending):
+                dl = float(requests[req_idx].deadline_s or 0.0)
+                anchor = dl_anchor(req_idx)
+                if dl > 0 and now - anchor >= dl:
+                    pending.remove(req_idx)
+                    finish_queued(req_idx, STATUS_DEADLINE_EXCEEDED)
+                    deadline_miss_count += 1
+                elif self._max_queue_delay > 0 and now - anchor > self._max_queue_delay:
+                    pending.remove(req_idx)
+                    finish_queued(req_idx, STATUS_SHED)
+                    shed_count += 1
+
+        def police_depth() -> None:
+            """Past max_queue_depth the lowest-priority queued request
+            (ties: the newest) sheds."""
+            nonlocal shed_count, queue_depth_peak
+            queue_depth_peak = max(queue_depth_peak, len(pending))
+            while self._max_queue_depth > 0 and len(pending) > self._max_queue_depth:
+                victim_pos, victim_pri = 0, None
+                for pos, req_idx in enumerate(pending):
+                    pri = int(requests[req_idx].priority)
+                    if victim_pri is None or pri <= victim_pri:
+                        victim_pri, victim_pos = pri, pos
+                victim = pending[victim_pos]
+                del pending[victim_pos]
+                finish_queued(victim, STATUS_SHED)
+                shed_count += 1
+
+        def chain_extendable(r: int, keys, blks) -> bool:
+            """A row extends the tree only under a parent its own block holds."""
+            j = indexed_upto[r]
+            return j == 0 or alloc.index.holder(keys[j - 1]) == blks[j - 1]
+
+        def register_completion_blocks(r: int, state: _RowState) -> None:
+            """Decoded blocks enter the tree at release, one token short of
+            the last emitted (whose K/V may not have been written)."""
+            nonlocal completion_blocks_registered
+            p = plen_host[r]
+            if not state.emitted or pf_ptr[r] < p:
+                return
+            n_reg = min((p + len(state.emitted) - 1) // self._block_size,
+                        len(leases[r].blocks))
+            if n_reg <= indexed_upto[r]:
+                return
+            full = [int(x) for x in np.asarray(requests[state.request_idx].prompt,
+                                               dtype=np.int32)] + state.emitted[:-1]
+            keys = chain_keys(full, self._block_size, limit=n_reg)
+            blks = leases[r].blocks
+            while indexed_upto[r] < n_reg:
+                if not chain_extendable(r, keys, blks):
+                    break
+                j = indexed_upto[r]
+                if alloc.register_block(keys[j], blks[j], parent=keys[j - 1] if j else None):
+                    completion_blocks_registered += 1
+                indexed_upto[r] += 1
+
+        def release_row(r: int) -> None:
+            state = rows[r]
+            rows[r] = None
+            prefill_left[r] = 0
+            if self._paged and leases[r] is not None:
+                if self._prefix and self._prefix_completions and state is not None:
+                    register_completion_blocks(r, state)
+                leases[r].release()
+                leases[r] = None
+                table_np[r, :] = scratch
+                table_dirty[0] = True
+                row_keys[r] = []
+                indexed_upto[r] = 0
+                pf_ptr[r] = 0
+
+        def row_done(state: _RowState) -> bool:
+            return state.stopped or len(state.emitted) >= state.budget
+
+        def req_chain_keys(req_idx: int) -> List[bytes]:
+            if req_idx not in keys_cache:
+                keys_cache[req_idx] = chain_keys(
+                    np.asarray(requests[req_idx].prompt, dtype=np.int32), self._block_size)
+            return keys_cache[req_idx]
+
+        def resident_match_tokens(req_idx: int) -> int:
+            if not self._prefix:
+                return 0
+            _, matched, _ = alloc.match_prefix(req_chain_keys(req_idx),
+                                               len(requests[req_idx].prompt))
+            return matched
+
+        def admit_into(free_rows):
+            """Fill free rows in the policy's order with ONE insert; a
+            pool-full refusal stops the wave, a request whose next block an
+            active row is prefilling right now is deferred."""
+            nonlocal cache, buf, ptr_vec, plen_vec, temp_vec, seed_vec
+            nonlocal reserved_blocks_total, hit_tokens, hit_requests
+            nonlocal cross_hit_tokens, cross_hit_requests, cow_copies, admission_overtakes
+            nonlocal insert_dispatches, prefill_steps, prefill_steps_saved
+            if not free_rows or not pending:
+                return
+            inflight = set()
+            if self._prefix:
+                for r in range(b):
+                    if rows[r] is not None and row_keys[r]:
+                        inflight.update(row_keys[r][indexed_upto[r]:])
+            arrival_pos = {idx: i for i, idx in enumerate(pending)}
+            order = self._policy.order(list(pending), passed_over, resident_match_tokens)
+            wave = []
+            deferred = set()
+            for req_idx in order:
+                if not free_rows:
+                    break
+                req = requests[req_idx]
+                prompt, p, budget = self._validate_request(req, req_idx)
+                shared, matched, cow_src = [], 0, None
+                keys: List[bytes] = []
+                if self._prefix:
+                    keys = req_chain_keys(req_idx)
+                    shared, matched, cow_src = alloc.match_prefix(keys, p)
+                    published = len(shared) + (1 if cow_src is not None else 0)
+                    if published < len(keys) and keys[published] in inflight:
+                        deferred.add(req_idx)
+                        continue
+                lease = None
+                if self._paged:
+                    need = alloc.blocks_for(self._row_cap(p, budget)) - len(shared)
+                    lease = alloc.admit(need, shared=shared)
+                    if lease is None:
+                        break  # pool full: the policy's head waits
+                    reserved_blocks_total += need
+                    if cow_src is not None:
+                        lease.grow_to(len(lease.shared) + 1)
+                if matched:
+                    hit_tokens += matched
+                    hit_requests += 1
+                    depth = len(shared) + (1 if cow_src is not None else 0)
+                    hit_depth_hist[depth] = hit_depth_hist.get(depth, 0) + 1
+                    if pre_keys:
+                        pre_depth = 0
+                        for kk in keys[:depth]:
+                            if kk not in pre_keys:
+                                break
+                            pre_depth += 1
+                        if pre_depth:
+                            cross_hit_tokens += min(matched, pre_depth * self._block_size)
+                            cross_hit_requests += 1
+                row = free_rows.pop(0)
+                wave.append((row, req, req_idx, prompt, p, budget, matched, lease, cow_src,
+                             keys))
+                if self._prefix:
+                    inflight.update(keys[len(shared) + (1 if cow_src is not None else 0):])
+            admitted_idx = [w[2] for w in wave]
+            for req_idx in admitted_idx:
+                pending.remove(req_idx)
+            if admitted_idx:
+                last_pos = max(arrival_pos[i] for i in admitted_idx)
+                for req_idx in pending:
+                    if req_idx not in deferred and arrival_pos[req_idx] < last_pos:
+                        passed_over[req_idx] = passed_over.get(req_idx, 0) + 1
+                        admission_overtakes += 1
+            if not wave:
+                return
+            # the insert: prompts into their rows of the token buffer, the
+            # rows' pointers and depths to their matched lengths
+            now = self._clock()
+            width = self._t
+            n = len(wave)
+            prompts = np.zeros((n, max_len), dtype=np.int32)
+            for i, w in enumerate(wave):
+                prompts[i, : w[4]] = w[3]
+            idx = self._vec([w[0] for w in wave], torch.int64)
+            starts = self._vec([w[6] for w in wave], torch.int32)
+            cache = dict(cache)
+            cache["length"] = cache["length"].index_put((idx,), starts)
+            buf = buf.index_put((idx,), torch.from_numpy(prompts).to(dev))
+            ptr_vec = ptr_vec.index_put((idx,), starts)
+            plen_vec = plen_vec.index_put((idx,), self._vec([w[4] for w in wave], torch.int32))
+            temp_vec = temp_vec.index_put(
+                (idx,), self._vec([w[1].temperature for w in wave], torch.float32))
+            seed_vec = seed_vec.index_put((idx,), self._vec([w[1].seed for w in wave],
+                                                            torch.int64))
+            insert_dispatches += 1
+            cow_pairs = []
+            for row, req, req_idx, prompt, p, budget, matched, lease, cow_src, keys in wave:
+                steps = -(-(p - matched) // width)
+                prefill_steps += steps
+                prefill_steps_saved += -(-p // width) - steps
+                rows[row] = _RowState(request_idx=req_idx, budget=budget, admitted_t=now)
+                prefill_left[row] = steps
+                if self._paged:
+                    leases[row] = lease
+                    caps[row] = self._row_cap(p, budget)
+                    plen_host[row] = p
+                    table_np[row, :] = scratch
+                    mapped = lease.blocks
+                    if mapped:
+                        table_np[row, : len(mapped)] = mapped
+                    table_dirty[0] = True
+                    row_keys[row] = keys
+                    indexed_upto[row] = len(lease.shared) + (1 if cow_src is not None else 0)
+                    pf_ptr[row] = matched
+                    if cow_src is not None:
+                        cow_pairs.append((cow_src, lease.blocks[len(lease.shared)]))
+            if cow_pairs:
+                cache = copy_kv_blocks(cache, self._vec([s for s, _ in cow_pairs], torch.int64),
+                                       self._vec([d for _, d in cow_pairs], torch.int64))
+                cow_copies += len(cow_pairs)
+
+        police_deadlines()
+        admit_into([r for r in range(b) if rows[r] is None])
+        police_depth()
+
+        while any(r is not None for r in rows) or pending:
+            if cancel is not None and cancel.cancelled():
+                elapsed = max(0.0, self._clock() - t0)
+                drained: List[DrainedRequest] = []
+                for r in range(b):
+                    state = rows[r]
+                    if state is None:
+                        continue
+                    drained.append(DrainedRequest(request_idx=state.request_idx,
+                                                  committed=list(state.emitted), admitted=True,
+                                                  elapsed_s=elapsed))
+                    release_row(r)
+                for req_idx in pending:
+                    drained.append(DrainedRequest(request_idx=req_idx, elapsed_s=elapsed))
+                pending.clear()
+                self.last_drain = drained
+                interrupted = True
+                break
+            if not any(r is not None for r in rows):
+                police_deadlines()
+                admit_into([r for r in range(b) if rows[r] is None])
+                police_depth()
+                if not any(r is not None for r in rows):
+                    break
+            if self._paged:
+                grow_and_push_tables()
+                alloc_block_steps += alloc.allocated_blocks
+            shared_s, shared_ops = detect_shared_run()
+            if shared_s:
+                hydragen_waves += 1
+                hydragen_shared_slots += shared_s
+            done_vec = torch.tensor([r is None or row_done(r) for r in rows]).to(dev)
+            wide = any(prefill_left[r] > 0 for r in range(b) if rows[r] is not None)
+            width = self._t if wide else 1
+            sampling = any(s is not None and requests[s.request_idx].temperature > 0
+                           for s in rows)
+            cache, tok_vec, ptr_vec, toks, emits = self._decode_chunk(
+                cache, tok_vec, ptr_vec, done_vec, buf, plen_vec, temp_vec, seed_vec,
+                shared_ops, width, sampling)
+            chunks += 1
+            scheduled_slots += self._chunk * b
+            host_toks, host_emits = torch.stack((toks, emits.to(toks.dtype))).cpu().numpy()
+            pf_advance = self._chunk * width
+            for r in range(b):
+                prefill_left[r] = max(0, prefill_left[r] - self._chunk)
+            now = self._clock()
+            if heartbeat is not None:
+                heartbeat(committed)
+            if self._prefix:
+                # mirror each prefilling row's pointer and publish the
+                # prompt blocks this dispatch finished writing
+                for r in range(b):
+                    if rows[r] is None or leases[r] is None:
+                        continue
+                    if pf_ptr[r] < plen_host[r]:
+                        pf_ptr[r] = min(plen_host[r], pf_ptr[r] + pf_advance)
+                    pub = min(pf_ptr[r] // self._block_size, len(row_keys[r]))
+                    blks = leases[r].blocks
+                    while indexed_upto[r] < pub:
+                        if not chain_extendable(r, row_keys[r], blks):
+                            break
+                        j = indexed_upto[r]
+                        alloc.register_block(row_keys[r][j], blks[j],
+                                             parent=row_keys[r][j - 1] if j else None)
+                        indexed_upto[r] += 1
+            for r in range(b):
+                state = rows[r]
+                if state is None:
+                    continue
+                for c in range(self._chunk):
+                    if row_done(state):
+                        break
+                    if not host_emits[c, r]:
+                        continue  # the row was prefilling this step
+                    t = int(host_toks[c, r])
+                    if not state.emitted:
+                        state.first_tok_t = now
+                    state.emitted.append(t)
+                    if self._stop >= 0 and t == self._stop:
+                        state.stopped = True
+                if row_done(state):
+                    finish(state)
+                    release_row(r)
+                    continue
+                dl = float(requests[state.request_idx].deadline_s or 0.0)
+                if dl > 0 and now - dl_anchor(state.request_idx) >= dl:
+                    finish(state, status=STATUS_DEADLINE_EXCEEDED)
+                    deadline_cancelled_rows += 1
+                    deadline_miss_count += 1
+                    release_row(r)
+            police_deadlines()
+            admit_into([r for r in range(b) if rows[r] is None])
+            police_depth()
+        wall = self._clock() - t0
+        self._kv_cache = cache
+        self._serve_calls += 1
+
+        # the JAX engine's metrics ledger, for the ported features (the
+        # observability keys at their off values)
+        n = len(requests)
+        metrics = {
+            "requests": n,
+            "committed_tokens": committed,
+            "scheduled_step_slots": scheduled_slots,
+            "slot_utilization": (round(committed / scheduled_slots, 4)
+                                 if scheduled_slots else 1.0),
+            "decode_chunks": chunks,
+            "wall_s": round(wall, 4),
+            "tokens_per_sec": round(committed / wall, 2) if wall else 0.0,
+            "insert_dispatches": insert_dispatches,
+            "prefill_steps": prefill_steps,
+            "prefill_chunk": self._t,
+            "interrupted": interrupted,
+            "queue_depth_peak": queue_depth_peak,
+            "shed_requests": shed_count,
+            "shed_rate": round(shed_count / n, 4) if n else 0.0,
+            "deadline_miss_requests": deadline_miss_count,
+            "deadline_miss_rate": round(deadline_miss_count / n, 4) if n else 0.0,
+            "deadline_cancelled_rows": deadline_cancelled_rows,
+            "ok_requests": sum(1 for r in results if r is not None and r.status == STATUS_OK),
+            "admission_policy": self._policy.name,
+            "admission_overtakes": admission_overtakes,
+            "traced": False,
+            "flight_recorder_events": 0,
+            "flight_dumps": 0,
+            "live_gauge_publishes": 0,
+            "engine_serve_calls": self._serve_calls,
+            "cache_resets": self.cache_resets,
+            "streamed_requests": 0,
+        }
+        if ttfts:
+            metrics["ttft_p50_s"] = round(percentile_nearest_rank(ttfts, 0.50), 4)
+            metrics["ttft_p95_s"] = round(percentile_nearest_rank(ttfts, 0.95), 4)
+        if queues:
+            metrics["queue_p50_s"] = round(percentile_nearest_rank(queues, 0.50), 4)
+            metrics["queue_p95_s"] = round(percentile_nearest_rank(queues, 0.95), 4)
+        pos_bytes = self._pos_bytes
+        block_bytes = pos_bytes * (self._block_size or 0)
+        dense_row_bytes = pos_bytes * self._max_len
+        metrics["kv_layout"] = "paged" if self._paged else "dense"
+        metrics["kv_dense_bytes_per_request"] = dense_row_bytes
+        if self._paged:
+            metrics["attention_path"] = self._attn_path
+            if self._fused:
+                metrics["hydragen_waves"] = hydragen_waves
+                metrics["hydragen_shared_slots"] = hydragen_shared_slots
+            metrics["kv_block_size"] = self._block_size
+            metrics["kv_num_blocks"] = self._num_blocks
+            metrics["kv_pool_bytes"] = (self._num_blocks + 1) * block_bytes
+            metrics["kv_peak_allocated_blocks"] = alloc.peak_allocated
+            metrics["kv_peak_allocated_bytes"] = alloc.peak_allocated * block_bytes
+            metrics["kv_bytes_per_request"] = (
+                round(reserved_blocks_total * block_bytes / n, 1) if n else 0.0)
+            metrics["kv_bytes_per_committed_token"] = (
+                round(alloc_block_steps * block_bytes / committed, 1) if committed else 0.0)
+            part = alloc.pool_partition()
+            metrics["kv_free_blocks_final"] = part["free"]
+            metrics["kv_parked_blocks_final"] = part["parked"]
+            metrics["kv_allocated_blocks_final"] = part["allocated"]
+            metrics["kv_reserved_blocks_final"] = part["reserved"]
+            metrics["prefix_cache"] = self._prefix
+            if self._prefix:
+                metrics["prefix_hit_tokens"] = hit_tokens
+                metrics["prefix_hit_requests"] = hit_requests
+                metrics["prefix_hit_tokens_cross_call"] = cross_hit_tokens
+                metrics["prefix_hit_requests_cross_call"] = cross_hit_requests
+                metrics["prefix_prefill_steps_saved"] = prefill_steps_saved
+                metrics["prefix_cow_copies"] = cow_copies
+                metrics["prefix_evictions"] = alloc.evictions
+                metrics["prefix_cached_blocks_final"] = alloc.cached_blocks
+                metrics["prefix_hit_depth_hist"] = dict(sorted(hit_depth_hist.items()))
+                metrics["prefix_completion_blocks"] = completion_blocks_registered
+                metrics["host_cache_enabled"] = False
+        else:
+            metrics["kv_pool_bytes"] = self._b * dense_row_bytes
+            metrics["kv_bytes_per_request"] = dense_row_bytes
+            metrics["kv_bytes_per_committed_token"] = (
+                round(chunks * self._b * dense_row_bytes / committed, 1) if committed else 0.0)
+        metrics["kv_reduction_vs_dense"] = (
+            round(dense_row_bytes / metrics["kv_bytes_per_request"], 3)
+            if metrics["kv_bytes_per_request"] else 1.0)
+        metrics["decode_dispatches_per_committed_token"] = 1.0 if committed else 0.0
+        return results, metrics

@@ -36,6 +36,9 @@ def test_the_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "nexus_tpu_torch/ops/attention.py" in names
     assert "nexus_tpu_torch/runtime/entrypoints.py" in names
+    for module in ("runtime/serving.py", "runtime/prefix_cache.py", "runtime/scheduling.py",
+                   "models/decoding.py", "ops/sampling.py", "utils/telemetry.py"):
+        assert f"nexus_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 

@@ -2,7 +2,8 @@
 
 No card and no nvcc needed: the sources under ``nexus_tpu_torch/csrc`` are
 only read. Each kernel must be one that ``tools/profile_train.py`` groups
-with the flash kernels (or its device time lands in "other"), each C entry
+with the hand-written kernels, the flash or the decode kernels (or its
+device time lands in "other"), each C entry
 that ``ops/attention.py`` binds must be defined in the source it names, and
 each source that ``ops/_kernels.py`` builds must exist.
 """
@@ -32,12 +33,15 @@ def test_source_exists(source):
     assert (_kernels.CSRC / source).is_file()
 
 
+HAND_WRITTEN_GROUPS = ("flash kernels", "decode kernels")
+
+
 @pytest.mark.parametrize("source", CU_SOURCES)
 def test_kernels_are_in_the_profilers_flash_group(source):
     names = _kernel_names(source)
     assert names, f"no __global__ kernel found in {source}"
-    flash = dict(GROUPS)["flash kernels"]
-    assert [n for n in names if n not in flash] == []
+    grouped = [k for g in HAND_WRITTEN_GROUPS for k in dict(GROUPS)[g]]
+    assert [n for n in names if n not in grouped] == []
 
 
 @pytest.mark.parametrize("entry", sorted(_SIGNATURES))

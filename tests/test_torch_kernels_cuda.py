@@ -1,4 +1,5 @@
-"""The CUDA flash kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (flash attention, paged decode) against their plain
+PyTorch versions, on the card.
 
 These need an NVIDIA Hopper card and nvcc: they carry the ``cuda`` marker
 and skip where no card is visible. Run them on the card with
@@ -10,13 +11,14 @@ and skip where no card is visible. Run them on the card with
 bf16 inputs, held with chip_smoke.py's limits: per vector over the head
 dim, ||kernel - plain|| <= 1.5e-2 ||plain|| + 1e-4 sqrt(D) for outputs and
 gradients; per element, |kernel - plain| <= 1e-3 for the logsumexp (bf16
-rounding of the outputs, another summation order in the kernels).
+rounding of the outputs, another summation order in the kernels). The
+paged-decode kernel is held per query row with the same vector limit.
 """
 
 import pytest
 import torch
 
-from chip_smoke import excess
+from chip_smoke import DECODE_EDGE_SHAPES, DECODE_MAIN_SHAPE, check_decode, excess
 from nexus_tpu_torch.ops import attention as A
 
 pytestmark = pytest.mark.cuda
@@ -75,9 +77,9 @@ def test_kernels_match_plain_versions(card, shape):
 def test_autograd_function_launches_each_kernel_once(card):
     q = torch.randn(1, 128, 4, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
     k = torch.randn(1, 128, 2, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
-    before = [w.launches for w in A.KERNEL_WRAPPERS]
+    before = [w.launches for w in A.TRAIN_KERNELS]
     A.attention(q, k, k).float().sum().backward()
-    assert [w.launches - n for w, n in zip(A.KERNEL_WRAPPERS, before)] == [1, 1, 1]
+    assert [w.launches - n for w, n in zip(A.TRAIN_KERNELS, before)] == [1, 1, 1]
     assert torch.isfinite(q.grad.float()).all() and torch.isfinite(k.grad.float()).all()
 
 
@@ -90,3 +92,23 @@ def test_flash_shapes_the_kernels_do_not_take_raise_on_the_card(card, dtype, d):
     assert A.tile_ok(q, k)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         A.attention(q, k, k)
+
+
+@pytest.mark.parametrize("shape", DECODE_EDGE_SHAPES + [DECODE_MAIN_SHAPE, dict(DECODE_MAIN_SHAPE, T=8)])
+def test_paged_decode_matches_its_plain_version(card, shape):
+    before = A.fused_paged_decode_attention.launches
+    gen = torch.Generator(device=card).manual_seed(0)
+    ratios = {}
+    check_decode(shape, gen, ratios)  # raises past the limit
+    assert ratios["out"] <= 1.0
+    assert A.fused_paged_decode_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("pool_dtype,d", [(torch.float32, 128), (torch.bfloat16, 256)])
+def test_paged_decode_raises_on_what_it_does_not_take(card, pool_dtype, d):
+    q = torch.randn(1, 1, 4, d, device=card).to(pool_dtype)
+    pool = torch.randn(3, 8, 2, d, device=card).to(pool_dtype)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        A.fused_paged_decode_attention(q, pool, pool, table, torch.zeros(1, dtype=torch.int32,
+                                                                          device=card))

@@ -5,6 +5,7 @@ Tolerances: optimizer steps atol 1e-6; full train steps of the tiny Llama
 rtol 1e-4 (atol 1e-6 for entries near 0).
 """
 
+import dataclasses
 import glob
 import os
 
@@ -157,10 +158,15 @@ def test_spec_copy_reads_what_the_jax_spec_reads(name, rt):
     gives the same values as the JAX package's for each field it keeps."""
     ref, got = JaxRuntime.from_dict(rt), PortRuntime.from_dict(rt)
     assert got.mode == ref.mode
-    for block in ("model", "parallelism", "train", "data", "checkpoint", "profile"):
+
+    def plain(x):  # nested spec blocks (model.weights, serve.draft) by value
+        return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
+
+    for block in ("model", "parallelism", "train", "infer", "serve", "data", "checkpoint",
+                  "profile"):
         g, r = getattr(got, block), getattr(ref, block)
         for f in g.__dataclass_fields__:
-            assert getattr(g, f) == getattr(r, f), f"{name}: {block}.{f}"
+            assert plain(getattr(g, f)) == plain(getattr(r, f)), f"{name}: {block}.{f}"
     assert got.parallelism.total() == ref.parallelism.total()
 
 
@@ -216,8 +222,8 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
 
 @pytest.mark.parametrize("over,exc,match", [
     (dict(checkpoint={"enabled": True, "directory": "/x"}), NotImplementedError, "checkpoint"),
-    (dict(mode="serve"), NotImplementedError, "serving slice"),
-    (dict(mode="infer"), NotImplementedError, "serving slice"),
+    (dict(mode="serve", serve={"replicas": 2}), NotImplementedError, "serving slice"),
+    (dict(mode="infer", infer={"promptLookupNgram": 2}), NotImplementedError, "serving slice"),
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots"}}), ValueError, "dots"),
     (dict(model={"family": "mixtral"}), NotImplementedError, "not ported"),
 ])
