@@ -14,10 +14,12 @@ Phases, each of which raises on failure:
    ``ms``, and a loop of calls, ``device_ms``), plain version and the
    library yardstick;
 3. the same for the paged-decode kernel: edge cases (T 1 to 16, D 64 and
-   128, n_rep 1 to 8, bf16 and int8 pools, ragged and stale tables, shared
-   runs, windows), the serve shape (Llama-3-8B widths, 8 rows at depths
-   512..4096, a 256-position shared run) at T 1 and T 8, and two planted
-   faults (a skipped last slot, an ignored Hydragen split);
+   128, n_rep 1 to 8, B 1 to 64, depths 1 to 4096, bf16 and int8 pools,
+   ragged and stale tables, shared runs up to the whole table, windows),
+   two timed shapes at Llama-3-8B widths with a 256-position shared run
+   (8 rows at depths 512..4096, and at the serve queue's depths 320..640)
+   at T 1 and T 8, and three planted faults (a skipped last slot, an
+   ignored Hydragen split, the shared partial merged twice);
 4. the train path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
    to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
@@ -315,8 +317,10 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
              for name, fn in calls.items()}
     times["flash_fwd"]["plain_ms"] = _cuda_time_ms(
         lambda: A.flash_fwd_plain(q, k, v, *opts), reps=3)
-    times["flash_fwd"]["library_ms"] = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=shape["causal"], enable_gqa=True))
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=shape["causal"], enable_gqa=True)
+    times["flash_fwd"]["library_ms"] = _cuda_time_ms(sdpa_fwd)
+    times["flash_fwd"]["library_device_ms"] = _cuda_loop_ms(sdpa_fwd)
     times["flash_bwd_dq"]["plain_ms"] = _cuda_time_ms(
         lambda: A.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, *opts), reps=3)
     times["flash_bwd_dkv"]["plain_ms"] = _cuda_time_ms(
@@ -327,10 +331,11 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
     qs, ks, vs = (x.detach().requires_grad_() for x in (qt, kt, vt))
     o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=shape["causal"], enable_gqa=True)
     go = dout.transpose(1, 2)
-    sdpa_bwd_ms = _cuda_time_ms(
-        lambda: torch.autograd.grad(o, (qs, ks, vs), go, retain_graph=True))
+    sdpa_bwd = lambda: torch.autograd.grad(o, (qs, ks, vs), go, retain_graph=True)  # noqa: E731
+    sdpa_bwd_ms, sdpa_bwd_device_ms = _cuda_time_ms(sdpa_bwd), _cuda_loop_ms(sdpa_bwd)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         times[name]["library_ms"] = sdpa_bwd_ms
+        times[name]["library_device_ms"] = sdpa_bwd_device_ms
         times[name]["library_note"] = (
             "SDPA backward: dQ, dK and dV in one call, shared by flash_bwd_dq and flash_bwd_dkv")
     times["flash_fwd"]["library_note"] = "SDPA forward"
@@ -366,11 +371,39 @@ DECODE_EDGE_SHAPES = [
     dict(B=1, T=16, Hq=8, Hkv=2, D=64, Bs=8, depths=(300,), shared=0, split=None,
          window=48, int8=False, stale=True),
 ]
+# the work list's edges: 16 rows at very uneven depths (1 .. 4096), a split
+# that covers the whole table (clipped to max n_blocks), 64 rows at T 1, and
+# T 16 on an int8 pool with a split and a window (three 64-row groups of
+# shared queries)
+DECODE_EDGE_SHAPES += [
+    dict(B=16, T=1, Hq=32, Hkv=8, D=128, Bs=32,
+         depths=(1, 4096, 3, 2000, 33, 64, 65, 4000, 7, 1500, 129, 31, 3000, 257, 2, 1024),
+         shared=0, split=None, window=0, int8=False, stale=True),
+    dict(B=3, T=1, Hq=8, Hkv=2, D=128, Bs=32, depths=(100, 64, 128), shared=4, split=6,
+         window=0, int8=False, stale=True),
+    dict(B=64, T=1, Hq=32, Hkv=8, D=128, Bs=32,
+         depths=tuple(1 + (i * 397) % 2048 for i in range(64)),
+         shared=2, split=2, window=0, int8=False, stale=False),
+    dict(B=3, T=16, Hq=16, Hkv=4, D=128, Bs=32, depths=(300, 700, 520), shared=4, split=4,
+         window=200, int8=True, stale=True),
+    # block sizes that are not a power of two from 8 up: copied row by row
+    dict(B=3, T=2, Hq=8, Hkv=2, D=64, Bs=24, depths=(50, 300, 7), shared=2, split=2,
+         window=0, int8=False, stale=True),
+    dict(B=2, T=8, Hq=16, Hkv=4, D=128, Bs=12, depths=(100, 37), shared=0, split=None,
+         window=30, int8=True, stale=False),
+    dict(B=2, T=1, Hq=4, Hkv=1, D=128, Bs=4, depths=(90, 3), shared=3, split=3,
+         window=0, int8=False, stale=False),
+]
 # the serve path's shape: Llama-3-8B widths, 8 rows at depths 512..4096, a
 # 256-position shared preamble (8 blocks of 32) split off as Hydragen does
 DECODE_MAIN_SHAPE = dict(B=8, T=1, Hq=32, Hkv=8, D=128, Bs=32,
                          depths=(512, 1024, 1536, 2048, 2560, 3072, 3584, 4096),
                          shared=8, split=8, window=0, int8=False, stale=False)
+# the serve queue's own depths (prompts 320..512 with a 256-token preamble,
+# up to 128 new tokens): at these depths launch and tail costs decide D1
+DECODE_SERVE_QUEUE_SHAPE = dict(DECODE_MAIN_SHAPE,
+                                depths=(320, 360, 400, 440, 480, 520, 580, 640))
+DECODE_TIMED_SHAPES = (("main", DECODE_MAIN_SHAPE), ("serve_queue", DECODE_SERVE_QUEUE_SHAPE))
 
 
 def decode_case(shape, gen, seed: int = 0, alias: bool = True):
@@ -434,8 +467,8 @@ def decode_case(shape, gen, seed: int = 0, alias: bool = True):
     )
 
 
-def _visible_slots(shape) -> list:
-    """Per row, the slots the mask leaves (the kernel's own range)."""
+def _slot_ranges(shape) -> list:
+    """Per row, the visible slot range [lo, hi) (the kernel's own range)."""
     t, bs, w = shape["T"], shape["Bs"], shape["window"]
     out = []
     for dep in shape["depths"]:
@@ -443,17 +476,33 @@ def _visible_slots(shape) -> list:
         st = max(dep - t, 0)
         hi = min(nb, (st + t - 1) // bs + 1)
         lo = (st - w + 1) // bs if w > 0 and st - w + 1 > 0 else 0
-        out.append(max(0, hi - lo))
+        out.append((lo, max(lo, hi)))
     return out
 
 
+def decode_read_slots(shape) -> int:
+    """The (kv head) slots one call must read: each row's visible slots past
+    the Hydragen split, and the visible slots under the split once for the
+    whole wave (they are one pool block each, shared by every row)."""
+    bs = shape["Bs"]
+    nb_max = max(max(1, -(-dep // bs)) for dep in shape["depths"])
+    split = shape["split"]
+    s_eff = 0 if split is None else min(max(split, 0), nb_max)
+    ranges = _slot_ranges(shape)
+    own = sum(max(0, hi - max(lo, s_eff)) for lo, hi in ranges)
+    shared = set()
+    for lo, hi in ranges:
+        shared.update(range(lo, min(hi, s_eff)))
+    return own + len(shared)
+
+
 def decode_bound_ms(shape) -> float:
-    """Least time of one call: the visible K+V blocks read once per (row, kv
-    head), plus q and out, over the HBM rate (the products, 4·D FLOP per
-    (query, position), are far below the bytes' time on any unit)."""
+    """Least time of one call: the K+V rows of ``decode_read_slots`` read
+    once per kv head, plus q and out, over the HBM rate (the products, 4·D
+    FLOP per (query, position), are far below the bytes' time)."""
     t, hq, hkv, d, bs = (shape[x] for x in ("T", "Hq", "Hkv", "D", "Bs"))
     per_pos = 2 * hkv * (d * (1 if shape["int8"] else 2) + (4 if shape["int8"] else 0))
-    nbytes = sum(_visible_slots(shape)) * bs * per_pos + 2 * (2 * shape["B"] * t * hq * d)
+    nbytes = decode_read_slots(shape) * bs * per_pos + 2 * (2 * shape["B"] * t * hq * d)
     return 1e3 * nbytes / PEAK_HBM_BYTES
 
 
@@ -514,18 +563,21 @@ def check_decode(shape, gen, ratios: dict, timed: bool = False):
     qt, kt, vt, mask = _sdpa_view(c)
     times["library_ms"] = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    times["library_device_ms"] = _cuda_graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
     times["library_note"] = ("SDPA over the table's view gathered contiguous beforehand "
-                             "(gather not timed), same mask")
+                             "(gather not timed), same mask; library_device_ms in a CUDA graph")
     times["bound_ms"] = decode_bound_ms(shape)
     return err, times, c
 
 
 def decode_planted_faults(shape, gen) -> dict:
-    """Two faults a paged-decode kernel could make, each the plain version
-    on what the faulty kernel would read; both must fail the limits: the
-    shallowest row skips its last valid slot, and every row ignores the
+    """Three faults a paged-decode kernel could make, each the plain version
+    on what the faulty kernel would read; all must fail the limits: the
+    shallowest row skips its last valid slot; every row ignores the
     Hydragen split (on a case whose rows hold their own blocks under the
-    shared slots, so the split is what reads the shared run)."""
+    shared slots, so the split is what reads the shared run); and the
+    folded merge takes the shared run's partial twice into every row."""
     import numpy as np
 
     from nexus_tpu_torch.ops import attention as A
@@ -539,6 +591,7 @@ def decode_planted_faults(shape, gen) -> dict:
     ratios = {
         "skip_last_slot": excess(A.fused_paged_decode_attention_plain(**short)[r], ref[r], "out")[1],
         "ignore_split": excess(A.fused_paged_decode_attention_plain(**no_split), ref, "out")[1],
+        "shared_merged_twice": excess(_shared_merged_twice(c), ref, "out")[1],
     }
     passed = [k for k, v in ratios.items() if v <= 1.0]
     if passed:
@@ -546,9 +599,28 @@ def decode_planted_faults(shape, gen) -> dict:
     return ratios
 
 
+def _shared_merged_twice(c):
+    """The plain version with the Hydragen prefix partial merged in twice."""
+    from nexus_tpu_torch.ops import attention as A
+
+    q = c["q"]
+    starts = c["start"].long()
+    nbs = c["n_blocks"].long().clamp(1, c["block_table"].shape[1])
+    hi = int(nbs.max())
+    s_eff = min(max(int(c["shared_blocks"]), 0), hi)
+    common = dict(window=c["window"], k_scale=c["k_scale"], v_scale=c["v_scale"])
+    prefix = A.shared_prefix_attention_partials(
+        q, c["k_pool"], c["v_pool"], c["shared_table"], s_eff, starts, nbs, **common)
+    suffix = A.paged_attention_partials(
+        q, c["k_pool"], c["v_pool"], c["block_table"], starts, s_eff, hi, nbs, **common)
+    parts = A.merge_attention_partials(A.merge_attention_partials(prefix, prefix), suffix)
+    return A.finalize_attention_partials(parts, q.dtype)
+
+
 def phase_decode_kernel():
-    """D1 on the edge cases, at the serve shape (T 1, then T 8) with its
-    timings, and the planted faults; returns (worst max-abs, T 1 timings)."""
+    """D1 on the edge cases, at the timed shapes (the serve shape and the
+    serve queue's depths, T 1 and T 8) with their timings, and the planted
+    faults; returns (worst max-abs, {shape_T: timings})."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -560,13 +632,14 @@ def phase_decode_kernel():
         log(f"[decode] edge {shape}: max-abs {err:.3g}, error over limit {ratios}")
         worst = max(worst, err)
     times = {}
-    for t in (1, 8):
-        shape = dict(DECODE_MAIN_SHAPE, T=t)
-        ratios = {}
-        err, times[t], _ = check_decode(shape, gen, ratios, timed=True)
-        worst = max(worst, err)
-        log(f"[decode] serve shape T={t}: max-abs {err:.3g}, error over limit {ratios}, "
-            f"timings {times[t]}")
+    for name, base in DECODE_TIMED_SHAPES:
+        for t in (1, 8):
+            shape = dict(base, T=t)
+            ratios = {}
+            err, times[f"{name}_T{t}"], _ = check_decode(shape, gen, ratios, timed=True)
+            worst = max(worst, err)
+            log(f"[decode] {name} shape T={t}: max-abs {err:.3g}, error over limit {ratios}, "
+                f"timings {times[f'{name}_T{t}']}")
     faults = decode_planted_faults(DECODE_MAIN_SHAPE, gen)
     log(f"[decode] planted faults at the serve shape, error over limit (all must exceed 1): "
         f"{faults}")
@@ -780,7 +853,7 @@ def main() -> int:
     from nexus_tpu_torch.ops import attention as A
 
     bounds = _bounds_ms(MAIN_SHAPE)
-    times["fused_paged_decode_attention"] = dict(decode_times[1])
+    times["fused_paged_decode_attention"] = dict(decode_times["main_T1"])
     bounds["fused_paged_decode_attention"] = (times["fused_paged_decode_attention"].pop("bound_ms"), "bytes")
     replaces = {
         "flash_fwd": "nexus_tpu/ops/attention.py:534",
@@ -807,11 +880,13 @@ def main() -> int:
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
             "plain_ms": times[n]["plain_ms"],
             "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
-            "library_ms": times[n]["library_ms"], "library_note": times[n]["library_note"],
+            "library_ms": times[n]["library_ms"],
+            "library_device_ms": times[n]["library_device_ms"],
+            "library_note": times[n]["library_note"],
         })
     log("[summary] " + json.dumps({
         "kernel_shape": MAIN_SHAPE, "decode_kernel_shape": DECODE_MAIN_SHAPE,
-        "decode_kernel_T8": decode_times[8], "build_s": build_s,
+        "decode_kernel_timings": decode_times, "build_s": build_s,
         "main": {k: main_run[k] for k in ("tokens_per_sec", "mfu", "final_loss", "param_count")},
         "infer": {k: infer_run[k] for k in ("decode_tokens_per_sec", "iteration_seconds")},
         "serve": {k: serve_run.get(k) for k in (

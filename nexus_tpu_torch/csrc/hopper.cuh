@@ -1,12 +1,16 @@
-// Hopper (sm_90a) building blocks of the warp-specialised flash kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu), in raw PTX:
-//   * mbarriers, and TMA copies that complete on them; TMA stores from
-//     swizzled tiles; named barriers; setmaxnreg;
+// Hopper (sm_90a) building blocks of the warp-specialised kernels (the
+// flash kernels flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu and the
+// paged-decode kernel paged_decode.cu), in raw PTX:
+//   * mbarriers, and TMA or 1-d bulk copies that complete on them; TMA
+//     stores from swizzled tiles; named barriers; setmaxnreg;
+//   * mma.sync m16n8k16 (bf16 in, fp32 accumulators) and ldmatrix, for
+//     products of fewer than 64 rows, where wgmma's 64-row tile would idle;
 //   * wgmma.mma_async, bf16 in, fp32 accumulators, with A and B from shared
 //     memory (ss) or A from registers (rs);
 //   * shared-memory descriptors of tiles in the 128-byte swizzled layout
 //     that a TMA box of 64 bf16 columns writes;
-//   * the host-side tensor map of a contiguous (B, S, H, D) bf16 tensor.
+//   * the host-side tensor maps of a contiguous (B, S, H, D) bf16 tensor and
+//     of a paged KV pool (N, Bs, H, D).
 //
 // Tile layout in shared memory: a tile of R rows by D columns is D/64
 // "regions", each R rows of 128 bytes (64 columns), one TMA box each,
@@ -104,6 +108,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-d tensor map at coordinates (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -112,6 +127,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// hold bar's current phase open until every cp.async this thread issued so
+// far has landed (the pending count goes up by one now, down by one then)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // one box from shared memory to a 4-d tensor map at coordinates (c0 .. c3);
@@ -142,6 +171,35 @@ __device__ __forceinline__ void fence_proxy_async() {
 // 16-byte chunk of a row is XORed with the row's index mod 8.
 __device__ __forceinline__ uint32_t sw128_offset(uint32_t off) {
   return off ^ ((off >> 3) & 0x70);
+}
+
+// --------------------------------------------------- mma.sync, ldmatrix
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes). Without .trans lane
+// 4g + t receives row g, columns 2t..2t+1 of each matrix; with .trans,
+// rows 2t..2t+1 of column g.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, A fragment) * b (16x8 bf16, B fragment
+// b0 = rows 2t..2t+1 of column g, b1 = rows 2t+8..2t+9 of column g)
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -381,6 +439,28 @@ static int bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                   dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Tensor map of one layer's paged pool (N, Bs, H, D), bf16 (elem 2) or int8
+// (elem 1), seen as (N*Bs positions, H, D). A box is `rows` positions of one
+// head by `cols` elements, at coordinates (column, head, position); bf16
+// boxes of 64 columns land in 128-byte swizzled rows, int8 boxes of all D
+// columns densely. Returns 0 or a cudaError_t.
+static int pool_map(CUtensorMap* map, const void* ptr, long positions, int H, int D,
+                    int elem, int cols, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
+  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)positions};
+  cuuint64_t strides[2] = {(cuuint64_t)D * elem, (cuuint64_t)H * D * elem};
+  cuuint32_t box[3] = {(cuuint32_t)cols, 1, (cuuint32_t)rows};
+  cuuint32_t step[3] = {1, 1, 1};
+  CUresult r = fn(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                  3, const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  elem == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,7 @@ a window) gets output 0 and logsumexp -inf.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -169,7 +169,7 @@ _SIGNATURES = {
     "nexus_flash_fwd": ("flash_fwd.cu", [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]),
     "nexus_flash_bwd_dq": ("flash_bwd.cu", [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]),
     "nexus_flash_bwd_dkv": ("flash_bwd_dkv.cu", [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
-    "nexus_paged_decode": ("paged_decode.cu", [_P] * 14 + [_I] * 11 + [ctypes.c_float, _P]),
+    "nexus_paged_decode": ("paged_decode.cu", [_P] * 15 + [_I] * 11 + [ctypes.c_float, _P]),
 }
 
 
@@ -628,18 +628,110 @@ def fused_paged_decode_attention_plain(q, k_pool, v_pool, block_table, start, wi
 
 # ------------------------------------------------- paged-decode CUDA wrapper
 
-# query tokens per feed the kernel takes (decode: 1; chunked prefill: 8)
+# query tokens per feed the kernel takes (decode: 1; chunked prefill: 8),
+# and rows (the kernel keeps each row's range in shared memory)
 DECODE_MAX_T = 16
-# the number of CTAs the kernel's slot split aims for (4 per SM of an H100)
-_DECODE_TARGET_CTAS = 4 * 132
-_DECODE_ROWS_PER_CTA = 32  # query rows (n_rep · T) one CTA holds
+DECODE_MAX_ROWS = 1024
+# the kernel's work list (csrc/paged_decode.cu): the query rows one unit
+# takes, the span of a unit in positions, and the most partials a query
+# row may have (the workspace holds at most _DECODE_WORKSPACE_BYTES of them)
+DECODE_UNIT_ROWS = 64
+DECODE_UNIT_MIN_POS, DECODE_UNIT_MAX_POS = 64, 2048
+DECODE_MAX_PARTIALS = 17
+_DECODE_WORKSPACE_BYTES = 64 << 20
 
 
-def decode_splits(b: int, hkv: int, rows: int, m_slots: int) -> int:
-    """How many CTAs share one (row, kv head)'s slot range: enough that
-    the grid fills the card, at most 16 and at most the table width."""
-    groups = -(-rows // _DECODE_ROWS_PER_CTA)
-    return max(1, min(16, m_slots, -(-_DECODE_TARGET_CTAS // (b * hkv * groups))))
+class DecodeUnit(NamedTuple):
+    """One unit of the paged-decode kernel's work list: kv head ``g``;
+    row ``b``, or -1 for a chunk of the Hydragen shared run (whose query
+    rows are every row's n_rep·T rows, stacked); its ``nrows`` query rows
+    from ``qr0``; table slots [s0, s1); the partial slot its rows write."""
+    g: int
+    b: int
+    qr0: int
+    nrows: int
+    s0: int
+    s1: int
+    pslot: int
+
+
+def decode_max_partials(b: int, hq: int, t: int, d: int) -> int:
+    """Partials per query row the wrapper's workspace holds (``pmax``)."""
+    return max(2, min(DECODE_MAX_PARTIALS, _DECODE_WORKSPACE_BYTES // (4 * b * hq * t * d)))
+
+
+def _decode_row_range(nb: int, st: int, t: int, bs: int, window: int, m_slots: int):
+    """Row's visible slot range [lo, hi): the causal edge of its newest
+    query, its clipped valid-block count, the window's floor."""
+    nb = min(max(nb, 1), m_slots)
+    last = st + t - 1
+    hi = 0 if last < 0 else min(nb, last // bs + 1)
+    lo = (st - window + 1) // bs if window > 0 and st - window + 1 > 0 else 0
+    return lo, max(hi, lo)
+
+
+def decode_work_units(n_blocks, start, t: int, bs: int, window: int, shared_blocks,
+                      m_slots: int, n_rep: int, hkv: int, ctas: int, pmax: int):
+    """The paged-decode kernel's work list, as the kernel derives it on the
+    device (``make_plan`` and ``unit_at`` in csrc/paged_decode.cu), for the
+    CPU tests. ``shared_blocks`` None means no Hydragen split; ``ctas`` is
+    the kernel's grid (occupancy × SMs), ``pmax`` the workspace's partials
+    per query row. Returns (plan, units): the plan holds the span (slots a
+    unit), the clipped split ``s_eff``, the shared chunks ``nsh`` and, per
+    row, the arrivals that complete its (row, kv head)."""
+    nbs = [int(x) for x in n_blocks]
+    sts = [int(x) for x in start]
+    b = len(nbs)
+    rows = n_rep * t
+    rg_row = -(-rows // DECODE_UNIT_ROWS)
+    rg_sh = -(-(b * rows) // DECODE_UNIT_ROWS)
+    ranges = [_decode_row_range(nb, st, t, bs, window, m_slots) for nb, st in zip(nbs, sts)]
+    nb_max = max(min(max(nb, 1), m_slots) for nb in nbs)
+    s_eff = 0 if shared_blocks is None else min(max(int(shared_blocks), 0), nb_max)
+    sh_lo = min(lo for lo, _ in ranges)
+    sh_hi = max(sh_lo, min(s_eff, max(hi for _, hi in ranges)))
+    own = [(max(lo, s_eff), hi) for lo, hi in ranges]
+    work = sum(max(0, hi - lo) for lo, hi in own) * rg_row + (sh_hi - sh_lo) * rg_sh
+    c_min = max(1, DECODE_UNIT_MIN_POS // bs)
+    c_max = max(c_min, DECODE_UNIT_MAX_POS // bs)
+
+    def units_at(span):
+        return (sum(-(-max(0, hi - lo) // span) for lo, hi in own) * rg_row
+                + -(-(sh_hi - sh_lo) // span) * rg_sh) * hkv
+
+    # at least the work per CTA, then the smallest span up to twice that
+    # whose units fit in one wave of the grid (the kernel's binary search)
+    lo_s = min(max(-(-(work * hkv) // ctas), c_min), c_max)
+    hi_s = min(2 * lo_s, c_max)
+    while lo_s < hi_s:
+        mid = (lo_s + hi_s) // 2
+        if units_at(mid) <= ctas:
+            hi_s = mid
+        else:
+            lo_s = mid + 1
+    span = max(-(-m_slots // (pmax - 1)), lo_s)
+    nsh = -(-(sh_hi - sh_lo) // span)
+    chunks = [-(-max(0, hi - lo) // span) for lo, hi in own]
+    units = []
+    for g in range(hkv):
+        for j in range(nsh):
+            s0 = sh_lo + j * span
+            for rg in range(rg_sh):
+                units.append(DecodeUnit(g, -1, rg * DECODE_UNIT_ROWS,
+                                        min(DECODE_UNIT_ROWS, b * rows - rg * DECODE_UNIT_ROWS),
+                                        s0, min(s0 + span, sh_hi), j))
+        for r, ((lo, hi), n) in enumerate(zip(own, chunks)):
+            for j in range(n):
+                s0 = lo + j * span
+                for rg in range(rg_row):
+                    units.append(DecodeUnit(g, r, rg * DECODE_UNIT_ROWS,
+                                            min(DECODE_UNIT_ROWS, rows - rg * DECODE_UNIT_ROWS),
+                                            s0, min(s0 + span, hi), nsh + j))
+    groups = [(r * rows + rows - 1) // DECODE_UNIT_ROWS - (r * rows) // DECODE_UNIT_ROWS + 1
+              for r in range(b)]
+    plan = dict(span=span, s_eff=s_eff, nsh=nsh, rows=rows,
+                arrivals=[n * rg_row + nsh * k for n, k in zip(chunks, groups)])
+    return plan, units
 
 
 def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
@@ -668,6 +760,8 @@ def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if not 1 <= t <= DECODE_MAX_T:
         raise ValueError(f"the paged-decode kernel takes 1 to {DECODE_MAX_T} query tokens, got {t}")
+    if b > DECODE_MAX_ROWS:
+        raise ValueError(f"the paged-decode kernel takes at most {DECODE_MAX_ROWS} rows, got {b}")
     if block_table.dtype != torch.int32:
         raise TypeError("the paged-decode kernel takes an int32 block table")
     for x in (q, k_pool, v_pool, block_table, k_scale, v_scale):
@@ -679,8 +773,33 @@ def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
             raise ValueError("the paged-decode kernel takes contiguous tensors only")
 
 
-def _int32_on(x, device, shape) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).to(torch.int32).reshape(-1).expand(shape).contiguous()
+def _int32_operand(x, device, n: int) -> torch.Tensor:
+    """An int32 contiguous (n,) operand on ``device``; the engine's own
+    operands already are one and pass through untouched."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.device == device
+            and x.numel() == n and x.is_contiguous()):
+        return x
+    if isinstance(x, int):
+        return torch.full((n,), x, dtype=torch.int32, device=device)
+    return torch.as_tensor(x, device=device).to(torch.int32).reshape(-1).expand(n).contiguous()
+
+
+# the kernel's fp32 workspace per device: (part_ml, part_acc, counters),
+# grown when a call needs more; the arrival counters are zeroed once here
+# and every launch leaves them at 0
+_decode_workspaces = {}
+
+
+def _decode_workspace(device, n_part: int, d: int, n_pairs: int):
+    ws = _decode_workspaces.get(device)
+    if ws is None or ws[0].numel() < 2 * n_part or ws[1].numel() < n_part * d or (
+            ws[2].numel() < n_pairs):
+        old = (0, 0, 0) if ws is None else tuple(x.numel() for x in ws)
+        ws = (torch.empty(max(old[0], 2 * n_part), dtype=torch.float32, device=device),
+              torch.empty(max(old[1], n_part * d), dtype=torch.float32, device=device),
+              torch.zeros(max(old[2], n_pairs), dtype=torch.int32, device=device))
+        _decode_workspaces[device] = ws
+    return ws
 
 
 def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: int = 0,
@@ -698,10 +817,10 @@ def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: 
     n_blocks) read ``shared_table[s]`` for every row, the rest the row's
     own table; the two partial softmaxes merge by log-sum-exp.
 
-    CUDA tensors go through the paged-decode kernel, one launch (a
-    slot-split pass and its log-sum-exp merge) that reads start, n_blocks
-    and shared_blocks on the device: no host sync. CPU tensors go through
-    the plain version."""
+    CUDA tensors go through the paged-decode kernel: one launch that
+    reads start, n_blocks and shared_blocks on the device (no host sync),
+    derives its work list there (``decode_work_units`` is its twin) and
+    merges the partials itself. CPU tensors go through the plain version."""
     if q.device.type == "cpu":
         return fused_paged_decode_attention_plain(
             q, k_pool, v_pool, block_table, start, window, k_scale, v_scale, n_blocks,
@@ -711,26 +830,27 @@ def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: 
     n, bs, hkv, _ = k_pool.shape
     m_slots = block_table.shape[1]
     dev = q.device
-    starts = _int32_on(start, dev, (b,))
+    starts = _int32_operand(start, dev, b)
     if n_blocks is None:
         n_blocks = (starts + (t + bs - 1)) // bs
-    n_blocks = _int32_on(n_blocks, dev, (b,))
-    split = (shared_table is not None and shared_blocks is not None)
+    n_blocks = _int32_operand(n_blocks, dev, b)
+    split = shared_table is not None and shared_blocks is not None
     if split:
-        shared_table = _int32_on(shared_table, dev, (m_slots,))
-        shared_blocks = _int32_on(shared_blocks, dev, (1,))
-    splits = decode_splits(b, hkv, (hq // hkv) * t, m_slots)
+        shared_table = _int32_operand(shared_table, dev, m_slots)
+        shared_blocks = _int32_operand(shared_blocks, dev, 1)
+    pmax = decode_max_partials(b, hq, t, d)
+    n_part = b * hq * t * pmax
+    part_ml, part_acc, counters = _decode_workspace(dev, n_part, d, b * hkv)
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, b, hq, t, splits), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, hq, t, splits, d), dtype=torch.float32, device=dev)
     int8 = k_pool.dtype == torch.int8
     err = _entry("nexus_paged_decode")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         block_table.data_ptr(), starts.data_ptr(), n_blocks.data_ptr(),
         shared_table.data_ptr() if split else None, shared_blocks.data_ptr() if split else None,
-        out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
-        b, t, hq, hkv, d, n, bs, m_slots, int(window), splits, int(int8),
+        out.data_ptr(), part_ml.data_ptr(), part_ml.data_ptr() + 4 * n_part,
+        part_acc.data_ptr(), counters.data_ptr(),
+        b, t, hq, hkv, d, n, bs, m_slots, int(window), pmax, int(int8),
         d ** -0.5, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "fused_paged_decode_attention")

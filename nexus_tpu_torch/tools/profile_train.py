@@ -29,7 +29,7 @@ from nexus_tpu_torch.utils.hw import device_kind, resolve_device
 
 GROUPS = (
     ("flash kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-    ("decode kernels", ("paged_decode_kernel", "paged_decode_merge_kernel")),
+    ("decode kernels", ("paged_decode_kernel",)),
     ("matrix products", ("gemm", "sm90_xmma", "cutlass", "nvjet")),
 )
 

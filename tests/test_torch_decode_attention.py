@@ -208,8 +208,191 @@ def test_kernel_wrapper_takes_the_plain_path_only_on_cpu_tensors():
     assert tattn.fused_paged_decode_attention.launches == before
 
 
-def test_decode_splits_fill_the_card_and_stay_in_the_table():
-    assert tattn.decode_splits(8, 8, 4, 256) == 9       # 64 (row, head) pairs
-    assert tattn.decode_splits(8, 8, 64, 256) == 5      # two row groups
-    assert tattn.decode_splits(1, 1, 1, 3) == 3         # never past the table
-    assert tattn.decode_splits(64, 8, 4, 256) == 2
+# ------------------------------------------- the paged-decode kernel's work list
+#
+# ``decode_work_units`` is the Python twin of the list the kernel derives on
+# the device; these hold it to the function it must compute: every visible
+# slot of every query row read exactly once, the shared run once per kv head
+# per 64 query rows, no unit for what no row sees, no partial past the
+# workspace, and (emulated with the plain partials) the JAX output.
+
+
+def _unit_case(seed, b, t, n_rep, hkv, bs, m, shared, window, ctas, pmax, dead_row=False):
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, m * bs - t + 1, size=b)
+    if shared:
+        start[0] = min(m * bs - t, shared * bs + int(rng.integers(0, bs)))
+    if dead_row:
+        start[-1] = -t  # a row whose queries sit before position 0: nothing visible
+    n_blocks = np.clip(-(-(start + t) // bs), 1, m)
+    split = shared if shared else None
+    plan, units = tattn.decode_work_units(n_blocks, start, t, bs, window, split, m, n_rep, hkv,
+                                          ctas, pmax)
+    return dict(start=start, n_blocks=n_blocks, t=t, n_rep=n_rep, hkv=hkv, bs=bs, m=m,
+                window=window, split=split, pmax=pmax, plan=plan, units=units)
+
+
+def _visible_slots(c, r, local):
+    """Slots holding a position that query row ``local`` of row r sees."""
+    t = local % c["t"]
+    qpos = int(c["start"][r]) + t
+    nb = int(min(max(c["n_blocks"][r], 1), c["m"]))
+    out = set()
+    for s in range(nb):
+        lo_pos, hi_pos = s * c["bs"], (s + 1) * c["bs"] - 1
+        hi_vis = qpos
+        lo_vis = qpos - c["window"] + 1 if c["window"] > 0 else 0
+        if max(lo_pos, lo_vis) <= min(hi_pos, hi_vis):
+            out.add(s)
+    return out
+
+
+def _unit_rows(c, u):
+    """(row, local query row) pairs of unit u."""
+    rows = c["plan"]["rows"]
+    if u.b < 0:
+        return [divmod(u.qr0 + i, rows) for i in range(u.nrows)]
+    return [(u.b, u.qr0 + i) for i in range(u.nrows)]
+
+
+UNIT_CASES = [
+    # (seed, B, T, n_rep, Hkv, Bs, M, shared, window, ctas, pmax)
+    (0, 8, 1, 4, 8, 32, 130, 8, 0, 264, 17),       # the serve shape's geometry
+    (1, 8, 8, 4, 8, 32, 22, 8, 0, 264, 17),        # T 8: four 64-row shared groups
+    (2, 16, 1, 4, 2, 32, 128, 0, 0, 264, 17),      # no split, uneven depths
+    (3, 5, 8, 8, 4, 64, 20, 1, 0, 264, 5),         # two row groups a row, pmax 5
+    (4, 3, 16, 2, 2, 8, 40, 3, 48, 132, 3),        # T 16, window, pmax 3
+    (5, 64, 1, 4, 8, 32, 12, 4, 0, 264, 2),        # B 64, pmax 2: one own unit a row
+    (6, 4, 3, 3, 1, 16, 9, 9, 0, 8, 17),           # the split covers the table; ragged rows
+    (7, 6, 1, 1, 3, 48, 11, 2, 100, 1000, 17),     # Bs not a power of two, window
+]
+
+
+@pytest.mark.parametrize("case", UNIT_CASES)
+def test_decode_units_read_every_visible_slot_exactly_once(case):
+    c = _unit_case(*case)
+    for g in range(c["hkv"]):
+        reads = {}
+        for u in c["units"]:
+            if u.g != g:
+                continue
+            for r, local in _unit_rows(c, u):
+                for s in range(u.s0, u.s1):
+                    reads[(r, local, s)] = reads.get((r, local, s), 0) + 1
+        assert max(reads.values(), default=1) == 1  # no slot read twice for a query row
+        for r in range(len(c["start"])):
+            for local in range(c["plan"]["rows"]):
+                missing = [s for s in _visible_slots(c, r, local) if (r, local, s) not in reads]
+                assert missing == [], (g, r, local, missing)
+
+
+@pytest.mark.parametrize("case", UNIT_CASES)
+def test_decode_units_read_the_shared_run_once_per_kv_head_per_row_group(case):
+    c = _unit_case(*case)
+    rows_all = len(c["start"]) * c["plan"]["rows"]
+    groups = -(-rows_all // tattn.DECODE_UNIT_ROWS)
+    s_eff = c["plan"]["s_eff"]
+    for g in range(c["hkv"]):
+        shared = [u for u in c["units"] if u.g == g and u.b < 0]
+        per_slot = {}
+        for u in shared:
+            assert u.s1 <= s_eff
+            for s in range(u.s0, u.s1):
+                per_slot[s] = per_slot.get(s, 0) + 1
+        assert set(per_slot.values()) <= {groups}
+        # no row's own unit reads a slot under the split
+        assert all(u.s0 >= s_eff for u in c["units"] if u.g == g and u.b >= 0)
+    if c["split"] and c["t"] * c["n_rep"] * len(c["start"]) <= tattn.DECODE_UNIT_ROWS:
+        assert groups == 1  # T 1 at the serve shape: once per wave
+
+
+@pytest.mark.parametrize("case", UNIT_CASES)
+def test_decode_units_skip_rows_with_nothing_visible(case):
+    c = _unit_case(*case, dead_row=True)
+    dead = len(c["start"]) - 1
+    assert not any(u.b == dead for u in c["units"])
+    # its only arrivals are the shared units over its (masked) query rows
+    rows = c["plan"]["rows"]
+    per_group = tattn.DECODE_UNIT_ROWS
+    groups = (dead * rows + rows - 1) // per_group - (dead * rows) // per_group + 1
+    assert c["plan"]["arrivals"][dead] == c["plan"]["nsh"] * groups
+    # every unit reads at least one slot
+    assert all(u.s1 > u.s0 and u.nrows > 0 for u in c["units"])
+    # and a batch that sees nothing at all gives an empty list
+    _, none = tattn.decode_work_units([1, 1], [-1, -1], 1, 32, 0, 1, 4, 4, 2, 264, 17)
+    assert none == []
+
+
+@pytest.mark.parametrize("case", UNIT_CASES)
+def test_decode_units_stay_in_the_workspace_and_count_their_arrivals(case):
+    c = _unit_case(*case)
+    plan, units = c["plan"], c["units"]
+    for r in range(len(c["start"])):
+        slots = {u.pslot for u in units if u.g == 0 and u.b == r}
+        assert plan["nsh"] + len(slots) <= c["pmax"]
+        assert slots == set(range(plan["nsh"], plan["nsh"] + len(slots)))
+    assert all(0 <= u.pslot < c["pmax"] for u in units)
+    # the arrivals that complete a (row, kv head) are the units touching it
+    for g in range(c["hkv"]):
+        for r, want in enumerate(plan["arrivals"]):
+            got = sum(1 for u in units if u.g == g and r in {x for x, _ in _unit_rows(c, u)})
+            assert got == want, (g, r)
+
+
+def _emulate_units(c, q, k, v, table, shared_table, window, ks=None, vs=None):
+    """The kernel's arithmetic, unit by unit, with the plain partials: each
+    unit's (m, l, acc) over its slots, stored at its partial slot, then
+    every query row's partials merged by log-sum-exp."""
+    b, t = q.shape[:2]
+    hkv, n_rep, rows = c["hkv"], c["n_rep"], c["plan"]["rows"]
+    start = torch.as_tensor(c["start"])
+    nbs = torch.as_tensor(c["n_blocks"]).long()
+    parts = {}
+    for u in c["units"]:
+        tab = shared_table[None].expand(b, -1) if u.b < 0 else table
+        m_, l_, a_ = tattn.paged_attention_partials(
+            q, k, v, tab, start, u.s0, u.s1, nbs, window, k_scale=ks, v_scale=vs)
+        for r, local in _unit_rows(c, u):
+            key = (r, u.g, local // t, local % t)
+            assert (key, u.pslot) not in parts
+            parts[(key, u.pslot)] = (m_[r, u.g, local // t, local % t],
+                                     l_[r, u.g, local // t, local % t],
+                                     a_[r, u.g, local // t, local % t])
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for r in range(b):
+        for g in range(hkv):
+            for local in range(rows):
+                key = (r, g, local // t, local % t)
+                mine = [parts[(key, s)] for s in range(c["pmax"]) if (key, s) in parts]
+                if not mine:
+                    continue
+                mm = torch.stack([x[0] for x in mine]).max()
+                e = [torch.exp(x[0] - mm) for x in mine]
+                ll = sum(x[1] * w for x, w in zip(mine, e))
+                acc = sum(x[2] * w for x, w in zip(mine, e))
+                out[r, local % t, g * n_rep + local // t] = acc / ll if ll != 0 else 0.0
+    return out
+
+
+@pytest.mark.parametrize("shared,window,int8", [(3, 0, False), (0, 40, False), (5, 0, True),
+                                                (9, 20, False)])
+def test_the_unit_list_computes_the_jax_function(shared, window, int8):
+    """The work list, partials and merge the kernel runs give the JAX
+    function's output (float32, emulated with the plain partials)."""
+    c = _paged_case(21 + shared, b=4, t=2, hq=8, hkv=2, d=16, bs=32, m=9, int8=int8,
+                    shared=min(shared, 8))
+    split = shared if shared else None
+    plan_c = dict(start=c["start"], n_blocks=c["n_blocks"], t=2, n_rep=4, hkv=2, bs=32, m=9,
+                  window=window, pmax=4)
+    plan_c["plan"], plan_c["units"] = tattn.decode_work_units(
+        c["n_blocks"], c["start"], 2, 32, window, split, 9, 4, 2, 64, 4)
+    tab = torch.from_numpy(c["table"])
+    if split:  # slots under the split read the shared table
+        tab = tab.clone()
+        tab[:, :split] = torch.from_numpy(c["shared_table"])[:split]
+    opt = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    got = _emulate_units(plan_c, torch.from_numpy(c["q"]), torch.from_numpy(c["k"]),
+                         torch.from_numpy(c["v"]), tab, torch.from_numpy(c["shared_table"]),
+                         window, opt(c["ks"]), opt(c["vs"]))
+    ref = _jax_fused(c, window, shared_blocks=split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)

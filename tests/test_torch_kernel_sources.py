@@ -4,8 +4,10 @@ No card and no nvcc needed: the sources under ``nexus_tpu_torch/csrc`` are
 only read. Each kernel must be one that ``tools/profile_train.py`` groups
 with the hand-written kernels, the flash or the decode kernels (or its
 device time lands in "other"), each C entry
-that ``ops/attention.py`` binds must be defined in the source it names, and
-each source that ``ops/_kernels.py`` builds must exist.
+that ``ops/attention.py`` binds must be defined in the source it names,
+each source that ``ops/_kernels.py`` builds must exist, and the constants
+the paged-decode kernel derives its work list from must be those of its
+Python twin (``decode_work_units``).
 """
 
 import re
@@ -13,6 +15,7 @@ import re
 import pytest
 
 from nexus_tpu_torch.ops import _kernels
+from nexus_tpu_torch.ops import attention as A
 from nexus_tpu_torch.ops.attention import _SIGNATURES
 from nexus_tpu_torch.tools.profile_train import GROUPS
 
@@ -51,3 +54,16 @@ def test_c_entry_is_defined_in_its_source(entry):
     text = (_kernels.CSRC / source).read_text()
     assert re.search(r'extern\s+"C"\s+int\s+' + entry + r"\s*\(", text), (
         f"{entry} is not defined in {source}")
+
+
+@pytest.mark.parametrize("name,value", [
+    ("UNIT_MIN_POS", A.DECODE_UNIT_MIN_POS), ("UNIT_MAX_POS", A.DECODE_UNIT_MAX_POS),
+    ("MAX_PARTIALS", A.DECODE_MAX_PARTIALS), ("MAX_ROWS", A.DECODE_MAX_ROWS),
+    ("CONSUMERS", A.DECODE_UNIT_ROWS // 16),
+])
+def test_the_work_list_twin_uses_the_kernels_constants(name, value):
+    """``decode_work_units`` mirrors the paged-decode kernel's list: the
+    constants it is derived from must be the kernel's."""
+    text = (_kernels.CSRC / "paged_decode.cu").read_text()
+    m = re.search(r"constexpr int " + name + r" = (\d+);", text)
+    assert m and int(m.group(1)) == value

@@ -18,7 +18,8 @@ paged-decode kernel is held per query row with the same vector limit.
 import pytest
 import torch
 
-from chip_smoke import DECODE_EDGE_SHAPES, DECODE_MAIN_SHAPE, check_decode, excess
+from chip_smoke import (DECODE_EDGE_SHAPES, DECODE_TIMED_SHAPES, check_decode, decode_case,
+                        decode_planted_faults, excess)
 from nexus_tpu_torch.ops import attention as A
 
 pytestmark = pytest.mark.cuda
@@ -94,7 +95,11 @@ def test_flash_shapes_the_kernels_do_not_take_raise_on_the_card(card, dtype, d):
         A.attention(q, k, k)
 
 
-@pytest.mark.parametrize("shape", DECODE_EDGE_SHAPES + [DECODE_MAIN_SHAPE, dict(DECODE_MAIN_SHAPE, T=8)])
+DECODE_SHAPES = DECODE_EDGE_SHAPES + [dict(base, T=t) for _, base in DECODE_TIMED_SHAPES
+                                      for t in (1, 8)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
 def test_paged_decode_matches_its_plain_version(card, shape):
     before = A.fused_paged_decode_attention.launches
     gen = torch.Generator(device=card).manual_seed(0)
@@ -112,3 +117,25 @@ def test_paged_decode_raises_on_what_it_does_not_take(card, pool_dtype, d):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         A.fused_paged_decode_attention(q, pool, pool, table, torch.zeros(1, dtype=torch.int32,
                                                                           device=card))
+
+
+def test_paged_decode_planted_faults_fail_the_limits(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    ratios = decode_planted_faults(DECODE_TIMED_SHAPES[0][1], gen)  # raises if one passes
+    assert min(ratios.values()) > 1.0 and len(ratios) == 3
+
+
+def test_paged_decode_replays_in_a_cuda_graph(card):
+    """The arrival counters end every launch at 0: graph replays (and calls
+    after them) give the first call's output, bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    c = decode_case(dict(DECODE_TIMED_SHAPES[1][1], T=8), gen)
+    first = A.fused_paged_decode_attention(**c)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.fused_paged_decode_attention(**c)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert torch.equal(A.fused_paged_decode_attention(**c), first)
