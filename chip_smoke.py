@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
 1. build the CUDA kernels from ``nexus_tpu_torch/csrc`` (nvcc, sm_90a, one
    process per source, all at once);
 2. hold each flash kernel (forward, dQ, dK/dV) against its plain PyTorch
-   version in bf16 on the card, at small edge shapes and at the train
-   path's shape (B 2, Hq 32, Hkv 8, S 4096, D 128), with per-row limits
+   version in bf16 on the card, at small edge shapes (key lengths 1, 37
+   and 100 among them, which end mid-tile) and at the train path's shape
+   (B 2, Hq 32, Hkv 8, S 4096, D 128), with per-row limits
    (RTOL), check that those limits reject planted loop-bound faults at the
    main shape with tiles of 64 and of 128 rows, and time kernel (one call,
    ``ms``, and a loop of calls, ``device_ms``), plain version and the
@@ -18,8 +19,11 @@ Phases, each of which raises on failure:
    ragged and stale tables, shared runs up to the whole table, windows),
    two timed shapes at Llama-3-8B widths with a 256-position shared run
    (8 rows at depths 512..4096, and at the serve queue's depths 320..640)
-   at T 1 and T 8, and three planted faults (a skipped last slot, an
-   ignored Hydragen split, the shared partial merged twice);
+   at T 1 and T 8, the first also at T 5, 17, 32 and 64, each case also
+   held to a tenth of the limit or twice its rounding floor (P kept in
+   fp32), three planted faults (a skipped last slot, an ignored Hydragen
+   split, the shared partial merged twice), and, for information, the
+   build that rounds P to bf16 beside it;
 4. the train path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
    to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
@@ -34,7 +38,14 @@ Phases, each of which raises on failure:
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
    and the paged-decode kernel launched; then 8 requests on the int8 pool,
-   and (for information) the same queue on the gather path;
+   (for information) the same queue on the gather path, and three more
+   phases with the same gates: ``serve-lookup`` (16 requests, prompt-lookup
+   speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (8
+   requests, the ``draft`` preset at the target's vocabulary and context
+   as the proposer) and ``serve-prefill32`` (8 requests, prefillChunk 32),
+   each of which must launch the kernel at its feed width (5, 5, 32); the
+   speculation ledger and, for information, how many requests commit the
+   plain serve's tokens;
 8. the kernel line (JSON, one object per kernel), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -88,6 +99,13 @@ EDGE_SHAPES = [
     # a ragged last 128-row query block (3.5 blocks), n_rep 8, no mask tile
     # to hide a stray row
     dict(B=1, Sq=448, Sk=192, Hq=8, Hkv=1, D=128, causal=False, q_offset=0, window=0),
+]
+# key lengths that end mid-tile (the JAX rule sends any Sk < 128 to flash
+# once Sq >= 128): one key, 37, 100 (under one 128-key tile), causal and not
+KEY_TAIL_SHAPES = [
+    dict(B=b, Sq=sq, Sk=sk, Hq=8, Hkv=2, D=d, causal=causal, q_offset=0, window=0)
+    for causal in (True, False)
+    for b, sq, sk, d in ((2, 128, 1, 128), (1, 128, 37, 64), (2, 128, 100, 128), (1, 256, 100, 64))
 ]
 
 
@@ -537,9 +555,31 @@ def _sdpa_view(c):
     return q.transpose(1, 2).contiguous(), kv[0], kv[1], vis[:, None]
 
 
+# the feeds past the two timed T at the serve shape: a verify window of
+# speculation (numSpeculative 4 + 1) and chunked-prefill feeds of 17, 32
+# and 64 tokens
+DECODE_WIDE_T = (5, 17, 32, 64)
+# D1 keeps P in fp32 (bf16 hi + lo, two products): on every case its error
+# may exceed the case's rounding floor by at most this share of the
+# per-vector limit (``decode_exact_share``); rounding P to bf16 exceeds it
+# by more (PERF.md, the D1 finding of the f32-P repair)
+DECODE_EXACT_SHARE = 0.1
+
+
+def decode_exact_share(floor: float) -> float:
+    """The share of the limit D1's error may take on a case whose
+    regrouped plain version reads ``floor`` (``plain_regrouped``: the
+    output's bf16 rounding alone, between two exact computations):
+    DECODE_EXACT_SHARE above it. The floor is 0 on small cases and comes
+    near DECODE_EXACT_SHARE itself with the most query rows (T 64)."""
+    return DECODE_EXACT_SHARE + floor
+
+
 def check_decode(shape, gen, ratios: dict, timed: bool = False):
-    """The paged-decode kernel against its plain version on one case;
-    returns (max-abs error, timings or None, the case)."""
+    """The paged-decode kernel against its plain version on one case, held
+    to the per-vector limit and to ``decode_exact_share`` of it (P kept in
+    fp32); ``ratios`` gets "out" and the case's "floor". Returns (max-abs
+    error, timings or None, the case)."""
     import torch
     import torch.nn.functional as F
 
@@ -551,6 +591,12 @@ def check_decode(shape, gen, ratios: dict, timed: bool = False):
     ref = A.fused_paged_decode_attention_plain(**c)
     torch.cuda.synchronize()
     err = _err(out, ref, "out", where, ratios)
+    floor = excess(plain_regrouped(c), ref, "out")[1]
+    ratios["floor"] = max(ratios.get("floor", 0.0), floor)
+    if excess(out, ref, "out")[1] > decode_exact_share(floor):
+        raise AssertionError(f"{where}: decode error {ratios['out']:.3g} of the limit, above "
+                             f"{decode_exact_share(floor):.3g} (floor {floor:.3g}): P is not "
+                             "kept in fp32")
     if not timed:
         return err, None, c
     # device_ms from a CUDA graph: the kernel's device time is shorter than
@@ -617,41 +663,90 @@ def _shared_merged_twice(c):
     return A.finalize_attention_partials(parts, q.dtype)
 
 
+def plain_regrouped(c):
+    """The plain version of D1 with slot groups of half the span: the same
+    fp32 function, its sums taken in another order. Held against the plain
+    version (both rounded to bf16), it reads the floor that the output's
+    rounding alone sets for an exact kernel on the same case."""
+    from nexus_tpu_torch.ops import attention as A
+
+    span = A.SLOT_GROUP_SPAN
+    A.SLOT_GROUP_SPAN = span // 2
+    try:
+        return A.fused_paged_decode_attention_plain(**c)
+    finally:
+        A.SLOT_GROUP_SPAN = span
+
+
+def compare_p_bf16(gen) -> dict:
+    """For information: the port's D1 (P as bf16 hi + lo) against the build
+    that rounds P to bf16 (``_kernels.VARIANTS``), at the serve shape, T 1
+    and T 8: each one's error over the limit and device time (CUDA graph),
+    timed in turns (f32 P, bf16 P, bf16 P, f32 P)."""
+    from nexus_tpu_torch.ops import attention as A
+
+    bf16_p = A._entry("nexus_paged_decode", variant="paged_decode_p_bf16")
+    out = {}
+    for t in (1, 8):
+        shape = dict(DECODE_MAIN_SHAPE, T=t)
+        c = decode_case(shape, gen)
+        ref = A.fused_paged_decode_attention_plain(**c)
+        calls = {"p_f32": lambda: A.fused_paged_decode_attention(**c),
+                 "p_bf16": lambda: A.paged_decode_launch(bf16_p, **c)}
+        row = {f"{k}_error_over_limit": excess(fn(), ref, "out")[1] for k, fn in calls.items()}
+        samples = {k: [] for k in calls}
+        for k in ("p_f32", "p_bf16", "p_bf16", "p_f32"):
+            samples[k].append(_cuda_graph_ms(calls[k]))
+        for k, xs in samples.items():
+            row[f"{k}_device_ms"] = statistics.median(xs)
+        out[f"main_T{t}"] = row
+    return out
+
+
 def phase_decode_kernel():
     """D1 on the edge cases, at the timed shapes (the serve shape and the
-    serve queue's depths, T 1 and T 8) with their timings, and the planted
-    faults; returns (worst max-abs, {shape_T: timings})."""
+    serve queue's depths, T 1 and T 8, and the serve shape at the wide T)
+    with their timings, and the planted faults; then, for information, the
+    bf16-P build beside it. Returns (worst max-abs, {shape_T: timings},
+    the bf16-P comparison)."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    worst = 0.0
-    for shape in DECODE_EDGE_SHAPES:
-        ratios = {}
-        err, _, _ = check_decode(shape, gen, ratios)
-        log(f"[decode] edge {shape}: max-abs {err:.3g}, error over limit {ratios}")
-        worst = max(worst, err)
+    worst = worst_share = 0.0
     times = {}
+
+    def check(shape, label, timed=False):
+        nonlocal worst, worst_share
+        ratios = {}
+        err, t, _ = check_decode(shape, gen, ratios, timed=timed)  # raises past its limits
+        worst, worst_share = max(worst, err), max(worst_share, ratios["out"])
+        log(f"[decode] {label}: max-abs {err:.3g}, error over limit {ratios}"
+            + (f", timings {t}" if timed else ""))
+        return t
+
+    for shape in DECODE_EDGE_SHAPES:
+        check(shape, f"edge {shape}")
     for name, base in DECODE_TIMED_SHAPES:
         for t in (1, 8):
-            shape = dict(base, T=t)
-            ratios = {}
-            err, times[f"{name}_T{t}"], _ = check_decode(shape, gen, ratios, timed=True)
-            worst = max(worst, err)
-            log(f"[decode] {name} shape T={t}: max-abs {err:.3g}, error over limit {ratios}, "
-                f"timings {times[f'{name}_T{t}']}")
+            times[f"{name}_T{t}"] = check(dict(base, T=t), f"{name} shape T={t}", timed=True)
+    for t in DECODE_WIDE_T:
+        times[f"main_T{t}"] = check(dict(DECODE_MAIN_SHAPE, T=t), f"main shape T={t}", timed=True)
     faults = decode_planted_faults(DECODE_MAIN_SHAPE, gen)
     log(f"[decode] planted faults at the serve shape, error over limit (all must exceed 1): "
         f"{faults}")
-    return worst, times
+    p_bf16 = compare_p_bf16(gen)
+    log(f"[decode] worst error over limit {worst_share}; P in f32 against P in bf16 "
+        f"(for information): {p_bf16}")
+    return worst, times, p_bf16
 
 
 def phase_build() -> float:
     from nexus_tpu_torch.ops import _kernels
 
     t0 = time.monotonic()
-    _kernels.build()
-    for name in _kernels.SOURCES:
+    _kernels.build(variants=True)
+    for name in (*_kernels.SOURCES, *_kernels.VARIANTS):
         _kernels.library(name)
     secs = time.monotonic() - t0
     log(f"[build] kernels built in {secs:.1f} s into {_kernels.build_dir()}")
@@ -666,7 +761,7 @@ def phase_kernels(main_shape=MAIN_SHAPE):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for shape in EDGE_SHAPES:
+    for shape in EDGE_SHAPES + KEY_TAIL_SHAPES:
         ratios = {}
         errs, _, _ = check_kernels(shape, gen, ratios)
         log(f"[kernels] edge {shape}: max-abs {errs}, error over limit {ratios}")
@@ -703,6 +798,7 @@ def _launches_during(run, must_launch):
 
     for w in A.KERNEL_WRAPPERS:
         w.launches = 0
+    A.fused_paged_decode_attention.launches_by_t = {}
     out = run()
     launches = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
     missing = [w.__name__ for w in must_launch if launches[w.__name__] == 0]
@@ -781,11 +877,15 @@ def _serve_spec(num_requests: int = 32, **extra):
             "train": {"batchSize": 8, "seed": 0}, "serve": serve}
 
 
-def phase_serve(name: str, spec, must_launch=True) -> dict:
+SPEC_KEYS = ("speculative_kind", "num_speculative", "target_forwards", "acceptance_rate",
+             "accepted_per_round", "decode_dispatches_per_committed_token")
+
+
+def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
     """``mode: serve`` through the paged, prefix-cached engine; gates: every
     request served ok, the committed tokens equal the queue's budgets, a
     leak-free pool at the end, and (fused path) the paged-decode kernel
-    launched."""
+    launched, at each feed width of ``must_t`` at least once."""
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
@@ -793,12 +893,19 @@ def phase_serve(name: str, spec, must_launch=True) -> dict:
     t0 = time.monotonic()
     m, launches, missing = _launches_during(
         lambda: run_template_runtime(spec), A.SERVE_KERNELS if must_launch else ())
+    by_t = dict(sorted(A.fused_paged_decode_attention.launches_by_t.items()))
     keys = ("tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
             "request_latency_p95_s", "slot_utilization", "committed_tokens", "decode_chunks",
             "prefix_hit_tokens", "prefix_cow_copies", "hydragen_waves", "kv_num_blocks",
-            "kv_peak_allocated_blocks", "wall_s")
-    log(f"[{name}] wall {time.monotonic() - t0:.1f} s, "
-        + ", ".join(f"{k} {m.get(k)}" for k in keys) + f", launches {launches}")
+            "kv_peak_allocated_blocks", "wall_s") + SPEC_KEYS
+    m["phase_wall_s"] = time.monotonic() - t0
+    log(f"[{name}] wall {m['phase_wall_s']:.1f} s, "
+        + ", ".join(f"{k} {m.get(k)}" for k in keys if k in m)
+        + f", launches {launches}, decode launches by T {by_t}")
+    m["decode_launches_by_t"] = by_t
+    if [t for t in must_t if by_t.get(t, 0) == 0]:
+        raise AssertionError(f"{name}: the paged-decode kernel never launched at T {must_t}: "
+                             f"{by_t}")
     if m["ok_requests"] != m["requests"] or m["finished_requests"] != m["requests"]:
         raise AssertionError(f"{name}: {m['ok_requests']} of {m['requests']} requests ok")
     if m["committed_tokens"] != m["budget_tokens"]:
@@ -811,6 +918,26 @@ def phase_serve(name: str, spec, must_launch=True) -> dict:
         raise AssertionError(f"{name}: kernels never launched on the serve path: {missing}")
     m["launches"] = launches
     return m
+
+
+# the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
+# vocabulary and context, random weights from the seed
+DRAFT_REF = {"family": "llama", "preset": "draft",
+             "overrides": {"vocab_size": 128256, "max_seq_len": 8192}}
+
+
+def _same_tokens(name: str, ref_run: dict, run: dict) -> str:
+    """For information, not a gate: how many of ``run``'s requests commit
+    the tokens of the same requests in ``ref_run`` (the synthetic queue's
+    first requests are the same whatever its length); bf16 near-ties among
+    random-weight logits may part the two paths."""
+    pairs = list(zip(ref_run["completion_ids"], run["completion_ids"]))
+    same = sum(a == b for a, b in pairs)
+    first_diff = sorted(next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                        for a, b in pairs if a != b)
+    log(f"[{name}] requests whose tokens equal the plain fused serve's: {same} of "
+        f"{len(pairs)}; first differing new token of the others: {first_diff}")
+    return f"{same}/{len(pairs)}"
 
 
 def main() -> int:
@@ -834,7 +961,7 @@ def main() -> int:
 
     build_s = phase_build()
     worst, times = phase_kernels()
-    worst["fused_paged_decode_attention"], decode_times = phase_decode_kernel()
+    worst["fused_paged_decode_attention"], decode_times, p_bf16 = phase_decode_kernel()
     main_run = phase_train("main", _train_spec(n_layers=4, steps=8))
     phase_train("remat", _train_spec(n_layers=2, steps=4, remat=True,
                                      remat_policy="full", ce_chunk=8192))
@@ -843,12 +970,18 @@ def main() -> int:
     phase_serve("serve-int8", _serve_spec(num_requests=8, kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
     gather = phase_serve("serve-gather", _serve_spec(attentionPath="gather"), must_launch=False)
-    pairs = list(zip(serve_run["completion_ids"], gather["completion_ids"]))
-    same = sum(a == b for a, b in pairs)
-    first_diff = sorted(next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-                        for a, b in pairs if a != b)
-    log(f"[serve] requests whose tokens equal the gather path's: {same} of {len(pairs)}; "
-        f"first differing new token of the others: {first_diff}")
+    same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
+    # speculation: verify windows of numSpeculative + 1 = 5 through D1
+    lookup = phase_serve("serve-lookup", _serve_spec(num_requests=16, promptLookupNgram=2,
+                                                     numSpeculative=4), must_t=(5,))
+    draft = phase_serve("serve-draft", _serve_spec(num_requests=8, numSpeculative=4,
+                                                   draft=DRAFT_REF), must_t=(5,))
+    # a prefill chunk past 16 tokens through D1 (a feed it once refused)
+    prefill32 = phase_serve("serve-prefill32", _serve_spec(num_requests=8, prefillChunk=32),
+                            must_t=(32,))
+    for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
+                      ("serve-prefill32", prefill32)):
+        same[name] = _same_tokens(name, serve_run, run)
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -886,7 +1019,8 @@ def main() -> int:
         })
     log("[summary] " + json.dumps({
         "kernel_shape": MAIN_SHAPE, "decode_kernel_shape": DECODE_MAIN_SHAPE,
-        "decode_kernel_timings": decode_times, "build_s": build_s,
+        "decode_kernel_timings": decode_times, "decode_p_f32_vs_bf16": p_bf16,
+        "build_s": build_s,
         "main": {k: main_run[k] for k in ("tokens_per_sec", "mfu", "final_loss", "param_count")},
         "infer": {k: infer_run[k] for k in ("decode_tokens_per_sec", "iteration_seconds")},
         "serve": {k: serve_run.get(k) for k in (
@@ -894,7 +1028,12 @@ def main() -> int:
             "request_latency_p95_s", "slot_utilization", "prefix_hit_tokens", "hydragen_waves",
             "committed_tokens", "wall_s", "launches")},
         "serve_gather_tokens_per_sec": gather["tokens_per_sec"],
-        "serve_same_tokens_as_gather": f"{same}/{len(gather['completion_ids'])}",
+        "serve_same_tokens_as_plain_serve": same,
+        "serve_speculative": {name: {k: run.get(k) for k in (
+            "tokens_per_sec", "ttft_p50_s", "request_latency_p50_s", "committed_tokens",
+            "wall_s", "phase_wall_s", "decode_launches_by_t") + SPEC_KEYS}
+            for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
+                              ("serve-prefill32", prefill32))},
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -223,6 +223,46 @@ class InferSpec:
         )
 
 
+def _draft_ref_errors(model_ref, draft_ref, label: str, require_ctx_cover: bool = False):
+    """The JAX spec's checker behind ``infer.draft`` and ``serve.draft``: an
+    LM family with a decode path, the target's vocabulary (acceptance
+    compares token ids), and with ``require_ctx_cover`` a max_seq_len that
+    covers the target's (the serve engine runs the draft cache at the
+    target's max_len). Each config resolves in its own try, so a bad
+    target spec is attributed to model.*, not to the draft."""
+    from nexus_tpu_torch.models.registry import get_family, list_families
+
+    errs = []
+    if draft_ref.family == "mlp" or draft_ref.family not in list_families():
+        errs.append(f"{label}.family {draft_ref.family!r} must be an LM family with a decode "
+                    f"path (one of {[f for f in list_families() if f != 'mlp']})")
+        return errs
+    t_cfg = d_cfg = None
+    try:
+        t_cfg = get_family(model_ref.family).config(model_ref.preset,
+                                                    **dict(model_ref.overrides))
+    except Exception as e:  # config() errors are arbitrary
+        errs.append(f"model does not resolve: {e!r}")
+    try:
+        d_cfg = get_family(draft_ref.family).config(draft_ref.preset,
+                                                    **dict(draft_ref.overrides))
+    except Exception as e:
+        errs.append(f"{label} does not resolve: {e!r}")
+    if t_cfg is None or d_cfg is None:
+        return errs
+    if getattr(t_cfg, "vocab_size", None) != getattr(d_cfg, "vocab_size", None):
+        errs.append(f"speculative draft must share the target vocab: draft {d_cfg.vocab_size} "
+                    f"!= target {t_cfg.vocab_size} (override the draft's vocab_size)")
+    if require_ctx_cover and int(getattr(d_cfg, "max_seq_len", 0)) < int(
+            getattr(t_cfg, "max_seq_len", 0)):
+        errs.append(f"speculative draft must cover the serve context: draft max_seq_len "
+                    f"{d_cfg.max_seq_len} < target {t_cfg.max_seq_len} — the serve engine "
+                    "runs the draft cache (rope tables included) at the target's max_len, so "
+                    "a shorter draft would silently propose garbage past its range (override "
+                    "the draft's max_seq_len)")
+    return errs
+
+
 def serve_dispatch_slack(
     chunk: int, prompt_lookup_ngram: int, num_speculative: int,
     draft: bool = False,
@@ -801,8 +841,25 @@ class JaxXlaRuntime:
         errs: List[str] = []
         if self.mode not in ("train", "infer", "serve"):
             errs.append(f"unsupported mode {self.mode!r}")
-        if self.mode == "infer" and self.infer.prompt and self.infer.prompt_token_ids:
-            errs.append("infer.prompt (text) and infer.promptTokenIds are mutually exclusive")
+        inf = self.infer
+        if self.mode == "infer":
+            if inf.draft is not None:
+                errs.extend(_draft_ref_errors(self.model, inf.draft, "infer.draft"))
+            if inf.prompt and inf.prompt_token_ids:
+                errs.append("infer.prompt (text) and infer.promptTokenIds are mutually "
+                            "exclusive")
+            if inf.prompt_lookup_ngram > 0:
+                if inf.draft is not None:
+                    errs.append("infer.promptLookupNgram and infer.draft are mutually exclusive "
+                                "(draft-free vs draft-model speculation)")
+                if inf.temperature > 0:
+                    errs.append("infer.promptLookupNgram requires temperature == 0: a "
+                                "deterministic copying draft has no proposal distribution, so "
+                                "the rejection-sampling identity does not apply (use a draft "
+                                "model for sampled speculative decoding)")
+            if (inf.draft is not None or inf.prompt_lookup_ngram > 0) and (
+                    inf.num_speculative < 1):
+                errs.append(f"infer.numSpeculative must be >= 1, got {inf.num_speculative}")
         if self.mode != "serve":
             return errs
         sv = self.serve
@@ -854,6 +911,20 @@ class JaxXlaRuntime:
             errs.append(f"serve.maxQueueDelaySeconds ({sv.max_queue_delay_s}) exceeds "
                         f"requestDeadlineSeconds ({sv.request_deadline_s}): every "
                         "bounded-delay shed would already be a deadline miss")
+        speculating = sv.prompt_lookup_ngram > 0 or sv.draft is not None
+        if sv.prompt_lookup_ngram > 0 and sv.draft is not None:
+            errs.append("serve.promptLookupNgram and serve.draft are mutually exclusive "
+                        "(draft-free vs draft-model speculation — two proposers behind one "
+                        "verify seam)")
+        if speculating:
+            if sv.temperature > 0:
+                errs.append("serve speculation (promptLookupNgram / draft) requires "
+                            "temperature == 0 (speculative serving is greedy-exact only)")
+            if sv.num_speculative < 1:
+                errs.append(f"serve.numSpeculative must be >= 1, got {sv.num_speculative}")
+        if sv.draft is not None:
+            errs.extend(_draft_ref_errors(self.model, sv.draft, "serve.draft",
+                                          require_ctx_cover=True))
         if self.model.family != "mlp" and not sv.prompts:
             from nexus_tpu_torch.models.registry import get_family
 
@@ -868,6 +939,20 @@ class JaxXlaRuntime:
                 errs.append(f"serve shapes don't fit: promptLengthMax ({pmax} after the "
                             f"max_seq_len/2 clamp) + dispatch slack ({sv.serve_slack()}) + 1 "
                             f"leaves no decode budget within max_seq_len {cfg.max_seq_len}")
+            if speculating and sv.kv_block_size > 0:
+                # the verify window's slack must leave blocks for the row's
+                # prompt and budget: rows that could only ever roll back
+                # are refused here
+                bs, slack = sv.kv_block_size, sv.serve_slack()
+                cap = sv.kv_request_cap(cfg.max_seq_len)
+                slack_blocks = -(-slack // bs)
+                useful_blocks = max(1, -(-(cap - slack) // bs))
+                if slack_blocks > useful_blocks:
+                    errs.append(f"serve speculation window too large: numSpeculative "
+                                f"{sv.num_speculative} at chunk {sv.chunk} reserves "
+                                f"{slack_blocks} verify-scratch blocks per row — more than the "
+                                f"{useful_blocks} block(s) the row's whole prompt + decode "
+                                "budget needs; shrink numSpeculative or raise max_seq_len")
             if sv.kv_num_blocks > 0 and sv.kv_block_size > 0:
                 cap = sv.kv_request_cap(cfg.max_seq_len)
                 need = -(-cap // sv.kv_block_size)

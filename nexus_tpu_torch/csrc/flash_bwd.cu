@@ -35,16 +35,17 @@
 //     consumer warpgroups are not made to take turns on the tensor cores
 //     (the forward's ping-pong): on the H100 that measured no faster here;
 //   * P = exp2(S scale log2(e) - lse log2(e)): one fma and one exp2 a score;
-//     per-element masks only in the tiles that cross the causal diagonal or
-//     the window's floor, a separate instantiation, so that the others carry
-//     no per-element test;
+//     per-element masks only in the tiles that cross the causal diagonal,
+//     the window's floor or the end of the keys, a separate instantiation,
+//     so that the others carry no per-element test;
 //   * under causal masking the grid walks the query tiles from the last
 //     (the most key tiles) to the first, so the heaviest blocks start first;
 //   * dQ * scale is written in bf16 into the warpgroup's rows of the Q tile,
 //     in the TMA's swizzle, and stored by TMA, 64 rows by 64 columns a box.
 // Rows past Sq (a ragged last tile) read zeros from the TMA and are not
 // stored; each thread reads lse and delta for its own two rows, guarded by
-// row < Sq. A key tile never passes Sk: both are multiples of 64.
+// row < Sq. Keys past Sk (a ragged last key tile) read zeros from the TMA
+// and are masked, so they add nothing to dQ.
 
 #include "hopper.cuh"
 
@@ -66,8 +67,8 @@ struct DqTiles {
 // tiles inside the band carry no per-element test.
 template <int BN, bool MASK>
 __device__ __forceinline__ void grad_tile(const float* s, float* dp, int c0,
-                                          const int* rows, int t, int causal,
-                                          int q_offset, int window,
+                                          const int* rows, int t, int Sk,
+                                          int causal, int q_offset, int window,
                                           float scale_log2, const float* lse2,
                                           const float* dlt) {
 #pragma unroll
@@ -78,7 +79,7 @@ __device__ __forceinline__ void grad_tile(const float* s, float* dp, int c0,
       float p = exp2_approx(fmaf(s[4 * n + e], scale_log2, -lse2[r]));
       if (MASK) {
         const int col = c0 + 8 * n + 2 * t + (e & 1);
-        if (!visible(rows[r], col, causal, q_offset, window)) p = 0.f;
+        if (col >= Sk || !visible(rows[r], col, causal, q_offset, window)) p = 0.f;
       }
       dp[4 * n + e] = p * (dp[4 * n + e] - dlt[r]);
     }
@@ -217,13 +218,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     auto grad = [&](int i) {
       const int c0 = (kt0 + i) * BN;
       const bool edge =
-          causal && !(c0 + BN - 1 <= row0 + q_offset &&
-                      (window <= 0 || c0 > row0 + 63 + q_offset - window));
+          c0 + BN > Sk ||
+          (causal && !(c0 + BN - 1 <= row0 + q_offset &&
+                       (window <= 0 || c0 > row0 + 63 + q_offset - window)));
       if (edge)
-        grad_tile<BN, true>(sc, dp, c0, rows, t, causal, q_offset, window,
+        grad_tile<BN, true>(sc, dp, c0, rows, t, Sk, causal, q_offset, window,
                             scale_log2, lse2, dlt);
       else
-        grad_tile<BN, false>(sc, dp, c0, rows, t, causal, q_offset, window,
+        grad_tile<BN, false>(sc, dp, c0, rows, t, Sk, causal, q_offset, window,
                              scale_log2, lse2, dlt);
     };
     auto pack = [&]() {
@@ -332,8 +334,8 @@ static int launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace nexus
 
-// Plain C entries for ctypes; the Python wrapper checks shapes (Sq, Sk
-// multiples of 64, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
+// Plain C entries for ctypes; the Python wrapper checks shapes (Sq a
+// multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
 // lse and delta are (B, Hq, Sq) f32. Return the cudaError_t of the launch
 // (or of the tensor maps).
 extern "C" int nexus_flash_bwd_dq(const void* q, const void* k, const void* v,

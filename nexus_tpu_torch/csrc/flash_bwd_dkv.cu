@@ -34,7 +34,8 @@
 //     others carry no per-element test;
 //   * the grid walks the key tiles upwards: under causal masking the first
 //     key tiles see the most query rows, so the heaviest blocks start first.
-// Keys past Sk (a ragged last tile) read zeros and are not stored.
+// Keys past Sk (a ragged last tile) read zeros, take P 0 in the tiles that
+// mask, and are not stored.
 
 #include "hopper.cuh"
 
@@ -61,7 +62,7 @@ template <int BM, bool MASK>
 __device__ __forceinline__ void grad_tile(float* st, float* dpt,
                                           const float* l_s, const float* d_s,
                                           int r0, const int* keys, int t,
-                                          float scale_log2, int causal,
+                                          int Sk, float scale_log2, int causal,
                                           int q_offset, int window) {
 #pragma unroll
   for (int n = 0; n < BM / 8; ++n) {
@@ -73,7 +74,8 @@ __device__ __forceinline__ void grad_tile(float* st, float* dpt,
       for (int r = 0; r < 2; ++r) {
         const int e = 2 * r + c;
         float p = exp2_approx(fmaf(st[4 * n + e], scale_log2, -l2));
-        if (MASK && !visible(r0 + lc, keys[r], causal, q_offset, window)) p = 0.f;
+        if (MASK && (keys[r] >= Sk || !visible(r0 + lc, keys[r], causal, q_offset, window)))
+          p = 0.f;
         st[4 * n + e] = p;
         dpt[4 * n + e] = p * (dpt[4 * n + e] - dl);
       }
@@ -202,13 +204,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         // P^T into st, dS^T into dpt; per-element masks only where the
         // tile is not wholly visible to this warpgroup's keys
         const bool edge =
-            causal && !(key0 + 63 <= r0 + q_offset &&
-                        (window <= 0 || key0 > r0 + BM - 1 + q_offset - window));
+            key0 + 64 > Sk ||
+            (causal && !(key0 + 63 <= r0 + q_offset &&
+                         (window <= 0 || key0 > r0 + BM - 1 + q_offset - window)));
         if (edge)
-          grad_tile<BM, true>(st, dpt, l_s, d_s, r0, keys, t, scale_log2,
+          grad_tile<BM, true>(st, dpt, l_s, d_s, r0, keys, t, Sk, scale_log2,
                               causal, q_offset, window);
         else
-          grad_tile<BM, false>(st, dpt, l_s, d_s, r0, keys, t, scale_log2,
+          grad_tile<BM, false>(st, dpt, l_s, d_s, r0, keys, t, Sk, scale_log2,
                                causal, q_offset, window);
         uint32_t pa[BM / 16][4], da[BM / 16][4];
 #pragma unroll
@@ -279,8 +282,8 @@ static int launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace nexus
 
-// Plain C entry for ctypes; the Python wrapper checks shapes (Sq, Sk
-// multiples of 64, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
+// Plain C entry for ctypes; the Python wrapper checks shapes (Sq a
+// multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
 // lse and delta are (B, Hq, Sq) f32. Returns the cudaError_t of the launch
 // (or of the tensor maps).
 extern "C" int nexus_flash_bwd_dkv(const void* q, const void* k, const void* v,

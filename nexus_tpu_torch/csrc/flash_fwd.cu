@@ -336,7 +336,7 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace nexus
 
 // Plain C entry for ctypes. Shapes are checked by the Python wrapper:
-// Sq and Sk multiples of 64, D 64 or 128, Hq a multiple of Hkv, all tensors
+// Sq a multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, all tensors
 // contiguous. Returns the cudaError_t of the launch (or of the tensor maps).
 extern "C" int nexus_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int Sq, int Sk,

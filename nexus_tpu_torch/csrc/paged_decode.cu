@@ -73,8 +73,13 @@
 //     of <= 16 rows (T 1 at n_rep <= 16) splits each stage's 64 keys over
 //     the four warps, <= 32 rows over two, more rows give each warp a
 //     16-row slice of all 64 keys. P goes from the S accumulators to A
-//     fragments in registers, rounded to bf16 (the plain version keeps it
-//     in fp32). wgmma is not used: its 64-row tile fits only the shared
+//     fragments in registers as two bf16 parts, hi = bf16(P) and lo =
+//     bf16(P - hi), each multiplied by V into the same fp32 accumulators:
+//     P keeps ~16 bits, where the plain version (and the JAX function)
+//     keep it in fp32 and one bf16 rounding would cost 8. The second
+//     product doubles the P V MMAs, which the bytes leave idle.
+//     (Building with -DNEXUS_DECODE_P_BF16 keeps only hi, for comparing
+//     the two.) wgmma is not used: its 64-row tile fits only the shared
 //     units at T >= 8 (a small share of the bytes), and mma.sync's rate is
 //     far above what ~32 FLOP a byte needs.
 //   * The merge, folded in. At a unit's end its warps combine their key
@@ -110,6 +115,11 @@ constexpr int UNIT_MIN_POS = 64;                 // a unit's span, in positions
 constexpr int UNIT_MAX_POS = 2048;
 constexpr int MERGE_BAR = 1;                     // named barrier of the consumers
 constexpr float MASK = -0.7f * 3.402823466e38f;
+#ifdef NEXUS_DECODE_P_BF16
+constexpr bool P_SPLIT = false;  // P rounded to bf16 before P V
+#else
+constexpr bool P_SPLIT = true;   // P as bf16 hi + lo, two products
+#endif
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
@@ -177,6 +187,13 @@ __device__ __forceinline__ int warp_min_i(int x) {
 }
 
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The bf16 pair of (x0 - hi.x, x1 - hi.y), for `hi` the bf16 pair packed
+// from (x0, x1): the part of P one bf16 rounding drops (exact in fp32).
+__device__ __forceinline__ uint32_t bf16_residual(uint32_t hi, float x0, float x1) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return nexus::pack_bf16(x0 - h.x, x1 - h.y);
+}
 
 __device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
   int old;
@@ -454,8 +471,14 @@ __device__ __forceinline__ void attend(const uint32_t (&qf)[D / 16][4], float (&
   const int v_half = lane >> 4;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t pa[4];
+    uint32_t pa[4], pl[4];
     nexus::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+    if constexpr (P_SPLIT) {
+      pl[0] = bf16_residual(pa[0], s[2 * kk][0], s[2 * kk][1]);
+      pl[1] = bf16_residual(pa[1], s[2 * kk][2], s[2 * kk][3]);
+      pl[2] = bf16_residual(pa[2], s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pl[3] = bf16_residual(pa[3], s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
 #pragma unroll
     for (int dj = 0; dj < D / 16; ++dj) {
       uint32_t bv[4];
@@ -463,6 +486,10 @@ __device__ __forceinline__ void attend(const uint32_t (&qf)[D / 16][4], float (&
                                    (((((dj & 3) << 1) | v_half) ^ x) << 4));
       nexus::mma_16816(acc[2 * dj], pa, bv[0], bv[1]);
       nexus::mma_16816(acc[2 * dj + 1], pa, bv[2], bv[3]);
+      if constexpr (P_SPLIT) {
+        nexus::mma_16816(acc[2 * dj], pl, bv[0], bv[1]);
+        nexus::mma_16816(acc[2 * dj + 1], pl, bv[2], bv[3]);
+      }
     }
   }
 }
@@ -880,11 +907,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// Resident CTAs an SM, once per instantiation ([D == 128][INT8]). Internal
+// linkage: a static local of the template below would be one object for the
+// whole process (a GNU unique symbol), shared with any other build of this
+// source loaded beside it, which would then skip its own attribute call.
+static int per_sm_cache[2][2];
+
 template <int D, bool INT8>
 int launch(const CUtensorMap& k_map, const CUtensorMap& v_map, Args a, int max_units,
            cudaStream_t st) {
   using G = Geo<D, INT8>;
-  static int per_sm = 0;  // resident CTAs an SM, once per instantiation
+  int& per_sm = per_sm_cache[D == 128][INT8];
   if (per_sm == 0) {
     cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<D, INT8>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);

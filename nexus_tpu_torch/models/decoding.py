@@ -317,3 +317,286 @@ def autoregressive_generate(forward_decode: Callable, params, cfg, prompt: torch
         out.append(tok[:, None])
     tokens = torch.cat(out, dim=1)
     return (tokens, last) if return_logits else tokens
+
+
+# ------------------------------------------------------------- speculation
+#
+# One verify structure for two proposers (a draft model, n-gram lookup in
+# the committed text): the target scores [last committed token, k
+# proposals] in ONE forward, the longest prefix matching its own choices
+# commits plus one corrected (or bonus) token, and the cache pointer rolls
+# back to the last accepted proposal. Rejected K/V stays in the cache past
+# the pointer, where no read looks, and the next round overwrites it.
+
+
+def _greedy_accept(proposals: torch.Tensor, target_choice: torch.Tensor):
+    """Greedy acceptance: the longest prefix of ``proposals`` (B, k) equal
+    to the target's own choices (B, k+1); the first mismatch is replaced by
+    the target's choice, a fully accepted round appends the bonus token.
+    Returns (accepted (B,) int64, out (B, k+1)): the committed output is
+    exactly the target's greedy decode, row by row."""
+    b, k = proposals.shape
+    match = proposals == target_choice[:, :k]
+    accepted = match.long().cumprod(dim=1).sum(dim=1)  # index of the first mismatch
+    padded = torch.cat([proposals, torch.zeros_like(proposals[:, :1])], dim=1)
+    keep = torch.arange(k + 1, device=proposals.device)[None, :] < accepted[:, None]
+    return accepted, torch.where(keep, padded, target_choice.to(proposals.dtype))
+
+
+def _commit_speculation(buf, last_pos, active, accepted, out, k: int, cache_len):
+    """Commit one round into the token buffer ``buf`` (B, L) and the cache
+    pointer, per row: accepted proposals + 1 (correction or bonus) land
+    after ``last_pos``; rows not ``active`` commit nothing and keep
+    ``cache_len``; writes past L are dropped. The returned ``new_len``
+    keeps K/V through the last ACCEPTED proposal: the correction token's
+    K/V is written when the next round feeds it first. Returns (buf,
+    n_new (B,), new_len (B,))."""
+    n_new = torch.where(active, accepted + 1, torch.zeros_like(accepted))
+    rel = torch.arange(buf.shape[1], device=buf.device)[None, :] - (last_pos.long() + 1)[:, None]
+    put = active[:, None] & (rel >= 0) & (rel <= k)
+    vals = torch.gather(out.to(buf.dtype), 1, rel.clamp(0, k))
+    buf = torch.where(put, vals, buf)
+    new_len = torch.where(active, (last_pos.long() + 1 + accepted).to(cache_len.dtype), cache_len)
+    return buf, n_new, new_len
+
+
+def prompt_lookup_propose(buf: torch.Tensor, last_pos: torch.Tensor, k: int, ngram: int):
+    """Draft-model-free proposals by n-gram lookup in the committed text:
+    per row, the LATEST earlier occurrence of the last ``ngram`` committed
+    tokens (ending strictly before the suffix itself), and the ``k`` tokens
+    that followed it. buf (B, L), committed through ``last_pos`` (B,).
+    Returns (proposals (B, k), found (B,) bool); a row with no match
+    repeats its last committed token (the acceptance rule decides)."""
+    b, max_len = buf.shape
+    dev = buf.device
+    last = last_pos.long()
+    npos = max_len - ngram
+    if npos <= 0:  # no earlier window fits: repeat the last token
+        reps = torch.gather(buf, 1, last.clamp(0, max_len - 1)[:, None])
+        return reps.expand(b, k), torch.zeros((b,), dtype=torch.bool, device=dev)
+    gidx = (last[:, None] - (ngram - 1) + torch.arange(ngram, device=dev)[None, :])
+    suffix = torch.gather(buf, 1, gidx.clamp(0, max_len - 1))  # (B, ngram)
+    valid = torch.ones((b, npos), dtype=torch.bool, device=dev)
+    for g in range(ngram):  # windows[:, i, g] = buf[:, i + g]
+        valid &= buf[:, g:g + npos] == suffix[:, g:g + 1]
+    starts = torch.arange(npos, device=dev)[None, :]
+    valid &= starts + ngram - 1 < last[:, None]
+    match = torch.where(valid, starts, torch.full_like(starts, -1)).amax(dim=1)
+    found = match >= 0
+    base = torch.where(found, match + ngram, last)
+    pos = torch.where(found[:, None], base[:, None] + torch.arange(k, device=dev)[None, :],
+                      last[:, None].expand(b, k))
+    return torch.gather(buf, 1, pos.clamp(0, max_len - 1)), found
+
+
+def _correction_distribution(draft_probs, target_probs, accepted):
+    """The distribution the correction (or bonus) token is drawn from, per
+    row: the residual max(p - q, 0) renormalized at the first rejection
+    (p itself where p == q), or the target's last distribution when all k
+    were accepted. draft_probs (B, k, V), target_probs (B, k+1, V),
+    accepted (B,) → (B, V)."""
+    k = draft_probs.shape[1]
+    rows = torch.arange(draft_probs.shape[0], device=draft_probs.device)
+    r = accepted.clamp(max=k - 1)
+    diff = (target_probs[rows, r] - draft_probs[rows, r]).clamp(min=0.0)
+    z = diff.sum(dim=-1, keepdim=True)
+    residual = torch.where(z > 0, diff / z.clamp(min=1e-30), target_probs[rows, r])
+    return torch.where((accepted < k)[:, None], residual, target_probs[rows, k])
+
+
+def speculative_accept_step(draft_probs, target_probs, proposals, uniforms,
+                            generator: torch.Generator):
+    """The standard speculative rejection rule (Leviathan et al.; Chen et
+    al.), per row, over explicit uniforms: proposal i is accepted iff
+    u_i < min(1, p_i / q_i) (p target, q draft, at the proposed token);
+    the first rejection draws its replacement from the residual
+    distribution (``_correction_distribution``), a fully accepted row draws
+    a bonus token from the target's last distribution, from ``generator``.
+    The committed tokens then follow the target's distribution exactly.
+
+    draft_probs (B, k, V), target_probs (B, k+1, V), proposals (B, k),
+    uniforms (B, k) in [0, 1) → (accepted (B,), out (B, k+1)): out[:, i] =
+    proposals[:, i] for i < accepted, out[accepted] the drawn token, 0
+    after. (The JAX function is this, one row at a time.)"""
+    b, k, _ = draft_probs.shape
+    idx = torch.arange(k, device=draft_probs.device)
+    prop = proposals.long()
+    p_at = torch.gather(target_probs[:, :k], 2, prop[..., None])[..., 0]
+    q_at = torch.gather(draft_probs, 2, prop[..., None])[..., 0]
+    accept = uniforms < torch.clamp(p_at / q_at.clamp(min=1e-30), max=1.0)
+    accepted = accept.long().cumprod(dim=1).sum(dim=1)
+    dist = _correction_distribution(draft_probs, target_probs, accepted)
+    correction = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    out = torch.where(idx[None, :] < accepted[:, None], proposals, torch.zeros_like(proposals))
+    out = torch.cat([out, torch.zeros_like(out[:, :1])], dim=1)
+    out.scatter_(1, accepted[:, None], correction[:, None].to(out.dtype))
+    return accepted, out
+
+
+def _speculation_buffer(prompt, first_tok, max_len):
+    b, p = prompt.shape
+    buf = torch.zeros((b, max_len), dtype=prompt.dtype, device=prompt.device)
+    buf[:, :p] = prompt
+    buf[:, p] = first_tok
+    return buf
+
+
+def _set_len(cache, length):
+    out = dict(cache)
+    out["length"] = length
+    return out
+
+
+def _speculation_room(p: int, max_new_tokens: int, k: int, max_len, cap: int) -> int:
+    """The cache slots a speculative loop needs: prompt, new tokens and one
+    overshooting window; raises when ``max_len`` or the models' ``cap``
+    cannot hold them."""
+    if k < 1:
+        raise ValueError(f"num_speculative must be >= 1, got {k}")
+    needed = p + max_new_tokens + k + 1
+    max_len = needed if max_len is None else max_len
+    if max_len < needed or needed > cap:
+        raise ValueError(f"prompt ({p}) + max_new_tokens ({max_new_tokens}) + speculation "
+                         f"window ({k + 1}) needs {needed} cache slots but max_len={max_len}, "
+                         f"max_seq_len={cap}")
+    return max_len
+
+
+def _stats(rounds, drafted, accepted, **extra) -> Dict[str, int]:
+    return {"rounds": int(rounds), "drafted": int(drafted), "accepted": int(accepted),
+            **{k: int(v) for k, v in extra.items()}}
+
+
+@torch.no_grad()
+def speculative_generate(target_forward_decode: Callable, target_params, target_cfg,
+                         draft_forward_decode: Callable, draft_params, draft_cfg,
+                         prompt: torch.Tensor, max_new_tokens: int, num_speculative: int = 4,
+                         max_len: Optional[int] = None, temperature: float = 0.0,
+                         generator: Optional[torch.Generator] = None):
+    """Speculative decoding with a DRAFT model: per round the draft proposes
+    ``num_speculative`` tokens (k+1 width-1 feeds through its own cache:
+    the last feed puts the last proposal's K/V in, which the all-accepted
+    case needs), the target scores [last token, proposals] in one forward,
+    and each row commits its own accepted prefix plus one token. Both
+    caches run per-row (vector) lengths: the pointers ARE the rollback.
+    Greedy by default, and then the output is exactly the target's greedy
+    decode. ``temperature > 0`` (``generator`` required) draws proposals
+    from the draft and accepts by ``speculative_accept_step``: the output
+    follows the target's distribution. Both models share a vocabulary.
+
+    prompt (B, P) → (tokens (B, P + max_new_tokens), stats): rounds,
+    drafted and accepted proposals (over active rows). Rows that reach
+    ``max_new_tokens`` freeze while the rest drain; one host read a round
+    decides whether another runs, none inside it."""
+    sampled = temperature > 0.0
+    if sampled and generator is None:
+        raise ValueError("temperature > 0 requires an explicit torch.Generator")
+    b, p = prompt.shape
+    k = int(num_speculative)
+    max_len = _speculation_room(p, max_new_tokens, k, max_len,
+                                min(target_cfg.max_seq_len, draft_cfg.max_seq_len))
+    dev = prompt.device
+    t_cache = init_kv_cache(target_cfg.n_layers, target_cfg.n_kv_heads, target_cfg.head_dim,
+                            target_cfg.dtype, b, max_len,
+                            quantized=getattr(target_cfg, "kv_cache_quantized", False),
+                            device=dev)
+    d_cache = init_kv_cache(draft_cfg.n_layers, draft_cfg.n_kv_heads, draft_cfg.head_dim,
+                            draft_cfg.dtype, b, max_len,
+                            quantized=getattr(draft_cfg, "kv_cache_quantized", False),
+                            device=dev)
+    t_last, t_cache = _chunked_prefill(target_forward_decode, target_params, target_cfg, prompt,
+                                       t_cache)
+    _, d_cache = _chunked_prefill(draft_forward_decode, draft_params, draft_cfg, prompt, d_cache)
+
+    def choose(logits):
+        if not sampled:
+            return logits.argmax(dim=-1).to(prompt.dtype), None
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(prompt.dtype), probs
+
+    first_tok, _ = choose(t_last)
+    buf = _speculation_buffer(prompt, first_tok, max_len)
+    rows = torch.arange(b, device=dev)
+    vec_p = torch.full((b,), p, dtype=torch.int32, device=dev)
+    t_cache, d_cache = _set_len(t_cache, vec_p), _set_len(d_cache, vec_p)
+    n_done = torch.ones((b,), dtype=torch.long, device=dev)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    rounds, drafted, n_accepted = 0, zero, zero
+    while bool((n_done < max_new_tokens).any()):
+        last_pos = p + n_done - 1
+        active = n_done < max_new_tokens
+        last_tok = buf[rows, last_pos]
+        # 1) the draft's k+1 feeds
+        tok, props, qs = last_tok, [], []
+        for _ in range(k + 1):
+            logits, d_cache = draft_forward_decode(draft_params, draft_cfg, tok[:, None], d_cache)
+            tok, q = choose(logits[:, -1])
+            props.append(tok)
+            qs.append(q)
+        proposals = torch.stack(props[:k], dim=1)
+        # 2) one target forward over [last_tok, proposals]
+        block = torch.cat([last_tok[:, None], proposals], dim=1)
+        t_logits, t_next = target_forward_decode(target_params, target_cfg, block, t_cache)
+        # 3) acceptance
+        if sampled:
+            target_probs = torch.softmax(t_logits.float() / temperature, dim=-1)
+            uniforms = torch.rand((b, k), generator=generator, device=dev)
+            accepted, out = speculative_accept_step(torch.stack(qs[:k], dim=1), target_probs,
+                                                    proposals, uniforms, generator)
+        else:
+            accepted, out = _greedy_accept(proposals, t_logits.argmax(dim=-1))
+        # 4) commit, and roll both pointers back to the last accepted proposal
+        buf, n_new, new_len = _commit_speculation(buf, last_pos, active, accepted, out, k,
+                                                  t_cache["length"])
+        t_cache, d_cache = _set_len(t_next, new_len), _set_len(d_cache, new_len)
+        rounds += 1
+        drafted = drafted + k * active.long().sum()
+        n_accepted = n_accepted + torch.where(active, accepted, torch.zeros_like(accepted)).sum()
+        n_done = n_done + n_new
+    return buf[:, :p + max_new_tokens], _stats(rounds, drafted, n_accepted)
+
+
+@torch.no_grad()
+def prompt_lookup_generate(forward_decode: Callable, params, cfg, prompt: torch.Tensor,
+                           max_new_tokens: int, num_speculative: int = 4, ngram: int = 3,
+                           max_len: Optional[int] = None):
+    """Speculative decoding WITHOUT a draft model: proposals come from
+    ``prompt_lookup_propose`` (n-gram copies of the committed text), the
+    target scores k+1 positions a forward, the longest matching prefix
+    commits: exactly the target's greedy decode, with no draft FLOPs and no
+    draft cache. Greedy only (a copying proposer has no distribution).
+
+    prompt (B, P) → (tokens (B, P + max_new_tokens), stats): rounds,
+    drafted, accepted, and lookup_hits (rounds in which an active row had
+    an n-gram match)."""
+    b, p = prompt.shape
+    k = int(num_speculative)
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+    max_len = _speculation_room(p, max_new_tokens, k, max_len, cfg.max_seq_len)
+    dev = prompt.device
+    cache = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, max_len,
+                          quantized=getattr(cfg, "kv_cache_quantized", False), device=dev)
+    last_logits, cache = _chunked_prefill(forward_decode, params, cfg, prompt, cache)
+    buf = _speculation_buffer(prompt, last_logits.argmax(dim=-1).to(prompt.dtype), max_len)
+    rows = torch.arange(b, device=dev)
+    cache = _set_len(cache, torch.full((b,), p, dtype=torch.int32, device=dev))
+    n_done = torch.ones((b,), dtype=torch.long, device=dev)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    rounds, drafted, n_accepted, hits = 0, zero, zero, zero
+    while bool((n_done < max_new_tokens).any()):
+        last_pos = p + n_done - 1
+        active = n_done < max_new_tokens
+        proposals, found = prompt_lookup_propose(buf, last_pos, k, ngram)
+        block = torch.cat([buf[rows, last_pos][:, None], proposals], dim=1)
+        t_logits, cache_next = forward_decode(params, cfg, block, cache)
+        accepted, out = _greedy_accept(proposals, t_logits.argmax(dim=-1))
+        buf, n_new, new_len = _commit_speculation(buf, last_pos, active, accepted, out, k,
+                                                  cache["length"])
+        cache = _set_len(cache_next, new_len)
+        rounds += 1
+        drafted = drafted + k * active.long().sum()
+        n_accepted = n_accepted + torch.where(active, accepted, torch.zeros_like(accepted)).sum()
+        hits = hits + (found & active).long().sum()
+        n_done = n_done + n_new
+    return buf[:, :p + max_new_tokens], _stats(rounds, drafted, n_accepted, lookup_hits=hits)

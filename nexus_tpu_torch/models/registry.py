@@ -22,3 +22,8 @@ def get_family(name: str) -> ModuleType:
         raise KeyError(f"unknown model family {name!r}; available: {sorted(_FAMILIES)}")
     return _FAMILIES[name]
 
+
+def list_families():
+    """Every family the JAX package has, ported or not (a spec may name
+    any; ``get_family`` raises for those not ported yet)."""
+    return sorted((*_FAMILIES, *_NOT_PORTED))

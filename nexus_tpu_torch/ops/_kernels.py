@@ -6,6 +6,11 @@ build runs at first use, all sources at once (one ``nvcc`` each), into
 ``nexus_tpu_torch/_build/<digest>/``, where the digest covers every file in
 ``csrc`` and the compiler flags: an edited source builds anew, an unchanged
 one is loaded from the earlier build. Nothing is built at import time.
+
+``VARIANTS`` are second builds of a source with extra flags (the
+paged-decode kernel with P rounded to bf16), built only when asked for:
+``chip_smoke.py`` and ``tools/decode_ab.py`` time them beside the port's
+own build; the port never loads them.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu", "paged_decode.cu")
+VARIANTS = {"paged_decode_p_bf16": ("paged_decode.cu", ("-DNEXUS_DECODE_P_BF16",))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -58,45 +64,57 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _lib_path(out: Path, source: str) -> Path:
-    return out / f"lib{Path(source).stem}.so"
+def _targets(variants: bool) -> Dict[str, tuple]:
+    """Library name → (source, extra nvcc flags)."""
+    out = {Path(s).stem: (s, ()) for s in SOURCES}
+    if variants:
+        out.update(VARIANTS)
+    return out
 
 
-def build() -> Path:
-    """Compile every source that has no library yet, in parallel; raise
-    with the compiler's output if any fails. Returns the build directory."""
+def _lib_path(out: Path, name: str) -> Path:
+    return out / f"lib{name}.so"
+
+
+def build(variants: bool = False) -> Path:
+    """Compile every source (and, with ``variants``, every variant) that has
+    no library yet, in parallel; raise with the compiler's output if any
+    fails. Returns the build directory."""
     out = build_dir()
-    todo = [s for s in SOURCES if not _lib_path(out, s).exists()]
+    todo = {n: t for n, t in _targets(variants).items() if not _lib_path(out, n).exists()}
     if not todo:
         return out
     out.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs: List[tuple] = []
-    for src in todo:
-        tmp = out / f".{Path(src).stem}.{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
-        procs.append((src, tmp, subprocess.Popen(
+    for name, (src, flags) in todo.items():
+        tmp = out / f".{name}.{os.getpid()}.so"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs.append((name, src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     errors = []
-    for src, tmp, proc in procs:
+    for name, src, tmp, proc in procs:
         log, _ = proc.communicate()
-        (out / f"{Path(src).stem}.log").write_text(log)
+        (out / f"{name}.log").write_text(log)
         if proc.returncode != 0:
-            errors.append(f"nvcc {src} failed ({proc.returncode}):\n{log}")
+            errors.append(f"nvcc {src} ({name}) failed ({proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, _lib_path(out, src))  # atomic: no half-written library
+        os.replace(tmp, _lib_path(out, name))  # atomic: no half-written library
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source`` (one of SOURCES), built if needed."""
+    """The loaded library of ``source`` (one of SOURCES, or a name of
+    VARIANTS), built if needed."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(_lib_path(build(), source)))
+            variant = source in VARIANTS
+            name = source if variant else Path(source).stem
+            lib = ctypes.CDLL(str(_lib_path(build(variants=variant), name)))
             _libs[source] = lib
         return lib
 
@@ -105,11 +123,11 @@ def ptxas_report() -> List[str]:
     """ptxas's register / shared-memory / spill lines from the last build."""
     lines = []
     out = build_dir()
-    for src in SOURCES:
-        log = out / f"{Path(src).stem}.log"
+    for name, (src, _) in _targets(variants=True).items():
+        log = out / f"{name}.log"
         if log.exists():
             lines += [
-                f"{src}: {ln.strip()}" for ln in log.read_text().splitlines()
+                f"{name}: {ln.strip()}" for ln in log.read_text().splitlines()
                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln
             ]
     return lines

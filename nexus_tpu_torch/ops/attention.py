@@ -40,8 +40,9 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# tile sizes the kernels are written for: Sq and Sk must be multiples of
-# this, D one of KERNEL_HEAD_DIMS
+# tile sizes the kernels are written for: Sq must be a multiple of this (Sk
+# may end mid-tile: the kernels mask the keys past it), D one of
+# KERNEL_HEAD_DIMS
 KERNEL_TILE = 64
 KERNEL_HEAD_DIMS = (64, 128)
 # the flash path's other inputs, which the JAX kernels take and these do not
@@ -176,18 +177,19 @@ _SIGNATURES = {
 _entries = {}
 
 
-def _entry(name: str):
+def _entry(name: str, variant: Optional[str] = None):
     """The C entry ``name`` with its ctypes signature; builds and loads the
-    kernels' library at first use."""
-    fn = _entries.get(name)
+    kernels' library at first use. ``variant``: the entry of that build of
+    the source instead (a name of ``_kernels.VARIANTS``)."""
+    fn = _entries.get((name, variant))
     if fn is None:
         from nexus_tpu_torch.ops._kernels import library
 
         source, argtypes = _SIGNATURES[name]
-        fn = getattr(library(source), name)
+        fn = getattr(library(variant or source), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _entries[name] = fn
+        _entries[(name, variant)] = fn
     return fn
 
 
@@ -219,10 +221,10 @@ def _check_cuda(q, k, v, *, causal, window, dout=None, lse=None, delta=None):
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d} ({_UNPORTED})")
-    if sq % KERNEL_TILE or sk % KERNEL_TILE:
+    if sq % KERNEL_TILE or sk < 1:
         raise ValueError(
-            f"flash kernels take sequences that are multiples of {KERNEL_TILE}: "
-            f"Sq={sq}, Sk={sk}"
+            f"flash kernels take query sequences that are multiples of {KERNEL_TILE} "
+            f"and at least one key: Sq={sq}, Sk={sk}"
         )
     if window > 0 and not causal:
         raise ValueError("window requires causal attention")
@@ -628,13 +630,13 @@ def fused_paged_decode_attention_plain(q, k_pool, v_pool, block_table, start, wi
 
 # ------------------------------------------------- paged-decode CUDA wrapper
 
-# query tokens per feed the kernel takes (decode: 1; chunked prefill: 8),
-# and rows (the kernel keeps each row's range in shared memory)
-DECODE_MAX_T = 16
+# rows the kernel takes (it keeps each row's range in shared memory); a
+# feed may have any number of query tokens T
 DECODE_MAX_ROWS = 1024
 # the kernel's work list (csrc/paged_decode.cu): the query rows one unit
 # takes, the span of a unit in positions, and the most partials a query
-# row may have (the workspace holds at most _DECODE_WORKSPACE_BYTES of them)
+# row may have (the workspace holds at most _DECODE_WORKSPACE_BYTES of them
+# for every 16 query tokens of the feed)
 DECODE_UNIT_ROWS = 64
 DECODE_UNIT_MIN_POS, DECODE_UNIT_MAX_POS = 64, 2048
 DECODE_MAX_PARTIALS = 17
@@ -656,8 +658,11 @@ class DecodeUnit(NamedTuple):
 
 
 def decode_max_partials(b: int, hq: int, t: int, d: int) -> int:
-    """Partials per query row the wrapper's workspace holds (``pmax``)."""
-    return max(2, min(DECODE_MAX_PARTIALS, _DECODE_WORKSPACE_BYTES // (4 * b * hq * t * d)))
+    """Partials per query row the wrapper's workspace holds (``pmax``):
+    the workspace grows with the feed's T, so a wide feed (chunked prefill,
+    a verify window) keeps as many partials a row as a 16-token one."""
+    budget = _DECODE_WORKSPACE_BYTES * -(-t // 16)
+    return max(2, min(DECODE_MAX_PARTIALS, budget // (4 * b * hq * t * d)))
 
 
 def _decode_row_range(nb: int, st: int, t: int, bs: int, window: int, m_slots: int):
@@ -758,8 +763,8 @@ def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
             f"the paged-decode kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d} ({_UNPORTED})")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
-    if not 1 <= t <= DECODE_MAX_T:
-        raise ValueError(f"the paged-decode kernel takes 1 to {DECODE_MAX_T} query tokens, got {t}")
+    if t < 1:
+        raise ValueError(f"the paged-decode kernel takes at least one query token, got {t}")
     if b > DECODE_MAX_ROWS:
         raise ValueError(f"the paged-decode kernel takes at most {DECODE_MAX_ROWS} rows, got {b}")
     if block_table.dtype != torch.int32:
@@ -825,6 +830,24 @@ def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: 
         return fused_paged_decode_attention_plain(
             q, k_pool, v_pool, block_table, start, window, k_scale, v_scale, n_blocks,
             shared_blocks, shared_table)
+    out = paged_decode_launch(_entry("nexus_paged_decode"), q, k_pool, v_pool, block_table,
+                              start, window, k_scale, v_scale, n_blocks, shared_blocks,
+                              shared_table)
+    fused_paged_decode_attention.launches += 1
+    by_t = fused_paged_decode_attention.launches_by_t
+    by_t[q.shape[1]] = by_t.get(q.shape[1], 0) + 1
+    return out
+
+
+def paged_decode_launch(entry, q, k_pool, v_pool, block_table, start, window: int = 0,
+                        k_scale=None, v_scale=None, n_blocks=None, shared_blocks=None,
+                        shared_table=None) -> torch.Tensor:
+    """One launch of a build of the paged-decode kernel through its C entry
+    ``entry`` (a ctypes function with ``nexus_paged_decode``'s signature) on
+    CUDA tensors: the checks, operands and workspace of
+    ``fused_paged_decode_attention``, which calls it with the port's own
+    build. Counts nothing; ``tools/decode_ab.py`` and ``chip_smoke.py``
+    pass other builds of the source to compare them."""
     _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale)
     b, t, hq, d = q.shape
     n, bs, hkv, _ = k_pool.shape
@@ -843,7 +866,7 @@ def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: 
     part_ml, part_acc, counters = _decode_workspace(dev, n_part, d, b * hkv)
     out = torch.empty_like(q)
     int8 = k_pool.dtype == torch.int8
-    err = _entry("nexus_paged_decode")(
+    err = entry(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         block_table.data_ptr(), starts.data_ptr(), n_blocks.data_ptr(),
@@ -854,10 +877,11 @@ def fused_paged_decode_attention(q, k_pool, v_pool, block_table, start, window: 
         d ** -0.5, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "fused_paged_decode_attention")
-    fused_paged_decode_attention.launches += 1
     return out
 
 
 fused_paged_decode_attention.launches = 0
+# the launches by feed width T (decode 1, prefill chunks, verify windows)
+fused_paged_decode_attention.launches_by_t = {}
 SERVE_KERNELS = (fused_paged_decode_attention,)
 KERNEL_WRAPPERS = TRAIN_KERNELS + SERVE_KERNELS

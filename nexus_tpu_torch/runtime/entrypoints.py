@@ -7,11 +7,12 @@ serve`` (a synthetic request queue through the continuous-batching engine,
 ``tokens_per_sec``, ttft and latency percentiles, the KV ledger).
 
 This slice runs on one device. A declared parallelism over more chips is
-re-planned to one device and logged. Weights come from random init only.
-Features not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: checkpointing, profiling, pretrained weights, and on the serving
-side speculation, the host spill tier, open-loop arrivals, the
-observability hooks and fleet replicas.
+re-planned to one device and logged. Weights come from random init only
+(a speculative draft's too, from its own seed). Features not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item: checkpointing
+(a draft checkpoint included), profiling, pretrained weights, and on the
+serving side the host spill tier, open-loop arrivals, the observability
+hooks and fleet replicas.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+from nexus_tpu_torch.models.decoding import prompt_lookup_generate, speculative_generate
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine, not_ported
 from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
@@ -166,17 +168,52 @@ def _decode_params(family, cfg, dev, seed: int):
     return params
 
 
+# the draft's weights come from train.seed + this (the JAX entry point folds
+# 99 into the seed's key): a draft of the target's own preset is not the
+# target itself
+_DRAFT_SEED_OFFSET = 99
+
+
+def _resolve_draft(ref, cfg, what: str):
+    """(family, config) of a speculative draft, refused unless it shares
+    the target's vocabulary (acceptance compares token ids)."""
+    family = get_family(ref.family)
+    d_cfg = family.config(ref.preset, **dict(ref.overrides))
+    if d_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"speculative {what} must share the target vocab: "
+                         f"{d_cfg.vocab_size} != {cfg.vocab_size}")
+    return family, d_cfg
+
+
+def _load_draft_params(family, d_cfg, dev, seed: int, ck_dir: str):
+    """Draft weights: random from ``seed`` (+ _DRAFT_SEED_OFFSET), as the JAX
+    entry point gives them when no checkpoint directory is set. Returns
+    (params, loaded)."""
+    if ck_dir:
+        raise NotImplementedError(
+            f"a draft checkpoint directory is not ported yet ({_ROADMAP}, item 2: "
+            "train/checkpoint.py); without one the draft runs random weights from train.seed")
+    return _decode_params(family, d_cfg, dev, seed + _DRAFT_SEED_OFFSET), False
+
+
 def _run_infer(runtime, family, cfg, dev):
     """Timed autoregressive decode: ``infer.iterations`` timed decodes of
     ``infer.maxNewTokens`` new tokens after one untimed warm-up; the
-    metric is decode tokens/sec over the best iteration."""
+    metric is decode tokens/sec over the best iteration. With
+    ``infer.promptLookupNgram`` or ``infer.draft`` the decode is
+    speculative (models/decoding.py), and the metrics carry its ledger."""
     tr, inf = runtime.train, runtime.infer
-    if inf.draft is not None or inf.prompt_lookup_ngram > 0:
-        raise not_ported("speculation", "speculative infer (infer.draft / promptLookupNgram)")
     if inf.prompt:
         raise ValueError("infer.prompt (text) requires model.weights.tokenizer "
                          "(a tokenizer.json path) so it can be tokenized")
-    ctx = cfg.max_seq_len
+    draft_family = draft_cfg = None
+    if inf.draft is not None:
+        draft_family, draft_cfg = _resolve_draft(inf.draft, cfg, "draft")
+    # the speculation cache spans both models: shapes respect the shorter
+    ctx = cfg.max_seq_len if draft_cfg is None else min(cfg.max_seq_len, draft_cfg.max_seq_len)
+    speculating = inf.draft is not None or inf.prompt_lookup_ngram > 0
+    # one overshooting verify window past the last committed token
+    reserve = inf.num_speculative + 1 if speculating else 0
     prompt_len = min(inf.prompt_length, ctx - 1)
     ids = None
     if inf.prompt_token_ids:
@@ -186,10 +223,12 @@ def _run_infer(runtime, family, cfg, dev):
             raise ValueError(f"infer.promptTokenIds outside vocab {cfg.vocab_size}: {bad[:5]}")
         ids = ids[: ctx - 1]
         prompt_len = len(ids)
-    max_new = min(inf.max_new_tokens, ctx - prompt_len)
+    max_new = min(inf.max_new_tokens, ctx - prompt_len - reserve)
     if max_new <= 0:
         raise ValueError(f"infer shapes don't fit: prompt {prompt_len} + new tokens "
-                         f"{inf.max_new_tokens} vs effective max_seq_len {ctx}")
+                         f"{inf.max_new_tokens}"
+                         + (f" + speculation reserve {reserve}" if reserve else "")
+                         + f" vs effective max_seq_len {ctx}")
     params = _decode_params(family, cfg, dev, tr.seed)
     if ids is not None:
         prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
@@ -198,16 +237,49 @@ def _run_infer(runtime, family, cfg, dev):
         prompt = torch.randint(0, cfg.vocab_size, (tr.batch_size, prompt_len), generator=g,
                                dtype=torch.int32)
     prompt = prompt.contiguous().to(dev)
-    sampling = {"stop_token_id": inf.stop_token_id}
     gen = None
     if inf.temperature > 0:
         gen = torch.Generator(device=dev)
-        sampling.update(temperature=inf.temperature, generator=gen)
+    spec_extra, stats = {}, {}
+    if inf.prompt_lookup_ngram > 0:
+        # draft-free: n-gram copies of the committed text propose, the
+        # target verifies (greedy-exact); no draft weights, no draft cache
+        spec_extra = {"speculative": True, "speculative_kind": "prompt_lookup",
+                      "prompt_lookup_ngram": inf.prompt_lookup_ngram,
+                      "num_speculative": inf.num_speculative}
+
+        def decode():
+            return prompt_lookup_generate(family.forward_decode, params, cfg, prompt, max_new,
+                                          num_speculative=inf.num_speculative,
+                                          ngram=inf.prompt_lookup_ngram)
+    elif inf.draft is not None:
+        # a draft model proposes; greedy, or rejection-sampled at temperature > 0
+        draft_params, draft_loaded = _load_draft_params(
+            draft_family, draft_cfg, dev, tr.seed, inf.draft_checkpoint_directory)
+        spec_extra = {"draft_weights_loaded": draft_loaded, "speculative": True,
+                      "draft_family": inf.draft.family, "draft_preset": inf.draft.preset,
+                      "num_speculative": inf.num_speculative}
+
+        def decode():
+            return speculative_generate(family.forward_decode, params, cfg,
+                                        draft_family.forward_decode, draft_params, draft_cfg,
+                                        prompt, max_new, num_speculative=inf.num_speculative,
+                                        temperature=inf.temperature, generator=gen)
+    else:
+        sampling = {"stop_token_id": inf.stop_token_id}
+        if gen is not None:
+            sampling.update(temperature=inf.temperature, generator=gen)
+
+        def decode():
+            return family.generate(params, cfg, prompt, max_new, return_logits=True, **sampling)
 
     def run_once():
         if gen is not None:
             gen.manual_seed(tr.seed + 7)  # every iteration draws the same stream
-        return family.generate(params, cfg, prompt, max_new, return_logits=True, **sampling)
+        out, extra = decode()  # the last logits, or the speculation stats
+        if spec_extra:
+            stats.update(extra)  # the last timed run's
+        return out, extra
 
     with torch.inference_mode():
         out, last = run_once()  # first-use costs: kernel loads, allocator growth
@@ -218,10 +290,22 @@ def _run_infer(runtime, family, cfg, dev):
             out, last = run_once()
             sync_host(dev)
             times.append(time.monotonic() - t0)
-        finite = bool(torch.isfinite(last).all())
+        # the plain decode's last logits (a speculative decode returns none)
+        finite = {} if spec_extra else {"last_logits_finite": bool(torch.isfinite(last).all())}
+    if stats:
+        drafted, accepted = stats["drafted"], stats["accepted"]
+        spec_extra.update(
+            rounds=stats["rounds"],
+            acceptance_rate=round(accepted / drafted, 4) if drafted else 0.0,
+            # target forwards per committed token per row (1.0 is plain
+            # greedy): each round is one batched target forward
+            target_forwards_per_token=round((stats["rounds"] + 1) / max(max_new, 1), 4))
+        if "lookup_hits" in stats:
+            spec_extra["lookup_hit_rounds"] = stats["lookup_hits"]
     new_tokens = tr.batch_size * max_new
     best = min(times)
     return {
+        **spec_extra,
         "mode": "infer",
         "family": runtime.model.family,
         "preset": runtime.model.preset,
@@ -237,7 +321,7 @@ def _run_infer(runtime, family, cfg, dev):
         "device": str(dev),
         "device_kind": device_kind(dev),
         "output_shape": list(out.shape),
-        "last_logits_finite": finite,
+        **finite,
     }
 
 
@@ -271,8 +355,6 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
     with ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
     sizes."""
     sv, tr = runtime.serve, runtime.train
-    if sv.prompt_lookup_ngram > 0 or sv.draft is not None:
-        raise not_ported("speculation", "speculative serving (serve.promptLookupNgram / draft)")
     if sv.host_cache_bytes > 0:
         raise not_ported("host_cache", "serve.hostCacheBytes > 0")
     if sv.arrival != "closed":
@@ -283,12 +365,27 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         raise not_ported("obs", "the NEXUS_SERVE_TRACE span dump")
     if sv.prompts:
         raise ValueError("serve.prompts requires model.weights.tokenizer")
+    draft_kw, draft_out = {}, {}
+    if sv.draft is not None:
+        draft_family, draft_cfg = _resolve_draft(sv.draft, cfg, "serve draft")
+        if draft_cfg.max_seq_len < cfg.max_seq_len:
+            # the engine runs the draft cache at the target's max_len
+            raise ValueError(f"speculative serve draft must cover the target context: draft "
+                             f"max_seq_len {draft_cfg.max_seq_len} < target {cfg.max_seq_len} "
+                             "(override the draft's max_seq_len)")
+        draft_params, loaded = _load_draft_params(draft_family, draft_cfg, dev, tr.seed,
+                                                  sv.draft_checkpoint_directory)
+        draft_kw = dict(draft_forward=draft_family.forward_decode, draft_params=draft_params,
+                        draft_cfg=draft_cfg)
+        draft_out = {"draft_family": sv.draft.family, "draft_preset": sv.draft.preset,
+                     "draft_weights_loaded": loaded}
     params = _decode_params(family, cfg, dev, tr.seed)
     requests = _synthetic_queue(sv, tr, cfg)
     engine = ServingEngine(
         family.forward_decode, params, cfg,
         batch_size=tr.batch_size, max_len=cfg.max_seq_len, stop_token_id=sv.stop_token_id,
         chunk=sv.chunk, prefill_chunk=sv.prefill_chunk, kv_block_size=sv.kv_block_size,
+        lookup_ngram=sv.prompt_lookup_ngram, num_speculative=sv.num_speculative, **draft_kw,
         # the ONE sizing formula validate() also uses
         kv_num_blocks=sv.kv_pool_blocks(tr.batch_size, cfg.max_seq_len),
         prefix_cache=sv.prefix_cache, max_queue_depth=sv.max_queue_depth,
@@ -301,6 +398,7 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
     latencies = sorted(r.latency_s for r in results if r is not None and r.status == STATUS_OK)
     out = {
         **metrics,
+        **draft_out,
         "mode": "serve",
         "family": runtime.model.family,
         "preset": runtime.model.preset,

@@ -20,17 +20,26 @@ depths; finished rows are refilled at chunk boundaries:
   sync inside it (the fused paged read keeps its loop bounds on the
   device); the host reads the chunk's tokens once, at its end.
 
+* speculation (greedy only): one verify structure, two proposers. With
+  ``lookup_ngram`` > 0 each row proposes ``num_speculative`` tokens by
+  n-gram lookup in its own committed text; with ``draft_forward`` a draft
+  model proposes them through its own dense cache. Either way the target
+  scores the k+1 window in ONE forward through the block table, each row
+  commits its accepted prefix plus one token, and rejected positions roll
+  the row's pointer back. A dispatch runs R = ceil(chunk / (k+1)) rounds;
+  prefilling rows stream k+1 prompt tokens a round in the same forward.
+
 Exactness: a request's output is a function of the request alone. At
-temperature 0 it is the model's greedy decode of the prompt. At
-temperature > 0 the token at buffer position ``pos`` is a Gumbel-max draw
-keyed by (engine seed, request seed, pos) through a counter-based hash on
-the device — deterministic and batch-invariant, but not JAX's threefry
-numbers (``_gumbel``).
+temperature 0 it is the model's greedy decode of the prompt, with or
+without speculation. At temperature > 0 the token at buffer position
+``pos`` is a Gumbel-max draw keyed by (engine seed, request seed, pos)
+through a counter-based hash on the device — deterministic and
+batch-invariant, but not JAX's threefry numbers (``_gumbel``).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-speculation (prompt lookup, draft model), the host-RAM spill tier, the
-observability hooks (span tracer, flight recorder, live gauges; their
-metric keys report their off values), and streamed arrivals.
+the host-RAM spill tier, the observability hooks (span tracer, flight
+recorder, live gauges; their metric keys report their off values), and
+streamed arrivals.
 """
 
 from __future__ import annotations
@@ -45,9 +54,12 @@ import torch
 
 from nexus_tpu_torch.api.runtime_spec import serve_dispatch_slack
 from nexus_tpu_torch.models.decoding import (
+    _commit_speculation,
+    _greedy_accept,
     copy_kv_blocks,
     init_kv_cache,
     init_paged_kv_cache,
+    prompt_lookup_propose,
 )
 from nexus_tpu_torch.runtime.prefix_cache import PrefixCacheIndex, chain_keys
 from nexus_tpu_torch.runtime.scheduling import make_admission_policy
@@ -56,7 +68,6 @@ from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
 KV_POOL_DTYPES = ("native", "int8")
 _ROADMAP = "ROADMAP 'Port to PyTorch/CUDA', item 1"
 NOT_PORTED = {
-    "speculation": f"{_ROADMAP}a: speculation (prompt lookup and draft tiers)",
     "host_cache": f"{_ROADMAP}b: the host-RAM spill tier (runtime/host_cache.py)",
     "traffic": f"{_ROADMAP}c: open-loop traffic (runtime/traffic.py)",
     "obs": f"{_ROADMAP}d: the observability hooks (nexus_tpu/obs)",
@@ -321,7 +332,10 @@ class ServingEngine:
     ``prefix_cache``, ``attention_path`` "fused" (the paged-decode kernel
     with the Hydragen split) or "gather", ``admission_policy``,
     ``kv_pool_dtype`` "native" or "int8", queue bounds and an injectable
-    ``clock``). The engine's tensors live on the device of
+    ``clock``). ``lookup_ngram`` > 0 or ``draft_forward`` (with
+    ``draft_params`` and ``draft_cfg``, a model of the same vocabulary
+    covering ``max_len``) turn on speculation, ``num_speculative`` tokens
+    a round. The engine's tensors live on the device of
     ``params['embed']``; the KV state (pool, radix tree) persists across
     ``serve`` calls, ``reset_cache`` drops it."""
 
@@ -334,10 +348,9 @@ class ServingEngine:
                  attention_path: str = "fused", admission_policy: Any = "cache-aware",
                  admission_aging_waves: int = 8, prefix_completions: bool = True,
                  kv_pool_dtype: str = "native", host_cache_bytes: int = 0,
-                 draft_forward: Optional[Callable] = None, tracer: Any = None,
+                 draft_forward: Optional[Callable] = None, draft_params: Any = None,
+                 draft_cfg: Any = None, tracer: Any = None,
                  flight_recorder: Any = None, live_gauges: bool = False):
-        if lookup_ngram or draft_forward is not None:
-            raise not_ported("speculation", "speculative serving")
         if host_cache_bytes:
             raise not_ported("host_cache", "host_cache_bytes > 0")
         if tracer is not None or flight_recorder not in (None, False) or live_gauges:
@@ -354,6 +367,35 @@ class ServingEngine:
         self._stop = int(stop_token_id)
         self._chunk = int(chunk)
         self._seed = int(sample_seed)
+        # speculation: one verify structure, two proposers (n-gram lookup in
+        # the committed text, or a draft model through its own dense cache)
+        self._lookup = int(lookup_ngram)
+        self._k = int(num_speculative)
+        self._draft = draft_forward is not None
+        self._draft_fwd, self._draft_params, self._draft_cfg = (
+            draft_forward, draft_params, draft_cfg)
+        if self._draft and self._lookup:
+            raise ValueError("lookup_ngram and draft_forward are mutually exclusive (draft-free "
+                             "vs draft-model speculation — two proposers behind the same verify "
+                             "seam)")
+        if self._draft and draft_cfg is None:
+            raise ValueError("draft_forward requires draft_cfg")
+        if self._draft and getattr(draft_cfg, "vocab_size", None) != getattr(cfg, "vocab_size",
+                                                                             None):
+            raise ValueError("speculative draft must share the target vocab: draft "
+                             f"{getattr(draft_cfg, 'vocab_size', None)} != target "
+                             f"{getattr(cfg, 'vocab_size', None)}")
+        if self._draft and int(getattr(draft_cfg, "max_seq_len", 0)) < self._max_len:
+            raise ValueError("speculative draft must cover the serve context: draft max_seq_len "
+                             f"{getattr(draft_cfg, 'max_seq_len', 0)} < engine max_len "
+                             f"{self._max_len} (override the draft's max_seq_len or shrink "
+                             "max_len)")
+        self._spec = bool(self._lookup) or self._draft
+        if self._spec and self._k < 1:
+            raise ValueError(f"num_speculative must be >= 1, got {self._k}")
+        # rounds a speculative dispatch runs: its committed-token budget is
+        # comparable to a plain chunk's C single-token steps
+        self._rounds = max(1, -(-self._chunk // (self._k + 1)))
         self._t = int(prefill_chunk)
         if self._t < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -396,7 +438,8 @@ class ServingEngine:
             kv_pool_dtype == "int8")
         # worst-case growth past a row's finish inside one dispatch: the ONE
         # formula shared with ServeSpec.serve_slack()
-        self._slack = serve_dispatch_slack(self._chunk, 0, num_speculative)
+        self._slack = serve_dispatch_slack(self._chunk, self._lookup, self._k,
+                                           draft=self._draft)
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         per_elem = cfg.head_dim * 1 + 4 if self._quantized else cfg.head_dim * itemsize
         self._pos_bytes = cfg.n_layers * cfg.n_kv_heads * per_elem * 2
@@ -488,6 +531,125 @@ class ServingEngine:
             emits.append(emit)
         return cache, tok, ptr, torch.stack(toks), torch.stack(emits)
 
+    def _fresh_draft_cache(self):
+        """The draft proposer's own KV cache: dense rows at the draft's
+        shapes (a draft is small by design) with per-row lengths; rollback
+        is a pointer rewind. No block table and no prefix sharing: the draft
+        teacher-forces every admitted prompt from position 0."""
+        d = self._draft_cfg
+        c = init_kv_cache(d.n_layers, d.n_kv_heads, d.head_dim, d.dtype, self._b, self._max_len,
+                          quantized=getattr(d, "kv_cache_quantized", False), device=self._dev)
+        c["length"] = torch.zeros((self._b,), dtype=torch.int32, device=self._dev)
+        return c
+
+    def _draft_propose(self, d_cache, tok, frontier, done, active, buf):
+        """One round's draft-model proposals: k+1 width-1 draft feeds. A
+        feed takes the next committed token from ``buf`` while the draft's
+        pointer is below the row's committed ``frontier`` (teacher forcing:
+        the prompt, and the catch-up after a prefix-cache hit let the target
+        skip positions), else the draft's own last prediction. Rows with
+        nothing to feed ride along at n_valid 0. Returns the (B, k)
+        proposals (garbage for teacher-forced rows: the verify rejects
+        them) and the draft cache; the last feed's output is dropped, but
+        it puts the last proposal's K/V in the cache."""
+        max_len = self._max_len
+        dtok, drafted = tok, []
+        for _ in range(self._k + 1):
+            pos = d_cache["length"]
+            teach = pos < frontier
+            feed = torch.where(
+                teach, torch.gather(buf, 1, pos.long().clamp(0, max_len - 1)[:, None])[:, 0],
+                dtok)
+            n_valid = torch.where(done, torch.zeros_like(pos),
+                                  (teach | active).to(pos.dtype))
+            d_in = dict(d_cache)
+            d_in["n_valid"] = n_valid
+            logits, d_cache = self._draft_fwd(self._draft_params, self._draft_cfg,
+                                              feed[:, None], d_in)
+            dtok = logits[:, 0].argmax(dim=-1).to(tok.dtype)
+            drafted.append(dtok)
+        return torch.stack(drafted[: self._k], dim=1), d_cache
+
+    def _spec_chunk(self, cache, d_cache, tok, ptr, done, buf, plen, shared_ops):
+        """R speculative rounds on device tensors: decode rows propose k
+        tokens (n-gram lookup or the draft model) and verify them in one
+        (k+1)-wide target forward; prefilling rows ride the same forward
+        with k+1 prompt tokens of their window and emit their first token
+        the round their prompt completes. Returns (cache, d_cache, tok, ptr,
+        buf, outs (R, B, k+1), accepted (R, B), emitted (R, B), active
+        (R, B)): row r emitted outs[i, r, :emitted[i, r]] in round i."""
+        k, w, max_len = self._k, self._k + 1, self._max_len
+        slots = torch.arange(w, device=self._dev)
+        cols = torch.arange(max_len, device=self._dev)
+        rows = torch.arange(self._b, device=self._dev)
+        outs, accs, emits, actives = [], [], [], []
+        for _ in range(self._rounds):
+            prefilling = (ptr < plen) & ~done
+            active = ~done & ~prefilling
+            last_pos = cache["length"]  # tok's buffer position
+            if self._draft:
+                # the committed frontier the draft may teacher-force: the
+                # prompt while prefilling, the committed text and tok after
+                frontier = torch.where(prefilling, plen, last_pos + 1)
+                proposals, d_cache = self._draft_propose(d_cache, tok, frontier, done, active,
+                                                         buf)
+            else:
+                proposals, _ = prompt_lookup_propose(buf, last_pos, k, self._lookup)
+            pf_pos = (ptr.long()[:, None] + slots[None, :]).clamp(0, max_len - 1)
+            block = torch.where(prefilling[:, None], torch.gather(buf, 1, pf_pos),
+                                torch.cat([tok[:, None], proposals], dim=1))
+            n_valid = torch.where(prefilling, torch.clamp(plen - ptr, max=w),
+                                  torch.full_like(ptr, w)).to(torch.int32)
+            cache_in = dict(cache)
+            cache_in["n_valid"] = n_valid
+            if self._fused:
+                cache_in["shared_blocks"], cache_in["shared_table"] = shared_ops
+            logits, out_cache = self._fwd(self._params, self._cfg, block, cache_in)
+            out_cache = dict(out_cache)
+            choice = logits.argmax(dim=-1).to(tok.dtype)
+            accepted, out = _greedy_accept(proposals, choice)
+            accepted = torch.where(active, accepted, torch.zeros_like(accepted))
+            # commit and roll back by pointer; rows not decoding keep the
+            # scaffold's length (a prefill advance) or their own (done)
+            keep_len = torch.where(done, cache["length"], out_cache["length"])
+            buf, _, new_len = _commit_speculation(buf, last_pos, active, accepted, out, k,
+                                                  keep_len)
+            out_cache["length"] = new_len
+            cache = out_cache
+            # a finishing row's first token reads its last prompt slot's
+            # logits, lands in buf[plen] (committed text the proposers see)
+            # and is next round's feed: its K/V arrives with that feed
+            finish = prefilling & (plen - ptr <= w)
+            first_tok = torch.gather(choice, 1, (n_valid.long() - 1)[:, None])[:, 0]
+            buf = torch.where(finish[:, None] & (cols[None, :] == plen.long()[:, None]),
+                              first_tok[:, None], buf)
+            tok = torch.where(active, out[rows, accepted],
+                              torch.where(finish, first_tok, tok))
+            ptr = torch.where(prefilling, ptr + n_valid, ptr)
+            out = torch.where(finish[:, None] & (slots == 0)[None, :], first_tok[:, None], out)
+            n_emit = torch.where(active, accepted + 1, finish.long())
+            if self._draft:
+                # the draft's pointer rewinds with the target's for decode
+                # rows; teacher-forced rows keep their own advance
+                d_len = d_cache["length"]
+                d_cache = dict(d_cache)
+                d_cache["length"] = torch.where(active, torch.minimum(d_len, new_len), d_len)
+            outs.append(out)
+            accs.append(accepted)
+            emits.append(n_emit)
+            actives.append(active)
+        return (cache, d_cache, tok, ptr, buf, torch.stack(outs), torch.stack(accs),
+                torch.stack(emits), torch.stack(actives))
+
+    def _draft_reset(self, d_cache, rows: List[int]):
+        """Admitted rows' draft pointers back to 0: the draft re-ingests
+        each prompt, teacher-forced (the target may start past a
+        prefix-cache match; the draft catches up by the frontier rule)."""
+        d_cache = dict(d_cache)
+        d_cache["length"] = d_cache["length"].index_fill(
+            0, self._vec(rows, torch.int64), 0)
+        return d_cache
+
     @torch.no_grad()
     def warmup(self) -> None:
         """Run each chunk program once on a fresh cache (first-use costs:
@@ -502,10 +664,16 @@ class ServingEngine:
         done = torch.ones((b,), dtype=torch.bool, device=self._dev)
         buf = torch.zeros((b, self._max_len), dtype=torch.int32, device=self._dev)
         temp = torch.zeros((b,), dtype=torch.float32, device=self._dev)
-        for width in sorted({self._t, 1}):
-            out = self._decode_chunk(self._fresh_cache(), zi(), zi(), done, buf, zi(), temp,
-                                     zi(), shared, width, sampling=False)
-            out[3].cpu()
+        if self._spec:
+            d_cache = self._fresh_draft_cache() if self._draft else None
+            out = self._spec_chunk(self._fresh_cache(), d_cache, zi(), zi(), done, buf, zi(),
+                                   shared)
+            out[5].cpu()
+        else:
+            for width in sorted({self._t, 1}):
+                out = self._decode_chunk(self._fresh_cache(), zi(), zi(), done, buf, zi(), temp,
+                                         zi(), shared, width, sampling=False)
+                out[3].cpu()
         self._warmed = True
 
     def _validate_request(self, req: ServeRequest, req_idx: int):
@@ -515,6 +683,9 @@ class ServingEngine:
         p = int(prompt.shape[0])
         if p < 1:
             raise ValueError(f"request {req_idx}: empty prompt")
+        if self._spec and req.temperature > 0:
+            raise ValueError(f"request {req_idx}: speculative serving (prompt-lookup or "
+                             "draft-model) is greedy-exact only; temperature must be 0")
         budget = min(int(req.max_new_tokens), self._max_len - 1 - p - self._slack)
         if budget < 1:
             raise ValueError(f"request {req_idx}: prompt ({p}) + chunk slack ({self._slack}) "
@@ -569,6 +740,7 @@ class ServingEngine:
         else:
             cache = self._fresh_cache()
         self._kv_fresh = False
+        d_cache = self._fresh_draft_cache() if self._draft else None
         buf = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
         tok_vec = torch.zeros((b,), dtype=torch.int32, device=dev)
         ptr_vec = torch.zeros_like(tok_vec)
@@ -585,6 +757,7 @@ class ServingEngine:
             return max(arrive_t[req_idx], t0)
 
         committed = scheduled_slots = chunks = 0
+        target_forwards = drafted = accepted_total = 0
         shed_count = deadline_miss_count = deadline_cancelled_rows = 0
         queue_depth_peak = 0
         insert_dispatches = prefill_steps = prefill_steps_saved = 0
@@ -752,6 +925,13 @@ class ServingEngine:
         def row_done(state: _RowState) -> bool:
             return state.stopped or len(state.emitted) >= state.budget
 
+        def emit(state: _RowState, t: int, now: float) -> None:
+            if not state.emitted:
+                state.first_tok_t = now
+            state.emitted.append(t)
+            if self._stop >= 0 and t == self._stop:
+                state.stopped = True
+
         def req_chain_keys(req_idx: int) -> List[bytes]:
             if req_idx not in keys_cache:
                 keys_cache[req_idx] = chain_keys(
@@ -769,7 +949,7 @@ class ServingEngine:
             """Fill free rows in the policy's order with ONE insert; a
             pool-full refusal stops the wave, a request whose next block an
             active row is prefilling right now is deferred."""
-            nonlocal cache, buf, ptr_vec, plen_vec, temp_vec, seed_vec
+            nonlocal cache, d_cache, buf, ptr_vec, plen_vec, temp_vec, seed_vec
             nonlocal reserved_blocks_total, hit_tokens, hit_requests
             nonlocal cross_hit_tokens, cross_hit_requests, cow_copies, admission_overtakes
             nonlocal insert_dispatches, prefill_steps, prefill_steps_saved
@@ -840,7 +1020,7 @@ class ServingEngine:
             # the insert: prompts into their rows of the token buffer, the
             # rows' pointers and depths to their matched lengths
             now = self._clock()
-            width = self._t
+            width = self._k + 1 if self._spec else self._t
             n = len(wave)
             prompts = np.zeros((n, max_len), dtype=np.int32)
             for i, w in enumerate(wave):
@@ -857,6 +1037,8 @@ class ServingEngine:
             seed_vec = seed_vec.index_put((idx,), self._vec([w[1].seed for w in wave],
                                                             torch.int64))
             insert_dispatches += 1
+            if self._draft:
+                d_cache = self._draft_reset(d_cache, [w[0] for w in wave])
             cow_pairs = []
             for row, req, req_idx, prompt, p, budget, matched, lease, cow_src, keys in wave:
                 steps = -(-(p - matched) // width)
@@ -919,19 +1101,38 @@ class ServingEngine:
                 hydragen_waves += 1
                 hydragen_shared_slots += shared_s
             done_vec = torch.tensor([r is None or row_done(r) for r in rows]).to(dev)
-            wide = any(prefill_left[r] > 0 for r in range(b) if rows[r] is not None)
-            width = self._t if wide else 1
-            sampling = any(s is not None and requests[s.request_idx].temperature > 0
-                           for s in rows)
-            cache, tok_vec, ptr_vec, toks, emits = self._decode_chunk(
-                cache, tok_vec, ptr_vec, done_vec, buf, plen_vec, temp_vec, seed_vec,
-                shared_ops, width, sampling)
-            chunks += 1
-            scheduled_slots += self._chunk * b
-            host_toks, host_emits = torch.stack((toks, emits.to(toks.dtype))).cpu().numpy()
-            pf_advance = self._chunk * width
-            for r in range(b):
-                prefill_left[r] = max(0, prefill_left[r] - self._chunk)
+            if self._spec:
+                (cache, d_cache, tok_vec, ptr_vec, buf, outs, accs, n_emits,
+                 actives) = self._spec_chunk(cache, d_cache, tok_vec, ptr_vec, done_vec, buf,
+                                             plen_vec, shared_ops)
+                chunks += 1
+                # one verify scores k+1 positions: utilization over them is
+                # acceptance-sensitive by design
+                scheduled_slots += self._rounds * (self._k + 1) * b
+                # one batched device-to-host read
+                host = torch.cat([outs.reshape(-1), accs.reshape(-1).to(outs.dtype),
+                                  n_emits.reshape(-1).to(outs.dtype),
+                                  actives.reshape(-1).to(outs.dtype)]).cpu().numpy()
+                n_out, n_rb = outs.numel(), accs.numel()
+                host_outs = host[:n_out].reshape(outs.shape)
+                host_accs, host_n_emits, host_actives = (
+                    host[n_out + i * n_rb:n_out + (i + 1) * n_rb].reshape(accs.shape)
+                    for i in range(3))
+                pf_advance = self._rounds * (self._k + 1)
+            else:
+                wide = any(prefill_left[r] > 0 for r in range(b) if rows[r] is not None)
+                width = self._t if wide else 1
+                sampling = any(s is not None and requests[s.request_idx].temperature > 0
+                               for s in rows)
+                cache, tok_vec, ptr_vec, toks, emits = self._decode_chunk(
+                    cache, tok_vec, ptr_vec, done_vec, buf, plen_vec, temp_vec, seed_vec,
+                    shared_ops, width, sampling)
+                chunks += 1
+                scheduled_slots += self._chunk * b
+                host_toks, host_emits = torch.stack((toks, emits.to(toks.dtype))).cpu().numpy()
+                pf_advance = self._chunk * width
+                for r in range(b):
+                    prefill_left[r] = max(0, prefill_left[r] - self._chunk)
             now = self._clock()
             if heartbeat is not None:
                 heartbeat(committed)
@@ -956,17 +1157,25 @@ class ServingEngine:
                 state = rows[r]
                 if state is None:
                     continue
-                for c in range(self._chunk):
-                    if row_done(state):
-                        break
-                    if not host_emits[c, r]:
-                        continue  # the row was prefilling this step
-                    t = int(host_toks[c, r])
-                    if not state.emitted:
-                        state.first_tok_t = now
-                    state.emitted.append(t)
-                    if self._stop >= 0 and t == self._stop:
-                        state.stopped = True
+                if self._spec:
+                    for ri in range(self._rounds):
+                        if row_done(state):
+                            break
+                        if host_actives[ri, r]:
+                            target_forwards += 1
+                            drafted += self._k
+                            accepted_total += int(host_accs[ri, r])
+                        for t in host_outs[ri, r, :int(host_n_emits[ri, r])]:
+                            if row_done(state):
+                                break
+                            emit(state, int(t), now)
+                else:
+                    for c in range(self._chunk):
+                        if row_done(state):
+                            break
+                        if not host_emits[c, r]:
+                            continue  # the row was prefilling this step
+                        emit(state, int(host_toks[c, r]), now)
                 if row_done(state):
                     finish(state)
                     release_row(r)
@@ -998,7 +1207,7 @@ class ServingEngine:
             "tokens_per_sec": round(committed / wall, 2) if wall else 0.0,
             "insert_dispatches": insert_dispatches,
             "prefill_steps": prefill_steps,
-            "prefill_chunk": self._t,
+            "prefill_chunk": self._k + 1 if self._spec else self._t,
             "interrupted": interrupted,
             "queue_depth_peak": queue_depth_peak,
             "shed_requests": shed_count,
@@ -1068,5 +1277,20 @@ class ServingEngine:
         metrics["kv_reduction_vs_dense"] = (
             round(dense_row_bytes / metrics["kv_bytes_per_request"], 3)
             if metrics["kv_bytes_per_request"] else 1.0)
-        metrics["decode_dispatches_per_committed_token"] = 1.0 if committed else 0.0
+        # the speculation ledger: target verify forwards spent per COMMITTED
+        # token (plain decode is 1.0 by construction; < 1.0 means
+        # speculation beats one forward a token)
+        if self._spec:
+            metrics["speculative_kind"] = "draft_model" if self._draft else "prompt_lookup"
+            if self._lookup:
+                metrics["prompt_lookup_ngram"] = self._lookup
+            metrics["num_speculative"] = self._k
+            metrics["target_forwards"] = target_forwards
+            metrics["acceptance_rate"] = round(accepted_total / drafted, 4) if drafted else 0.0
+            metrics["accepted_per_round"] = (
+                round(accepted_total / target_forwards, 4) if target_forwards else 0.0)
+            metrics["decode_dispatches_per_committed_token"] = (
+                round(target_forwards / committed, 4) if committed else 0.0)
+        else:
+            metrics["decode_dispatches_per_committed_token"] = 1.0 if committed else 0.0
         return results, metrics

@@ -1,5 +1,6 @@
-"""chip_smoke.py's arithmetic that needs no card: the paged-decode kernel's
-bound, counted by hand on small shapes.
+"""chip_smoke.py's parts that need no card: the paged-decode kernel's
+bound, counted by hand on small shapes; the key-tail shapes, the decode
+error gate, the serve phases' specs and their same-token count.
 
 The bound counts each input byte once: every row's visible slots past the
 Hydragen split, and the visible slots under the split once for the whole
@@ -47,3 +48,42 @@ def test_decode_bound_with_a_window_and_no_split():
 def test_decode_bound_at_the_timed_shapes(shape, slots, bound_ms):
     assert cs.decode_read_slots(shape) == slots
     assert cs.decode_bound_ms(shape) == pytest.approx(bound_ms, abs=5e-6)
+
+
+def test_key_tail_shapes_end_mid_tile_under_both_masks():
+    tails = {(s["Sq"], s["Sk"], s["causal"]) for s in cs.KEY_TAIL_SHAPES}
+    assert tails == {(sq, sk, c) for sq, sk in ((128, 1), (128, 37), (128, 100), (256, 100))
+                     for c in (True, False)}
+    assert all(s["Sq"] % 64 == 0 and s["D"] in (64, 128) for s in cs.KEY_TAIL_SHAPES)
+
+
+@pytest.mark.parametrize("floor,share", [(0.0, 0.1), (0.04, 0.14), (0.09, 0.19)])
+def test_decode_exact_share_is_a_tenth_over_the_floor(floor, share):
+    assert cs.decode_exact_share(floor) == pytest.approx(share)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(num_requests=16, promptLookupNgram=2, numSpeculative=4),
+    dict(num_requests=8, numSpeculative=4, draft=cs.DRAFT_REF),
+    dict(num_requests=8, prefillChunk=32),
+])
+def test_the_new_serve_phases_are_valid_specs(extra):
+    """serve-lookup, serve-draft and serve-prefill32 pass the port's
+    validate(); the draft shares the target's vocabulary and context."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.models import llama
+
+    spec = JaxXlaRuntime.from_dict(cs._serve_spec(**extra))
+    assert spec.validate() == []
+    if spec.serve.draft is not None:
+        target = llama.config("8b")
+        draft = llama.config(spec.serve.draft.preset, **spec.serve.draft.overrides)
+        assert (draft.vocab_size, draft.max_seq_len) == (target.vocab_size, target.max_seq_len)
+        assert draft.n_layers < target.n_layers
+
+
+def test_same_tokens_counts_the_requests_that_agree(capsys):
+    ref = {"completion_ids": [[1, 2, 3], [4, 5, 6], [7, 8, 9]]}
+    run = {"completion_ids": [[1, 2, 3], [4, 0, 6]]}
+    assert cs._same_tokens("x", ref, run) == "1/2"
+    assert "first differing new token of the others: [1]" in capsys.readouterr().out

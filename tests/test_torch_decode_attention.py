@@ -200,6 +200,18 @@ def test_merge_and_finalize_match_jax():
     assert (got[0, 0, 0] == 0).all()  # l == 0 in both parts → exact zeros
 
 
+@pytest.mark.parametrize("t", [17, 32, 64])
+def test_decode_check_takes_any_feed_width(t):
+    """The kernel takes every T a serve spec can ask for (prefillChunk, a
+    verify window of numSpeculative + 1): its shape check passes, and the
+    workspace keeps as many partials a row as at T 16."""
+    q = torch.zeros(8, t, 32, 128, dtype=torch.bfloat16)
+    pool = torch.zeros(9, 32, 8, 128, dtype=torch.bfloat16)
+    table = torch.zeros(8, 4, dtype=torch.int32)
+    tattn._check_decode(q, pool, pool, table, None, None)
+    assert tattn.decode_max_partials(8, 32, t, 128) == tattn.decode_max_partials(8, 32, 16, 128)
+
+
 def test_kernel_wrapper_takes_the_plain_path_only_on_cpu_tensors():
     """On CPU tensors the wrapper is the plain version and counts nothing."""
     c = _paged_case(9)
@@ -265,6 +277,10 @@ UNIT_CASES = [
     (5, 64, 1, 4, 8, 32, 12, 4, 0, 264, 2),        # B 64, pmax 2: one own unit a row
     (6, 4, 3, 3, 1, 16, 9, 9, 0, 8, 17),           # the split covers the table; ragged rows
     (7, 6, 1, 1, 3, 48, 11, 2, 100, 1000, 17),     # Bs not a power of two, window
+    # feeds past 16 tokens: 68, 128 and 256 query rows a (row, kv head)
+    (8, 4, 17, 4, 2, 32, 30, 4, 0, 264, 17),       # T 17: a ragged third row group
+    (9, 3, 32, 4, 2, 32, 24, 2, 64, 132, 9),       # T 32, window
+    (10, 8, 64, 4, 8, 32, 40, 8, 0, 264, 17),      # T 64 at the serve geometry
 ]
 
 

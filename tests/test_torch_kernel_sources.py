@@ -67,3 +67,14 @@ def test_the_work_list_twin_uses_the_kernels_constants(name, value):
     text = (_kernels.CSRC / "paged_decode.cu").read_text()
     m = re.search(r"constexpr int " + name + r" = (\d+);", text)
     assert m and int(m.group(1)) == value
+
+
+@pytest.mark.parametrize("variant", sorted(_kernels.VARIANTS))
+def test_every_variant_flag_is_read_by_its_source(variant):
+    """A variant build differs from the port's own only through macros its
+    source reads."""
+    source, flags = _kernels.VARIANTS[variant]
+    text = (_kernels.CSRC / source).read_text()
+    for flag in flags:
+        name = flag[2:].split("=")[0]
+        assert re.search(r"#if(?:def)?\s+" + name + r"\b", text), (variant, flag)

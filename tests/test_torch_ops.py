@@ -243,6 +243,19 @@ def test_planted_kernel_faults_fail_the_chip_smoke_limits(tile):
     assert min(ratios.values()) > 1.0, ratios
 
 
+@pytest.mark.parametrize("sk", [1, 37, 100])
+def test_kernel_wrapper_checks_accept_a_key_tail(sk):
+    """Sk < 128 of any length takes the flash path under the JAX shape rule
+    once Sq >= 128 (the JAX kernel takes the whole Sk as one block); the
+    kernels mask the keys past Sk, so the wrapper takes any Sk >= 1."""
+    q = torch.zeros(1, 128, 8, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, sk, 2, 128, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, 128)
+    assert tattn.tile_ok(q, k)
+    dims = tattn._check_cuda(q, k, k, causal=True, window=0, dout=q, lse=lse, delta=lse)
+    assert dims == (1, 128, sk, 8, 2, 128)
+
+
 def test_kernel_wrapper_checks_accept_what_the_kernels_take():
     q = torch.zeros(2, 256, 8, 128, dtype=torch.bfloat16)
     k = torch.zeros(2, 192, 2, 128, dtype=torch.bfloat16)

@@ -257,10 +257,15 @@ def test_warm_engine_second_call_is_identical_and_hits_across_calls():
 
 def test_unported_engine_features_raise_naming_their_roadmap_item():
     _, (cfg, params) = _models()
-    for kw, item in ((dict(lookup_ngram=2), "1a"), (dict(host_cache_bytes=1 << 20), "1b"),
-                     (dict(tracer=object()), "1d"), (dict(live_gauges=True), "1d")):
+    for kw, item in ((dict(host_cache_bytes=1 << 20), "1b"), (dict(tracer=object()), "1d"),
+                     (dict(live_gauges=True), "1d")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, **kw)
     eng = tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, max_len=64)
     with pytest.raises(NotImplementedError, match="item 1c"):
         eng.serve([], source=object())
+    # speculation (item 1a) is ported: the lookup tier serves
+    spec = tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, max_len=64,
+                                  lookup_ngram=2)
+    res, m = spec.serve([tserving.ServeRequest(prompt=[5, 6, 7, 5, 6], max_new_tokens=4)])
+    assert res[0].new_tokens == 4 and m["speculative_kind"] == "prompt_lookup"

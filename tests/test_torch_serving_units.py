@@ -243,9 +243,10 @@ def test_entry_point_returns_the_jax_metric_keys(spec):
 
 
 @pytest.mark.parametrize("block,item", [
-    ({"serve": {"promptLookupNgram": 2}}, "item 1a"),
-    ({"serve": {"draft": {"family": "llama", "preset": "tiny"}}}, "item 1a"),
-    ({"infer": {"promptLookupNgram": 2}}, "item 1a"),
+    ({"serve": {"draft": dict(_TINY, overrides={"max_seq_len": 512}),
+                "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
+    ({"infer": {"draft": _TINY, "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
+    ({"serve": {"promptLookupNgram": 2, "hostCacheBytes": 4096}}, "item 1b"),
     ({"serve": {"hostCacheBytes": 4096}}, "item 1b"),
     ({"serve": {"arrival": "poisson"}}, "item 1c"),
     ({"serve": {"replicas": 2}}, "item 1e"),
