@@ -46,7 +46,16 @@ Phases, each of which raises on failure:
    each of which must launch the kernel at its feed width (5, 5, 32); the
    speculation ledger and, for information, how many requests commit the
    plain serve's tokens;
-8. the kernel line (JSON, one object per kernel), the card's name and power
+8. the host spill tier under open-loop traffic, with ``NEXUS_SANITIZE=1``
+   and the port's audits installed: ``serve-chat-host`` streams a Poisson
+   chat trace (32 roots over 20 s, half of them 3-turn sessions, 256-token
+   preambles from a pool of 4) through a 48-block pool with a 2 GiB host
+   tier, and ``serve-host-int8`` 16 roots over 10 s demoting to int8; past
+   the serve gates, blocks must be spilled and restored, restores must
+   serve prompt tokens, and the tree and the store must agree at the end;
+   each trace is served again with the tier off, and how many requests
+   commit the same tokens is logged for information;
+9. the kernel line (JSON, one object per kernel), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
@@ -107,6 +116,22 @@ KEY_TAIL_SHAPES = [
     for causal in (True, False)
     for b, sq, sk, d in ((2, 128, 1, 128), (1, 128, 37, 64), (2, 128, 100, 128), (1, 256, 100, 64))
 ]
+
+
+# the kernel line: each kernel's source and the TPU kernel (or plain JAX
+# function) it replaces
+KERNEL_SOURCES = {
+    "flash_fwd": "nexus_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "nexus_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "nexus_tpu_torch/csrc/flash_bwd_dkv.cu",
+    "fused_paged_decode_attention": "nexus_tpu_torch/csrc/paged_decode.cu",
+}
+KERNEL_REPLACES = {
+    "flash_fwd": "nexus_tpu/ops/attention.py:534",
+    "flash_bwd_dq": "nexus_tpu/ops/attention.py:858",
+    "flash_bwd_dkv": "nexus_tpu/ops/attention.py:893",
+    "fused_paged_decode_attention": "nexus_tpu/ops/attention.py:1292 (plain JAX, no pallas_call)",
+}
 
 
 def log(msg: str) -> None:
@@ -881,11 +906,50 @@ SPEC_KEYS = ("speculative_kind", "num_speculative", "target_forwards", "acceptan
              "accepted_per_round", "decode_dispatches_per_committed_token")
 
 
+HOST_KEYS = ("streamed_requests", "queue_p95_s", "spilled_blocks", "restored_blocks",
+             "restore_hit_tokens", "restore_hit_requests", "host_cache_evictions",
+             "host_cache_bytes_peak", "kv_spilled_blocks_final", "host_cache_entries_final")
+
+
+def check_serve(name: str, m: dict, by_t: dict, must_t=(), missing=()) -> None:
+    """The serve phases' gates: the paged-decode kernel launched at each
+    feed width of ``must_t``, every request served ok, the committed tokens
+    equal the queue's budgets (and the budgets are not empty), a leak-free
+    pool at the end, and every kernel of the path launched (``missing``
+    empty)."""
+    if [t for t in must_t if by_t.get(t, 0) == 0]:
+        raise AssertionError(f"{name}: the paged-decode kernel never launched at T {must_t}: "
+                             f"{by_t}")
+    if m["ok_requests"] != m["requests"] or m["finished_requests"] != m["requests"]:
+        raise AssertionError(f"{name}: {m['ok_requests']} of {m['requests']} requests ok")
+    if m["budget_tokens"] <= 0 or m["committed_tokens"] != m["budget_tokens"]:
+        raise AssertionError(f"{name}: committed {m['committed_tokens']} tokens, the queue's "
+                             f"budgets are {m['budget_tokens']}")
+    if (m["kv_allocated_blocks_final"], m["kv_reserved_blocks_final"]) != (0, 0) or (
+            m["kv_free_blocks_final"] + m["kv_parked_blocks_final"] != m["kv_num_blocks"]):
+        raise AssertionError(f"{name}: the pool leaks: {m}")
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched on the serve path: {missing}")
+
+
+def check_host_tier(name: str, m: dict) -> None:
+    """The host-tier phases' gates, past ``check_serve``'s: the tier ran
+    (blocks spilled, blocks restored, prompt tokens served by restores) and
+    ended consistent (as many spilled tree entries as store payloads)."""
+    if not m.get("host_cache_enabled"):
+        raise AssertionError(f"{name}: the host tier is off")
+    for key in ("spilled_blocks", "restored_blocks", "restore_hit_tokens"):
+        if m[key] <= 0:
+            raise AssertionError(f"{name}: the host tier never ran: {key} {m[key]}")
+    if m["kv_spilled_blocks_final"] != m["host_cache_entries_final"]:
+        raise AssertionError(f"{name}: {m['kv_spilled_blocks_final']} spilled tree entries, "
+                             f"{m['host_cache_entries_final']} host-store payloads")
+
+
 def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
-    """``mode: serve`` through the paged, prefix-cached engine; gates: every
-    request served ok, the committed tokens equal the queue's budgets, a
-    leak-free pool at the end, and (fused path) the paged-decode kernel
-    launched, at each feed width of ``must_t`` at least once."""
+    """``mode: serve`` through the paged, prefix-cached engine, gated by
+    ``check_serve``; the paged-decode kernel must launch on the fused path,
+    at each feed width of ``must_t`` at least once."""
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
@@ -897,26 +961,63 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
     keys = ("tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
             "request_latency_p95_s", "slot_utilization", "committed_tokens", "decode_chunks",
             "prefix_hit_tokens", "prefix_cow_copies", "hydragen_waves", "kv_num_blocks",
-            "kv_peak_allocated_blocks", "wall_s") + SPEC_KEYS
+            "kv_peak_allocated_blocks", "wall_s") + SPEC_KEYS + HOST_KEYS
     m["phase_wall_s"] = time.monotonic() - t0
     log(f"[{name}] wall {m['phase_wall_s']:.1f} s, "
         + ", ".join(f"{k} {m.get(k)}" for k in keys if k in m)
         + f", launches {launches}, decode launches by T {by_t}")
     m["decode_launches_by_t"] = by_t
-    if [t for t in must_t if by_t.get(t, 0) == 0]:
-        raise AssertionError(f"{name}: the paged-decode kernel never launched at T {must_t}: "
-                             f"{by_t}")
-    if m["ok_requests"] != m["requests"] or m["finished_requests"] != m["requests"]:
-        raise AssertionError(f"{name}: {m['ok_requests']} of {m['requests']} requests ok")
-    if m["committed_tokens"] != m["budget_tokens"]:
-        raise AssertionError(f"{name}: committed {m['committed_tokens']} tokens, the queue's "
-                             f"budgets are {m['budget_tokens']}")
-    if (m["kv_allocated_blocks_final"], m["kv_reserved_blocks_final"]) != (0, 0) or (
-            m["kv_free_blocks_final"] + m["kv_parked_blocks_final"] != m["kv_num_blocks"]):
-        raise AssertionError(f"{name}: the pool leaks: {m}")
-    if missing:
-        raise AssertionError(f"{name}: kernels never launched on the serve path: {missing}")
+    check_serve(name, m, by_t, must_t, missing)
     m["launches"] = launches
+    return m
+
+
+# the host-tier phases' traffic: an open-loop chat trace (Poisson arrivals;
+# half the roots are 3-turn sessions whose turn k+1 prompt is turn k's
+# history, arriving after ~8 s of think time; 256-token preambles from a pool
+# of 4, Zipf 1.1), 64 new tokens a request, through a pool of 48 blocks (the
+# worst request needs 16, eight rows of them 128): the traffic between a
+# session's turns spills its history to host RAM, and the next turn restores
+# it. Replayed on the CPU (``python3 -m nexus_tpu_torch.tools.replay_serve``)
+# they still restore blocks with decode steps three times slower than the
+# card's; at 64 blocks the 16-root trace stopped restoring at twice slower.
+CHAT_TRACE = {"arrival": "poisson", "traceMultiTurnFrac": 0.5, "traceTurns": 3,
+              "tracePrefixPool": 4, "traceZipfA": 1.1, "traceThinkSeconds": 8.0,
+              "maxNewMin": 64, "maxNewMax": 64, "kvNumBlocks": 48}
+HOST_CACHE_BYTES = 2 << 30  # 512 blocks of the 8b pool (4 MiB each)
+
+
+# the host-tier phases: (roots, seconds the roots arrive over, other keys)
+HOST_PHASES = {"serve-chat-host": (32, 20.0, {}),
+               "serve-host-int8": (16, 10.0, {"hostCacheDtype": "int8"})}
+
+
+def host_phase_spec(name: str, host_cache_bytes: int = HOST_CACHE_BYTES):
+    """The spec of a host-tier phase (``host_cache_bytes`` 0: its tier-off
+    twin)."""
+    roots, duration_s, extra = HOST_PHASES[name]
+    return _serve_spec(num_requests=roots, arrivalDurationSeconds=duration_s,
+                       hostCacheBytes=host_cache_bytes, **CHAT_TRACE, **extra)
+
+
+def phase_serve_host(name: str, spec) -> dict:
+    """A host-tier serve phase with ``NEXUS_SANITIZE=1`` and the port's
+    audits installed: the engine audits its table tails, its radix tree and
+    its warm state in the loop, and every serve call ends with the pool,
+    tree, host-store and publication audits (a trip raises). Gated by
+    ``check_serve`` and ``check_host_tier``."""
+    import os
+
+    from nexus_tpu_torch.testing import sanitizers
+
+    os.environ[sanitizers.ENV_FLAG] = "1"
+    sanitizers.install()
+    try:
+        m = phase_serve(name, spec)
+    finally:
+        sanitizers.uninstall()
+        os.environ.pop(sanitizers.ENV_FLAG, None)
+    check_host_tier(name, m)
     return m
 
 
@@ -926,16 +1027,17 @@ DRAFT_REF = {"family": "llama", "preset": "draft",
              "overrides": {"vocab_size": 128256, "max_seq_len": 8192}}
 
 
-def _same_tokens(name: str, ref_run: dict, run: dict) -> str:
+def _same_tokens(name: str, ref_run: dict, run: dict, ref: str = "the plain fused serve") -> str:
     """For information, not a gate: how many of ``run``'s requests commit
     the tokens of the same requests in ``ref_run`` (the synthetic queue's
-    first requests are the same whatever its length); bf16 near-ties among
-    random-weight logits may part the two paths."""
+    first requests are the same whatever its length, a trace's are in
+    arrival order); bf16 near-ties among random-weight logits may part the
+    two paths."""
     pairs = list(zip(ref_run["completion_ids"], run["completion_ids"]))
     same = sum(a == b for a, b in pairs)
     first_diff = sorted(next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
                         for a, b in pairs if a != b)
-    log(f"[{name}] requests whose tokens equal the plain fused serve's: {same} of "
+    log(f"[{name}] requests whose tokens equal {ref}'s: {same} of "
         f"{len(pairs)}; first differing new token of the others: {first_diff}")
     return f"{same}/{len(pairs)}"
 
@@ -982,24 +1084,21 @@ def main() -> int:
     for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
                       ("serve-prefill32", prefill32)):
         same[name] = _same_tokens(name, serve_run, run)
+    # the host tier under an open-loop chat trace (bf16 payloads), and the
+    # same kind of traffic demoting to int8 on the way out; each also
+    # served with the tier off, for information
+    host = {name: phase_serve_host(name, host_phase_spec(name)) for name in HOST_PHASES}
+    host_same = {}
+    for name in HOST_PHASES:
+        off = phase_serve(f"{name}-off", host_phase_spec(name, host_cache_bytes=0))
+        host_same[name] = _same_tokens(name, off, host[name], ref="the same trace without the "
+                                       "host tier")
 
     from nexus_tpu_torch.ops import attention as A
 
     bounds = _bounds_ms(MAIN_SHAPE)
     times["fused_paged_decode_attention"] = dict(decode_times["main_T1"])
     bounds["fused_paged_decode_attention"] = (times["fused_paged_decode_attention"].pop("bound_ms"), "bytes")
-    replaces = {
-        "flash_fwd": "nexus_tpu/ops/attention.py:534",
-        "flash_bwd_dq": "nexus_tpu/ops/attention.py:858",
-        "flash_bwd_dkv": "nexus_tpu/ops/attention.py:893",
-        "fused_paged_decode_attention": "nexus_tpu/ops/attention.py:1292 (plain JAX, no pallas_call)",
-    }
-    source = {
-        "flash_fwd": "nexus_tpu_torch/csrc/flash_fwd.cu",
-        "flash_bwd_dq": "nexus_tpu_torch/csrc/flash_bwd.cu",
-        "flash_bwd_dkv": "nexus_tpu_torch/csrc/flash_bwd_dkv.cu",
-        "fused_paged_decode_attention": "nexus_tpu_torch/csrc/paged_decode.cu",
-    }
     # each kernel's launches on its own path: the train run, the serve run
     launches = dict(main_run["launches"])
     launches["fused_paged_decode_attention"] = (
@@ -1008,7 +1107,7 @@ def main() -> int:
     for w in A.KERNEL_WRAPPERS:
         n = w.__name__
         kernels.append({
-            "name": n, "route": "cuda", "source": source[n], "replaces": replaces[n],
+            "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
             "plain_ms": times[n]["plain_ms"],
@@ -1034,6 +1133,11 @@ def main() -> int:
             "wall_s", "phase_wall_s", "decode_launches_by_t") + SPEC_KEYS}
             for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
                               ("serve-prefill32", prefill32))},
+        "serve_host_tier": {name: {k: run.get(k) for k in (
+            "requests", "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p95_s",
+            "committed_tokens", "wall_s", "phase_wall_s", "launches") + HOST_KEYS}
+            for name, run in host.items()},
+        "serve_host_same_tokens_as_tier_off": host_same,
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

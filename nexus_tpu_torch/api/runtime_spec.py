@@ -903,6 +903,47 @@ class JaxXlaRuntime:
             errs.append("serve.kvPoolDtype='int8' sizes the paged block pool; the dense "
                         "layout (kvBlockSize 0) quantizes via model.overrides."
                         "kv_cache_quantized")
+        if sv.host_cache_bytes < 0:
+            errs.append("serve.hostCacheBytes must be >= 0 (0 = no host spill tier), got "
+                        f"{sv.host_cache_bytes}")
+        if sv.host_cache_dtype not in ("native", "int8"):
+            errs.append("serve.hostCacheDtype must be 'native' (byte-identical restores) or "
+                        "'int8' (demote on spill, ~2x blocks per host byte), got "
+                        f"{sv.host_cache_dtype!r}")
+        if sv.host_cache_bytes > 0 and sv.kv_block_size <= 0:
+            errs.append("serve.hostCacheBytes requires the paged layout (kvBlockSize > 0): the "
+                        "spill tier demotes pool BLOCKS — a dense cache has none")
+        if sv.host_cache_bytes > 0 and not sv.prefix_cache:
+            errs.append("serve.hostCacheBytes requires prefixCache: spilled state lives in the "
+                        "radix prefix tree, so without the cache nothing could ever be "
+                        "re-matched and restored")
+        if sv.arrival not in ("closed", "poisson", "bursty"):
+            errs.append(f"serve.arrival must be one of closed/poisson/bursty, got {sv.arrival!r}")
+        elif sv.arrival != "closed":
+            if sv.arrival_duration_s <= 0:
+                errs.append("serve.arrivalDurationSeconds must be > 0 under open-loop "
+                            f"arrivals, got {sv.arrival_duration_s}")
+            if not (0 < sv.arrival_burst_duty <= 1):
+                errs.append(f"serve.arrivalBurstDuty must be in (0, 1], got "
+                            f"{sv.arrival_burst_duty}")
+            if sv.trace_prefix_pool < 1 or sv.trace_zipf_a <= 0:
+                errs.append("serve.tracePrefixPool must be >= 1 and traceZipfA > 0, got "
+                            f"{sv.trace_prefix_pool}/{sv.trace_zipf_a}")
+            for frac_name, frac in (("traceMultiTurnFrac", sv.trace_multi_turn_frac),
+                                    ("traceBranchFrac", sv.trace_branch_frac)):
+                if not (0 <= frac <= 1):
+                    errs.append(f"serve.{frac_name} must be in [0, 1], got {frac}")
+            if sv.trace_multi_turn_frac > 0 and sv.trace_turns < 2:
+                errs.append("serve.traceTurns must be >= 2 when traceMultiTurnFrac > 0, got "
+                            f"{sv.trace_turns}")
+            if sv.trace_branch_frac > 0 and sv.trace_fanout < 1:
+                errs.append("serve.traceFanout must be >= 1 when traceBranchFrac > 0, got "
+                            f"{sv.trace_fanout}")
+            if sv.trace_think_s < 0:
+                errs.append(f"serve.traceThinkSeconds must be >= 0, got {sv.trace_think_s}")
+            if sv.prompts:
+                errs.append("serve.arrival trace synthesis and serve.prompts (a literal "
+                            "closed-loop queue) are mutually exclusive")
         if 0 < sv.max_queue_depth < self.train.batch_size:
             errs.append(f"serve.maxQueueDepth ({sv.max_queue_depth}) below train.batchSize "
                         f"({self.train.batch_size}) idles decode rows the KV pool is already "

@@ -108,6 +108,37 @@ def copy_kv_blocks(cache: Dict[str, Any], src: torch.Tensor, dst: torch.Tensor) 
     return cache
 
 
+def gather_kv_block(cache: Dict[str, Any], blk: int) -> Dict[str, torch.Tensor]:
+    """ONE pool block's planes across every layer of a paged cache, copied
+    to host memory: the device half of a host-tier SPILL. Returns ``{"k":
+    (L, Bs, Hkv, D), "v": ...}`` plus an int8 cache's (L, Bs, Hkv) scale
+    planes. The copy is a copy also from a CPU pool, and synchronous: it
+    completes behind every queued write before this returns, so a later
+    write into the freed block (a prefill, a restore) cannot race it."""
+    return {key: cache[key][:, int(blk)].to("cpu", copy=True) for key in _KV_KEYS
+            if key in cache}
+
+
+def write_kv_blocks(cache: Dict[str, Any], dst: torch.Tensor,
+                    planes: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Scatter host-provided block planes into pool blocks ``dst[i]``
+    across every K/V plane of a paged cache, in place: the device half of
+    a host-tier RESTORE, the upload sibling of ``copy_kv_blocks``.
+    ``planes`` carries (L, W, Bs, ...) stacks in the pool's own dtypes (the
+    engine dequantizes int8-demoted payloads to the pool dtype first, or
+    uploads int8 + scales verbatim into an int8 pool). An out-of-range
+    ``dst`` is padding: its slice lands in the scratch block, never in a
+    live one."""
+    n = cache["k"].shape[1]
+    dst = dst.to(device=cache["k"].device, dtype=torch.int64)
+    dst = torch.where((dst < 0) | (dst >= n), torch.full_like(dst, n - 1), dst)
+    for key in _KV_KEYS:
+        if key in cache:
+            buf = cache[key]
+            buf.index_copy_(1, dst, planes[key].to(device=buf.device, dtype=buf.dtype))
+    return cache
+
+
 _ROPE: Dict[tuple, tuple] = {}
 
 

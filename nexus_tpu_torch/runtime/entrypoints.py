@@ -4,15 +4,16 @@ on one device and return the same metrics dict as the JAX package —
 ``mode: train`` (tokens/sec, MFU, loss history, …), ``mode: infer``
 (timed autoregressive decode, ``decode_tokens_per_sec``) and ``mode:
 serve`` (a synthetic request queue through the continuous-batching engine,
-``tokens_per_sec``, ttft and latency percentiles, the KV ledger).
+``tokens_per_sec``, ttft and latency percentiles, the KV ledger), closed
+loop or from an open-loop arrival trace, with or without the host spill
+tier.
 
 This slice runs on one device. A declared parallelism over more chips is
 re-planned to one device and logged. Weights come from random init only
 (a speculative draft's too, from its own seed). Features not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item: checkpointing
 (a draft checkpoint included), profiling, pretrained weights, and on the
-serving side the host spill tier, open-loop arrivals, the observability
-hooks and fleet replicas.
+serving side the observability hooks and fleet replicas.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 from nexus_tpu_torch.models.decoding import prompt_lookup_generate, speculative_generate
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine, not_ported
+from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
 from nexus_tpu_torch.train.trainer import Trainer, build_optimizer, init_train_state, make_train_step
@@ -349,16 +351,43 @@ def _synthetic_queue(sv, tr, cfg):
     return requests
 
 
+def _synthetic_trace(sv, tr, cfg):
+    """The JAX entry point's open-loop arrival trace (``serve.arrival``
+    poisson or bursty), synthesized from train.seed with its knobs, after
+    its feasibility check of the trace's worst prompt."""
+    pmax = min(sv.prompt_length_max, cfg.max_seq_len // 2)
+    pmin = min(sv.prompt_length_min, pmax)
+    prefix_tokens = (min(sv.shared_prefix_length, max(1, pmax - 2))
+                     if sv.shared_prefix_length > 0 else min(32, max(1, pmin)))
+    tail_tokens = max(4, min(16, pmax - prefix_tokens))
+    # multi-turn histories accrete the prior turns' completions: the worst
+    # prompt must still leave decode budget
+    worst = prefix_tokens + tail_tokens
+    if sv.trace_multi_turn_frac > 0:
+        worst += (sv.trace_turns - 1) * (sv.max_new_max + tail_tokens)
+    elif sv.trace_branch_frac > 0:
+        worst += sv.max_new_max + tail_tokens
+    if worst > cfg.max_seq_len - 2 - sv.serve_slack():
+        raise ValueError(f"serve.arrival trace's worst prompt ({worst} tokens across "
+                         f"{sv.trace_turns} turns) leaves no decode budget within max_seq_len "
+                         f"{cfg.max_seq_len}; shrink sharedPrefixLength / maxNewMax / traceTurns")
+    return synthesize_trace(
+        name=f"serve-{sv.arrival}-{tr.seed}", seed=tr.seed, vocab_size=cfg.vocab_size,
+        requests=sv.num_requests, duration_s=sv.arrival_duration_s, arrival=sv.arrival,
+        burst_duty=sv.arrival_burst_duty, n_prefixes=sv.trace_prefix_pool,
+        zipf_a=sv.trace_zipf_a, prefix_tokens=prefix_tokens, tail_tokens=tail_tokens,
+        max_new_tokens=sv.max_new_max, multi_turn_frac=sv.trace_multi_turn_frac,
+        turns=sv.trace_turns, think_s=sv.trace_think_s, branch_frac=sv.trace_branch_frac,
+        fanout=sv.trace_fanout, temperature=sv.temperature)
+
+
 def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
-    """Continuous-batching serving of the synthetic closed-loop queue
-    (deterministic from train.seed) through runtime/serving.py's engine
-    with ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
-    sizes."""
+    """Continuous-batching serving through runtime/serving.py's engine with
+    ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
+    sizes: the synthetic closed-loop queue (deterministic from train.seed),
+    or with ``serve.arrival`` poisson / bursty the synthesized arrival
+    trace, streamed into the running engine as its arrivals come due."""
     sv, tr = runtime.serve, runtime.train
-    if sv.host_cache_bytes > 0:
-        raise not_ported("host_cache", "serve.hostCacheBytes > 0")
-    if sv.arrival != "closed":
-        raise not_ported("traffic", f"serve.arrival {sv.arrival!r}")
     if sv.replicas > 1:
         raise not_ported("fleet", "serve.replicas > 1")
     if os.environ.get("NEXUS_SERVE_TRACE", "").strip():
@@ -379,8 +408,8 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
                         draft_cfg=draft_cfg)
         draft_out = {"draft_family": sv.draft.family, "draft_preset": sv.draft.preset,
                      "draft_weights_loaded": loaded}
+    trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" else None
     params = _decode_params(family, cfg, dev, tr.seed)
-    requests = _synthetic_queue(sv, tr, cfg)
     engine = ServingEngine(
         family.forward_decode, params, cfg,
         batch_size=tr.batch_size, max_len=cfg.max_seq_len, stop_token_id=sv.stop_token_id,
@@ -391,13 +420,27 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         prefix_cache=sv.prefix_cache, max_queue_depth=sv.max_queue_depth,
         max_queue_delay_s=sv.max_queue_delay_s, attention_path=sv.attention_path,
         admission_policy=sv.admission_policy, admission_aging_waves=sv.admission_aging_waves,
-        kv_pool_dtype=sv.kv_pool_dtype,
+        kv_pool_dtype=sv.kv_pool_dtype, host_cache_bytes=sv.host_cache_bytes,
+        host_cache_dtype=sv.host_cache_dtype,
     )
+    trace_out = {}
     with torch.inference_mode():
-        results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
+        if trace is None:
+            requests = _synthetic_queue(sv, tr, cfg)
+            results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
+        else:
+            # the requests arrive through the source, in the trace's order,
+            # and so do the results
+            requests = trace.to_requests(deadline_s=sv.request_deadline_s)
+            source = TraceSource(trace, deadline_s=sv.request_deadline_s)
+            results, metrics = engine.serve([], cancel=cancel, heartbeat=heartbeat,
+                                            source=source)
+            trace_out = {"arrival": sv.arrival, "trace_version": trace.version,
+                         "trace_events": len(trace)}
     latencies = sorted(r.latency_s for r in results if r is not None and r.status == STATUS_OK)
     out = {
         **metrics,
+        **trace_out,
         **draft_out,
         "mode": "serve",
         "family": runtime.model.family,
@@ -413,7 +456,8 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         # ids (None when it was not served): what a caller checks the run by
         "budget_tokens": sum(engine.request_budget(r) for r in requests),
         "completion_ids": [None if r is None else r.tokens[len(q.prompt):]
-                           for q, r in zip(requests, results)],
+                           for q, r in zip(requests, results)]
+        + [None] * (len(requests) - len(results)),
     }
     if latencies:
         out["request_latency_p50_s"] = round(latencies[len(latencies) // 2], 4)

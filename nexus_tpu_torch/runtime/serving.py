@@ -36,10 +36,24 @@ without speculation. At temperature > 0 the token at buffer position
 through a counter-based hash on the device — deterministic and
 batch-invariant, but not JAX's threefry numbers (``_gumbel``).
 
+* the host-RAM spill tier (``host_cache_bytes`` > 0, with the prefix
+  cache): pool pressure demotes the LRU parked block into a byte-budgeted
+  host store (runtime/host_cache.py) instead of destroying it, and a later
+  prefix match restores it into a fresh pool block (one upload per
+  admission wave) instead of prefilling it again; ``host_cache_dtype``
+  "int8" demotes float payloads to int8 on the way out;
+* streamed arrivals (``serve(source=...)``, runtime/traffic.py): the
+  engine polls the source at every wave boundary, admits what is due into
+  the same loop, and blocks in ``source.wait`` when every row is idle and
+  the stream has more to deliver; queue time and TTFT anchor at arrival;
+* ``NEXUS_SANITIZE`` (read once, at construction): the warm-entry audit,
+  the block table's scratch-tail audit after each table update and the
+  radix-tree audit after each admission wave (testing/sanitizers.py).
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the host-RAM spill tier, the observability hooks (span tracer, flight
-recorder, live gauges; their metric keys report their off values), and
-streamed arrivals.
+the observability hooks (span tracer, flight recorder, live gauges; their
+metric keys report their off values, and a sanitizer trip raises without
+the flight recorder's dump).
 """
 
 from __future__ import annotations
@@ -57,19 +71,25 @@ from nexus_tpu_torch.models.decoding import (
     _commit_speculation,
     _greedy_accept,
     copy_kv_blocks,
+    gather_kv_block,
     init_kv_cache,
     init_paged_kv_cache,
     prompt_lookup_propose,
+    write_kv_blocks,
+)
+from nexus_tpu_torch.runtime.host_cache import (
+    HOST_CACHE_DTYPES,
+    HostBlockStore,
+    dequantize_kv_host,
 )
 from nexus_tpu_torch.runtime.prefix_cache import PrefixCacheIndex, chain_keys
 from nexus_tpu_torch.runtime.scheduling import make_admission_policy
+from nexus_tpu_torch.testing.sanitizers import audit_warm_boundary, sanitizers_enabled
 from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
 
 KV_POOL_DTYPES = ("native", "int8")
 _ROADMAP = "ROADMAP 'Port to PyTorch/CUDA', item 1"
 NOT_PORTED = {
-    "host_cache": f"{_ROADMAP}b: the host-RAM spill tier (runtime/host_cache.py)",
-    "traffic": f"{_ROADMAP}c: open-loop traffic (runtime/traffic.py)",
     "obs": f"{_ROADMAP}d: the observability hooks (nexus_tpu/obs)",
     "fleet": f"{_ROADMAP}e: fleet replicas",
 }
@@ -82,7 +102,7 @@ def not_ported(feature: str, what: str) -> NotImplementedError:
 
 class BlockAllocator:
     """Host-side ref-counted free-list allocator over the paged KV pool
-    (the JAX engine's, without the host tier).
+    (the JAX engine's).
 
     ``admit`` succeeds only when the pool can promise a row's whole
     worst-case PRIVATE block count; blocks are drawn lazily against that
@@ -90,28 +110,64 @@ class BlockAllocator:
     lengths. Mapped blocks carry a refcount; with a prefix index, a
     released block whose content is indexed PARKS (refcount 0, LRU) for
     future hits and is evicted leaf-first only under pool pressure.
-    Invariant: free + parked >= reserved, so an in-reservation grow never
-    fails."""
+
+    With a ``host_cache`` (runtime/host_cache.py) the eviction victim is
+    DEMOTED, not destroyed: the engine's ``spill_fn`` downloads its planes,
+    the store keeps them under the block's chain digest (byte-budgeted;
+    over budget it drains leaf-first through the tree, so store and tree
+    never disagree) and the radix entry is marked spilled. ``match_prefix``
+    reports the spilled span after the resident one, and
+    ``admit(restore=...)`` promotes it into fresh blocks the engine uploads
+    the host copies into.
+
+    Invariant: free + parked >= reserved (admission counts the parked
+    blocks it revives and the spilled blocks it restores), so an
+    in-reservation grow never fails."""
 
     def __init__(self, num_blocks: int, block_size: int,
-                 prefix_index: Optional[PrefixCacheIndex] = None):
+                 prefix_index: Optional[PrefixCacheIndex] = None,
+                 host_cache: Optional[HostBlockStore] = None):
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if host_cache is not None and prefix_index is None:
+            raise ValueError("a host cache needs the prefix index (spilled state lives in the "
+                             "radix tree)")
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self._free = list(range(self.num_blocks - 1, -1, -1))  # pop() → ascending ids
         self._ref = [0] * self.num_blocks
         self._reserved = 0
         self.index = prefix_index
+        self.host_cache = host_cache
+        # the engine's download: (block id, chain digest) → plane dict;
+        # spills are disabled until it is set
+        self.spill_fn: Optional[Callable[[int, bytes], dict]] = None
         self.peak_allocated = 0
         self.evictions = 0
+        self.spills = 0  # evictions demoted to the host tier
+        self.restores = 0  # spilled blocks promoted back into the pool
+        self.host_evictions = 0  # spilled entries dropped (host budget)
 
     @property
     def scratch_block(self) -> int:
         """The block never handed out (the cache has num_blocks + 1)."""
         return self.num_blocks
+
+    def audit_scratch_tails(self, table, mapped_counts) -> None:
+        """The unmapped-tail contract (``NEXUS_SANITIZE``): every entry of
+        the (B, M) host ``table`` past a row's mapped block count is the
+        scratch block; ``mapped_counts`` per row (0 for free rows)."""
+        scratch = self.scratch_block
+        for r, n in enumerate(mapped_counts):
+            tail = table[r, n:]
+            if tail.size and not (tail == scratch).all():
+                bad = int(tail[(tail != scratch).argmax()])
+                raise AssertionError(
+                    f"block-table row {r}: unmapped tail entry points at block {bad}, not "
+                    f"the scratch block {scratch} — the allocator's scratch-tail contract "
+                    "is broken")
 
     def blocks_for(self, positions: int) -> int:
         return max(0, -(-int(positions) // self.block_size))
@@ -147,36 +203,71 @@ class BlockAllocator:
 
     def match_prefix(self, keys, prompt_len: int):
         """Longest cached prefix of a prompt with chain keys ``keys`` →
-        (shared blocks, matched tokens, cow_src). ``matched`` is capped at
-        prompt_len - 1 (one position must still run for the first token's
-        logits): a full-prompt hit returns its last block as ``cow_src``
-        for the engine to copy into a private block."""
+        (resident blocks, spilled keys, matched tokens, cow_src): the
+        resident span, then the digests of the spilled span extending it
+        (restorable through ``admit(restore=...)``). ``matched`` covers
+        both and is capped at prompt_len - 1 (one position must still run
+        for the first token's logits): on a full-prompt hit a resident last
+        block comes back as ``cow_src`` for the engine to copy into a
+        private block, and a spilled last block is dropped from the span
+        (its block is prefilled again)."""
         if self.index is None or not keys:
-            return [], 0, None
-        blocks = self.index.match(keys)
-        if not blocks:
-            return [], 0, None
-        matched = len(blocks) * self.block_size
+            return [], [], 0, None
+        blocks, skeys = self.index.match_tiered(keys)
+        if self.host_cache is None:
+            skeys = []  # spilled entries exist only with a store attached
+        if not blocks and not skeys:
+            return [], [], 0, None
+        total = len(blocks) + len(skeys)
+        matched = total * self.block_size
         cow_src = None
         if matched > prompt_len - 1:
-            cow_src = blocks[-1]
-            blocks = blocks[:-1]
-            matched = prompt_len - 1
-        return blocks, matched, cow_src
+            if skeys:
+                skeys = skeys[:-1]
+                matched = (total - 1) * self.block_size
+            else:
+                cow_src = blocks[-1]
+                blocks = blocks[:-1]
+                matched = prompt_len - 1
+        return blocks, skeys, matched, cow_src
 
-    def admit(self, need_blocks: int, shared=()) -> Optional["_BlockLease"]:
-        """Reserve ``need_blocks`` private blocks and map ``shared``
-        (refcount bumps); None, mutating nothing, when the pool cannot
-        promise the privates plus the parked blocks this would revive."""
+    def admit(self, need_blocks: int, shared=(), restore=()) -> Optional["_BlockLease"]:
+        """Reserve ``need_blocks`` private blocks, map ``shared`` (refcount
+        bumps) and PROMOTE the ``restore`` digests: each gets a fresh pool
+        block (refcount 1, rebound in the tree) appended to the lease's
+        shared span, and its host payload lands in ``lease.restored_payloads``
+        for the engine to upload before the next chunk reads it. None,
+        mutating nothing, when the pool cannot promise the privates plus
+        the parked blocks this revives plus the blocks it restores."""
         revive = sum(1 for b in shared if self._ref[b] == 0)
-        if need_blocks + revive > self.available_blocks:
+        if need_blocks + revive + len(restore) > self.available_blocks:
             return None
         for b in shared:
             if self._ref[b] == 0:
                 self.index.unpark(b)
             self._ref[b] += 1
+        restored, payloads = [], []
+        for key in restore:
+            # shared refs are bumped first, so a spill this allocation
+            # forces can never touch the span being admitted, and each
+            # restored block is referenced at once. drain=False: a spill
+            # here may push the store over budget while a later digest of
+            # ``restore`` still waits as a spilled leaf; the drain runs
+            # once below, when every pending digest is resident
+            blk = self._take_block(drain=False)
+            self._ref[blk] += 1
+            self.index.restore(key, blk)
+            payload, demoted = self.host_cache.take(key)
+            restored.append(blk)
+            payloads.append((blk, payload, demoted))
+            self.restores += 1
+            self.peak_allocated = max(self.peak_allocated, self.allocated_blocks)
+        if restore:
+            self._drain_host_budget()
         self._reserved += need_blocks
-        return _BlockLease(self, need_blocks, list(shared))
+        lease = _BlockLease(self, need_blocks, list(shared) + restored)
+        lease.restored_payloads = payloads
+        return lease
 
     def register_block(self, key: bytes, blk: int, parent: Optional[bytes] = None) -> bool:
         """Publish a fully-written block under ``parent`` (first writer
@@ -185,11 +276,34 @@ class BlockAllocator:
             return self.index.insert(key, blk, parent=parent)
         return False
 
-    def _take_block(self) -> int:
+    def _drain_host_budget(self) -> None:
+        """Back under the host budget, dropping spilled entries leaf-first
+        through the tree (store and tree transition together); runs at
+        operation boundaries only."""
+        if self.host_cache is None:
+            return
+        while self.host_cache.over_budget() and self.index.spilled_count:
+            self.host_cache.drop(self.index.evict_spilled_lru())
+            self.host_evictions += 1
+
+    def _take_block(self, drain: bool = True) -> int:
+        """A block off the free list, or, under pool pressure, the LRU
+        parked block: demoted to the host tier when one is attached (its
+        planes downloaded by ``spill_fn``, its entry marked spilled; the
+        store drained back under budget unless ``drain`` is False),
+        evicted otherwise."""
         if self._free:
             return self._free.pop()
+        if self.host_cache is not None and self.spill_fn is not None:
+            blk, key = self.index.spill_lru()
+            self.host_cache.put(key, self.spill_fn(blk, key))
+            self.spills += 1
+            if drain:
+                self._drain_host_budget()
+        else:
+            blk = self.index.evict_lru()
         self.evictions += 1
-        return self.index.evict_lru()
+        return blk
 
     def _alloc_one(self) -> int:
         blk = self._take_block()
@@ -217,6 +331,10 @@ class _BlockLease:
         self.shared: List[int] = list(shared or [])
         self._private: List[int] = []
         self._released = False
+        # (block, host planes, demoted) per block the allocator restored
+        # from the host tier: the engine uploads them before the row's
+        # first chunk reads them
+        self.restored_payloads: List[tuple] = []
 
     @property
     def blocks(self) -> List[int]:
@@ -331,13 +449,14 @@ class ServingEngine:
     paged pool (0 = dense rows / the dense-equivalent pool),
     ``prefix_cache``, ``attention_path`` "fused" (the paged-decode kernel
     with the Hydragen split) or "gather", ``admission_policy``,
-    ``kv_pool_dtype`` "native" or "int8", queue bounds and an injectable
-    ``clock``). ``lookup_ngram`` > 0 or ``draft_forward`` (with
-    ``draft_params`` and ``draft_cfg``, a model of the same vocabulary
-    covering ``max_len``) turn on speculation, ``num_speculative`` tokens
-    a round. The engine's tensors live on the device of
-    ``params['embed']``; the KV state (pool, radix tree) persists across
-    ``serve`` calls, ``reset_cache`` drops it."""
+    ``kv_pool_dtype`` "native" or "int8", ``host_cache_bytes`` /
+    ``host_cache_dtype`` for the host spill tier (paged, prefix cache on),
+    queue bounds and an injectable ``clock``). ``lookup_ngram`` > 0 or
+    ``draft_forward`` (with ``draft_params`` and ``draft_cfg``, a model of
+    the same vocabulary covering ``max_len``) turn on speculation,
+    ``num_speculative`` tokens a round. The engine's tensors live on the device of
+    ``params['embed']``; the KV state (pool, radix tree, host store)
+    persists across ``serve`` calls, ``reset_cache`` drops it."""
 
     def __init__(self, forward_decode: Callable, params: Any, cfg: Any, batch_size: int,
                  max_len: Optional[int] = None, stop_token_id: int = -1, chunk: int = 8,
@@ -348,11 +467,9 @@ class ServingEngine:
                  attention_path: str = "fused", admission_policy: Any = "cache-aware",
                  admission_aging_waves: int = 8, prefix_completions: bool = True,
                  kv_pool_dtype: str = "native", host_cache_bytes: int = 0,
-                 draft_forward: Optional[Callable] = None, draft_params: Any = None,
-                 draft_cfg: Any = None, tracer: Any = None,
+                 host_cache_dtype: str = "native", draft_forward: Optional[Callable] = None,
+                 draft_params: Any = None, draft_cfg: Any = None, tracer: Any = None,
                  flight_recorder: Any = None, live_gauges: bool = False):
-        if host_cache_bytes:
-            raise not_ported("host_cache", "host_cache_bytes > 0")
         if tracer is not None or flight_recorder not in (None, False) or live_gauges:
             raise not_ported("obs", "the serve tracer, flight recorder and live gauges")
         self._fwd = forward_decode
@@ -406,6 +523,8 @@ class ServingEngine:
         if self._max_queue_delay < 0:
             raise ValueError(f"max_queue_delay_s must be >= 0, got {max_queue_delay_s}")
         self._clock = clock
+        # NEXUS_SANITIZE arms the engine's in-loop audits; read once, here
+        self._sanitize = sanitizers_enabled()
         self.last_drain: Optional[List[DrainedRequest]] = None
         self._block_size = int(kv_block_size)
         if self._block_size < 0:
@@ -436,6 +555,16 @@ class ServingEngine:
                              "layout quantizes via cfg.kv_cache_quantized")
         self._quantized = bool(getattr(cfg, "kv_cache_quantized", False)) or (
             kv_pool_dtype == "int8")
+        self._host_cache_bytes = int(host_cache_bytes)
+        if self._host_cache_bytes < 0:
+            raise ValueError(f"host_cache_bytes must be >= 0, got {host_cache_bytes}")
+        if host_cache_dtype not in HOST_CACHE_DTYPES:
+            raise ValueError(f"host_cache_dtype must be one of {HOST_CACHE_DTYPES}, got "
+                             f"{host_cache_dtype!r}")
+        self._host_cache_dtype = host_cache_dtype
+        # spilled state lives in the radix tree: the tier follows the
+        # prefix cache (and with it the paged layout)
+        self._host_tier = self._prefix and self._host_cache_bytes > 0
         # worst-case growth past a row's finish inside one dispatch: the ONE
         # formula shared with ServeSpec.serve_slack()
         self._slack = serve_dispatch_slack(self._chunk, self._lookup, self._k,
@@ -451,18 +580,27 @@ class ServingEngine:
     # ---------------------------------------------------------------- state
 
     def _build_kv_state(self) -> None:
+        self._host_store = (HostBlockStore(self._host_cache_bytes, dtype=self._host_cache_dtype)
+                            if self._host_tier else None)
         self._alloc = (
             BlockAllocator(self._num_blocks, self._block_size,
-                           prefix_index=PrefixCacheIndex() if self._prefix else None)
+                           prefix_index=PrefixCacheIndex() if self._prefix else None,
+                           host_cache=self._host_store)
             if self._paged else None)
+        # the sanitizers' hooks: the radix tree and the host store
         self.last_prefix_index = self._alloc.index if self._alloc is not None else None
+        self.last_host_store = self._host_store
+        # digests indexed when the current serve() call began (the
+        # committed-publication audit and the cross-call hit ledger)
+        self.last_preexisting_keys: frozenset = frozenset()
         self._table_np = np.full((self._b, self._blocks_per_row or 1), self._num_blocks,
                                  dtype=np.int32)
         self._kv_cache = None
         self._kv_fresh = True
 
     def reset_cache(self) -> None:
-        """Drop every engine-lifetime KV state (pool, radix tree)."""
+        """Drop every engine-lifetime KV state (pool, radix tree, host
+        store)."""
         self._build_kv_state()
         self.cache_resets += 1
 
@@ -712,20 +850,36 @@ class ServingEngine:
 
     @torch.no_grad()
     def serve(self, requests: Sequence[ServeRequest], cancel=None, heartbeat=None, source=None):
-        """Run the queue to completion → (results, metrics); results[i]
-        answers requests[i] (None if drained). ``cancel`` (an object with
-        ``cancelled()``) stops at the next chunk boundary, releases every
-        lease and records ``last_drain``; ``heartbeat`` gets the committed
-        token count after every chunk."""
-        if source is not None:
-            raise not_ported("traffic", "streamed arrivals (serve(source=...))")
+        """Run the queue (and any streamed arrivals) to completion →
+        (results, metrics); results[i] answers requests[i] (None if
+        drained). ``cancel`` (an object with ``cancelled()``) stops at the
+        next chunk boundary, releases every lease and records
+        ``last_drain``; ``heartbeat`` gets the committed token count after
+        every chunk, and at every idle wait of a stream.
+
+        ``source``: an arrival stream with the protocol of
+        ``runtime/traffic.py::TraceSource`` (``poll(now_s)``, ``due(now_s)``,
+        ``exhausted()``, ``wait(now_s)``; seconds since this call's clock
+        start). The engine polls it at every wave boundary and admits its
+        requests into the same loop; when every row is idle and the stream
+        has more to deliver it blocks in ``source.wait`` instead of
+        returning. ``results`` grows to cover the streamed requests, in
+        arrival order after the pre-queued ones; ``last_requests`` holds
+        the call's whole request list."""
         b, max_len = self._b, self._max_len
         requests = list(requests)
         if self._kv_cache is None and not self._kv_fresh:
             self.reset_cache()  # a prior call died mid-run: its pool is gone
+        if self._sanitize and self._serve_calls > 0 and self._kv_cache is not None:
+            # what an earlier call left behind must still be clean before
+            # new admissions build on it
+            audit_warm_boundary(self, context="serve[warm-entry]")
         alloc = self._alloc
-        pre_keys = (frozenset(alloc.index.indexed_keys())
-                    if alloc is not None and alloc.index is not None else frozenset())
+        host_store = self._host_store
+        self.last_preexisting_keys = (
+            frozenset(alloc.index.indexed_keys())
+            if alloc is not None and alloc.index is not None else frozenset())
+        pre_keys = self.last_preexisting_keys
         self.warmup()
 
         t0 = self._clock()
@@ -756,7 +910,7 @@ class ServingEngine:
         def dl_anchor(req_idx: int) -> float:
             return max(arrive_t[req_idx], t0)
 
-        committed = scheduled_slots = chunks = 0
+        committed = scheduled_slots = chunks = streamed = 0
         target_forwards = drafted = accepted_total = 0
         shed_count = deadline_miss_count = deadline_cancelled_rows = 0
         queue_depth_peak = 0
@@ -775,6 +929,9 @@ class ServingEngine:
         keys_cache: dict = {}
         hit_tokens = hit_requests = cross_hit_tokens = cross_hit_requests = 0
         cow_copies = 0
+        # prompt tokens served by restoring spilled blocks (a share of the
+        # hit tokens) and the requests that restored at least one block
+        restore_hit_tokens = restore_hit_requests = 0
         hit_depth_hist: dict = {}
         completion_blocks_registered = 0
         passed_over: dict = {}
@@ -782,6 +939,15 @@ class ServingEngine:
         hydragen_waves = hydragen_shared_slots = 0
         ttfts: List[float] = []
         queues: List[float] = []
+        if host_store is not None:
+            def spill_download(blk: int, _key: bytes) -> dict:
+                """The device half of a demotion: the victim (parked, its
+                content final) copied to host memory, synchronously."""
+                return gather_kv_block(cache, blk)
+
+            # rebound every call: the engine-lifetime allocator outlives
+            # any one call's cache dict
+            alloc.spill_fn = spill_download
 
         def grow_and_push_tables():
             """Map every active row's next-dispatch coverage and push the
@@ -797,6 +963,9 @@ class ServingEngine:
                 if len(blks) != before:
                     table_np[r, : len(blks)] = blks
                     table_dirty[0] = True
+            if self._sanitize:
+                alloc.audit_scratch_tails(table_np, [
+                    len(leases[r].blocks) if leases[r] is not None else 0 for r in range(b)])
             if table_dirty[0]:
                 cache = dict(cache)
                 cache["block_table"] = torch.from_numpy(table_np.copy()).to(dev)
@@ -938,12 +1107,18 @@ class ServingEngine:
                     np.asarray(requests[req_idx].prompt, dtype=np.int32), self._block_size)
             return keys_cache[req_idx]
 
-        def resident_match_tokens(req_idx: int) -> int:
+        def resident_match_tokens(req_idx: int):
+            """The cache-aware policy's ranking signal: resident matched
+            tokens, or with the host tier the (resident, spilled) pair (a
+            spilled hit costs an upload: it ranks below a resident one)."""
             if not self._prefix:
                 return 0
-            _, matched, _ = alloc.match_prefix(req_chain_keys(req_idx),
-                                               len(requests[req_idx].prompt))
-            return matched
+            _, skeys, matched, _ = alloc.match_prefix(req_chain_keys(req_idx),
+                                                      len(requests[req_idx].prompt))
+            if host_store is None:
+                return matched
+            spilled_tok = len(skeys) * self._block_size
+            return (matched - spilled_tok, spilled_tok)
 
         def admit_into(free_rows):
             """Fill free rows in the policy's order with ONE insert; a
@@ -953,6 +1128,7 @@ class ServingEngine:
             nonlocal reserved_blocks_total, hit_tokens, hit_requests
             nonlocal cross_hit_tokens, cross_hit_requests, cow_copies, admission_overtakes
             nonlocal insert_dispatches, prefill_steps, prefill_steps_saved
+            nonlocal restore_hit_tokens, restore_hit_requests
             if not free_rows or not pending:
                 return
             inflight = set()
@@ -964,33 +1140,49 @@ class ServingEngine:
             order = self._policy.order(list(pending), passed_over, resident_match_tokens)
             wave = []
             deferred = set()
+            # (dst block, planes in the pool's dtypes) per restored block,
+            # uploaded after the insert
+            restore_jobs = []
             for req_idx in order:
                 if not free_rows:
                     break
                 req = requests[req_idx]
                 prompt, p, budget = self._validate_request(req, req_idx)
-                shared, matched, cow_src = [], 0, None
+                shared, skeys, matched, cow_src = [], [], 0, None
                 keys: List[bytes] = []
                 if self._prefix:
                     keys = req_chain_keys(req_idx)
-                    shared, matched, cow_src = alloc.match_prefix(keys, p)
-                    published = len(shared) + (1 if cow_src is not None else 0)
+                    shared, skeys, matched, cow_src = alloc.match_prefix(keys, p)
+                    published = len(shared) + len(skeys) + (1 if cow_src is not None else 0)
                     if published < len(keys) and keys[published] in inflight:
                         deferred.add(req_idx)
                         continue
                 lease = None
                 if self._paged:
-                    need = alloc.blocks_for(self._row_cap(p, budget)) - len(shared)
-                    lease = alloc.admit(need, shared=shared)
+                    need = alloc.blocks_for(self._row_cap(p, budget)) - len(shared) - len(skeys)
+                    lease = alloc.admit(need, shared=shared, restore=skeys)
                     if lease is None:
                         break  # pool full: the policy's head waits
                     reserved_blocks_total += need
+                    if skeys:
+                        # the allocator rebound each spilled digest to a
+                        # fresh block and took its payload; queue the
+                        # uploads (int8-demoted payloads dequantized, an
+                        # int8 pool's taken verbatim)
+                        for blk, payload, demoted in lease.restored_payloads:
+                            if demoted:
+                                payload = {
+                                    "k": dequantize_kv_host(payload["k"], payload["k_scale"]),
+                                    "v": dequantize_kv_host(payload["v"], payload["v_scale"])}
+                            restore_jobs.append((blk, payload))
+                        restore_hit_tokens += len(skeys) * self._block_size
+                        restore_hit_requests += 1
                     if cow_src is not None:
                         lease.grow_to(len(lease.shared) + 1)
                 if matched:
                     hit_tokens += matched
                     hit_requests += 1
-                    depth = len(shared) + (1 if cow_src is not None else 0)
+                    depth = len(shared) + len(skeys) + (1 if cow_src is not None else 0)
                     hit_depth_hist[depth] = hit_depth_hist.get(depth, 0) + 1
                     if pre_keys:
                         pre_depth = 0
@@ -1005,7 +1197,8 @@ class ServingEngine:
                 wave.append((row, req, req_idx, prompt, p, budget, matched, lease, cow_src,
                              keys))
                 if self._prefix:
-                    inflight.update(keys[len(shared) + (1 if cow_src is not None else 0):])
+                    inflight.update(
+                        keys[len(shared) + len(skeys) + (1 if cow_src is not None else 0):])
             admitted_idx = [w[2] for w in wave]
             for req_idx in admitted_idx:
                 pending.remove(req_idx)
@@ -1015,6 +1208,8 @@ class ServingEngine:
                     if req_idx not in deferred and arrival_pos[req_idx] < last_pos:
                         passed_over[req_idx] = passed_over.get(req_idx, 0) + 1
                         admission_overtakes += 1
+            if self._sanitize and alloc is not None and alloc.index is not None:
+                alloc.index.audit()
             if not wave:
                 return
             # the insert: prompts into their rows of the token buffer, the
@@ -1064,12 +1259,36 @@ class ServingEngine:
                 cache = copy_kv_blocks(cache, self._vec([s for s, _ in cow_pairs], torch.int64),
                                        self._vec([d for _, d in cow_pairs], torch.int64))
                 cow_copies += len(cow_pairs)
+            if restore_jobs:
+                # the promotion upload, on the stream the next chunk reads
+                # from (blocking host-to-device copies: the payloads need
+                # not outlive this call)
+                planes = {key: torch.stack([pl[key].to(cache[key].dtype)
+                                            for _, pl in restore_jobs], dim=1)
+                          for key in restore_jobs[0][1]}
+                cache = write_kv_blocks(cache, self._vec([blk for blk, _ in restore_jobs],
+                                                         torch.int64), planes)
+
+        def poll_source() -> None:
+            """Due arrivals into the wait queue: requests, results, arrival
+            stamps and the queue grow in lock-step."""
+            nonlocal streamed
+            for req in source.poll(self._clock() - t0):
+                idx = len(requests)
+                requests.append(req)
+                results.append(None)
+                arrive_t.append(t0 + float(req.arrival_s or 0.0))
+                pending.append(idx)
+                streamed += 1
+
+        def source_live() -> bool:
+            return source is not None and not source.exhausted()
 
         police_deadlines()
         admit_into([r for r in range(b) if rows[r] is None])
         police_depth()
 
-        while any(r is not None for r in rows) or pending:
+        while any(r is not None for r in rows) or pending or source_live():
             if cancel is not None and cancel.cancelled():
                 elapsed = max(0.0, self._clock() - t0)
                 drained: List[DrainedRequest] = []
@@ -1087,12 +1306,21 @@ class ServingEngine:
                 self.last_drain = drained
                 interrupted = True
                 break
+            if source is not None:
+                poll_source()
             if not any(r is not None for r in rows):
+                # every row idle: admit what just arrived; while the stream
+                # has more to deliver, wait for it instead of returning
                 police_deadlines()
                 admit_into([r for r in range(b) if rows[r] is None])
                 police_depth()
                 if not any(r is not None for r in rows):
-                    break
+                    if not source_live():
+                        break
+                    if heartbeat is not None:
+                        heartbeat(committed)
+                    source.wait(self._clock() - t0)
+                    continue
             if self._paged:
                 grow_and_push_tables()
                 alloc_block_steps += alloc.allocated_blocks
@@ -1192,6 +1420,7 @@ class ServingEngine:
         wall = self._clock() - t0
         self._kv_cache = cache
         self._serve_calls += 1
+        self.last_requests = requests
 
         # the JAX engine's metrics ledger, for the ported features (the
         # observability keys at their off values)
@@ -1224,7 +1453,7 @@ class ServingEngine:
             "live_gauge_publishes": 0,
             "engine_serve_calls": self._serve_calls,
             "cache_resets": self.cache_resets,
-            "streamed_requests": 0,
+            "streamed_requests": streamed,
         }
         if ttfts:
             metrics["ttft_p50_s"] = round(percentile_nearest_rank(ttfts, 0.50), 4)
@@ -1268,7 +1497,21 @@ class ServingEngine:
                 metrics["prefix_cached_blocks_final"] = alloc.cached_blocks
                 metrics["prefix_hit_depth_hist"] = dict(sorted(hit_depth_hist.items()))
                 metrics["prefix_completion_blocks"] = completion_blocks_registered
-                metrics["host_cache_enabled"] = False
+                metrics["host_cache_enabled"] = host_store is not None
+                if host_store is not None:
+                    hs = host_store.stats()
+                    metrics["spilled_blocks"] = alloc.spills
+                    metrics["restored_blocks"] = alloc.restores
+                    metrics["restore_hit_tokens"] = restore_hit_tokens
+                    metrics["restore_hit_requests"] = restore_hit_requests
+                    metrics["host_cache_bytes"] = hs["bytes"]
+                    metrics["host_cache_bytes_peak"] = hs["bytes_peak"]
+                    metrics["host_cache_dtype"] = host_store.dtype
+                    metrics["host_cache_evictions"] = alloc.host_evictions
+                    # the spilled tier's slot of the partition: entries
+                    # still demoted at the end (tree == store)
+                    metrics["kv_spilled_blocks_final"] = alloc.index.spilled_count
+                    metrics["host_cache_entries_final"] = hs["entries"]
         else:
             metrics["kv_pool_bytes"] = self._b * dense_row_bytes
             metrics["kv_bytes_per_request"] = dense_row_bytes

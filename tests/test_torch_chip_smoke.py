@@ -87,3 +87,112 @@ def test_same_tokens_counts_the_requests_that_agree(capsys):
     run = {"completion_ids": [[1, 2, 3], [4, 0, 6]]}
     assert cs._same_tokens("x", ref, run) == "1/2"
     assert "first differing new token of the others: [1]" in capsys.readouterr().out
+
+
+def _serve_metrics(**over):
+    m = {"requests": 64, "ok_requests": 64, "finished_requests": 64, "committed_tokens": 4096,
+         "budget_tokens": 4096, "kv_allocated_blocks_final": 0, "kv_reserved_blocks_final": 0,
+         "kv_free_blocks_final": 10, "kv_parked_blocks_final": 54, "kv_num_blocks": 64,
+         "host_cache_enabled": True, "spilled_blocks": 199, "restored_blocks": 38,
+         "restore_hit_tokens": 1216, "kv_spilled_blocks_final": 161,
+         "host_cache_entries_final": 161}
+    m.update(over)
+    return m
+
+
+def test_the_serve_and_host_tier_gates_pass_a_good_run():
+    m = _serve_metrics()
+    cs.check_serve("x", m, {1: 10, 8: 5}, must_t=(8,))
+    cs.check_host_tier("x", m)
+
+
+@pytest.mark.parametrize("over,needle", [
+    (dict(budget_tokens=0, committed_tokens=0), "budgets are 0"),
+    (dict(committed_tokens=4095), "budgets are 4096"),
+    (dict(ok_requests=63), "63 of 64 requests ok"),
+    (dict(finished_requests=63), "requests ok"),
+    (dict(kv_allocated_blocks_final=1), "the pool leaks"),
+    (dict(kv_free_blocks_final=9), "the pool leaks"),
+])
+def test_the_serve_gates_fail_a_bad_run(over, needle):
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_serve("x", _serve_metrics(**over), {1: 10})
+
+
+def test_the_serve_gates_need_the_kernel_at_its_feed_widths():
+    with pytest.raises(AssertionError, match="never launched at T"):
+        cs.check_serve("x", _serve_metrics(), {1: 10}, must_t=(8,))
+    with pytest.raises(AssertionError, match="never launched on the serve path"):
+        cs.check_serve("x", _serve_metrics(), {1: 10}, missing=["fused_paged_decode_attention"])
+
+
+@pytest.mark.parametrize("over,needle", [
+    (dict(spilled_blocks=0), "spilled_blocks 0"),
+    (dict(restored_blocks=0), "restored_blocks 0"),
+    (dict(restore_hit_tokens=0), "restore_hit_tokens 0"),
+    (dict(host_cache_entries_final=160), "160 host-store payloads"),
+    (dict(host_cache_enabled=False), "the host tier is off"),
+])
+def test_the_host_tier_gates_fail_a_run_whose_tier_did_not_run(over, needle):
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_host_tier("x", _serve_metrics(**over))
+
+
+@pytest.mark.parametrize("name,host_cache_bytes", [
+    ("serve-chat-host", cs.HOST_CACHE_BYTES), ("serve-host-int8", cs.HOST_CACHE_BYTES),
+    ("serve-chat-host", 0),
+], ids=["serve-chat-host", "serve-host-int8", "tier-off"])
+def test_the_host_tier_phases_are_valid_specs(name, host_cache_bytes):
+    """The chat trace's phases pass the port's validate(), and the trace's
+    worst prompt fits the 8b context with room for its budget; the pool
+    holds one worst-case request but not eight rows of them."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.runtime.entrypoints import _synthetic_trace
+
+    spec = JaxXlaRuntime.from_dict(cs.host_phase_spec(name, host_cache_bytes))
+    assert spec.validate() == []
+    sv = spec.serve
+    assert sv.arrival == "poisson" and sv.trace_turns == 3 and sv.prefix_cache
+    assert sv.host_cache_bytes == host_cache_bytes
+    assert sv.host_cache_dtype == ("int8" if name == "serve-host-int8" else "native")
+    num_requests = cs.HOST_PHASES[name][0]
+    cfg = llama.config("8b")
+    trace = _synthetic_trace(sv, spec.train, cfg)
+    roots = {ev.session or i for i, ev in enumerate(trace.events)}
+    assert len(roots) == num_requests
+    worst = max(len(ev.prompt) for ev in trace.events)
+    need = -(-(worst + 64 + sv.serve_slack() + 1) // sv.kv_block_size)
+    assert need <= sv.kv_num_blocks < spec.train.batch_size * need
+
+
+def test_the_kernel_line_still_lists_all_four_kernels():
+    from nexus_tpu_torch.ops import attention as A
+
+    names = [w.__name__ for w in A.KERNEL_WRAPPERS]
+    assert names == ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "fused_paged_decode_attention"]
+    assert set(cs.KERNEL_SOURCES) == set(cs.KERNEL_REPLACES) == set(names)
+    assert [w.__name__ for w in A.SERVE_KERNELS] == ["fused_paged_decode_attention"]
+
+
+@pytest.mark.parametrize("name", sorted(cs.HOST_PHASES))
+@pytest.mark.parametrize("step_ms", [45.0, 130.0])
+def test_the_host_tier_phases_restore_in_a_cpu_replay(name, step_ms):
+    """The host phases' traffic, replayed through the port's engine on a
+    stub model and a fake clock, spills and restores at the card's decode
+    step (~45 ms at 8 rows) and at one three times slower: the gates of
+    ``check_host_tier`` keep a margin on a slower card or host."""
+    import torch
+
+    from nexus_tpu_torch.tools.replay_serve import replay
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        m = replay(cs.host_phase_spec(name), step_ms / 1e3)
+    finally:
+        torch.set_num_threads(n)
+    assert m["ok_requests"] == m["requests"] == 2 * cs.HOST_PHASES[name][0]
+    assert m["spilled_blocks"] > 0 and m["restored_blocks"] > 0
+    assert m["restore_hit_tokens"] > 0 and m["kv_allocated_blocks_final"] == 0

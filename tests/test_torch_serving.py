@@ -26,6 +26,7 @@ from nexus_tpu.runtime import serving as jserving
 from nexus_tpu_torch.interop import llama_params_from_jax
 from nexus_tpu_torch.models import llama as tllama
 from nexus_tpu_torch.runtime import serving as tserving
+from nexus_tpu_torch.runtime.traffic import ListSource
 
 # every common metric key except the clocks (and the observability keys,
 # whose off values the port reports)
@@ -257,13 +258,17 @@ def test_warm_engine_second_call_is_identical_and_hits_across_calls():
 
 def test_unported_engine_features_raise_naming_their_roadmap_item():
     _, (cfg, params) = _models()
-    for kw, item in ((dict(host_cache_bytes=1 << 20), "1b"), (dict(tracer=object()), "1d"),
-                     (dict(live_gauges=True), "1d")):
+    for kw, item in ((dict(tracer=object()), "1d"), (dict(live_gauges=True), "1d")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, **kw)
-    eng = tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, max_len=64)
-    with pytest.raises(NotImplementedError, match="item 1c"):
-        eng.serve([], source=object())
+    # the host tier (item 1b) and streamed arrivals (item 1c) are ported:
+    # an engine with a host budget serves a request streamed at t = 0
+    eng = tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, max_len=64,
+                                 host_cache_bytes=1 << 20)
+    res, m = eng.serve([], source=ListSource([(0.0, tserving.ServeRequest(prompt=[1, 2, 3],
+                                                                          max_new_tokens=3))]))
+    assert res[0].new_tokens == 3 and m["streamed_requests"] == 1
+    assert m["host_cache_enabled"] is True
     # speculation (item 1a) is ported: the lookup tier serves
     spec = tserving.ServingEngine(tllama.forward_decode, params, cfg, batch_size=1, max_len=64,
                                   lookup_ngram=2)

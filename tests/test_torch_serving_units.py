@@ -91,8 +91,8 @@ def test_allocator_refuses_without_mutating_and_evicts_parked_blocks_leaf_first(
     assert a.admit(1) is None and a.reserved_blocks == 0
     lease.release()
     assert a.cached_blocks == 4 and a.free_blocks == 0
-    shared, matched, cow = a.match_prefix(keys, 8)
-    assert shared == blks[:3] and matched == 7 and cow == blks[3]
+    shared, spilled, matched, cow = a.match_prefix(keys, 8)
+    assert shared == blks[:3] and spilled == [] and matched == 7 and cow == blks[3]
     other = a.admit(2)
     other.grow_to(2)  # takes parked blocks: leaves first
     assert a.evictions == 2 and a.index.match(keys) == blks[:2]
@@ -246,9 +246,6 @@ def test_entry_point_returns_the_jax_metric_keys(spec):
     ({"serve": {"draft": dict(_TINY, overrides={"max_seq_len": 512}),
                 "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
     ({"infer": {"draft": _TINY, "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
-    ({"serve": {"promptLookupNgram": 2, "hostCacheBytes": 4096}}, "item 1b"),
-    ({"serve": {"hostCacheBytes": 4096}}, "item 1b"),
-    ({"serve": {"arrival": "poisson"}}, "item 1c"),
     ({"serve": {"replicas": 2}}, "item 1e"),
     ({"model": dict(_TINY, weights={"path": "w.safetensors"})}, "item 5"),
     ({"checkpoint": {"enabled": True}}, "item 2"),

@@ -223,7 +223,10 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
 @pytest.mark.parametrize("over,exc,match", [
     (dict(checkpoint={"enabled": True, "directory": "/x"}), NotImplementedError, "checkpoint"),
     (dict(mode="serve", serve={"replicas": 2}), NotImplementedError, "serving slice"),
-    (dict(mode="serve", serve={"hostCacheBytes": 4096}), NotImplementedError, "serving slice"),
+    # the host tier and open-loop arrivals are ported; fleet replicas
+    # replaying a trace are not
+    (dict(mode="serve", serve={"replicas": 2, "arrival": "poisson", "hostCacheBytes": 4096}),
+     NotImplementedError, "serving slice"),
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots"}}), ValueError, "dots"),
     (dict(model={"family": "mixtral"}), NotImplementedError, "not ported"),
 ])
