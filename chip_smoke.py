@@ -55,7 +55,24 @@ Phases, each of which raises on failure:
    serve prompt tokens, and the tree and the store must agree at the end;
    each trace is served again with the tier off, and how many requests
    commit the same tokens is logged for information;
-9. the kernel line (JSON, one object per kernel), the card's name and power
+9. ``serve-fleet``: ``serve.replicas: 4`` behind the prefix-affinity router
+   (affinityDepth 2, spillCandidates 2, spillThreshold 4), Llama-3-8B at
+   all 32 layers, 8 rows and an auto-sized pool per replica, one set of
+   weights; a Poisson chat trace (32 roots over 20 s, a quarter of them
+   2-turn sessions, 256-token preambles from a pool of 4, Zipf 1.1, 64 new
+   tokens) replayed as a closed queue with its arrival stamps, with
+   ``NEXUS_SERVE_TRACE`` set: every request ok with its whole budget, every
+   replica's pool leak-free, at least two replicas serving, prefix hits,
+   the router's ledger counting every request, one valid journey per
+   request in the written dump, a valid decision log, and the paged-decode
+   kernel launched;
+10. ``serve-traced``: 8 requests of the serve phase's queue on one engine
+   with ``NEXUS_SERVE_TRACE`` set and its gauges tagged ``engine:traced``:
+   the serve gates, a valid span dump in which every request runs
+   enqueued → admitted → first_token → terminal, live gauges and flight
+   events recorded, and the Prometheus text holding the engine's
+   ``serve_queue_depth``;
+11. the kernel line (JSON, one object per kernel), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
@@ -65,9 +82,11 @@ visible or the port is missing.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA data sheet)
@@ -950,18 +969,22 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
     """``mode: serve`` through the paged, prefix-cached engine, gated by
     ``check_serve``; the paged-decode kernel must launch on the fused path,
     at each feed width of ``must_t`` at least once."""
+    import torch
+
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
     _free_card()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     m, launches, missing = _launches_during(
         lambda: run_template_runtime(spec), A.SERVE_KERNELS if must_launch else ())
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     by_t = dict(sorted(A.fused_paged_decode_attention.launches_by_t.items()))
     keys = ("tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
             "request_latency_p95_s", "slot_utilization", "committed_tokens", "decode_chunks",
             "prefix_hit_tokens", "prefix_cow_copies", "hydragen_waves", "kv_num_blocks",
-            "kv_peak_allocated_blocks", "wall_s") + SPEC_KEYS + HOST_KEYS
+            "kv_peak_allocated_blocks", "wall_s", "peak_mem_gb") + SPEC_KEYS + HOST_KEYS
     m["phase_wall_s"] = time.monotonic() - t0
     log(f"[{name}] wall {m['phase_wall_s']:.1f} s, "
         + ", ".join(f"{k} {m.get(k)}" for k in keys if k in m)
@@ -1018,6 +1041,160 @@ def phase_serve_host(name: str, spec) -> dict:
         sanitizers.uninstall()
         os.environ.pop(sanitizers.ENV_FLAG, None)
     check_host_tier(name, m)
+    return m
+
+
+# the fleet phase: the shape of examples/serve-llama8b.yaml's fleet (4
+# replicas, affinity routing at depth 2) over a chat trace of 32 roots
+FLEET_SPEC_KEYS = {"arrival": "poisson", "arrivalDurationSeconds": 20.0, "tracePrefixPool": 4,
+                   "traceZipfA": 1.1, "traceMultiTurnFrac": 0.25, "traceTurns": 2,
+                   "maxNewMin": 64, "maxNewMax": 64, "replicas": 4, "routerPolicy": "affinity",
+                   "affinityDepth": 2, "spillCandidates": 2, "spillThreshold": 4}
+FLEET_KEYS = ("fleet_replicas", "tokens_per_sec", "committed_tokens", "fleet_prefix_hit_tokens",
+              "fleet_busy_max_s", "fleet_busy_sum_s", "fleet_wall_max_s", "router_spills",
+              "router_routed", "fleet_journeys", "fleet_decision_events",
+              "request_latency_p50_s", "request_latency_p95_s")
+
+
+def check_fleet(name: str, m: dict, journeys: dict, fleet_log: dict, missing=()) -> None:
+    """The fleet phase's gates: every request served ok with its whole
+    budget, each replica's pool leak-free, at least two replicas serving,
+    prefix hits, the router's ledger and the journey dump counting every
+    request, a valid journey dump and decision log, and every kernel of the
+    path launched."""
+    from nexus_tpu_torch.obs import validate_fleet_log, validate_journey
+
+    n = len(m["completion_ids"])
+    per = m["fleet_per_replica"]
+    ok = sum(r.get("ok_requests", 0) for r in per.values())
+    if n == 0 or ok != n or m["finished_requests"] != n:
+        raise AssertionError(f"{name}: {ok} of {n} requests ok")
+    if m["budget_tokens"] <= 0 or m["committed_tokens"] != m["budget_tokens"]:
+        raise AssertionError(f"{name}: committed {m['committed_tokens']} tokens, the queue's "
+                             f"budgets are {m['budget_tokens']}")
+    for rid, r in per.items():
+        if r["requests"] and ((r["kv_allocated_blocks_final"], r["kv_reserved_blocks_final"])
+                              != (0, 0) or r["kv_free_blocks_final"]
+                              + r["kv_parked_blocks_final"] != r["kv_num_blocks"]):
+            raise AssertionError(f"{name}: replica {rid}'s pool leaks: {r}")
+    serving = sorted(rid for rid, r in per.items() if r["requests"])
+    if len(serving) < 2:
+        raise AssertionError(f"{name}: only {serving} served requests")
+    if m["fleet_prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"{name}: no prefix hits across the fleet")
+    if m["router_decisions"] != n or sum(m["router_routed"].values()) != n:
+        raise AssertionError(f"{name}: the router counted {m['router_decisions']} decisions, "
+                             f"{m['router_routed']}, for {n} requests")
+    if m["fleet_journeys"] != n or len(journeys.get("journeys", [])) != n:
+        raise AssertionError(f"{name}: {m['fleet_journeys']} journeys for {n} requests")
+    problems = validate_journey(journeys) + validate_fleet_log(fleet_log)
+    if problems:
+        raise AssertionError(f"{name}: the journey dump or decision log is invalid: "
+                             f"{problems[:5]}")
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched on the serve path: {missing}")
+
+
+def _read_dumps(path: str) -> tuple:
+    with open(path) as f:
+        main = json.load(f)
+    log_path = f"{path}.fleetlog.json"
+    fleet_log = None
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            fleet_log = json.load(f)
+    return main, fleet_log
+
+
+def phase_serve_fleet(spec) -> dict:
+    """``mode: serve`` with ``serve.replicas`` > 1 through
+    ``run_template_runtime``, ``NEXUS_SERVE_TRACE`` pointing at a temporary
+    file; gated by ``check_fleet``."""
+    import torch
+
+    from nexus_tpu_torch.ops import attention as A
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["NEXUS_SERVE_TRACE"] = os.path.join(tmp, "fleet.json")
+        try:
+            t0 = time.monotonic()
+            m, launches, missing = _launches_during(lambda: run_template_runtime(spec),
+                                                    A.SERVE_KERNELS)
+            m["phase_wall_s"] = time.monotonic() - t0
+            journeys, fleet_log = _read_dumps(os.environ["NEXUS_SERVE_TRACE"])
+        finally:
+            os.environ.pop("NEXUS_SERVE_TRACE", None)
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    m["launches"] = launches
+    per = {rid: {k: r.get(k) for k in ("requests", "ok_requests", "committed_tokens", "wall_s",
+                                       "tokens_per_sec", "prefix_hit_tokens", "kv_num_blocks",
+                                       "kv_peak_allocated_blocks")}
+           for rid, r in m["fleet_per_replica"].items()}
+    log(f"[serve-fleet] wall {m['phase_wall_s']:.1f} s, "
+        + ", ".join(f"{k} {m.get(k)}" for k in FLEET_KEYS)
+        + f", peak_mem_gb {m['peak_mem_gb']:.2f}, launches {launches}, per replica {per}")
+    check_fleet("serve-fleet", m, journeys, fleet_log or {}, missing)
+    m["per_replica"] = per
+    return m
+
+
+TRACED_ENGINE = "traced"  # the serve-traced phase's gauge tag: engine:traced
+
+
+def check_traced(name: str, m: dict, dump: dict, prometheus: str) -> None:
+    """The traced phase's gates, past ``check_serve``'s: a valid span dump
+    with one timeline per request, each running enqueued → admitted →
+    first_token → terminal; live gauges published and flight events
+    recorded; the engine's queue-depth gauge in the Prometheus text."""
+    from nexus_tpu_torch.obs import validate_trace
+
+    problems = validate_trace(dump)
+    if problems:
+        raise AssertionError(f"{name}: the span dump is invalid: {problems[:5]}")
+    if dump.get("requests") != m["requests"]:
+        raise AssertionError(f"{name}: {dump.get('requests')} timelines for {m['requests']} "
+                             "requests")
+    order = ("enqueued", "admitted", "first_token", "terminal")
+    for entry in dump["spans"]:
+        kinds = [s["kind"] for s in entry["timeline"]]
+        at = [kinds.index(k) if k in kinds else -1 for k in order]
+        if -1 in at or at != sorted(at) or kinds[-1] != "terminal":
+            raise AssertionError(f"{name}: request {entry['request']}'s timeline does not run "
+                                 f"{' -> '.join(order)}: {kinds}")
+    for key in ("live_gauge_publishes", "flight_recorder_events"):
+        if m[key] <= 0:
+            raise AssertionError(f"{name}: {key} {m[key]}")
+    needle = f'serve_queue_depth{{engine="{TRACED_ENGINE}"}}'
+    if needle not in prometheus:
+        raise AssertionError(f"{name}: the Prometheus text has no {needle}")
+
+
+def phase_serve_traced(spec) -> dict:
+    """The serve queue cut to 8 requests on one engine, with
+    ``NEXUS_SERVE_TRACE`` set and the gauges tagged ``engine:traced`` (a
+    fresh registry); gated by ``check_serve`` and ``check_traced``."""
+    from nexus_tpu_torch.obs import render_prometheus
+    from nexus_tpu_torch.utils import telemetry
+
+    telemetry.with_statsd("nexus-tpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["NEXUS_SERVE_TRACE"] = os.path.join(tmp, "trace.json")
+        os.environ["NEXUS_SERVE_REPLICA_ID"] = TRACED_ENGINE
+        try:
+            m = phase_serve("serve-traced", spec)
+            dump, _ = _read_dumps(os.environ["NEXUS_SERVE_TRACE"])
+        finally:
+            os.environ.pop("NEXUS_SERVE_TRACE", None)
+            os.environ.pop("NEXUS_SERVE_REPLICA_ID", None)
+    text = render_prometheus()
+    log(f"[serve-traced] traced {m['traced']}, flight_recorder_events "
+        f"{m['flight_recorder_events']}, live_gauge_publishes {m['live_gauge_publishes']}, "
+        f"spans {sum(len(e['timeline']) for e in dump['spans'])}, prometheus lines "
+        f"{len(text.splitlines())}")
+    check_traced("serve-traced", m, dump, text)
     return m
 
 
@@ -1093,6 +1270,9 @@ def main() -> int:
         off = phase_serve(f"{name}-off", host_phase_spec(name, host_cache_bytes=0))
         host_same[name] = _same_tokens(name, off, host[name], ref="the same trace without the "
                                        "host tier")
+    # four replicas behind the prefix-affinity router, and one traced engine
+    fleet = phase_serve_fleet(_serve_spec(**FLEET_SPEC_KEYS))
+    traced = phase_serve_traced(_serve_spec(num_requests=8))
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -1138,6 +1318,11 @@ def main() -> int:
             "committed_tokens", "wall_s", "phase_wall_s", "launches") + HOST_KEYS}
             for name, run in host.items()},
         "serve_host_same_tokens_as_tier_off": host_same,
+        "serve_fleet": {k: fleet.get(k) for k in FLEET_KEYS + (
+            "phase_wall_s", "peak_mem_gb", "per_replica", "launches")},
+        "serve_traced": {k: traced.get(k) for k in (
+            "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
+            "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -5,7 +5,7 @@ the dict are ignored here: the ``tpu`` block has no meaning on one card.
 
 The serve block keeps every key of the JAX spec, so a template round-trips
 through ``to_dict``; the entry point refuses the keys whose features are
-not ported yet. ``ServeSpec.kv_pool_blocks`` is the one pool-sizing
+not ported yet (a draft checkpoint directory). ``ServeSpec.kv_pool_blocks`` is the one pool-sizing
 formula, shared by ``validate`` and the serving engine's entry point, and
 ``serve_dispatch_slack`` the one per-dispatch overrun, shared with the
 engine (runtime/serving.py)."""

@@ -6,18 +6,22 @@ on one device and return the same metrics dict as the JAX package —
 serve`` (a synthetic request queue through the continuous-batching engine,
 ``tokens_per_sec``, ttft and latency percentiles, the KV ledger), closed
 loop or from an open-loop arrival trace, with or without the host spill
-tier.
+tier, on one engine or (``serve.replicas`` > 1) on a fleet of engines behind
+the prefix-affinity router. ``NEXUS_SERVE_TRACE=<path>`` writes the run's
+span timeline there (a fleet run: the stitched journeys, and the router's
+decision log to ``<path>.fleetlog.json``); ``NEXUS_SERVE_REPLICA_ID`` tags
+a single engine's live gauges ``engine:<id>``.
 
 This slice runs on one device. A declared parallelism over more chips is
 re-planned to one device and logged. Weights come from random init only
 (a speculative draft's too, from its own seed). Features not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item: checkpointing
-(a draft checkpoint included), profiling, pretrained weights, and on the
-serving side the observability hooks and fleet replicas.
+(a draft checkpoint included), profiling and pretrained weights.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -29,7 +33,9 @@ import torch
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 from nexus_tpu_torch.models.decoding import prompt_lookup_generate, speculative_generate
 from nexus_tpu_torch.models.registry import get_family
-from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine, not_ported
+from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
+from nexus_tpu_torch.obs import ServeTracer
+from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
@@ -386,12 +392,12 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
     ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
     sizes: the synthetic closed-loop queue (deterministic from train.seed),
     or with ``serve.arrival`` poisson / bursty the synthesized arrival
-    trace, streamed into the running engine as its arrivals come due."""
+    trace, streamed into the running engine as its arrivals come due. With
+    ``serve.replicas`` > 1, that many engines (sharing the weights, each
+    with its own rows and pool) serve the queue behind the prefix-affinity
+    router through ``serve_fleet_local``, one after another; a trace then
+    replays as a closed queue that keeps its arrival stamps."""
     sv, tr = runtime.serve, runtime.train
-    if sv.replicas > 1:
-        raise not_ported("fleet", "serve.replicas > 1")
-    if os.environ.get("NEXUS_SERVE_TRACE", "").strip():
-        raise not_ported("obs", "the NEXUS_SERVE_TRACE span dump")
     if sv.prompts:
         raise ValueError("serve.prompts requires model.weights.tokenizer")
     draft_kw, draft_out = {}, {}
@@ -410,33 +416,94 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
                      "draft_weights_loaded": loaded}
     trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" else None
     params = _decode_params(family, cfg, dev, tr.seed)
-    engine = ServingEngine(
-        family.forward_decode, params, cfg,
-        batch_size=tr.batch_size, max_len=cfg.max_seq_len, stop_token_id=sv.stop_token_id,
-        chunk=sv.chunk, prefill_chunk=sv.prefill_chunk, kv_block_size=sv.kv_block_size,
-        lookup_ngram=sv.prompt_lookup_ngram, num_speculative=sv.num_speculative, **draft_kw,
-        # the ONE sizing formula validate() also uses
-        kv_num_blocks=sv.kv_pool_blocks(tr.batch_size, cfg.max_seq_len),
-        prefix_cache=sv.prefix_cache, max_queue_depth=sv.max_queue_depth,
-        max_queue_delay_s=sv.max_queue_delay_s, attention_path=sv.attention_path,
-        admission_policy=sv.admission_policy, admission_aging_waves=sv.admission_aging_waves,
-        kv_pool_dtype=sv.kv_pool_dtype, host_cache_bytes=sv.host_cache_bytes,
-        host_cache_dtype=sv.host_cache_dtype,
-    )
+    # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there
+    trace_path = os.environ.get("NEXUS_SERVE_TRACE", "").strip()
+    tracer = ServeTracer() if trace_path and sv.replicas == 1 else None
+
+    def make_engine(gauge_tags=None, engine_tracer=None):
+        return ServingEngine(
+            family.forward_decode, params, cfg, tracer=engine_tracer,
+            batch_size=tr.batch_size, max_len=cfg.max_seq_len, stop_token_id=sv.stop_token_id,
+            chunk=sv.chunk, prefill_chunk=sv.prefill_chunk, kv_block_size=sv.kv_block_size,
+            lookup_ngram=sv.prompt_lookup_ngram, num_speculative=sv.num_speculative, **draft_kw,
+            # the ONE sizing formula validate() also uses
+            kv_num_blocks=sv.kv_pool_blocks(tr.batch_size, cfg.max_seq_len),
+            prefix_cache=sv.prefix_cache, max_queue_depth=sv.max_queue_depth,
+            max_queue_delay_s=sv.max_queue_delay_s, attention_path=sv.attention_path,
+            admission_policy=sv.admission_policy, admission_aging_waves=sv.admission_aging_waves,
+            kv_pool_dtype=sv.kv_pool_dtype, host_cache_bytes=sv.host_cache_bytes,
+            host_cache_dtype=sv.host_cache_dtype, gauge_tags=gauge_tags)
+
     trace_out = {}
     with torch.inference_mode():
-        if trace is None:
-            requests = _synthetic_queue(sv, tr, cfg)
-            results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
+        if sv.replicas > 1:
+            if trace is not None:
+                # the fleet drive is one pass with no threads: it cannot pace
+                # a live stream, so the trace replays as a closed queue with
+                # its arrival stamps (queue time still counts from arrival)
+                logger.warning(
+                    "serve.arrival=%s with replicas=%d: the template fleet drive replays the "
+                    "trace as a closed queue (arrival-stamped); live streaming needs the "
+                    "ServeFleet harness", sv.arrival, sv.replicas)
+                requests = trace.to_requests(deadline_s=sv.request_deadline_s, arrivals=True)
+            else:
+                requests = _synthetic_queue(sv, tr, cfg)
+            engines = {f"r{i}": make_engine(gauge_tags=[f"engine:r{i}"])
+                       for i in range(sv.replicas)}
+            engine = engines["r0"]
+            router = PrefixAffinityRouter(
+                list(engines),
+                # affinity hashes chain keys: the dense layout hashes at the
+                # default paged width
+                block_size=sv.kv_block_size or 32, affinity_depth=sv.affinity_depth,
+                spill_candidates=sv.spill_candidates, spill_threshold=sv.spill_threshold,
+                policy=sv.router_policy, seed=tr.seed)
+            results, metrics = serve_fleet_local(engines, router, requests, cancel=cancel,
+                                                 heartbeat=heartbeat)
+            if sv.autoscale_min:
+                # the template drive serves a fixed fleet; autoscaling acts
+                # in the live harness only
+                logger.warning(
+                    "serve.autoscaleMin/Max declared but the template drive runs a fixed fleet "
+                    "of %d replicas; autoscaling acts in the ServeFleet harness", sv.replicas)
+                metrics["fleet_autoscale_active"] = False
         else:
-            # the requests arrive through the source, in the trace's order,
-            # and so do the results
-            requests = trace.to_requests(deadline_s=sv.request_deadline_s)
-            source = TraceSource(trace, deadline_s=sv.request_deadline_s)
-            results, metrics = engine.serve([], cancel=cancel, heartbeat=heartbeat,
-                                            source=source)
-            trace_out = {"arrival": sv.arrival, "trace_version": trace.version,
-                         "trace_events": len(trace)}
+            replica_id = os.environ.get("NEXUS_SERVE_REPLICA_ID", "").strip()
+            engine = make_engine(gauge_tags=[f"engine:{replica_id}"] if replica_id else None,
+                                 engine_tracer=tracer)
+            if trace is None:
+                requests = _synthetic_queue(sv, tr, cfg)
+                results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
+            else:
+                # the requests arrive through the source, in the trace's
+                # order, and so do the results
+                requests = trace.to_requests(deadline_s=sv.request_deadline_s)
+                source = TraceSource(trace, deadline_s=sv.request_deadline_s)
+                results, metrics = engine.serve([], cancel=cancel, heartbeat=heartbeat,
+                                                source=source)
+                trace_out = {"arrival": sv.arrival, "trace_version": trace.version,
+                             "trace_events": len(trace)}
+            if replica_id:
+                metrics = dict(metrics, serve_replica_id=replica_id)
+    # a fleet run's dumps ride the metrics whole: summarise them here and
+    # write them beside NEXUS_SERVE_TRACE
+    journey_dump = metrics.pop("journeys", None)
+    fleet_log_dump = metrics.pop("fleet_decision_log", None)
+    if journey_dump is not None:
+        metrics["fleet_journeys"] = len(journey_dump["journeys"])
+    if fleet_log_dump is not None:
+        metrics["fleet_decision_events"] = fleet_log_dump["events_recorded"]
+    if trace_path:
+        dumps = [(trace_path, tracer.to_dict() if journey_dump is None else journey_dump)]
+        if fleet_log_dump is not None:
+            dumps.append((f"{trace_path}.fleetlog.json", fleet_log_dump))
+        for path, dump in dumps:
+            try:
+                with open(path, "w") as f:
+                    json.dump(dump, f, indent=1)
+                    f.write("\n")
+            except OSError:  # telemetry is best-effort
+                logger.warning("could not write the serve trace to %s", path)
     latencies = sorted(r.latency_s for r in results if r is not None and r.status == STATUS_OK)
     out = {
         **metrics,

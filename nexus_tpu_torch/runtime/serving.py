@@ -48,12 +48,15 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   the stream has more to deliver; queue time and TTFT anchor at arrival;
 * ``NEXUS_SANITIZE`` (read once, at construction): the warm-entry audit,
   the block table's scratch-tail audit after each table update and the
-  radix-tree audit after each admission wave (testing/sanitizers.py).
-
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the observability hooks (span tracer, flight recorder, live gauges; their
-metric keys report their off values, and a sanitizer trip raises without
-the flight recorder's dump).
+  radix-tree audit after each admission wave (testing/sanitizers.py);
+* observability (nexus_tpu_torch/obs/), host-side bookkeeping only: an
+  optional ``tracer`` (a span timeline per request), a flight recorder
+  (a ring of wave events, dumped on a sanitizer trip, a shed or deadline
+  storm, or a drain), live gauges published into the in-process registry
+  at every wave boundary (on by default, as in the JAX engine), and
+  ``torch.profiler.record_function`` scopes around the dispatch sites
+  under ``NEXUS_OBS_JAX_TRACE=1``. The hooks read the engine's clock at
+  the JAX engine's points and in its order, and no hook reads a tensor.
 """
 
 from __future__ import annotations
@@ -77,6 +80,9 @@ from nexus_tpu_torch.models.decoding import (
     prompt_lookup_propose,
     write_kv_blocks,
 )
+from nexus_tpu_torch.obs.gauges import LiveGauges
+from nexus_tpu_torch.obs.profiling import dispatch_annotation
+from nexus_tpu_torch.obs.recorder import FlightRecorder
 from nexus_tpu_torch.runtime.host_cache import (
     HOST_CACHE_DTYPES,
     HostBlockStore,
@@ -88,16 +94,6 @@ from nexus_tpu_torch.testing.sanitizers import audit_warm_boundary, sanitizers_e
 from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
 
 KV_POOL_DTYPES = ("native", "int8")
-_ROADMAP = "ROADMAP 'Port to PyTorch/CUDA', item 1"
-NOT_PORTED = {
-    "obs": f"{_ROADMAP}d: the observability hooks (nexus_tpu/obs)",
-    "fleet": f"{_ROADMAP}e: fleet replicas",
-}
-
-
-def not_ported(feature: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: left out of the serving slice ({NOT_PORTED[feature]})")
 
 
 class BlockAllocator:
@@ -363,14 +359,18 @@ class _BlockLease:
 STATUS_OK = "ok"
 STATUS_DEADLINE_EXCEEDED = "deadline_exceeded"
 STATUS_SHED = "shed"
+STATUS_FAILED_OVER = "failed_over"
 
 
 @dataclass
 class ServeRequest:
-    """One queued generation request (the JAX engine's fields).
-    ``temperature > 0`` samples, keyed by (engine seed, ``seed``, buffer
-    position); ``deadline_s`` > 0 bounds its time from engine start;
-    ``priority`` orders load shedding (lowest sheds first)."""
+    """One queued generation request (the JAX engine's fields, in its
+    order). ``temperature > 0`` samples, keyed by (engine seed, ``seed``,
+    buffer position); ``deadline_s`` > 0 bounds its time from engine
+    start; ``priority`` orders load shedding (lowest sheds first) and fleet
+    routing (highest routes first); ``retries`` counts the requeues it
+    survived; ``journey`` is its fleet-stable id (the tracer dump echoes
+    it, the fleet stitches per-engine timelines by it)."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 128
@@ -378,13 +378,16 @@ class ServeRequest:
     seed: int = 0
     deadline_s: float = 0.0
     priority: int = 0
+    retries: int = 0
+    journey: str = ""
     arrival_s: float = 0.0
 
 
 @dataclass
 class ServeResult:
-    """Prompt + generated ids, timings from arrival, and the terminal
-    ``status`` (ok, deadline_exceeded, shed)."""
+    """Prompt + generated ids, timings from arrival, the terminal
+    ``status`` (ok, deadline_exceeded, shed, or failed_over: completed
+    after a requeue) and the request's ``retries``."""
 
     tokens: List[int]
     new_tokens: int
@@ -393,6 +396,7 @@ class ServeResult:
     ttft_s: float = 0.0
     queue_s: float = 0.0
     status: str = STATUS_OK
+    retries: int = 0
 
 
 @dataclass
@@ -456,7 +460,15 @@ class ServingEngine:
     the same vocabulary covering ``max_len``) turn on speculation,
     ``num_speculative`` tokens a round. The engine's tensors live on the device of
     ``params['embed']``; the KV state (pool, radix tree, host store)
-    persists across ``serve`` calls, ``reset_cache`` drops it."""
+    persists across ``serve`` calls, ``reset_cache`` drops it.
+
+    Observability, as in the JAX engine: ``tracer`` (an
+    ``obs.trace.ServeTracer``; None records nothing), ``flight_recorder``
+    (None: a private ``FlightRecorder``; False: off; dumped when an in-loop
+    audit trips, when one wave boundary sheds or expires at least
+    ``storm_threshold`` requests, or on a drain), ``live_gauges`` (default
+    on: the wave-boundary gauges into the in-process registry, tagged with
+    ``gauge_tags``)."""
 
     def __init__(self, forward_decode: Callable, params: Any, cfg: Any, batch_size: int,
                  max_len: Optional[int] = None, stop_token_id: int = -1, chunk: int = 8,
@@ -469,9 +481,8 @@ class ServingEngine:
                  kv_pool_dtype: str = "native", host_cache_bytes: int = 0,
                  host_cache_dtype: str = "native", draft_forward: Optional[Callable] = None,
                  draft_params: Any = None, draft_cfg: Any = None, tracer: Any = None,
-                 flight_recorder: Any = None, live_gauges: bool = False):
-        if tracer is not None or flight_recorder not in (None, False) or live_gauges:
-            raise not_ported("obs", "the serve tracer, flight recorder and live gauges")
+                 flight_recorder: Any = None, live_gauges: bool = True,
+                 gauge_tags: Optional[Sequence[str]] = None, storm_threshold: int = 8):
         self._fwd = forward_decode
         self._params = params
         self._cfg = cfg
@@ -525,6 +536,12 @@ class ServingEngine:
         self._clock = clock
         # NEXUS_SANITIZE arms the engine's in-loop audits; read once, here
         self._sanitize = sanitizers_enabled()
+        self.set_observability(tracer, flight_recorder, live_gauges, gauge_tags)
+        self._storm_threshold = int(storm_threshold)
+        if self._storm_threshold < 1:
+            raise ValueError(f"storm_threshold must be >= 1, got {storm_threshold}")
+        # the last drain / sanitizer / storm trip's snapshot
+        self.last_flight_dump: Optional[dict] = None
         self.last_drain: Optional[List[DrainedRequest]] = None
         self._block_size = int(kv_block_size)
         if self._block_size < 0:
@@ -603,6 +620,20 @@ class ServingEngine:
         store)."""
         self._build_kv_state()
         self.cache_resets += 1
+
+    def set_observability(self, tracer: Any = None, flight_recorder: Any = False,
+                          live_gauges: bool = False,
+                          gauge_tags: Optional[Sequence[str]] = None) -> None:
+        """Swap the observability attachments between serve() calls (the
+        same engine served with them on and off, as the overhead A/B
+        does); never mid-serve."""
+        self._tracer = tracer
+        if flight_recorder is False:
+            self.flight_recorder = None
+        else:
+            self.flight_recorder = flight_recorder or FlightRecorder()
+        self._live_gauges = bool(live_gauges)
+        self._gauge_tags = list(gauge_tags or [])
 
     def _vec(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self._dev)
@@ -849,13 +880,15 @@ class ServingEngine:
     # -------------------------------------------------------------- serve
 
     @torch.no_grad()
-    def serve(self, requests: Sequence[ServeRequest], cancel=None, heartbeat=None, source=None):
+    def serve(self, requests: Sequence[ServeRequest], cancel=None, heartbeat=None, tracer=None,
+              source=None):
         """Run the queue (and any streamed arrivals) to completion →
         (results, metrics); results[i] answers requests[i] (None if
         drained). ``cancel`` (an object with ``cancelled()``) stops at the
         next chunk boundary, releases every lease and records
         ``last_drain``; ``heartbeat`` gets the committed token count after
-        every chunk, and at every idle wait of a stream.
+        every chunk, and at every idle wait of a stream. ``tracer``
+        replaces the engine's tracer for this call only (None keeps it).
 
         ``source``: an arrival stream with the protocol of
         ``runtime/traffic.py::TraceSource`` (``poll(now_s)``, ``due(now_s)``,
@@ -884,6 +917,27 @@ class ServingEngine:
 
         t0 = self._clock()
         self.last_drain = None
+        self.last_flight_dump = None
+        # observability: host bookkeeping only; each site guards on None
+        tracer = tracer if tracer is not None else self._tracer
+        flight = self.flight_recorder
+        gauges = LiveGauges(tags=self._gauge_tags) if self._live_gauges else None
+        tripped: set = set()
+
+        def trip_flight(reason: str, detail: Optional[dict] = None) -> None:
+            """Freeze the flight ring, once per reason per call."""
+            if flight is None or reason in tripped:
+                return
+            tripped.add(reason)
+            self.last_flight_dump = flight.trip(reason, t=self._clock() - t0, detail=detail)
+
+        if tracer is not None:
+            tracer.begin(len(requests), journeys=[str(r.journey or "") for r in requests])
+            for i, req_ in enumerate(requests):
+                tracer.event(i, "enqueued", t=0.0, prompt_tokens=len(req_.prompt),
+                             max_new_tokens=int(req_.max_new_tokens))
+        if flight is not None:
+            flight.record("run_start", t=0.0, requests=len(requests))
         interrupted = False
         dev = self._dev
         m_slots = self._blocks_per_row or 1
@@ -953,6 +1007,7 @@ class ServingEngine:
             """Map every active row's next-dispatch coverage and push the
             table when it changed."""
             nonlocal cache
+            grow_t = None  # one clock read a wave with growth, when tracing
             for r in range(b):
                 state = rows[r]
                 if state is None or leases[r] is None:
@@ -963,9 +1018,18 @@ class ServingEngine:
                 if len(blks) != before:
                     table_np[r, : len(blks)] = blks
                     table_dirty[0] = True
+                    if tracer is not None:
+                        if grow_t is None:
+                            grow_t = round(self._clock() - t0, 6)
+                        tracer.event(state.request_idx, "lease_grow", t=grow_t, row=r,
+                                     wave=chunks + 1, blocks_mapped=len(blks))
             if self._sanitize:
-                alloc.audit_scratch_tails(table_np, [
-                    len(leases[r].blocks) if leases[r] is not None else 0 for r in range(b)])
+                try:
+                    alloc.audit_scratch_tails(table_np, [
+                        len(leases[r].blocks) if leases[r] is not None else 0 for r in range(b)])
+                except AssertionError as e:
+                    trip_flight("sanitizer", {"error": str(e)})
+                    raise
             if table_dirty[0]:
                 cache = dict(cache)
                 cache["block_table"] = torch.from_numpy(table_np.copy()).to(dev)
@@ -996,24 +1060,43 @@ class ServingEngine:
             committed += len(state.emitted)
             arr = arrive_t[state.request_idx]
             ttft = max(0.0, state.first_tok_t - state.admitted_t)
+            ttft_arr = max(0.0, state.first_tok_t - arr)
             queue_s = max(0.0, state.admitted_t - arr)
             if status == STATUS_OK:
-                ttfts.append(max(0.0, state.first_tok_t - arr))
+                ttfts.append(ttft_arr)
                 queues.append(queue_s)
-            done_t = self._clock()
+                if gauges is not None:
+                    gauges.observe_finish(ttft_arr, queue_s)
+            done = self._clock()
+            done_t = done - t0
+            latency = max(0.0, done - arr)
             req = requests[state.request_idx]
             results[state.request_idx] = ServeResult(
                 tokens=[int(x) for x in np.asarray(req.prompt, dtype=np.int32)] + state.emitted,
                 new_tokens=len(state.emitted), finished_by_stop=state.stopped,
-                latency_s=max(0.0, done_t - arr), ttft_s=round(ttft, 6),
-                queue_s=round(queue_s, 6), status=status)
+                latency_s=latency, ttft_s=round(ttft, 6), queue_s=round(queue_s, 6),
+                status=status, retries=int(req.retries))
+            if tracer is not None:
+                tracer.event(state.request_idx, "terminal", t=round(done_t, 6), status=status,
+                             new_tokens=len(state.emitted), latency_s=round(latency, 6),
+                             finished_by_stop=state.stopped)
+            if flight is not None and status == STATUS_DEADLINE_EXCEEDED:
+                flight.record("deadline", t=done_t, request=state.request_idx, queued=False)
 
         def finish_queued(req_idx: int, status: str) -> None:
             req = requests[req_idx]
+            done = self._clock()
+            done_t = done - t0
             results[req_idx] = ServeResult(
                 tokens=[int(x) for x in np.asarray(req.prompt, dtype=np.int32)], new_tokens=0,
-                finished_by_stop=False, latency_s=max(0.0, self._clock() - arrive_t[req_idx]),
-                status=status)
+                finished_by_stop=False, latency_s=max(0.0, done - arrive_t[req_idx]),
+                status=status, retries=int(req.retries))
+            if tracer is not None:
+                tracer.event(req_idx, "terminal", t=round(done_t, 6), status=status,
+                             new_tokens=0, latency_s=round(done_t, 6), finished_by_stop=False)
+            if flight is not None:
+                flight.record("shed" if status == STATUS_SHED else "deadline", t=done_t,
+                              request=req_idx, queued=True)
 
         def police_deadlines() -> None:
             """Queued requests past their deadline end deadline_exceeded;
@@ -1209,7 +1292,11 @@ class ServingEngine:
                         passed_over[req_idx] = passed_over.get(req_idx, 0) + 1
                         admission_overtakes += 1
             if self._sanitize and alloc is not None and alloc.index is not None:
-                alloc.index.audit()
+                try:
+                    alloc.index.audit()
+                except AssertionError as e:
+                    trip_flight("sanitizer", {"error": str(e)})
+                    raise
             if not wave:
                 return
             # the insert: prompts into their rows of the token buffer, the
@@ -1220,17 +1307,19 @@ class ServingEngine:
             prompts = np.zeros((n, max_len), dtype=np.int32)
             for i, w in enumerate(wave):
                 prompts[i, : w[4]] = w[3]
-            idx = self._vec([w[0] for w in wave], torch.int64)
-            starts = self._vec([w[6] for w in wave], torch.int32)
-            cache = dict(cache)
-            cache["length"] = cache["length"].index_put((idx,), starts)
-            buf = buf.index_put((idx,), torch.from_numpy(prompts).to(dev))
-            ptr_vec = ptr_vec.index_put((idx,), starts)
-            plen_vec = plen_vec.index_put((idx,), self._vec([w[4] for w in wave], torch.int32))
-            temp_vec = temp_vec.index_put(
-                (idx,), self._vec([w[1].temperature for w in wave], torch.float32))
-            seed_vec = seed_vec.index_put((idx,), self._vec([w[1].seed for w in wave],
-                                                            torch.int64))
+            with dispatch_annotation("nexus.serve.insert_wave"):
+                idx = self._vec([w[0] for w in wave], torch.int64)
+                starts = self._vec([w[6] for w in wave], torch.int32)
+                cache = dict(cache)
+                cache["length"] = cache["length"].index_put((idx,), starts)
+                buf = buf.index_put((idx,), torch.from_numpy(prompts).to(dev))
+                ptr_vec = ptr_vec.index_put((idx,), starts)
+                plen_vec = plen_vec.index_put((idx,),
+                                              self._vec([w[4] for w in wave], torch.int32))
+                temp_vec = temp_vec.index_put(
+                    (idx,), self._vec([w[1].temperature for w in wave], torch.float32))
+                seed_vec = seed_vec.index_put((idx,), self._vec([w[1].seed for w in wave],
+                                                                torch.int64))
             insert_dispatches += 1
             if self._draft:
                 d_cache = self._draft_reset(d_cache, [w[0] for w in wave])
@@ -1241,6 +1330,17 @@ class ServingEngine:
                 prefill_steps_saved += -(-p // width) - steps
                 rows[row] = _RowState(request_idx=req_idx, budget=budget, admitted_t=now)
                 prefill_left[row] = steps
+                if tracer is not None:
+                    # the admission's cache attribution: radix-matched
+                    # tokens, resident vs restored blocks, the CoW, the
+                    # private reservation
+                    restored_n = len(lease.restored_payloads) if lease else 0
+                    adm_t = round(max(0.0, now - t0), 6)
+                    tracer.event(req_idx, "admitted", t=adm_t, row=row, queue_s=adm_t,
+                                 prompt_tokens=p, budget=budget, matched_tokens=matched,
+                                 shared_blocks=len(lease.shared) - restored_n if lease else 0,
+                                 restored_blocks=restored_n, cow_copy=cow_src is not None,
+                                 reserved_blocks=lease.reservation if lease else 0)
                 if self._paged:
                     leases[row] = lease
                     caps[row] = self._row_cap(p, budget)
@@ -1263,11 +1363,17 @@ class ServingEngine:
                 # the promotion upload, on the stream the next chunk reads
                 # from (blocking host-to-device copies: the payloads need
                 # not outlive this call)
-                planes = {key: torch.stack([pl[key].to(cache[key].dtype)
-                                            for _, pl in restore_jobs], dim=1)
-                          for key in restore_jobs[0][1]}
-                cache = write_kv_blocks(cache, self._vec([blk for blk, _ in restore_jobs],
-                                                         torch.int64), planes)
+                with dispatch_annotation("nexus.serve.restore_upload"):
+                    planes = {key: torch.stack([pl[key].to(cache[key].dtype)
+                                                for _, pl in restore_jobs], dim=1)
+                              for key in restore_jobs[0][1]}
+                    cache = write_kv_blocks(cache, self._vec([blk for blk, _ in restore_jobs],
+                                                             torch.int64), planes)
+            if flight is not None:
+                flight.record("admission", t=self._clock() - t0, n=len(wave),
+                              queue_depth=len(pending), policy=self._policy.name,
+                              aged=int(getattr(self._policy, "last_wave_meta", {}).get("aged", 0)),
+                              restores=len(restore_jobs), cow=len(cow_pairs))
 
         def poll_source() -> None:
             """Due arrivals into the wait queue: requests, results, arrival
@@ -1280,6 +1386,16 @@ class ServingEngine:
                 arrive_t.append(t0 + float(req.arrival_s or 0.0))
                 pending.append(idx)
                 streamed += 1
+                if tracer is not None:
+                    tracer.extend(journey=str(req.journey or ""))
+                    tracer.event(idx, "enqueued", t=round(max(0.0, arrive_t[idx] - t0), 6),
+                                 prompt_tokens=len(req.prompt),
+                                 max_new_tokens=int(req.max_new_tokens))
+
+        def ext_pending() -> int:
+            """Arrived stream events not polled yet, for the queue-depth
+            gauge."""
+            return int(source.due(self._clock() - t0)) if source is not None else 0
 
         def source_live() -> bool:
             return source is not None and not source.exhausted()
@@ -1287,6 +1403,10 @@ class ServingEngine:
         police_deadlines()
         admit_into([r for r in range(b) if rows[r] is None])
         police_depth()
+        if shed_count + deadline_miss_count >= self._storm_threshold:
+            # the arrival burst itself overflowed the bounded queue
+            trip_flight("shed_storm" if shed_count >= deadline_miss_count else "deadline_storm",
+                        {"wave": 0, "shed": shed_count, "deadline": deadline_miss_count})
 
         while any(r is not None for r in rows) or pending or source_live():
             if cancel is not None and cancel.cancelled():
@@ -1299,11 +1419,26 @@ class ServingEngine:
                     drained.append(DrainedRequest(request_idx=state.request_idx,
                                                   committed=list(state.emitted), admitted=True,
                                                   elapsed_s=elapsed))
+                    if tracer is not None:
+                        tracer.event(state.request_idx, "drained", t=elapsed,
+                                     committed_tokens=len(state.emitted), admitted=True)
+                    if flight is not None:
+                        flight.record("drain_request", t=elapsed, request=state.request_idx,
+                                      committed=len(state.emitted), admitted=True)
                     release_row(r)
                 for req_idx in pending:
                     drained.append(DrainedRequest(request_idx=req_idx, elapsed_s=elapsed))
+                    if tracer is not None:
+                        tracer.event(req_idx, "drained", t=elapsed, committed_tokens=0,
+                                     admitted=False)
+                    if flight is not None:
+                        flight.record("drain_request", t=elapsed, request=req_idx, committed=0,
+                                      admitted=False)
                 pending.clear()
                 self.last_drain = drained
+                # the postmortem: the recent waves, with the drained cohort
+                trip_flight("drain", {"wave": chunks,
+                                      "drained": [d.request_idx for d in drained]})
                 interrupted = True
                 break
             if source is not None:
@@ -1319,6 +1454,13 @@ class ServingEngine:
                         break
                     if heartbeat is not None:
                         heartbeat(committed)
+                    if gauges is not None:
+                        # an idle engine with a building backlog still publishes
+                        gauges.publish(
+                            queue_depth=len(pending) + ext_pending(), running_rows=0,
+                            free_pool_blocks=alloc.free_blocks if alloc else 0,
+                            host_cache_bytes=host_store.bytes if host_store is not None else 0,
+                            committed_tokens=committed, waves=chunks)
                     source.wait(self._clock() - t0)
                     continue
             if self._paged:
@@ -1330,9 +1472,10 @@ class ServingEngine:
                 hydragen_shared_slots += shared_s
             done_vec = torch.tensor([r is None or row_done(r) for r in rows]).to(dev)
             if self._spec:
-                (cache, d_cache, tok_vec, ptr_vec, buf, outs, accs, n_emits,
-                 actives) = self._spec_chunk(cache, d_cache, tok_vec, ptr_vec, done_vec, buf,
-                                             plen_vec, shared_ops)
+                with dispatch_annotation("nexus.serve.spec_chunk"):
+                    (cache, d_cache, tok_vec, ptr_vec, buf, outs, accs, n_emits,
+                     actives) = self._spec_chunk(cache, d_cache, tok_vec, ptr_vec, done_vec, buf,
+                                                 plen_vec, shared_ops)
                 chunks += 1
                 # one verify scores k+1 positions: utilization over them is
                 # acceptance-sensitive by design
@@ -1352,9 +1495,10 @@ class ServingEngine:
                 width = self._t if wide else 1
                 sampling = any(s is not None and requests[s.request_idx].temperature > 0
                                for s in rows)
-                cache, tok_vec, ptr_vec, toks, emits = self._decode_chunk(
-                    cache, tok_vec, ptr_vec, done_vec, buf, plen_vec, temp_vec, seed_vec,
-                    shared_ops, width, sampling)
+                with dispatch_annotation("nexus.serve.decode_chunk"):
+                    cache, tok_vec, ptr_vec, toks, emits = self._decode_chunk(
+                        cache, tok_vec, ptr_vec, done_vec, buf, plen_vec, temp_vec, seed_vec,
+                        shared_ops, width, sampling)
                 chunks += 1
                 scheduled_slots += self._chunk * b
                 host_toks, host_emits = torch.stack((toks, emits.to(toks.dtype))).cpu().numpy()
@@ -1371,7 +1515,12 @@ class ServingEngine:
                     if rows[r] is None or leases[r] is None:
                         continue
                     if pf_ptr[r] < plen_host[r]:
+                        pf_was = pf_ptr[r]
                         pf_ptr[r] = min(plen_host[r], pf_ptr[r] + pf_advance)
+                        if tracer is not None and pf_ptr[r] > pf_was:
+                            tracer.event(rows[r].request_idx, "prefill_chunk",
+                                         t=round(now - t0, 6), row=r, wave=chunks,
+                                         from_pos=pf_was, to_pos=pf_ptr[r])
                     pub = min(pf_ptr[r] // self._block_size, len(row_keys[r]))
                     blks = leases[r].blocks
                     while indexed_upto[r] < pub:
@@ -1381,10 +1530,13 @@ class ServingEngine:
                         alloc.register_block(row_keys[r][j], blks[j],
                                              parent=row_keys[r][j - 1] if j else None)
                         indexed_upto[r] += 1
+            shed_wave0, miss_wave0 = shed_count, deadline_miss_count
             for r in range(b):
                 state = rows[r]
                 if state is None:
                     continue
+                row_n0 = len(state.emitted)
+                row_accepted = row_rounds = 0
                 if self._spec:
                     for ri in range(self._rounds):
                         if row_done(state):
@@ -1393,6 +1545,8 @@ class ServingEngine:
                             target_forwards += 1
                             drafted += self._k
                             accepted_total += int(host_accs[ri, r])
+                            row_accepted += int(host_accs[ri, r])
+                            row_rounds += 1
                         for t in host_outs[ri, r, :int(host_n_emits[ri, r])]:
                             if row_done(state):
                                 break
@@ -1404,6 +1558,21 @@ class ServingEngine:
                         if not host_emits[c, r]:
                             continue  # the row was prefilling this step
                         emit(state, int(host_toks[c, r]), now)
+                if tracer is not None:
+                    row_delta = len(state.emitted) - row_n0
+                    if row_n0 == 0 and row_delta > 0:
+                        tracer.event(state.request_idx, "first_token", t=round(now - t0, 6),
+                                     row=r, wave=chunks,
+                                     ttft_s=round(max(0.0, state.first_tok_t - state.admitted_t),
+                                                  6))
+                    if row_delta > 0:
+                        # plain decode: every committed token was one
+                        # scheduled slot; speculation splits accept/reject
+                        tracer.event(state.request_idx, "decode_wave", t=round(now - t0, 6),
+                                     row=r, wave=chunks, tokens=row_delta,
+                                     accepted=row_accepted if self._spec else row_delta,
+                                     rejected=(max(0, row_rounds * self._k - row_accepted)
+                                               if self._spec else 0))
                 if row_done(state):
                     finish(state)
                     release_row(r)
@@ -1417,13 +1586,37 @@ class ServingEngine:
             police_deadlines()
             admit_into([r for r in range(b) if rows[r] is None])
             police_depth()
+            # the wave boundary's observability
+            shed_d = shed_count - shed_wave0
+            miss_d = deadline_miss_count - miss_wave0
+            if shed_d + miss_d >= self._storm_threshold:
+                # one boundary ended a burst of requests
+                trip_flight("shed_storm" if shed_d >= miss_d else "deadline_storm",
+                            {"wave": chunks, "shed": shed_d, "deadline": miss_d})
+            if flight is not None or gauges is not None:
+                live_rows = sum(1 for st in rows if st is not None)
+                free_blocks = alloc.free_blocks if alloc else 0
+                host_bytes = host_store.bytes if host_store is not None else 0
+            if flight is not None:
+                # a fresh stamp: the events recorded above read later clocks
+                flight.record("wave", t=self._clock() - t0, wave=chunks,
+                              queue_depth=len(pending), running_rows=live_rows,
+                              committed=committed, free_blocks=free_blocks,
+                              spills=alloc.spills if alloc else 0,
+                              restores=alloc.restores if alloc else 0,
+                              evictions=alloc.evictions if alloc else 0, host_bytes=host_bytes)
+            if gauges is not None:
+                gauges.publish(queue_depth=len(pending) + ext_pending(), running_rows=live_rows,
+                               free_pool_blocks=free_blocks, host_cache_bytes=host_bytes,
+                               committed_tokens=committed, waves=chunks)
         wall = self._clock() - t0
         self._kv_cache = cache
         self._serve_calls += 1
         self.last_requests = requests
+        if flight is not None and not interrupted:
+            flight.record("run_end", t=wall, committed=committed)
 
-        # the JAX engine's metrics ledger, for the ported features (the
-        # observability keys at their off values)
+        # the JAX engine's metrics ledger
         n = len(requests)
         metrics = {
             "requests": n,
@@ -1447,10 +1640,10 @@ class ServingEngine:
             "ok_requests": sum(1 for r in results if r is not None and r.status == STATUS_OK),
             "admission_policy": self._policy.name,
             "admission_overtakes": admission_overtakes,
-            "traced": False,
-            "flight_recorder_events": 0,
-            "flight_dumps": 0,
-            "live_gauge_publishes": 0,
+            "traced": tracer is not None,
+            "flight_recorder_events": flight.events_recorded if flight is not None else 0,
+            "flight_dumps": len(tripped),
+            "live_gauge_publishes": gauges.publishes if gauges is not None else 0,
             "engine_serve_calls": self._serve_calls,
             "cache_resets": self.cache_resets,
             "streamed_requests": streamed,

@@ -196,3 +196,152 @@ def test_the_host_tier_phases_restore_in_a_cpu_replay(name, step_ms):
     assert m["ok_requests"] == m["requests"] == 2 * cs.HOST_PHASES[name][0]
     assert m["spilled_blocks"] > 0 and m["restored_blocks"] > 0
     assert m["restore_hit_tokens"] > 0 and m["kv_allocated_blocks_final"] == 0
+
+
+# ------------------------------------------------- serve-fleet, serve-traced
+
+def test_the_fleet_phase_is_a_valid_spec_that_spreads_over_the_replicas():
+    """serve-fleet passes validate() with the shape of the repo's serve
+    example (4 replicas, affinity at depth 2), its trace fits the 8b
+    context, and the router puts its requests on at least two replicas."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.fleet import PrefixAffinityRouter
+    from nexus_tpu_torch.ha import ServeFailoverPlanner
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.runtime.entrypoints import _synthetic_trace
+
+    spec = JaxXlaRuntime.from_dict(cs._serve_spec(**cs.FLEET_SPEC_KEYS))
+    assert spec.validate() == []
+    sv = spec.serve
+    assert (sv.replicas, sv.router_policy, sv.affinity_depth, sv.spill_candidates,
+            sv.spill_threshold) == (4, "affinity", 2, 2, 4)
+    assert sv.prefix_cache and sv.attention_path == "fused" and sv.kv_num_blocks == 0
+    trace = _synthetic_trace(sv, spec.train, llama.config("8b"))
+    reqs = trace.to_requests(arrivals=True)
+    router = PrefixAffinityRouter([f"r{i}" for i in range(4)], block_size=sv.kv_block_size,
+                                  affinity_depth=2, spill_candidates=2, spill_threshold=4)
+    router.enable_pending_load()
+    router.route_batch(ServeFailoverPlanner().fresh(reqs))
+    assert len(router.ledger()["router_routed"]) >= 2
+
+
+def _tiny_serve(tmp_path, **serve):
+    """A tiny run of run_template_runtime on the CPU with NEXUS_SERVE_TRACE
+    set → (metrics, the dump, the decision log or None)."""
+    import torch
+
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    spec = {"mode": "serve", "model": {"family": "llama", "preset": "tiny",
+                                       "overrides": {"dtype": "float32"}},
+            "train": {"batchSize": 2, "seed": 0},
+            "serve": {"numRequests": 6, "promptLengthMin": 20, "promptLengthMax": 30,
+                      "sharedPrefixLength": 16, "maxNewMin": 3, "maxNewMax": 5, "chunk": 4,
+                      "kvBlockSize": 8, **serve}}
+    path = str(tmp_path / "dump.json")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("NEXUS_SERVE_TRACE", path)
+            mp.setenv("NEXUS_SERVE_REPLICA_ID", cs.TRACED_ENGINE)
+            m = run_template_runtime(spec, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    dump, fleet_log = cs._read_dumps(path)
+    return m, dump, fleet_log
+
+
+@pytest.fixture(scope="module")
+def fleet_run(tmp_path_factory):
+    return _tiny_serve(tmp_path_factory.mktemp("fleet"), replicas=3, spillThreshold=1)
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory):
+    from nexus_tpu_torch.obs import render_prometheus
+    from nexus_tpu_torch.utils import telemetry
+
+    telemetry.with_statsd("nexus-tpu")
+    m, dump, _ = _tiny_serve(tmp_path_factory.mktemp("traced"))
+    return m, dump, render_prometheus()
+
+
+def test_the_fleet_gates_pass_a_good_run(fleet_run):
+    import copy
+
+    m, journeys, fleet_log = copy.deepcopy(fleet_run)
+    assert fleet_log is not None and m["fleet_replicas"] == 3
+    cs.check_fleet("x", m, journeys, fleet_log)
+
+
+def _leak(m, j, log):
+    rid = next(r for r, v in m["fleet_per_replica"].items() if v["requests"])
+    m["fleet_per_replica"][rid]["kv_allocated_blocks_final"] = 1
+
+
+def _drift(m, j, log):
+    j["journeys"][0]["legs"][0]["timeline"][0]["extra"] = 1
+
+
+def _one_replica(m, j, log):
+    for r in m["fleet_per_replica"].values():
+        r["requests"] = 0
+    m["fleet_per_replica"]["r0"]["requests"] = 6
+
+
+def _log_drift(m, j, log):
+    log["events"][0].pop("chosen")
+
+
+@pytest.mark.parametrize("mutate,needle", [
+    (_leak, "pool leaks"),
+    (_drift, "journey dump or decision log is invalid"),
+    (_log_drift, "journey dump or decision log is invalid"),
+    (_one_replica, "served requests"),
+    (lambda m, j, log: m.update(fleet_prefix_hit_tokens=0), "no prefix hits"),
+    (lambda m, j, log: m.update(router_decisions=5), "the router counted"),
+    (lambda m, j, log: j["journeys"].pop(), "journeys for"),
+    (lambda m, j, log: m.update(committed_tokens=m["committed_tokens"] - 1), "budgets are"),
+    (lambda m, j, log: m["fleet_per_replica"]["r0"].update(ok_requests=-1), "requests ok"),
+], ids=["replica-leaks", "journey-drift", "log-drift", "one-replica", "no-hits", "router",
+        "journeys", "budgets", "not-ok"])
+def test_the_fleet_gates_fail_a_bad_run(fleet_run, mutate, needle):
+    import copy
+
+    m, journeys, fleet_log = copy.deepcopy(fleet_run)
+    mutate(m, journeys, fleet_log)
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_fleet("x", m, journeys, fleet_log)
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.check_fleet("x", *copy.deepcopy(fleet_run),
+                       missing=["fused_paged_decode_attention"])
+
+
+def test_the_traced_gates_pass_a_good_run(traced_run):
+    m, dump, text = traced_run
+    assert m["serve_replica_id"] == cs.TRACED_ENGINE
+    cs.check_traced("x", m, dump, text)
+
+
+def _no_first_token(m, dump, text):
+    tl = dump["spans"][0]["timeline"]
+    tl[:] = [s for s in tl if s["kind"] != "first_token"]
+    return text
+
+
+@pytest.mark.parametrize("mutate,needle", [
+    (_no_first_token, "does not run"),
+    (lambda m, d, t: d["spans"][1]["timeline"].pop() and t, "terminal/drained"),
+    (lambda m, d, t: m.update(live_gauge_publishes=0) or t, "live_gauge_publishes 0"),
+    (lambda m, d, t: m.update(flight_recorder_events=0) or t, "flight_recorder_events 0"),
+    (lambda m, d, t: t.replace(cs.TRACED_ENGINE, "other"), "Prometheus text has no"),
+    (lambda m, d, t: d.update(requests=1) or t, "timelines for"),
+], ids=["no-first-token", "no-terminal", "no-gauges", "no-flight", "untagged", "count"])
+def test_the_traced_gates_fail_a_bad_run(traced_run, mutate, needle):
+    import copy
+
+    m, dump, text = copy.deepcopy(traced_run)
+    text = mutate(m, dump, text)
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_traced("x", m, dump, text)

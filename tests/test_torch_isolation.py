@@ -37,7 +37,11 @@ def test_the_scan_sees_the_port():
     assert "nexus_tpu_torch/ops/attention.py" in names
     assert "nexus_tpu_torch/runtime/entrypoints.py" in names
     for module in ("runtime/serving.py", "runtime/prefix_cache.py", "runtime/scheduling.py",
-                   "models/decoding.py", "ops/sampling.py", "utils/telemetry.py"):
+                   "models/decoding.py", "ops/sampling.py", "utils/telemetry.py",
+                   "obs/trace.py", "obs/recorder.py", "obs/gauges.py", "obs/exposition.py",
+                   "obs/profiling.py", "obs/journey.py", "obs/fleet_log.py",
+                   "obs/federation.py", "fleet/router.py", "fleet/fleet.py",
+                   "ha/serve_failover.py"):
         assert f"nexus_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 

@@ -246,7 +246,6 @@ def test_entry_point_returns_the_jax_metric_keys(spec):
     ({"serve": {"draft": dict(_TINY, overrides={"max_seq_len": 512}),
                 "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
     ({"infer": {"draft": _TINY, "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
-    ({"serve": {"replicas": 2}}, "item 1e"),
     ({"model": dict(_TINY, weights={"path": "w.safetensors"})}, "item 5"),
     ({"checkpoint": {"enabled": True}}, "item 2"),
 ])
@@ -260,10 +259,29 @@ def test_unported_features_raise_naming_their_roadmap_item(block, item):
         run_template_runtime(spec, device="cpu")
 
 
-def test_serve_trace_dump_raises(monkeypatch):
+def test_serve_replicas_serve_through_the_fleet_drive():
+    """serve.replicas > 1 (item 1e, once refused) serves the queue across
+    the replicas behind the affinity router."""
+    m = run_template_runtime(dict(SERVE, serve=dict(SERVE["serve"], replicas=2)), device="cpu")
+    assert m["fleet_replicas"] == 2 and m["finished_requests"] == m["router_decisions"] == 5
+    assert m["committed_tokens"] == m["budget_tokens"] > 0
+
+
+def test_serve_trace_dump_raises(monkeypatch, tmp_path):
+    """The span dump (item 1d) is ported: NEXUS_SERVE_TRACE no longer
+    raises, it writes one valid timeline per request; an unwritable path
+    is skipped with a warning (telemetry is best-effort), as in JAX."""
+    import json
+
+    from nexus_tpu_torch.obs import validate_trace
+
+    path = tmp_path / "trace.json"
+    monkeypatch.setenv("NEXUS_SERVE_TRACE", str(path))
+    m = run_template_runtime(SERVE, device="cpu")
+    dump = json.loads(path.read_text())
+    assert m["traced"] is True and dump["requests"] == 5 and validate_trace(dump) == []
     monkeypatch.setenv("NEXUS_SERVE_TRACE", "/nonexistent/trace.json")
-    with pytest.raises(NotImplementedError, match="item 1d"):
-        run_template_runtime(SERVE, device="cpu")
+    assert run_template_runtime(SERVE, device="cpu")["traced"] is True
 
 
 def test_literal_prompts_need_a_tokenizer_as_in_jax():

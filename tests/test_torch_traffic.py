@@ -170,9 +170,8 @@ def _stream(serving, traffic, fwd, params, cfg, **kw):
     return eng, results, metrics
 
 
-# the wall clock's keys, and the observability keys (off in the port)
-WALL = ("wall_s", "tokens_per_sec", "traced", "flight_recorder_events", "flight_dumps",
-        "live_gauge_publishes")
+# the wall clock's keys
+WALL = ("wall_s", "tokens_per_sec")
 
 
 @pytest.mark.parametrize("kw", [
@@ -319,11 +318,23 @@ def test_the_worst_trace_prompt_must_fit():
         tentry.run_template_runtime(spec, device="cpu")
 
 
-def test_fleet_replicas_and_the_trace_dump_still_raise(monkeypatch):
+def test_fleet_replicas_and_the_trace_dump_still_raise(monkeypatch, tmp_path):
+    """Both are ported now (items 1e and 1d) and no longer raise: a trace
+    under replicas 2 replays as a closed queue that keeps its arrival
+    stamps, and NEXUS_SERVE_TRACE writes a streamed run's span dump."""
+    import json
+
+    from nexus_tpu_torch.obs import validate_trace
+
     spec = _open_loop_spec("poisson")
-    with pytest.raises(NotImplementedError, match="item 1e"):
-        tentry.run_template_runtime(dict(spec, serve=dict(spec["serve"], replicas=2)),
-                                    device="cpu")
-    monkeypatch.setenv("NEXUS_SERVE_TRACE", "/nonexistent/trace.json")
-    with pytest.raises(NotImplementedError, match="item 1d"):
-        tentry.run_template_runtime(spec, device="cpu")
+    fleet = tentry.run_template_runtime(dict(spec, serve=dict(spec["serve"], replicas=2)),
+                                        device="cpu")
+    assert fleet["fleet_replicas"] == 2 and fleet["finished_requests"] == 7
+    assert fleet["committed_tokens"] == fleet["budget_tokens"] > 0
+    assert "streamed_requests" not in fleet  # a closed queue, not a stream
+    path = tmp_path / "trace.json"
+    monkeypatch.setenv("NEXUS_SERVE_TRACE", str(path))
+    single = tentry.run_template_runtime(spec, device="cpu")
+    dump = json.loads(path.read_text())
+    assert single["traced"] is True and validate_trace(dump) == []
+    assert dump["requests"] == single["streamed_requests"] == 7

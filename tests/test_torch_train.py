@@ -222,14 +222,25 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
 
 @pytest.mark.parametrize("over,exc,match", [
     (dict(checkpoint={"enabled": True, "directory": "/x"}), NotImplementedError, "checkpoint"),
-    (dict(mode="serve", serve={"replicas": 2}), NotImplementedError, "serving slice"),
-    # the host tier and open-loop arrivals are ported; fleet replicas
-    # replaying a trace are not
-    (dict(mode="serve", serve={"replicas": 2, "arrival": "poisson", "hostCacheBytes": 4096}),
-     NotImplementedError, "serving slice"),
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots"}}), ValueError, "dots"),
     (dict(model={"family": "mixtral"}), NotImplementedError, "not ported"),
 ])
 def test_unported_paths_raise(over, exc, match):
     with pytest.raises(exc, match=match):
         run_template_runtime(_tiny_spec(**over), device="cpu")
+
+
+@pytest.mark.parametrize("serve", [
+    {"replicas": 2},
+    # fleet replicas replaying an open-loop trace, over the host tier
+    {"replicas": 2, "arrival": "poisson", "hostCacheBytes": 4096},
+], ids=["replicas", "replicas-trace-host-tier"])
+def test_fleet_paths_that_once_raised_now_serve(serve):
+    """serve.replicas > 1 (item 1e) runs the fleet drive: every request of
+    the queue is served ok across the replicas, with its whole budget."""
+    small = {"numRequests": 6, "promptLengthMin": 4, "promptLengthMax": 24, "maxNewMin": 2,
+             "maxNewMax": 6, "chunk": 4, "kvBlockSize": 8}
+    m = run_template_runtime(_tiny_spec(mode="serve", serve={**small, **serve}), device="cpu")
+    assert m["fleet_replicas"] == 2 and m["router_decisions"] == m["finished_requests"] > 0
+    assert all(c is not None for c in m["completion_ids"])
+    assert m["committed_tokens"] == m["budget_tokens"] > 0
