@@ -72,8 +72,20 @@ Phases, each of which raises on failure:
    enqueued → admitted → first_token → terminal, live gauges and flight
    events recorded, and the Prometheus text holding the engine's
    ``serve_queue_depth``;
-11. the kernel line (JSON, one object per kernel), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+11. Mixtral-8x7B at its published widths, cut in depth: ``mixtral-train``
+   (2 layers, batch 1 x seq 8192, sliding window 4096, 6 steps: the loss
+   falls, the scatter dispatch, a dropped share in [0, 1), K1-K3
+   launched); ``mixtral-remat`` (the same under ``remat_policy:
+   dots_attn`` and then ``full``, 4 steps each: K1 launches once per layer
+   per step, and twice under ``full``); ``mixtral-ckpt`` (1 layer, seq
+   2048, npz checkpoints every 2 steps keeping 1, a one-step profiler
+   window: 4 steps, the step-4 state restored and saved again byte for
+   byte, then resumed to 6 steps from step 4; the trace names K1);
+   ``mixtral-infer`` and ``mixtral-serve`` (16 layers; the infer and serve
+   phases' shapes, 16 requests; D1 at T 1 and 8; peak memory under 60 GB);
+12. the kernel line (JSON, one object per kernel, with each Mixtral phase's
+   launches), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -111,6 +123,15 @@ FAULT_TILES = (64, 128)
 
 MAIN_SHAPE = dict(B=2, Sq=4096, Sk=4096, Hq=32, Hkv=8, D=128, causal=True,
                   q_offset=0, window=0)
+# Mixtral-8x7B's sliding window, which the Mixtral train phases turn on
+MIXTRAL_WINDOW = 4096
+# the shapes the Mixtral train phases give K1-K3: mixtral-train and
+# mixtral-remat (one row of 8192 under the window: the key tiles below its
+# floor skipped, timed and held to planted faults at the floor), and
+# mixtral-ckpt (2048, inside the window)
+MIXTRAL_SHAPE = dict(B=1, Sq=8192, Sk=8192, Hq=32, Hkv=8, D=128, causal=True,
+                     q_offset=0, window=MIXTRAL_WINDOW)
+MIXTRAL_CKPT_SHAPE = dict(MIXTRAL_SHAPE, Sq=2048, Sk=2048)
 EDGE_SHAPES = [
     dict(B=1, Sq=192, Sk=192, Hq=4, Hkv=4, D=64, causal=True, q_offset=0, window=48),
     dict(B=1, Sq=192, Sk=192, Hq=8, Hkv=2, D=128, causal=True, q_offset=64, window=0),
@@ -277,39 +298,47 @@ def _err(got, ref, name: str, where: str, ratios: dict) -> float:
     return e
 
 
-def planted_faults(q, k, v, dout, g_lse, tile: int) -> dict:
+def planted_faults(q, k, v, dout, g_lse, tile: int, window: int = 0) -> dict:
     """Hold the outputs of three faulty kernels against the plain versions
     with the limits above, on causal self-attention inputs (q_offset 0,
-    no window); every fault must fail. The faults are the ones a loop bound
-    makes: the forward and the dQ kernel skip key tile 0 for the last query
-    tile; the dK/dV kernel skips the last query tile for every key tile but
-    the last. Each faulty output is the plain version on the inputs the
-    faulty kernel would read. Returns {output: error over its limit}."""
+    with or without a window); every fault must fail. The faults are the
+    ones a loop bound makes at the floor of the last query tile's keys
+    (key tile 0, or under a window the tile holding the window's floor):
+    the forward and the dQ kernel skip that key tile for the last query
+    tile; the dK/dV kernel skips the last query tile for every key tile
+    from that one to the last, the last excluded. Each faulty output is
+    the plain version on the inputs the faulty kernel would read. Returns
+    {output: error over its limit}."""
     from nexus_tpu_torch.ops import attention as A
 
     sq, sk = q.shape[1], k.shape[1]
     if sq != sk or sq < 2 * tile:
         raise ValueError("planted faults need Sq == Sk >= 2 tiles")
-    out, lse = A.flash_fwd_plain(q, k, v)
+    # the key tile holding the last query tile's first visible key
+    lo = (max(sq - tile - window + 1, 0) // tile) * tile if window else 0
+    if lo + tile >= sk:
+        raise ValueError("planted faults need a key tile between the floor and the last")
+    opts = (True, 0, window)
+    out, lse = A.flash_fwd_plain(q, k, v, *opts)
     delta = ((dout.float() * out.float()).sum(-1).transpose(1, 2) - g_lse).contiguous()
-    dq = A.flash_bwd_dq_plain(q, k, v, dout, lse, delta)
-    dk, dv = A.flash_bwd_dkv_plain(q, k, v, dout, lse, delta)
+    dq = A.flash_bwd_dq_plain(q, k, v, dout, lse, delta, *opts)
+    dk, dv = A.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *opts)
 
-    # last query tile without key tile 0: in the cut key axis, row i of the
-    # tile sits at position (sq - tile + i) - tile
-    late, rest, off = slice(sq - tile, sq), slice(tile, sk), sq - 2 * tile
+    # last query tile without key tile ``lo``: in the cut key axis, row i
+    # of the tile sits at position (sq - tile + i) - (lo + tile)
+    late, rest, off = slice(sq - tile, sq), slice(lo + tile, sk), sq - 2 * tile - lo
     out_f, lse_f, dq_f = out.clone(), lse.clone(), dq.clone()
     out_f[:, late], lse_f[..., late] = A.flash_fwd_plain(
-        q[:, late], k[:, rest], v[:, rest], True, off)
+        q[:, late], k[:, rest], v[:, rest], True, off, window)
     dq_f[:, late] = A.flash_bwd_dq_plain(
         q[:, late], k[:, rest], v[:, rest], dout[:, late], lse[..., late],
-        delta[..., late], True, off)
-    # every key tile but the last, without the last query tile
-    early_q, early_k = slice(0, sq - tile), slice(0, sk - tile)
+        delta[..., late], True, off, window)
+    # key tiles ``lo`` up to the last, without the last query tile
+    early_q, early_k = slice(0, sq - tile), slice(lo, sk - tile)
     dk_f, dv_f = dk.clone(), dv.clone()
     dk_f[:, early_k], dv_f[:, early_k] = A.flash_bwd_dkv_plain(
         q[:, early_q], k[:, early_k], v[:, early_k], dout[:, early_q],
-        lse[..., early_q], delta[..., early_q])
+        lse[..., early_q], delta[..., early_q], True, -lo, window)
 
     ratios = {name: excess(got, ref, name)[1] for name, got, ref in (
         ("out", out_f, out), ("lse", lse_f, lse), ("dq", dq_f, dq),
@@ -368,6 +397,14 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # the library's yardstick: SDPA, causal, or under a window with the
+    # mask as a boolean tensor and K/V repeated to Hq heads
+    sdpa_kw = dict(is_causal=shape["causal"], enable_gqa=True)
+    if shape["window"]:
+        rep = hq // hkv
+        kt, vt = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+        sdpa_kw = dict(attn_mask=A._visible(sq, sk, True, shape["q_offset"], shape["window"],
+                                            "cuda"))
     calls = {
         "flash_fwd": lambda: A.flash_fwd(q, k, v, *opts),
         "flash_bwd_dq": lambda: A.flash_bwd_dq(q, k, v, dout, lse_p, delta, *opts),
@@ -379,8 +416,7 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
              for name, fn in calls.items()}
     times["flash_fwd"]["plain_ms"] = _cuda_time_ms(
         lambda: A.flash_fwd_plain(q, k, v, *opts), reps=3)
-    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=shape["causal"], enable_gqa=True)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
     times["flash_fwd"]["library_ms"] = _cuda_time_ms(sdpa_fwd)
     times["flash_fwd"]["library_device_ms"] = _cuda_loop_ms(sdpa_fwd)
     times["flash_bwd_dq"]["plain_ms"] = _cuda_time_ms(
@@ -391,7 +427,7 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
     # computes dQ, dK and dV in one call (never called by the port); no
     # library call computes dQ or dK/dV alone, so both entries carry it
     qs, ks, vs = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=shape["causal"], enable_gqa=True)
+    o = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
     go = dout.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(o, (qs, ks, vs), go, retain_graph=True)  # noqa: E731
     sdpa_bwd_ms, sdpa_bwd_device_ms = _cuda_time_ms(sdpa_bwd), _cuda_loop_ms(sdpa_bwd)
@@ -400,7 +436,8 @@ def check_kernels(shape, gen, ratios: dict, timed: bool = False):
         times[name]["library_device_ms"] = sdpa_bwd_device_ms
         times[name]["library_note"] = (
             "SDPA backward: dQ, dK and dV in one call, shared by flash_bwd_dq and flash_bwd_dkv")
-    times["flash_fwd"]["library_note"] = "SDPA forward"
+    times["flash_fwd"]["library_note"] = "SDPA forward" + (
+        " (window as a boolean mask, K/V repeated)" if shape["window"] else "")
     return errs, times, inputs
 
 
@@ -799,26 +836,34 @@ def phase_build() -> float:
     return secs
 
 
-def phase_kernels(main_shape=MAIN_SHAPE):
+def phase_kernels():
+    """K1-K3 against their plain versions: the edge and key-tail shapes,
+    the Mixtral checkpoint phase's shape, then the Llama train shape and
+    the Mixtral train shape, both timed and each held to planted faults.
+    Returns (worst max-abs error per kernel, {shape name: timings})."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for shape in EDGE_SHAPES + KEY_TAIL_SHAPES:
+    for shape in EDGE_SHAPES + KEY_TAIL_SHAPES + [MIXTRAL_CKPT_SHAPE]:
         ratios = {}
         errs, _, _ = check_kernels(shape, gen, ratios)
         log(f"[kernels] edge {shape}: max-abs {errs}, error over limit {ratios}")
         worst = {k: max(worst[k], errs[k]) for k in worst}
-    ratios = {}
-    errs, times, inputs = check_kernels(main_shape, gen, ratios, timed=True)
-    log(f"[kernels] main shape {main_shape}: max-abs {errs}, error over limit {ratios}")
-    log(f"[kernels] main shape timings {times}")
-    worst = {k: max(worst[k], errs[k]) for k in worst}
-    for tile in FAULT_TILES:
-        faults = planted_faults(*inputs, tile=tile)
-        log(f"[kernels] planted faults of tile {tile} at the main shape, error over "
-            f"limit (all must exceed 1): {faults}")
+    times = {}
+    for label, shape in (("main", MAIN_SHAPE), ("mixtral", MIXTRAL_SHAPE)):
+        ratios = {}
+        errs, times[label], inputs = check_kernels(shape, gen, ratios, timed=True)
+        log(f"[kernels] {label} shape {shape}: max-abs {errs}, error over limit {ratios}")
+        log(f"[kernels] {label} shape timings {times[label]}")
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        for tile in FAULT_TILES:
+            faults = planted_faults(*inputs, tile=tile, window=shape["window"])
+            log(f"[kernels] planted faults of tile {tile} at the {label} shape, error over "
+                f"limit (all must exceed 1): {faults}")
+        del inputs
+        _free_card()
     return worst, times
 
 
@@ -849,7 +894,10 @@ def _launches_during(run, must_launch):
     return out, launches, missing
 
 
-def phase_train(name: str, spec) -> dict:
+def phase_train(name: str, spec, must_fall: bool = True) -> dict:
+    """``mode: train`` through the entry point: a finite loss that falls
+    over the timed steps (``must_fall``; a resumed run of one timed step
+    has no fall to show), and every flash kernel launched."""
     import math
 
     import torch
@@ -857,17 +905,23 @@ def phase_train(name: str, spec) -> dict:
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
+    _free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     m, launches, missing = _launches_during(lambda: run_template_runtime(spec), A.TRAIN_KERNELS)
     wall = time.monotonic() - t0
     hist = m["loss_history"]
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    m["phase_wall_s"] = wall
     log(f"[{name}] wall {wall:.1f} s, tokens_per_sec {m['tokens_per_sec']}, "
         f"mfu {m['mfu']}, loss_history {hist}, launches {launches}, "
-        f"peak_mem_gb {torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        f"peak_mem_gb {m['peak_mem_gb']:.2f}"
+        + "".join(f", {k} {m[k]}" for k in ("moe_dispatch", "router_dropped_fraction",
+                                             "resumed_from_step", "checkpoint_saved",
+                                             "profile_dir") if k in m))
     if not (m["final_loss"] is not None and math.isfinite(m["final_loss"])):
         raise AssertionError(f"{name}: final loss {m['final_loss']} is not finite")
-    if not all(math.isfinite(x) for x in hist) or not hist[-1] < hist[0]:
+    if not all(math.isfinite(x) for x in hist) or (must_fall and not hist[-1] < hist[0]):
         raise AssertionError(f"{name}: loss did not fall: {hist}")
     if missing:
         raise AssertionError(f"{name}: kernels never launched on the train path: {missing}")
@@ -892,21 +946,21 @@ INFER_SPEC = {
 }
 
 
-def phase_infer() -> dict:
-    """``mode: infer`` at Llama-3-8B, full depth: greedy decode of 64 new
-    tokens after a 512-token prompt, 8 rows, the dense KV cache."""
+def phase_infer(spec=INFER_SPEC, name: str = "infer") -> dict:
+    """``mode: infer`` (Llama-3-8B at full depth by default): greedy decode
+    of 64 new tokens after a 512-token prompt, 8 rows, the dense KV cache."""
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
     _free_card()
     t0 = time.monotonic()
-    m = run_template_runtime(INFER_SPEC)
-    log(f"[infer] wall {time.monotonic() - t0:.1f} s, decode_tokens_per_sec "
+    m = run_template_runtime(spec)
+    log(f"[{name}] wall {time.monotonic() - t0:.1f} s, decode_tokens_per_sec "
         f"{m['decode_tokens_per_sec']}, iteration_seconds {m['iteration_seconds']}, "
         f"output_shape {m['output_shape']}, last_logits_finite {m['last_logits_finite']}")
     if not m["last_logits_finite"]:
-        raise AssertionError("infer: the last logits are not finite")
+        raise AssertionError(f"{name}: the last logits are not finite")
     if m["output_shape"] != [8, 512 + 64]:
-        raise AssertionError(f"infer: output shape {m['output_shape']} != [8, 576]")
+        raise AssertionError(f"{name}: output shape {m['output_shape']} != [8, 576]")
     return m
 
 
@@ -1198,6 +1252,254 @@ def phase_serve_traced(spec) -> dict:
     return m
 
 
+# ----------------------------------------------------------- Mixtral-8x7B
+#
+# Mixtral-8x7B's published widths (preset ``8x7b``: vocab 32000, d 4096,
+# 32/8 heads of 128, ff 14336, 8 experts, top-2), depth cut to what one
+# card holds: 2 layers for training (3.2 B parameters, with AdamW's
+# moments ~26 GB), 1 for the checkpoint files (~14 GB a step), 16 for
+# infer and serve (23.5 B parameters, ~47 GB in bf16; 32 layers do not fit).
+# Training opts into the public 4096-position sliding window.
+
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_PEAK_GB = 60.0  # infer and serve: the weights plus the cache
+
+
+def mixtral_train_spec(n_layers: int = 2, steps: int = 6, seq_len: int = 8192, **extra):
+    overrides = {"n_layers": n_layers, "sliding_window": MIXTRAL_WINDOW}
+    overrides.update(extra)
+    return {"kind": "jax_xla", "mode": "train",
+            "model": {"family": "mixtral", "preset": "8x7b", "overrides": overrides},
+            "train": {"batchSize": 1, "seqLen": seq_len, "steps": steps,
+                      "learningRate": 3e-4, "warmupSteps": 0, "seed": 0}}
+
+
+def check_mixtral_train(name: str, m: dict) -> None:
+    """Past ``phase_train``'s gates: the scatter dispatch (``auto`` on one
+    device) and a dropped share in [0, 1)."""
+    if m.get("moe_dispatch") != "scatter":
+        raise AssertionError(f"{name}: moe_dispatch {m.get('moe_dispatch')!r}, not 'scatter'")
+    dropped = m.get("router_dropped_fraction")
+    if dropped is None or not 0.0 <= dropped < 1.0:
+        raise AssertionError(f"{name}: router_dropped_fraction {dropped} outside [0, 1)")
+
+
+def check_remat(name: str, launches: dict, policy: str, layers: int, steps: int) -> None:
+    """K1 launches once per layer per step under ``dots_attn`` (its (out,
+    lse) kept) and twice under ``full`` (the recompute reruns it); K2 and
+    K3 once per layer per step under both."""
+    per_layer = {"dots_attn": 1, "full": 2}[policy]
+    want = {"flash_fwd": per_layer * layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    got = {k: launches.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: remat {policy} launched {got}, expected {want}")
+
+
+def phase_mixtral_remat() -> dict:
+    """The train phase's spec under ``remat_policy: dots_attn`` and then
+    ``full``, 4 steps each: K1's launches and each run's peak memory."""
+    out = {}
+    for policy in ("dots_attn", "full"):
+        spec = mixtral_train_spec(steps=4, remat=True, remat_policy=policy)
+        m = phase_train(f"mixtral-remat-{policy}", spec)
+        check_remat(f"mixtral-remat-{policy}", m["launches"], policy,
+                    spec["model"]["overrides"]["n_layers"], spec["train"]["steps"])
+        out[policy] = m
+    return out
+
+
+def mixtral_ckpt_spec(directory: str, profile_dir: str, steps: int) -> dict:
+    spec = mixtral_train_spec(n_layers=1, steps=steps, seq_len=2048)
+    spec["checkpoint"] = {"enabled": True, "format": "npz", "directory": directory,
+                          "intervalSteps": 2, "keep": 1}
+    spec["profile"] = {"enabled": True, "directory": profile_dir, "startStep": 1, "numSteps": 1}
+    return spec
+
+
+def differing_members(a: str, b: str, chunk: int = 1 << 26) -> list:
+    """The ``leaf_*`` members of two npz files whose bytes differ (or that
+    one of them lacks)."""
+    import zipfile
+
+    bad = []
+    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+        names = sorted(set(za.namelist()) | set(zb.namelist()))
+        for name in names:
+            if name not in za.namelist() or name not in zb.namelist():
+                bad.append(name)
+                continue
+            with za.open(name) as fa, zb.open(name) as fb:
+                while True:
+                    x, y = fa.read(chunk), fb.read(chunk)
+                    if x != y:
+                        bad.append(name)
+                        break
+                    if not x:
+                        break
+    return bad
+
+
+def resave_check(directory: str, step: int, spec: dict, scratch: str,
+                 device: str = "cuda") -> dict:
+    """Restore ``<directory>/<step>/state.npz`` into a fresh port state on
+    the card and save it again under ``scratch``: the members that differ
+    (none may), and the seconds of the restore and of the save."""
+    import torch
+
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.train.checkpoint import NpzCheckpointer
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state
+
+    family = get_family(spec["model"]["family"])
+    cfg = family.config(spec["model"]["preset"], **spec["model"]["overrides"])
+    params = family.empty_params(cfg, device)
+    tr = spec["train"]
+    opt = build_optimizer(tr["learningRate"], warmup_steps=tr["warmupSteps"],
+                          total_steps=tr["steps"])
+    state = init_train_state(params, family.leaves(params), opt)
+    t0 = time.monotonic()
+    NpzCheckpointer(directory).restore(state, step=step)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.monotonic()
+    NpzCheckpointer(scratch).save(state)
+    t2 = time.monotonic()
+    bad = differing_members(os.path.join(directory, str(step), "state.npz"),
+                       os.path.join(scratch, str(step), "state.npz"))
+    return {"differing_members": bad, "restore_s": t1 - t0, "save_s": t2 - t1,
+            "state_bytes": os.path.getsize(os.path.join(scratch, str(step), "state.npz"))}
+
+
+def check_ckpt(name: str, first: dict, resumed: dict, resave: dict, trace_text: str) -> None:
+    """The checkpoint phase's gates: both runs saved, the second resumed at
+    step 4, the re-saved step-4 state byte for byte the first (``leaf_*``
+    members), the profiler window opened and its trace names K1."""
+    if not (first.get("checkpoint_saved") and resumed.get("checkpoint_saved")):
+        raise AssertionError(f"{name}: checkpoint_saved {first.get('checkpoint_saved')}, "
+                             f"{resumed.get('checkpoint_saved')}")
+    if resumed.get("resumed_from_step") != 4:
+        raise AssertionError(f"{name}: resumed_from_step {resumed.get('resumed_from_step')}, "
+                             "not 4")
+    if resave["differing_members"]:
+        raise AssertionError(f"{name}: a restored and re-saved state differs in "
+                             f"{resave['differing_members'][:5]}")
+    if not first.get("profile_dir"):
+        raise AssertionError(f"{name}: the profiler window never opened")
+    if "flash_fwd" not in trace_text:
+        raise AssertionError(f"{name}: the trace does not name flash_fwd")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_mixtral_ckpt() -> dict:
+    """1 layer of Mixtral-8x7B, seq 2048: 4 steps saving every 2 (keep 1)
+    with a one-step profiler window, the step-4 state restored and re-saved,
+    then the same spec resumed to 6 steps; in a temporary directory that the
+    phase removes."""
+    import shutil
+
+    import torch
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="mixtral-ckpt-")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[mixtral-ckpt] {free / 1e9:.1f} GB free under {root}")
+        ck, prof = os.path.join(root, "ck"), os.path.join(root, "prof")
+        first = phase_train("mixtral-ckpt", mixtral_ckpt_spec(ck, prof, steps=4))
+        step_bytes = _dir_bytes(os.path.join(ck, "4"))
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        trace_text = ""
+        for t in traces:
+            with open(os.path.join(prof, t)) as f:
+                trace_text += f.read()
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        resave = resave_check(ck, 4, mixtral_ckpt_spec(ck, prof, steps=4),
+                              os.path.join(root, "resave"))
+        resave_peak = torch.cuda.max_memory_allocated() / 1e9
+        shutil.rmtree(os.path.join(root, "resave"), ignore_errors=True)
+        resumed = phase_train("mixtral-ckpt-resume", mixtral_ckpt_spec(ck, prof, steps=6),
+                              must_fall=False)
+        out = {"step_bytes": step_bytes, "traces": traces, "trace_bytes": len(trace_text),
+               "resumed_from_step": resumed["resumed_from_step"],
+               "checkpoint_saved": [first["checkpoint_saved"], resumed["checkpoint_saved"]],
+               "steps_on_disk": sorted(os.listdir(ck)), **resave,
+               "phase_wall_s": time.monotonic() - t0,
+               "peak_mem_gb": max(first["peak_mem_gb"], resumed["peak_mem_gb"], resave_peak)}
+        log(f"[mixtral-ckpt] {out}")
+        check_ckpt("mixtral-ckpt", first, resumed, resave, trace_text)
+        out["launches"] = first["launches"]
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mixtral_infer_spec() -> dict:
+    return dict(INFER_SPEC, model={"family": "mixtral", "preset": "8x7b",
+                                   "overrides": {"n_layers": MIXTRAL_SERVE_LAYERS}})
+
+
+def mixtral_serve_spec(num_requests: int = 16) -> dict:
+    return dict(_serve_spec(num_requests=num_requests),
+                model={"family": "mixtral", "preset": "8x7b",
+                       "overrides": {"n_layers": MIXTRAL_SERVE_LAYERS}})
+
+
+def check_peak(name: str, peak_gb: float) -> None:
+    if not peak_gb < MIXTRAL_PEAK_GB:
+        raise AssertionError(f"{name}: peak device memory {peak_gb:.2f} GB, not under "
+                             f"{MIXTRAL_PEAK_GB} GB")
+
+
+def phase_mixtral_infer() -> dict:
+    import torch
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    # the dense-cache decode runs none of the port's kernels: counted all the same
+    m, launches, _ = _launches_during(
+        lambda: phase_infer(mixtral_infer_spec(), name="mixtral-infer"), ())
+    m["launches"] = launches
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[mixtral-infer] peak_mem_gb {m['peak_mem_gb']:.2f}, launches {launches}")
+    check_peak("mixtral-infer", m["peak_mem_gb"])
+    return m
+
+
+def phase_mixtral_serve() -> dict:
+    m = phase_serve("mixtral-serve", mixtral_serve_spec(), must_t=(1, 8))
+    check_peak("mixtral-serve", m["peak_mem_gb"])
+    return m
+
+
+MIXTRAL_KEYS = ("tokens_per_sec", "mfu", "final_loss", "loss_history", "param_count",
+                "moe_dispatch", "router_dropped_fraction", "peak_mem_gb", "phase_wall_s",
+                "decode_tokens_per_sec", "iteration_seconds", "ttft_p50_s", "ttft_p95_s",
+                "request_latency_p50_s", "committed_tokens", "wall_s", "decode_launches_by_t",
+                "step_bytes", "state_bytes", "restore_s", "save_s", "resumed_from_step",
+                "traces", "steps_on_disk")
+
+
+def run_mixtral_phases() -> dict:
+    """The five Mixtral phases in order, each on a freed card: {phase:
+    metrics with the kernel launches of its main run}."""
+    out = {}
+    train = phase_train("mixtral-train", mixtral_train_spec())
+    check_mixtral_train("mixtral-train", train)
+    out["mixtral-train"] = train
+    remat = phase_mixtral_remat()
+    out["mixtral-remat"] = remat["dots_attn"]
+    out["mixtral-remat-full"] = remat["full"]
+    out["mixtral-ckpt"] = phase_mixtral_ckpt()
+    out["mixtral-infer"] = phase_mixtral_infer()
+    out["mixtral-serve"] = phase_mixtral_serve()
+    return out
+
+
 # the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
 # vocabulary and context, random weights from the seed
 DRAFT_REF = {"family": "llama", "preset": "draft",
@@ -1239,7 +1541,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     build_s = phase_build()
-    worst, times = phase_kernels()
+    worst, shape_times = phase_kernels()
+    times = shape_times["main"]
     worst["fused_paged_decode_attention"], decode_times, p_bf16 = phase_decode_kernel()
     main_run = phase_train("main", _train_spec(n_layers=4, steps=8))
     phase_train("remat", _train_spec(n_layers=2, steps=4, remat=True,
@@ -1273,6 +1576,7 @@ def main() -> int:
     # four replicas behind the prefix-affinity router, and one traced engine
     fleet = phase_serve_fleet(_serve_spec(**FLEET_SPEC_KEYS))
     traced = phase_serve_traced(_serve_spec(num_requests=8))
+    mixtral = run_mixtral_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -1287,6 +1591,7 @@ def main() -> int:
     for w in A.KERNEL_WRAPPERS:
         n = w.__name__
         kernels.append({
+            "mixtral_launches": {phase: run["launches"][n] for phase, run in mixtral.items()},
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -1298,6 +1603,10 @@ def main() -> int:
         })
     log("[summary] " + json.dumps({
         "kernel_shape": MAIN_SHAPE, "decode_kernel_shape": DECODE_MAIN_SHAPE,
+        "mixtral_kernel_shape": MIXTRAL_SHAPE,
+        "mixtral_kernel_timings": {
+            n: dict(shape_times["mixtral"][n], bound_ms=ms, bound_by=by)
+            for n, (ms, by) in _bounds_ms(MIXTRAL_SHAPE).items()},
         "decode_kernel_timings": decode_times, "decode_p_f32_vs_bf16": p_bf16,
         "build_s": build_s,
         "main": {k: main_run[k] for k in ("tokens_per_sec", "mfu", "final_loss", "param_count")},
@@ -1320,6 +1629,8 @@ def main() -> int:
         "serve_host_same_tokens_as_tier_off": host_same,
         "serve_fleet": {k: fleet.get(k) for k in FLEET_KEYS + (
             "phase_wall_s", "peak_mem_gb", "per_replica", "launches")},
+        "mixtral": {phase: {k: run.get(k) for k in MIXTRAL_KEYS if k in run}
+                    for phase, run in mixtral.items()},
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},

@@ -782,26 +782,51 @@ class DataSpec:
 
 @dataclass
 class CheckpointSpec:
-    """Only ``enabled`` is read: checkpointing is not ported yet, and the
-    entry point refuses a spec that enables it."""
+    """The JAX spec's checkpoint block: ``format`` is ``orbax`` (the
+    default, not ported: the entry point refuses it), ``npz`` or ``auto``
+    (train/checkpoint.py::make_checkpointer)."""
 
     enabled: bool = False
+    directory: str = ""
+    interval_steps: int = 100
+    keep: int = 3
+    resume: bool = True
+    format: str = "orbax"
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "CheckpointSpec":
-        return cls(enabled=bool(d.get("enabled", False)))
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            directory=d.get("directory", ""),
+            interval_steps=int(d.get("intervalSteps", 100) or 100),
+            keep=int(d.get("keep", 3) or 3),
+            resume=bool(d.get("resume", True)),
+            format=d.get("format", "orbax") or "orbax",
+        )
 
 
 @dataclass
 class ProfileSpec:
-    """Only ``enabled`` is read: the profiler capture window is not ported
-    yet, and the entry point refuses a spec that enables it."""
+    """The profiler capture window: trace ``num_steps`` timed steps from
+    timed step ``start_step`` into ``directory`` (a ``torch.profiler``
+    Chrome trace here, an XPlane trace in the JAX package)."""
 
     enabled: bool = False
+    directory: str = ""
+    start_step: int = 2
+    num_steps: int = 3
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ProfileSpec":
-        return cls(enabled=bool(d.get("enabled", False)))
+        # startStep 0 (trace from the first timed step) is a legitimate value
+        start = d.get("startStep")
+        num = d.get("numSteps")
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            directory=d.get("directory", ""),
+            start_step=2 if start is None else int(start),
+            num_steps=3 if num is None else int(num),
+        )
 
 
 @dataclass
@@ -835,12 +860,20 @@ class JaxXlaRuntime:
         )
 
     def validate(self) -> List[str]:
-        """The JAX spec's static checks of the ``infer`` and ``serve``
-        blocks, for the keys the port reads (the same messages); the
-        unported features are refused by the entry point instead."""
+        """The JAX spec's static checks of the ``profile``, ``checkpoint``,
+        ``infer`` and ``serve`` blocks, for the keys the port reads (the
+        same messages); the unported features are refused by the entry
+        point instead."""
         errs: List[str] = []
         if self.mode not in ("train", "infer", "serve"):
             errs.append(f"unsupported mode {self.mode!r}")
+        if self.profile.enabled:
+            if not self.profile.directory:
+                errs.append("profile.enabled requires profile.directory")
+            if self.profile.num_steps < 1:
+                errs.append(f"profile.numSteps must be >= 1, got {self.profile.num_steps}")
+        if self.checkpoint.format not in ("orbax", "npz"):
+            errs.append(f"unknown checkpoint.format {self.checkpoint.format!r} (orbax | npz)")
         inf = self.infer
         if self.mode == "infer":
             if inf.draft is not None:

@@ -1,9 +1,11 @@
 """Carry the JAX package's parameters into the port.
 
-``llama_params_from_jax(np_tree, cfg, device)`` takes the JAX llama param
-pytree with numpy leaves (e.g. ``jax.tree.map(np.asarray, params)``) and
-returns the port's parameter dict: the same layout (stacked layers,
-``x @ W`` products), so both compute the same function."""
+``llama_params_from_jax(np_tree, cfg, device)`` and
+``mixtral_params_from_jax(np_tree, cfg, device)`` take the JAX family's
+param pytree with numpy leaves (e.g. ``jax.tree.map(np.asarray, params)``)
+and return the port's parameter dict: the same layout (stacked layers,
+``x @ W`` products), so both compute the same function. Every leaf's shape
+is checked against the config; Mixtral's router stays float32."""
 
 from __future__ import annotations
 
@@ -12,25 +14,31 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
-from nexus_tpu_torch.models.llama import LAYER_KEYS, LlamaConfig, leaves, param_shapes
+from nexus_tpu_torch.models import llama, mixtral
 
 
-def llama_params_from_jax(np_tree: Dict[str, Any], cfg: LlamaConfig,
-                          device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    shapes = param_shapes(cfg)
+def _params_from_jax(family, np_tree: Dict[str, Any], cfg, device) -> Dict[str, Any]:
+    like = family.empty_params(cfg, "meta")  # each leaf's shape and dtype
 
-    def conv(name, x):
+    def conv(x, ref, name):
         x = np.asarray(x, dtype=np.float32)
-        if x.shape != shapes[name]:
-            raise ValueError(f"{name}: shape {x.shape} != the config's {shapes[name]}")
-        return torch.from_numpy(x.copy()).to(device=device, dtype=cfg.dtype)
+        if x.shape != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {x.shape} != the config's {tuple(ref.shape)}")
+        return torch.from_numpy(x.copy()).to(device=device, dtype=ref.dtype)
 
-    params = {
-        "embed": conv("embed", np_tree["embed"]),
-        "layers": {k: conv(k, np_tree["layers"][k]) for k in LAYER_KEYS},
-        "final_norm": conv("final_norm", np_tree["final_norm"]),
-        "lm_head": conv("lm_head", np_tree["lm_head"]),
-    }
-    for t in leaves(params):
+    params = {k: conv(np_tree[k], like[k], k) for k in ("embed", "final_norm", "lm_head")}
+    params["layers"] = {k: conv(np_tree["layers"][k], like["layers"][k], k)
+                        for k in family.LAYER_KEYS}
+    for t in family.leaves(params):
         t.requires_grad_(True)
     return params
+
+
+def llama_params_from_jax(np_tree: Dict[str, Any], cfg: llama.LlamaConfig,
+                          device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
+    return _params_from_jax(llama, np_tree, cfg, device)
+
+
+def mixtral_params_from_jax(np_tree: Dict[str, Any], cfg: mixtral.MixtralConfig,
+                            device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
+    return _params_from_jax(mixtral, np_tree, cfg, device)

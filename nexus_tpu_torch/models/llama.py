@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from nexus_tpu_torch.models.params import fill_normal_
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.norms import rms_norm
@@ -107,40 +108,41 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+def empty_params(cfg: LlamaConfig, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """The parameter dict with every leaf allocated and not yet written:
+    what ``init`` fills, and what a checkpoint restore reads into."""
+    shapes = param_shapes(cfg)
+
+    def empty(name):
+        return torch.empty(shapes[name], device=device, dtype=cfg.dtype)
+
+    return {
+        "embed": empty("embed"),
+        "layers": {k: empty(k) for k in LAYER_KEYS},
+        "final_norm": empty("final_norm"),
+        "lm_head": empty("lm_head"),
+    }
+
+
 def init(generator: torch.Generator, cfg: LlamaConfig,
          device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Stacked-layer parameters with the JAX package's scales: normal,
-    1/sqrt(fan_in), out-projections further scaled by 1/sqrt(2L). Drawn on
-    ``generator``'s device in f32, then cast to ``cfg.dtype`` on ``device``.
-    Leaves require grad."""
+    1/sqrt(fan_in), out-projections further scaled by 1/sqrt(2L), norms
+    ones. Drawn on ``generator``'s device in f32 one layer at a time
+    (``models/params.py::fill_normal_``), cast to ``cfg.dtype`` on
+    ``device``. Leaves require grad."""
     d, f, hq_hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
-    shapes = param_shapes(cfg)
-    gdev = generator.device
-
-    def normal(name, scale):
-        x = torch.randn(*shapes[name], generator=generator, device=gdev, dtype=torch.float32)
-        return (x * scale).to(device=device, dtype=cfg.dtype)
-
-    def ones(name):
-        return torch.ones(*shapes[name], device=device, dtype=cfg.dtype)
-
     resid_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
-    params = {
-        "embed": normal("embed", 1.0),
-        "layers": {
-            "wq": normal("wq", d ** -0.5),
-            "wk": normal("wk", d ** -0.5),
-            "wv": normal("wv", d ** -0.5),
-            "wo": normal("wo", hq_hd ** -0.5 * resid_scale),
-            "w_gate": normal("w_gate", d ** -0.5),
-            "w_up": normal("w_up", d ** -0.5),
-            "w_down": normal("w_down", f ** -0.5 * resid_scale),
-            "ln_attn": ones("ln_attn"),
-            "ln_mlp": ones("ln_mlp"),
-        },
-        "final_norm": ones("final_norm"),
-        "lm_head": normal("lm_head", d ** -0.5),
-    }
+    scales = {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
+              "wo": hq_hd ** -0.5 * resid_scale, "w_gate": d ** -0.5, "w_up": d ** -0.5,
+              "w_down": f ** -0.5 * resid_scale}
+    params = empty_params(cfg, device)
+    fill_normal_(params["embed"], generator, 1.0)
+    for name, scale in scales.items():
+        fill_normal_(params["layers"][name], generator, scale, stack_dims=1)
+    for norm in (params["layers"]["ln_attn"], params["layers"]["ln_mlp"], params["final_norm"]):
+        norm.fill_(1.0)
+    fill_normal_(params["lm_head"], generator, d ** -0.5)
     for t in leaves(params):
         t.requires_grad_(True)
     return params

@@ -93,7 +93,29 @@ def attention_xla(
     if vis is not None:
         logits = torch.where(vis, logits, torch.full_like(logits, mask_value))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return attn_out(probs, v)
+
+
+@torch.library.custom_op("nexus::attn_out", mutates_args=())
+def attn_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The dense attention's output P·V (B, Sq, H, D), as a dispatcher op:
+    the counterpart of the JAX blocks' ``ATTN_OUT_NAME`` tag. The
+    ``dots_attn`` remat policy (ops/remat.py) keeps it by name, so a
+    recomputed block reruns the scores and softmax its backward reads and
+    not this product, as XLA drops it in JAX."""
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attn_out_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _attn_out_backward(ctx, g):
+    probs, v = ctx.saved_tensors
+    return (torch.einsum("bqhd,bkhd->bhqk", g, v), torch.einsum("bhqk,bqhd->bkhd", probs, g))
+
+
+attn_out.register_autograd(_attn_out_backward, setup_context=_attn_out_context)
 
 
 # ------------------------------------------------------- plain flash versions
@@ -302,13 +324,23 @@ TRAIN_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 # ------------------------------------------------------------------ autograd
 
 
+@torch.library.custom_op("nexus::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 q_offset: int, window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (``flash_fwd``) as a dispatcher op: the ``dots_attn`` remat policy
+    (ops/remat.py) sees it by name and keeps its (out, lse), so a
+    recomputed block does not launch K1 again. A ctypes call made inside a
+    Python function would be invisible to the policy."""
+    return flash_fwd(q, k, v, causal, q_offset, window)
+
+
 class _FlashAttention(torch.autograd.Function):
     """out, lse = flash(q, k, v); backward runs the dQ and dK/dV kernels.
     An lse cotangent folds into delta: delta = rowsum(dO ⊙ O) − ḡ_lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, window):
-        out, lse = flash_fwd(q, k, v, causal, q_offset, window)
+        out, lse = flash_fwd_op(q, k, v, causal, q_offset, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = (causal, q_offset, window)
         return out, lse

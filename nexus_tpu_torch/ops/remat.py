@@ -1,32 +1,75 @@
 """Rematerialisation of model blocks (counterpart of
-``nexus_tpu/ops/remat.py``).
+``nexus_tpu/ops/remat.py``): one place maps the spec's ``remat_policy``
+onto ``torch.utils.checkpoint`` (non-reentrant), and an unknown policy is
+a loud error, never a quiet ``full``.
 
-Only ``full`` (recompute the whole block on backward) is ported: it is
-``torch.utils.checkpoint`` without re-entrance. The save-the-matmuls
-policies ``dots`` and ``dots_attn`` have no counterpart yet and raise; they
-never quietly become ``full``."""
+``full``: recompute the whole block on backward.
+``dots``: keep the outputs of the matrix products with no batch dims
+(``aten.mm`` / ``aten.addmm``: the projections and the router), recompute
+the rest. JAX's ``dots_with_no_batch_dims_saveable`` in PyTorch terms: the
+experts' batched products (``aten.bmm``) are recomputed, as in JAX.
+``dots_attn``: ``dots`` plus the attention output: on the flash path the
+flash forward's (out, lse) — the op ``nexus::flash_fwd`` — so backward
+runs the dQ and dK/dV kernels without launching K1 again; on the dense
+path the PV product — the op ``nexus::attn_out`` — so the recompute
+reruns the scores and softmax the backward reads, and not the product.
+
+The JAX blocks name their attention output (``ATTN_OUT_NAME``) and XLA
+drops whatever recompute no saved value needs. A PyTorch recompute
+replays a block's ops in order, and what a saved op skips is that op
+itself: a tag placed after attention would skip nothing. The attention's
+last op is therefore the tag, and the policy names it.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from functools import partial
+from typing import Callable, FrozenSet
 
-from torch.utils.checkpoint import checkpoint
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from nexus_tpu_torch.ops import attention  # noqa: F401 (registers the nexus:: ops)
 
 REMAT_POLICIES = ("full", "dots", "dots_attn")
 
+# the products with no batch dims: what 'dots' keeps
+DOT_OPS: FrozenSet = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+# ...and the attention output, which 'dots_attn' keeps too: the flash
+# forward's (out, lse), or the dense path's PV product
+ATTN_OPS: FrozenSet = frozenset({torch.ops.nexus.flash_fwd.default,
+                                 torch.ops.nexus.attn_out.default})
+
+
+def _saving(ops: FrozenSet):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+_SAVED = {"dots": DOT_OPS, "dots_attn": DOT_OPS | ATTN_OPS}
+
 
 def checkpoint_block(fn: Callable, remat_policy: str = "full") -> Callable:
-    """Wrap ``fn`` so its activations are recomputed on backward."""
+    """Wrap ``fn`` so its activations are recomputed on backward, but for
+    what ``remat_policy`` keeps."""
     if remat_policy == "full":
-        def wrapped(*args):
-            return checkpoint(fn, *args, use_reentrant=False)
-
-        return wrapped
-    if remat_policy in ("dots", "dots_attn"):
+        context_fn = None
+    elif remat_policy in _SAVED:
+        context_fn = partial(create_selective_checkpoint_contexts, _saving(_SAVED[remat_policy]))
+    else:
         raise ValueError(
-            f"remat_policy {remat_policy!r} is not ported yet (ROADMAP 'Port to "
-            "PyTorch/CUDA', item 2: remat dots/dots_attn); use 'full'"
+            f"unknown remat_policy {remat_policy!r}; expected one of {REMAT_POLICIES}"
         )
-    raise ValueError(
-        f"unknown remat_policy {remat_policy!r}; expected one of {REMAT_POLICIES}"
-    )
+
+    def wrapped(*args):
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped

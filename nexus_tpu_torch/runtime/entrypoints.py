@@ -12,11 +12,17 @@ span timeline there (a fleet run: the stitched journeys, and the router's
 decision log to ``<path>.fleetlog.json``); ``NEXUS_SERVE_REPLICA_ID`` tags
 a single engine's live gauges ``engine:<id>``.
 
+Training checkpoints and resumes in the npz layout (``checkpoint.format:
+npz`` or ``auto``; train/checkpoint.py) and opens the profiler window
+(``profile``); infer and serve restore their params (and a speculative
+draft's, ``draftCheckpointDirectory``) from a checkpoint directory, or
+draw random weights from ``train.seed``. Family ``mixtral`` resolves
+``dispatch_impl: auto`` to the scatter dispatch.
+
 This slice runs on one device. A declared parallelism over more chips is
-re-planned to one device and logged. Weights come from random init only
-(a speculative draft's too, from its own seed). Features not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item: checkpointing
-(a draft checkpoint included), profiling and pretrained weights.
+re-planned to one device and logged. Features not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: pretrained weights and
+the Orbax checkpoint format.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
+from nexus_tpu_torch.train.checkpoint import latest_step, make_checkpointer
 from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
 from nexus_tpu_torch.train.trainer import Trainer, build_optimizer, init_train_state, make_train_step
@@ -48,34 +55,42 @@ logger = logging.getLogger("nexus_tpu_torch.runtime")
 _ROADMAP = "ROADMAP 'Port to PyTorch/CUDA'"
 
 
+def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = False
+                      ) -> Dict[str, Any]:
+    """The model overrides a run builds its config from: ``train.remat``
+    folded in, and Mixtral's ``dispatch_impl`` resolved by the JAX rule on
+    a one-device program, the port's only kind: the scatter dispatch (the
+    einsum one is for sharded meshes). An explicit override wins."""
+    out = dict(overrides)
+    if remat and "remat" not in out:
+        out["remat"] = True
+    if family == "mixtral" and "dispatch_impl" not in out:
+        out["dispatch_impl"] = "scatter"
+    return out
+
+
 def run_template_runtime(
     runtime: Union[JaxXlaRuntime, Dict[str, Any]],
     device: Optional[Union[str, torch.device]] = None,
     max_steps: Optional[int] = None,
     cancel=None,
     heartbeat=None,
+    restore_step: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Execute a runtime block (a ``JaxXlaRuntime`` or its dict form);
     returns a JSON-serialisable metrics dict. ``device`` defaults to CUDA
     and raises when no card is visible; pass ``"cpu"`` to run on the CPU.
     ``cancel``: object with ``cancelled()``, checked at step (train) or
-    chunk (serve) boundaries. ``heartbeat``: called with the completed-step
-    (train) or committed-token (serve) count at each boundary."""
+    chunk (serve) boundaries; ``cancel.hard`` skips the final checkpoint.
+    ``heartbeat``: called with the global completed-step (train, offset by
+    the resume point) or committed-token (serve) count at each boundary.
+    ``restore_step``: resume from this durable checkpoint step instead of
+    the latest."""
     if not isinstance(runtime, JaxXlaRuntime):
         runtime = JaxXlaRuntime.from_dict(runtime)
     dev = resolve_device(device)
     if runtime.mode not in ("train", "infer", "serve"):
         raise ValueError(f"unknown runtime mode {runtime.mode!r}")
-    if runtime.checkpoint.enabled:
-        raise NotImplementedError(
-            f"checkpoint.enabled is not ported yet ({_ROADMAP}, item 2: "
-            "train/checkpoint.py)"
-        )
-    if runtime.profile.enabled:
-        raise NotImplementedError(
-            "profile.enabled is not ported yet: the port has no profiler "
-            f"capture window ({_ROADMAP}, open items)"
-        )
     if runtime.model.weights is not None:
         raise NotImplementedError(
             f"model.weights is not ported yet ({_ROADMAP}, item 5: runtime/weights.py); "
@@ -89,18 +104,18 @@ def run_template_runtime(
         )
 
     family = get_family(runtime.model.family)
-    overrides = dict(runtime.model.overrides)
-    if runtime.train.remat and "remat" not in overrides:
-        overrides["remat"] = True
+    overrides = resolve_overrides(runtime.model.family, runtime.model.overrides,
+                                  remat=runtime.train.remat)
     cfg = family.config(runtime.model.preset, **overrides)
     if runtime.mode == "infer":
         return _run_infer(runtime, family, cfg, dev)
     if runtime.mode == "serve":
         return _run_serve(runtime, family, cfg, dev, cancel=cancel, heartbeat=heartbeat)
-    return _run_train(runtime, family, cfg, dev, max_steps, cancel, heartbeat)
+    return _run_train(runtime, family, cfg, dev, max_steps, cancel, heartbeat, restore_step)
 
 
-def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None):
+def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None,
+               restore_step=None):
     tr = runtime.train
     steps = min(tr.steps, max_steps) if max_steps else tr.steps
     optimizer = build_optimizer(
@@ -131,20 +146,62 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
     else:
         data = (to_device(b, dev) for b in data)
 
+    ck, prof = runtime.checkpoint, runtime.profile
+    checkpointer = None
+    start_step = 0
+    if ck.enabled and ck.directory:
+        checkpointer = make_checkpointer(ck.directory, keep=ck.keep, fmt=ck.format)
+        if ck.resume and checkpointer.latest_step() is not None:
+            checkpointer.restore(state, step=restore_step)
+            start_step = state.step
+            logger.info("resumed from checkpoint step %d", start_step)
+    # heartbeat steps are global (comparable with checkpoint steps): offset
+    # the trainer's run-local count by the resume point
+    hb = heartbeat
+    if heartbeat is not None and start_step:
+        hb = lambda completed: heartbeat(start_step + completed)  # noqa: E731
+
     trainer = Trainer(step_fn, state, data, dev,
                       tokens_per_batch=tr.batch_size * tr.seq_len,
-                      cancel=cancel, on_step=heartbeat)
+                      checkpointer=checkpointer,
+                      checkpoint_interval=ck.interval_steps if checkpointer else 0,
+                      profile_dir=prof.directory if prof.enabled else "",
+                      profile_start=prof.start_step, profile_steps=prof.num_steps,
+                      cancel=cancel, on_step=hb)
+    n_run = max(steps - start_step, 1)
     try:
         # 2 untimed warmup steps (first-use costs: kernel build and load,
         # allocator growth), clamped so short runs still time one step
-        n_run = max(steps, 1)
         result = trainer.run(n_run, warmup_steps=min(2, n_run - 1))
     finally:
         if prefetcher is not None:
             prefetcher.close()
+    checkpoint_saved = False
+    if checkpointer is not None:
+        # a hard kill (no-grace preemption) saves nothing: recovery comes
+        # from the last interval checkpoint; otherwise the final save, also
+        # the preemption save of an interrupted run
+        if not getattr(cancel, "hard", False):
+            sync_host(dev)
+            checkpointer.save(trainer.state)
+            checkpoint_saved = True
+        checkpointer.close()
 
     fpt = model_flops_per_token(cfg, tr.seq_len)
+    extra = {}
+    if result.profiled:
+        extra["profile_dir"] = prof.directory
+    elif prof.enabled and prof.directory:
+        logger.warning("profiling was enabled but the capture window never opened "
+                       "(start_step=%d >= %d timed steps this run)",
+                       prof.start_step, max(n_run - 1, 0))
+    if hasattr(cfg, "dispatch_impl"):
+        extra["moe_dispatch"] = cfg.dispatch_impl  # the resolved MoE dispatch
+        # the port's own key (JAX keeps it in the step metrics): the last
+        # step's share of selections lost to capacity
+        extra["router_dropped_fraction"] = result.final_metrics.get("router_dropped_fraction")
     return {
+        **extra,
         "mode": "train",
         "family": runtime.model.family,
         "preset": runtime.model.preset,
@@ -156,9 +213,9 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         "n_devices": 1,
         "device": str(dev),
         "device_kind": device_kind(dev),
-        "resumed_from_step": 0,
+        "resumed_from_step": start_step,
         "interrupted": result.interrupted,
-        "checkpoint_saved": False,
+        "checkpoint_saved": checkpoint_saved,
         "param_count": cfg.param_count(),
         "tokens_per_sec_per_chip": result.tokens_per_sec,
         "model_flops_per_token": fpt,
@@ -174,6 +231,33 @@ def _decode_params(family, cfg, dev, seed: int):
     for t in family.leaves(params):
         t.requires_grad_(False)
     return params
+
+
+def _restore_params(directory: str, family, cfg, dev):
+    """(params, step) from the latest durable checkpoint under
+    ``directory`` (params-only, format sniffed), or None when it holds
+    none."""
+    step = latest_step(directory)
+    if step is None:
+        return None
+    checkpointer = make_checkpointer(directory, fmt="auto")
+    params = checkpointer.restore_params(family.empty_params(cfg, dev), step=step)
+    checkpointer.close()
+    return params, step
+
+
+def _load_params(runtime, family, cfg, dev):
+    """Params for infer and serve: (params, loaded, restored step). From the
+    template's checkpoint block when it is enabled and holds a checkpoint
+    (a train -> checkpoint -> infer round trip), else random from
+    train.seed (-1: nothing restored)."""
+    ck = runtime.checkpoint
+    if ck.enabled and ck.directory:
+        restored = _restore_params(ck.directory, family, cfg, dev)
+        if restored is not None:
+            logger.info("inference params restored from checkpoint step %d", restored[1])
+            return restored[0], True, restored[1]
+    return _decode_params(family, cfg, dev, runtime.train.seed), False, -1
 
 
 # the draft's weights come from train.seed + this (the JAX entry point folds
@@ -194,13 +278,17 @@ def _resolve_draft(ref, cfg, what: str):
 
 
 def _load_draft_params(family, d_cfg, dev, seed: int, ck_dir: str):
-    """Draft weights: random from ``seed`` (+ _DRAFT_SEED_OFFSET), as the JAX
-    entry point gives them when no checkpoint directory is set. Returns
+    """Draft weights: a params-only restore from ``ck_dir`` when it holds a
+    checkpoint (the draft may have been trained with any optimizer
+    schedule), else random from ``seed`` (+ _DRAFT_SEED_OFFSET). Returns
     (params, loaded)."""
     if ck_dir:
-        raise NotImplementedError(
-            f"a draft checkpoint directory is not ported yet ({_ROADMAP}, item 2: "
-            "train/checkpoint.py); without one the draft runs random weights from train.seed")
+        restored = _restore_params(ck_dir, family, d_cfg, dev) if os.path.isdir(ck_dir) else None
+        if restored is not None:
+            logger.info("draft params restored from %s step %d", ck_dir, restored[1])
+            return restored[0], True
+        logger.warning("draftCheckpointDirectory %s has no checkpoint; the draft runs with "
+                       "RANDOM weights (acceptance will be ~0)", ck_dir)
     return _decode_params(family, d_cfg, dev, seed + _DRAFT_SEED_OFFSET), False
 
 
@@ -237,7 +325,7 @@ def _run_infer(runtime, family, cfg, dev):
                          f"{inf.max_new_tokens}"
                          + (f" + speculation reserve {reserve}" if reserve else "")
                          + f" vs effective max_seq_len {ctx}")
-    params = _decode_params(family, cfg, dev, tr.seed)
+    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
     if ids is not None:
         prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
     else:
@@ -317,8 +405,8 @@ def _run_infer(runtime, family, cfg, dev):
         "mode": "infer",
         "family": runtime.model.family,
         "preset": runtime.model.preset,
-        "weights_loaded": False,
-        "restored_step": -1,
+        "weights_loaded": weights_loaded,
+        "restored_step": restored_step,
         "decode_tokens_per_sec": new_tokens / best,
         "decode_tokens_per_sec_mean": new_tokens * len(times) / sum(times),
         "iteration_seconds": [round(t, 4) for t in times],
@@ -415,7 +503,7 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         draft_out = {"draft_family": sv.draft.family, "draft_preset": sv.draft.preset,
                      "draft_weights_loaded": loaded}
     trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" else None
-    params = _decode_params(family, cfg, dev, tr.seed)
+    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
     # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there
     trace_path = os.environ.get("NEXUS_SERVE_TRACE", "").strip()
     tracer = ServeTracer() if trace_path and sv.replicas == 1 else None
@@ -512,8 +600,8 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         "mode": "serve",
         "family": runtime.model.family,
         "preset": runtime.model.preset,
-        "weights_loaded": False,
-        "restored_step": -1,
+        "weights_loaded": weights_loaded,
+        "restored_step": restored_step,
         "finished_requests": sum(1 for r in results if r is not None),
         "batch_rows": tr.batch_size,
         "n_devices": 1,

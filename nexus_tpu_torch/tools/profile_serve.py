@@ -1,10 +1,11 @@
 """Where the time of the serving engine's decode chunks goes, on the card.
 
     python3 -m nexus_tpu_torch.tools.profile_serve [--layers 32] [--requests 8] [--table PATH]
-        [--ab-rounds 4]
+        [--ab-rounds 4] [--family llama|mixtral]
 
 Builds the engine ``run_template_runtime`` builds in ``mode: serve``
-(llama, preset 8b, depth ``--layers``, 8 rows, the paged pool and prefix
+(llama preset 8b, or mixtral preset 8x7b with the scatter dispatch; depth
+``--layers``, 8 rows, the paged pool and prefix
 cache, the fused path) over the same synthetic queue as ``chip_smoke.py``'s
 serve phase, cut to ``--requests`` requests, serves it once untraced (first
 use: kernel builds, allocator growth), then once more under
@@ -35,11 +36,15 @@ import time
 import torch
 
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
-from nexus_tpu_torch.models import llama
+from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.obs import ServeTracer, profiling
-from nexus_tpu_torch.runtime.entrypoints import _decode_params, _synthetic_queue
+from nexus_tpu_torch.runtime.entrypoints import (
+    _decode_params,
+    _synthetic_queue,
+    resolve_overrides,
+)
 from nexus_tpu_torch.runtime.serving import ServingEngine
-from nexus_tpu_torch.tools.profile_train import _group
+from nexus_tpu_torch.tools.profile_train import PRESETS, _group
 from nexus_tpu_torch.utils.hw import device_kind, resolve_device
 
 SCOPE_PREFIX = "nexus.serve."
@@ -95,24 +100,27 @@ def main(argv=None) -> None:
     ap.add_argument("--table", default="", help="write the profiler's table to this file")
     ap.add_argument("--ab-rounds", type=int, default=4,
                     help="observability on/off pairs (0: skip)")
+    ap.add_argument("--family", default="llama", choices=sorted(PRESETS))
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     runtime = JaxXlaRuntime.from_dict({
-        "mode": "serve", "model": {"family": "llama", "preset": "8b"},
+        "mode": "serve", "model": {"family": args.family, "preset": PRESETS[args.family]},
         "train": {"batchSize": 8, "seed": 0},
         "serve": {"numRequests": args.requests, "promptLengthMin": 320, "promptLengthMax": 512,
                   "sharedPrefixLength": 256, "maxNewMin": 32, "maxNewMax": 128,
                   "chunk": 8, "prefillChunk": 8, "kvBlockSize": 32,
                   "attentionPath": args.attention_path}})
     sv, tr = runtime.serve, runtime.train
-    cfg = llama.config("8b", n_layers=args.layers)
-    params = _decode_params(llama, cfg, dev, tr.seed)
+    family = get_family(args.family)
+    cfg = family.config(PRESETS[args.family],
+                        **resolve_overrides(args.family, {"n_layers": args.layers}))
+    params = _decode_params(family, cfg, dev, tr.seed)
     queue = _synthetic_queue(sv, tr, cfg)
 
     def engine():
         return ServingEngine(
-            llama.forward_decode, params, cfg, batch_size=tr.batch_size,
+            family.forward_decode, params, cfg, batch_size=tr.batch_size,
             max_len=cfg.max_seq_len, chunk=sv.chunk, prefill_chunk=sv.prefill_chunk,
             kv_block_size=sv.kv_block_size,
             kv_num_blocks=sv.kv_pool_blocks(tr.batch_size, cfg.max_seq_len),
@@ -159,7 +167,8 @@ def main(argv=None) -> None:
         "name_and_power_limit": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True).stdout.strip(),
-        "layers": args.layers, "requests": args.requests,
+        "family": args.family, "layers": args.layers, "requests": args.requests,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "attention_path": args.attention_path,
         "wall_ms": 1e3 * wall, "tokens_per_sec": metrics["tokens_per_sec"],
         "decode_steps": steps, "step_wall_ms": 1e3 * wall / steps,

@@ -1,9 +1,12 @@
 """Where the time of one training step goes, on the card.
 
     python3 -m nexus_tpu_torch.tools.profile_train [--layers 4] [--steps 2] [--table PATH]
+        [--family llama|mixtral] [--batch 2] [--seq 4096] [--window 0]
 
-Builds the same step as ``run_template_runtime`` in ``mode: train`` (llama,
-preset 8b, depth cut to ``--layers``, batch 2 x seq 4096), runs two untimed
+Builds the same step as ``run_template_runtime`` in ``mode: train`` (llama
+preset 8b, or mixtral preset 8x7b with the scatter dispatch and a sliding
+window of ``--window``; depth cut to ``--layers``, batch 2 x seq 4096 by
+default), runs two untimed
 warmup steps, then traces ``--steps`` steps with ``torch.profiler`` and
 prints one JSON line: the step's wall time, the device's busy and idle
 share of it, device time by kernel group (the port's flash kernels, matrix
@@ -22,11 +25,14 @@ import time
 
 import torch
 
-from nexus_tpu_torch.models import llama
+from nexus_tpu_torch.models.registry import get_family
+from nexus_tpu_torch.runtime.entrypoints import resolve_overrides
 from nexus_tpu_torch.train.data import synthetic_lm_batches, to_device
 from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 from nexus_tpu_torch.utils.hw import device_kind, resolve_device
 
+# the preset each family is profiled at: the published widths
+PRESETS = {"llama": "8b", "mixtral": "8x7b"}
 GROUPS = (
     ("flash kernels", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("decode kernels", ("paged_decode_kernel",)),
@@ -49,15 +55,21 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--table", default="", help="write the profiler's table to this file")
+    ap.add_argument("--family", default="llama", choices=sorted(PRESETS))
+    ap.add_argument("--window", type=int, default=0, help="mixtral's sliding window")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
-    cfg = llama.config("8b", n_layers=args.layers)
+    family = get_family(args.family)
+    over = {"n_layers": args.layers}
+    if args.family == "mixtral":
+        over["sliding_window"] = args.window
+    cfg = family.config(PRESETS[args.family], **resolve_overrides(args.family, over))
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = llama.init(gen, cfg, dev)
+    params = family.init(gen, cfg, dev)
     opt = build_optimizer(learning_rate=3e-4, total_steps=args.steps + 2)
-    state = init_train_state(params, llama.leaves(params), opt)
-    step = make_train_step(lambda p, b: llama.loss_fn(p, cfg, b), opt)
+    state = init_train_state(params, family.leaves(params), opt)
+    step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt)
     data = synthetic_lm_batches(args.batch, args.seq, cfg.vocab_size, seed=0)
     batches = [to_device(next(data), dev) for _ in range(args.steps + 2)]
 
@@ -76,7 +88,7 @@ def main(argv=None) -> None:
     # loss + backward (make_train_step's compute_grads), then the optimizer
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    loss, _ = llama.loss_fn(state.params, cfg, batches[-1])
+    loss, _ = family.loss_fn(state.params, cfg, batches[-1])
     grads = torch.autograd.grad(loss, state.leaves)
     ev[1].record()
     opt.update(state.leaves, list(grads), state.opt_state)
@@ -107,7 +119,8 @@ def main(argv=None) -> None:
         "name_and_power_limit": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True).stdout.strip(),
-        "layers": args.layers, "batch": args.batch, "seq": args.seq,
+        "family": args.family, "layers": args.layers, "batch": args.batch, "seq": args.seq,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "step_wall_ms": 1e3 * wall / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (1e3 * wall)),

@@ -13,6 +13,7 @@ are updated in place (no second copy of the model in memory).
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -41,7 +42,10 @@ def warmup_cosine_schedule(peak: float, warmup_steps: int, decay_steps: int) -> 
 class OptState:
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
-    count: int = 0
+    count: int = 0  # Adam's step count (bias correction)
+    # the learning-rate schedule's own step count, as optax keeps it beside
+    # Adam's (one more leaf in a checkpoint); None for a constant rate
+    schedule_count: Optional[int] = None
 
 
 class AdamW:
@@ -56,14 +60,11 @@ class AdamW:
         self.grad_clip = grad_clip
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def lr(self, count: int) -> float:
-        lr = self.learning_rate
-        return lr(count) if callable(lr) else lr
-
     def init(self, params: List[torch.Tensor]) -> OptState:
         return OptState(
             mu=[torch.zeros_like(p, requires_grad=False) for p in params],
             nu=[torch.zeros_like(p, requires_grad=False) for p in params],
+            schedule_count=0 if callable(self.learning_rate) else None,
         )
 
     @torch.no_grad()
@@ -75,7 +76,11 @@ class AdamW:
         # optax: t / norm * max_norm when norm >= max_norm, else t
         clip = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                            self.grad_clip / norm)
-        lr = self.lr(state.count)
+        if state.schedule_count is None:
+            lr = self.learning_rate
+        else:
+            lr = self.learning_rate(state.schedule_count)
+            state.schedule_count += 1
         state.count += 1
         c1 = 1.0 - self.b1 ** state.count
         c2 = 1.0 - self.b2 ** state.count
@@ -133,8 +138,9 @@ def make_train_step(
 ):
     """``step(state, batch) -> (state, metrics)``. ``grad_accum > 1`` splits
     the batch's leading dim into microbatches, sums their gradients in f32
-    and divides by the count; loss is averaged and perplexity re-derived
-    from the mean loss. Metrics are device scalars (no host sync)."""
+    and divides by the count; every metric is averaged over them and
+    perplexity re-derived from the mean loss. Metrics are device scalars
+    (no host sync)."""
 
     def compute_grads(state: TrainState, batch):
         if grad_accum == 1:
@@ -145,16 +151,18 @@ def make_train_step(
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in state.leaves]
-        losses = []
+        per_micro = []
         for i in range(grad_accum):
             mb = {k: x.chunk(grad_accum, 0)[i] for k, x in batch.items()}
             loss, metrics = loss_fn(state.params, mb)
             for a, g in zip(acc, torch.autograd.grad(loss, state.leaves)):
                 a.add_(g.float())
-            losses.append(metrics["loss"])
+            per_micro.append(metrics)
         grads = [a / grad_accum for a in acc]
-        loss = torch.stack(losses).mean()
-        return grads, {"loss": loss, "perplexity": torch.exp(loss)}
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
+        if "perplexity" in metrics and "loss" in metrics:
+            metrics["perplexity"] = torch.exp(metrics["loss"])
+        return grads, metrics
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         grads, metrics = compute_grads(state, batch)
@@ -173,6 +181,7 @@ class TrainerResult:
     tokens_per_sec: float
     steps_per_sec: float
     loss_history: Any
+    profiled: bool = False  # did the profiler capture window open
     interrupted: bool = False
 
 
@@ -181,18 +190,48 @@ class Trainer:
     steps, then a timed window closed by a device synchronise. ``cancel``
     (an object with ``cancelled()``) stops at the next step boundary;
     ``on_step(completed)`` is called at each boundary and may not raise
-    into the loop."""
+    into the loop. ``checkpointer`` saves the state every
+    ``checkpoint_interval`` timed steps. ``profile_dir``: trace
+    ``profile_steps`` timed steps from timed step ``profile_start`` with
+    ``torch.profiler`` (CPU, and CUDA on the card) into a Chrome trace
+    there, the JAX trainer's capture window."""
 
     def __init__(self, step_fn, state: TrainState, data_iter: Iterator[Dict],
-                 device, tokens_per_batch: int = 0, cancel=None,
+                 device, tokens_per_batch: int = 0, checkpointer=None,
+                 checkpoint_interval: int = 0, profile_dir: str = "", profile_start: int = 2,
+                 profile_steps: int = 3, cancel=None,
                  on_step: Optional[Callable[[int], None]] = None):
         self.step_fn = step_fn
         self.state = state
         self.data_iter = data_iter
         self.device = torch.device(device)
         self.tokens_per_batch = tokens_per_batch
+        self.checkpointer = checkpointer
+        self.checkpoint_interval = checkpoint_interval
+        self.profile_dir = profile_dir
+        self.profile_start = profile_start
+        self.profile_steps = profile_steps
         self.cancel = cancel
         self.on_step = on_step
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        sync_host(self.device)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof, self.state.step
+
+    def _stop_profile(self, window) -> None:
+        prof, first = window
+        sync_host(self.device)
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.profile_dir, f"train_steps_{first + 1}-{self.state.step}.pt.trace.json"))
 
     def run(self, num_steps: int, warmup_steps: int = 1) -> TrainerResult:
         metrics: Dict[str, Any] = {}
@@ -204,11 +243,15 @@ class Trainer:
         losses = []
         interrupted = False
         completed = n_warm
+        window = None  # (profiler, first step) while the capture window is open
+        profiled = False
         t0 = time.monotonic()
-        for _ in range(num_steps - n_warm):
+        for i in range(num_steps - n_warm):
             if self.cancel is not None and self.cancel.cancelled():
                 interrupted = True
                 break
+            if self.profile_dir and i == self.profile_start:
+                window, profiled = self._start_profile(), True
             self.state, metrics = self.step_fn(self.state, next(self.data_iter))
             completed += 1
             if self.on_step is not None:
@@ -217,7 +260,16 @@ class Trainer:
                 except Exception:  # noqa: BLE001 — liveness must not kill training
                     pass
             losses.append(metrics["loss"])
+            if window is not None and i + 1 >= self.profile_start + self.profile_steps:
+                self._stop_profile(window)
+                window = None
+            if (self.checkpointer is not None and self.checkpoint_interval > 0
+                    and (i + 1) % self.checkpoint_interval == 0):
+                sync_host(self.device)
+                self.checkpointer.save(self.state)
         sync_host(self.device)
+        if window is not None:  # the window ran past the end of the run
+            self._stop_profile(window)
         dt = max(time.monotonic() - t0, 1e-9)
         timed = completed - n_warm
         sps = timed / dt if timed else 0.0
@@ -228,5 +280,6 @@ class Trainer:
             tokens_per_sec=sps * self.tokens_per_batch,
             steps_per_sec=sps,
             loss_history=[float(x) for x in losses],
+            profiled=profiled,
             interrupted=interrupted,
         )

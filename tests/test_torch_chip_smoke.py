@@ -345,3 +345,172 @@ def test_the_traced_gates_fail_a_bad_run(traced_run, mutate, needle):
     text = mutate(m, dump, text)
     with pytest.raises(AssertionError, match=needle):
         cs.check_traced("x", m, dump, text)
+
+
+# ------------------------------------------------------------ Mixtral phases
+
+
+@pytest.mark.parametrize("make", [
+    lambda: cs.mixtral_train_spec(),
+    lambda: cs.mixtral_train_spec(steps=4, remat=True, remat_policy="dots_attn"),
+    lambda: cs.mixtral_ckpt_spec("/ck", "/prof", steps=4),
+    lambda: cs.mixtral_infer_spec(),
+    lambda: cs.mixtral_serve_spec(),
+], ids=["train", "remat", "ckpt", "infer", "serve"])
+def test_the_mixtral_phases_are_valid_specs_at_published_widths(make):
+    """Every Mixtral phase passes the port's validate() and runs preset
+    8x7b at its published widths, cut in depth only (2, 1 or 16 layers)."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.models import mixtral
+
+    spec = make()
+    rt = JaxXlaRuntime.from_dict(spec)
+    assert rt.validate() == []
+    assert (rt.model.family, rt.model.preset) == ("mixtral", "8x7b")
+    cfg = mixtral.config("8x7b", **rt.model.overrides)
+    full = mixtral.config("8x7b")
+    for width in ("vocab_size", "d_model", "n_heads", "n_kv_heads", "d_ff", "n_experts",
+                  "n_experts_per_token"):
+        assert getattr(cfg, width) == getattr(full, width), width
+    assert cfg.n_layers in (1, 2, cs.MIXTRAL_SERVE_LAYERS)
+    if rt.mode == "train":
+        assert cfg.sliding_window == 4096 and "dispatch_impl" not in rt.model.overrides
+
+
+def test_the_mixtral_serve_phase_weights_fit_under_the_peak_gate():
+    from nexus_tpu_torch.models import mixtral
+
+    cfg = mixtral.config("8x7b", n_layers=cs.MIXTRAL_SERVE_LAYERS)
+    weights_gb = cfg.param_count() * 2 / 1e9
+    assert 45 < weights_gb < cs.MIXTRAL_PEAK_GB - 5
+
+
+def test_the_mixtral_train_gates():
+    cs.check_mixtral_train("x", {"moe_dispatch": "scatter", "router_dropped_fraction": 0.08})
+    for bad, needle in (({"moe_dispatch": "einsum", "router_dropped_fraction": 0.1},
+                         "moe_dispatch"),
+                        ({"moe_dispatch": "scatter", "router_dropped_fraction": 1.0},
+                         "outside"),
+                        ({"moe_dispatch": "scatter", "router_dropped_fraction": None},
+                         "outside")):
+        with pytest.raises(AssertionError, match=needle):
+            cs.check_mixtral_train("x", bad)
+
+
+def _launches(fwd, n=8):
+    return {"flash_fwd": fwd, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "fused_paged_decode_attention": 0}
+
+
+def test_the_remat_gates_count_k1_once_under_dots_attn_and_twice_under_full():
+    cs.check_remat("x", _launches(8), "dots_attn", layers=2, steps=4)
+    cs.check_remat("x", _launches(16), "full", layers=2, steps=4)
+    # planted: K1 counted twice under dots_attn (its outputs not kept)
+    with pytest.raises(AssertionError, match="dots_attn"):
+        cs.check_remat("x", _launches(16), "dots_attn", layers=2, steps=4)
+    with pytest.raises(AssertionError, match="full"):
+        cs.check_remat("x", _launches(8), "full", layers=2, steps=4)
+
+
+def _ckpt_runs(**over):
+    first = {"checkpoint_saved": True, "profile_dir": "/prof"}
+    resumed = {"checkpoint_saved": True, "resumed_from_step": 4}
+    resave = {"differing_members": []}
+    args = dict(first=first, resumed=resumed, resave=resave,
+                trace_text='{"name": "flash_fwd_kernel"}')
+    for key, value in over.items():
+        if key == "trace_text":
+            args[key] = value
+        else:
+            block, field = key.split("__")
+            args[block] = dict(args[block], **{field: value})
+    return args
+
+
+def test_the_checkpoint_gates_pass_a_good_run():
+    cs.check_ckpt("x", **_ckpt_runs())
+
+
+@pytest.mark.parametrize("over,needle", [
+    (dict(resumed__resumed_from_step=2), "resumed_from_step 2"),
+    (dict(resumed__resumed_from_step=0), "resumed_from_step 0"),
+    (dict(trace_text=""), "does not name flash_fwd"),
+    (dict(first__profile_dir=None), "never opened"),
+    (dict(resave__differing_members=["leaf_3.npy"]), "leaf_3"),
+    (dict(first__checkpoint_saved=False), "checkpoint_saved"),
+], ids=["resumed-2", "not-resumed", "no-trace", "no-window", "resave-differs", "not-saved"])
+def test_the_checkpoint_gates_fail_a_planted_fault(over, needle):
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_ckpt("x", **_ckpt_runs(**over))
+
+
+def test_the_peak_gate():
+    cs.check_peak("x", 52.3)
+    with pytest.raises(AssertionError, match="not under"):
+        cs.check_peak("x", 61.0)
+
+
+def test_the_resave_check_on_a_tiny_state(tmp_path):
+    """The checkpoint phase's restore-and-save-again on the CPU at tiny
+    size: a saved step re-saved through a fresh state has the same members
+    byte for byte, and a changed file shows."""
+    import zipfile
+
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    spec = cs.mixtral_ckpt_spec(str(tmp_path / "ck"), str(tmp_path / "prof"), steps=4)
+    spec["model"] = {"family": "mixtral", "preset": "tiny", "overrides": {"n_layers": 1}}
+    spec["train"].update(seqLen=32, batchSize=2)
+    m = run_template_runtime(spec, device="cpu")
+    assert m["checkpoint_saved"] and m["profile_dir"]
+    out = cs.resave_check(str(tmp_path / "ck"), 4, spec, str(tmp_path / "again"), device="cpu")
+    assert out["differing_members"] == [] and out["state_bytes"] > 0
+    again = tmp_path / "again" / "4" / "state.npz"
+    with zipfile.ZipFile(again) as src, zipfile.ZipFile(tmp_path / "changed.npz", "w") as dst:
+        for name in src.namelist():
+            data = bytearray(src.read(name))
+            if name == "leaf_2.npy":
+                data[-1] ^= 1  # one bit of the last element
+            dst.writestr(name, bytes(data))
+    assert cs.differing_members(str(again), str(tmp_path / "changed.npz")) == ["leaf_2.npy"]
+
+
+@pytest.mark.parametrize("window,tile", [(0, 64), (0, 128), (192, 64), (192, 128)])
+def test_planted_faults_fail_the_limits_at_the_key_floor(window, tile):
+    """The planted loop-bound faults (at key tile 0, or at the tile of the
+    window's floor) each exceed the kernel check's limits; the function
+    raises if any passes."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g).to(torch.bfloat16)
+
+    q, k, v, dout = rnd(1, 512, 4, 64), rnd(1, 512, 2, 64), rnd(1, 512, 2, 64), rnd(1, 512, 4, 64)
+    ratios = cs.planted_faults(q, k, v, dout, torch.randn(1, 4, 512, generator=g), tile=tile,
+                               window=window)
+    assert set(ratios) == {"out", "lse", "dq", "dk", "dv"}
+    assert min(ratios.values()) > 1.0
+
+
+def test_the_mixtral_kernel_shapes_are_the_mixtral_train_phases():
+    """The shapes phase_kernels checks K1-K3 at are the ones mixtral-train,
+    mixtral-remat and mixtral-ckpt give them, and the Mixtral shape's bound
+    counts the window's pairs: sum over rows of min(row + 1, window)."""
+    from nexus_tpu_torch.models import mixtral
+
+    for shape, spec in ((cs.MIXTRAL_SHAPE, cs.mixtral_train_spec()),
+                        (cs.MIXTRAL_CKPT_SHAPE, cs.mixtral_ckpt_spec("ck", "prof", steps=4))):
+        cfg = mixtral.config(spec["model"]["preset"], **spec["model"]["overrides"])
+        assert (shape["B"], shape["Sq"], shape["Sk"]) == (
+            spec["train"]["batchSize"], spec["train"]["seqLen"], spec["train"]["seqLen"])
+        assert (shape["Hq"], shape["Hkv"], shape["D"]) == (
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        assert shape["causal"] and shape["q_offset"] == 0
+        assert shape["window"] == cfg.sliding_window == 4096
+    s, w = cs.MIXTRAL_SHAPE["Sq"], cs.MIXTRAL_WINDOW
+    assert cs._visible_pairs(cs.MIXTRAL_SHAPE) == w * (w + 1) // 2 + (s - w) * w
+    pairs = 32 * (w * (w + 1) // 2 + (s - w) * w)
+    assert cs._bounds_ms(cs.MIXTRAL_SHAPE)["flash_fwd"] == (
+        pytest.approx(1e3 * 4 * 128 * pairs / cs.PEAK_BF16_FLOPS, rel=1e-12), "operations")

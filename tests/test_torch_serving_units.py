@@ -10,6 +10,8 @@ function's metric keys; every feature left out of the port raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -242,14 +244,23 @@ def test_entry_point_returns_the_jax_metric_keys(spec):
         assert got["output_shape"] == [2, 14] and got["last_logits_finite"]
 
 
+# stands for a directory whose one step has Orbax's layout (no state.npz)
+_ORBAX = "<orbax checkpoint directory>"
+
+
 @pytest.mark.parametrize("block,item", [
     ({"serve": {"draft": dict(_TINY, overrides={"max_seq_len": 512}),
-                "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
-    ({"infer": {"draft": _TINY, "draftCheckpointDirectory": "/nonexistent/draft"}}, "item 2"),
+                "draftCheckpointDirectory": _ORBAX}}, "item 7"),
+    ({"infer": {"draft": _TINY, "draftCheckpointDirectory": _ORBAX}}, "item 7"),
     ({"model": dict(_TINY, weights={"path": "w.safetensors"})}, "item 5"),
-    ({"checkpoint": {"enabled": True}}, "item 2"),
+    ({"checkpoint": {"enabled": True, "directory": _ORBAX}}, "item 7"),
 ])
-def test_unported_features_raise_naming_their_roadmap_item(block, item):
+def test_unported_features_raise_naming_their_roadmap_item(block, item, tmp_path):
+    """Pretrained weights (item 5), and params or a draft restored from an
+    Orbax checkpoint (item 7; the npz format is ported)."""
+    orbax = tmp_path / "orbax"
+    (orbax / "3").mkdir(parents=True)
+    block = json.loads(json.dumps(block).replace(_ORBAX, str(orbax)))
     spec = dict(SERVE)
     if "infer" in block:
         spec = dict(INFER)

@@ -221,9 +221,12 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
 
 
 @pytest.mark.parametrize("over,exc,match", [
+    # the spec's default checkpoint format, Orbax, is not ported (npz is)
     (dict(checkpoint={"enabled": True, "directory": "/x"}), NotImplementedError, "checkpoint"),
-    (dict(model={"overrides": {"remat": True, "remat_policy": "dots"}}), ValueError, "dots"),
-    (dict(model={"family": "mixtral"}), NotImplementedError, "not ported"),
+    # a remat policy neither package has ('dots' and 'dots_attn' are ported)
+    (dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}), ValueError,
+     "dots"),
+    (dict(model={"family": "gptneox"}), NotImplementedError, "not ported"),
 ])
 def test_unported_paths_raise(over, exc, match):
     with pytest.raises(exc, match=match):
