@@ -8,22 +8,25 @@ Phases, each of which raises on failure:
    process per source, all at once);
 2. hold each flash kernel (forward, dQ, dK/dV) against its plain PyTorch
    version in bf16 on the card, at small edge shapes (key lengths 1, 37
-   and 100 among them, which end mid-tile) and at the train path's shape
-   (B 2, Hq 32, Hkv 8, S 4096, D 128), with per-row limits
+   and 100 among them, which end mid-tile) and at the train paths' shapes
+   (Llama: B 2, Hq 32, Hkv 8, S 4096, D 128; Mixtral under its window;
+   Pythia-1.4B: B 4, Hq = Hkv 16, S 2048), with per-row limits
    (RTOL), check that those limits reject planted loop-bound faults at the
    main shape with tiles of 64 and of 128 rows, and time kernel (one call,
    ``ms``, and a loop of calls, ``device_ms``), plain version and the
    library yardstick;
-3. the same for the paged-decode kernel: edge cases (T 1 to 16, D 64 and
-   128, n_rep 1 to 8, B 1 to 64, depths 1 to 4096, bf16 and int8 pools,
-   ragged and stale tables, shared runs up to the whole table, windows),
-   two timed shapes at Llama-3-8B widths with a 256-position shared run
-   (8 rows at depths 512..4096, and at the serve queue's depths 320..640)
-   at T 1 and T 8, the first also at T 5, 17, 32 and 64, each case also
-   held to a tenth of the limit or twice its rounding floor (P kept in
-   fp32), three planted faults (a skipped last slot, an ignored Hydragen
-   split, the shared partial merged twice), and, for information, the
-   build that rounds P to bf16 beside it;
+3. the same for the paged-decode kernel: edge cases (T 1 to 17, D 16, 64,
+   96 and 128, n_rep 1 to 8, B 1 to 64, depths 1 to 4096, bf16 and int8
+   pools, ragged and stale tables, shared runs up to the whole table,
+   windows, block sizes that are not a power of two), three timed shapes
+   with a 256-position shared run (Llama-3-8B widths at 8 rows of depths
+   512..4096 and at the serve queue's depths 320..640; GPT-NeoX-20B's, 64
+   heads of 96, at the serve queue's depths) at T 1 and T 8, the first
+   also at T 5, 17, 32 and 64, each case also held to a tenth of the limit
+   over its rounding floor (P kept in fp32), three planted faults (a
+   skipped last slot, an ignored Hydragen split, the shared partial merged
+   twice) at the serve shape and at GPT-NeoX-20B's, and, for information,
+   the build that rounds P to bf16 beside it;
 4. the train path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
    to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
@@ -83,9 +86,17 @@ Phases, each of which raises on failure:
    byte, then resumed to 6 steps from step 4; the trace names K1);
    ``mixtral-infer`` and ``mixtral-serve`` (16 layers; the infer and serve
    phases' shapes, 16 requests; D1 at T 1 and 8; peak memory under 60 GB);
-12. the kernel line (JSON, one object per kernel, with each Mixtral phase's
-   launches), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+12. GPT-NeoX at its published widths and depths, and the MLP:
+   ``gptneox-train`` (Pythia-1.4B, preset ``1b``, all 24 layers, batch 4 x
+   seq 2048, 6 steps: the loss falls, K1-K3 launched); ``gptneox-infer``
+   and ``gptneox-serve`` (GPT-NeoX-20B, preset ``20b``, all 44 layers: the
+   infer phase's shape, and the serve queue cut to 16 requests, D1 at T 1
+   and 8 at head dim 96; peak memory under 60 GB); ``mlp-train`` (preset
+   ``small`` of the spec's default family, named by no family key,
+   float32, batch 64, 200 steps: the last loss under half the first);
+13. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX
+   and MLP phase's launches), the card's name and power limit, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -132,6 +143,10 @@ MIXTRAL_WINDOW = 4096
 MIXTRAL_SHAPE = dict(B=1, Sq=8192, Sk=8192, Hq=32, Hkv=8, D=128, causal=True,
                      q_offset=0, window=MIXTRAL_WINDOW)
 MIXTRAL_CKPT_SHAPE = dict(MIXTRAL_SHAPE, Sq=2048, Sk=2048)
+# the shape gptneox-train gives K1-K3: Pythia-1.4B (16 heads of 128, MHA:
+# n_rep 1), batch 4 x seq 2048, causal
+PYTHIA_SHAPE = dict(B=4, Sq=2048, Sk=2048, Hq=16, Hkv=16, D=128, causal=True, q_offset=0,
+                    window=0)
 EDGE_SHAPES = [
     dict(B=1, Sq=192, Sk=192, Hq=4, Hkv=4, D=64, causal=True, q_offset=0, window=48),
     dict(B=1, Sq=192, Sk=192, Hq=8, Hkv=2, D=128, causal=True, q_offset=64, window=0),
@@ -493,6 +508,36 @@ DECODE_EDGE_SHAPES += [
     dict(B=2, T=1, Hq=4, Hkv=1, D=128, Bs=4, depths=(90, 3), shared=3, split=3,
          window=0, int8=False, stale=False),
 ]
+# the head dims that are not a multiple of 64: GPT-NeoX-20B's 96 (MHA, 64
+# heads) and the tiny presets' 16, bf16 and int8 pools, n_rep 1 and 4, T 1
+# to 17, ragged and stale tables, shared runs, windows, and block sizes that
+# are not a power of two (row by row)
+DECODE_HEAD_DIM_SHAPES = [
+    dict(B=3, T=1, Hq=8, Hkv=8, D=96, Bs=32, depths=(1, 200, 97), shared=0, split=None,
+         window=0, int8=False, stale=True),
+    dict(B=4, T=8, Hq=16, Hkv=4, D=96, Bs=32, depths=(8, 300, 129, 64), shared=2, split=2,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=17, Hq=4, Hkv=4, D=96, Bs=16, depths=(40, 300), shared=2, split=2,
+         window=48, int8=False, stale=False),
+    dict(B=3, T=5, Hq=16, Hkv=4, D=96, Bs=24, depths=(50, 300, 7), shared=2, split=2,
+         window=0, int8=False, stale=True),
+    dict(B=2, T=8, Hq=8, Hkv=8, D=96, Bs=12, depths=(100, 37), shared=0, split=None,
+         window=30, int8=True, stale=False),
+    dict(B=8, T=1, Hq=64, Hkv=64, D=96, Bs=32,
+         depths=(1, 700, 257, 2000, 33, 640, 96, 1500), shared=8, split=8, window=0,
+         int8=True, stale=True),
+    dict(B=3, T=1, Hq=4, Hkv=4, D=16, Bs=8, depths=(1, 200, 97), shared=0, split=None,
+         window=0, int8=False, stale=True),
+    dict(B=4, T=8, Hq=8, Hkv=2, D=16, Bs=8, depths=(8, 300, 129, 64), shared=3, split=3,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=17, Hq=4, Hkv=1, D=16, Bs=32, depths=(40, 300), shared=1, split=1,
+         window=48, int8=False, stale=False),
+    dict(B=3, T=3, Hq=4, Hkv=4, D=16, Bs=24, depths=(50, 300, 7), shared=2, split=2,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=1, Hq=16, Hkv=4, D=16, Bs=4, depths=(90, 3), shared=3, split=3,
+         window=20, int8=False, stale=False),
+]
+DECODE_EDGE_SHAPES += DECODE_HEAD_DIM_SHAPES
 # the serve path's shape: Llama-3-8B widths, 8 rows at depths 512..4096, a
 # 256-position shared preamble (8 blocks of 32) split off as Hydragen does
 DECODE_MAIN_SHAPE = dict(B=8, T=1, Hq=32, Hkv=8, D=128, Bs=32,
@@ -502,7 +547,11 @@ DECODE_MAIN_SHAPE = dict(B=8, T=1, Hq=32, Hkv=8, D=128, Bs=32,
 # up to 128 new tokens): at these depths launch and tail costs decide D1
 DECODE_SERVE_QUEUE_SHAPE = dict(DECODE_MAIN_SHAPE,
                                 depths=(320, 360, 400, 440, 480, 520, 580, 640))
-DECODE_TIMED_SHAPES = (("main", DECODE_MAIN_SHAPE), ("serve_queue", DECODE_SERVE_QUEUE_SHAPE))
+# GPT-NeoX-20B's serve shape (gptneox-serve's queue: the serve queue's
+# depths with its 256-position shared run): MHA, 64 heads of 96
+NEOX_DECODE_SHAPE = dict(DECODE_SERVE_QUEUE_SHAPE, Hq=64, Hkv=64, D=96)
+DECODE_TIMED_SHAPES = (("main", DECODE_MAIN_SHAPE), ("serve_queue", DECODE_SERVE_QUEUE_SHAPE),
+                       ("neox", NEOX_DECODE_SHAPE))
 
 
 def decode_case(shape, gen, seed: int = 0, alias: bool = True):
@@ -656,11 +705,35 @@ def decode_exact_share(floor: float) -> float:
     return DECODE_EXACT_SHARE + floor
 
 
+# below this head dim one bf16 step of one output element is itself more
+# of the per-vector limit than DECODE_EXACT_SHARE: the floor of such a case
+# is at least that step (``rounding_step_share``)
+DECODE_STEP_FLOOR_BELOW_D = 64
+
+
+def rounding_step_share(ref) -> float:
+    """The most any row of ``ref`` (bf16, (..., D)) reads against its
+    per-vector limit when its largest element moves by one bf16 step
+    (2^-7 of its power of two): the error of a kernel that rounds one
+    element the other way. With 16 elements a row it reads ~0.3 (at D 128
+    ~0.17), so at D 16 one such rounding alone exceeds the tenth of the
+    limit the exact-share gate allows over the regrouped floor."""
+    import torch
+
+    ref = ref.float()
+    top = ref.abs().amax(dim=-1)
+    step = torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7),
+                       torch.zeros_like(top))
+    limit = RTOL * ref.norm(dim=-1) + ATOL * ref.shape[-1] ** 0.5
+    return (step / limit).max().item()
+
+
 def check_decode(shape, gen, ratios: dict, timed: bool = False):
     """The paged-decode kernel against its plain version on one case, held
     to the per-vector limit and to ``decode_exact_share`` of it (P kept in
-    fp32); ``ratios`` gets "out" and the case's "floor". Returns (max-abs
-    error, timings or None, the case)."""
+    fp32; the floor at D 16 at least one rounding step of an output
+    element, ``rounding_step_share``); ``ratios`` gets "out" and the
+    case's "floor". Returns (max-abs error, timings or None, the case)."""
     import torch
     import torch.nn.functional as F
 
@@ -673,6 +746,8 @@ def check_decode(shape, gen, ratios: dict, timed: bool = False):
     torch.cuda.synchronize()
     err = _err(out, ref, "out", where, ratios)
     floor = excess(plain_regrouped(c), ref, "out")[1]
+    if shape["D"] < DECODE_STEP_FLOOR_BELOW_D:
+        floor = max(floor, rounding_step_share(ref))
     ratios["floor"] = max(ratios.get("floor", 0.0), floor)
     if excess(out, ref, "out")[1] > decode_exact_share(floor):
         raise AssertionError(f"{where}: decode error {ratios['out']:.3g} of the limit, above "
@@ -785,9 +860,11 @@ def compare_p_bf16(gen) -> dict:
 
 
 def phase_decode_kernel():
-    """D1 on the edge cases, at the timed shapes (the serve shape and the
-    serve queue's depths, T 1 and T 8, and the serve shape at the wide T)
-    with their timings, and the planted faults; then, for information, the
+    """D1 on the edge cases (head dims 16 and 96 among them), at the timed
+    shapes (the serve shape, the serve queue's depths and GPT-NeoX-20B's
+    serve shape, T 1 and T 8, and the serve shape at the wide T) with their
+    timings, and the planted faults at the serve shape and GPT-NeoX-20B's;
+    then, for information, the
     bf16-P build beside it. Returns (worst max-abs, {shape_T: timings},
     the bf16-P comparison)."""
     import torch
@@ -816,6 +893,9 @@ def phase_decode_kernel():
     faults = decode_planted_faults(DECODE_MAIN_SHAPE, gen)
     log(f"[decode] planted faults at the serve shape, error over limit (all must exceed 1): "
         f"{faults}")
+    faults = decode_planted_faults(NEOX_DECODE_SHAPE, gen)
+    log(f"[decode] planted faults at GPT-NeoX-20B's serve shape (D 96), error over limit (all "
+        f"must exceed 1): {faults}")
     p_bf16 = compare_p_bf16(gen)
     log(f"[decode] worst error over limit {worst_share}; P in f32 against P in bf16 "
         f"(for information): {p_bf16}")
@@ -838,8 +918,8 @@ def phase_build() -> float:
 
 def phase_kernels():
     """K1-K3 against their plain versions: the edge and key-tail shapes,
-    the Mixtral checkpoint phase's shape, then the Llama train shape and
-    the Mixtral train shape, both timed and each held to planted faults.
+    the Mixtral checkpoint phase's shape, then the Llama, Mixtral and
+    Pythia-1.4B train shapes, each timed and held to planted faults.
     Returns (worst max-abs error per kernel, {shape name: timings})."""
     import torch
 
@@ -852,7 +932,8 @@ def phase_kernels():
         log(f"[kernels] edge {shape}: max-abs {errs}, error over limit {ratios}")
         worst = {k: max(worst[k], errs[k]) for k in worst}
     times = {}
-    for label, shape in (("main", MAIN_SHAPE), ("mixtral", MIXTRAL_SHAPE)):
+    for label, shape in (("main", MAIN_SHAPE), ("mixtral", MIXTRAL_SHAPE),
+                         ("pythia", PYTHIA_SHAPE)):
         ratios = {}
         errs, times[label], inputs = check_kernels(shape, gen, ratios, timed=True)
         log(f"[kernels] {label} shape {shape}: max-abs {errs}, error over limit {ratios}")
@@ -894,10 +975,11 @@ def _launches_during(run, must_launch):
     return out, launches, missing
 
 
-def phase_train(name: str, spec, must_fall: bool = True) -> dict:
+def phase_train(name: str, spec, must_fall: bool = True, kernels=None) -> dict:
     """``mode: train`` through the entry point: a finite loss that falls
     over the timed steps (``must_fall``; a resumed run of one timed step
-    has no fall to show), and every flash kernel launched."""
+    has no fall to show), and every kernel of ``kernels`` launched (the
+    flash kernels by default; the MLP runs none)."""
     import math
 
     import torch
@@ -908,13 +990,14 @@ def phase_train(name: str, spec, must_fall: bool = True) -> dict:
     _free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    m, launches, missing = _launches_during(lambda: run_template_runtime(spec), A.TRAIN_KERNELS)
+    m, launches, missing = _launches_during(
+        lambda: run_template_runtime(spec), A.TRAIN_KERNELS if kernels is None else kernels)
     wall = time.monotonic() - t0
     hist = m["loss_history"]
     m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     m["phase_wall_s"] = wall
     log(f"[{name}] wall {wall:.1f} s, tokens_per_sec {m['tokens_per_sec']}, "
-        f"mfu {m['mfu']}, loss_history {hist}, launches {launches}, "
+        f"mfu {m.get('mfu')}, loss_history {hist}, launches {launches}, "
         f"peak_mem_gb {m['peak_mem_gb']:.2f}"
         + "".join(f", {k} {m[k]}" for k in ("moe_dispatch", "router_dropped_fraction",
                                              "resumed_from_step", "checkpoint_saved",
@@ -1262,7 +1345,9 @@ def phase_serve_traced(spec) -> dict:
 # Training opts into the public 4096-position sliding window.
 
 MIXTRAL_SERVE_LAYERS = 16
-MIXTRAL_PEAK_GB = 60.0  # infer and serve: the weights plus the cache
+# infer and serve at Mixtral-8x7B's and GPT-NeoX-20B's widths: the weights
+# plus the cache stay under this
+PEAK_GB = 60.0
 
 
 def mixtral_train_spec(n_layers: int = 2, steps: int = 6, seq_len: int = 8192, **extra):
@@ -1450,24 +1535,28 @@ def mixtral_serve_spec(num_requests: int = 16) -> dict:
 
 
 def check_peak(name: str, peak_gb: float) -> None:
-    if not peak_gb < MIXTRAL_PEAK_GB:
+    if not peak_gb < PEAK_GB:
         raise AssertionError(f"{name}: peak device memory {peak_gb:.2f} GB, not under "
-                             f"{MIXTRAL_PEAK_GB} GB")
+                             f"{PEAK_GB} GB")
 
 
-def phase_mixtral_infer() -> dict:
+def phase_peak_infer(name: str, spec) -> dict:
+    """``phase_infer`` on a big model, gated on its peak device memory."""
     import torch
 
     _free_card()
     torch.cuda.reset_peak_memory_stats()
     # the dense-cache decode runs none of the port's kernels: counted all the same
-    m, launches, _ = _launches_during(
-        lambda: phase_infer(mixtral_infer_spec(), name="mixtral-infer"), ())
+    m, launches, _ = _launches_during(lambda: phase_infer(spec, name=name), ())
     m["launches"] = launches
     m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[mixtral-infer] peak_mem_gb {m['peak_mem_gb']:.2f}, launches {launches}")
-    check_peak("mixtral-infer", m["peak_mem_gb"])
+    log(f"[{name}] peak_mem_gb {m['peak_mem_gb']:.2f}, launches {launches}")
+    check_peak(name, m["peak_mem_gb"])
     return m
+
+
+def phase_mixtral_infer() -> dict:
+    return phase_peak_infer("mixtral-infer", mixtral_infer_spec())
 
 
 def phase_mixtral_serve() -> dict:
@@ -1497,6 +1586,58 @@ def run_mixtral_phases() -> dict:
     out["mixtral-ckpt"] = phase_mixtral_ckpt()
     out["mixtral-infer"] = phase_mixtral_infer()
     out["mixtral-serve"] = phase_mixtral_serve()
+    return out
+
+
+# ------------------------------------------------------ GPT-NeoX and the MLP
+#
+# GPT-NeoX at two published configurations, at full width and depth:
+# Pythia-1.4B (preset ``1b``: d 2048, 24 layers, 16 heads of 128) trains, K1-K3
+# under MHA; GPT-NeoX-20B (preset ``20b``: d 6144, 44 layers, 64 heads of 96,
+# 20.55 B parameters, 41.1 GB in bf16) infers and serves, D1 at head dim 96.
+# 20B cannot train on one card (~16 bytes a parameter with AdamW's state).
+# The MLP (BASELINE config #2) trains in float32 and runs no kernel.
+
+def neox_train_spec() -> dict:
+    # batch 4 at seq 2048: ~40 GB estimated peak (31.6 GB measured)
+    return {"kind": "jax_xla", "mode": "train", "model": {"family": "gptneox", "preset": "1b"},
+            "train": {"batchSize": 4, "seqLen": 2048, "steps": 6, "learningRate": 3e-4,
+                      "warmupSteps": 0, "seed": 0}}
+
+
+def neox_infer_spec() -> dict:
+    return dict(INFER_SPEC, model={"family": "gptneox", "preset": "20b"})  # all 44 layers
+
+
+def neox_serve_spec() -> dict:
+    return dict(_serve_spec(num_requests=16),
+                model={"family": "gptneox", "preset": "20b"})  # all 44 layers
+
+
+def mlp_train_spec() -> dict:
+    # names no family: the spec's default family, mlp
+    return {"kind": "jax_xla", "mode": "train", "model": {"preset": "small"},
+            "train": {"batchSize": 64, "steps": 200, "learningRate": 1e-3, "seed": 0}}
+
+
+def check_mlp_train(name: str, m: dict) -> None:
+    """The last loss is under half the first."""
+    first, last = m["loss_history"][0], m["final_loss"]
+    if not last < 0.5 * first:
+        raise AssertionError(f"{name}: the loss went {first} -> {last}, not under half")
+
+
+def run_neox_mlp_phases() -> dict:
+    """gptneox-train, gptneox-infer, gptneox-serve and mlp-train, each on a
+    freed card: {phase: metrics with the kernel launches of its run}."""
+    out = {"gptneox-train": phase_train("gptneox-train", neox_train_spec()),
+           "gptneox-infer": phase_peak_infer("gptneox-infer", neox_infer_spec())}
+    serve = phase_serve("gptneox-serve", neox_serve_spec(), must_t=(1, 8))
+    check_peak("gptneox-serve", serve["peak_mem_gb"])
+    out["gptneox-serve"] = serve
+    mlp = phase_train("mlp-train", mlp_train_spec(), kernels=())
+    check_mlp_train("mlp-train", mlp)
+    out["mlp-train"] = mlp
     return out
 
 
@@ -1577,6 +1718,7 @@ def main() -> int:
     fleet = phase_serve_fleet(_serve_spec(**FLEET_SPEC_KEYS))
     traced = phase_serve_traced(_serve_spec(num_requests=8))
     mixtral = run_mixtral_phases()
+    neox = run_neox_mlp_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -1592,6 +1734,7 @@ def main() -> int:
         n = w.__name__
         kernels.append({
             "mixtral_launches": {phase: run["launches"][n] for phase, run in mixtral.items()},
+            "gptneox_mlp_launches": {phase: run["launches"][n] for phase, run in neox.items()},
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -1631,6 +1774,13 @@ def main() -> int:
             "phase_wall_s", "peak_mem_gb", "per_replica", "launches")},
         "mixtral": {phase: {k: run.get(k) for k in MIXTRAL_KEYS if k in run}
                     for phase, run in mixtral.items()},
+        "pythia_kernel_shape": PYTHIA_SHAPE,
+        "pythia_kernel_timings": {
+            n: dict(shape_times["pythia"][n], bound_ms=ms, bound_by=by)
+            for n, (ms, by) in _bounds_ms(PYTHIA_SHAPE).items()},
+        "neox_decode_kernel_shape": NEOX_DECODE_SHAPE,
+        "gptneox_mlp": {phase: {k: run.get(k) for k in MIXTRAL_KEYS if k in run}
+                        for phase, run in neox.items()},
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},

@@ -30,6 +30,8 @@
 //     dot, bitwise the JAX `_dequant_block`.
 //   * GQA: query head h reads kv head h / (Hq/Hkv); the raw Hkv blocks are
 //     read, never repeated.
+//   * D is 16, 64, 96 or 128 (the tiny presets, Llama and Mixtral at 128,
+//     GPT-NeoX-20B at 96).
 //
 // What bounds it on the H100: bytes. Every visible position costs
 // 2*Hkv*D*2 bytes of K+V (4 KiB a layer at Llama-3-8B widths) against
@@ -94,6 +96,16 @@
 //     wrapper zeroes its workspace once) and end every launch at 0, so
 //     replaying the launch in a CUDA graph is safe. (A launch that fails
 //     midway would leave counts behind; the wrapper raises on it.)
+//   * Head dims that are not a multiple of 64 (16, 96) keep the layout of
+//     the next one that is (64, 128): the shared-memory tiles are DP =
+//     round_up(D, 64) columns, a bf16 TMA box of 64 columns that runs past
+//     the pool row's D columns lands zeros there (out of the tensor map's
+//     bounds: not read from device memory), and the products run over D
+//     alone (D/16 k-steps of S = Q K^T, D/8 n-tiles of O). At D 96 against
+//     D 128 a position moves 3/4 of the bytes and takes 3/4 of the MMAs,
+//     in the same shared memory (the ring's stages are D 128's); the pad
+//     costs shared-memory space and TMA writes, nothing in device memory.
+//     int8 stages and the query rows keep D itself.
 
 #include <algorithm>
 #include <cstring>
@@ -145,15 +157,23 @@ struct Args {
 };
 
 // Shared-memory layout of one instantiation (the base aligned to 1024
-// bytes). A bf16 tile of TILE positions is D/64 regions of TILE rows of 128
-// bytes (64 columns), in the 128-byte swizzle a TMA box of 64 bf16 columns
-// writes: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). An int8
-// stage holds dense rows of D bytes, dequantized into a bf16 work tile.
+// bytes). A bf16 tile of TILE positions is DP/64 regions of TILE rows of
+// 128 bytes (64 columns), in the 128-byte swizzle a TMA box of 64 bf16
+// columns writes: the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+// DP is D rounded up to 64 columns: at D 96 and D 16 the last region's
+// columns past D are padding, which a TMA box fills with zeros (the tensor
+// map's inner extent is D, so those columns are out of bounds and never
+// read from device memory) and no product reads. An int8 stage holds dense
+// rows of D bytes, dequantized into a bf16 work tile.
 template <int D, bool INT8>
 struct Geo {
+  static_assert(D % 16 == 0 && D <= 128, "head dims of 16-column steps up to 128");
+  static constexpr int DP = (D + 63) / 64 * 64;       // columns of a bf16 tile row
+  static constexpr int REGIONS = DP / 64;
   static constexpr int REGION = TILE * 128;           // 64 columns of a tile
-  static constexpr int TILE_BF = (D / 64) * REGION;   // one bf16 K or V tile
+  static constexpr int TILE_BF = REGIONS * REGION;    // one bf16 K or V tile
   static constexpr int ESZ = INT8 ? 1 : 2;            // pool element bytes
+  static constexpr int LANDED = INT8 ? D : DP * 2;    // bytes a TMA box lands a row
   static constexpr int STAGE = INT8 ? 2 * TILE * D : 2 * TILE_BF;  // K, then V
   static constexpr int WORK = INT8 ? 2 * TILE_BF : 0;  // a dequantized stage
   static constexpr int ACC_STRIDE = D + 4;            // floats per merge row
@@ -500,7 +520,7 @@ template <int D>
 __device__ __forceinline__ void dequant_stage(const Args& a, const unsigned char* raw,
                                               unsigned char* work, int b, int g, int p0,
                                               int nvalid, int tid) {
-  constexpr int CPR = D / 16, TILE_BF = (D / 64) * TILE * 128;
+  constexpr int CPR = D / 16, TILE_BF = Geo<D, true>::TILE_BF;
   for (int i = tid; i < 2 * TILE * CPR; i += 32 * CONSUMERS) {
     const int which = i / (TILE * CPR), rem = i % (TILE * CPR);
     const int row = rem / CPR, c = rem % CPR;
@@ -823,7 +843,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           // looks up box j's block
           // boxes past the stage's end read past the pool's end: zeros
           const int nbox = TILE / a.box_rows;
-          if (lane == 0) nexus::mbar_expect_tx(&full[slot], (uint32_t)(2 * TILE * row_bytes));
+          if (lane == 0) nexus::mbar_expect_tx(&full[slot], (uint32_t)(2 * TILE * G::LANDED));
           __syncwarp();
           for (int j = lane; j < nbox; j += 32) {
             const int pos = p0 + j * a.box_rows;
@@ -836,7 +856,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                  row);
             } else {
 #pragma unroll
-              for (int r = 0; r < D / 64; ++r) {
+              for (int r = 0; r < G::REGIONS; ++r) {
                 const int off = r * G::REGION + j * a.box_rows * 128;
                 nexus::tma_load_3d(st + off, &k_map, &full[slot], r * 64, w.g, row);
                 nexus::tma_load_3d(st + G::TILE_BF + off, &v_map, &full[slot], r * 64, w.g, row);
@@ -907,17 +927,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Resident CTAs an SM, once per instantiation ([D == 128][INT8]). Internal
-// linkage: a static local of the template below would be one object for the
-// whole process (a GNU unique symbol), shared with any other build of this
-// source loaded beside it, which would then skip its own attribute call.
-static int per_sm_cache[2][2];
+// Resident CTAs an SM, once per instantiation ([D / 16 - 1][INT8]: each
+// head dim its own entry, so that every instantiation sets its own shared
+// memory size). Internal linkage: a static local of the template below
+// would be one object for the whole process (a GNU unique symbol), shared
+// with any other build of this source loaded beside it, which would then
+// skip its own attribute call.
+static int per_sm_cache[8][2];
 
 template <int D, bool INT8>
 int launch(const CUtensorMap& k_map, const CUtensorMap& v_map, Args a, int max_units,
            cudaStream_t st) {
   using G = Geo<D, INT8>;
-  int& per_sm = per_sm_cache[D == 128][INT8];
+  int& per_sm = per_sm_cache[D / 16 - 1][INT8];
   if (per_sm == 0) {
     cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<D, INT8>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
@@ -940,10 +962,12 @@ int launch(const CUtensorMap& k_map, const CUtensorMap& v_map, Args a, int max_u
 
 // part_m, part_l: (B, Hq, T, pmax) f32; part_acc: (B, Hq, T, pmax, D) f32;
 // counters: (B, Hkv) int32, all 0 before the first launch (each launch
-// leaves them at 0). Block sizes that are a power of two from 8 up are read
-// by TMA boxes through two tensor maps encoded here, per call (the pools'
-// addresses change with the layer); other block sizes row by row. Returns 0
-// or a cudaError_t.
+// leaves them at 0). D is 16, 64, 96 or 128. Block sizes that are a power
+// of two from 8 up are read by TMA boxes through two tensor maps encoded
+// here, per call (the pools' addresses change with the layer): bf16 boxes
+// of 64 columns (at D 16 and 96 the last one runs past D and lands zeros),
+// int8 boxes of D columns; other block sizes row by row. Returns 0 or a
+// cudaError_t.
 extern "C" int nexus_paged_decode(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* block_table, const void* start, const void* n_blocks,
@@ -952,7 +976,7 @@ extern "C" int nexus_paged_decode(
     int N, int Bs, int M, int window, int pmax, int int8, float scale, void* stream) {
   using namespace nexus_decode;
   if (B < 1 || B > MAX_ROWS || Hkv <= 0 || Hq % Hkv || T < 1 || Bs < 1 || M < 1 || N < 1 ||
-      pmax < 2 || pmax > MAX_PARTIALS || (D != 64 && D != 128))
+      pmax < 2 || pmax > MAX_PARTIALS || (D != 16 && D != 64 && D != 96 && D != 128))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const bf16*>(q);
@@ -992,9 +1016,18 @@ extern "C" int nexus_paged_decode(
                       (long)((M + c_min - 1) / c_min) * ((B * R + ROWS - 1) / ROWS);
   const int max_units = (int)std::min(chunks * Hkv, 1L << 30);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return int8 ? launch<64, true>(k_map, v_map, a, max_units, st)
-                : launch<64, false>(k_map, v_map, a, max_units, st);
-  return int8 ? launch<128, true>(k_map, v_map, a, max_units, st)
-              : launch<128, false>(k_map, v_map, a, max_units, st);
+  switch (D) {
+    case 16:
+      return int8 ? launch<16, true>(k_map, v_map, a, max_units, st)
+                  : launch<16, false>(k_map, v_map, a, max_units, st);
+    case 64:
+      return int8 ? launch<64, true>(k_map, v_map, a, max_units, st)
+                  : launch<64, false>(k_map, v_map, a, max_units, st);
+    case 96:
+      return int8 ? launch<96, true>(k_map, v_map, a, max_units, st)
+                  : launch<96, false>(k_map, v_map, a, max_units, st);
+    default:
+      return int8 ? launch<128, true>(k_map, v_map, a, max_units, st)
+                  : launch<128, false>(k_map, v_map, a, max_units, st);
+  }
 }

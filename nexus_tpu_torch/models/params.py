@@ -12,7 +12,7 @@ alone is 30 GB in f32).
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple, Union
 
 import torch
 
@@ -30,18 +30,20 @@ def fill_normal_(out: torch.Tensor, generator: torch.Generator, scale: float,
     return out
 
 
-def tree_items(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) of a nested dict in the JAX pytree flatten order
-    (sorted keys at every level): ``embed``, ``final_norm``,
-    ``layers/<name>`` by name, ``lm_head``."""
-    for key in sorted(tree):
-        value = tree[key]
+def tree_items(tree: Union[Dict[str, Any], list], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) of nested dicts and lists in the JAX pytree flatten
+    order: a dict's values by sorted key, a list's by index, at every
+    level. A transformer's dict gives ``embed``, ``final_norm``,
+    ``layers/<name>`` by name, ``lm_head``; the MLP's list of layers gives
+    ``layers/0/b``, ``layers/0/w``, ``layers/1/b``, ..."""
+    pairs = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+    for key, value in pairs:
         path = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list)):
             yield from tree_items(value, path + "/")
         else:
             yield path, value
 
 
-def tree_leaves(tree: Dict[str, Any]) -> List[Any]:
+def tree_leaves(tree: Union[Dict[str, Any], list]) -> List[Any]:
     return [leaf for _, leaf in tree_items(tree)]

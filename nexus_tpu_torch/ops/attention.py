@@ -40,13 +40,18 @@ import torch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# tile sizes the kernels are written for: Sq must be a multiple of this (Sk
-# may end mid-tile: the kernels mask the keys past it), D one of
+# tile sizes the flash kernels are written for: Sq must be a multiple of
+# this (Sk may end mid-tile: the kernels mask the keys past it), D one of
 # KERNEL_HEAD_DIMS
 KERNEL_TILE = 64
 KERNEL_HEAD_DIMS = (64, 128)
+# the head dims the paged-decode kernel takes: GPT-NeoX-20B's 96 and the
+# tiny presets' 16 besides the flash kernels' two
+DECODE_HEAD_DIMS = (16, 64, 96, 128)
 # the flash path's other inputs, which the JAX kernels take and these do not
 _UNPORTED = "ROADMAP 'Port to PyTorch/CUDA': flash kernels for float32 and head dim 256"
+# the paged-decode kernel's: item 3 of ROADMAP's queue of TPU kernels
+_DECODE_UNPORTED = "ROADMAP 'TPU kernels', item 3: D1 for the other dtypes and head dims"
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -780,19 +785,22 @@ def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
         raise ValueError(f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} and table "
                          f"{tuple(block_table.shape)} disagree")
     if q.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the paged-decode kernel takes bfloat16 queries, got {q.dtype} ({_UNPORTED})")
+        raise NotImplementedError(
+            f"the paged-decode kernel takes bfloat16 queries, got {q.dtype} ({_DECODE_UNPORTED})")
     if k_pool.dtype not in (torch.bfloat16, torch.int8) or v_pool.dtype != k_pool.dtype:
         raise NotImplementedError(
-            f"the paged-decode kernel takes bfloat16 or int8 pools, got {k_pool.dtype} ({_UNPORTED})")
+            f"the paged-decode kernel takes bfloat16 or int8 pools, got {k_pool.dtype} "
+            f"({_DECODE_UNPORTED})")
     if (k_pool.dtype == torch.int8) != (k_scale is not None):
         raise ValueError("an int8 pool needs its scales, and only an int8 pool takes them")
     if k_scale is not None and (
             k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]
             or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise ValueError("the paged-decode kernel takes float32 (N, Bs, Hkv) scales")
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in DECODE_HEAD_DIMS:
         raise NotImplementedError(
-            f"the paged-decode kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d} ({_UNPORTED})")
+            f"the paged-decode kernel takes head_dim in {DECODE_HEAD_DIMS}, got {d} "
+            f"({_DECODE_UNPORTED})")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     if t < 1:

@@ -44,7 +44,8 @@ from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.train.checkpoint import latest_step, make_checkpointer
-from nexus_tpu_torch.train.data import Prefetcher, corpus_batches, synthetic_lm_batches, to_device
+from nexus_tpu_torch.train.data import (Prefetcher, corpus_batches, synthetic_lm_batches,
+                                        synthetic_mlp_batches, to_device)
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
 from nexus_tpu_torch.train.trainer import Trainer, build_optimizer, init_train_state, make_train_step
 from nexus_tpu_torch.utils.hw import device_kind, resolve_device, sync_host
@@ -58,11 +59,12 @@ _ROADMAP = "ROADMAP 'Port to PyTorch/CUDA'"
 def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = False
                       ) -> Dict[str, Any]:
     """The model overrides a run builds its config from: ``train.remat``
-    folded in, and Mixtral's ``dispatch_impl`` resolved by the JAX rule on
-    a one-device program, the port's only kind: the scatter dispatch (the
-    einsum one is for sharded meshes). An explicit override wins."""
+    folded in (not for ``mlp``, which has no remat, as in JAX), and
+    Mixtral's ``dispatch_impl`` resolved by the JAX rule on a one-device
+    program, the port's only kind: the scatter dispatch (the einsum one is
+    for sharded meshes). An explicit override wins."""
     out = dict(overrides)
-    if remat and "remat" not in out:
+    if remat and family != "mlp" and "remat" not in out:
         out["remat"] = True
     if family == "mixtral" and "dispatch_impl" not in out:
         out["dispatch_impl"] = "scatter"
@@ -107,6 +109,12 @@ def run_template_runtime(
     overrides = resolve_overrides(runtime.model.family, runtime.model.overrides,
                                   remat=runtime.train.remat)
     cfg = family.config(runtime.model.preset, **overrides)
+    if runtime.mode != "train" and getattr(family, "forward_decode", None) is None:
+        # the JAX entry point's refusals: a family with no incremental
+        # decode path (mlp) neither infers nor serves
+        what = "generate()" if runtime.mode == "infer" else "forward_decode incremental path"
+        raise ValueError(f"model family {runtime.model.family!r} does not support "
+                         f"mode={runtime.mode!r} (no {what}); use mode='train'")
     if runtime.mode == "infer":
         return _run_infer(runtime, family, cfg, dev)
     if runtime.mode == "serve":
@@ -133,7 +141,11 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         grad_accum=tr.gradient_accumulation,
     )
 
-    if runtime.data.kind == "tokens":
+    tokens_per_batch = tr.batch_size * tr.seq_len
+    if runtime.model.family == "mlp":
+        data = synthetic_mlp_batches(tr.batch_size, cfg.in_dim, cfg.out_dim, seed=tr.seed)
+        tokens_per_batch = 0
+    elif runtime.data.kind == "tokens":
         data = corpus_batches(
             runtime.data.path, tr.batch_size, tr.seq_len, dtype=runtime.data.dtype,
             seed=tr.seed, vocab_size=cfg.vocab_size,
@@ -162,7 +174,7 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         hb = lambda completed: heartbeat(start_step + completed)  # noqa: E731
 
     trainer = Trainer(step_fn, state, data, dev,
-                      tokens_per_batch=tr.batch_size * tr.seq_len,
+                      tokens_per_batch=tokens_per_batch,
                       checkpointer=checkpointer,
                       checkpoint_interval=ck.interval_steps if checkpointer else 0,
                       profile_dir=prof.directory if prof.enabled else "",
@@ -187,7 +199,6 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
             checkpoint_saved = True
         checkpointer.close()
 
-    fpt = model_flops_per_token(cfg, tr.seq_len)
     extra = {}
     if result.profiled:
         extra["profile_dir"] = prof.directory
@@ -200,6 +211,11 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         # the port's own key (JAX keeps it in the step metrics): the last
         # step's share of selections lost to capacity
         extra["router_dropped_fraction"] = result.final_metrics.get("router_dropped_fraction")
+    if hasattr(cfg, "param_count"):  # the LM families (not mlp), as in JAX
+        fpt = model_flops_per_token(cfg, tr.seq_len)
+        extra.update(param_count=cfg.param_count(), tokens_per_sec_per_chip=result.tokens_per_sec,
+                     model_flops_per_token=fpt,
+                     mfu=mfu(result.tokens_per_sec, fpt, device_kind(dev)))
     return {
         **extra,
         "mode": "train",
@@ -216,10 +232,6 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         "resumed_from_step": start_step,
         "interrupted": result.interrupted,
         "checkpoint_saved": checkpoint_saved,
-        "param_count": cfg.param_count(),
-        "tokens_per_sec_per_chip": result.tokens_per_sec,
-        "model_flops_per_token": fpt,
-        "mfu": mfu(result.tokens_per_sec, fpt, device_kind(dev)),
     }
 
 

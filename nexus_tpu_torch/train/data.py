@@ -1,5 +1,6 @@
 """Data pipelines (counterpart of ``nexus_tpu/train/data.py``):
-a deterministic synthetic token stream, random-crop batches from a flat
+a deterministic synthetic token stream, the MLP's synthetic regression
+batches, random-crop batches from a flat
 binary token corpus, and a background prefetcher that pins host memory and
 copies batches to the device while the previous step runs."""
 
@@ -96,12 +97,28 @@ def corpus_batches(
     )
 
 
+def synthetic_mlp_batches(
+    batch_size: int, in_dim: int, out_dim: int, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed random linear map + noise: an MLP can fit it quickly. The same
+    numbers as the JAX package's stream for the same arguments."""
+    rng = np.random.RandomState(seed)
+    w = rng.randn(in_dim, out_dim).astype(np.float32) / np.sqrt(in_dim)
+    while True:
+        x = rng.randn(batch_size, in_dim).astype(np.float32)
+        y = x @ w + 0.01 * rng.randn(batch_size, out_dim).astype(np.float32)
+        yield {"x": x, "y": y}
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy batch → int64 tensors on ``device``; for a card through pinned
-    host memory with a non-blocking copy."""
+    """numpy batch → tensors on ``device``: integer arrays as int64, float
+    arrays as float32 (as JAX puts them without x64: the MLP batches' ``y``
+    is float64 in numpy); for a card through pinned host memory with a
+    non-blocking copy."""
     out = {}
     for k, x in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(x)).long()
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        t = t.float() if t.is_floating_point() else t.long()
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t

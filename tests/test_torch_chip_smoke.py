@@ -382,7 +382,7 @@ def test_the_mixtral_serve_phase_weights_fit_under_the_peak_gate():
 
     cfg = mixtral.config("8x7b", n_layers=cs.MIXTRAL_SERVE_LAYERS)
     weights_gb = cfg.param_count() * 2 / 1e9
-    assert 45 < weights_gb < cs.MIXTRAL_PEAK_GB - 5
+    assert 45 < weights_gb < cs.PEAK_GB - 5
 
 
 def test_the_mixtral_train_gates():
@@ -514,3 +514,137 @@ def test_the_mixtral_kernel_shapes_are_the_mixtral_train_phases():
     pairs = 32 * (w * (w + 1) // 2 + (s - w) * w)
     assert cs._bounds_ms(cs.MIXTRAL_SHAPE)["flash_fwd"] == (
         pytest.approx(1e3 * 4 * 128 * pairs / cs.PEAK_BF16_FLOPS, rel=1e-12), "operations")
+
+
+# ------------------------------------------------------ GPT-NeoX and the MLP
+
+
+@pytest.mark.parametrize("make,preset", [
+    (cs.neox_train_spec, "1b"), (cs.neox_infer_spec, "20b"), (cs.neox_serve_spec, "20b"),
+], ids=["train", "infer", "serve"])
+def test_the_gptneox_phases_are_valid_specs_at_published_widths_and_depths(make, preset):
+    """Every GPT-NeoX phase passes the port's validate() and runs its
+    preset whole: Pythia-1.4B trains, GPT-NeoX-20B infers and serves, no
+    override of width or depth."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+
+    rt = JaxXlaRuntime.from_dict(make())
+    assert rt.validate() == []
+    assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == ("gptneox", preset, {})
+    if rt.mode == "serve":
+        assert rt.serve.num_requests == 16 and rt.serve.attention_path == "fused"
+        assert rt.serve.prefix_cache and rt.serve.kv_pool_dtype == "native"
+    if rt.mode == "train":
+        assert (rt.train.batch_size, rt.train.seq_len, rt.train.steps) == (4, 2048, 6)
+
+
+def test_gptneox_20b_weights_and_pool_fit_under_the_peak_gate():
+    """41.1 GB of bf16 weights (20.55 B parameters) and the serve phase's
+    auto-sized pool (the queue's envelope with the shared preamble's blocks
+    counted once, plus the scratch block) stay well under 60 GB."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.models import gptneox
+
+    cfg = gptneox.config("20b")
+    weights_gb = cfg.param_count() * 2 / 1e9
+    assert weights_gb == pytest.approx(41.109, abs=1e-3)
+    rt = JaxXlaRuntime.from_dict(cs.neox_serve_spec())
+    blocks = rt.serve.kv_pool_blocks(rt.train.batch_size, cfg.max_seq_len) + 1
+    block_bytes = cfg.n_layers * 2 * rt.serve.kv_block_size * cfg.n_kv_heads * cfg.head_dim * 2
+    assert block_bytes == 44 * 2 * 32 * 64 * 96 * 2  # 1.08 MB a position, 34.6 MB a block
+    pool_gb = blocks * block_bytes / 1e9
+    assert blocks == 113 and 3 < pool_gb < 5.5
+    assert weights_gb + pool_gb < cs.PEAK_GB - 10
+
+
+@pytest.mark.parametrize("t,bound_ms", [(1, 0.0150831), (8, 0.0154939)])
+def test_the_neox_decode_bound_is_counted_by_hand(t, bound_ms):
+    """GPT-NeoX-20B's serve shape: depths 320..640 at Bs 32 hold 10, 12,
+    13, 14, 15, 17, 19 and 20 blocks, 8 of them under the split: 56 own
+    slots and 8 shared ones. A position is K and V of 64 heads of 96 in
+    bf16 (24576 bytes); q and out are 2 x 8 rows x T x 64 x 96 x 2 bytes."""
+    shape = dict(cs.NEOX_DECODE_SHAPE, T=t)
+    assert (shape["Hq"], shape["Hkv"], shape["D"]) == (64, 64, 96)
+    assert cs.decode_read_slots(shape) == 56 + 8
+    nbytes = 64 * 32 * (2 * 64 * 96 * 2) + 2 * (2 * 8 * t * 64 * 96)
+    assert cs.decode_bound_ms(shape) == pytest.approx(1e3 * nbytes / 3.35e12, rel=1e-12)
+    assert cs.decode_bound_ms(shape) == pytest.approx(bound_ms, abs=5e-7)
+
+
+def test_the_pythia_kernel_shape_is_the_train_phases_and_its_bounds():
+    """K1-K3 at gptneox-train's shape (B 4, S 2048, 16 heads of 128, MHA,
+    causal): 134 M visible pairs, bounds 4D / 6D / 8D FLOP a pair at the
+    bf16 peak: 0.0695 / 0.1043 / 0.1390 ms."""
+    from nexus_tpu_torch.models import gptneox
+
+    spec = cs.neox_train_spec()
+    cfg = gptneox.config(spec["model"]["preset"])
+    s = cs.PYTHIA_SHAPE
+    assert (s["B"], s["Sq"], s["Sk"]) == (spec["train"]["batchSize"], spec["train"]["seqLen"],
+                                          spec["train"]["seqLen"])
+    assert (s["Hq"], s["Hkv"], s["D"]) == (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    assert s["causal"] and s["window"] == 0 and s["q_offset"] == 0
+    pairs = 4 * 16 * 2048 * 2049 // 2
+    assert pairs == 134_283_264 and cs._visible_pairs(s) * 4 * 16 == pairs
+    bounds = cs._bounds_ms(s)
+    for name, per_pair, ms in (("flash_fwd", 4, 0.0695), ("flash_bwd_dq", 6, 0.1043),
+                               ("flash_bwd_dkv", 8, 0.1390)):
+        assert bounds[name] == (pytest.approx(1e3 * per_pair * 128 * pairs / 989e12, rel=1e-12),
+                                "operations")
+        assert bounds[name][0] == pytest.approx(ms, abs=5e-5)
+
+
+def test_the_head_dim_decode_cases_cover_what_the_kernel_now_takes():
+    """D 16 and D 96 each on bf16 and int8 pools, n_rep 1 and 4, T 1 to 17,
+    stale tables, shared runs, windows and a block size that is not a power
+    of two; all of them among the edge cases the decode phase checks."""
+    cases = cs.DECODE_HEAD_DIM_SHAPES
+    assert all(c in cs.DECODE_EDGE_SHAPES for c in cases)
+    for d in (16, 96):
+        mine = [c for c in cases if c["D"] == d]
+        assert {c["int8"] for c in mine} == {False, True}
+        assert {c["Hq"] // c["Hkv"] for c in mine} >= {1, 4}
+        assert {1, 17} <= {c["T"] for c in mine}
+        assert any(c["stale"] for c in mine) and any(c["split"] for c in mine)
+        assert any(c["window"] for c in mine)
+        assert any(c["Bs"] & (c["Bs"] - 1) for c in mine)  # not a power of two
+
+
+def test_the_mlp_gate_passes_a_good_run_and_fails_a_bad_one():
+    cs.check_mlp_train("x", {"loss_history": [1.0, 0.8], "final_loss": 0.3})
+    with pytest.raises(AssertionError, match="not under half"):
+        cs.check_mlp_train("x", {"loss_history": [1.0, 0.8], "final_loss": 0.6})
+
+
+def test_the_mlp_phase_halves_its_loss_on_the_cpu():
+    """mlp-train's spec, which names no family, run on the CPU (the same
+    model and data in float32): it meets its gate there too."""
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    spec = cs.mlp_train_spec()
+    assert "family" not in spec["model"]  # the spec's default family
+    m = run_template_runtime(spec, device="cpu")
+    assert m["family"] == "mlp" and m["preset"] == "small" and m["steps"] == 200
+    cs.check_mlp_train("mlp-train", m)
+
+
+def test_one_rounding_step_reads_more_of_the_limit_at_d16_than_the_exact_share():
+    """At D 16 one bf16 step of a row's largest output element reads more
+    of the per-vector limit than the tenth the exact-share gate allows
+    over its floor; at D 128 it reads less than twice that. Rows of
+    N(0, 1) / 4 elements (the scale of an attention output over random
+    V); a row holding one element 0.5 reads its step, 2^-8, over its
+    limit."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    share = {d: cs.rounding_step_share((torch.randn(64, d, generator=g) / 4).bfloat16())
+             for d in (16, 128)}
+    assert share[16] > cs.DECODE_EXACT_SHARE and share[128] < 2 * cs.DECODE_EXACT_SHARE
+    assert share[16] > 1.5 * share[128]
+    row = torch.zeros(1, 16)
+    row[0, 3] = 0.5
+    assert cs.rounding_step_share(row) == pytest.approx(
+        2 ** -8 / (cs.RTOL * 0.5 + cs.ATOL * 4), rel=1e-6)
+    assert cs.DECODE_STEP_FLOOR_BELOW_D == 64
+    assert {s["D"] for s in cs.DECODE_EDGE_SHAPES if s["D"] < 64} == {16}

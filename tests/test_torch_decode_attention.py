@@ -212,6 +212,89 @@ def test_decode_check_takes_any_feed_width(t):
     assert tattn.decode_max_partials(8, 32, t, 128) == tattn.decode_max_partials(8, 32, 16, 128)
 
 
+def _cast(c, dtype):
+    """The case with q and a native pool in ``dtype`` (an int8 pool keeps
+    its int8 values and f32 scales)."""
+    out = dict(c, q=c["q"].astype(dtype))
+    if c["ks"] is None:
+        out.update(k=c["k"].astype(dtype), v=c["v"].astype(dtype))
+    return out
+
+
+def _to_np(x):
+    return x.float().numpy() if torch.is_tensor(x) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("t", [1, 8, 17])
+def test_fused_at_head_dims_16_and_96_matches_jax(d, pool, n_rep, t):
+    """D1's plain version at the head dims the kernel now takes (the tiny
+    presets' 16, GPT-NeoX-20B's 96), with the Hydragen split over two
+    shared blocks and a window: float32 within RTOL/ATOL; bf16 within 2e-2
+    of the reference's norm (both round q, K and V to bf16 and the output
+    at other points)."""
+    c = _paged_case(d + 10 * n_rep + t, b=3, t=t, hq=2 * n_rep, hkv=2, d=d, bs=8, m=7,
+                    int8=pool == "int8", stale=True, shared=2)
+    if pool == "bfloat16":
+        import ml_dtypes
+
+        c = _cast(c, ml_dtypes.bfloat16)
+        got = tattn.fused_paged_decode_attention(
+            torch.from_numpy(c["q"].astype(np.float32)).bfloat16(),
+            torch.from_numpy(c["k"].astype(np.float32)).bfloat16(),
+            torch.from_numpy(c["v"].astype(np.float32)).bfloat16(),
+            torch.from_numpy(c["table"]), torch.from_numpy(c["start"]), window=9,
+            n_blocks=torch.from_numpy(c["n_blocks"]), shared_blocks=torch.tensor(2),
+            shared_table=torch.from_numpy(c["shared_table"]))
+        ref = _jax_fused(c, 9, shared_blocks=2)
+        assert got.dtype == torch.bfloat16 and got.shape == (3, t, 2 * n_rep, d)
+        got, ref = _to_np(got), _to_np(ref)
+        assert np.linalg.norm(got - ref) <= 2e-2 * np.linalg.norm(ref)
+    else:
+        _close(_port_fused(c, 9, shared_blocks=2), _jax_fused(c, 9, shared_blocks=2))
+
+
+@pytest.mark.parametrize("d", tattn.DECODE_HEAD_DIMS)
+def test_decode_check_takes_head_dims_16_64_96_and_128(d):
+    q = torch.zeros(2, 1, 8, d, dtype=torch.bfloat16)
+    pool = torch.zeros(5, 32, 2, d, dtype=torch.bfloat16)
+    table = torch.zeros(2, 4, dtype=torch.int32)
+    tattn._check_decode(q, pool, pool, table, None, None)
+    tattn._check_decode(q, pool.to(torch.int8), pool.to(torch.int8), table,
+                        torch.ones(5, 32, 2), torch.ones(5, 32, 2))
+
+
+@pytest.mark.parametrize("d,q_dtype,pool_dtype", [
+    (80, torch.bfloat16, torch.bfloat16), (256, torch.bfloat16, torch.bfloat16),
+    (96, torch.float32, torch.float32), (16, torch.bfloat16, torch.float16)])
+def test_decode_refusals_name_kernel_queue_item_3(d, q_dtype, pool_dtype):
+    """What D1 does not take (another head dim, a non-bf16 query or pool)
+    raises naming item 3 of ROADMAP's TPU-kernel queue, not the flash
+    kernels' item 2."""
+    q = torch.zeros(1, 1, 4, d, dtype=q_dtype)
+    pool = torch.zeros(3, 8, 2, d, dtype=pool_dtype)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="'TPU kernels', item 3") as err:
+        tattn._check_decode(q, pool, pool, table, None, None)
+    assert "flash" not in str(err.value)
+
+
+@pytest.mark.parametrize("d,dtype", [(16, torch.bfloat16), (96, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_the_flash_check_still_refuses_16_96_and_float32_naming_item_2(d, dtype):
+    """The flash kernels keep their head dims (64, 128) and bf16: 16 and 96
+    (which the JAX rule sends to the dense path anyway) and float32 raise
+    naming the flash kernels' item."""
+    q = torch.zeros(1, 128, 4, d, dtype=dtype)
+    k = torch.zeros(1, 128, 2, d, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="flash kernels for float32 and head dim 256"):
+        tattn._check_cuda(q, k, k, causal=True, window=0)
+    assert tattn.KERNEL_HEAD_DIMS == (64, 128)
+    assert not tattn.tile_ok(q, k) or d == 128
+
+
 def test_kernel_wrapper_takes_the_plain_path_only_on_cpu_tensors():
     """On CPU tensors the wrapper is the plain version and counts nothing."""
     c = _paged_case(9)

@@ -42,7 +42,8 @@ def test_the_scan_sees_the_port():
                    "obs/profiling.py", "obs/journey.py", "obs/fleet_log.py",
                    "obs/federation.py", "fleet/router.py", "fleet/fleet.py",
                    "ha/serve_failover.py", "ops/moe.py", "models/mixtral.py",
-                   "models/params.py", "train/checkpoint.py"):
+                   "models/params.py", "train/checkpoint.py", "models/gptneox.py",
+                   "models/mlp.py"):
         assert f"nexus_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 

@@ -1,6 +1,8 @@
 """The port's serving engine (nexus_tpu_torch.runtime.serving) against the
 JAX package's, on the CPU in float32, with the same tiny Llama weights
-carried across by interop.llama_params_from_jax.
+carried across by interop.llama_params_from_jax (and, in
+test_gptneox_engine_matches_the_jax_engine, GPT-NeoX's tiny preset's by
+interop.gptneox_params_from_jax).
 
 Exactness: the same queue — a shared 16-token preamble under three
 requests, a block-aligned full duplicate (copy-on-write), an unshared
@@ -21,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from nexus_tpu.models import gptneox as jneox
 from nexus_tpu.models import llama as jllama
 from nexus_tpu.runtime import serving as jserving
-from nexus_tpu_torch.interop import llama_params_from_jax
+from nexus_tpu_torch.interop import gptneox_params_from_jax, llama_params_from_jax
+from nexus_tpu_torch.models import gptneox as tneox
 from nexus_tpu_torch.models import llama as tllama
 from nexus_tpu_torch.runtime import serving as tserving
 from nexus_tpu_torch.runtime.traffic import ListSource
@@ -68,20 +72,35 @@ VARIANTS = [
 ] + [("dense", False, "native"), ("dense", False, "int8")]
 
 
-@pytest.mark.parametrize("path,prefix_cache,pool", VARIANTS)
-def test_engine_matches_the_jax_engine(path, prefix_cache, pool):
+def _neox_models(int8_cfg=False):
+    """GPT-NeoX's tiny preset (4 heads of 16, MHA, partial rotary) in both
+    packages, the same weights."""
+    jcfg = jneox.config("tiny", dtype=jnp.float32, kv_cache_quantized=int8_cfg)
+    jparams = jneox.init(jax.random.PRNGKey(0), jcfg)
+    tcfg = tneox.config("tiny", dtype="float32", kv_cache_quantized=int8_cfg)
+    tparams = gptneox_params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    for t in tneox.leaves(tparams):
+        t.requires_grad_(False)
+    return (jcfg, jparams), (tcfg, tparams)
+
+
+FAMILIES = {"llama": (jllama, tllama, _models), "gptneox": (jneox, tneox, _neox_models)}
+
+
+def _engines_agree(family, path, prefix_cache, pool):
+    jfam, tfam, models = FAMILIES[family]
     dense = path == "dense"
-    (jcfg, jparams), (tcfg, tparams) = _models(int8_cfg=dense and pool == "int8")
+    (jcfg, jparams), (tcfg, tparams) = models(int8_cfg=dense and pool == "int8")
     if dense:
         kw = dict(kv_block_size=0)
     else:
         kw = dict(kv_block_size=8, prefix_cache=prefix_cache, attention_path=path,
                   kv_pool_dtype=pool)
     q = _queue()
-    jeng = jserving.ServingEngine(jllama.forward_decode, jparams, jcfg, batch_size=2,
+    jeng = jserving.ServingEngine(jfam.forward_decode, jparams, jcfg, batch_size=2,
                                   max_len=64, chunk=4, prefill_chunk=3, **kw)
     jres, jmet = jeng.serve([jserving.ServeRequest(prompt=p, max_new_tokens=n) for p, n in q])
-    teng = tserving.ServingEngine(tllama.forward_decode, tparams, tcfg, batch_size=2,
+    teng = tserving.ServingEngine(tfam.forward_decode, tparams, tcfg, batch_size=2,
                                   max_len=64, chunk=4, prefill_chunk=3, **kw)
     tres, tmet = teng.serve([tserving.ServeRequest(prompt=p, max_new_tokens=n) for p, n in q])
     for a, b in zip(tres, jres):
@@ -103,6 +122,19 @@ def test_engine_matches_the_jax_engine(path, prefix_cache, pool):
         assert "hydragen_waves" in common
         if prefix_cache:  # shared blocks exist only through the cache
             assert tmet["hydragen_waves"] >= 1
+
+
+@pytest.mark.parametrize("path,prefix_cache,pool", VARIANTS)
+def test_engine_matches_the_jax_engine(path, prefix_cache, pool):
+    _engines_agree("llama", path, prefix_cache, pool)
+
+
+@pytest.mark.parametrize("path,prefix_cache,pool", VARIANTS)
+def test_gptneox_engine_matches_the_jax_engine(path, prefix_cache, pool):
+    """The engine over GPT-NeoX's decode (the generic scaffold with the
+    NeoX block and final LayerNorm; pool sized from n_kv_heads = n_heads
+    and head dim 16): the JAX engine's tokens and ledger."""
+    _engines_agree("gptneox", path, prefix_cache, pool)
 
 
 def test_engine_matches_isolated_generate():

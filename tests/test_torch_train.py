@@ -226,7 +226,10 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}), ValueError,
      "dots"),
-    (dict(model={"family": "gptneox"}), NotImplementedError, "not ported"),
+    # pretrained HF weights (ROADMAP item 5); family gptneox, which this
+    # case once named, now trains (tests/test_torch_gptneox.py)
+    (dict(model={"weights": {"format": "safetensors", "path": "/x"}}), NotImplementedError,
+     "not ported"),
 ])
 def test_unported_paths_raise(over, exc, match):
     with pytest.raises(exc, match=match):
