@@ -94,9 +94,24 @@ Phases, each of which raises on failure:
    and 8 at head dim 96; peak memory under 60 GB); ``mlp-train`` (preset
    ``small`` of the spec's default family, named by no family key,
    float32, batch 64, 200 steps: the last loss under half the first);
-13. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX
-   and MLP phase's launches), the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {...}}``.
+13. pretrained weights and text prompts: ``pretrained-llama`` exports the
+   seed's random Llama-3-8B weights (all 32 layers, ~16 GB) as four
+   safetensors shards and model.safetensors.index.json, writes a
+   tokenizer.json (256 byte tokens, merges learned from a fixed text, two
+   special tokens), and loads the shards back bit for bit
+   (``load_pretrained``; seconds, GB/s, peak); ``infer-pretrained`` (8 rows,
+   a ~40-word text prompt, 32 greedy tokens from the shards) must report the
+   weights loaded, the tokenizer's prompt count and a completion, and new
+   ids equal to the same run from those token ids on the seed's random
+   weights; ``serve-pretrained`` serves 8 text prompts, 4 of them behind a
+   200-word preamble, through the fused prefix-cached engine with the serve
+   gates and 8 completions; ``pretrained-mixtral`` and ``pretrained-neox``
+   (Mixtral-8x7B and GPT-NeoX-20B at 2 layers, one file each) load bit for
+   bit; all in temporary directories that the phases remove;
+14. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP and pretrained phase's launches), the script's wall time, the card's
+   name and power limit, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -104,6 +119,7 @@ visible or the port is missing.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -1641,6 +1657,365 @@ def run_neox_mlp_phases() -> dict:
     return out
 
 
+# ------------------------------------------------ pretrained weights and text
+#
+# No checkpoint is downloaded: random weights from the seed are exported in
+# HF's layout (Llama-3-8B as four shards and model.safetensors.index.json,
+# ~16 GB; Mixtral-8x7B and GPT-NeoX-20B cut to 2 layers as one file each),
+# loaded back through runtime/weights.py and held bit for bit against the
+# exported tensors; infer and serve then run from the shards and from text
+# prompts through a tokenizer.json that the script writes itself.
+
+PRETRAINED_TEXT = (
+    "The river town woke slowly. Fishermen checked their nets at the harbour while the "
+    "baker opened the shutters and set the first loaves on the counter. Children ran along "
+    "the stone wall toward the school, and the old clock on the tower struck seven. In the "
+    "market square the traders raised their awnings, counted their coins and called out the "
+    "price of apples, onions, bread and fresh fish. A light wind came in from the sea and "
+    "carried the smell of salt and smoke across the roofs. By noon the square was full of "
+    "people who talked about the weather, the harvest, the new bridge over the river and "
+    "the ships that would sail for the islands at the end of the month. In the evening the "
+    "lamps were lit one by one, the boats came back into the harbour, and the town grew "
+    "quiet again under a sky full of stars. 1234567890 - what, where, when, why and how?"
+)
+SPECIAL_TOKENS = ("<|begin_of_text|>", "<|eot_id|>")
+# infer-pretrained's prompt (~40 words) and serve-pretrained's 200-word preamble
+PRETRAINED_PROMPT = (
+    "Write a short story about a river town: the harbour in the morning, the market square "
+    "at noon with traders calling out the price of apples and bread, and the boats that "
+    "come back into the harbour in the evening under the stars."
+)
+PRETRAINED_PREAMBLE = " ".join([PRETRAINED_TEXT] * 2).split()[:200]
+PRETRAINED_QUESTIONS = (
+    "What did the baker do first?", "When did the clock strike?",
+    "Where did the ships sail?", "What did the wind carry?",
+    "Name three things sold in the market.", "Why was the town quiet at night?",
+    "Who ran along the stone wall?", "What was new over the river?",
+)
+PRETRAINED_NEW_TOKENS = 32
+# the two other families, cut to 2 layers: (preset, layers)
+PRETRAINED_SMALL = {"mixtral": ("8x7b", 2), "gptneox": ("20b", 2)}
+
+
+def write_tokenizer_json(path: str, text: str = PRETRAINED_TEXT, n_merges: int = 300) -> str:
+    """A byte-level BPE tokenizer.json in Llama-3's layout (a Split on its
+    pattern, then ByteLevel without a regex): the 256 byte tokens (ids 0..255,
+    by byte value), up to ``n_merges`` merges learned greedily from ``text``
+    (the most frequent adjacent pair first, ties to the larger pair), and the
+    two special tokens after them."""
+    import collections
+    import re
+
+    from nexus_tpu_torch.utils.tokenizer import _LLAMA3_PATTERN, _byte_to_unicode, translate_pattern
+
+    b2u = _byte_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    pieces = re.findall(translate_pattern(_LLAMA3_PATTERN), text)
+    words = collections.Counter(tuple(b2u[b] for b in p.encode("utf-8")) for p in pieces)
+    merges = []
+    while len(merges) < n_merges:
+        pairs = collections.Counter()
+        for w, n in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        a, b = max(pairs, key=lambda pair: (pairs[pair], pair))
+        merges.append(f"{a} {b}")
+        vocab[a + b] = len(vocab)
+        merged = collections.Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    added = [{"id": len(vocab) + i, "content": tok, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, tok in enumerate(SPECIAL_TOKENS)]
+    doc = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": _LLAMA3_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "vocab": vocab, "merges": merges},
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def export_sharded(params, family_name: str, cfg, directory: str, n_shards: int = 4) -> int:
+    """Write ``params`` in HF's sharded layout: ``n_shards`` safetensors
+    files of about equal bytes (the tensors in the exporter's order, each
+    through the port's writer) and model.safetensors.index.json naming each
+    tensor's shard. Returns the tensors' bytes."""
+    from nexus_tpu_torch.runtime.weights import HF_TENSORS, save_safetensors
+
+    os.makedirs(directory, exist_ok=True)
+    tensors = HF_TENSORS[family_name](params, cfg)
+    sizes = {n: t.numel() * t.element_size() for n, t in tensors.items()}
+    total = sum(sizes.values())
+    shards = [[] for _ in range(n_shards)]
+    done = 0
+    for name, size in sizes.items():
+        shards[min(n_shards - 1, done * n_shards // total)].append(name)
+        done += size
+    weight_map = {}
+    for i, names in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+        save_safetensors({n: tensors[n] for n in names}, os.path.join(directory, fname))
+        weight_map.update(dict.fromkeys(names, fname))
+    with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=1)
+    return total
+
+
+def differing_leaves(exported, loaded) -> list:
+    """The leaves of two parameter dicts that differ in dtype, shape or any
+    bit (compared as integers, so -0.0, 0.0 and NaN payloads count)."""
+    import torch
+
+    from nexus_tpu_torch.models.params import tree_items
+
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a, b = dict(tree_items(exported)), dict(tree_items(loaded))
+    bad = sorted(set(a) ^ set(b))
+    for name in sorted(set(a) & set(b)):
+        x, y = a[name], b[name]
+        if (x.dtype, x.shape) != (y.dtype, y.shape) or not torch.equal(
+                x.view(bits[x.element_size()]), y.view(bits[y.element_size()]).to(x.device)):
+            bad.append(name)
+    return bad
+
+
+def check_load(name: str, exported, loaded) -> None:
+    bad = differing_leaves(exported, loaded)
+    if bad:
+        raise AssertionError(f"{name}: loaded parameters differ from the exported ones: {bad}")
+
+
+def timed_load(name: str, family_name: str, path: str, cfg, exported, nbytes: int) -> dict:
+    """``load_pretrained`` onto the card, timed to its end, then held bit for
+    bit against ``exported``: {load_s, load_gb_per_s, load_peak_gb}."""
+    import torch
+
+    from nexus_tpu_torch.runtime.weights import load_pretrained
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loaded = load_pretrained(family_name, path, cfg)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    out = {"bytes": nbytes, "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+           "load_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[{name}] loaded {nbytes / 1e9:.3f} GB in {load_s:.3f} s: "
+        f"{out['load_gb_per_s']:.3f} GB/s, peak {out['load_peak_gb']:.2f} GB")
+    check_load(name, exported, loaded)
+    return out
+
+
+def pretrained_weights(directory: str, tokenizer: str) -> dict:
+    return {"family": "llama", "preset": "8b",  # all 32 layers
+            "weights": {"format": "safetensors", "path": directory, "tokenizer": tokenizer}}
+
+
+def pretrained_infer_spec(directory: str = "", tokenizer: str = "", prompt_ids=None) -> dict:
+    """infer-pretrained: 8 rows, the text prompt, 32 greedy tokens from the
+    exported weights; with ``prompt_ids`` instead, the same run on the
+    random weights of the same seed from those token ids."""
+    infer = {"maxNewTokens": PRETRAINED_NEW_TOKENS, "iterations": 1, "temperature": 0.0}
+    if prompt_ids is None:
+        model, infer["prompt"] = pretrained_weights(directory, tokenizer), PRETRAINED_PROMPT
+    else:
+        model, infer["promptTokenIds"] = {"family": "llama", "preset": "8b"}, list(prompt_ids)
+    return {"kind": "jax_xla", "mode": "infer", "model": model,
+            "train": {"batchSize": 8, "seed": 0}, "infer": infer}
+
+
+def pretrained_prompts() -> list:
+    """serve-pretrained's 8 prompts: 4 share the 200-word preamble."""
+    preamble = " ".join(PRETRAINED_PREAMBLE)
+    return [f"{preamble}\n\n{q}" if i < 4 else q for i, q in enumerate(PRETRAINED_QUESTIONS)]
+
+
+def pretrained_serve_spec(directory: str, tokenizer: str) -> dict:
+    spec = _serve_spec(num_requests=8, sharedPrefixLength=0, maxNewMax=PRETRAINED_NEW_TOKENS,
+                       prompts=pretrained_prompts())
+    spec["model"] = pretrained_weights(directory, tokenizer)
+    return spec
+
+
+def phase_pretrained_infer(name: str, spec) -> dict:
+    """``mode: infer`` of a pretrained-llama spec: finite last logits, 8 rows
+    of the prompt and the new tokens, peak memory under the gate."""
+    import torch
+
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    m, launches, _ = _launches_during(lambda: run_template_runtime(spec), ())
+    m.update(launches=launches, phase_wall_s=time.monotonic() - t0,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{name}] wall {m['phase_wall_s']:.1f} s, weights_loaded {m['weights_loaded']}, "
+        f"prompt_len {m['prompt_len']}, decode_tokens_per_sec {m['decode_tokens_per_sec']}, "
+        f"peak_mem_gb {m['peak_mem_gb']:.2f}, completion_ids {m['completion_ids']}")
+    if not m["last_logits_finite"]:
+        raise AssertionError(f"{name}: the last logits are not finite")
+    if m["output_shape"] != [8, m["prompt_len"] + PRETRAINED_NEW_TOKENS]:
+        raise AssertionError(f"{name}: output shape {m['output_shape']}")
+    check_peak(name, m["peak_mem_gb"])
+    return m
+
+
+def check_pretrained_infer(name: str, m: dict, ref: dict, n_prompt: int) -> None:
+    """The exported weights were loaded, the prompt's tokens counted, a
+    completion decoded, and the new ids equal those of the random-init run
+    of the same seed from the same ids."""
+    if m["weights_loaded"] is not True or ref["weights_loaded"] is not False:
+        raise AssertionError(f"{name}: weights_loaded {m['weights_loaded']} (the reference run: "
+                             f"{ref['weights_loaded']})")
+    if m["prompt_tokens"] != n_prompt or not isinstance(m.get("completion"), str):
+        raise AssertionError(f"{name}: prompt_tokens {m['prompt_tokens']} != {n_prompt}, or no "
+                             f"completion: {m.get('completion')!r}")
+    if m["completion_ids"] != ref["completion_ids"] or len(m["completion_ids"]) != (
+            PRETRAINED_NEW_TOKENS):
+        raise AssertionError(f"{name}: completion ids {m['completion_ids']} != the random-init "
+                             f"run's {ref['completion_ids']}")
+
+
+def check_pure_tokenizer(name: str, chosen, pure) -> None:
+    """The pure engine (its pattern on the stdlib ``re``) gives the ids of
+    the engine ``load_tokenizer`` chose, on every prompt of the phases."""
+    for text in [PRETRAINED_PROMPT] + pretrained_prompts():
+        if pure.encode(text) != chosen.encode(text):
+            raise AssertionError(f"{name}: the pure tokenizer's ids differ from "
+                                 f"{type(chosen).__name__}'s on {text[:40]!r}")
+
+
+def check_pretrained_serve(name: str, m: dict) -> None:
+    if m["weights_loaded"] is not True:
+        raise AssertionError(f"{name}: the exported weights were not loaded")
+    comps = m.get("completions") or []
+    if len(comps) != len(PRETRAINED_QUESTIONS) or not all(isinstance(c, str) for c in comps):
+        raise AssertionError(f"{name}: {len(comps)} completions for "
+                             f"{len(PRETRAINED_QUESTIONS)} prompts")
+
+
+PRETRAINED_KEYS = ("bytes", "export_s", "load_s", "load_gb_per_s", "load_peak_gb", "phase_wall_s",
+                   "prompt_tokens", "weights_loaded", "decode_tokens_per_sec", "completion",
+                   "completion_ids", "tokens_per_sec", "committed_tokens", "prefix_hit_tokens",
+                   "wall_s", "peak_mem_gb", "decode_launches_by_t", "completions")
+
+
+def phase_pretrained_llama() -> dict:
+    """Llama-3-8B at all 32 layers: the seed's random weights exported as four
+    shards and an index, loaded back bit for bit; infer-pretrained from the
+    text prompt against the same run from its token ids on random weights;
+    serve-pretrained over 8 text prompts through the fused prefix-cached
+    engine. In a temporary directory that the phase removes."""
+    import shutil
+
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params, run_template_runtime
+    from nexus_tpu_torch.utils.tokenizer import load_tokenizer
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="pretrained-llama-")
+    try:
+        log(f"[pretrained-llama] {shutil.disk_usage(root).free / 1e9:.1f} GB free under {root}")
+        _free_card()
+        cfg = llama.config("8b")
+        params = _decode_params(llama, cfg, torch.device("cuda"), seed=0)
+        ckpt = os.path.join(root, "llama-8b")
+        t1 = time.monotonic()
+        nbytes = export_sharded(params, "llama", cfg, ckpt)
+        export_s = time.monotonic() - t1
+        log(f"[pretrained-llama] exported {nbytes / 1e9:.3f} GB as 4 shards in {export_s:.3f} s")
+        tok = write_tokenizer_json(os.path.join(ckpt, "tokenizer.json"))
+        out = {"export_s": export_s, **timed_load("pretrained-llama", "llama", ckpt, cfg, params,
+                                                  nbytes)}
+        del params
+        _free_card()
+        tokenizer = load_tokenizer(tok)
+        ids = tokenizer.encode(PRETRAINED_PROMPT)
+        log(f"[pretrained-llama] tokenizer {type(tokenizer).__name__}, the prompt is "
+            f"{len(ids)} tokens")
+        check_pure_tokenizer("pretrained-llama", tokenizer, load_tokenizer(tok, engine="pure"))
+        infer = phase_pretrained_infer("infer-pretrained", pretrained_infer_spec(ckpt, tok))
+        ref = phase_pretrained_infer("infer-pretrained-ref", pretrained_infer_spec(prompt_ids=ids))
+        log(f"[infer-pretrained] completion {infer['completion']!r}")
+        check_pretrained_infer("infer-pretrained", infer, ref, len(ids))
+        serve = phase_serve("serve-pretrained", pretrained_serve_spec(ckpt, tok), must_t=(1,))
+        check_pretrained_serve("serve-pretrained", serve)
+        log(f"[serve-pretrained] completions {serve['completions']}")
+        out.update(phase_wall_s=time.monotonic() - t0, prompt_tokens=len(ids))
+        return {"pretrained-llama": out, "infer-pretrained": infer, "serve-pretrained": serve}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_pretrained_small(family_name: str) -> dict:
+    """A family at its published widths cut to 2 layers: exported as one
+    file by the package's exporter, loaded back bit for bit."""
+    import shutil
+
+    import torch
+
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.runtime import weights as W
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+
+    name = f"pretrained-{'neox' if family_name == 'gptneox' else family_name}"
+    preset, layers = PRETRAINED_SMALL[family_name]
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix=f"{name}-")
+    try:
+        _free_card()
+        family = get_family(family_name)
+        cfg = family.config(preset, n_layers=layers)
+        params = _decode_params(family, cfg, torch.device("cuda"), seed=0)
+        path = os.path.join(root, "model.safetensors")
+        t1 = time.monotonic()
+        getattr(W, f"export_hf_{family_name}")(params, cfg, path)
+        export_s = time.monotonic() - t1
+        nbytes = sum(t.numel() * t.element_size() for t in family.leaves(params))
+        log(f"[{name}] exported {nbytes / 1e9:.3f} GB ({preset}, {layers} layers) as one file "
+            f"in {export_s:.3f} s")
+        out = {"export_s": export_s, **timed_load(name, family_name, path, cfg, params, nbytes)}
+        del params
+        out["phase_wall_s"] = time.monotonic() - t0
+        return {name: out}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free_card()
+
+
+def run_pretrained_phases() -> dict:
+    out = phase_pretrained_llama()
+    for family_name in PRETRAINED_SMALL:
+        out.update(phase_pretrained_small(family_name))
+    return out
+
+
 # the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
 # vocabulary and context, random weights from the seed
 DRAFT_REF = {"family": "llama", "preset": "draft",
@@ -1676,10 +2051,13 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is missing ({e})", file=sys.stderr)
         return 2
+    started = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+        f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
+        + ", ".join(f"{m} {importlib.util.find_spec(m) is not None}"
+                    for m in ("ml_dtypes", "safetensors", "regex", "tokenizers")))
 
     build_s = phase_build()
     worst, shape_times = phase_kernels()
@@ -1719,6 +2097,7 @@ def main() -> int:
     traced = phase_serve_traced(_serve_spec(num_requests=8))
     mixtral = run_mixtral_phases()
     neox = run_neox_mlp_phases()
+    pretrained = run_pretrained_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -1735,6 +2114,8 @@ def main() -> int:
         kernels.append({
             "mixtral_launches": {phase: run["launches"][n] for phase, run in mixtral.items()},
             "gptneox_mlp_launches": {phase: run["launches"][n] for phase, run in neox.items()},
+            "pretrained_launches": {phase: run["launches"][n] for phase, run in pretrained.items()
+                                    if "launches" in run},
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -1781,10 +2162,13 @@ def main() -> int:
         "neox_decode_kernel_shape": NEOX_DECODE_SHAPE,
         "gptneox_mlp": {phase: {k: run.get(k) for k in MIXTRAL_KEYS if k in run}
                         for phase, run in neox.items()},
+        "pretrained": {phase: {k: run.get(k) for k in PRETRAINED_KEYS if k in run}
+                       for phase, run in pretrained.items()},
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},
     }))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

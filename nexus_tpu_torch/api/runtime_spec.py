@@ -4,8 +4,7 @@ defaults): the train path's blocks, ``infer`` and ``serve``. Other keys of
 the dict are ignored here: the ``tpu`` block has no meaning on one card.
 
 The serve block keeps every key of the JAX spec, so a template round-trips
-through ``to_dict``; the entry point refuses the keys whose features are
-not ported yet (a draft checkpoint directory). ``ServeSpec.kv_pool_blocks`` is the one pool-sizing
+through ``to_dict``. ``ServeSpec.kv_pool_blocks`` is the one pool-sizing
 formula, shared by ``validate`` and the serving engine's entry point, and
 ``serve_dispatch_slack`` the one per-dispatch overrun, shared with the
 engine (runtime/serving.py)."""
@@ -46,9 +45,10 @@ class ParallelismSpec:
 
 @dataclass
 class WeightsSpec:
-    """A pretrained HF safetensors checkpoint (+ optional tokenizer.json).
-    Parsed so that templates read the same in both packages; the entry
-    point refuses it until the converters are ported."""
+    """A pretrained HF safetensors checkpoint (+ optional tokenizer.json):
+    infer and serve load their params from it (runtime/weights.py) and
+    tokenize text prompts with the tokenizer (utils/tokenizer.py); train
+    ignores it, as in the JAX package."""
 
     format: str = "safetensors"
     path: str = ""
@@ -72,7 +72,7 @@ class WeightsSpec:
 @dataclass
 class ModelRef:
     """Which model the runtime builds: a family + preset + overrides (+
-    pretrained ``weights``, refused by the entry point for now)."""
+    pretrained ``weights``)."""
 
     family: str = "mlp"
     preset: str = "tiny"
@@ -862,11 +862,22 @@ class JaxXlaRuntime:
     def validate(self) -> List[str]:
         """The JAX spec's static checks of the ``profile``, ``checkpoint``,
         ``infer`` and ``serve`` blocks, for the keys the port reads (the
-        same messages); the unported features are refused by the entry
-        point instead."""
+        same messages) and of ``model.weights``; the unported features are
+        refused by the entry point instead."""
         errs: List[str] = []
         if self.mode not in ("train", "infer", "serve"):
             errs.append(f"unsupported mode {self.mode!r}")
+        w = self.model.weights
+        if w is not None:
+            if w.format != "safetensors":
+                errs.append(f"model.weights.format {w.format!r} unsupported (safetensors only)")
+            if not w.path:
+                errs.append("model.weights requires model.weights.path")
+            from nexus_tpu_torch.runtime.weights import CONVERTERS
+
+            if self.model.family not in CONVERTERS:
+                errs.append("model.weights: no safetensors converter for family "
+                            f"{self.model.family!r} (have: {sorted(CONVERTERS)})")
         if self.profile.enabled:
             if not self.profile.directory:
                 errs.append("profile.enabled requires profile.directory")
@@ -898,7 +909,11 @@ class JaxXlaRuntime:
         sv = self.serve
         if self.model.family == "mlp":
             errs.append("mode='serve' needs an LM family with a decode path (mlp has none)")
-        if not sv.prompts:
+        if sv.prompts:
+            # a literal queue: only the shared budget field matters
+            if sv.max_new_max < 1:
+                errs.append(f"serve.maxNewMax must be >= 1, got {sv.max_new_max}")
+        else:
             if sv.num_requests < 1:
                 errs.append(f"serve.numRequests must be >= 1, got {sv.num_requests}")
             if not (1 <= sv.prompt_length_min <= sv.prompt_length_max):
@@ -918,6 +933,9 @@ class JaxXlaRuntime:
                             ("sharedPrefixLength", sv.shared_prefix_length)):
             if value < 0:
                 errs.append(f"serve.{name} must be >= 0, got {value}")
+        if sv.shared_prefix_length > 0 and sv.prompts:
+            errs.append("serve.sharedPrefixLength shapes the SYNTHETIC queue; a literal prompts "
+                        "queue carries its own shared prefixes in the text")
         if sv.kv_num_blocks > 0 and sv.kv_block_size <= 0:
             errs.append("serve.kvNumBlocks requires kvBlockSize > 0 (a dense cache has no "
                         "block pool to size)")
@@ -999,6 +1017,9 @@ class JaxXlaRuntime:
         if sv.draft is not None:
             errs.extend(_draft_ref_errors(self.model, sv.draft, "serve.draft",
                                           require_ctx_cover=True))
+        if sv.prompts and (self.model.weights is None or not self.model.weights.tokenizer):
+            errs.append("serve.prompts (literal text) requires model.weights.tokenizer (a "
+                        "tokenizer.json path)")
         if self.model.family != "mlp" and not sv.prompts:
             from nexus_tpu_torch.models.registry import get_family
 

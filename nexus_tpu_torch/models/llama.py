@@ -163,6 +163,10 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
            w_down, ln_attn, ln_mlp, cos, sin) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.attn_impl == "ring":
+        raise NotImplementedError(
+            "attn_impl 'ring' is not ported yet (ROADMAP 'Port to PyTorch/CUDA', item 4: "
+            "ops/ring_attention.py)")
 
     h = rms_norm(x, ln_attn, cfg.norm_eps)
     q = (h @ wq).reshape(b, s, hq, hd)

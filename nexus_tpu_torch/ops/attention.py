@@ -49,7 +49,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 # tiny presets' 16 besides the flash kernels' two
 DECODE_HEAD_DIMS = (16, 64, 96, 128)
 # the flash path's other inputs, which the JAX kernels take and these do not
-_UNPORTED = "ROADMAP 'Port to PyTorch/CUDA': flash kernels for float32 and head dim 256"
+_UNPORTED = "ROADMAP 'TPU kernels', item 2: K1-K3 for float32 and head dim 256"
 # the paged-decode kernel's: item 3 of ROADMAP's queue of TPU kernels
 _DECODE_UNPORTED = "ROADMAP 'TPU kernels', item 3: D1 for the other dtypes and head dims"
 

@@ -14,15 +14,20 @@ a single engine's live gauges ``engine:<id>``.
 
 Training checkpoints and resumes in the npz layout (``checkpoint.format:
 npz`` or ``auto``; train/checkpoint.py) and opens the profiler window
-(``profile``); infer and serve restore their params (and a speculative
-draft's, ``draftCheckpointDirectory``) from a checkpoint directory, or
-draw random weights from ``train.seed``. Family ``mixtral`` resolves
-``dispatch_impl: auto`` to the scatter dispatch.
+(``profile``); it ignores ``model.weights``, as the JAX entry point does.
+Infer and serve take their params from ``model.weights`` (an HF safetensors
+checkpoint, runtime/weights.py), else restore them from a checkpoint
+directory, else draw random weights from ``train.seed``; a speculative
+draft's come from ``draftCheckpointDirectory`` or its seed. With
+``model.weights.tokenizer``, ``infer.prompt`` and ``serve.prompts`` are
+text (utils/tokenizer.py), tokenized before any weights load, and the
+metrics carry the decoded ``completion`` / ``completions``. Family
+``mixtral`` resolves ``dispatch_impl: auto`` to the scatter dispatch.
 
 This slice runs on one device. A declared parallelism over more chips is
 re-planned to one device and logged. Features not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: pretrained weights and
-the Orbax checkpoint format.
+``NotImplementedError`` naming their ROADMAP item: the Orbax checkpoint
+format.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
+from nexus_tpu_torch.runtime.weights import load_pretrained
 from nexus_tpu_torch.train.checkpoint import latest_step, make_checkpointer
 from nexus_tpu_torch.train.data import (Prefetcher, corpus_batches, synthetic_lm_batches,
                                         synthetic_mlp_batches, to_device)
@@ -50,10 +56,9 @@ from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
 from nexus_tpu_torch.train.trainer import Trainer, build_optimizer, init_train_state, make_train_step
 from nexus_tpu_torch.utils.hw import device_kind, resolve_device, sync_host
 from nexus_tpu_torch.utils.telemetry import percentile_nearest_rank
+from nexus_tpu_torch.utils.tokenizer import load_tokenizer
 
 logger = logging.getLogger("nexus_tpu_torch.runtime")
-
-_ROADMAP = "ROADMAP 'Port to PyTorch/CUDA'"
 
 
 def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = False
@@ -93,11 +98,6 @@ def run_template_runtime(
     dev = resolve_device(device)
     if runtime.mode not in ("train", "infer", "serve"):
         raise ValueError(f"unknown runtime mode {runtime.mode!r}")
-    if runtime.model.weights is not None:
-        raise NotImplementedError(
-            f"model.weights is not ported yet ({_ROADMAP}, item 5: runtime/weights.py); "
-            "the port runs random weights from train.seed"
-        )
     declared = runtime.parallelism.total()
     if declared != 1:
         logger.info(
@@ -259,10 +259,17 @@ def _restore_params(directory: str, family, cfg, dev):
 
 
 def _load_params(runtime, family, cfg, dev):
-    """Params for infer and serve: (params, loaded, restored step). From the
-    template's checkpoint block when it is enabled and holds a checkpoint
-    (a train -> checkpoint -> infer round trip), else random from
-    train.seed (-1: nothing restored)."""
+    """Params for infer and serve: (params, loaded, restored step), by the
+    JAX entry point's precedence: ``model.weights`` (an HF safetensors
+    checkpoint converted onto ``dev``; step -1), else the template's
+    checkpoint block when it is enabled and holds a checkpoint (a train ->
+    checkpoint -> infer round trip), else random from train.seed (-1:
+    nothing restored)."""
+    w = runtime.model.weights
+    if w is not None and w.path:
+        params = load_pretrained(runtime.model.family, w.path, cfg, dev)
+        logger.info("inference params converted from %s checkpoint %s", w.format, w.path)
+        return params, True, -1
     ck = runtime.checkpoint
     if ck.enabled and ck.directory:
         restored = _restore_params(ck.directory, family, cfg, dev)
@@ -311,9 +318,6 @@ def _run_infer(runtime, family, cfg, dev):
     ``infer.promptLookupNgram`` or ``infer.draft`` the decode is
     speculative (models/decoding.py), and the metrics carry its ledger."""
     tr, inf = runtime.train, runtime.infer
-    if inf.prompt:
-        raise ValueError("infer.prompt (text) requires model.weights.tokenizer "
-                         "(a tokenizer.json path) so it can be tokenized")
     draft_family = draft_cfg = None
     if inf.draft is not None:
         draft_family, draft_cfg = _resolve_draft(inf.draft, cfg, "draft")
@@ -323,20 +327,39 @@ def _run_infer(runtime, family, cfg, dev):
     # one overshooting verify window past the last committed token
     reserve = inf.num_speculative + 1 if speculating else 0
     prompt_len = min(inf.prompt_length, ctx - 1)
-    ids = None
-    if inf.prompt_token_ids:
-        ids = [int(t) for t in inf.prompt_token_ids]
-        bad = [t for t in ids if not 0 <= t < cfg.vocab_size]
-        if bad:
-            raise ValueError(f"infer.promptTokenIds outside vocab {cfg.vocab_size}: {bad[:5]}")
-        ids = ids[: ctx - 1]
-        prompt_len = len(ids)
     max_new = min(inf.max_new_tokens, ctx - prompt_len - reserve)
     if max_new <= 0:
         raise ValueError(f"infer shapes don't fit: prompt {prompt_len} + new tokens "
                          f"{inf.max_new_tokens}"
                          + (f" + speculation reserve {reserve}" if reserve else "")
                          + f" vs effective max_seq_len {ctx}")
+    # a text prompt is tokenized with the checkpoint's own tokenizer and
+    # broadcast across the batch; tokenize and check the fit before any
+    # weights load, so a prompt that does not fit fails in milliseconds
+    tokenizer = None
+    w = runtime.model.weights
+    if inf.prompt:
+        if w is None or not w.tokenizer:
+            raise ValueError("infer.prompt (text) requires model.weights.tokenizer "
+                             "(a tokenizer.json path) so it can be tokenized")
+        tokenizer = load_tokenizer(w.tokenizer)
+    ids = None
+    if tokenizer is not None:
+        ids = tokenizer.encode(inf.prompt)
+        if not ids:
+            raise ValueError("infer.prompt tokenized to zero tokens")
+    elif inf.prompt_token_ids:
+        ids = [int(t) for t in inf.prompt_token_ids]
+        bad = [t for t in ids if not 0 <= t < cfg.vocab_size]
+        if bad:
+            raise ValueError(f"infer.promptTokenIds outside vocab {cfg.vocab_size}: {bad[:5]}")
+    if ids is not None:
+        ids = ids[: ctx - 1]
+        prompt_len = len(ids)
+        max_new = min(inf.max_new_tokens, ctx - prompt_len - reserve)
+        if max_new <= 0:
+            raise ValueError(f"infer prompt ({prompt_len} tokens) leaves no room for new "
+                             f"tokens within max_seq_len {ctx}")
     params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
     if ids is not None:
         prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
@@ -412,8 +435,17 @@ def _run_infer(runtime, family, cfg, dev):
             spec_extra["lookup_hit_rounds"] = stats["lookup_hits"]
     new_tokens = tr.batch_size * max_new
     best = min(times)
+    # the first row's new token ids (every row decodes the same prompt when
+    # it is given): the port's key, what a caller checks the run by
+    completion_ids = [int(t) for t in out[0, prompt_len:].tolist()]
+    text_extra = {}
+    if tokenizer is not None:
+        text_extra = {"prompt_tokens": prompt_len,
+                      "completion": _decode_completion(tokenizer, completion_ids,
+                                                       inf.stop_token_id)}
     return {
         **spec_extra,
+        **text_extra,
         "mode": "infer",
         "family": runtime.model.family,
         "preset": runtime.model.preset,
@@ -429,8 +461,17 @@ def _run_infer(runtime, family, cfg, dev):
         "device": str(dev),
         "device_kind": device_kind(dev),
         "output_shape": list(out.shape),
+        "completion_ids": completion_ids,
         **finite,
     }
+
+
+def _decode_completion(tokenizer, new_ids, stop_token_id: int) -> str:
+    """Generated ids -> text, cut at the first stop token (the infer
+    ``completion`` and the serve ``completions`` alike)."""
+    if stop_token_id >= 0 and stop_token_id in new_ids:
+        new_ids = new_ids[: new_ids.index(stop_token_id)]
+    return tokenizer.decode(new_ids)
 
 
 def _synthetic_queue(sv, tr, cfg):
@@ -455,6 +496,37 @@ def _synthetic_queue(sv, tr, cfg):
                                      temperature=sv.temperature, seed=len(requests),
                                      deadline_s=sv.request_deadline_s))
     return requests
+
+
+def _literal_prompts(runtime, cfg):
+    """(tokenizer, token ids of each ``serve.prompts`` text), or (None, [])
+    without prompts; tokenized before any weights load, each held to the
+    engine's own fit rule so a prompt that leaves no decode budget fails
+    here."""
+    sv, w = runtime.serve, runtime.model.weights
+    if not sv.prompts:
+        return None, []
+    if w is None or not w.tokenizer:
+        raise ValueError("serve.prompts requires model.weights.tokenizer")
+    tokenizer = load_tokenizer(w.tokenizer)
+    literal_ids = []
+    for i, text in enumerate(sv.prompts):
+        ids = tokenizer.encode(text)
+        if not ids:
+            raise ValueError(f"serve.prompts[{i}] tokenized to zero tokens")
+        if len(ids) > cfg.max_seq_len - 2 - sv.serve_slack():
+            raise ValueError(f"serve.prompts[{i}] ({len(ids)} tokens) leaves no decode budget "
+                             f"within max_seq_len {cfg.max_seq_len}")
+        literal_ids.append(ids)
+    return tokenizer, literal_ids
+
+
+def _literal_queue(sv, literal_ids):
+    """The literal prompts as the queue, each with ``serve.maxNewMax`` new
+    tokens (empty without prompts)."""
+    return [ServeRequest(prompt=ids, max_new_tokens=sv.max_new_max, temperature=sv.temperature,
+                         seed=i, deadline_s=sv.request_deadline_s)
+            for i, ids in enumerate(literal_ids)]
 
 
 def _synthetic_trace(sv, tr, cfg):
@@ -498,8 +570,6 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
     router through ``serve_fleet_local``, one after another; a trace then
     replays as a closed queue that keeps its arrival stamps."""
     sv, tr = runtime.serve, runtime.train
-    if sv.prompts:
-        raise ValueError("serve.prompts requires model.weights.tokenizer")
     draft_kw, draft_out = {}, {}
     if sv.draft is not None:
         draft_family, draft_cfg = _resolve_draft(sv.draft, cfg, "serve draft")
@@ -514,7 +584,8 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
                         draft_cfg=draft_cfg)
         draft_out = {"draft_family": sv.draft.family, "draft_preset": sv.draft.preset,
                      "draft_weights_loaded": loaded}
-    trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" else None
+    tokenizer, literal_ids = _literal_prompts(runtime, cfg)
+    trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" and not literal_ids else None
     params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
     # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there
     trace_path = os.environ.get("NEXUS_SERVE_TRACE", "").strip()
@@ -547,7 +618,7 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
                     "ServeFleet harness", sv.arrival, sv.replicas)
                 requests = trace.to_requests(deadline_s=sv.request_deadline_s, arrivals=True)
             else:
-                requests = _synthetic_queue(sv, tr, cfg)
+                requests = _literal_queue(sv, literal_ids) or _synthetic_queue(sv, tr, cfg)
             engines = {f"r{i}": make_engine(gauge_tags=[f"engine:r{i}"])
                        for i in range(sv.replicas)}
             engine = engines["r0"]
@@ -572,7 +643,7 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
             engine = make_engine(gauge_tags=[f"engine:{replica_id}"] if replica_id else None,
                                  engine_tracer=tracer)
             if trace is None:
-                requests = _synthetic_queue(sv, tr, cfg)
+                requests = _literal_queue(sv, literal_ids) or _synthetic_queue(sv, tr, cfg)
                 results, metrics = engine.serve(requests, cancel=cancel, heartbeat=heartbeat)
             else:
                 # the requests arrive through the source, in the trace's
@@ -605,9 +676,16 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
             except OSError:  # telemetry is best-effort
                 logger.warning("could not write the serve trace to %s", path)
     latencies = sorted(r.latency_s for r in results if r is not None and r.status == STATUS_OK)
+    text_extra = {}
+    if tokenizer is not None:
+        text_extra["completions"] = [
+            _decode_completion(tokenizer, list(res.tokens[len(ids):]) if res else [],
+                               sv.stop_token_id)
+            for ids, res in zip(literal_ids, results)]
     out = {
         **metrics,
         **trace_out,
+        **text_extra,
         **draft_out,
         "mode": "serve",
         "family": runtime.model.family,

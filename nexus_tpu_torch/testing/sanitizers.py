@@ -28,9 +28,8 @@ engine itself reads the flag once, at construction, and then runs the
 warm-entry audit, the block table's scratch-tail audit after each table
 update and the tree audit after each admission wave. A trip raises
 :class:`SanitizerError` (an ``AssertionError``), or the allocator's or the
-tree's own ``AssertionError`` from inside the loop; the JAX engine also
-dumps its flight recorder there, which the port has not got yet (ROADMAP
-item 1d).
+tree's own ``AssertionError`` from inside the loop; the engine dumps its
+flight recorder there first, as the JAX engine does.
 
 The JAX module also bounds the number of XLA programs each jitted callable
 of the engine compiles (``jit_program_counts``, ``audit_recompiles``). The

@@ -1,8 +1,9 @@
-"""Data pipelines (counterpart of ``nexus_tpu/train/data.py``):
-a deterministic synthetic token stream, the MLP's synthetic regression
-batches, random-crop batches from a flat
-binary token corpus, and a background prefetcher that pins host memory and
-copies batches to the device while the previous step runs."""
+"""Data pipelines (counterpart of ``nexus_tpu/train/data.py``): a
+deterministic synthetic token stream, the MLP's synthetic regression
+batches, random-crop batches from a flat binary token corpus (both of the
+JAX package's sampling streams: its numpy one and its C++ reader's), and a
+background prefetcher that pins host memory and copies batches to the
+device while the previous step runs."""
 
 from __future__ import annotations
 
@@ -79,7 +80,21 @@ def token_file_batches(
         yield {"tokens": rows.astype(np.int32)}
 
 
-def corpus_batches(
+# the JAX package's C++ corpus reader (nexus_tpu/native/src/nexus_data.cpp):
+# its xorshift64* stream, seeded per (seed, shard), all mod 2**64
+_MASK64 = (1 << 64) - 1
+
+
+def _xorshift64_star(state: int):
+    """(next state, output) of the C++ reader's ``next_rand``."""
+    x = state
+    x ^= x >> 12
+    x ^= (x << 25) & _MASK64
+    x ^= x >> 27
+    return x, (x * 0x2545F4914F6CDD1D) & _MASK64
+
+
+def native_token_batches(
     path: str,
     batch_size: int,
     seq_len: int,
@@ -89,12 +104,71 @@ def corpus_batches(
     num_shards: int = 1,
     vocab_size: Optional[int] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Token-corpus batches through the numpy memmap reader (the JAX
-    package's native C++ reader is not ported)."""
-    return token_file_batches(
-        path, batch_size, seq_len, dtype=dtype, seed=seed,
-        shard_index=shard_index, num_shards=num_shards, vocab_size=vocab_size,
-    )
+    """The JAX package's native reader's batches (``NativeTokenLoader``)
+    in Python integers: the same region per shard, the same xorshift64*
+    stream seeded ``seed * 0x9e3779b97f4a7c15 + shard_index *
+    0xbf58476d1ce4e5b9 + 1`` (mod 2**64), one draw per row, ``start = lo +
+    draw % span``; the same errors for a negative id and an id at or past
+    ``vocab_size``. A batch is a few draws: no native build is needed."""
+    if dtype not in TOKEN_DTYPES:
+        raise ValueError(f"unsupported dtype {dtype!r}")
+    if seq_len < 1 or num_shards < 1 or not 0 <= shard_index < num_shards:
+        raise ValueError(f"ncd_open failed for {path!r} (missing file, or shard "
+                         f"{shard_index}/{num_shards} smaller than seq_len+1)")
+    try:
+        data = np.memmap(path, dtype=TOKEN_DTYPES[dtype], mode="r")
+    except (OSError, ValueError):  # missing or empty file
+        data = None
+    window = seq_len + 1
+    region = 0 if data is None else data.shape[0] // num_shards
+    lo = shard_index * region
+    span = region - window + 1
+    if span <= 0:
+        raise ValueError(f"ncd_open failed for {path!r} (missing file, or shard "
+                         f"{shard_index}/{num_shards} smaller than seq_len+1)")
+    state = (seed * 0x9E3779B97F4A7C15 + shard_index * 0xBF58476D1CE4E5B9 + 1) & _MASK64
+
+    def batches():  # opening errors raise at the call, as the reader's do
+        nonlocal state
+        while True:
+            starts = []
+            for _ in range(batch_size):
+                state, draw = _xorshift64_star(state)
+                starts.append(lo + draw % span)
+            rows = np.stack([data[s:s + window] for s in starts]).astype(np.int32)
+            if rows.min() < 0:
+                raise ValueError(f"corpus {path} contains a negative token id "
+                                 "(corrupt corpus / wrong dtype)")
+            if vocab_size is not None and rows.max() >= vocab_size:
+                raise ValueError(f"corpus {path} contains token id {int(rows.max())} >= "
+                                 f"model vocab_size {vocab_size}")
+            yield {"tokens": rows}
+
+    return batches()
+
+
+def corpus_batches(
+    path: str,
+    batch_size: int,
+    seq_len: int,
+    dtype: str = "int32",
+    seed: int = 0,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    vocab_size: Optional[int] = None,
+    backend: str = "auto",
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Token-corpus batches, as the JAX package's ``corpus_batches`` draws
+    them for the same ``backend``: ``native`` the C++ reader's stream
+    (``native_token_batches``), ``python`` the numpy memmap stream
+    (``token_file_batches``). ``auto`` is ``native``: JAX's ``auto`` takes
+    its native reader wherever that library builds, and the port's copy of
+    its sampling needs no build."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown data backend {backend!r}")
+    make = token_file_batches if backend == "python" else native_token_batches
+    return make(path, batch_size, seq_len, dtype=dtype, seed=seed, shard_index=shard_index,
+                num_shards=num_shards, vocab_size=vocab_size)
 
 
 def synthetic_mlp_batches(

@@ -648,3 +648,157 @@ def test_one_rounding_step_reads_more_of_the_limit_at_d16_than_the_exact_share()
         2 ** -8 / (cs.RTOL * 0.5 + cs.ATOL * 4), rel=1e-6)
     assert cs.DECODE_STEP_FLOOR_BELOW_D == 64
     assert {s["D"] for s in cs.DECODE_EDGE_SHAPES if s["D"] < 64} == {16}
+
+
+# ------------------------------------------------ pretrained weights and text
+
+TINY = {"family": "llama", "preset": "tiny",
+        "overrides": {"dtype": "float32", "vocab_size": 640, "max_seq_len": 1024}}
+
+
+def _tiny(spec: dict) -> dict:
+    """A pretrained phase's spec at the tiny preset (the tokenizer's ids fit
+    its vocabulary, the preamble prompts its context)."""
+    return dict(spec, model={**TINY, **{k: v for k, v in spec["model"].items()
+                                        if k == "weights"}})
+
+
+@pytest.fixture(scope="module")
+def tiny_export(tmp_path_factory):
+    """Tiny Llama weights from the seed, exported as the phase exports the
+    8b ones (four shards and an index), and the script's tokenizer."""
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+
+    root = tmp_path_factory.mktemp("pretrained")
+    cfg = llama.config("tiny", **TINY["overrides"])
+    params = _decode_params(llama, cfg, torch.device("cpu"), seed=0)
+    ckpt = str(root / "ckpt")
+    nbytes = cs.export_sharded(params, "llama", cfg, ckpt)
+    tok = cs.write_tokenizer_json(str(root / "ckpt" / "tokenizer.json"))
+    return {"cfg": cfg, "params": params, "ckpt": ckpt, "tok": tok, "bytes": nbytes}
+
+
+def test_the_pretrained_phase_specs_are_valid_at_8b_widths():
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+
+    for spec in (cs.pretrained_infer_spec("/ck", "/ck/tokenizer.json"),
+                 cs.pretrained_infer_spec(prompt_ids=[1, 2, 3]),
+                 cs.pretrained_serve_spec("/ck", "/ck/tokenizer.json")):
+        rt = JaxXlaRuntime.from_dict(spec)
+        assert rt.validate() == []
+        assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == ("llama", "8b", {})
+        assert rt.train.batch_size == 8
+    serve = JaxXlaRuntime.from_dict(cs.pretrained_serve_spec("/ck", "/t")).serve
+    assert len(serve.prompts) == 8 and serve.attention_path == "fused" and serve.prefix_cache
+    assert sum(p.startswith(" ".join(cs.PRETRAINED_PREAMBLE)) for p in serve.prompts) == 4
+    assert len(cs.PRETRAINED_PREAMBLE) == 200 and 35 <= len(cs.PRETRAINED_PROMPT.split()) <= 45
+
+
+def test_the_tokenizer_writer_gives_a_file_both_engines_read_alike(tiny_export):
+    import json
+
+    from nexus_tpu_torch.utils.tokenizer import load_tokenizer
+
+    with open(tiny_export["tok"]) as f:
+        doc = json.load(f)
+    vocab = doc["model"]["vocab"]
+    assert len(doc["model"]["merges"]) == 300 and len(vocab) == 256 + 300
+    assert sorted(vocab.values()) == list(range(len(vocab)))
+    assert [t["id"] for t in doc["added_tokens"]] == [len(vocab), len(vocab) + 1]
+    pure, rust = (load_tokenizer(tiny_export["tok"], engine=e) for e in ("pure", "rust"))
+    for text in [cs.PRETRAINED_PROMPT] + cs.pretrained_prompts():
+        ids = pure.encode(text)
+        assert ids == rust.encode(text) and pure.decode(ids) == text
+        assert max(ids) < 128256  # Llama-3-8B's vocabulary
+
+
+def test_the_sharded_export_and_the_load_gate(tiny_export, tmp_path):
+    """Four shards of about equal bytes and an index naming every tensor;
+    the load gate passes on the export and fails on a flipped bit in one
+    shard; a missing tensor fails the load."""
+    import json
+    import os
+    import shutil
+
+    from nexus_tpu_torch.runtime.weights import load_pretrained
+
+    ckpt, cfg, params = tiny_export["ckpt"], tiny_export["cfg"], tiny_export["params"]
+    with open(os.path.join(ckpt, "model.safetensors.index.json")) as f:
+        index = json.load(f)
+    shards = sorted(set(index["weight_map"].values()))
+    assert shards == [f"model-0000{i}-of-00004.safetensors" for i in range(1, 5)]
+    assert index["metadata"]["total_size"] == tiny_export["bytes"]
+    cs.check_load("x", params, load_pretrained("llama", ckpt, cfg, device="cpu"))
+
+    bad = str(tmp_path / "flipped")
+    shutil.copytree(ckpt, bad)
+    path = os.path.join(bad, shards[2])
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) - 3)
+        byte = f.read(1)[0]
+        f.seek(-1, 1)
+        f.write(bytes([byte ^ 0x10]))
+    with pytest.raises(AssertionError, match="differ from the exported"):
+        cs.check_load("x", params, load_pretrained("llama", bad, cfg, device="cpu"))
+
+    holed = str(tmp_path / "holed")
+    shutil.copytree(ckpt, holed)
+    victim = "model.layers.1.mlp.up_proj.weight"
+    index["weight_map"].pop(victim)
+    with open(os.path.join(holed, "model.safetensors.index.json"), "w") as f:
+        json.dump(index, f)
+    with pytest.raises(KeyError, match="up_proj"):
+        load_pretrained("llama", holed, cfg, device="cpu")
+
+
+def test_the_pretrained_infer_gate_on_the_cpu(tiny_export):
+    """infer-pretrained's spec at the tiny preset: the gate holds on a good
+    run, and fails on a run whose ids differ or whose weights were not
+    loaded."""
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+    from nexus_tpu_torch.utils.tokenizer import load_tokenizer
+
+    ids = load_tokenizer(tiny_export["tok"]).encode(cs.PRETRAINED_PROMPT)
+    m = run_template_runtime(_tiny(cs.pretrained_infer_spec(tiny_export["ckpt"],
+                                                            tiny_export["tok"])), device="cpu")
+    ref = run_template_runtime(_tiny(cs.pretrained_infer_spec(prompt_ids=ids)), device="cpu")
+    assert m["output_shape"] == [8, len(ids) + cs.PRETRAINED_NEW_TOKENS]
+    cs.check_pretrained_infer("x", m, ref, len(ids))
+    with pytest.raises(AssertionError, match="completion ids"):
+        flipped = [t ^ 1 for t in ref["completion_ids"]]
+        cs.check_pretrained_infer("x", m, dict(ref, completion_ids=flipped), len(ids))
+    with pytest.raises(AssertionError, match="weights_loaded"):
+        cs.check_pretrained_infer("x", dict(m, weights_loaded=False), ref, len(ids))
+    with pytest.raises(AssertionError, match="prompt_tokens"):
+        cs.check_pretrained_infer("x", m, ref, len(ids) + 1)
+
+
+def test_the_pretrained_serve_gates_on_the_cpu(tiny_export):
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    m = run_template_runtime(_tiny(cs.pretrained_serve_spec(tiny_export["ckpt"],
+                                                            tiny_export["tok"])), device="cpu")
+    cs.check_serve("x", m, {1: 1})
+    cs.check_pretrained_serve("x", m)
+    assert m["prefix_hit_tokens"] > 0  # the shared preamble
+    with pytest.raises(AssertionError, match="completions"):
+        cs.check_pretrained_serve("x", dict(m, completions=m["completions"][:7]))
+
+
+def test_the_pure_tokenizer_gate(tiny_export):
+    """The pure engine equals the engine load_tokenizer picks on every
+    prompt of the phases; a tokenizer that splits otherwise fails."""
+    from nexus_tpu_torch.utils.tokenizer import load_tokenizer
+
+    chosen, pure = load_tokenizer(tiny_export["tok"]), load_tokenizer(tiny_export["tok"], "pure")
+    cs.check_pure_tokenizer("x", chosen, pure)
+
+    class Off:
+        def encode(self, text):
+            return pure.encode(text)[1:]
+
+    with pytest.raises(AssertionError, match="pure tokenizer"):
+        cs.check_pure_tokenizer("x", chosen, Off())

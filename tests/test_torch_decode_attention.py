@@ -289,7 +289,7 @@ def test_the_flash_check_still_refuses_16_96_and_float32_naming_item_2(d, dtype)
     naming the flash kernels' item."""
     q = torch.zeros(1, 128, 4, d, dtype=dtype)
     k = torch.zeros(1, 128, 2, d, dtype=dtype)
-    with pytest.raises(NotImplementedError, match="flash kernels for float32 and head dim 256"):
+    with pytest.raises(NotImplementedError, match="'TPU kernels', item 2: K1-K3 for float32 and head dim 256"):
         tattn._check_cuda(q, k, k, causal=True, window=0)
     assert tattn.KERNEL_HEAD_DIMS == (64, 128)
     assert not tattn.tile_ok(q, k) or d == 128

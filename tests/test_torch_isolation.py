@@ -1,4 +1,6 @@
-"""The port imports neither JAX, optax nor the JAX package.
+"""The port imports neither JAX, optax nor the JAX package, nor the packages
+the card lacks (ml_dtypes, safetensors, regex); tokenizers only inside
+utils/tokenizer.py's _RustTokenizer, which imports it lazily.
 
 An AST scan of every module of nexus_tpu_torch and of chip_smoke.py (a check
 of sys.modules would not do: the interpreter's start-up may import JAX)."""
@@ -10,7 +12,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "nexus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "optax", "flax", "orbax", "nexus_tpu")
+BANNED = ("jax", "jaxlib", "optax", "flax", "orbax", "nexus_tpu", "ml_dtypes", "safetensors",
+          "regex")
+# a package the card lacks, imported only inside one class of one module
+LAZY_ONLY = {"tokenizers": ("nexus_tpu_torch/utils/tokenizer.py", "_RustTokenizer")}
 
 
 def _banned(module: str) -> bool:
@@ -18,8 +23,8 @@ def _banned(module: str) -> bool:
     return top in BANNED
 
 
-def _imports(path: Path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _imports(path: Path, tree=None):
+    tree = tree or ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -43,7 +48,7 @@ def test_the_scan_sees_the_port():
                    "obs/federation.py", "fleet/router.py", "fleet/fleet.py",
                    "ha/serve_failover.py", "ops/moe.py", "models/mixtral.py",
                    "models/params.py", "train/checkpoint.py", "models/gptneox.py",
-                   "models/mlp.py"):
+                   "models/mlp.py", "runtime/weights.py", "utils/tokenizer.py"):
         assert f"nexus_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -58,3 +63,25 @@ def test_the_rule_allows_the_port_and_bans_the_reference():
 def test_no_jax_optax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in _imports(path) if _banned(mod)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_rule_bans_what_the_card_lacks():
+    assert _banned("ml_dtypes") and _banned("safetensors.numpy") and _banned("regex")
+    assert not _banned("re") and not _banned("nexus_tpu_torch.utils.tokenizer")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_tokenizers_only_inside_the_rust_adapter(path):
+    """``tokenizers`` is imported nowhere but in ``_RustTokenizer``'s body."""
+    rel = path.relative_to(ROOT).as_posix()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    allowed = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and (rel, node.name) == LAZY_ONLY["tokenizers"]:
+            allowed |= {line for line, mod in _imports(path, node)
+                        if mod.split(".")[0] == "tokenizers"}
+    bad = [(line, mod) for line, mod in _imports(path, tree)
+           if mod.split(".")[0] == "tokenizers" and line not in allowed]
+    assert not bad, f"{rel} imports {bad}"
+    if rel == LAZY_ONLY["tokenizers"][0]:
+        assert allowed  # the adapter is where the scan looks

@@ -114,7 +114,7 @@ def test_token_file_batches_identical_to_jax(tmp_path):
     path = str(tmp_path / "corpus.int32")
     jdata.write_token_file(path, np.arange(5000) % 300)
     a = jdata.token_file_batches(path, 4, 32, seed=2, vocab_size=300)
-    b = tdata.corpus_batches(path, 4, 32, seed=2, vocab_size=300)
+    b = tdata.token_file_batches(path, 4, 32, seed=2, vocab_size=300)
     for _ in range(3):
         assert np.array_equal(next(a)["tokens"], next(b)["tokens"])
 
@@ -226,14 +226,29 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}), ValueError,
      "dots"),
-    # pretrained HF weights (ROADMAP item 5); family gptneox, which this
-    # case once named, now trains (tests/test_torch_gptneox.py)
-    (dict(model={"weights": {"format": "safetensors", "path": "/x"}}), NotImplementedError,
+    # ring attention (ROADMAP module item 4); family gptneox and then
+    # model.weights, which this case once named, now run
+    # (tests/test_torch_gptneox.py, tests/test_torch_pretrained.py)
+    (dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}}), NotImplementedError,
      "not ported"),
 ])
 def test_unported_paths_raise(over, exc, match):
     with pytest.raises(exc, match=match):
         run_template_runtime(_tiny_spec(**over), device="cpu")
+
+
+def test_llama_ring_attention_raises_naming_item_4():
+    with pytest.raises(NotImplementedError, match="item 4"):
+        run_template_runtime(_tiny_spec(model={"overrides": {"attn_impl": "ring"}}), device="cpu")
+
+
+def test_train_ignores_model_weights(tmp_path):
+    """As in JAX's train path, model.weights (even a path that holds
+    nothing) changes nothing: the same losses as the run without it."""
+    plain = run_template_runtime(_tiny_spec(), device="cpu")
+    weighted = run_template_runtime(_tiny_spec(model={"weights": {
+        "format": "safetensors", "path": str(tmp_path / "none")}}), device="cpu")
+    assert weighted["loss_history"] == plain["loss_history"] and weighted["steps"] == 4
 
 
 @pytest.mark.parametrize("serve", [
