@@ -108,10 +108,27 @@ Phases, each of which raises on failure:
    gates and 8 completions; ``pretrained-mixtral`` and ``pretrained-neox``
    (Mixtral-8x7B and GPT-NeoX-20B at 2 layers, one file each) load bit for
    bit; all in temporary directories that the phases remove;
-14. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP and pretrained phase's launches), the script's wall time, the card's
-   name and power limit, and as the last line ``{"ok": true, "device":
-   {...}}``.
+14. Orbax checkpoints (``checkpoint.format: orbax``, the spec's default):
+   ``llama-orbax`` trains Llama-3-8B at its published widths cut to 2 layers
+   (~1.49 G parameters, ~8.9 GB a step) with a checkpoint block that names
+   no format (interval 2, keep 1), B 2 x S 4096 for 4 steps, then resumes
+   to 6: the second run starts at step 4, one step is kept, no staging
+   directory survives, every OCDBT frame's CRC32C holds, a fresh state
+   restored from step 4 equals the trained one bit for bit on the card, and
+   a params-only restore reads the ``params.*`` values alone (save and
+   restore seconds, GB/s and bytes a step are printed); ``infer-orbax``
+   restores the params of step 6 and its greedy ids must equal the same run
+   on the trained params in memory; ``serve-orbax`` serves 8 requests from
+   them with the serve gates (D1 at T 1 and 8); ``orbax-jax-step`` restores
+   the JAX-written fixture (tests/data/orbax_llama_tiny/, Orbax and npz
+   copies of one state) through the C zstd decoder, the two equal leaf for
+   leaf, decodes every chunk frame with the C decoder and its Python twin
+   (equal bytes) and times both on this machine's host CPU; in a temporary
+   directory that the phases remove;
+15. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained and Orbax phase's launches), the script's wall time, the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -1441,15 +1458,10 @@ def differing_members(a: str, b: str, chunk: int = 1 << 26) -> list:
     return bad
 
 
-def resave_check(directory: str, step: int, spec: dict, scratch: str,
-                 device: str = "cuda") -> dict:
-    """Restore ``<directory>/<step>/state.npz`` into a fresh port state on
-    the card and save it again under ``scratch``: the members that differ
-    (none may), and the seconds of the restore and of the save."""
-    import torch
-
+def fresh_train_state(spec: dict, device: str = "cuda"):
+    """(family, config, a train state of uninitialised tensors on ``device``)
+    as the train entry point builds it for ``spec``: the restore target."""
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.train.checkpoint import NpzCheckpointer
     from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state
 
     family = get_family(spec["model"]["family"])
@@ -1458,7 +1470,19 @@ def resave_check(directory: str, step: int, spec: dict, scratch: str,
     tr = spec["train"]
     opt = build_optimizer(tr["learningRate"], warmup_steps=tr["warmupSteps"],
                           total_steps=tr["steps"])
-    state = init_train_state(params, family.leaves(params), opt)
+    return family, cfg, init_train_state(params, family.leaves(params), opt)
+
+
+def resave_check(directory: str, step: int, spec: dict, scratch: str,
+                 device: str = "cuda") -> dict:
+    """Restore ``<directory>/<step>/state.npz`` into a fresh port state on
+    the card and save it again under ``scratch``: the members that differ
+    (none may), and the seconds of the restore and of the save."""
+    import torch
+
+    from nexus_tpu_torch.train.checkpoint import NpzCheckpointer
+
+    _, _, state = fresh_train_state(spec, device)
     t0 = time.monotonic()
     NpzCheckpointer(directory).restore(state, step=step)
     if device == "cuda":
@@ -2016,6 +2040,346 @@ def run_pretrained_phases() -> dict:
     return out
 
 
+# ------------------------------------------------------------ Orbax checkpoints
+#
+# Llama-3-8B at its published widths cut to 2 layers: 1.49 G parameters
+# (embed and lm_head 0.53 G each, 0.22 G a layer), 2.98 GB of bf16 params and
+# ~8.9 GB a step with both AdamW moments (bf16, as the params); the depth is
+# cut for disk and time, the widths are the published ones.
+
+ORBAX_LAYERS = 2
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "orbax_llama_tiny")
+ORBAX_KEYS = ("steps_on_disk", "step_bytes", "save_s", "save_gb_per_s", "restore_s",
+              "restore_gb_per_s", "fsync_s", "params_restore_s", "params_bytes_read", "state_bytes_read",
+              "frames_checked", "resumed_from_step", "tokens_per_sec", "final_loss",
+              "loss_history", "restored_step", "committed_tokens",
+              "decode_launches_by_t", "frames", "c_mb_per_s", "plain_mb_per_s", "phase_wall_s")
+
+
+def orbax_train_spec(directory: str, steps: int) -> dict:
+    spec = _train_spec(n_layers=ORBAX_LAYERS, steps=steps)
+    spec["checkpoint"] = {"enabled": True, "directory": directory, "intervalSteps": 2,
+                          "keep": 1, "resume": True}  # no format: Orbax, the default
+    return spec
+
+
+def _recording_saves():
+    """Wrap ``OrbaxCheckpointer.save`` to record each save that writes a
+    step: its step, seconds (and the part of them spent in ``os.fsync``,
+    the flush to disk), bytes on disk and the state it wrote (the
+    trainer's own, which a run leaves at its last step). Returns (records,
+    a function that removes the wrapper)."""
+    from nexus_tpu_torch.train import checkpoint as C
+
+    orig = C.OrbaxCheckpointer.save
+    records = []
+
+    def save(self, state, step=None):
+        target = os.path.join(self.directory, str(int(state.step) if step is None else step))
+        fresh = not os.path.isdir(target)
+        real_fsync, fsync_s = os.fsync, [0.0]
+
+        def timed_fsync(fd):
+            t = time.monotonic()
+            real_fsync(fd)
+            fsync_s[0] += time.monotonic() - t
+
+        os.fsync = timed_fsync
+        try:
+            t0 = time.monotonic()
+            out = orig(self, state, step)
+            seconds = time.monotonic() - t0
+        finally:
+            os.fsync = real_fsync
+        if fresh:
+            records.append({"step": out, "save_s": seconds, "fsync_s": fsync_s[0],
+                            "bytes": _dir_bytes(target), "state": state})
+        return out
+
+    C.OrbaxCheckpointer.save = save
+    return records, lambda: setattr(C.OrbaxCheckpointer, "save", orig)
+
+
+def _staging(directory: str) -> list:
+    from nexus_tpu_torch.train.orbax_format import TMP_MARK
+
+    return [e for e in os.listdir(directory) if TMP_MARK in e or e.startswith(".tmp-")]
+
+
+def check_store_frames(step_dir: str) -> int:
+    """Every manifest and node frame of a step's OCDBT store, its length
+    field and CRC32C checked (``ocdbt.unframe`` raises on a mismatch), and
+    every key reachable: the number of frames."""
+    from nexus_tpu_torch.utils import ocdbt
+
+    store = os.path.join(step_dir, "default")
+    magics = (ocdbt.MANIFEST_MAGIC, ocdbt.BTREE_MAGIC, ocdbt.VERSION_MAGIC)
+    n = 0
+    for path in [os.path.join(store, "manifest.ocdbt")] + [
+            os.path.join(store, "d", f) for f in sorted(os.listdir(os.path.join(store, "d")))]:
+        with open(path, "rb") as f:
+            magic = int.from_bytes(f.read(4), "big")
+            if magic in magics:
+                f.seek(0)
+                ocdbt.unframe(f.read(), magic, path)
+                n += 1
+    with ocdbt.Reader(store) as reader:
+        if not reader.entries():
+            raise AssertionError(f"{store}: no keys")
+    return n
+
+
+def differing_state_leaves(a, b) -> list:
+    """The tree paths at which two train states differ, compared on their
+    device bit for bit (bf16 as 16-bit patterns), counts and step too."""
+    import torch
+
+    from nexus_tpu_torch.train.orbax_format import state_leaves
+
+    bad = []
+    for x, y in zip(state_leaves(a), state_leaves(b)):
+        same = same_bits(x.value, y.value) if torch.is_tensor(x.value) else x.value == y.value
+        if not same:
+            bad.append(x.name)
+    return bad
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape with the same bits (bf16 compared
+    as 16-bit patterns, so a NaN equals itself)."""
+    import torch
+
+    a, b = a.detach(), b.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def params_value_bytes(step_dir: str) -> tuple:
+    """(bytes of the ``params.*`` values, bytes of all values) of a step's
+    store."""
+    from nexus_tpu_torch.utils import ocdbt
+
+    with ocdbt.Reader(os.path.join(step_dir, "default")) as reader:
+        sizes = {k: v.length if isinstance(v, ocdbt.Ref) else len(v)
+                 for k, v in reader.entries().items()}
+    return sum(n for k, n in sizes.items() if k.startswith(b"params.")), sum(sizes.values())
+
+
+def check_llama_orbax(name: str, m: dict) -> None:
+    """The train -> checkpoint -> resume gates."""
+    if m["steps_after_first"] != [4] or m["steps_on_disk"] != [6]:
+        raise AssertionError(f"{name}: steps on disk {m['steps_after_first']} then "
+                             f"{m['steps_on_disk']}, expected [4] then [6] (keep 1)")
+    if m["staging"]:
+        raise AssertionError(f"{name}: staging directories survived: {m['staging']}")
+    if m["resumed_from_step"] != 4:
+        raise AssertionError(f"{name}: resumed_from_step {m['resumed_from_step']}, not 4")
+    if m["differing_leaves"] or m["differing_params"]:
+        raise AssertionError(f"{name}: restored leaves differ from the trained state: "
+                             f"{(m['differing_leaves'] + m['differing_params'])[:5]}")
+    if m["params_bytes_read"] != m["params_value_bytes"] or not (
+            m["params_bytes_read"] < m["state_bytes_read"] == m["all_value_bytes"]):
+        raise AssertionError(f"{name}: a params-only restore read {m['params_bytes_read']} "
+                             f"bytes, the params.* values are {m['params_value_bytes']}, a "
+                             f"full restore {m['state_bytes_read']} of {m['all_value_bytes']}")
+    if m["frames_checked"] < 2:
+        raise AssertionError(f"{name}: {m['frames_checked']} OCDBT frames checked")
+
+
+def phase_llama_orbax(ck: str) -> tuple:
+    """Train 4 steps saving in the default format, restore step 4 into a
+    fresh state and params alone, then resume to 6. Returns (metrics with
+    the first run's launches, the resumed run's metrics, the trained
+    params of step 6)."""
+    import torch
+
+    from nexus_tpu_torch.train import checkpoint as C
+    from nexus_tpu_torch.train.orbax_format import param_leaves
+
+    t0 = time.monotonic()
+    records, unwrap = _recording_saves()
+    try:
+        first = phase_train("llama-orbax", orbax_train_spec(ck, steps=4))
+        out = {"steps_after_first": C.all_steps(ck), "launches": first["launches"],
+               **{k: first[k] for k in ("tokens_per_sec", "final_loss", "loss_history")}}
+        save = records[-1]
+        trained = save["state"]
+        step_dir = os.path.join(ck, "4")
+        out.update(step_bytes=save["bytes"], save_s=save["save_s"], fsync_s=save["fsync_s"],
+                   save_gb_per_s=save["bytes"] / save["save_s"] / 1e9)
+        out["params_value_bytes"], out["all_value_bytes"] = params_value_bytes(step_dir)
+        out["frames_checked"] = check_store_frames(step_dir)
+        family, cfg, fresh = fresh_train_state(orbax_train_spec(ck, steps=4))
+        ckpt = C.OrbaxCheckpointer(ck, keep=1)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        ckpt.restore(fresh)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.monotonic() - t1
+        out["restore_gb_per_s"] = save["bytes"] / out["restore_s"] / 1e9
+        out["state_bytes_read"] = ckpt.last_bytes_read
+        out["differing_leaves"] = differing_state_leaves(fresh, trained)
+        del fresh
+        params = family.empty_params(cfg, "cuda")
+        t1 = time.monotonic()
+        ckpt.restore_params(params)
+        torch.cuda.synchronize()
+        out["params_restore_s"] = time.monotonic() - t1
+        out["params_bytes_read"] = ckpt.last_bytes_read
+        out["differing_params"] = [
+            a.name for a, b in zip(param_leaves(params), param_leaves(trained.params))
+            if not same_bits(a.value, b.value)]
+        del params, trained, save
+        records.clear()
+        _free_card()
+        resumed = phase_train("llama-orbax-resume", orbax_train_spec(ck, steps=6),
+                              must_fall=False)
+        final = records[-1]["state"].params
+        records.clear()
+    finally:
+        unwrap()
+    out.update(steps_on_disk=C.all_steps(ck), staging=_staging(ck),
+               resumed_from_step=resumed["resumed_from_step"],
+               phase_wall_s=time.monotonic() - t0)
+    log(f"[llama-orbax] step {out['step_bytes'] / 1e9:.3f} GB: save {out['save_s']:.2f} s "
+        f"({out['save_gb_per_s']:.2f} GB/s; {out['fsync_s']:.2f} s of it in fsync), restore {out['restore_s']:.2f} s "
+        f"({out['restore_gb_per_s']:.2f} GB/s), params-only restore "
+        f"{out['params_restore_s']:.2f} s reading {out['params_bytes_read'] / 1e9:.3f} GB of "
+        f"{out['all_value_bytes'] / 1e9:.3f} GB; {out}")
+    check_llama_orbax("llama-orbax", out)
+    return out, resumed, final
+
+
+def orbax_infer_spec(ck: str) -> dict:
+    return dict(INFER_SPEC, model={"family": "llama", "preset": "8b",
+                                   "overrides": {"n_layers": ORBAX_LAYERS}},
+                checkpoint={"enabled": True, "directory": ck, "resume": True})
+
+
+def phase_infer_orbax(ck: str, trained_params) -> dict:
+    """Infer from the params restored from step 6; its greedy ids against
+    the same run on the trained params in memory."""
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    m, launches, _ = _launches_during(lambda: phase_infer(orbax_infer_spec(ck), "infer-orbax"),
+                                      ())
+    load = E._load_params
+    E._load_params = lambda runtime, family, cfg, dev: (trained_params, True, -1)
+    try:
+        ref = phase_infer(orbax_infer_spec(ck), "infer-orbax-ref")
+    finally:
+        E._load_params = load
+    log(f"[infer-orbax] restored_step {m['restored_step']}, completion_ids "
+        f"{m['completion_ids']}, in memory {ref['completion_ids']}")
+    if not m["weights_loaded"] or m["restored_step"] != 6:
+        raise AssertionError(f"infer-orbax: weights_loaded {m['weights_loaded']}, "
+                             f"restored_step {m['restored_step']}, not 6")
+    if m["completion_ids"] != ref["completion_ids"]:
+        raise AssertionError(f"infer-orbax: greedy ids {m['completion_ids']} differ from the "
+                             f"in-memory params' {ref['completion_ids']}")
+    m["launches"] = launches
+    return m
+
+
+def phase_serve_orbax(ck: str) -> dict:
+    spec = _serve_spec(num_requests=8)
+    spec["model"] = {"family": "llama", "preset": "8b", "overrides": {"n_layers": ORBAX_LAYERS}}
+    spec["checkpoint"] = {"enabled": True, "directory": ck, "resume": True}
+    m = phase_serve("serve-orbax", spec, must_t=(1, 8))
+    if not m["weights_loaded"] or m["restored_step"] != 6:
+        raise AssertionError(f"serve-orbax: weights_loaded {m['weights_loaded']}, "
+                             f"restored_step {m['restored_step']}, not 6")
+    return m
+
+
+def _mb_per_s(decode, frames, total: int, min_s: float = 2.0) -> float:
+    """Decoded MB/s of ``decode`` over ``frames``, looped for at least
+    ``min_s`` seconds."""
+    loops, t0 = 0, time.monotonic()
+    while True:
+        for f in frames:
+            decode(f)
+        loops += 1
+        dt = time.monotonic() - t0
+        if dt >= min_s:
+            return total * loops / dt / 1e6
+
+
+def phase_orbax_jax_step() -> dict:
+    """The JAX-written fixture: its Orbax and npz steps restored by the port
+    onto the card equal leaf for leaf; every chunk frame decoded by the C
+    decoder and by its Python twin to equal bytes; both timed on the host
+    CPU."""
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.train import checkpoint as C
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state
+    from nexus_tpu_torch.utils import ocdbt, zstd
+
+    t0 = time.monotonic()
+    cfg = llama.config("tiny", dtype="bfloat16")
+
+    def state():  # the fixture's optimizer: warmup 2 of 8 steps
+        params = llama.empty_params(cfg, "cuda")
+        return init_train_state(params, llama.leaves(params),
+                                build_optimizer(3e-3, warmup_steps=2, total_steps=8))
+
+    from_orbax, from_npz = state(), state()
+    orbax_ck = C.make_checkpointer(os.path.join(ORBAX_FIXTURE, "orbax"), fmt="auto")
+    npz_ck = C.make_checkpointer(os.path.join(ORBAX_FIXTURE, "npz"), fmt="auto")
+    if not isinstance(orbax_ck, C.OrbaxCheckpointer) or not isinstance(npz_ck, C.NpzCheckpointer):
+        raise AssertionError(f"orbax-jax-step: the fixture's formats were sniffed as "
+                             f"{type(orbax_ck).__name__}, {type(npz_ck).__name__}")
+    orbax_ck.restore(from_orbax)
+    npz_ck.restore(from_npz)
+    bad = differing_state_leaves(from_orbax, from_npz)
+    with ocdbt.Reader(os.path.join(ORBAX_FIXTURE, "orbax", "1", "default")) as reader:
+        frames = [reader.read(k) for k in reader.keys() if not k.endswith(b"/.zarray")]
+    decoded = [zstd.decompress(f).tobytes() for f in frames]
+    mismatched = [i for i, (f, d) in enumerate(zip(frames, decoded))
+                  if zstd.decompress_plain(f) != d]
+    total = sum(len(d) for d in decoded)
+    out = {"frames": {"count": len(frames), "compressed_bytes": sum(len(f) for f in frames),
+                      "decoded_bytes": total, "largest_decoded": max(len(d) for d in decoded)},
+           "c_mb_per_s": _mb_per_s(zstd.decompress, frames, total),
+           "plain_mb_per_s": _mb_per_s(zstd.decompress_plain, frames, total),
+           "step": from_orbax.step, "phase_wall_s": time.monotonic() - t0}
+    log(f"[orbax-jax-step] {out}; the decoders timed on this machine's host CPU")
+    if bad or from_orbax.step != 1:
+        raise AssertionError(f"orbax-jax-step: the Orbax and npz steps differ at {bad[:5]} "
+                             f"(steps {from_orbax.step}, {from_npz.step})")
+    if mismatched or not frames:
+        raise AssertionError(f"orbax-jax-step: the C and Python decoders differ on frames "
+                             f"{mismatched} of {len(frames)}")
+    return out
+
+
+def run_orbax_phases() -> dict:
+    """The Orbax phases in order, in a temporary directory that they
+    remove: {phase: metrics, with the kernel launches of the runs that
+    launch kernels}."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="llama-orbax-")
+    try:
+        log(f"[llama-orbax] {shutil.disk_usage(root).free / 1e9:.1f} GB free under {root}")
+        ck = os.path.join(root, "ck")
+        out = {}
+        out["llama-orbax"], out["llama-orbax-resume"], trained = phase_llama_orbax(ck)
+        out["infer-orbax"] = phase_infer_orbax(ck, trained)
+        del trained
+        _free_card()
+        out["serve-orbax"] = phase_serve_orbax(ck)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free_card()
+    out["orbax-jax-step"] = phase_orbax_jax_step()
+    return out
+
+
 # the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
 # vocabulary and context, random weights from the seed
 DRAFT_REF = {"family": "llama", "preset": "draft",
@@ -2098,6 +2462,7 @@ def main() -> int:
     mixtral = run_mixtral_phases()
     neox = run_neox_mlp_phases()
     pretrained = run_pretrained_phases()
+    orbax = run_orbax_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -2116,6 +2481,8 @@ def main() -> int:
             "gptneox_mlp_launches": {phase: run["launches"][n] for phase, run in neox.items()},
             "pretrained_launches": {phase: run["launches"][n] for phase, run in pretrained.items()
                                     if "launches" in run},
+            "orbax_launches": {phase: run["launches"][n] for phase, run in orbax.items()
+                               if "launches" in run},
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -2164,6 +2531,8 @@ def main() -> int:
                         for phase, run in neox.items()},
         "pretrained": {phase: {k: run.get(k) for k in PRETRAINED_KEYS if k in run}
                        for phase, run in pretrained.items()},
+        "orbax": {phase: {k: run.get(k) for k in ORBAX_KEYS if k in run}
+                  for phase, run in orbax.items()},
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},

@@ -7,6 +7,11 @@ build runs at first use, all sources at once (one ``nvcc`` each), into
 ``csrc`` and the compiler flags: an edited source builds anew, an unchanged
 one is loaded from the earlier build. Nothing is built at import time.
 
+``host_library`` builds a C source of ``csrc`` for the host CPU instead
+(``cc -O2 -shared -fPIC``, no CUDA): the zstd decoder, which the CPU tests
+build and load too. It has a build directory of its own,
+``_build/host-<digest>/``, whose digest covers that source and the flags.
+
 ``VARIANTS`` are second builds of a source with extra flags (the
 paged-decode kernel with P rounded to bf16), built only when asked for:
 ``chip_smoke.py`` and ``tools/decode_ab.py`` time them beside the port's
@@ -115,6 +120,41 @@ def library(source: str) -> ctypes.CDLL:
             variant = source in VARIANTS
             name = source if variant else Path(source).stem
             lib = ctypes.CDLL(str(_lib_path(build(variants=variant), name)))
+            _libs[source] = lib
+        return lib
+
+
+HOST_CFLAGS = ("-O2", "-shared", "-fPIC", "-std=gnu11")
+
+
+def host_build_dir(source: str) -> Path:
+    h = hashlib.sha256(" ".join(HOST_CFLAGS).encode())
+    h.update(source.encode())
+    h.update((CSRC / source).read_bytes())
+    return BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The loaded host library of the C source ``source`` in ``csrc``,
+    compiled with the host's ``cc`` if needed; raise with the compiler's
+    output when there is no compiler or the build fails."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            out = host_build_dir(source)
+            path = _lib_path(out, Path(source).stem)
+            if not path.exists():
+                cc = shutil.which("cc")
+                if cc is None:
+                    raise RuntimeError(f"no host C compiler (cc) to build nexus_tpu_torch/csrc/{source}")
+                out.mkdir(parents=True, exist_ok=True)
+                tmp = out / f".{Path(source).stem}.{os.getpid()}.so"
+                proc = subprocess.run([cc, *HOST_CFLAGS, "-o", str(tmp), str(CSRC / source)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"cc {source} failed ({proc.returncode}):\n{proc.stdout}")
+                os.replace(tmp, path)  # atomic: no half-written library
+            lib = ctypes.CDLL(str(path))
             _libs[source] = lib
         return lib
 

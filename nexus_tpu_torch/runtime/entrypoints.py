@@ -12,9 +12,10 @@ span timeline there (a fleet run: the stitched journeys, and the router's
 decision log to ``<path>.fleetlog.json``); ``NEXUS_SERVE_REPLICA_ID`` tags
 a single engine's live gauges ``engine:<id>``.
 
-Training checkpoints and resumes in the npz layout (``checkpoint.format:
-npz`` or ``auto``; train/checkpoint.py) and opens the profiler window
-(``profile``); it ignores ``model.weights``, as the JAX entry point does.
+Training checkpoints and resumes in either of JAX's formats
+(``checkpoint.format``: ``orbax``, the default, ``npz`` or ``auto``;
+train/checkpoint.py) and opens the profiler window (``profile``); it
+ignores ``model.weights``, as the JAX entry point does.
 Infer and serve take their params from ``model.weights`` (an HF safetensors
 checkpoint, runtime/weights.py), else restore them from a checkpoint
 directory, else draw random weights from ``train.seed``; a speculative
@@ -26,8 +27,7 @@ metrics carry the decoded ``completion`` / ``completions``. Family
 
 This slice runs on one device. A declared parallelism over more chips is
 re-planned to one device and logged. Features not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: the Orbax checkpoint
-format.
+``NotImplementedError`` naming their ROADMAP item: ring attention (item 4).
 """
 
 from __future__ import annotations

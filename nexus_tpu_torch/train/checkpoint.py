@@ -1,7 +1,9 @@
-"""Checkpoint and resume in the JAX package's npz layout (counterpart of
-``nexus_tpu/train/checkpoint.py``).
+"""Checkpoint and resume in the JAX package's two formats (counterpart of
+``nexus_tpu/train/checkpoint.py``): Orbax (``OrbaxCheckpointer``, the
+spec's default; the step layout is train/orbax_format.py's) and npz
+(``NpzCheckpointer``). Either package reads the other's steps in both.
 
-Layout per step (``<directory>/<step>/``), the JAX ``NpzCheckpointer``'s:
+npz layout per step (``<directory>/<step>/``), the JAX ``NpzCheckpointer``'s:
 
 * ``state.npz``  — every leaf of the train state as ``leaf_{i}``, in the
   JAX flatten order of ``TrainState(params, opt_state, step)``: the params
@@ -20,9 +22,12 @@ each save. Restores write into the tensors of the caller's state or params
 in place (cast to their dtypes), one leaf at a time, so nothing is
 allocated twice on the device and the host holds one leaf.
 
-The JAX default format, Orbax, is not ported: its tensorstore layout has
-no reader among the card's installs, and ``make_checkpointer`` refuses it
-rather than write npz where Orbax was asked for.
+An Orbax save stages into ``<step>.orbax-checkpoint-tmp-<ns>`` and
+publishes with one ``os.rename``, as Orbax does; it is synchronous (JAX's
+interval saves are asynchronous). Its restores write into the caller's
+tensors one array chunk at a time, each zstd frame decoded straight into a
+host buffer of the chunk's size; ``restore_params`` reads the ``params.*``
+arrays alone (JAX's reads the optimizer moments too, then drops them).
 """
 
 from __future__ import annotations
@@ -38,13 +43,11 @@ import numpy as np
 import torch
 
 from nexus_tpu_torch.models.params import tree_leaves
+from nexus_tpu_torch.train import orbax_format
 
 # numpy's descr for an ml_dtypes bfloat16 array, as the JAX package's
 # np.savez writes it; a plain 'V2' array would say '|V2'
 _BF16_DESCR = "<V2"
-_ORBAX_ITEM = ("checkpoint.format 'orbax' is not ported (ROADMAP 'Port to PyTorch/CUDA', "
-               "item 7: Orbax's tensorstore layout has no reader among the card's installs); "
-               "set checkpoint.format: npz")
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -113,14 +116,86 @@ def state_leaves(state) -> List[Any]:
     return out
 
 
-class NpzCheckpointer:
-    """Dependency-free checkpointer (``checkpoint.format: npz``) with a
-    params-only restore that reads ``params.npz`` alone."""
+class _Steps:
+    """A directory of numbered steps: the listing and ``keep`` pruning both
+    formats share."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.keep = int(keep)
         os.makedirs(self.directory, exist_ok=True)
+
+    def _gc(self) -> None:
+        steps = all_steps(self.directory)
+        for stale in steps[: max(len(steps) - self.keep, 0)]:
+            shutil.rmtree(os.path.join(self.directory, str(stale)), ignore_errors=True)
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.directory)
+
+    def all_steps(self) -> List[int]:
+        return all_steps(self.directory)
+
+    def _step(self, step: Optional[int]) -> int:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return step
+
+    def close(self):
+        pass
+
+
+class OrbaxCheckpointer(_Steps):
+    """The Orbax format (``checkpoint.format: orbax``, the default): steps
+    that JAX's ``Checkpointer`` reads and writes. ``last_bytes_read`` is
+    the value bytes the last restore read."""
+
+    last_bytes_read = 0
+
+    def save(self, state, step: Optional[int] = None) -> int:
+        """Write ``state`` as ``<step>`` (its own step by default); a step
+        already durable is left as it is. The writes are done when this
+        returns."""
+        step = int(state.step) if step is None else int(step)
+        if os.path.isdir(os.path.join(self.directory, str(step))):
+            return step  # already durable (an interval save, then the final one)
+        staging = os.path.join(self.directory, orbax_format.staging_name(step))
+        try:
+            orbax_format.write_step(staging, state)
+            os.rename(staging, os.path.join(self.directory, str(step)))  # durable or absent
+        except BaseException:
+            shutil.rmtree(staging, ignore_errors=True)
+            raise
+        self._gc()
+        return step
+
+    def restore(self, state, step: Optional[int] = None):
+        """Read step ``step`` (the latest by default) into ``state`` in
+        place: parameters and moments copied into their tensors, the counts
+        and the step set. Returns ``state``."""
+        path = orbax_format.find_step(self.directory, self._step(step))
+        leaves = orbax_format.state_leaves(state)
+        ints, self.last_bytes_read = orbax_format.restore_leaves(path, leaves, "state")
+        opt = state.opt_state
+        opt.count = ints["opt_state.1.0.count"]
+        if opt.schedule_count is not None:
+            opt.schedule_count = ints["opt_state.1.2.count"]
+        state.step = ints["step"]
+        return state
+
+    def restore_params(self, params: Dict[str, Any], step: Optional[int] = None):
+        """Params-only restore into ``params`` in place: reads the
+        ``params.*`` arrays alone."""
+        path = orbax_format.find_step(self.directory, self._step(step))
+        _, self.last_bytes_read = orbax_format.restore_leaves(
+            path, orbax_format.param_leaves(params), "params")
+        return params
+
+
+class NpzCheckpointer(_Steps):
+    """Dependency-free checkpointer (``checkpoint.format: npz``) with a
+    params-only restore that reads ``params.npz`` alone."""
 
     # ------------------------------------------------------------------ save
     def save(self, state, step: Optional[int] = None) -> int:
@@ -147,26 +222,13 @@ class NpzCheckpointer:
         self._gc()
         return step
 
-    def _gc(self) -> None:
-        steps = all_steps(self.directory)
-        for stale in steps[: max(len(steps) - self.keep, 0)]:
-            shutil.rmtree(os.path.join(self.directory, str(stale)), ignore_errors=True)
-
     # --------------------------------------------------------------- restore
-    def latest_step(self) -> Optional[int]:
-        return latest_step(self.directory)
-
-    def all_steps(self) -> List[int]:
-        return all_steps(self.directory)
-
     @contextlib.contextmanager
     def _open(self, archive: str, n_leaves: int, step: Optional[int]):
         """The step's ``archive`` (the latest step by default), open, once
         its leaf count matches the restore target's. Its members are read
         one at a time (``z[f"leaf_{i}"]``), so the host holds one leaf."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        step = self._step(step)
         path = os.path.join(self.directory, str(step), archive)
         if not os.path.isfile(path):
             raise FileNotFoundError(f"checkpoint step {step} missing {archive}")
@@ -205,9 +267,6 @@ class NpzCheckpointer:
                 _copy_into(target, z[f"leaf_{i}"], f"leaf_{i}")
         return params
 
-    def close(self):
-        pass
-
 
 def detect_format(directory: str) -> str:
     """The format that wrote ``directory``: a durable step holding
@@ -218,14 +277,13 @@ def detect_format(directory: str) -> str:
     return "orbax"
 
 
-def make_checkpointer(directory: str, keep: int = 3, fmt: str = "orbax") -> NpzCheckpointer:
-    """Format-dispatched constructor (``CheckpointSpec.format``): ``npz``,
-    or ``auto`` (sniffed from the directory). ``orbax`` (the spec's
-    default) raises ``NotImplementedError``."""
+def make_checkpointer(directory: str, keep: int = 3, fmt: str = "orbax"):
+    """Format-dispatched constructor (``CheckpointSpec.format``): ``orbax``
+    (the default), ``npz``, or ``auto`` (sniffed from the directory)."""
     if fmt == "auto":
         fmt = detect_format(directory)
     if fmt == "npz":
         return NpzCheckpointer(directory, keep=keep)
     if fmt in ("", "orbax"):
-        raise NotImplementedError(_ORBAX_ITEM)
+        return OrbaxCheckpointer(directory, keep=keep)
     raise ValueError(f"unknown checkpoint format {fmt!r} (orbax | npz)")

@@ -222,14 +222,19 @@ def test_a_restore_holds_one_leaf_on_the_host_at_a_time(tmp_path, monkeypatch, w
 
 
 def test_formats_orbax_raises_naming_its_item_and_auto_sniffs(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7.*checkpoint.format: npz"):
-        tck.make_checkpointer(str(tmp_path / "a"))
+    """The format dispatch (the name predates the Orbax port, when orbax
+    raised): the default and ``orbax`` give an OrbaxCheckpointer, ``auto``
+    sniffs each format as JAX's does, an unknown format raises."""
+    assert isinstance(tck.make_checkpointer(str(tmp_path / "a")), tck.OrbaxCheckpointer)
+    assert isinstance(tck.make_checkpointer(str(tmp_path / "a"), fmt="orbax"),
+                      tck.OrbaxCheckpointer)
     with pytest.raises(ValueError, match="unknown checkpoint format"):
         tck.make_checkpointer(str(tmp_path / "a"), fmt="zarr")
     (tmp_path / "orbax" / "3").mkdir(parents=True)
-    assert tck.detect_format(str(tmp_path / "orbax")) == "orbax"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tck.make_checkpointer(str(tmp_path / "orbax"), fmt="auto")
+    assert tck.detect_format(str(tmp_path / "orbax")) == "orbax" == jck.detect_format(
+        str(tmp_path / "orbax"))
+    assert isinstance(tck.make_checkpointer(str(tmp_path / "orbax"), fmt="auto"),
+                      tck.OrbaxCheckpointer)
     _, tstate, _ = _states("llama")
     tck.NpzCheckpointer(str(tmp_path / "npz")).save(tstate)
     assert tck.detect_format(str(tmp_path / "npz")) == "npz" == jck.detect_format(

@@ -802,3 +802,87 @@ def test_the_pure_tokenizer_gate(tiny_export):
 
     with pytest.raises(AssertionError, match="pure tokenizer"):
         cs.check_pure_tokenizer("x", chosen, Off())
+
+
+# ------------------------------------------------------------ Orbax phases
+
+
+def test_the_orbax_phase_specs_are_valid_at_8b_widths():
+    """The Orbax phases' specs: Llama-3-8B widths at 2 layers, a checkpoint
+    block that names no format (Orbax, the default), keep 1."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+
+    for spec in (cs.orbax_train_spec("/ck", 4), cs.orbax_infer_spec("/ck")):
+        rt = JaxXlaRuntime.from_dict(spec)
+        assert not rt.validate()
+        assert rt.model.preset == "8b" and rt.model.overrides == {"n_layers": 2}
+        assert rt.checkpoint.enabled and rt.checkpoint.format == "orbax"
+        assert "format" not in spec["checkpoint"]
+    train = JaxXlaRuntime.from_dict(cs.orbax_train_spec("/ck", 4))
+    assert (train.checkpoint.keep, train.checkpoint.interval_steps) == (1, 2)
+    assert (train.train.batch_size, train.train.seq_len) == (2, 4096)
+
+
+def _orbax_run(**over):
+    m = {"steps_after_first": [4], "steps_on_disk": [6], "staging": [], "resumed_from_step": 4,
+         "differing_leaves": [], "differing_params": [], "params_bytes_read": 30,
+         "params_value_bytes": 30, "state_bytes_read": 90, "all_value_bytes": 90,
+         "frames_checked": 2}
+    m.update(over)
+    return m
+
+
+def test_the_llama_orbax_gates_pass_a_good_run():
+    cs.check_llama_orbax("x", _orbax_run())
+
+
+@pytest.mark.parametrize("over,needle", [
+    (dict(steps_on_disk=[4, 6]), "keep 1"),
+    (dict(steps_after_first=[2, 4]), "keep 1"),
+    (dict(staging=["6.orbax-checkpoint-tmp-1"]), "staging"),
+    (dict(resumed_from_step=0), "resumed_from_step 0"),
+    (dict(differing_leaves=["opt_state.1.0.mu.embed"]), "mu.embed"),
+    (dict(differing_params=["params.embed"]), "params.embed"),
+    (dict(params_bytes_read=90), "params-only restore read 90"),
+    (dict(state_bytes_read=80), "full restore 80"),
+    (dict(frames_checked=1), "frames checked"),
+], ids=["keep-6", "keep-4", "staging", "not-resumed", "moment-differs", "param-differs",
+        "params-read-all", "state-read-part", "frames"])
+def test_the_llama_orbax_gates_fail_a_planted_fault(over, needle):
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_llama_orbax("x", _orbax_run(**over))
+
+
+def test_the_store_and_leaf_checks_on_a_tiny_state(tmp_path):
+    """check_store_frames and differing_state_leaves on a tiny Llama step
+    saved by the port: clean, then with a bit flipped in the root node and
+    in one moment."""
+    import os
+
+    import torch
+
+    from nexus_tpu_torch.train.checkpoint import OrbaxCheckpointer
+
+    spec = cs.orbax_train_spec(str(tmp_path), 2)
+    spec["model"] = {"family": "llama", "preset": "tiny", "overrides": {}}
+    _, _, state = cs.fresh_train_state(spec, device="cpu")
+    for t in state.leaves + state.opt_state.mu + state.opt_state.nu:
+        t.detach().normal_()
+    OrbaxCheckpointer(str(tmp_path)).save(state)
+    step = str(tmp_path / "0")
+    assert cs.check_store_frames(step) == 2  # the manifest and one leaf node
+    _, _, fresh = cs.fresh_train_state(spec, device="cpu")
+    OrbaxCheckpointer(str(tmp_path)).restore(fresh)
+    assert cs.differing_state_leaves(fresh, state) == []
+    with torch.no_grad():
+        fresh.opt_state.mu[0].view(-1)[0] += 1
+    fresh.step = 3
+    assert cs.differing_state_leaves(fresh, state) == ["opt_state.1.0.mu.embed", "step"]
+    d = os.path.join(step, "default", "d")
+    node = next(os.path.join(d, f) for f in os.listdir(d)
+                if open(os.path.join(d, f), "rb").read(4) == b"\x0c\xdb\x20\xde")
+    data = bytearray(open(node, "rb").read())
+    data[20] ^= 1
+    open(node, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="CRC32C"):
+        cs.check_store_frames(step)

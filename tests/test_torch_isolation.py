@@ -1,5 +1,7 @@
 """The port imports neither JAX, optax nor the JAX package, nor the packages
-the card lacks (ml_dtypes, safetensors, regex); tokenizers only inside
+the card lacks (ml_dtypes, safetensors, regex, tensorstore, zstandard: the
+tests use the last two as oracles of the port's OCDBT and zstd code);
+tokenizers only inside
 utils/tokenizer.py's _RustTokenizer, which imports it lazily.
 
 An AST scan of every module of nexus_tpu_torch and of chip_smoke.py (a check
@@ -13,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "nexus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "optax", "flax", "orbax", "nexus_tpu", "ml_dtypes", "safetensors",
-          "regex")
+          "regex", "tensorstore", "zstandard")
 # a package the card lacks, imported only inside one class of one module
 LAZY_ONLY = {"tokenizers": ("nexus_tpu_torch/utils/tokenizer.py", "_RustTokenizer")}
 
@@ -48,7 +50,9 @@ def test_the_scan_sees_the_port():
                    "obs/federation.py", "fleet/router.py", "fleet/fleet.py",
                    "ha/serve_failover.py", "ops/moe.py", "models/mixtral.py",
                    "models/params.py", "train/checkpoint.py", "models/gptneox.py",
-                   "models/mlp.py", "runtime/weights.py", "utils/tokenizer.py"):
+                   "models/mlp.py", "runtime/weights.py", "utils/tokenizer.py",
+                   "utils/zstd.py", "utils/crc32c.py", "utils/ocdbt.py",
+                   "train/orbax_format.py"):
         assert f"nexus_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -68,6 +72,12 @@ def test_no_jax_optax_or_reference_imports(path):
 def test_the_rule_bans_what_the_card_lacks():
     assert _banned("ml_dtypes") and _banned("safetensors.numpy") and _banned("regex")
     assert not _banned("re") and not _banned("nexus_tpu_torch.utils.tokenizer")
+
+
+def test_the_rule_bans_the_checkpoint_oracles():
+    assert _banned("tensorstore") and _banned("zstandard") and _banned("orbax.checkpoint")
+    assert not _banned("nexus_tpu_torch.utils.zstd") and not _banned("nexus_tpu_torch.utils.ocdbt")
+    assert not _banned("nexus_tpu_torch.train.orbax_format")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

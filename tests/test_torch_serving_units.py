@@ -256,10 +256,10 @@ _ORBAX = "<orbax checkpoint directory>"
     ({"checkpoint": {"enabled": True, "directory": _ORBAX}}, "item 7"),
 ])
 def test_unported_features_raise_naming_their_roadmap_item(block, item, tmp_path):
-    """Params or a draft restored from an Orbax checkpoint (item 7; the npz
-    format is ported). Pretrained weights (item 5) are ported now: that
-    case pins that the refusal is gone, the spec reaching the checkpoint
-    reader, which finds no file at the path."""
+    """Params or a draft restored from an Orbax checkpoint (item 7) and
+    pretrained weights (item 5) were refused and are ported now: each case
+    pins that the refusal is gone, the spec reaching its reader, which
+    finds no file at the path (no ``default/`` item in the Orbax step)."""
     orbax = tmp_path / "orbax"
     (orbax / "3").mkdir(parents=True)
     block = json.loads(json.dumps(block).replace(_ORBAX, str(orbax)))
@@ -268,11 +268,8 @@ def test_unported_features_raise_naming_their_roadmap_item(block, item, tmp_path
         spec = dict(INFER)
     for key, value in block.items():
         spec[key] = dict(spec.get(key, {}), **value) if key in ("serve", "infer") else value
-    if item == "item 5":
-        with pytest.raises(FileNotFoundError, match="w.safetensors"):
-            run_template_runtime(spec, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=item):
+    missing = "w.safetensors" if item == "item 5" else "has no default/ item"
+    with pytest.raises(FileNotFoundError, match=missing):
         run_template_runtime(spec, device="cpu")
 
 

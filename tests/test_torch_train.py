@@ -221,8 +221,11 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    # the spec's default checkpoint format, Orbax, is not ported (npz is)
-    (dict(checkpoint={"enabled": True, "directory": "/x"}), NotImplementedError, "checkpoint"),
+    # a checkpoint format neither package has; the id is the one of the case
+    # from when the spec's default format, Orbax, was refused (both formats
+    # run now: tests/test_torch_orbax.py, tests/test_torch_checkpoint.py)
+    pytest.param(dict(checkpoint={"enabled": True, "directory": "/x", "format": "zarr"}),
+                 ValueError, "unknown checkpoint format", id="over0-NotImplementedError-checkpoint"),
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
     (dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}), ValueError,
      "dots"),
