@@ -125,10 +125,36 @@ Phases, each of which raises on failure:
    leaf, decodes every chunk frame with the C decoder and its Python twin
    (equal bytes) and times both on this machine's host CPU; in a temporary
    directory that the phases remove;
-15. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained and Orbax phase's launches), the script's wall time, the
-   card's name and power limit, and as the last line ``{"ok": true,
-   "device": {...}}``.
+15. multi-rank training, several ranks of one ``torch.distributed`` group
+   sharing the card over gloo (NCCL refuses two ranks on one card; gloo
+   stages each collective through host memory), each rank a spawned
+   process: ``ring-ops`` (2 ranks: ``ring_attention_flash`` forward and
+   backward over S 8192 at Pythia-1.4B's widths, causal, and Mixtral-8x7B's,
+   window 4096; K1-K3 launched on each rank as often as the ring's steps
+   predict, rank 0's future block never; the whole sequence's output and
+   gradients held to flash over the whole sequence on one rank and to the
+   plain versions; then the visiting block's kernels held and timed on the
+   card alone beside SDPA at that shape), ``ring-neox``
+   (examples/train-gptneox-long-context.yaml at preset ``1b``, all 24
+   layers, over {sequence: 2}, one row of 8192, 3 steps: losses finite and
+   equal on both ranks, K1-K3 on each, peaks under 60 GB; then 2 layers of
+   it, 5 steps, every step's loss and grad norm within RING_LOSS_RTOL and
+   RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
+   model's gradient timed) and ``ring-fsdp-neox`` (4 layers over {fsdp: 2,
+   sequence: 2}, B 2 x S 8192, 4 steps, saving the last: every step's loss
+   and grad norm within those limits of the one-rank run's, each rank
+   holding half the AdamW state bytes, the step restored into one rank bit
+   for bit against the whole state rank 0 wrote and every rank's blocks);
+16. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax and ring phase's launches), the script's wall
+   time, the card's name and power limit, and as the last line ``{"ok":
+   true, "device": {...}}``.
+
+    python3 chip_smoke.py --ring-fsdp-neox-nccl
+
+runs ``ring-fsdp-neox`` alone with its 4 ranks one to a card over NCCL, on a
+machine of 4 cards, and profiles one untimed step of rank 0 beside the
+one-rank run's.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -136,6 +162,7 @@ visible or the port is missing.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -2380,6 +2407,629 @@ def run_orbax_phases() -> dict:
     return out
 
 
+# ------------------------------------------------ multi-rank training (4a)
+#
+# Several ranks of one torch.distributed group share the one card. NCCL
+# refuses two ranks on one card, so these phases run over gloo, which
+# stages every collective through host memory: their times say nothing of
+# NVLink. Each rank is a spawned process (nexus_tpu_torch/testing/dist.py)
+# running a function of this module; a rank that fails fails the phase.
+
+RING_RANKS = 2
+# ring-ops: ring_attention_flash forward and backward at two train widths,
+# S 8192 over 2 ranks (S_local 4096): Pythia-1.4B (MHA, causal) and
+# Mixtral-8x7B (GQA, window 4096)
+RING_OPS_SHAPES = {
+    "pythia": dict(B=1, S=8192, Hq=16, Hkv=16, D=128, window=0),
+    "mixtral": dict(B=1, S=8192, Hq=32, Hkv=8, D=128, window=MIXTRAL_WINDOW),
+}
+# the visiting block each gives K1-K3 on rank 1 (the past block of rank 0):
+# non-causal without a window; causal at q_offset S_local under it
+RING_VISIT_SHAPES = {
+    "pythia": dict(B=1, Sq=4096, Sk=4096, Hq=16, Hkv=16, D=128, causal=False, q_offset=0,
+                   window=0),
+    "mixtral": dict(B=1, Sq=4096, Sk=4096, Hq=32, Hkv=8, D=128, causal=True, q_offset=4096,
+                    window=MIXTRAL_WINDOW),
+}
+# every step's loss and grad norm (the warmup steps' too) of a run over
+# several ranks against the same run on one: bf16 activations, partials
+# merged in another order than one flash call over the whole sequence, and
+# gradients summed over ranks in bf16 part them. Worst readings on the
+# H100: losses 6.81e-6 (ring-neox-2layer), 1.14e-5 (ring-fsdp-neox) and
+# 2.77e-5 (a development run); grad norms 1.3e-5 and 8.26e-5. A ring that
+# drops its visiting blocks read 2.7e-4 (loss) and 4.45e-3 (grad norm);
+# gradients not divided by the ranks, 1.14e-5 and 3 (PERF.md §6)
+RING_LOSS_RTOL = 1e-4
+RING_GRAD_NORM_RTOL = 5e-4
+# examples/train-gptneox-long-context.yaml's runtime block, cut to one card
+# as each comment says (the template itself is YAML, and the card's machine
+# need not have a YAML reader)
+LONG_CONTEXT = {
+    "kind": "jax_xla", "mode": "train",
+    "model": {"family": "gptneox", "preset": "1b",
+              "overrides": {"attn_impl": "ring", "max_seq_len": 32768, "remat": True,
+                            "ce_chunk": 8192}},
+    # template: {fsdp: 2, sequence: 8} over 16 chips
+    "parallelism": {"sequence": 2},
+    # template: batchSize 8, seqLen 32768, 20000 steps, warmup 1000; here
+    # one row of 8192 (4096 resident tokens a rank, the template's own
+    # per-shard size) and a few steps
+    "train": {"batchSize": 1, "seqLen": 8192, "steps": 3, "learningRate": 2.0e-4,
+              "warmupSteps": 0, "weightDecay": 0.1, "seed": 0},
+    # template: a token corpus (none on this machine): the synthetic stream
+    "data": {"prefetch": 2},
+    # template: a checkpoint every 1000 steps: off (ring-fsdp-neox saves)
+    "checkpoint": {"enabled": False},
+}
+
+
+def long_context_spec(n_layers=None, steps: int = 3, parallelism=None, batch: int = 1,
+                      checkpoint=None) -> dict:
+    import copy
+
+    spec = copy.deepcopy(LONG_CONTEXT)
+    if n_layers is not None:
+        spec["model"]["overrides"]["n_layers"] = n_layers
+    spec["train"].update(steps=steps, batchSize=batch)
+    if parallelism is not None:
+        spec["parallelism"] = parallelism
+    if checkpoint is not None:
+        spec["checkpoint"] = checkpoint
+    return spec
+
+
+def _rank_device():
+    import torch
+
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def ring_inputs(shape: dict, seed: int):
+    """q, k, v and dout over the whole sequence, bf16 on the host, the
+    same in every process."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b, s, hq, hkv, d = (shape[x] for x in ("B", "S", "Hq", "Hkv", "D"))
+    return [torch.randn(*dims, generator=gen).to(torch.bfloat16)
+            for dims in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))]
+
+
+def ring_expected_launches(shape: dict, rank: int, n: int = RING_RANKS) -> int:
+    """K1's launches (and K2's and K3's) of one forward and backward on
+    ``rank``: its own block, and each visiting block from its past."""
+    from nexus_tpu_torch.ops.ring_attention import _ring_steps
+
+    steps = _ring_steps(n, shape["S"] // n, shape["window"], True)
+    return 1 + sum(1 for step in range(1, steps) if rank >= step)
+
+
+def _gather_seq(t, group):
+    """The (B, S_local, ...) blocks of every rank, joined along S."""
+    from nexus_tpu_torch.parallel.comm import all_gather
+
+    blk = t.transpose(0, 1).contiguous()
+    whole = all_gather(blk, group).view(-1, *blk.shape[1:])
+    return whole.transpose(0, 1)
+
+
+def ring_ops_rank(cases) -> list:
+    """One rank of ring-ops, for each (shape, seed) of ``cases``."""
+    dev = _rank_device()
+    return [_ring_ops_case(shape, seed, dev) for shape, seed in cases]
+
+
+def _ring_ops_case(shape: dict, seed: int, dev) -> dict:
+    """The rank's block of q, k, v through ``ring_attention_flash`` and back
+    with its block of dout: every rank's launches, and on rank 0 the output
+    and gradients of the whole sequence (on the host)."""
+    import torch
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.ops import attention as A
+    from nexus_tpu_torch.ops.ring_attention import ring_attention_flash
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    s_local = shape["S"] // n
+    blk = slice(r * s_local, (r + 1) * s_local)
+    q, k, v, dout = (x[:, blk].contiguous().to(dev) for x in ring_inputs(shape, seed))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    for w in A.KERNEL_WRAPPERS:
+        w.launches = 0
+    out = ring_attention_flash(q, k, v, dist.group.WORLD, causal=True, window=shape["window"])
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in A.TRAIN_KERNELS}
+    whole = {name: _gather_seq(t.detach(), dist.group.WORLD)
+             for name, t in (("out", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}
+    res = {"rank": r, "launches": launches}
+    if r == 0:
+        res["whole"] = {name: t.cpu() for name, t in whole.items()}
+    return res
+
+
+def check_ring_ops(label: str, shape: dict, results: list, seed: int) -> dict:
+    """The ring's launches per rank against ``ring_expected_launches`` (rank
+    0's future block launches nothing), then its whole-sequence output and
+    gradients against flash over the whole sequence on one rank and
+    against the plain versions, with the kernels' limits. Returns
+    {reference: {output: error over its limit}}."""
+    import torch
+
+    from nexus_tpu_torch.ops import attention as A
+
+    for res in results:
+        want = ring_expected_launches(shape, res["rank"])
+        if set(res["launches"].values()) != {want}:
+            raise AssertionError(f"ring-ops {label}: rank {res['rank']} launched "
+                                 f"{res['launches']}, expected {want} of each")
+    got = {name: t.cuda() for name, t in results[0]["whole"].items()}
+    q, k, v, dout = (x.cuda() for x in ring_inputs(shape, seed))
+    w = shape["window"]
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    o = A.flash_attention(qr, kr, vr, causal=True, window=w)
+    kernel = dict(zip(("out", "dq", "dk", "dv"),
+                      (o.detach(), *torch.autograd.grad(o, (qr, kr, vr), dout))))
+    out_p, lse_p = A.flash_fwd_plain(q, k, v, True, 0, w)
+    # the plain backward gets the kernel's delta, as check_kernels gives
+    # both versions one delta: with no lse cotangent, a row that sees few
+    # keys has a gradient that is dP - delta cancelling, and a delta from
+    # each version's own bf16 output measures that rounding, not the
+    # kernels (7.26x the limit at row 1 of the Mixtral width, where the
+    # ring equals the whole-sequence kernel bit for bit)
+    delta = (dout.float() * kernel["out"].float()).sum(-1).transpose(1, 2).contiguous()
+    plain = {"out": out_p, "dq": A.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, True, 0, w)}
+    plain["dk"], plain["dv"] = A.flash_bwd_dkv_plain(q, k, v, dout, lse_p, delta, True, 0, w)
+    torch.cuda.synchronize()
+    ratios = {}
+    for ref_name, ref in (("flash over the whole sequence", kernel), ("plain", plain)):
+        ratios[ref_name] = {}
+        for name in ("out", "dq", "dk", "dv"):
+            _err(got[name], ref[name], name, f"ring-ops {label} vs {ref_name}",
+                 ratios[ref_name])
+    return ratios
+
+
+def phase_ring_ops() -> dict:
+    """ring-ops: for each width, 2 ranks run the ring forward and backward
+    (launches per rank, errors against the references), then the visiting
+    block's kernels are held to their plain versions and timed on the card
+    alone (``check_kernels``; the library yardstick is SDPA at that shape:
+    non-causal, or with the window's mask)."""
+    import torch
+
+    from nexus_tpu_torch.testing.dist import spawn
+
+    out = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    t0 = time.monotonic()
+    cases = [(shape, 100 + i) for i, shape in enumerate(RING_OPS_SHAPES.values())]
+    by_rank = spawn(ring_ops_rank, RING_RANKS, (cases,), backend="gloo")
+    log(f"[ring-ops] {RING_RANKS} ranks, wall {time.monotonic() - t0:.1f} s")
+    for i, (label, shape) in enumerate(RING_OPS_SHAPES.items()):
+        t0 = time.monotonic()
+        results = [rank[i] for rank in by_rank]
+        ratios = check_ring_ops(label, shape, results, 100 + i)
+        launches = [res["launches"] for res in results]
+        for rank in by_rank:
+            rank[i] = None
+        del results
+        _free_card()
+        visit = RING_VISIT_SHAPES[label]
+        kratios = {}
+        errs, times, _ = check_kernels(visit, gen, kratios, timed=True)
+        _free_card()
+        bounds = _bounds_ms(visit)
+        for name in times:
+            times[name].update(bound_ms=bounds[name][0], bound_by=bounds[name][1])
+        out[label] = {"launches_by_rank": launches,
+                      "error_over_limit": ratios, "visit_shape": visit,
+                      "visit_max_abs_err": errs, "visit_error_over_limit": kratios,
+                      "visit_timings": times, "phase_wall_s": time.monotonic() - t0}
+        log(f"[ring-ops] {label} {shape}: launches per rank "
+            f"{out[label]['launches_by_rank']} of each of K1-K3, error over limit {ratios}; "
+            f"visiting block {visit}: max-abs {errs}, timings {times}")
+    return out
+
+
+def collective_time(numel: int, reps: int = 3) -> dict:
+    """One all-reduce (sum) over the world of ``numel`` bf16 elements on
+    the card, through ``parallel/comm.py`` (host staging included under
+    gloo): the median seconds of ``reps`` after a warm-up, each closed by a
+    synchronise, and bytes over seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.parallel.comm import all_reduce
+
+    x = torch.ones(numel, dtype=torch.bfloat16, device="cuda")
+    all_reduce(x, dist.group.WORLD)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        all_reduce(x, dist.group.WORLD)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    secs = statistics.median(times)
+    return {"numel": numel, "bytes": 2 * numel, "s": secs, "gb_per_s": 2 * numel / secs / 1e9,
+            "backend": dist.get_backend()}
+
+
+@contextlib.contextmanager
+def recorded_steps(profile_step: int = 0):
+    """While open, each train step the entry point runs appends its
+    (loss, grad norm) to the yielded list, the warmup steps' too: device
+    scalars while the run goes on (no host sync a step, so the timed steps
+    are not slowed), floats once it closes. With ``profile_step``, the
+    step of that number (1-based; PROFILE_STEP, the second warmup step,
+    stays out of the timed window) runs under ``torch.profiler`` and the
+    list's ``profile`` attribute holds ``profile_table`` of it."""
+    import torch
+
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    class Steps(list):
+        profile = None
+
+    steps, make = Steps(), E.make_train_step
+
+    def make_recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def recording(state, batch):
+            if len(steps) + 1 != profile_step:
+                state, m = step(state, batch)
+            else:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                steps.profile = profile_table(prof, wall)
+            steps.append((m["loss"], m["grad_norm"]))
+            return state, m
+        return recording
+
+    E.make_train_step = make_recording
+    try:
+        yield steps
+    finally:
+        E.make_train_step = make
+        steps[:] = [(float(loss), float(norm)) for loss, norm in steps]
+
+
+def profile_table(prof, wall_s: float, top: int = 12) -> dict:
+    """One profiled step: its wall seconds, the device time of its kernels
+    by kind (collectives, the flash kernels, the rest), and the kernels
+    with the most device time and the host ops with the most host time.
+    Only kernel rows count device time: an op's row repeats the time of
+    the kernels it launched."""
+    import torch
+
+    rows = prof.key_averages()
+    kernels = [r for r in rows if getattr(r, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+    def dev_s(r) -> float:
+        return getattr(r, "self_device_time_total", getattr(r, "self_cuda_time_total", 0)) / 1e6
+
+    dev = {"collective": 0.0, "flash": 0.0, "other": 0.0}
+    for r in kernels:
+        kind = ("collective" if "nccl" in r.key.lower() else
+                "flash" if "flash" in r.key.lower() else "other")
+        dev[kind] += dev_s(r)
+    by_dev = sorted(kernels, key=dev_s, reverse=True)[:top]
+    by_host = sorted(rows, key=lambda r: r.self_cpu_time_total, reverse=True)[:top]
+    return {"wall_s": wall_s, "device_s_by_kind": dev,
+            "top_device": [(r.key, dev_s(r), r.count) for r in by_dev],
+            "top_host": [(r.key, r.self_cpu_time_total / 1e6, r.count) for r in by_host]}
+
+
+# the step the NCCL run profiles: the entry point's second (untimed) warmup
+# step, past the first step's kernel loads and communicator set-up
+PROFILE_STEP = 2
+
+
+def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 0,
+               profile: bool = False) -> list:
+    """One rank of a training phase, each spec in turn: the entry point's
+    metrics, each step's loss and grad norm, this rank's kernel launches,
+    peak memory and bytes of AdamW moments, and with ``record_saves`` the
+    fingerprints of each save: this rank's blocks of the AdamW moments and
+    (rank 0) the whole state the step holds. With ``collective_numel``, the
+    last run's metrics add ``collective_time`` of that many elements; with
+    ``profile``, rank 0 profiles each run's step PROFILE_STEP."""
+    import torch
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.ops import attention as A
+    from nexus_tpu_torch.runtime import entrypoints as E
+    from nexus_tpu_torch.train import checkpoint as C
+    from nexus_tpu_torch.train.trainer import whole_state
+
+    _rank_device()
+    # the run's train state, for its moments' bytes
+    states, init_state = [], E.init_train_state
+    E.init_train_state = lambda *a, **kw: states.append(init_state(*a, **kw)) or states[-1]
+    saves = []
+    if record_saves:
+        orig = C.RankedCheckpointer.save
+
+        def save(self, state, step=None):
+            out = orig(self, state, step)
+            whole = whole_state(state)
+            saves.append({"step": out, "blocks": state_fingerprints(state.opt_state.mu
+                                                                    + state.opt_state.nu),
+                          "whole": state_fingerprints(state_tensors(whole))
+                          if dist.get_rank() == 0 else None})
+            return out
+
+        C.RankedCheckpointer.save = save
+    out = []
+    for spec in specs:
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        for w in A.KERNEL_WRAPPERS:
+            w.launches = 0
+        with recorded_steps(PROFILE_STEP if profile and dist.get_rank() == 0 else 0) as steps:
+            m = E.run_template_runtime(spec)
+        m["launches"] = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+        m["steps"], m["profile"] = list(steps), steps.profile
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        opt = states.pop().opt_state
+        m["optimizer_state_bytes"] = sum(t.numel() * t.element_size() for t in opt.mu + opt.nu)
+        m["rank"] = dist.get_rank()
+        m["saves"], saves = saves, []
+        out.append(m)
+    if collective_numel:
+        out[-1]["all_reduce"] = collective_time(collective_numel)
+    return out
+
+
+def state_tensors(state) -> list:
+    """The parameters, then the moments, in the optimizer's order."""
+    return list(state.leaves) + state.opt_state.mu + state.opt_state.nu
+
+
+def state_fingerprints(tensors) -> list:
+    """Per tensor, two integer sums over its raw bits (plain, and weighted
+    by position): any flipped bit or moved element changes them."""
+    import torch
+
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        bits = bits.long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+    return out
+
+
+def fsdp_blocks(tensors, n: int, index: int) -> list:
+    """Block ``index`` of ``n`` of each tensor's flat elements, padded as
+    train/trainer.py::FsdpShards lays them."""
+    import torch.nn.functional as F
+
+    out = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        flat = F.pad(flat, (0, -flat.numel() % n))
+        c = flat.numel() // n
+        out.append(flat[index * c:(index + 1) * c])
+    return out
+
+
+def _model_config(spec: dict):
+    from nexus_tpu_torch.models.registry import get_family
+
+    return get_family(spec["model"]["family"]).config(spec["model"]["preset"],
+                                                      **spec["model"]["overrides"])
+
+
+def _rank_runs(named_specs: dict, world: int, record_saves: bool = False,
+               backend: str = "gloo") -> dict:
+    """Each spec of {name: spec} in turn on ``world`` ranks (one spawn;
+    over gloo they share the card): {name: each rank's metrics}, each
+    checked by ``check_rank_runs``. The last spec's metrics add the time of
+    an all-reduce of a gradient of its model's size. Over NCCL (a card a
+    rank) rank 0 profiles each run's step PROFILE_STEP."""
+    from nexus_tpu_torch.testing.dist import spawn
+
+    _free_card()
+    t0 = time.monotonic()
+    specs = list(named_specs.values())
+    by_rank = spawn(train_rank, world, (specs, record_saves, _model_config(specs[-1]).param_count(),
+                                        backend == "nccl"),
+                    backend=backend, threads=2)
+    log(f"[{'/'.join(named_specs)}] {world} ranks, spawn wall {time.monotonic() - t0:.1f} s")
+    return {name: check_rank_runs(name, [rank[i] for rank in by_rank])
+            for i, name in enumerate(named_specs)}
+
+
+def check_rank_runs(name: str, runs: list) -> list:
+    """Every rank's losses finite and equal, K1-K3 launched on every rank,
+    each rank's peak under PEAK_GB."""
+    import math
+
+    from nexus_tpu_torch.ops import attention as A
+
+    world = len(runs)
+    hist = runs[0]["loss_history"]
+    log(f"[{name}] {world} ranks, tokens_per_sec {runs[0]['tokens_per_sec']}, "
+        f"per rank (tokens_per_sec_per_chip) {runs[0]['tokens_per_sec_per_chip']}, "
+        f"n_devices {runs[0]['n_devices']}, steps (loss, grad norm) {runs[0]['steps']}, "
+        f"loss_history {hist}, launches by rank {[r['launches'] for r in runs]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in runs]}, AdamW state bytes by rank "
+        f"{[r['optimizer_state_bytes'] for r in runs]}")
+    if not (hist and all(math.isfinite(x) for x in hist)):
+        raise AssertionError(f"{name}: losses not finite: {hist}")
+    if "all_reduce" in runs[0]:
+        log(f"[{name}] all-reduce by rank {[r['all_reduce'] for r in runs]}")
+    if runs[0].get("profile"):
+        log(f"[{name}] rank 0's step {PROFILE_STEP} profiled: {json.dumps(runs[0]['profile'])}")
+    if any(r["loss_history"] != hist for r in runs):
+        raise AssertionError(f"{name}: the ranks report different losses: "
+                             f"{[r['loss_history'] for r in runs]}")
+    for r in runs:
+        missing = [w.__name__ for w in A.TRAIN_KERNELS if r["launches"][w.__name__] == 0]
+        if missing:
+            raise AssertionError(f"{name}: rank {r['rank']} never launched {missing}")
+        check_peak(f"{name} rank {r['rank']}", r["peak_mem_gb"])
+    return runs
+
+
+def check_same_losses(name: str, ranked: dict, single: dict) -> dict:
+    """Every step's loss and grad norm of the run over ranks against the
+    one-rank run's, relative to RING_LOSS_RTOL and RING_GRAD_NORM_RTOL;
+    returns the worst relative difference of each."""
+    a, b = ranked["steps"], single["steps"]
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{name}: step histories of unlike length: {a} vs {b}")
+    worst = {key: max(abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b))
+             for i, key in enumerate(("loss", "grad_norm"))}
+    log(f"[{name}] (loss, grad norm) a step over ranks {a} vs one rank {b}: worst relative "
+        f"difference {worst['loss']:.3g} (loss), {worst['grad_norm']:.3g} (grad norm)")
+    for key, limit in (("loss", RING_LOSS_RTOL), ("grad_norm", RING_GRAD_NORM_RTOL)):
+        if not worst[key] <= limit:
+            raise AssertionError(f"{name}: {key} differs by {worst[key]:.3g} relative "
+                                 f"(limit {limit})")
+    return worst
+
+
+def _single_rank(name: str, spec: dict, profile: bool = False) -> dict:
+    """``phase_train`` of ``spec`` on this process's card, each step's
+    (loss, grad norm) recorded; with ``profile`` its step PROFILE_STEP
+    profiled."""
+    with recorded_steps(PROFILE_STEP if profile else 0) as steps:
+        m = phase_train(name, spec, must_fall=False)
+    m["steps"], m["profile"] = list(steps), steps.profile
+    if steps.profile:
+        log(f"[{name}] step {PROFILE_STEP} profiled: {json.dumps(steps.profile)}")
+    return m
+
+
+def phase_ring_neox() -> dict:
+    """ring-neox: the long-context template at Pythia-1.4B widths, all 24
+    layers, over {sequence: 2}; then 2 layers of it at 1 rank and at 2
+    ranks, every step's loss and grad norm equal within RING_LOSS_RTOL
+    and RING_GRAD_NORM_RTOL."""
+    small = long_context_spec(n_layers=2, steps=5)
+    single = _single_rank("ring-neox-1rank", small)
+    t0 = time.monotonic()
+    runs = _rank_runs({"ring-neox": long_context_spec(), "ring-neox-2layer": small}, RING_RANKS)
+    runs["ring-neox"][0]["phase_wall_s"] = time.monotonic() - t0
+    runs, ranked = runs["ring-neox"], runs["ring-neox-2layer"]
+    worst = check_same_losses("ring-neox-2layer", ranked[0], single)
+    return {"ring-neox": runs[0], "ring-neox-1rank": single, "ring-neox-2layer": ranked[0],
+            "ring-neox-by_rank": {"launches": [r["launches"] for r in runs],
+                                  "peak_mem_gb": [r["peak_mem_gb"] for r in runs]},
+            "ring-neox-2layer-worst_rel": worst}
+
+
+def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
+    """ring-fsdp-neox: Pythia-1.4B widths at 4 layers, B 2 x S 8192 over
+    {fsdp: 2, sequence: 2} (4 ranks), 4 steps, saving its last: every
+    step's loss and grad norm equal the one-rank run's, each rank holds half the AdamW state bytes (its
+    block and padding), and the step restored into one rank holds bit for
+    bit the whole state rank 0 wrote and each rank's blocks."""
+    import shutil
+
+    from nexus_tpu_torch.train.checkpoint import OrbaxCheckpointer
+
+    root = tempfile.mkdtemp(prefix="ring-fsdp-")
+    try:
+        ck = {"enabled": True, "directory": os.path.join(root, "ck"), "intervalSteps": 0,
+              "keep": 1}
+        par = {"fsdp": 2, "sequence": 2}
+        spec = long_context_spec(n_layers=4, steps=4, parallelism=par, batch=2, checkpoint=ck)
+        single = _single_rank("ring-fsdp-neox-1rank",
+                              long_context_spec(n_layers=4, steps=4, parallelism=par, batch=2),
+                              profile=backend == "nccl")
+        t0 = time.monotonic()
+        runs = _rank_runs({"ring-fsdp-neox": spec}, 4, record_saves=True,
+                          backend=backend)["ring-fsdp-neox"]
+        runs[0]["phase_wall_s"] = time.monotonic() - t0
+        worst = check_same_losses("ring-fsdp-neox", runs[0], single)
+        cfg = _model_config(spec)
+        whole_bytes = 2 * cfg.param_count() * cfg.dtype.itemsize  # two moments a parameter
+        for r in runs:
+            # a block of each leaf, padded to a multiple of 2 elements
+            if not whole_bytes / 2 <= r["optimizer_state_bytes"] <= whole_bytes / 2 + 4 * 64:
+                raise AssertionError(f"ring-fsdp-neox: rank {r['rank']} holds "
+                                     f"{r['optimizer_state_bytes']} AdamW bytes of {whole_bytes}")
+        saves = [r["saves"] for r in runs]
+        if any(len(s) != 1 for s in saves):
+            raise AssertionError(f"ring-fsdp-neox: saves by rank {[len(s) for s in saves]}")
+        _free_card()
+        _, _, state = fresh_train_state(spec)
+        OrbaxCheckpointer(ck["directory"]).restore(state)
+        if state.step != saves[0][0]["step"]:
+            raise AssertionError(f"ring-fsdp-neox: restored step {state.step}")
+        restored = state_tensors(state)
+        if state_fingerprints(restored) != saves[0][0]["whole"]:
+            raise AssertionError("ring-fsdp-neox: the one-rank restore differs from the state "
+                                 "rank 0 wrote")
+        moments = state.opt_state.mu + state.opt_state.nu
+        for r in runs:
+            # fsdp is the inner of (fsdp, sequence): rank = 2 fsdp + sequence
+            index = r["rank"] // par["sequence"]
+            if state_fingerprints(fsdp_blocks(moments, 2, index)) != r["saves"][0]["blocks"]:
+                raise AssertionError(f"ring-fsdp-neox: rank {r['rank']}'s AdamW blocks differ "
+                                     "from the restored step's")
+        log("[ring-fsdp-neox] the step written by 4 ranks restores into one bit for bit: the "
+            "whole state and every rank's blocks")
+        del state, restored, moments
+        _free_card()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"ring-fsdp-neox": runs[0], "ring-fsdp-neox-1rank": single,
+            "ring-fsdp-neox-by_rank": {"launches": [r["launches"] for r in runs],
+                                       "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+                                       "optimizer_state_bytes": [r["optimizer_state_bytes"]
+                                                                 for r in runs]},
+            "ring-fsdp-neox-worst_rel": worst}
+
+
+def run_ring_phases() -> dict:
+    """ring-ops, ring-neox and ring-fsdp-neox, in that order."""
+    out = {"ring-ops": phase_ring_ops()}
+    out.update(phase_ring_neox())
+    out.update(phase_ring_fsdp_neox())
+    return out
+
+
+def ring_launches(ring: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in each ring phase."""
+    out = {f"ring-ops-{label}": [by.get(name, 0) for by in run["launches_by_rank"]]
+           for label, run in ring["ring-ops"].items()}
+    for phase in ("ring-neox", "ring-fsdp-neox"):
+        out[phase] = [by[name] for by in ring[f"{phase}-by_rank"]["launches"]]
+    return out
+
+
+RING_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "n_devices", "mfu", "final_loss",
+             "loss_history", "phase_wall_s", "peak_mem_gb", "optimizer_state_bytes", "all_reduce")
+
+
+def ring_summary(ring: dict) -> dict:
+    out = {"ring-ops": {label: {k: v for k, v in run.items() if k != "launches_by_rank"}
+                        for label, run in ring["ring-ops"].items()}}
+    for phase, run in ring.items():
+        if phase == "ring-ops":
+            continue
+        out[phase] = ({k: run[k] for k in RING_KEYS if k in run} if isinstance(run, dict)
+                      and "loss_history" in run else run)
+    return out
+
+
 # the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
 # vocabulary and context, random weights from the seed
 DRAFT_REF = {"family": "llama", "preset": "draft",
@@ -2401,7 +3051,40 @@ def _same_tokens(name: str, ref_run: dict, run: dict, ref: str = "the plain fuse
     return f"{same}/{len(pairs)}"
 
 
-def main() -> int:
+def _print_device_lines(torch) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_fsdp_over_nccl() -> int:
+    """``--ring-fsdp-neox-nccl``: ring-fsdp-neox alone, its 4 ranks one to
+    a card over NCCL (a machine of 4 cards), for the collectives' times
+    over NVLink and a profile of one step of rank 0 and of the one-rank
+    run; the kernels built first."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    ring = phase_ring_fsdp_neox(backend="nccl")
+    log("[summary] " + json.dumps(ring_summary({"ring-ops": {}, **ring})))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ring-fsdp-neox-nccl", action="store_true",
+                        help="run only ring-fsdp-neox, its 4 ranks one to a card over NCCL")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2415,9 +3098,11 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is missing ({e})", file=sys.stderr)
         return 2
-    started = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ring_fsdp_neox_nccl:
+        return run_fsdp_over_nccl()
+    started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
         + ", ".join(f"{m} {importlib.util.find_spec(m) is not None}"
@@ -2463,6 +3148,7 @@ def main() -> int:
     neox = run_neox_mlp_phases()
     pretrained = run_pretrained_phases()
     orbax = run_orbax_phases()
+    ring = run_ring_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -2483,6 +3169,9 @@ def main() -> int:
                                     if "launches" in run},
             "orbax_launches": {phase: run["launches"][n] for phase, run in orbax.items()
                                if "launches" in run},
+            # per rank: ring-ops' one forward and backward at each width, and
+            # the two ring training runs
+            "ring_launches": ring_launches(ring, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -2533,20 +3222,14 @@ def main() -> int:
                        for phase, run in pretrained.items()},
         "orbax": {phase: {k: run.get(k) for k in ORBAX_KEYS if k in run}
                   for phase, run in orbax.items()},
+        "ring": ring_summary(ring),
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},
     }))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    _print_device_lines(torch)
     return 0
 
 

@@ -17,8 +17,9 @@ from typing import Any, Dict, List, Optional
 
 @dataclass
 class ParallelismSpec:
-    """Logical mesh axis sizes (1 = unused). The port runs on one device;
-    a product above 1 is re-planned to one device by the entry point."""
+    """Logical mesh axis sizes (1 = unused). The entry point uses them as
+    the mesh when their product tiles the ranks that run it, and re-plans
+    otherwise (runtime/entrypoints.py::_resolve_mesh)."""
 
     data: int = 1
     fsdp: int = 1
@@ -783,8 +784,7 @@ class DataSpec:
 @dataclass
 class CheckpointSpec:
     """The JAX spec's checkpoint block: ``format`` is ``orbax`` (the
-    default, not ported: the entry point refuses it), ``npz`` or ``auto``
-    (train/checkpoint.py::make_checkpointer)."""
+    default), ``npz`` or ``auto`` (train/checkpoint.py::make_checkpointer)."""
 
     enabled: bool = False
     directory: str = ""

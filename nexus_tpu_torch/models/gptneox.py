@@ -33,6 +33,7 @@ from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.norms import layer_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
+from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 LAYER_KEYS = ("wqkv", "b_qkv", "wo", "b_o", "w_in", "b_in", "w_out", "b_out", "ln1", "ln1_b",
@@ -52,7 +53,7 @@ class GPTNeoXConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash'
+    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash' | 'ring'
     remat: bool = False
     remat_policy: str = "full"  # ops/remat.py REMAT_POLICIES
     # int8 KV cache for decode (models/decoding.py)
@@ -215,14 +216,12 @@ def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tens
 def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args) -> torch.Tensor:
     """One layer of the forward: ``args`` are the layer's tensors in
     ``LAYER_KEYS`` order, then cos and sin."""
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl 'ring' is not ported yet (ROADMAP 'Port to PyTorch/CUDA', item 4: "
-            "ops/ring_attention.py)")
     layer = dict(zip(LAYER_KEYS, args))
     cos, sin = args[len(LAYER_KEYS):]
 
     def attend(q, k, v):
+        if cfg.attn_impl == "ring":
+            return ring_attention_sharded(q, k, v)
         return attention(q, k, v, causal=True, impl=cfg.attn_impl)
 
     return _block_with(cfg, x, layer, attend, cos, sin)
@@ -230,11 +229,14 @@ def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args) -> torch.Tensor:
 
 def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Tensor,
                    position_offset: int = 0) -> torch.Tensor:
-    """Shared trunk: tokens (B, S) int → final-LayerNorm hidden (B, S, d)."""
+    """Shared trunk: tokens (B, S) int → final-LayerNorm hidden (B, S, d).
+    Under a sequence-sharded mesh ``tokens`` is this rank's block, whose
+    positions start past the blocks before it."""
     s = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     cos, sin = rope_cos_sin(s, cfg.rotary_dims, cfg.rope_theta, dtype=torch.float32,
-                            position_offset=position_offset, device=x.device)
+                            position_offset=position_offset + sequence_offset(s),
+                            device=x.device)
     block = lambda *a: _block(cfg, *a)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

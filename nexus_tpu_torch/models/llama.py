@@ -25,6 +25,7 @@ from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
+from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln_attn", "ln_mlp")
@@ -42,7 +43,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash'
+    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash' | 'ring'
     remat: bool = False
     # vocab-chunked exact cross entropy: 0 = dense logits, >0 = chunk width
     ce_chunk: int = 0
@@ -163,18 +164,16 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
            w_down, ln_attn, ln_mlp, cos, sin) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl 'ring' is not ported yet (ROADMAP 'Port to PyTorch/CUDA', item 4: "
-            "ops/ring_attention.py)")
-
     h = rms_norm(x, ln_attn, cfg.norm_eps)
     q = (h @ wq).reshape(b, s, hq, hd)
     k = (h @ wk).reshape(b, s, hkv, hd)
     v = (h @ wv).reshape(b, s, hkv, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if cfg.attn_impl == "ring":
+        attn = ring_attention_sharded(q, k, v)
+    else:
+        attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     x = x + attn.reshape(b, s, hq * hd) @ wo
 
     h = rms_norm(x, ln_mlp, cfg.norm_eps)
@@ -184,11 +183,14 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
 
 def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
                    tokens: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
-    """Shared trunk: tokens (B, S) int → final-norm hidden (B, S, d)."""
+    """Shared trunk: tokens (B, S) int → final-norm hidden (B, S, d). Under
+    a sequence-sharded mesh ``tokens`` is this rank's block, whose
+    positions start past the blocks before it."""
     s = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
-                            position_offset=position_offset, device=x.device)
+                            position_offset=position_offset + sequence_offset(s),
+                            device=x.device)
     block = lambda *a: _block(cfg, *a)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

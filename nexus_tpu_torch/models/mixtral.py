@@ -36,6 +36,7 @@ from nexus_tpu_torch.ops.moe import (
 )
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
+from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down", "ln_attn",
@@ -62,7 +63,7 @@ class MixtralConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash'
+    attn_impl: Optional[str] = None  # None=auto | 'xla' | 'flash' | 'ring'
     remat: bool = False
     remat_policy: str = "full"  # ops/remat.py REMAT_POLICIES
     ce_chunk: int = 0  # vocab-chunked exact CE (ops/losses.py); 0 = dense
@@ -216,16 +217,15 @@ def _block(cfg: MixtralConfig, x, aux, dropped, wq, wk, wv, wo, router, w_gate, 
            ln_attn, ln_mlp, cos, sin):
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl 'ring' is not ported yet (ROADMAP 'Port to PyTorch/CUDA', item 4: "
-            "ops/ring_attention.py)")
-
     h = rms_norm(x, ln_attn, cfg.norm_eps)
     q = apply_rope((h @ wq).reshape(b, s, hq, hd), cos, sin)
     k = apply_rope((h @ wk).reshape(b, s, hkv, hd), cos, sin)
     v = (h @ wv).reshape(b, s, hkv, hd)
-    attn = attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.sliding_window)
+    if cfg.attn_impl == "ring":
+        # the window truncates the ring statically (ops/ring_attention.py)
+        attn = ring_attention_sharded(q, k, v, window=cfg.sliding_window)
+    else:
+        attn = attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.sliding_window)
     x = x + attn.reshape(b, s, hq * hd) @ wo
 
     h2 = rms_norm(x, ln_mlp, cfg.norm_eps)
@@ -236,11 +236,13 @@ def _block(cfg: MixtralConfig, x, aux, dropped, wq, wk, wv, wo, router, w_gate, 
 
 def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor):
     """tokens (B, S) → (final-norm hidden (B, S, d), layer-mean aux loss,
-    layer-mean dropped-selection fraction)."""
+    layer-mean dropped-selection fraction). Under a sequence-sharded mesh
+    ``tokens`` is this rank's block, whose positions start past the blocks
+    before it."""
     s = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
-                            device=x.device)
+                            position_offset=sequence_offset(s), device=x.device)
     block = lambda *a: _block(cfg, *a)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

@@ -424,8 +424,7 @@ def attention(
         return attention_xla(q, k, v, causal=causal, q_offset=q_offset, window=window)
     raise ValueError(
         f"unknown attention impl {impl!r}; expected None, 'xla', or 'flash' "
-        "(ring attention is not ported yet: ROADMAP 'Port to PyTorch/CUDA', "
-        "multi-chip item)"
+        "(ring attention is ops/ring_attention.py::ring_attention_sharded)"
     )
 
 

@@ -25,9 +25,14 @@ text (utils/tokenizer.py), tokenized before any weights load, and the
 metrics carry the decoded ``completion`` / ``completions``. Family
 ``mixtral`` resolves ``dispatch_impl: auto`` to the scatter dispatch.
 
-This slice runs on one device. A declared parallelism over more chips is
-re-planned to one device and logged. Features not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ring attention (item 4).
+Training runs on one device, or as one rank of an initialised
+``torch.distributed`` group: the world is the group, the declared
+parallelism is the mesh when it tiles the world (else JAX's plan for the
+world's size), each rank takes its slice of the global batch, and a
+sharded ``sequence`` axis selects ring attention. Over more than one rank
+the axes not ported yet raise ``NotImplementedError`` naming their ROADMAP
+item: ``tensor`` (4b), ``expert`` and the MoE family (4c), ``pipeline``
+(4d), and so do infer and serve (4b).
 """
 
 from __future__ import annotations
@@ -40,16 +45,20 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 from nexus_tpu_torch.models.decoding import prompt_lookup_generate, speculative_generate
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
+from nexus_tpu_torch.parallel.comm import check_backend
+from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
+from nexus_tpu_torch.parallel.sharding import batch_spec
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
-from nexus_tpu_torch.train.checkpoint import latest_step, make_checkpointer
+from nexus_tpu_torch.train.checkpoint import RankedCheckpointer, latest_step, make_checkpointer
 from nexus_tpu_torch.train.data import (Prefetcher, corpus_batches, synthetic_lm_batches,
                                         synthetic_mlp_batches, to_device)
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
@@ -76,6 +85,53 @@ def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = Fals
     return out
 
 
+def _resolve_mesh(runtime: JaxXlaRuntime, world: int):
+    """JAX's ``_resolve_mesh`` over ranks: the declared plan when it tiles
+    the world, else ``plan_for_devices(world)``."""
+    plan = MeshPlan.from_parallelism(runtime.parallelism)
+    if plan.total() != world:
+        logger.info("declared parallelism %s targets %d chips but %d rank(s) run; re-planning "
+                    "for them", plan.shape, plan.total(), world)
+        plan = plan_for_devices(world)
+    return build_mesh(plan, world)
+
+
+def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
+    """The multi-rank paths not ported yet, each naming its ROADMAP item."""
+    if mesh.world == 1:
+        return
+    why = []
+    if runtime.mode != "train":
+        why.append(f"mode {runtime.mode!r} (item 4b)")
+    if mesh.shape["tensor"] > 1:
+        why.append("the tensor axis (item 4b)")
+    if mesh.shape["expert"] > 1 or runtime.model.family == "mixtral":
+        why.append("the expert axis and MoE over a sharded token axis (item 4c)")
+    if mesh.shape["pipeline"] > 1:
+        why.append("the pipeline axis (item 4d)")
+    attn = runtime.model.overrides.get("attn_impl", "ring")
+    if mesh.shape["sequence"] > 1 and runtime.model.family != "mlp" and attn != "ring":
+        # JAX gathers the sequence around this attention (GSPMD); the port
+        # shards the sequence only through the ring, and attending within
+        # the rank's block alone would train on wrong attention
+        why.append(f"attn_impl {attn!r} over the sequence axis (item 4a runs it only as 'ring')")
+    if why:
+        raise NotImplementedError(
+            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp and sequence axes "
+            f"of training; not ported yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
+
+
+def _rank_device(device, world: int) -> torch.device:
+    """This rank's device: ``cuda:{LOCAL_RANK % cards}`` for a CUDA run of
+    several ranks, else ``resolve_device``'s."""
+    dev = resolve_device(device)
+    if world > 1 and dev.type == "cuda" and dev.index is None:
+        check_backend(dist.get_backend(), world, torch.cuda.device_count())
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    return dev
+
+
 def run_template_runtime(
     runtime: Union[JaxXlaRuntime, Dict[str, Any]],
     device: Optional[Union[str, torch.device]] = None,
@@ -87,6 +143,8 @@ def run_template_runtime(
     """Execute a runtime block (a ``JaxXlaRuntime`` or its dict form);
     returns a JSON-serialisable metrics dict. ``device`` defaults to CUDA
     and raises when no card is visible; pass ``"cpu"`` to run on the CPU.
+    Inside an initialised ``torch.distributed`` group each rank calls it
+    alike and gets the same metrics.
     ``cancel``: object with ``cancelled()``, checked at step (train) or
     chunk (serve) boundaries; ``cancel.hard`` skips the final checkpoint.
     ``heartbeat``: called with the global completed-step (train, offset by
@@ -95,19 +153,19 @@ def run_template_runtime(
     the latest."""
     if not isinstance(runtime, JaxXlaRuntime):
         runtime = JaxXlaRuntime.from_dict(runtime)
-    dev = resolve_device(device)
     if runtime.mode not in ("train", "infer", "serve"):
         raise ValueError(f"unknown runtime mode {runtime.mode!r}")
-    declared = runtime.parallelism.total()
-    if declared != 1:
-        logger.info(
-            "declared parallelism targets %d chips but this port runs on one "
-            "device; re-planning for one device (%s)", declared, dev,
-        )
+    mesh = _resolve_mesh(runtime, world_size())
+    _refuse_unported(runtime, mesh)
+    dev = _rank_device(device, mesh.world)
 
     family = get_family(runtime.model.family)
     overrides = resolve_overrides(runtime.model.family, runtime.model.overrides,
                                   remat=runtime.train.remat)
+    if mesh.shape["sequence"] > 1 and runtime.model.family != "mlp":
+        # a sharded sequence axis is context parallelism: the ring, exact
+        # over the sequence blocks (another attn_impl was refused above)
+        overrides["attn_impl"] = "ring"
     cfg = family.config(runtime.model.preset, **overrides)
     if runtime.mode != "train" and getattr(family, "forward_decode", None) is None:
         # the JAX entry point's refusals: a family with no incremental
@@ -119,10 +177,12 @@ def run_template_runtime(
         return _run_infer(runtime, family, cfg, dev)
     if runtime.mode == "serve":
         return _run_serve(runtime, family, cfg, dev, cancel=cancel, heartbeat=heartbeat)
-    return _run_train(runtime, family, cfg, dev, max_steps, cancel, heartbeat, restore_step)
+    with use_mesh(mesh):
+        return _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel, heartbeat,
+                          restore_step)
 
 
-def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None,
+def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbeat=None,
                restore_step=None):
     tr = runtime.train
     steps = min(tr.steps, max_steps) if max_steps else tr.steps
@@ -135,12 +195,14 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
     gen = torch.Generator(device=dev)
     gen.manual_seed(tr.seed)
     params = family.init(gen, cfg, dev)
-    state = init_train_state(params, family.leaves(params), optimizer)
+    state = init_train_state(params, family.leaves(params), optimizer, mesh=mesh)
     step_fn = make_train_step(
         lambda p, batch: family.loss_fn(p, cfg, batch), optimizer,
-        grad_accum=tr.gradient_accumulation,
+        grad_accum=tr.gradient_accumulation, mesh=mesh,
     )
 
+    # every rank draws the global batch from the same seed and keeps its
+    # slice; tokens per batch (and tokens/s) stay global, as in JAX
     tokens_per_batch = tr.batch_size * tr.seq_len
     if runtime.model.family == "mlp":
         data = synthetic_mlp_batches(tr.batch_size, cfg.in_dim, cfg.out_dim, seed=tr.seed)
@@ -152,6 +214,8 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         )
     else:
         data = synthetic_lm_batches(tr.batch_size, tr.seq_len, cfg.vocab_size, seed=tr.seed)
+    if mesh.world > 1:
+        data = (batch_spec(b, mesh) for b in data)
     prefetcher = None
     if runtime.data.prefetch > 0:
         data = prefetcher = Prefetcher(data, dev, depth=runtime.data.prefetch)
@@ -163,6 +227,8 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
     start_step = 0
     if ck.enabled and ck.directory:
         checkpointer = make_checkpointer(ck.directory, keep=ck.keep, fmt=ck.format)
+        if mesh.world > 1:
+            checkpointer = RankedCheckpointer(checkpointer, mesh)
         if ck.resume and checkpointer.latest_step() is not None:
             checkpointer.restore(state, step=restore_step)
             start_step = state.step
@@ -213,9 +279,10 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         extra["router_dropped_fraction"] = result.final_metrics.get("router_dropped_fraction")
     if hasattr(cfg, "param_count"):  # the LM families (not mlp), as in JAX
         fpt = model_flops_per_token(cfg, tr.seq_len)
-        extra.update(param_count=cfg.param_count(), tokens_per_sec_per_chip=result.tokens_per_sec,
+        extra.update(param_count=cfg.param_count(),
+                     tokens_per_sec_per_chip=result.tokens_per_sec / mesh.world,
                      model_flops_per_token=fpt,
-                     mfu=mfu(result.tokens_per_sec, fpt, device_kind(dev)))
+                     mfu=mfu(result.tokens_per_sec, fpt, device_kind(dev), n_chips=mesh.world))
     return {
         **extra,
         "mode": "train",
@@ -226,7 +293,7 @@ def _run_train(runtime, family, cfg, dev, max_steps, cancel=None, heartbeat=None
         "loss_history": result.loss_history[:64],
         "steps_per_sec": result.steps_per_sec,
         "tokens_per_sec": result.tokens_per_sec,
-        "n_devices": 1,
+        "n_devices": mesh.world,
         "device": str(dev),
         "device_kind": device_kind(dev),
         "resumed_from_step": start_step,

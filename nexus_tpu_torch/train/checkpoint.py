@@ -41,9 +41,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nexus_tpu_torch.models.params import tree_leaves
 from nexus_tpu_torch.train import orbax_format
+from nexus_tpu_torch.train.trainer import OptState, TrainState, load_whole_state, whole_state
 
 # numpy's descr for an ml_dtypes bfloat16 array, as the JAX package's
 # np.savez writes it; a plain 'V2' array would say '|V2'
@@ -266,6 +268,43 @@ class NpzCheckpointer(_Steps):
             for i, target in enumerate(leaves):
                 _copy_into(target, z[f"leaf_{i}"], f"leaf_{i}")
         return params
+
+
+class RankedCheckpointer:
+    """One rank's view of a checkpointer shared by the ranks of a mesh.
+    A save gathers the fsdp-sharded moments (a collective), rank 0 writes
+    the step as a one-device run would, and every rank waits for it; a
+    restore reads the whole step on every rank and keeps this rank's
+    blocks. So a step written by any number of ranks restores into any
+    other."""
+
+    def __init__(self, inner, mesh):
+        self.inner = inner
+        self.mesh = mesh
+
+    def __getattr__(self, name):  # directory, latest_step, all_steps, close, ...
+        return getattr(self.inner, name)
+
+    def save(self, state, step: Optional[int] = None) -> int:
+        whole = whole_state(state)
+        step = int(state.step) if step is None else int(step)
+        if self.mesh.rank == 0:
+            self.inner.save(whole, step)
+        dist.barrier()
+        return step
+
+    def restore(self, state, step: Optional[int] = None):
+        opt = state.opt_state
+        if state.shards is None:
+            whole = state
+        else:
+            whole = TrainState(state.params, state.leaves, OptState(
+                mu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
+                nu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
+                count=opt.count, schedule_count=opt.schedule_count), state.step)
+        self.inner.restore(whole, step)
+        load_whole_state(state, whole)
+        return state
 
 
 def detect_format(directory: str) -> str:

@@ -1,5 +1,5 @@
 """Training loop (counterpart of ``nexus_tpu/train/trainer.py``), on one
-device.
+device or on one rank of a mesh (parallel/mesh.py).
 
 ``build_optimizer`` is clip-by-global-norm followed by AdamW with an
 optional warmup-cosine schedule, written to compute what the JAX package's
@@ -8,6 +8,16 @@ optional warmup-cosine schedule, written to compute what the JAX package's
 bias-corrected; weight decay is decoupled and applies to every parameter;
 the moments are kept in the parameter dtype, as optax keeps them. Parameters
 are updated in place (no second copy of the model in memory).
+
+On a mesh of several ranks each rank holds the whole model and computes
+the gradients of its slice of the batch; the step averages them over every
+rank, so the clip and the update see the gradient of the global batch, and
+reports metrics averaged over every rank. Under ``fsdp`` the gradients are
+reduce-scattered instead: each rank keeps the AdamW moments of its block of
+every parameter (``FsdpShards``), updates that block, and the blocks are
+gathered back into the whole parameters for the next step. (JAX gathers
+each layer's parameters just in time inside the step; the results are the
+same.)
 """
 
 from __future__ import annotations
@@ -20,6 +30,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from nexus_tpu_torch.parallel.comm import (all_gather, all_reduce, all_reduce_coalesced,
+                                           by_dtype, reduce_scatter)
+from nexus_tpu_torch.parallel.mesh import AXES, Mesh
 from nexus_tpu_torch.utils.hw import sync_host
 
 
@@ -69,10 +82,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: OptState) -> torch.Tensor:
+               state: OptState, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step, in place on ``params`` and ``state``. Returns the
-        global norm of ``grads`` before clipping (a device scalar)."""
-        norm = global_norm(grads)
+        global norm of the gradient before clipping (a device scalar):
+        ``norm`` when given (the gradient is sharded and ``grads`` are this
+        rank's blocks), else that of ``grads``."""
+        if norm is None:
+            norm = global_norm(grads)
         # optax: t / norm * max_norm when norm >= max_norm, else t
         clip = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                            self.grad_clip / norm)
@@ -119,28 +135,131 @@ def build_optimizer(
     return AdamW(schedule, weight_decay=weight_decay, grad_clip=grad_clip, b1=b1, b2=b2)
 
 
+class FsdpShards:
+    """The optimizer state's layout over the ``fsdp`` axis: a leaf's flat
+    elements split into ``n`` blocks of ``ceil(numel / n)`` (the last
+    padded with zeros); rank i of the axis holds block i of each leaf's
+    moments and updates that block of the parameter."""
+
+    def __init__(self, mesh: Mesh):
+        self.n = mesh.shape["fsdp"]
+        self.index = mesh.index("fsdp")
+        self.group = mesh.group("fsdp")
+        # the ranks holding the same blocks: every axis but fsdp
+        self.peers = mesh.group(*(a for a in AXES if a != "fsdp"))
+        self.world = mesh.world
+
+    def _padded(self, t: torch.Tensor) -> torch.Tensor:
+        flat = t.reshape(-1)
+        pad = -flat.numel() % self.n
+        return torch.nn.functional.pad(flat, (0, pad)) if pad else flat
+
+    def local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's block of each whole tensor (a copy)."""
+        out = []
+        for t in tensors:
+            flat = self._padded(t.detach())
+            c = flat.numel() // self.n
+            out.append(flat[self.index * c:(self.index + 1) * c].clone())
+        return out
+
+    def gather(self, blocks: List[torch.Tensor], like: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The whole tensors, shaped as ``like``, from every rank's blocks:
+        one all-gather a dtype over the blocks laid end to end."""
+        out: List[torch.Tensor] = [None] * len(blocks)  # type: ignore[list-item]
+        for idx in by_dtype(blocks):
+            # row r: rank r's blocks of these leaves, side by side
+            rows = all_gather(torch.cat([blocks[i] for i in idx]), self.group).view(self.n, -1)
+            for i, cols in zip(idx, rows.split([blocks[i].numel() for i in idx], dim=1)):
+                t = like[i]
+                out[i] = cols.reshape(-1)[:t.numel()].view(t.shape)
+        return out
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's block of each gradient averaged over every rank, in
+        the gradient's dtype (as GSPMD reduces them in JAX): one
+        reduce-scatter over the fsdp axis and one all-reduce over the other
+        axes a dtype, over the gradients laid out so that each rank's
+        blocks lie together."""
+        out: List[torch.Tensor] = [None] * len(grads)  # type: ignore[list-item]
+        for idx in by_dtype(grads):
+            cols = [self._padded(grads[i]).view(self.n, -1) for i in idx]
+            block = reduce_scatter(torch.cat(cols, dim=1), self.group)
+            block = all_reduce(block, self.peers) / self.world
+            for i, b in zip(idx, block.split([c.shape[1] for c in cols])):
+                out[i] = b
+        return out
+
+
 @dataclass
 class TrainState:
     params: Any  # dict of tensors (the model's layout)
     leaves: List[torch.Tensor]  # the same tensors, in the optimizer's order
-    opt_state: OptState
+    opt_state: OptState  # whole, or this rank's blocks under ``shards``
     step: int = 0
+    shards: Optional[FsdpShards] = None
 
 
-def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW) -> TrainState:
-    return TrainState(params, leaves, optimizer.init(leaves))
+def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW,
+                     mesh: Optional[Mesh] = None) -> TrainState:
+    """The state of a fresh run; on a mesh with a sharded ``fsdp`` axis the
+    AdamW moments are this rank's blocks."""
+    if mesh is None or mesh.shape["fsdp"] == 1:
+        return TrainState(params, leaves, optimizer.init(leaves))
+    shards = FsdpShards(mesh)
+    return TrainState(params, leaves, optimizer.init(shards.local(leaves)), shards=shards)
+
+
+def whole_state(state: TrainState) -> TrainState:
+    """``state`` with whole moments: itself, or (a collective over the
+    fsdp axis) a copy whose moments are gathered from every rank's blocks.
+    What a checkpoint holds."""
+    if state.shards is None:
+        return state
+    opt = state.opt_state
+    full = OptState(mu=state.shards.gather(opt.mu, state.leaves),
+                    nu=state.shards.gather(opt.nu, state.leaves),
+                    count=opt.count, schedule_count=opt.schedule_count)
+    return TrainState(state.params, state.leaves, full, state.step)
+
+
+def load_whole_state(state: TrainState, whole: TrainState) -> None:
+    """Set ``state`` from ``whole`` (a restored step; the parameters are
+    shared): this rank's blocks of its moments, its counts and step."""
+    opt, src = state.opt_state, whole.opt_state
+    if state.shards is not None:
+        opt.mu, opt.nu = state.shards.local(src.mu), state.shards.local(src.nu)
+    opt.count, opt.schedule_count = src.count, src.schedule_count
+    state.step = whole.step
+
+
+def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's scalar metrics averaged over the mesh in one
+    collective; perplexity as the exp of the mean of its log (the exp of
+    the mean loss)."""
+    names = sorted(metrics)
+    vals = torch.stack([metrics[k].float().log() if k == "perplexity" else metrics[k].float()
+                        for k in names])
+    vals = all_reduce(vals, mesh.group(*AXES), mean=True)
+    out = dict(zip(names, vals.unbind(0)))
+    if "perplexity" in out:
+        out["perplexity"] = out["perplexity"].exp()
+    return out
 
 
 def make_train_step(
     loss_fn: Callable[[Any, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]],
     optimizer: AdamW,
     grad_accum: int = 1,
+    mesh: Optional[Mesh] = None,
 ):
     """``step(state, batch) -> (state, metrics)``. ``grad_accum > 1`` splits
     the batch's leading dim into microbatches, sums their gradients in f32
     and divides by the count; every metric is averaged over them and
     perplexity re-derived from the mean loss. Metrics are device scalars
-    (no host sync)."""
+    (no host sync). On a ``mesh`` of several ranks ``batch`` is this
+    rank's slice, and gradients and metrics are averaged over the mesh
+    (see the module doc)."""
 
     def compute_grads(state: TrainState, batch):
         if grad_accum == 1:
@@ -166,7 +285,27 @@ def make_train_step(
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         grads, metrics = compute_grads(state, batch)
-        metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
+        if mesh is None or mesh.world == 1:
+            metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
+        elif state.shards is None:
+            metrics = _mean_metrics(metrics, mesh)
+            grads = all_reduce_coalesced(grads, mesh.group(*AXES), mean=True)
+            metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
+        else:
+            metrics = _mean_metrics(metrics, mesh)
+            shards = state.shards
+            g_blocks = shards.reduce_grads(grads)
+            del grads
+            # the norm of the whole gradient: the blocks' squares summed
+            # over the fsdp axis (the other axes hold the same blocks)
+            sq = sum((g.float().square().sum() for g in g_blocks),
+                     torch.zeros((), device=g_blocks[0].device))
+            norm = torch.sqrt(all_reduce(sq, shards.group))
+            p_blocks = shards.local(state.leaves)
+            metrics["grad_norm"] = optimizer.update(p_blocks, g_blocks, state.opt_state, norm=norm)
+            with torch.no_grad():
+                for p, whole in zip(state.leaves, shards.gather(p_blocks, state.leaves)):
+                    p.copy_(whole)
         state.step += 1
         return state, metrics
 

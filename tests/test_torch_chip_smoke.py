@@ -886,3 +886,160 @@ def test_the_store_and_leaf_checks_on_a_tiny_state(tmp_path):
     open(node, "wb").write(bytes(data))
     with pytest.raises(ValueError, match="CRC32C"):
         cs.check_store_frames(step)
+
+
+# ------------------------------------------------- the multi-rank phases
+
+
+def test_the_long_context_spec_is_the_template_cut_to_one_card():
+    """chip_smoke's copy of examples/train-gptneox-long-context.yaml keeps
+    the template's model block and learning rate; only the cuts its
+    comments name differ."""
+    import os
+
+    import yaml
+
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+
+    path = os.path.join(os.path.dirname(cs.__file__), "examples",
+                        "train-gptneox-long-context.yaml")
+    with open(path) as f:
+        tpl = yaml.safe_load(f)["spec"]["runtime"]
+    spec = cs.long_context_spec()
+    assert spec["model"] == tpl["model"]
+    assert spec["train"]["learningRate"] == tpl["train"]["learningRate"]
+    assert spec["parallelism"] == {"sequence": 2} and spec["train"]["seqLen"] == 8192
+    rt = JaxXlaRuntime.from_dict(spec)
+    assert rt.model.overrides["attn_impl"] == "ring" and not rt.checkpoint.enabled
+    small = cs.long_context_spec(n_layers=2, steps=5, parallelism={"fsdp": 2, "sequence": 2},
+                                 batch=2)
+    assert small["model"]["overrides"]["n_layers"] == 2 and cs.LONG_CONTEXT["model"] == tpl["model"]
+    assert cs._model_config(cs.long_context_spec(n_layers=4)).param_count() == 407482368
+
+
+@pytest.mark.parametrize("label,launches", [("pythia", [1, 2]), ("mixtral", [1, 2])])
+def test_ring_ops_expected_launches(label, launches):
+    shape = cs.RING_OPS_SHAPES[label]
+    assert [cs.ring_expected_launches(shape, r) for r in range(cs.RING_RANKS)] == launches
+    # over 4 ranks a window of one block keeps two steps: rank r > 0 sees one past block
+    four = dict(shape, window=shape["S"] // 4)
+    assert [cs.ring_expected_launches(four, r, n=4) for r in range(4)] == [1, 2, 2, 2]
+
+
+def test_the_visiting_block_shapes_are_the_rings_second_step():
+    for label, shape in cs.RING_OPS_SHAPES.items():
+        visit = cs.RING_VISIT_SHAPES[label]
+        s_local = shape["S"] // cs.RING_RANKS
+        assert (visit["Sq"], visit["Sk"], visit["Hq"], visit["Hkv"], visit["D"]) == (
+            s_local, s_local, shape["Hq"], shape["Hkv"], shape["D"])
+        assert visit["causal"] == (shape["window"] > 0)
+        assert visit["q_offset"] == (s_local if shape["window"] else 0)
+
+
+def test_the_same_losses_gate():
+    """Every step's loss and grad norm, each against its limit: a drift at
+    a third of a limit passes, one at twice it fails, and so does a grad
+    norm scaled by the ranks (gradients not divided by them)."""
+    ref = {"steps": [(10.0, 4.0), (9.0, 3.0), (8.0, 2.0)]}
+    dl, dg = cs.RING_LOSS_RTOL / 3, cs.RING_GRAD_NORM_RTOL / 3
+    near = {"steps": [(10.0, 4.0), (9.0 * (1 + dl), 3.0 * (1 - dg)), (8.0, 2.0)]}
+    worst = cs.check_same_losses("x", near, ref)
+    assert worst["loss"] == pytest.approx(dl) and worst["grad_norm"] == pytest.approx(dg)
+    far_loss = {"steps": [(10.0, 4.0), (9.0 * (1 + 2 * cs.RING_LOSS_RTOL), 3.0), (8.0, 2.0)]}
+    with pytest.raises(AssertionError, match="loss differs by"):
+        cs.check_same_losses("x", far_loss, ref)
+    far_norm = {"steps": [(10.0, 4.0), (9.0, 3.0), (8.0, 2.0 * (1 + 2 * cs.RING_GRAD_NORM_RTOL))]}
+    with pytest.raises(AssertionError, match="grad_norm differs by"):
+        cs.check_same_losses("x", far_norm, ref)
+    unscaled = {"steps": [(loss, 4 * norm) for loss, norm in ref["steps"]]}
+    with pytest.raises(AssertionError, match="grad_norm differs by"):
+        cs.check_same_losses("x", unscaled, ref)
+    with pytest.raises(AssertionError, match="unlike length"):
+        cs.check_same_losses("x", {"steps": [(10.0, 4.0)]}, ref)
+
+
+def _rank_run(rank, hist=(5.0,), launches=1, peak=10.0):
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_paged_decode_attention")
+    return {"rank": rank, "loss_history": list(hist), "steps": [(h, 1.0) for h in hist],
+            "tokens_per_sec": 1.0,
+            "tokens_per_sec_per_chip": 0.5, "n_devices": 2, "peak_mem_gb": peak,
+            "optimizer_state_bytes": 8, "launches": dict.fromkeys(names, launches)}
+
+
+@pytest.mark.parametrize("runs,needle", [
+    ([_rank_run(0), _rank_run(1, hist=(5.5,))], "different losses"),
+    ([_rank_run(0), _rank_run(1, launches=0)], "never launched"),
+    ([_rank_run(0, hist=(float("nan"),)), _rank_run(1, hist=(float("nan"),))], "not finite"),
+    ([_rank_run(0), _rank_run(1, peak=70.0)], "GB"),
+])
+def test_the_rank_run_gates_fail_a_planted_fault(runs, needle):
+    assert cs.check_rank_runs("x", [_rank_run(0), _rank_run(1)])
+    with pytest.raises(AssertionError, match=needle):
+        cs.check_rank_runs("x", runs)
+
+
+def test_fsdp_blocks_are_the_trainers_and_fingerprints_see_one_bit():
+    """chip_smoke's block slicing equals train/trainer.py::FsdpShards' (a
+    mesh of fsdp 2 built without a group: local() needs none), and a
+    fingerprint changes with one flipped bit or two swapped elements."""
+    import torch
+
+    from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from nexus_tpu_torch.train.trainer import FsdpShards
+
+    ts = [torch.randn(5, 3).to(torch.bfloat16), torch.randn(7), torch.randn(2, 2, 2)]
+    for index in range(2):
+        shards = FsdpShards.__new__(FsdpShards)
+        shards.n, shards.index = 2, index
+        for a, b in zip(cs.fsdp_blocks(ts, 2, index), shards.local(ts)):
+            assert torch.equal(a, b)
+    assert Mesh(MeshPlan(fsdp=2, sequence=2), 3).index("fsdp") == 3 // 2
+    base = cs.state_fingerprints(ts)
+    flipped = ts[0].clone().view(torch.int16)
+    flipped[2, 1] ^= 1
+    assert cs.state_fingerprints([flipped.view(torch.bfloat16)] + ts[1:]) != base
+    swapped = ts[1].clone()
+    swapped[[0, 1]] = swapped[[1, 0]]
+    assert cs.state_fingerprints([ts[0], swapped, ts[2]]) != base
+    assert cs.state_fingerprints([t.clone() for t in ts]) == base
+
+
+def test_recorded_steps_keep_every_steps_loss_and_grad_norm():
+    """The ring phases compare every step, the untimed warmup ones too:
+    the recorded losses end with the run's loss history, and the entry
+    point is restored when the recording closes."""
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    make = E.make_train_step
+    spec = {"kind": "jax_xla", "mode": "train", "model": {"family": "llama", "preset": "tiny"},
+            "train": {"batchSize": 2, "seqLen": 32, "steps": 4, "learningRate": 3e-3}}
+    with cs.recorded_steps() as steps:
+        m = E.run_template_runtime(spec, device="cpu")
+    assert E.make_train_step is make and steps.profile is None
+    assert len(steps) == 4 and [loss for loss, _ in steps[2:]] == m["loss_history"]
+    assert all(norm > 0 for _, norm in steps)
+
+
+def test_the_profile_table_counts_kernel_rows_only():
+    """An op's row repeats its kernels' device time: the kinds sum the
+    kernel rows alone, split into collectives, flash and the rest."""
+    import types
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def row(key, dev_us, device_type, cpu_us=0.0):
+        return types.SimpleNamespace(key=key, self_device_time_total=dev_us, count=1,
+                                     device_type=device_type, self_cpu_time_total=cpu_us)
+
+    rows = [row("ncclDevKernel_SendRecv", 3e5, cuda), row("nccl:coalesced", 3e5, cpu),
+            row("flash_fwd_kernel", 2e5, cuda), row("aten::mm", 1e5, cpu, cpu_us=5e4),
+            row("nvjet_gemm", 1e5, cuda)]
+    prof = types.SimpleNamespace(key_averages=lambda: rows)
+    table = cs.profile_table(prof, 1.0)
+    assert table["device_s_by_kind"] == pytest.approx({"collective": 0.3, "flash": 0.2,
+                                                       "other": 0.1})
+    assert [k for k, _, _ in table["top_device"]] == ["ncclDevKernel_SendRecv",
+                                                      "flash_fwd_kernel", "nvjet_gemm"]
+    assert table["top_host"][0][0] == "aten::mm"

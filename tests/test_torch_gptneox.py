@@ -234,9 +234,14 @@ def test_interop_rejects_a_tree_of_another_config():
 
 
 def test_ring_attention_names_its_roadmap_item():
-    _, (tcfg, tp) = _models(attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tneox.forward(tp, tcfg, torch.from_numpy(_tokens()[:, :16]))
+    """attn_impl 'ring' with no sharded sequence axis (one device) is plain
+    attention in both packages: the same logits."""
+    (jcfg, jp), (tcfg, tp) = _models(attn_impl="ring")
+    tokens = _tokens()[:, :16]
+    ref = jneox.forward(jp, jcfg, jnp.asarray(tokens))
+    with torch.no_grad():
+        got = tneox.forward(tp, tcfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------------ decode

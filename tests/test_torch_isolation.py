@@ -4,8 +4,10 @@ tests use the last two as oracles of the port's OCDBT and zstd code);
 tokenizers only inside
 utils/tokenizer.py's _RustTokenizer, which imports it lazily.
 
-An AST scan of every module of nexus_tpu_torch and of chip_smoke.py (a check
-of sys.modules would not do: the interpreter's start-up may import JAX)."""
+An AST scan of every module of nexus_tpu_torch, of chip_smoke.py and of
+tests/torch_dist_workers.py, which the spawned ranks of the multi-rank tests
+import (a check of sys.modules would not do: the interpreter's start-up may
+import JAX)."""
 
 import ast
 from pathlib import Path
@@ -13,7 +15,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "nexus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "nexus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                          ROOT / "tests" / "torch_dist_workers.py"]
 BANNED = ("jax", "jaxlib", "optax", "flax", "orbax", "nexus_tpu", "ml_dtypes", "safetensors",
           "regex", "tensorstore", "zstandard")
 # a package the card lacks, imported only inside one class of one module
@@ -52,9 +55,10 @@ def test_the_scan_sees_the_port():
                    "models/params.py", "train/checkpoint.py", "models/gptneox.py",
                    "models/mlp.py", "runtime/weights.py", "utils/tokenizer.py",
                    "utils/zstd.py", "utils/crc32c.py", "utils/ocdbt.py",
-                   "train/orbax_format.py"):
+                   "train/orbax_format.py", "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/comm.py", "ops/ring_attention.py", "testing/dist.py"):
         assert f"nexus_tpu_torch/{module}" in names
-    assert "chip_smoke.py" in names
+    assert "chip_smoke.py" in names and "tests/torch_dist_workers.py" in names
 
 
 def test_the_rule_allows_the_port_and_bans_the_reference():

@@ -237,9 +237,15 @@ def test_interop_rejects_a_tree_of_another_config():
 
 
 def test_ring_attention_names_its_roadmap_item():
-    _, (tcfg, tp) = _models(attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmix.forward(tp, tcfg, torch.from_numpy(_tokens()[:, :16]))
+    """attn_impl 'ring' with no sharded sequence axis (one device) is plain
+    attention under the window in both packages: the same logits and aux."""
+    (jcfg, jp), (tcfg, tp) = _models(attn_impl="ring", sliding_window=6)
+    tokens = _tokens()[:, :16]
+    ref, ref_aux = jmix.forward(jp, jcfg, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, aux = tmix.forward(tp, tcfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(aux.item(), float(ref_aux), rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------------ decode

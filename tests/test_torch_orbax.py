@@ -43,7 +43,10 @@ from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 from nexus_tpu_torch.train import checkpoint as tck
 from nexus_tpu_torch.train import orbax_format as tob
 from nexus_tpu_torch.train import trainer as ttrainer
+from nexus_tpu_torch.testing.dist import spawn
 from nexus_tpu_torch.utils import ocdbt
+
+import torch_dist_workers as workers
 
 ts = pytest.importorskip("tensorstore")
 
@@ -445,3 +448,63 @@ def test_the_infer_templates_restore(tmp_path, name):
     assert m["weights_loaded"] and m["restored_step"] == 2
     if "draft" in infer["infer"]:
         assert m["draft_weights_loaded"] and m["acceptance_rate"] == 1.0
+
+
+# ------------------------------------------------- across world sizes
+
+
+def _fsdp_block(bits, n, index):
+    """Block ``index`` of ``n`` of a tensor's flat elements, padded with
+    zeros as train/trainer.py::FsdpShards lays them."""
+    flat = bits.reshape(-1)
+    flat = np.pad(flat, (0, -flat.size % n))
+    c = flat.size // n
+    return flat[index * c:(index + 1) * c]
+
+
+@pytest.fixture(scope="module")
+def across_world_sizes(tmp_path_factory):
+    """Both directions in both formats from one spawn of 2 ranks with
+    {fsdp: 2}: {(direction, fmt): (directory, what the saving side
+    returned, what the restoring ranks returned, or None for the 1-rank
+    restore the test makes)}."""
+    root = tmp_path_factory.mktemp("worlds")
+    calls, out = [], {}
+    for fmt in ("orbax", "npz"):
+        ck = str(root / f"2to1-{fmt}")
+        calls.append(("save_and_restore", (ck, {"fsdp": 2}, fmt, "save", 7)))
+        out[("2to1", fmt)] = ck
+        ck = str(root / f"1to2-{fmt}")
+        # one rank saves here before the ranks restore
+        out[("1to2", fmt)] = (ck, workers.save_and_restore(ck, {}, fmt, "save", 7))
+        calls.append(("save_and_restore", (ck, {"fsdp": 2}, fmt, "restore", 7)))
+    ranks = spawn(workers.many, 2, (calls,), tmpdir=str(root))
+    for i, key in enumerate(k for fmt in ("orbax", "npz") for k in (("2to1", fmt), ("1to2", fmt))):
+        got = [r[i] for r in ranks]
+        out[key] = ((out[key], got[0], None) if key[0] == "2to1"
+                    else (out[key][0], out[key][1], got))
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["orbax", "npz"])
+@pytest.mark.parametrize("direction", ["2to1", "1to2"])
+def test_a_step_restores_bit_for_bit_across_world_sizes(across_world_sizes, fmt, direction):
+    """A tiny bf16 Llama trained 2 steps and saved by 2 gloo ranks with
+    {fsdp: 2} (rank 0 writes the gathered state) restores into one rank bit
+    for bit, and a step one rank saved restores into 2: each rank holds the
+    whole parameters and its blocks of the AdamW moments."""
+    ck, saved, loaded = across_world_sizes[(direction, fmt)]
+    if loaded is None:
+        loaded = [workers.save_and_restore(ck, {}, fmt, "restore", 7)]
+    assert tck.latest_step(ck) == saved["step"] == 2
+    n_params = len(loaded[0]["params"])
+    whole_params, moments = saved["tensors"][:n_params], saved["tensors"][n_params:]
+    for got in loaded:
+        assert (got["step"], got["count"], got["schedule_count"]) == (
+            saved["step"], saved["count"], saved["schedule_count"])
+        for a, b in zip(got["params"], whole_params):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(got["blocks"], moments):
+            np.testing.assert_array_equal(a.reshape(-1),
+                                          _fsdp_block(b, got["fsdp"], got["fsdp_index"]))
+

@@ -220,29 +220,105 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
         run_template_runtime(_tiny_spec(), device=device)
 
 
-@pytest.mark.parametrize("over,exc,match", [
+@pytest.mark.parametrize("over,exc,match,world", [
     # a checkpoint format neither package has; the id is the one of the case
     # from when the spec's default format, Orbax, was refused (both formats
     # run now: tests/test_torch_orbax.py, tests/test_torch_checkpoint.py)
     pytest.param(dict(checkpoint={"enabled": True, "directory": "/x", "format": "zarr"}),
-                 ValueError, "unknown checkpoint format", id="over0-NotImplementedError-checkpoint"),
+                 ValueError, "unknown checkpoint format", 1,
+                 id="over0-NotImplementedError-checkpoint"),
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
-    (dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}), ValueError,
-     "dots"),
-    # ring attention (ROADMAP module item 4); family gptneox and then
-    # model.weights, which this case once named, now run
-    # (tests/test_torch_gptneox.py, tests/test_torch_pretrained.py)
-    (dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}}), NotImplementedError,
-     "not ported"),
+    pytest.param(dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}),
+                 ValueError, "dots", 1, id="over1-ValueError-dots"),
+    # Mixtral over several ranks: MoE over a sharded token axis (item 4c).
+    # The id is the one of the case from when ring attention was refused
+    # at one device, where it runs now (test_llama_ring_attention_raises_
+    # naming_item_4 below)
+    pytest.param(dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}},
+                      parallelism={"sequence": 2}), NotImplementedError, "not ported.*item 4c",
+                 2, id="over2-NotImplementedError-not ported"),
+    # the other axes and modes not ported over several ranks
+    pytest.param(dict(parallelism={"tensor": 2}), NotImplementedError, "tensor axis.*item 4b",
+                 2, id="tensor-4b"),
+    pytest.param(dict(parallelism={"data": 2, "expert": 2}), NotImplementedError,
+                 "expert axis.*item 4c", 4, id="expert-4c"),
+    pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
+                 "pipeline axis.*item 4d", 4, id="pipeline-4d"),
+    pytest.param(dict(mode="infer", parallelism={"data": 2}), NotImplementedError,
+                 "mode 'infer' .item 4b", 2, id="infer-4b"),
+    # attention other than the ring over a sharded sequence axis would
+    # attend within each rank's block alone (JAX gathers the sequence)
+    pytest.param(dict(model={"overrides": {"attn_impl": "flash"}},
+                      parallelism={"fsdp": 2, "sequence": 2}), NotImplementedError,
+                 "attn_impl 'flash' over the sequence axis", 4, id="sequence-flash"),
+    pytest.param(dict(model={"family": "gptneox", "preset": "tiny",
+                             "overrides": {"attn_impl": "xla"}},
+                      parallelism={"sequence": 2}), NotImplementedError,
+                 "attn_impl 'xla' over the sequence axis", 2, id="sequence-xla"),
+    # a plan that does not tile the ranks is re-planned, as in JAX: 2 ranks
+    # get JAX's plan_for_devices(2), tensor 2
+    pytest.param(dict(parallelism={"fsdp": 2, "sequence": 8}), NotImplementedError,
+                 "tensor axis.*item 4b", 2, id="replanned-tensor-4b"),
 ])
-def test_unported_paths_raise(over, exc, match):
+def test_unported_paths_raise(monkeypatch, over, exc, match, world):
+    """Over ``world`` ranks (the group's size and rank stand in for an
+    initialised group: each case raises before any collective)."""
+    from nexus_tpu_torch.runtime import entrypoints
+
+    monkeypatch.setattr(entrypoints, "world_size", lambda: world)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     with pytest.raises(exc, match=match):
         run_template_runtime(_tiny_spec(**over), device="cpu")
 
 
-def test_llama_ring_attention_raises_naming_item_4():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_template_runtime(_tiny_spec(model={"overrides": {"attn_impl": "ring"}}), device="cpu")
+def _resumed_from_a_jax_step(tmp_path, spec):
+    """``spec`` (float32, one device) in both packages from one JAX-written
+    step: JAX trains 2 steps and saves (npz); both resume it and train 3
+    more. Returns (JAX's metrics, the port's)."""
+    import shutil
+
+    from nexus_tpu.runtime.entrypoints import run_template_runtime as jrun
+
+    def at(directory, steps):
+        return dict(spec, train=dict(spec["train"], steps=steps), checkpoint={
+            "enabled": True, "directory": str(directory), "format": "npz", "resume": True})
+
+    one = jax.devices()[:1]
+    jrun(JaxRuntime.from_dict(at(tmp_path / "jax", 2)), devices=one)
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    ref = jrun(JaxRuntime.from_dict(at(tmp_path / "jax", 5)), devices=one)
+    got = run_template_runtime(at(tmp_path / "port", 5), device="cpu")
+    assert got["resumed_from_step"] == ref["resumed_from_step"] == 2
+    return ref, got
+
+
+def test_llama_ring_attention_raises_naming_item_4(tmp_path):
+    """attn_impl 'ring' on one device runs (plain attention, no sequence
+    axis to ring over) and equals JAX's losses; the name is the one of the
+    test from when the port refused it."""
+    ref, got = _resumed_from_a_jax_step(tmp_path, _tiny_spec(
+        model={"overrides": {"attn_impl": "ring", "dtype": "float32"}}))
+    assert len(got["loss_history"]) == 1 and got["n_devices"] == 1
+    np.testing.assert_allclose(got["loss_history"], ref["loss_history"], rtol=1e-4)
+
+
+def test_long_context_template_runs_on_one_device_and_equals_jax(tmp_path):
+    """examples/train-gptneox-long-context.yaml (ring attention, full remat,
+    chunked loss) at the tiny preset in float32 on one CPU device: its
+    declared {fsdp: 2, sequence: 8} is re-planned to the one device in both
+    packages, and the losses equal JAX's."""
+    rt = dict(_example_runtimes_by_name()["train-gptneox-long-context.yaml"], tpu={}, data={})
+    assert rt["model"]["overrides"]["attn_impl"] == "ring"
+    rt["model"] = dict(rt["model"], preset="tiny",
+                       overrides=dict(rt["model"]["overrides"], dtype="float32"))
+    rt["train"] = dict(rt["train"], batchSize=2, seqLen=32, warmupSteps=1)
+    ref, got = _resumed_from_a_jax_step(tmp_path, rt)
+    assert got["n_devices"] == ref["n_devices"] == 1
+    np.testing.assert_allclose(got["loss_history"], ref["loss_history"], rtol=1e-4)
+
+
+def _example_runtimes_by_name():
+    return dict(_example_runtimes())
 
 
 def test_train_ignores_model_weights(tmp_path):
