@@ -41,7 +41,7 @@ Phases, each of which raises on failure:
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
    and the paged-decode kernel launched; then 8 requests on the int8 pool,
-   (for information) the same queue on the gather path, and three more
+   (for information) 16 of its requests on the gather path, and three more
    phases with the same gates: ``serve-lookup`` (16 requests, prompt-lookup
    speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (8
    requests, the ``draft`` preset at the target's vocabulary and context
@@ -145,16 +145,50 @@ Phases, each of which raises on failure:
    and grad norm within those limits of the one-rank run's, each rank
    holding half the AdamW state bytes, the step restored into one rank bit
    for bit against the whole state rank 0 wrote and every rank's blocks);
-16. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax and ring phase's launches), the script's wall
-   time, the card's name and power limit, and as the last line ``{"ok":
-   true, "device": {...}}``.
+16. infer and serve over a sharded tensor axis, 2 ranks sharing the card
+   over gloo: ``tp-decode-kernel`` (D1 at the heads one rank holds:
+   Llama-3-8B over tensor 2, 4 and 8, Hq/Hkv 16/4, 8/2, 4/1, and
+   GPT-NeoX-20B over 2, 32/32 at D 96, each at T 1 and 8 on the serve
+   queue's depths, held to its plain version and timed beside its bound and
+   SDPA); the teacher-forced logits of a fixed 64-token prompt over the
+   ranks within TP_LOGIT_LIMIT of one rank's, equal on both ranks:
+   Llama-3-8B's through a dense cache, with two planted faults (no reduce
+   after w_down; the vocab gather in the wrong order) past the limit, and
+   Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
+   pool at the rank's kv heads read by D1 (feeds of 8, then of 1), with D1
+   reading the pool's kv heads rolled by one past the limit; ``infer-tp``
+   (examples/infer-llama8b.yaml at its published widths, all 32 layers,
+   re-planned to {tensor: 2}, the infer phase's shape: the same ids on both
+   ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 16
+   requests) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
+   TP_NEOX_LAYERS layers, 8 requests): the serve gates on each rank, D1 at
+   T 1 and 8 at the rank's head counts only, the same completions on both
+   ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
+   16 requests on one card): the token share they commit before their
+   first difference at least TP_SERVE_SHARE_LIMIT;
+17. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring and tensor-parallel phase's launches), the
+   script's wall time, the card's name and power limit, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --ring-fsdp-neox-nccl
 
 runs ``ring-fsdp-neox`` alone with its 4 ranks one to a card over NCCL, on a
 machine of 4 cards, and profiles one untimed step of rank 0 beside the
 one-rank run's.
+
+    python3 chip_smoke.py --serve-tp-nccl
+
+runs serve-tp over {tensor: 4}, its 4 ranks one to a card over NCCL, beside
+the same spec on one card (the token share gate between them), with each
+rank's all-reduce of a layer's collectives and a profile of one decode step
+of rank 0.
+
+    python3 chip_smoke.py --tp-gates
+
+runs the tensor-parallel gates alone on one card (the teacher-forced logits,
+serve-tp against serve-tp-1card) and serve-tp once more with D1 reading the
+pool's kv heads rolled by one, whose token share must fall under the limit.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -171,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -2295,7 +2330,7 @@ def phase_infer_orbax(ck: str, trained_params) -> dict:
     m, launches, _ = _launches_during(lambda: phase_infer(orbax_infer_spec(ck), "infer-orbax"),
                                       ())
     load = E._load_params
-    E._load_params = lambda runtime, family, cfg, dev: (trained_params, True, -1)
+    E._load_params = lambda runtime, family, cfg, dev, shard=None: (trained_params, True, -1)
     try:
         ref = phase_infer(orbax_infer_spec(ck), "infer-orbax-ref")
     finally:
@@ -3032,6 +3067,627 @@ def ring_summary(ring: dict) -> dict:
 
 # the serve draft: the ``draft`` preset (d 256, 4 layers) with the target's
 # vocabulary and context, random weights from the seed
+# ------------------------------------------------ tensor parallelism (serving)
+#
+# Infer and serve over a sharded tensor axis: each rank a spawned
+# process holding its block of the weights (its heads, its block of the MLP
+# and of the vocabulary) and of the KV cache. On this card the ranks share
+# it over gloo, so every collective of a decode step (a reduce after each
+# row-parallel product, the vocab-parallel lookup, the gathered logits:
+# 2 L + 2 of them) is staged through host memory: these runs say nothing of
+# NVLink. ``--serve-tp-nccl`` runs serve-tp over NCCL, a rank a card.
+
+TP_RANKS = 2
+# D1 at the heads one rank holds: Llama-3-8B (32 q / 8 kv heads of 128) over
+# tensor 2, 4 and 8; GPT-NeoX-20B (64 heads of 96) over 2; the serve queue's
+# depths and its 256-position shared run
+TP_DECODE_SHAPES = {
+    "llama8b_tp2": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=16, Hkv=4),
+    "llama8b_tp4": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=8, Hkv=2),
+    "llama8b_tp8": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=4, Hkv=1),
+    "neox20b_tp2": dict(NEOX_DECODE_SHAPE, Hq=32, Hkv=32),
+}
+# examples/infer-llama8b.yaml's runtime block at its published widths, all
+# 32 layers; template: promptLength 128, maxNewTokens 512, 5 iterations, an
+# Orbax step of the 8B pretraining run; here the infer phase's shape (8 rows,
+# 512 + 64 tokens) with one timed iteration (each takes ~16 s over gloo on
+# one card) on the seed's random weights. Its tensor: 8 re-plans to
+# {tensor: 2} over 2 ranks (JAX's plan_for_devices)
+INFER_TP_SPEC = {
+    "kind": "jax_xla", "mode": "infer",
+    "model": {"family": "llama", "preset": "8b"},
+    "parallelism": {"tensor": 8},
+    "train": {"batchSize": 8, "seed": 0},
+    "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
+}
+# the teacher-forced feed the ranks' logits are held on against one rank's:
+# 64 fixed tokens, one row
+TP_PROMPT_LEN = 64
+# max |logits over ranks - one rank's| / max |one rank's|, bf16: the H100
+# read 0.0130 clean through Llama's dense cache (32 layers), 0.279 without
+# the reduce after w_down and 1.39 with the vocab gather in the wrong order;
+# through the paged pool 0.0126 (Llama) and 0.0152 (GPT-NeoX, 22 layers)
+# clean, 0.639 and 0.627 with the pool's kv heads rolled (PERF.md, §6).
+# The limit sits >3x above every clean error and >5x below the nearest
+# fault; every fault must fail it
+TP_LOGIT_LIMIT = 0.05
+# GPT-NeoX-20B over {tensor: 2}: 8 requests of the serve queue; 44 layers
+# cut to TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
+# script's time)
+TP_NEOX_LAYERS = 22
+# the feeds each family's teacher-forced logits take over the ranks, and
+# the planted faults each must catch: Llama-3-8B (all 32 layers) through a
+# dense cache and through a paged pool read by D1 at the rank's heads, and
+# GPT-NeoX-20B (TP_NEOX_LAYERS layers: its thirds, biases and parallel
+# residual) through the paged pool; ``kv_head_block`` has D1 read the pool
+# with its kv heads rolled by one, the wrong head block for every q head
+TP_LOGIT_CASES = {
+    "llama": ("8b", {}, {"dense": ("clean", "no_wdown_reduce", "gather_order"),
+                         "paged": ("clean", "kv_head_block")}),
+    "gptneox": ("20b", {"n_layers": TP_NEOX_LAYERS}, {"paged": ("clean", "kv_head_block")}),
+}
+# serve-tp's completions against the one-card serve of the same 16 requests:
+# the share of the one-card run's new tokens that serve-tp commits before its
+# first differing token, summed over the requests (bf16 rounding, which the
+# tensor split changes, parts random-weight near-ties). The H100 read 0.394,
+# and 0.053 with the pool's kv heads rolled (``--tp-gates``; PERF.md, §6):
+# the limit sits near their geometric mean, ~2.6x from each
+TP_SERVE_SHARE_LIMIT = 0.15
+
+
+_CARD = []
+
+
+def card_label() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (read
+    once), printed beside every number of the tensor-parallel phases."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
+    """serve-tp: the serve phase's queue cut to 16 requests (fused, prefix
+    cache) over {tensor: ``tensor``}."""
+    return dict(_serve_spec(num_requests=16), parallelism={"tensor": tensor})
+
+
+def serve_tp_neox_spec() -> dict:
+    return dict(_serve_spec(num_requests=8), parallelism={"tensor": TP_RANKS},
+                model={"family": "gptneox", "preset": "20b",
+                       "overrides": {"n_layers": TP_NEOX_LAYERS}})
+
+
+def phase_tp_decode_kernel():
+    """tp-decode-kernel: D1 at each rank shape of TP_DECODE_SHAPES, T 1 and
+    8, held to its plain version (``check_decode``) and timed beside its
+    bound and SDPA over the gathered view. Returns (worst max-abs,
+    {shape_T: timings})."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    worst, times = 0.0, {}
+    for name, base in TP_DECODE_SHAPES.items():
+        for t in (1, 8):
+            ratios = {}
+            err, timing, _ = check_decode(dict(base, T=t), gen, ratios, timed=True)
+            worst = max(worst, err)
+            times[f"{name}_T{t}"] = dict(timing, error_over_limit=ratios["out"])
+            log(f"[tp-decode-kernel] {name} T={t} (Hq {base['Hq']}, Hkv {base['Hkv']}, "
+                f"D {base['D']}): max-abs {err:.3g}, error over limit {ratios}, timings {timing} "
+                f"({card_label()})")
+    return worst, times
+
+
+def _tp_prompt(vocab: int):
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(14).randint(0, vocab, size=(1, TP_PROMPT_LEN))
+    return torch.as_tensor(ids, dtype=torch.int32, device="cuda")
+
+
+def _teacher_forced(family, params, cfg, tokens, paged: bool = False):
+    """``tokens`` fed through ``family``'s forward_decode: in one feed into
+    a dense cache, or (``paged``) through a paged pool at the params' kv
+    heads, read by D1 as the serve engine reads it, the first tokens in
+    feeds of 8 and the last 8 one at a time. The (B, T, V) float32 logits
+    on the host."""
+    import torch
+
+    from nexus_tpu_torch.models.decoding import cache_for, init_paged_kv_cache, local_heads
+
+    b, n = tokens.shape
+    dev = tokens.device
+    with torch.inference_mode():
+        if not paged:
+            logits, _ = family.forward_decode(params, cfg, tokens,
+                                              cache_for(params, cfg, b, n, dev))
+            return logits.float().cpu()
+        bs, eights = 16, (n - 8) // 8
+        per_row = -(-n // bs)
+        scratch = b * per_row
+        cache = init_paged_kv_cache(cfg.n_layers, local_heads(params, cfg)[1], cfg.head_dim,
+                                    cfg.dtype, b, scratch + 1, bs, per_row, device=dev)
+        cache["block_table"] = torch.arange(scratch, dtype=torch.int32,
+                                            device=dev).view(b, per_row)
+        no_shared = {"shared_blocks": torch.zeros((), dtype=torch.int32, device=dev),
+                     "shared_table": torch.full((per_row,), scratch, dtype=torch.int32,
+                                                device=dev)}
+        out, at = [], 0
+        for width in [8] * eights + [1] * (n - 8 * eights):
+            logits, cache = family.forward_decode(params, cfg, tokens[:, at:at + width],
+                                                  dict(cache, **no_shared))
+            out.append(logits.float().cpu())
+            at += width
+    return torch.cat(out, dim=1)
+
+
+def tp_reference_logits() -> dict:
+    """The one-rank logits of each TP_LOGIT_CASES feed on this card, from
+    the seed's random weights (the infer-tp spec's for Llama):
+    {family: {feed: logits}}."""
+    import torch
+
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    refs = {}
+    for name, (preset, overrides, feeds) in TP_LOGIT_CASES.items():
+        _free_card()
+        family = get_family(name)
+        cfg = family.config(preset, **overrides)
+        params = E._decode_params(family, cfg, torch.device("cuda"), 0)
+        tokens = _tp_prompt(cfg.vocab_size)
+        refs[name] = {feed: _teacher_forced(family, params, cfg, tokens, paged=feed == "paged")
+                      for feed in feeds}
+        del params
+    _free_card()
+    return refs
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """One of the faults the tensor-parallel gates must catch, planted in
+    the decode scaffold for the block (``clean``: none):
+    ``no_wdown_reduce`` skips the reduce after each layer's w_down (every
+    second reduce of a Llama layer, the first being wo's); ``gather_order``
+    joins the ranks' vocab blocks in reverse order; ``kv_head_block`` has
+    every D1 call read its pool (and an int8 pool's scales) with the kv
+    heads rolled by one."""
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.models import decoding as Dm
+
+    reduce, gather = Dm.reduce_from_tensor, Dm.gather_from_tensor
+    fused = Dm.fused_paged_decode_attention
+    calls = [0]
+
+    def skip_wdown(x, group):
+        calls[0] += 1
+        return x if calls[0] % 2 == 0 else reduce(x, group)
+
+    def reversed_gather(x, group):
+        n = dist.get_world_size(group)
+        return gather(x, group).unflatten(-1, (n, -1)).flip(-2).flatten(-2)
+
+    def rolled_pool(q, k_pool, v_pool, *a, **kw):
+        for key in ("k_scale", "v_scale"):
+            if kw.get(key) is not None:
+                kw[key] = kw[key].roll(1, 2)
+        return fused(q, k_pool.roll(1, 2), v_pool.roll(1, 2), *a, **kw)
+
+    if fault == "no_wdown_reduce":
+        Dm.reduce_from_tensor = skip_wdown
+    elif fault == "gather_order":
+        Dm.gather_from_tensor = reversed_gather
+    elif fault == "kv_head_block":
+        Dm.fused_paged_decode_attention = rolled_pool
+    try:
+        yield
+    finally:
+        Dm.reduce_from_tensor, Dm.gather_from_tensor = reduce, gather
+        Dm.fused_paged_decode_attention = fused
+
+
+def _tp_logits_rank(mesh, name: str) -> dict:
+    """This rank's logits of family ``name``'s TP_LOGIT_CASES feeds, each
+    clean and under its planted faults, {"feed/fault": logits} (rank 0
+    returns them; every rank a checksum of its clean ones)."""
+    import torch
+
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.mesh import use_mesh
+    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    preset, overrides, feeds = TP_LOGIT_CASES[name]
+    family = get_family(name)
+    cfg = family.config(preset, **overrides)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    with use_mesh(mesh):
+        params = E._decode_params(family, cfg, dev, 0, tensor_shard(mesh))
+        tokens = _tp_prompt(cfg.vocab_size).to(dev)
+        for feed, faults in feeds.items():
+            for fault in faults:
+                with _planted(fault):
+                    out[f"{feed}/{fault}"] = _teacher_forced(family, params, cfg, tokens,
+                                                             paged=feed == "paged")
+    del params
+    _free_card()
+    checksum = {k: float(v.double().sum()) for k, v in out.items() if k.endswith("/clean")}
+    return {"logits": out if mesh.rank == 0 else None, "checksum": checksum}
+
+
+@contextlib.contextmanager
+def _recorded_decode_heads():
+    """While open, the (q heads, kv heads, head dim) of every D1 call the
+    decode scaffold makes land in the yielded set."""
+    from nexus_tpu_torch.models import decoding as Dm
+
+    seen, fused = set(), Dm.fused_paged_decode_attention
+
+    def recording(q, k_pool, *a, **kw):
+        seen.add((q.shape[2], k_pool.shape[2], q.shape[3]))
+        return fused(q, k_pool, *a, **kw)
+
+    Dm.fused_paged_decode_attention = recording
+    try:
+        yield seen
+    finally:
+        Dm.fused_paged_decode_attention = fused
+
+
+def _tp_run(spec: dict) -> dict:
+    """The entry point on this rank with every kernel count set to 0 just
+    before it: the metrics, the launches (and D1's by T), the D1 head
+    counts seen, the peak and the wall."""
+    import torch
+
+    from nexus_tpu_torch.ops import attention as A
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with _recorded_decode_heads() as heads:
+        m, launches, missing = _launches_during(lambda: run_template_runtime(spec),
+                                                A.SERVE_KERNELS if spec["mode"] == "serve" else ())
+    m["phase_wall_s"] = time.monotonic() - t0
+    m["launches"], m["missing"] = launches, missing
+    m["decode_launches_by_t"] = dict(sorted(A.fused_paged_decode_attention.launches_by_t.items()))
+    m["decode_heads"] = sorted(heads)
+    m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return m
+
+
+def _all_reduce_per_layer(group, d_model: int, rows: int = 8, reps: int = 50) -> dict:
+    """The collective a decode step makes per layer, twice (after wo and
+    after w_down): an all-reduce of (rows, 1, d_model) bf16 over the tensor
+    group through parallel/comm.py, the median of ``reps`` after a warm-up,
+    each closed by a synchronise."""
+    import torch
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.parallel.comm import all_reduce
+
+    x = torch.ones(rows, 1, d_model, dtype=torch.bfloat16, device="cuda")
+    for _ in range(3):
+        all_reduce(x, group)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        all_reduce(x, group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    one = statistics.median(times)
+    return {"backend": dist.get_backend(group), "bytes": 2 * rows * d_model,
+            "one_all_reduce_s": one, "per_layer_s": 2 * one}
+
+
+def _profile_decode_step(mesh) -> Optional[dict]:
+    """One decode step (8 rows, T 1 after a 512-token prefill, a dense
+    cache) of the serve-tp model on every rank of ``mesh``, rank 0's under
+    ``torch.profiler``: its ``profile_table``."""
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.models.decoding import cache_for
+    from nexus_tpu_torch.parallel.mesh import use_mesh
+    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    cfg = llama.config("8b")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with use_mesh(mesh), torch.inference_mode():
+        params = E._decode_params(llama, cfg, dev, 0, tensor_shard(mesh))
+        gen = torch.Generator().manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen).to(dev)
+        cache = cache_for(params, cfg, 8, 520, dev)
+        logits, cache = llama.forward_decode(params, cfg, prompt, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        for _ in range(2):  # warm
+            logits, cache = llama.forward_decode(params, cfg, tok, cache)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        if mesh.rank != 0:
+            llama.forward_decode(params, cfg, tok, cache)
+            torch.cuda.synchronize()
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            llama.forward_decode(params, cfg, tok, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return profile_table(prof, wall)
+
+
+def tp_rank(phases: list) -> dict:
+    """One rank of the tensor-parallel phases, each of ``phases`` in turn:
+    ``logits`` (each family's teacher-forced feeds, clean and planted),
+    ``infer-tp``, ``serve-tp``, ``serve-tp-planted`` (serve-tp with the
+    pool's kv-head block planted wrong), ``serve-tp-neox``, ``serve-tp-4``
+    (serve-tp over every rank), ``all-reduce`` and ``profile``."""
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+
+    _rank_device()
+    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
+    out = {"rank": dist.get_rank()}
+    for phase in phases:
+        if phase == "logits":
+            out[phase] = {name: _tp_logits_rank(mesh, name) for name in TP_LOGIT_CASES}
+        elif phase == "infer-tp":
+            out[phase] = _tp_run(INFER_TP_SPEC)
+        elif phase == "serve-tp":
+            out[phase] = _tp_run(serve_tp_spec())
+        elif phase == "serve-tp-planted":
+            with _planted("kv_head_block"):
+                out[phase] = _tp_run(serve_tp_spec())
+        elif phase == "serve-tp-neox":
+            out[phase] = _tp_run(serve_tp_neox_spec())
+        elif phase == "serve-tp-4":
+            out[phase] = _tp_run(serve_tp_spec(dist.get_world_size()))
+        elif phase == "all-reduce":
+            out[phase] = _all_reduce_per_layer(mesh.group("tensor"), 4096)
+        elif phase == "profile":
+            out[phase] = _profile_decode_step(mesh)
+    return out
+
+
+def check_tp_logits(refs: dict, ranks: list) -> dict:
+    """Each family's clean logits over the ranks within TP_LOGIT_LIMIT of
+    one rank's (``refs``, by feed), the same on every rank (checksums), and
+    each planted fault past the limit: {family: {"feed/fault": error over
+    the limit}}."""
+    out = {}
+    for name, ref in refs.items():
+        sums = [r["logits"][name]["checksum"] for r in ranks]
+        if any(x != sums[0] for x in sums):
+            raise AssertionError(f"logits-tp: the ranks' {name} logits differ (checksums {sums})")
+        errs = {}
+        for key, x in ranks[0]["logits"][name]["logits"].items():
+            want = ref[key.split("/")[0]]
+            errs[key] = float((x - want).abs().max() / want.abs().max())
+        log(f"[logits-tp] {name}, teacher-forced {TP_PROMPT_LEN} tokens, max |over ranks - one "
+            f"rank| / max |one rank| by feed/fault: {errs} (limit {TP_LOGIT_LIMIT}; the planted "
+            f"faults must exceed it; {card_label()})")
+        over = {k: v for k, v in errs.items() if k.endswith("/clean") and not v <= TP_LOGIT_LIMIT}
+        if over:
+            raise AssertionError(f"logits-tp: {name} over ranks {over}, limit {TP_LOGIT_LIMIT}")
+        passed = [k for k, v in errs.items() if not k.endswith("/clean") and v <= TP_LOGIT_LIMIT]
+        if passed:
+            raise AssertionError(f"logits-tp: {name}'s planted faults pass the limit: {passed} "
+                                 f"({errs})")
+        out[name] = {k: v / TP_LOGIT_LIMIT for k, v in errs.items()}
+    return out
+
+
+def token_share(ref_ids: list, ids: list) -> float:
+    """The share of the new tokens of ``ref_ids`` (one list a request) that
+    ``ids`` commits before its first differing token, over every request."""
+    matched = total = 0
+    for a, b in zip(ref_ids, ids, strict=True):
+        matched += next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        total += len(a)
+    return matched / total
+
+
+def check_tp_share(name: str, one: dict, run: dict, planted: Optional[dict] = None) -> dict:
+    """``run``'s completions against ``one``'s, the one-card serve of the
+    same requests: their ``token_share`` must reach TP_SERVE_SHARE_LIMIT,
+    and ``planted``'s (the same run under a planted fault), when given, must
+    not. Returns {"clean": share, "planted": share or None}."""
+    share = token_share(one["completion_ids"], run["completion_ids"])
+    fault = None if planted is None else token_share(one["completion_ids"],
+                                                     planted["completion_ids"])
+    log(f"[{name}] token share against the one-card serve of the same requests: {share} "
+        f"(limit {TP_SERVE_SHARE_LIMIT}), under the planted kv-head block: {fault} "
+        f"({card_label()})")
+    if not share >= TP_SERVE_SHARE_LIMIT:
+        raise AssertionError(f"{name}: token share {share:.3f} against one card, limit "
+                             f"{TP_SERVE_SHARE_LIMIT}")
+    if fault is not None and fault >= TP_SERVE_SHARE_LIMIT:
+        raise AssertionError(f"{name}: the planted kv-head block passes the token share "
+                             f"({fault:.3f}, limit {TP_SERVE_SHARE_LIMIT})")
+    return {"clean": share, "planted": fault}
+
+
+def check_tp_infer(name: str, runs: list) -> None:
+    """Every rank returns the same ids, the output's shape, finite logits."""
+    ids = [r["completion_ids"] for r in runs]
+    log(f"[{name}] decode_tokens_per_sec by rank {[r['decode_tokens_per_sec'] for r in runs]}, "
+        f"n_devices {runs[0]['n_devices']}, iteration_seconds "
+        f"{[r['iteration_seconds'] for r in runs]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in runs]}, wall {runs[0]['phase_wall_s']:.1f} s "
+        f"({card_label()})")
+    if any(x != ids[0] for x in ids):
+        raise AssertionError(f"{name}: the ranks return different ids: {ids}")
+    for r in runs:
+        if not r["last_logits_finite"] or r["output_shape"] != [8, 512 + 64]:
+            raise AssertionError(f"{name}: rank output {r['output_shape']}, finite "
+                                 f"{r['last_logits_finite']}")
+        check_peak(f"{name} rank", r["peak_mem_gb"])
+
+
+def rank_heads(spec: dict, ranks: int) -> tuple:
+    """(q heads, kv heads, head dim) one of ``ranks`` tensor ranks holds of
+    ``spec``'s model."""
+    cfg = _model_config(dict(spec, model=dict({"overrides": {}}, **spec["model"])))
+    return (cfg.n_heads // ranks, cfg.n_kv_heads // ranks, cfg.head_dim)
+
+
+def check_tp_serve(name: str, runs: list, heads) -> None:
+    """The serve gates on every rank (D1 at T 1 and 8, every request ok with
+    its budget, a leak-free pool), D1 called at the rank's head counts
+    ``heads`` only, and the same completions on every rank."""
+    heads = list(heads)
+    for r in runs:
+        log(f"[{name}] rank: tokens_per_sec {r['tokens_per_sec']}, ttft_p50_s "
+            f"{r.get('ttft_p50_s')}, ttft_p95_s {r.get('ttft_p95_s')}, committed "
+            f"{r['committed_tokens']}, n_devices {r['n_devices']}, launches {r['launches']}, "
+            f"decode launches by T {r['decode_launches_by_t']}, D1 heads {r['decode_heads']}, "
+            f"peak GB {r['peak_mem_gb']:.2f}, wall {r['phase_wall_s']:.1f} s ({card_label()})")
+        check_serve(name, r, r["decode_launches_by_t"], (1, 8), r["missing"])
+        check_peak(f"{name} rank", r["peak_mem_gb"])
+        if [list(h) for h in r["decode_heads"]] != [heads]:
+            raise AssertionError(f"{name}: D1 ran at {r['decode_heads']}, not the rank's heads "
+                                 f"{heads}")
+    if any(r["completion_ids"] != runs[0]["completion_ids"] for r in runs):
+        raise AssertionError(f"{name}: the ranks' completions differ")
+
+
+TP_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "ttft_p50_s", "ttft_p95_s",
+           "request_latency_p50_s", "committed_tokens", "wall_s", "phase_wall_s", "peak_mem_gb",
+           "decode_launches_by_t", "decode_heads", "decode_tokens_per_sec",
+           "decode_tokens_per_sec_per_chip", "iteration_seconds", "n_devices")
+
+
+def run_tp_phases(serve_run: dict) -> dict:
+    """tp-decode-kernel, then the one-card serve-tp and one spawn of
+    TP_RANKS ranks sharing the card over gloo for the teacher-forced logits,
+    infer-tp, serve-tp and serve-tp-neox: {phase: [each rank's metrics]},
+    with the D1 timings at the rank shapes under ``tp-decode-kernel``."""
+    worst, decode_times = phase_tp_decode_kernel()
+    out = run_tp_ranks(["logits", "infer-tp", "serve-tp", "serve-tp-neox", "all-reduce"])
+    check_tp_infer("infer-tp", out["infer-tp"])
+    check_tp_serve("serve-tp-neox", out["serve-tp-neox"],
+                   rank_heads(serve_tp_neox_spec(), TP_RANKS))
+    log(f"[serve-tp] tokens_per_sec {out['serve-tp'][0]['tokens_per_sec']} over {TP_RANKS} ranks "
+        f"sharing the card over gloo (16 requests), ttft_p50_s "
+        f"{out['serve-tp'][0].get('ttft_p50_s')}; the one-card serve phase (32 requests): "
+        f"{serve_run['tokens_per_sec']}, ttft_p50_s {serve_run.get('ttft_p50_s')} "
+        f"({card_label()})")
+    out["tp-decode-kernel"] = {"worst": worst, "times": decode_times}
+    return out
+
+
+def run_tp_ranks(phases: list) -> dict:
+    """The one-rank logits and the one-card serve-tp, then ``phases`` (with
+    ``logits`` and ``serve-tp`` among them) on a spawn of TP_RANKS ranks
+    sharing the card over gloo, and the gates of the logits and of
+    serve-tp (with ``serve-tp-planted``'s token share when it ran):
+    {phase: [each rank's metrics]}."""
+    from nexus_tpu_torch.testing.dist import spawn
+
+    refs = tp_reference_logits()
+    one = phase_serve("serve-tp-1card", serve_tp_spec(1), must_t=(1, 8))
+    _free_card()
+    t0 = time.monotonic()
+    ranks = spawn(tp_rank, TP_RANKS, (phases,), threads=2)
+    log(f"[tp] {TP_RANKS} ranks, spawn wall {time.monotonic() - t0:.1f} s"
+        + ("; a layer's all-reduces over gloo (host-staged) by rank "
+           f"{[r['all-reduce'] for r in ranks]}" if "all-reduce" in phases else "")
+        + f" ({card_label()})")
+    out = {name: [r[name] for r in ranks] for name in phases if name != "logits"}
+    out["logits-tp"] = check_tp_logits(refs, ranks)
+    check_tp_serve("serve-tp", out["serve-tp"], rank_heads(serve_tp_spec(), TP_RANKS))
+    planted = out.get("serve-tp-planted")
+    out["serve-tp-share"] = check_tp_share("serve-tp", one, out["serve-tp"][0],
+                                           planted and planted[0])
+    return out
+
+
+def run_tp_gates() -> int:
+    """``--tp-gates``: the tensor-parallel gates alone on one card, the
+    kernels built first: the teacher-forced logits and serve-tp against the
+    one-card serve, with serve-tp run again under the planted kv-head
+    block, whose token share must fail the limit."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    out = run_tp_ranks(["logits", "serve-tp", "serve-tp-planted"])
+    log("[summary] " + json.dumps({
+        "logits_error_over_limit": out["logits-tp"], "serve_tp_share": out["serve-tp-share"],
+        "serve-tp": [{k: r.get(k) for k in TP_KEYS if k in r} for r in out["serve-tp"]]}))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+def tp_summary(tp: dict) -> dict:
+    return {name: [{k: r.get(k) for k in TP_KEYS if k in r} for r in runs]
+            for name, runs in tp.items() if name in ("infer-tp", "serve-tp", "serve-tp-neox")} | {
+        "tp_decode_kernel_timings": tp["tp-decode-kernel"]["times"],
+        "logits_error_over_limit": tp["logits-tp"], "serve_tp_share": tp["serve-tp-share"],
+        "all_reduce_a_layer": tp["all-reduce"]}
+
+
+def tp_launches(tp: dict, name: str) -> dict:
+    """``name``'s launches on each rank of each tensor-parallel phase."""
+    return {phase: [r["launches"][name] for r in tp[phase]]
+            for phase in ("infer-tp", "serve-tp", "serve-tp-neox")}
+
+
+def run_serve_over_nccl() -> int:
+    """``--serve-tp-nccl``: serve-tp over {tensor: 4}, its 4 ranks one to a
+    card over NCCL (a machine of 4 cards), beside the same spec on one card
+    in the same call; each rank's all-reduce of one layer's collectives and
+    a profile of one decode step of rank 0."""
+    import torch
+
+    from nexus_tpu_torch.testing.dist import spawn
+
+    started = time.monotonic()
+    phase_build()
+    world = torch.cuda.device_count()
+    one = phase_serve("serve-tp-1card", serve_tp_spec(1), must_t=(1, 8))
+    _free_card()
+    t0 = time.monotonic()
+    ranks = spawn(tp_rank, world, (["serve-tp-4", "all-reduce", "profile"],), backend="nccl",
+                  threads=2)
+    log(f"[serve-tp-nccl] {world} ranks over NCCL, spawn wall {time.monotonic() - t0:.1f} s")
+    runs = [r["serve-tp-4"] for r in ranks]
+    check_tp_serve("serve-tp-nccl", runs, rank_heads(serve_tp_spec(world), world))
+    share = check_tp_share("serve-tp-nccl", one, runs[0])
+    for r in ranks:
+        log(f"[serve-tp-nccl] rank {r['rank']}: all-reduce a layer {r['all-reduce']} "
+            f"({card_label()})")
+    log(f"[serve-tp-nccl] rank 0's decode step profiled ({card_label()}): "
+        f"{json.dumps(ranks[0]['profile'])}")
+    log(f"[serve-tp-nccl] tokens_per_sec over {world} cards {runs[0]['tokens_per_sec']} "
+        f"(per chip {runs[0]['tokens_per_sec_per_chip']}), ttft_p50_s "
+        f"{runs[0].get('ttft_p50_s')}; one card, same spec, same call: {one['tokens_per_sec']}, "
+        f"ttft_p50_s {one.get('ttft_p50_s')} ({card_label()})")
+    log("[summary] " + json.dumps({
+        "serve-tp-nccl": [{k: r.get(k) for k in TP_KEYS if k in r} for r in runs],
+        "serve-tp-1card": {k: one.get(k) for k in TP_KEYS if k in one}, "share": share,
+        "all_reduce": [r["all-reduce"] for r in ranks], "profile": ranks[0]["profile"]}))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
 DRAFT_REF = {"family": "llama", "preset": "draft",
              "overrides": {"vocab_size": 128256, "max_seq_len": 8192}}
 
@@ -3084,6 +3740,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ring-fsdp-neox-nccl", action="store_true",
                         help="run only ring-fsdp-neox, its 4 ranks one to a card over NCCL")
+    parser.add_argument("--serve-tp-nccl", action="store_true",
+                        help="run only serve-tp over {tensor: 4}, a rank a card over NCCL")
+    parser.add_argument("--tp-gates", action="store_true",
+                        help="run only the tensor-parallel gates, with a planted pool fault")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3102,6 +3762,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.ring_fsdp_neox_nccl:
         return run_fsdp_over_nccl()
+    if args.serve_tp_nccl:
+        return run_serve_over_nccl()
+    if args.tp_gates:
+        return run_tp_gates()
     started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
@@ -3119,7 +3783,9 @@ def main(argv=None) -> int:
     serve_run = phase_serve("serve", _serve_spec())
     phase_serve("serve-int8", _serve_spec(num_requests=8, kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
-    gather = phase_serve("serve-gather", _serve_spec(attentionPath="gather"), must_launch=False)
+    # (16 of the queue's requests: the script's time)
+    gather = phase_serve("serve-gather", _serve_spec(num_requests=16, attentionPath="gather"),
+                         must_launch=False)
     same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
     # speculation: verify windows of numSpeculative + 1 = 5 through D1
     lookup = phase_serve("serve-lookup", _serve_spec(num_requests=16, promptLookupNgram=2,
@@ -3149,6 +3815,9 @@ def main(argv=None) -> int:
     pretrained = run_pretrained_phases()
     orbax = run_orbax_phases()
     ring = run_ring_phases()
+    tp = run_tp_phases(serve_run)
+    worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
+                                                tp["tp-decode-kernel"]["worst"])
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -3172,6 +3841,8 @@ def main(argv=None) -> int:
             # per rank: ring-ops' one forward and backward at each width, and
             # the two ring training runs
             "ring_launches": ring_launches(ring, n),
+            # per rank: the tensor-parallel phases (D1 at the rank's heads)
+            "tensor_parallel_launches": tp_launches(tp, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -3223,6 +3894,7 @@ def main(argv=None) -> int:
         "orbax": {phase: {k: run.get(k) for k in ORBAX_KEYS if k in run}
                   for phase, run in orbax.items()},
         "ring": ring_summary(ring),
+        "tensor_parallel": tp_summary(tp),
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},

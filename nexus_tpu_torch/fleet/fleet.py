@@ -10,7 +10,10 @@ into request order. The replicas stand for independent engines:
 serve time and compile-free wall (what N engines side by side would take),
 beside the sum ``fleet_busy_sum_s``. Every replica call gets a fresh
 tracer, stitched into one journey per request, and every route decision
-lands in the decision log.
+lands in the decision log. Over a tensor-parallel mesh the replicas share
+its tensor group (they serve one after another) and, when the engines run
+in lockstep, the fleet's clock is rank 0's over their group, broadcast at
+each read, as each engine's is.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from nexus_tpu_torch.ha.serve_failover import RequeueEntry, ServeFailoverPlanner
 from nexus_tpu_torch.obs.fleet_log import FleetDecisionLog
 from nexus_tpu_torch.obs.journey import JourneyBook, goodput_under_slo
 from nexus_tpu_torch.obs.trace import ServeTracer
+from nexus_tpu_torch.parallel.comm import AgreedClock
 
 
 def serve_fleet_local(
@@ -49,6 +53,10 @@ def serve_fleet_local(
     lands in ``metrics['fleet_decision_log']``; ``slo_s`` > 0 adds the
     goodput-under-SLO rollup against the slowest replica's wall."""
     planner = planner or ServeFailoverPlanner()
+    group = next((e.lockstep_group for e in engines.values() if e.lockstep_group is not None),
+                 None)
+    if group is not None and not isinstance(clock, AgreedClock):
+        clock = AgreedClock(clock, group)
     t_run0 = clock()
     if decision_log is False:
         log = None

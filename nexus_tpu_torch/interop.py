@@ -6,7 +6,9 @@ cfg, device)``: the JAX family's param pytree with numpy leaves (e.g.
 ``jax.tree.map(np.asarray, params)``), and return the port's parameter
 pytree: the same layout (stacked layers, ``x @ W`` products; the MLP's list
 of layers), so both compute the same function. Every leaf's shape is checked
-against the config; Mixtral's router stays float32."""
+against the config; Mixtral's router stays float32. Llama and GPT-NeoX take
+a ``mesh`` (or a ``TensorShard``) too: the params then come back as that
+tensor rank's blocks (``parallel/sharding.py::shard_params``)."""
 
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import numpy as np
 import torch
 
 from nexus_tpu_torch.models import gptneox, llama, mixtral, mlp
+from nexus_tpu_torch.parallel.sharding import shard_params
 
 
-def _params_from_jax(family, np_tree: Dict[str, Any], cfg, device) -> Dict[str, Any]:
+def _params_from_jax(family, np_tree: Dict[str, Any], cfg, device, mesh=None) -> Dict[str, Any]:
     like = family.empty_params(cfg, "meta")  # each leaf's shape and dtype
 
     def conv(x, ref, name):
@@ -34,14 +37,16 @@ def _params_from_jax(family, np_tree: Dict[str, Any], cfg, device) -> Dict[str, 
         return torch.from_numpy(x.copy()).to(device=device, dtype=ref.dtype)
 
     params = conv(np_tree, like, "")
+    if mesh is not None:
+        params = shard_params(params, family.logical_axes(cfg), mesh, family.TENSOR_GROUPS)
     for t in family.leaves(params):
         t.requires_grad_(True)
     return params
 
 
 def llama_params_from_jax(np_tree: Dict[str, Any], cfg: llama.LlamaConfig,
-                          device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    return _params_from_jax(llama, np_tree, cfg, device)
+                          device: Union[str, torch.device] = "cpu", mesh=None) -> Dict[str, Any]:
+    return _params_from_jax(llama, np_tree, cfg, device, mesh)
 
 
 def mixtral_params_from_jax(np_tree: Dict[str, Any], cfg: mixtral.MixtralConfig,
@@ -50,8 +55,9 @@ def mixtral_params_from_jax(np_tree: Dict[str, Any], cfg: mixtral.MixtralConfig,
 
 
 def gptneox_params_from_jax(np_tree: Dict[str, Any], cfg: gptneox.GPTNeoXConfig,
-                            device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    return _params_from_jax(gptneox, np_tree, cfg, device)
+                            device: Union[str, torch.device] = "cpu",
+                            mesh=None) -> Dict[str, Any]:
+    return _params_from_jax(gptneox, np_tree, cfg, device, mesh)
 
 
 def mlp_params_from_jax(np_tree: Dict[str, Any], cfg: mlp.MlpConfig,

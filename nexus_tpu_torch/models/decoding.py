@@ -23,11 +23,21 @@ so they can never collide with a real write: the scratch block of a paged
 pool, and one sink position past ``max_len`` (the S+1-th) of a dense row.
 Nothing here syncs with the host on the vector-length paths; the fused
 paged read keeps its loop bounds on the device (ops/attention.py).
+
+Tensor parallelism: params cut by ``parallel/sharding.py::shard_params``
+hold a rank's heads (and its block of the MLP and of the vocabulary). The
+scaffold reads the rank's head counts from the weights' shapes
+(``local_heads``; the config keeps the model's, and its ``head_dim``), so
+the caches hold the rank's kv heads, and runs the tensor axis's
+collectives (parallel/tensor.py) over the active mesh's group: the
+vocab-parallel lookup, a reduce after each row-parallel product, and the
+gathered logits that every rank samples alike. Whole params run no
+collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +49,8 @@ from nexus_tpu_torch.ops.attention import (
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.ops.sampling import sample_logits
+from nexus_tpu_torch.parallel.tensor import (gather_from_tensor, reduce_from_tensor,
+                                             tensor_mesh, vocab_parallel_embed)
 
 _KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
@@ -63,6 +75,38 @@ def _add_planes(cache, shape, dtype, quantized, device):
     else:
         for key in ("k", "v"):
             cache[key] = torch.zeros(shape, dtype=dtype, device=device)
+
+
+def local_heads(params: Dict[str, Any], cfg: Any):
+    """(q heads, kv heads) the params hold, from the weights' shapes: the
+    config's counts, or a tensor-parallel rank's block of them (params
+    with no attention weights, a stub model's, hold the config's)."""
+    layers, hd = params.get("layers", {}), cfg.head_dim
+    if "wqkv" in layers:  # GPT-NeoX: q, k and v thirds of one fused leaf (MHA)
+        n = layers["wqkv"].shape[-1] // (3 * hd)
+        return n, n
+    if "wq" in layers:
+        return layers["wq"].shape[-1] // hd, layers["wk"].shape[-1] // hd
+    return getattr(cfg, "n_heads", None), cfg.n_kv_heads
+
+
+def tensor_split(params: Dict[str, Any], cfg: Any) -> Tuple[int, Optional[Any]]:
+    """(degree, mesh) of the tensor axis the params were cut for: the
+    config's kv heads over those the params hold (1 for whole params), and
+    the active mesh, whose tensor axis must have that many ranks (None for
+    whole params). The scaffold's collectives, the serving engine's
+    lockstep and its per-rank byte counts all read this one answer."""
+    degree = cfg.n_kv_heads // local_heads(params, cfg)[1]
+    return degree, (None if degree == 1 else tensor_mesh(degree))
+
+
+def cache_for(params: Dict[str, Any], cfg: Any, batch: int, max_len: int,
+              device) -> Dict[str, Any]:
+    """``init_kv_cache`` at the params' kv heads (a rank's block of them
+    under tensor parallelism) and the config's other shapes."""
+    return init_kv_cache(cfg.n_layers, local_heads(params, cfg)[1], cfg.head_dim, cfg.dtype,
+                         batch, max_len, quantized=getattr(cfg, "kv_cache_quantized", False),
+                         device=device)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -196,7 +240,9 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
         if start + t > max_len:
             raise ValueError(f"a feed of {t} at length {start} overruns the cache ({max_len})")
 
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    mesh = tensor_split(params, cfg)[1]
+    group = None if mesh is None else mesh.group("tensor")
+    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
     cos_full, sin_full = _rope_tables(max_len, rope_dims or cfg.head_dim, cfg.rope_theta, dev)
     steps = torch.arange(t, device=dev)
     if vector_len:
@@ -257,13 +303,15 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
         return attend
 
     names = list(params["layers"])
+    # a tensor-parallel layer_fn sums its row-parallel products over the group
+    extra = {} if group is None else {"reduce": lambda y: reduce_from_tensor(y, group)}
     for li, stacked in enumerate(zip(*(params["layers"][k].unbind(0) for k in names))):
         before = len(calls)
-        x = layer_fn(cfg, x, dict(zip(names, stacked)), make_attend(li), cos, sin)
+        x = layer_fn(cfg, x, dict(zip(names, stacked)), make_attend(li), cos, sin, **extra)
         if len(calls) != before + 1:
             raise ValueError(f"layer_fn must call attend() exactly once, got {len(calls) - before}")
     x = rms_norm(x, params["final_norm"], cfg.norm_eps) if finalize is None else finalize(params, x)
-    logits = (x @ params["lm_head"]).float()
+    logits = gather_from_tensor((x @ params["lm_head"]).float(), group)
     advance = t if n_valid is None else n_valid
     new_cache = {key: cache[key] for key in _KV_KEYS if key in cache}
     new_cache["length"] = start + advance
@@ -274,18 +322,20 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
 
 def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable):
     """Llama-block decode (RMSNorm → roped GQA → residual → ``ffn``) over
-    the generic scaffold."""
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    the generic scaffold, at the heads the params hold; a tensor-parallel
+    rank sums ``wo``'s and the FFN's partial products (``reduce``)."""
+    hq, hkv = local_heads(params, cfg)
+    hd = cfg.head_dim
 
-    def layer_fn(cfg, x, layer, attend, cos, sin):
+    def layer_fn(cfg, x, layer, attend, cos, sin, reduce=lambda y: y):
         b, t = x.shape[0], x.shape[1]
         h = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q = apply_rope((h @ layer["wq"]).reshape(b, t, hq, hd), cos, sin)
         k = apply_rope((h @ layer["wk"]).reshape(b, t, hkv, hd), cos, sin)
         v = (h @ layer["wv"]).reshape(b, t, hkv, hd)
-        x = x + attend(q, k, v).reshape(b, t, hq * hd) @ layer["wo"]
+        x = x + reduce(attend(q, k, v).reshape(b, t, hq * hd) @ layer["wo"])
         h2 = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
-        return x + ffn(cfg, h2, layer)
+        return x + reduce(ffn(cfg, h2, layer))
 
     return generic_forward_decode(params, cfg, tokens, cache, layer_fn)
 
@@ -325,9 +375,7 @@ def autoregressive_generate(forward_decode: Callable, params, cfg, prompt: torch
     if max_len < needed or needed > cfg.max_seq_len:
         raise ValueError(f"prompt ({p}) + max_new_tokens ({max_new_tokens}) needs {needed} "
                          f"cache slots but max_len={max_len}, cfg.max_seq_len={cfg.max_seq_len}")
-    cache = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, max_len,
-                          quantized=getattr(cfg, "kv_cache_quantized", False),
-                          device=prompt.device)
+    cache = cache_for(params, cfg, b, max_len, prompt.device)
 
     def pick(logits):
         return sample_logits(logits, generator, temperature, top_k, top_p).to(prompt.dtype)
@@ -527,14 +575,8 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     max_len = _speculation_room(p, max_new_tokens, k, max_len,
                                 min(target_cfg.max_seq_len, draft_cfg.max_seq_len))
     dev = prompt.device
-    t_cache = init_kv_cache(target_cfg.n_layers, target_cfg.n_kv_heads, target_cfg.head_dim,
-                            target_cfg.dtype, b, max_len,
-                            quantized=getattr(target_cfg, "kv_cache_quantized", False),
-                            device=dev)
-    d_cache = init_kv_cache(draft_cfg.n_layers, draft_cfg.n_kv_heads, draft_cfg.head_dim,
-                            draft_cfg.dtype, b, max_len,
-                            quantized=getattr(draft_cfg, "kv_cache_quantized", False),
-                            device=dev)
+    t_cache = cache_for(target_params, target_cfg, b, max_len, dev)
+    d_cache = cache_for(draft_params, draft_cfg, b, max_len, dev)
     t_last, t_cache = _chunked_prefill(target_forward_decode, target_params, target_cfg, prompt,
                                        t_cache)
     _, d_cache = _chunked_prefill(draft_forward_decode, draft_params, draft_cfg, prompt, d_cache)
@@ -606,8 +648,7 @@ def prompt_lookup_generate(forward_decode: Callable, params, cfg, prompt: torch.
         raise ValueError(f"ngram must be >= 1, got {ngram}")
     max_len = _speculation_room(p, max_new_tokens, k, max_len, cfg.max_seq_len)
     dev = prompt.device
-    cache = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, max_len,
-                          quantized=getattr(cfg, "kv_cache_quantized", False), device=dev)
+    cache = cache_for(params, cfg, b, max_len, dev)
     last_logits, cache = _chunked_prefill(forward_decode, params, cfg, prompt, cache)
     buf = _speculation_buffer(prompt, last_logits.argmax(dim=-1).to(prompt.dtype), max_len)
     rows = torch.arange(b, device=dev)

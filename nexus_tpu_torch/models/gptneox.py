@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.params import fill_normal_
+from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.norms import layer_norm
@@ -123,41 +123,81 @@ def param_shapes(cfg: GPTNeoXConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def empty_params(cfg: GPTNeoXConfig, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+def logical_axes(cfg: GPTNeoXConfig) -> Dict[str, Any]:
+    """Each leaf's logical dims (JAX's ``logical_axes``). ``b_o`` and
+    ``b_out`` are replicated: a tensor-parallel block adds them once, after
+    the reduce."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "wqkv": ("layer", "embed", "qkv"),
+            "b_qkv": ("layer", "qkv"),
+            "wo": ("layer", "qkv", "embed"),
+            "b_o": ("layer", None),
+            "w_in": ("layer", "embed", "mlp"),
+            "b_in": ("layer", "mlp"),
+            "w_out": ("layer", "mlp", "embed"),
+            "b_out": ("layer", None),
+            "ln1": ("layer", None),
+            "ln1_b": ("layer", None),
+            "ln2": ("layer", None),
+            "ln2_b": ("layer", None),
+        },
+        "final_norm": (None,),
+        "final_norm_b": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+# the fused qkv dim is q, k and v as contiguous thirds: a rank keeps its
+# heads' block of each third (parallel/sharding.py::shard_params), never a
+# contiguous cut of the whole dim (which would hand rank 0 all of q)
+TENSOR_GROUPS: Dict[str, int] = {"layers/wqkv": 3, "layers/b_qkv": 3}
+
+
+def empty_params(cfg: GPTNeoXConfig, device: Union[str, torch.device] = "cuda",
+                 shard=None) -> Dict[str, Any]:
     """The parameter dict with every leaf allocated and not yet written:
-    what ``init`` fills, and what a checkpoint restore reads into."""
+    what ``init`` fills, and what a checkpoint restore reads into. With a
+    ``parallel.sharding.TensorShard``, each leaf is this rank's block."""
     shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
 
-    def empty(name):
-        return torch.empty(shapes[name], device=device, dtype=cfg.dtype)
+    def empty(name, path):
+        return torch.empty(cuts.shape(path, shapes[name]), device=device, dtype=cfg.dtype)
 
-    params = {k: empty(k) for k in TOP_KEYS}
-    params["layers"] = {k: empty(k) for k in LAYER_KEYS}
+    params = {k: empty(k, k) for k in TOP_KEYS}
+    params["layers"] = {k: empty(k, f"layers/{k}") for k in LAYER_KEYS}
     return params
 
 
 def init(generator: torch.Generator, cfg: GPTNeoXConfig,
-         device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+         device: Union[str, torch.device] = "cuda", shard=None) -> Dict[str, Any]:
     """The JAX init's scales: normal, 1/sqrt(fan_in), out-projections by
     1/sqrt(2L) more, biases zeros, LayerNorm weights ones. Drawn in f32 one
     layer at a time (``models/params.py::fill_normal_``; at GPT-NeoX-20B
     widths ``w_in`` alone is 26.6 GB in f32), cast to ``cfg.dtype`` on
-    ``device``. Leaves require grad."""
+    ``device``. With a ``TensorShard`` every slice is drawn whole and the
+    rank keeps its block: the one-rank draw's values. Leaves require
+    grad."""
     d, f = cfg.d_model, cfg.d_ff
     resid = 1.0 / math.sqrt(2 * cfg.n_layers)
     scales = {"wqkv": d ** -0.5, "wo": d ** -0.5 * resid, "w_in": d ** -0.5,
               "w_out": f ** -0.5 * resid}
-    params = empty_params(cfg, device)
+    shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
+    params = empty_params(cfg, device, shard)
     layers = params["layers"]
-    fill_normal_(params["embed"], generator, 1.0)
+    cuts.fill_normal_("embed", params["embed"], shapes["embed"], generator, 1.0)
     for name, scale in scales.items():
-        fill_normal_(layers[name], generator, scale, stack_dims=1)
+        cuts.fill_normal_(f"layers/{name}", layers[name], shapes[name], generator, scale,
+                          stack_dims=1)
     for name in ("b_qkv", "b_o", "b_in", "b_out", "ln1_b", "ln2_b"):
         layers[name].zero_()
     for t in (layers["ln1"], layers["ln2"], params["final_norm"]):
         t.fill_(1.0)
     params["final_norm_b"].zero_()
-    fill_normal_(params["lm_head"], generator, d ** -0.5)
+    cuts.fill_normal_("lm_head", params["lm_head"], shapes["lm_head"], generator, d ** -0.5)
     for t in leaves(params):
         t.requires_grad_(True)
     return params
@@ -185,32 +225,38 @@ def _partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 def _qkv(cfg: GPTNeoXConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor],
          cos: torch.Tensor, sin: torch.Tensor):
     b, s, _ = h.shape
-    hq, hd, rot = cfg.n_heads, cfg.head_dim, cfg.rotary_dims
+    hd, rot = cfg.head_dim, cfg.rotary_dims
     qkv = h @ layer["wqkv"] + layer["b_qkv"]
     # contiguous thirds, as jnp.split materialises them: the flash kernels
-    # take contiguous tensors (the roped q and k are new tensors already)
+    # take contiguous tensors (the roped q and k are new tensors already).
+    # The heads are the thirds' own: a tensor-parallel rank holds its block
     q, k, v = qkv.chunk(3, dim=-1)
+    hq = q.shape[-1] // hd
     q = _partial_rope(q.reshape(b, s, hq, hd), cos, sin, rot)
     k = _partial_rope(k.reshape(b, s, hq, hd), cos, sin, rot)
     return q, k, v.reshape(b, s, hq, hd).contiguous()
 
 
 def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor], attend,
-                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor, reduce=None) -> torch.Tensor:
     """The NeoX block with attention as ``attend(q, k, v)``: the one copy
     of the block body shared by the train-time forward and the KV-cache
     decode (``generic_forward_decode``'s layer_fn contract). The
     attention's output is its last op (``nexus::attn_out`` or
-    ``nexus::flash_fwd``), which the ``dots_attn`` policy keeps."""
-    b, s, d = x.shape
+    ``nexus::flash_fwd``), which the ``dots_attn`` policy keeps.
+    ``reduce`` (a tensor-parallel rank's sum over its group): the two
+    branches' partial products are summed in one collective, then the
+    replicated biases ``b_o`` and ``b_out`` are added once."""
+    b, s, _ = x.shape
     q, k, v = _qkv(cfg, layer_norm(x, layer["ln1"], layer["ln1_b"], cfg.norm_eps), layer, cos,
                    sin)
-    attn_out = attend(q, k, v).reshape(b, s, d) @ layer["wo"] + layer["b_o"]
+    attn = attend(q, k, v).reshape(b, s, -1) @ layer["wo"]
     h2 = layer_norm(x, layer["ln2"], layer["ln2_b"], cfg.norm_eps)
-    mlp_out = (F.gelu(h2 @ layer["w_in"] + layer["b_in"], approximate="tanh") @ layer["w_out"]
-               + layer["b_out"])
+    mlp = F.gelu(h2 @ layer["w_in"] + layer["b_in"], approximate="tanh") @ layer["w_out"]
+    if reduce is not None:
+        return x + reduce(attn + mlp) + layer["b_o"] + layer["b_out"]
     # parallel residual: both branches read x, one residual add
-    return x + attn_out + mlp_out
+    return x + (attn + layer["b_o"]) + (mlp + layer["b_out"])
 
 
 def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.params import fill_normal_
+from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.norms import rms_norm
@@ -109,41 +109,75 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def empty_params(cfg: LlamaConfig, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """The parameter dict with every leaf allocated and not yet written:
-    what ``init`` fills, and what a checkpoint restore reads into."""
-    shapes = param_shapes(cfg)
+def logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Each leaf's logical dims (JAX's ``logical_axes``): the stacked
+    ``layer`` dim unsharded, the matrices on the FSDP + tensor layout of
+    ``parallel/sharding.py::DEFAULT_LOGICAL_RULES``."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "wq": ("layer", "embed", "qkv"),
+            "wk": ("layer", "embed", "qkv"),
+            "wv": ("layer", "embed", "qkv"),
+            "wo": ("layer", "qkv", "embed"),
+            "w_gate": ("layer", "embed", "mlp"),
+            "w_up": ("layer", "embed", "mlp"),
+            "w_down": ("layer", "mlp", "embed"),
+            "ln_attn": ("layer", None),
+            "ln_mlp": ("layer", None),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
 
-    def empty(name):
-        return torch.empty(shapes[name], device=device, dtype=cfg.dtype)
+
+# no fused leaf: every cut dim is one run (parallel/sharding.py::shard_params)
+TENSOR_GROUPS: Dict[str, int] = {}
+
+
+def empty_params(cfg: LlamaConfig, device: Union[str, torch.device] = "cuda",
+                 shard=None) -> Dict[str, Any]:
+    """The parameter dict with every leaf allocated and not yet written:
+    what ``init`` fills, and what a checkpoint restore reads into. With a
+    ``parallel.sharding.TensorShard``, each leaf is this rank's block."""
+    shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
+
+    def empty(name, path):
+        return torch.empty(cuts.shape(path, shapes[name]), device=device, dtype=cfg.dtype)
 
     return {
-        "embed": empty("embed"),
-        "layers": {k: empty(k) for k in LAYER_KEYS},
-        "final_norm": empty("final_norm"),
-        "lm_head": empty("lm_head"),
+        "embed": empty("embed", "embed"),
+        "layers": {k: empty(k, f"layers/{k}") for k in LAYER_KEYS},
+        "final_norm": empty("final_norm", "final_norm"),
+        "lm_head": empty("lm_head", "lm_head"),
     }
 
 
 def init(generator: torch.Generator, cfg: LlamaConfig,
-         device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+         device: Union[str, torch.device] = "cuda", shard=None) -> Dict[str, Any]:
     """Stacked-layer parameters with the JAX package's scales: normal,
     1/sqrt(fan_in), out-projections further scaled by 1/sqrt(2L), norms
     ones. Drawn on ``generator``'s device in f32 one layer at a time
     (``models/params.py::fill_normal_``), cast to ``cfg.dtype`` on
-    ``device``. Leaves require grad."""
+    ``device``. With a ``TensorShard`` (parallel/sharding.py) every slice
+    is drawn whole and the rank keeps its block: the one-rank draw's
+    values. Leaves require grad."""
     d, f, hq_hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
     resid_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
     scales = {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
               "wo": hq_hd ** -0.5 * resid_scale, "w_gate": d ** -0.5, "w_up": d ** -0.5,
               "w_down": f ** -0.5 * resid_scale}
-    params = empty_params(cfg, device)
-    fill_normal_(params["embed"], generator, 1.0)
+    shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
+    params = empty_params(cfg, device, shard)
+    cuts.fill_normal_("embed", params["embed"], shapes["embed"], generator, 1.0)
     for name, scale in scales.items():
-        fill_normal_(params["layers"][name], generator, scale, stack_dims=1)
+        cuts.fill_normal_(f"layers/{name}", params["layers"][name], shapes[name], generator,
+                          scale, stack_dims=1)
     for norm in (params["layers"]["ln_attn"], params["layers"]["ln_mlp"], params["final_norm"]):
         norm.fill_(1.0)
-    fill_normal_(params["lm_head"], generator, d ** -0.5)
+    cuts.fill_normal_("lm_head", params["lm_head"], shapes["lm_head"], generator, d ** -0.5)
     for t in leaves(params):
         t.requires_grad_(True)
     return params

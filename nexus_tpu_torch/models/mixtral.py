@@ -133,9 +133,20 @@ def param_shapes(cfg: MixtralConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def empty_params(cfg: MixtralConfig, device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+def _whole(shard) -> None:
+    """Mixtral's leaves are whole on every rank: a tensor shard is refused
+    (Mixtral over a tensor axis is item 4b, ROADMAP 'Port to PyTorch/CUDA')."""
+    if shard is not None:
+        raise NotImplementedError("Mixtral over a sharded tensor axis is not ported yet "
+                                  "(item 4b, ROADMAP 'Port to PyTorch/CUDA')")
+
+
+def empty_params(cfg: MixtralConfig, device: Union[str, torch.device] = "cuda",
+                 shard=None) -> Dict[str, Any]:
     """The parameter dict with every leaf allocated and not yet written
-    (the router in f32, every other leaf in ``cfg.dtype``)."""
+    (the router in f32, every other leaf in ``cfg.dtype``); ``shard`` must
+    be None."""
+    _whole(shard)
     shapes = param_shapes(cfg)
 
     def empty(name):
@@ -151,11 +162,13 @@ def empty_params(cfg: MixtralConfig, device: Union[str, torch.device] = "cuda") 
 
 
 def init(generator: torch.Generator, cfg: MixtralConfig,
-         device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+         device: Union[str, torch.device] = "cuda", shard=None) -> Dict[str, Any]:
     """The JAX init's scales (normal, 1/sqrt(fan_in), out-projections by
     1/sqrt(2L) more, norms ones, the router f32), drawn in f32 one layer
     at a time and one expert at a time for the expert stacks: the peak
-    over the weights is one slice. Leaves require grad."""
+    over the weights is one slice. Leaves require grad; ``shard`` must be
+    None."""
+    _whole(shard)
     d, f = cfg.d_model, cfg.d_ff
     hq_hd = cfg.n_heads * cfg.head_dim
     resid = 1.0 / math.sqrt(2 * cfg.n_layers)

@@ -6,28 +6,64 @@ package's pytrees.
 expert) dims at a time, in f32 on the generator's device, and writes each
 slice scaled into the tensor: the peak over the weights is one slice in
 f32, never the whole stack (at Mixtral-8x7B widths the stacked ``w_gate``
-alone is 30 GB in f32).
+alone is 30 GB in f32). ``LeafCuts`` gives a tensor-parallel rank the
+blocks of its leaves (parallel/sharding.py).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Iterator, List, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 
 @torch.no_grad()
 def fill_normal_(out: torch.Tensor, generator: torch.Generator, scale: float,
-                 stack_dims: int = 0) -> torch.Tensor:
+                 stack_dims: int = 0, whole: Optional[Tuple[int, ...]] = None,
+                 take: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """Fill ``out`` with N(0, 1) · ``scale``, drawn slice by slice over its
-    first ``stack_dims`` dims."""
-    slice_shape = tuple(out.shape[stack_dims:])
+    first ``stack_dims`` dims. A tensor-parallel rank's ``out`` holds a
+    block of each slice: every slice is drawn ``whole`` (its shape) and
+    ``take`` keeps the rank's block, so the rank's values are the one-rank
+    draw's, with the same generator stream."""
+    slice_shape = tuple(whole) if whole is not None else tuple(out.shape[stack_dims:])
     for idx in itertools.product(*(range(n) for n in out.shape[:stack_dims])):
         x = torch.randn(slice_shape, generator=generator, device=generator.device,
                         dtype=torch.float32)
+        if take is not None:
+            x = take(x)
         out[idx].copy_(x.mul_(scale))
     return out
+
+
+class LeafCuts:
+    """A family's leaves as one tensor-parallel rank holds them: the block
+    shape of each leaf (``shape``) and the function that cuts the rank's
+    block out of a whole slice of it (``take``), from the family's logical
+    dims and its fused leaves' runs (``groups``, by tree path). With no
+    shard every leaf is whole."""
+
+    def __init__(self, logical_tree: Dict[str, Any], shard=None,
+                 groups: Optional[Dict[str, int]] = None):
+        self.dims = dict(tree_items(logical_tree))
+        self.shard = shard
+        self.groups = groups or {}
+
+    def shape(self, path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(shape) if self.shard is None else self.shard.shape(shape, self.dims[path])
+
+    def take(self, path: str) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        if self.shard is None:
+            return None
+        dims, groups = self.dims[path], self.groups.get(path, 1)
+        return lambda x: self.shard.take(x, dims, groups)
+
+    def fill_normal_(self, path: str, out: torch.Tensor, whole: Tuple[int, ...],
+                     generator: torch.Generator, scale: float, stack_dims: int = 0) -> None:
+        """``fill_normal_`` of the leaf at ``path`` (whole shape ``whole``)."""
+        fill_normal_(out, generator, scale, stack_dims, whole=tuple(whole)[stack_dims:],
+                     take=self.take(path))
 
 
 def tree_items(tree: Union[Dict[str, Any], list], prefix: str = "") -> Iterator[Tuple[str, Any]]:

@@ -1,2 +1,3 @@
-"""Multi-rank training over ``torch.distributed`` (counterpart of
-``nexus_tpu/parallel``): the mesh, the sharding rules and the collectives."""
+"""Multi-rank training, and infer and serve over the tensor axis, over
+``torch.distributed`` (counterpart of ``nexus_tpu/parallel``): the mesh,
+the sharding rules and the collectives."""

@@ -6,6 +6,11 @@ to i + 1) as a ``torch.autograd.Function``: its backward shifts the
 gradient the other way, the transpose of ``ppermute``, so a key/value block
 that visited another rank gets its gradient back on its own.
 
+The host agreements (``AgreedClock``, ``agree_any``, ``check_lockstep``)
+keep ranks that run one host program in lockstep: every rank must take the
+same host decisions, or the next collective waits for a peer that went
+elsewhere. They run over a gloo group (``Mesh.host_group``) on host values.
+
 A group's backend decides where a collective runs. NCCL runs on the card.
 Gloo runs on the host: a CUDA tensor is copied into a host buffer, the
 collective runs there, and the result is copied back. Several ranks can
@@ -15,7 +20,8 @@ share one card only over gloo: NCCL refuses two ranks on one card, and
 
 from __future__ import annotations
 
-from typing import Dict, List
+import hashlib
+from typing import Callable, Dict, List
 
 import torch
 import torch.distributed as dist
@@ -126,3 +132,49 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
                       device=buf.device)
     dist.all_gather_into_tensor(out, buf, group=group)
     return out.to(x.device)
+
+
+class AgreedClock:
+    """A clock every rank of ``group`` reads alike: rank 0's reading,
+    broadcast at each read. Every rank must read it the same number of
+    times in the same order (it is a collective)."""
+
+    def __init__(self, clock: Callable[[], float], group):
+        self.clock = clock
+        self.group = group
+
+    def __call__(self) -> float:
+        t = torch.tensor([self.clock() if dist.get_rank(self.group) == 0 else 0.0],
+                         dtype=torch.float64)
+        dist.broadcast(t, group=self.group, group_src=0)
+        return float(t.item())
+
+
+def agree_any(flag: bool, group) -> bool:
+    """True on every rank of ``group`` when it is true on any."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def digest64(*parts) -> int:
+    """A 64-bit digest of ``parts`` (bytes, or anything whose ``repr`` is
+    stable), as a signed integer."""
+    h = hashlib.blake2b(digest_size=8)
+    for part in parts:
+        h.update(part if isinstance(part, (bytes, bytearray)) else repr(part).encode())
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def check_lockstep(digest: int, group, what: str) -> None:
+    """All-gather every rank's ``digest`` of its host state and raise
+    ``AssertionError`` on every rank when they differ: ranks that diverged
+    fail here together instead of waiting in a collective for a peer that
+    went elsewhere."""
+    t = torch.tensor([digest], dtype=torch.int64)
+    out = torch.empty(dist.get_world_size(group), dtype=torch.int64)
+    dist.all_gather_into_tensor(out, t, group=group)
+    seen = out.tolist()
+    if len(set(seen)) > 1:
+        raise AssertionError(f"lockstep audit ({what}): the ranks' host states diverged; "
+                             f"digests by rank {seen}")

@@ -144,6 +144,24 @@ class Mesh:
                 self._groups[key] = mine
         return self._groups[key]
 
+    def host_group(self, *axes: str):
+        """``group(*axes)``'s ranks over gloo, for agreements on host
+        values (a clock reading, a flag, a digest) that need no card: the
+        group itself when the world's backend is gloo, else a gloo group
+        of the same ranks, made at first use as ``group`` makes its own."""
+        key = ("host",) + tuple(a for a in AXES if a in axes)
+        if key not in self._groups:
+            group = self.group(*axes)
+            if group is None or dist.get_backend() == "gloo":
+                self._groups[key] = group
+            elif self.size(*key[1:]) == self.world:
+                self._groups[key] = dist.new_group(list(range(self.world)), backend="gloo")
+            else:
+                mine, _ = dist.new_subgroups_by_enumeration(self.ranks_along(key[1:]),
+                                                            backend="gloo")
+                self._groups[key] = mine
+        return self._groups[key]
+
     def __repr__(self) -> str:
         sized = {a: s for a, s in self.shape.items() if s > 1}
         return f"Mesh({sized or 'one device'}, rank {self.rank} at {self.coords})"

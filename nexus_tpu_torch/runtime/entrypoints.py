@@ -25,14 +25,22 @@ text (utils/tokenizer.py), tokenized before any weights load, and the
 metrics carry the decoded ``completion`` / ``completions``. Family
 ``mixtral`` resolves ``dispatch_impl: auto`` to the scatter dispatch.
 
-Training runs on one device, or as one rank of an initialised
-``torch.distributed`` group: the world is the group, the declared
+Every mode runs on one device, or as one rank of an initialised
+``torch.distributed`` group: the world is the group, and the declared
 parallelism is the mesh when it tiles the world (else JAX's plan for the
-world's size), each rank takes its slice of the global batch, and a
-sharded ``sequence`` axis selects ring attention. Over more than one rank
-the axes not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``tensor`` (4b), ``expert`` and the MoE family (4c), ``pipeline``
-(4d), and so do infer and serve (4b).
+world's size). Training takes its slice of the global batch on each rank,
+and a sharded ``sequence`` axis selects ring attention. Infer and serve of
+Llama and GPT-NeoX run over a mesh whose only axis above 1 is ``tensor``:
+each rank holds its block of the params (random init, a checkpoint's, or
+``model.weights``; parallel/sharding.py) and of the KV cache, the decode
+scaffold runs the axis's collectives (parallel/tensor.py), and the engine
+runs in lockstep on every rank (runtime/serving.py). A speculative draft
+whose heads do not tile the axis runs whole on every rank. Over more than
+one rank what is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item: training over ``tensor`` and infer / serve over ``data``,
+``fsdp`` or ``sequence`` (4b), a model whose heads do not tile ``tensor``
+(4b), ``expert`` and the MoE family (4c), ``pipeline`` (4d). Only rank 0
+writes the serve trace dump.
 """
 
 from __future__ import annotations
@@ -54,11 +62,12 @@ from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.parallel.comm import check_backend
 from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
-from nexus_tpu_torch.parallel.sharding import batch_spec
+from nexus_tpu_torch.parallel.sharding import batch_spec, tensor_shard
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
-from nexus_tpu_torch.train.checkpoint import RankedCheckpointer, latest_step, make_checkpointer
+from nexus_tpu_torch.train.checkpoint import (RankedCheckpointer, latest_step, make_checkpointer,
+                                              restore_param_shard)
 from nexus_tpu_torch.train.data import (Prefetcher, corpus_batches, synthetic_lm_batches,
                                         synthetic_mlp_batches, to_device)
 from nexus_tpu_torch.train.metrics import mfu, model_flops_per_token
@@ -96,15 +105,22 @@ def _resolve_mesh(runtime: JaxXlaRuntime, world: int):
     return build_mesh(plan, world)
 
 
+# the families whose params and decode run over a sharded tensor axis
+TENSOR_FAMILIES = ("llama", "gptneox")
+
+
 def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
     """The multi-rank paths not ported yet, each naming its ROADMAP item."""
     if mesh.world == 1:
         return
     why = []
     if runtime.mode != "train":
-        why.append(f"mode {runtime.mode!r} (item 4b)")
-    if mesh.shape["tensor"] > 1:
-        why.append("the tensor axis (item 4b)")
+        batch_axes = [a for a in ("data", "fsdp", "sequence") if mesh.shape[a] > 1]
+        if batch_axes:
+            why.append(f"mode {runtime.mode!r} (item 4b) over the {', '.join(batch_axes)} "
+                       "axis: infer and serve run over the tensor axis only")
+    elif mesh.shape["tensor"] > 1:
+        why.append("training over the tensor axis (item 4b)")
     if mesh.shape["expert"] > 1 or runtime.model.family == "mixtral":
         why.append("the expert axis and MoE over a sharded token axis (item 4c)")
     if mesh.shape["pipeline"] > 1:
@@ -118,7 +134,42 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
     if why:
         raise NotImplementedError(
             f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp and sequence axes "
-            f"of training; not ported yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
+            "of training and the tensor axis of infer and serve; not ported yet: "
+            f"{', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
+
+
+def _untiled(cfg, size: int) -> list:
+    """The dims of ``cfg`` a tensor axis of ``size`` does not split."""
+    dims = {"q heads": cfg.n_heads, "kv heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size}
+    return [f"{name} {n}" for name, n in dims.items() if n % size]
+
+
+def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
+    """A target model the tensor axis cannot split: refused (item 4b)."""
+    size = mesh.shape["tensor"]
+    if size == 1 or runtime.mode == "train" or not hasattr(cfg, "n_heads"):
+        return  # (the MLP neither infers nor serves: its own error follows)
+    bad = _untiled(cfg, size)
+    if bad:
+        raise NotImplementedError(
+            f"the tensor axis of {size} ranks does not tile the model ({', '.join(bad)}); "
+            "sharding such a model is not ported yet (item 4b, ROADMAP 'Port to PyTorch/CUDA')")
+
+
+def _draft_shard(ref, d_cfg, mesh):
+    """The tensor shard a speculative draft runs at: the target's when the
+    draft's family runs over the axis and its dims tile it, else None (the
+    draft whole on every rank: a deliberate difference, JAX shards it by
+    GSPMD)."""
+    shard = tensor_shard(mesh)
+    if shard is None:
+        return None
+    if ref.family not in TENSOR_FAMILIES or _untiled(d_cfg, shard.size):
+        logger.info("the draft %s/%s does not tile the tensor axis of %d ranks: it runs whole "
+                    "on every rank", ref.family, ref.preset, shard.size)
+        return None
+    return shard
 
 
 def _rank_device(device, world: int) -> torch.device:
@@ -157,7 +208,6 @@ def run_template_runtime(
         raise ValueError(f"unknown runtime mode {runtime.mode!r}")
     mesh = _resolve_mesh(runtime, world_size())
     _refuse_unported(runtime, mesh)
-    dev = _rank_device(device, mesh.world)
 
     family = get_family(runtime.model.family)
     overrides = resolve_overrides(runtime.model.family, runtime.model.overrides,
@@ -167,17 +217,20 @@ def run_template_runtime(
         # over the sequence blocks (another attn_impl was refused above)
         overrides["attn_impl"] = "ring"
     cfg = family.config(runtime.model.preset, **overrides)
+    _refuse_untiled(runtime, cfg, mesh)
+    dev = _rank_device(device, mesh.world)
     if runtime.mode != "train" and getattr(family, "forward_decode", None) is None:
         # the JAX entry point's refusals: a family with no incremental
         # decode path (mlp) neither infers nor serves
         what = "generate()" if runtime.mode == "infer" else "forward_decode incremental path"
         raise ValueError(f"model family {runtime.model.family!r} does not support "
                          f"mode={runtime.mode!r} (no {what}); use mode='train'")
-    if runtime.mode == "infer":
-        return _run_infer(runtime, family, cfg, dev)
-    if runtime.mode == "serve":
-        return _run_serve(runtime, family, cfg, dev, cancel=cancel, heartbeat=heartbeat)
     with use_mesh(mesh):
+        if runtime.mode == "infer":
+            return _run_infer(runtime, family, cfg, dev, mesh)
+        if runtime.mode == "serve":
+            return _run_serve(runtime, family, cfg, dev, mesh, cancel=cancel,
+                              heartbeat=heartbeat)
         return _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel, heartbeat,
                           restore_step)
 
@@ -302,48 +355,52 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
     }
 
 
-def _decode_params(family, cfg, dev, seed: int):
-    """Random weights from ``seed`` for decoding, with no autograd state."""
+def _decode_params(family, cfg, dev, seed: int, shard=None):
+    """Random weights from ``seed`` for decoding, with no autograd state;
+    with a ``TensorShard``, the rank's blocks of the one-rank draw."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = family.init(gen, cfg, dev)
+    params = family.init(gen, cfg, dev, shard=shard)
     for t in family.leaves(params):
         t.requires_grad_(False)
     return params
 
 
-def _restore_params(directory: str, family, cfg, dev):
+def _restore_params(directory: str, family, cfg, dev, shard=None):
     """(params, step) from the latest durable checkpoint under
-    ``directory`` (params-only, format sniffed), or None when it holds
-    none."""
+    ``directory`` (params-only, format sniffed; a tensor rank's blocks with
+    ``shard``), or None when it holds none."""
     step = latest_step(directory)
     if step is None:
         return None
     checkpointer = make_checkpointer(directory, fmt="auto")
-    params = checkpointer.restore_params(family.empty_params(cfg, dev), step=step)
+    if shard is None:
+        params = checkpointer.restore_params(family.empty_params(cfg, dev), step=step)
+    else:
+        params = restore_param_shard(checkpointer, family, cfg, dev, shard, step=step)
     checkpointer.close()
     return params, step
 
 
-def _load_params(runtime, family, cfg, dev):
+def _load_params(runtime, family, cfg, dev, shard=None):
     """Params for infer and serve: (params, loaded, restored step), by the
     JAX entry point's precedence: ``model.weights`` (an HF safetensors
     checkpoint converted onto ``dev``; step -1), else the template's
     checkpoint block when it is enabled and holds a checkpoint (a train ->
     checkpoint -> infer round trip), else random from train.seed (-1:
-    nothing restored)."""
+    nothing restored). With a ``TensorShard``, each as the rank's blocks."""
     w = runtime.model.weights
     if w is not None and w.path:
-        params = load_pretrained(runtime.model.family, w.path, cfg, dev)
+        params = load_pretrained(runtime.model.family, w.path, cfg, dev, shard=shard)
         logger.info("inference params converted from %s checkpoint %s", w.format, w.path)
         return params, True, -1
     ck = runtime.checkpoint
     if ck.enabled and ck.directory:
-        restored = _restore_params(ck.directory, family, cfg, dev)
+        restored = _restore_params(ck.directory, family, cfg, dev, shard)
         if restored is not None:
             logger.info("inference params restored from checkpoint step %d", restored[1])
             return restored[0], True, restored[1]
-    return _decode_params(family, cfg, dev, runtime.train.seed), False, -1
+    return _decode_params(family, cfg, dev, runtime.train.seed, shard), False, -1
 
 
 # the draft's weights come from train.seed + this (the JAX entry point folds
@@ -363,22 +420,23 @@ def _resolve_draft(ref, cfg, what: str):
     return family, d_cfg
 
 
-def _load_draft_params(family, d_cfg, dev, seed: int, ck_dir: str):
+def _load_draft_params(family, d_cfg, dev, seed: int, ck_dir: str, shard=None):
     """Draft weights: a params-only restore from ``ck_dir`` when it holds a
     checkpoint (the draft may have been trained with any optimizer
-    schedule), else random from ``seed`` (+ _DRAFT_SEED_OFFSET). Returns
-    (params, loaded)."""
+    schedule), else random from ``seed`` (+ _DRAFT_SEED_OFFSET); a tensor
+    rank's blocks with ``shard``. Returns (params, loaded)."""
     if ck_dir:
-        restored = _restore_params(ck_dir, family, d_cfg, dev) if os.path.isdir(ck_dir) else None
+        restored = (_restore_params(ck_dir, family, d_cfg, dev, shard) if os.path.isdir(ck_dir)
+                    else None)
         if restored is not None:
             logger.info("draft params restored from %s step %d", ck_dir, restored[1])
             return restored[0], True
         logger.warning("draftCheckpointDirectory %s has no checkpoint; the draft runs with "
                        "RANDOM weights (acceptance will be ~0)", ck_dir)
-    return _decode_params(family, d_cfg, dev, seed + _DRAFT_SEED_OFFSET), False
+    return _decode_params(family, d_cfg, dev, seed + _DRAFT_SEED_OFFSET, shard), False
 
 
-def _run_infer(runtime, family, cfg, dev):
+def _run_infer(runtime, family, cfg, dev, mesh):
     """Timed autoregressive decode: ``infer.iterations`` timed decodes of
     ``infer.maxNewTokens`` new tokens after one untimed warm-up; the
     metric is decode tokens/sec over the best iteration. With
@@ -427,7 +485,8 @@ def _run_infer(runtime, family, cfg, dev):
         if max_new <= 0:
             raise ValueError(f"infer prompt ({prompt_len} tokens) leaves no room for new "
                              f"tokens within max_seq_len {ctx}")
-    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
+    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev,
+                                                         tensor_shard(mesh))
     if ids is not None:
         prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
     else:
@@ -453,7 +512,8 @@ def _run_infer(runtime, family, cfg, dev):
     elif inf.draft is not None:
         # a draft model proposes; greedy, or rejection-sampled at temperature > 0
         draft_params, draft_loaded = _load_draft_params(
-            draft_family, draft_cfg, dev, tr.seed, inf.draft_checkpoint_directory)
+            draft_family, draft_cfg, dev, tr.seed, inf.draft_checkpoint_directory,
+            _draft_shard(inf.draft, draft_cfg, mesh))
         spec_extra = {"draft_weights_loaded": draft_loaded, "speculative": True,
                       "draft_family": inf.draft.family, "draft_preset": inf.draft.preset,
                       "num_speculative": inf.num_speculative}
@@ -519,12 +579,13 @@ def _run_infer(runtime, family, cfg, dev):
         "weights_loaded": weights_loaded,
         "restored_step": restored_step,
         "decode_tokens_per_sec": new_tokens / best,
+        "decode_tokens_per_sec_per_chip": new_tokens / best / mesh.world,
         "decode_tokens_per_sec_mean": new_tokens * len(times) / sum(times),
         "iteration_seconds": [round(t, 4) for t in times],
         "batch_size": tr.batch_size,
         "prompt_len": prompt_len,
         "new_tokens": max_new,
-        "n_devices": 1,
+        "n_devices": mesh.world,
         "device": str(dev),
         "device_kind": device_kind(dev),
         "output_shape": list(out.shape),
@@ -626,7 +687,7 @@ def _synthetic_trace(sv, tr, cfg):
         fanout=sv.trace_fanout, temperature=sv.temperature)
 
 
-def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
+def _run_serve(runtime, family, cfg, dev, mesh, cancel=None, heartbeat=None):
     """Continuous-batching serving through runtime/serving.py's engine with
     ``train.batchSize`` rows and the pool ``ServeSpec.kv_pool_blocks``
     sizes: the synthetic closed-loop queue (deterministic from train.seed),
@@ -646,15 +707,18 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
                              f"max_seq_len {draft_cfg.max_seq_len} < target {cfg.max_seq_len} "
                              "(override the draft's max_seq_len)")
         draft_params, loaded = _load_draft_params(draft_family, draft_cfg, dev, tr.seed,
-                                                  sv.draft_checkpoint_directory)
+                                                  sv.draft_checkpoint_directory,
+                                                  _draft_shard(sv.draft, draft_cfg, mesh))
         draft_kw = dict(draft_forward=draft_family.forward_decode, draft_params=draft_params,
                         draft_cfg=draft_cfg)
         draft_out = {"draft_family": sv.draft.family, "draft_preset": sv.draft.preset,
                      "draft_weights_loaded": loaded}
     tokenizer, literal_ids = _literal_prompts(runtime, cfg)
     trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" and not literal_ids else None
-    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev)
-    # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there
+    params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev,
+                                                         tensor_shard(mesh))
+    # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there (every
+    # rank traces, as every rank runs the same host program; rank 0 writes)
     trace_path = os.environ.get("NEXUS_SERVE_TRACE", "").strip()
     tracer = ServeTracer() if trace_path and sv.replicas == 1 else None
 
@@ -731,7 +795,7 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         metrics["fleet_journeys"] = len(journey_dump["journeys"])
     if fleet_log_dump is not None:
         metrics["fleet_decision_events"] = fleet_log_dump["events_recorded"]
-    if trace_path:
+    if trace_path and mesh.rank == 0:
         dumps = [(trace_path, tracer.to_dict() if journey_dump is None else journey_dump)]
         if fleet_log_dump is not None:
             dumps.append((f"{trace_path}.fleetlog.json", fleet_log_dump))
@@ -761,7 +825,8 @@ def _run_serve(runtime, family, cfg, dev, cancel=None, heartbeat=None):
         "restored_step": restored_step,
         "finished_requests": sum(1 for r in results if r is not None),
         "batch_rows": tr.batch_size,
-        "n_devices": 1,
+        "n_devices": mesh.world,
+        "tokens_per_sec_per_chip": (metrics.get("tokens_per_sec") or 0.0) / mesh.world,
         "device": str(dev),
         "device_kind": device_kind(dev),
         # the queue's trimmed decode budgets, and each request's new token

@@ -56,7 +56,18 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   at every wave boundary (on by default, as in the JAX engine), and
   ``torch.profiler.record_function`` scopes around the dispatch sites
   under ``NEXUS_OBS_JAX_TRACE=1``. The hooks read the engine's clock at
-  the JAX engine's points and in its order, and no hook reads a tensor.
+  the JAX engine's points and in its order, and no hook reads a tensor;
+* tensor parallelism: params cut over the active mesh's ``tensor`` axis
+  (parallel/sharding.py::shard_params) hold a rank's heads, and the pool
+  holds the rank's kv heads; every rank of the group runs the same engine
+  in lockstep. The host decisions come out alike on every rank: the
+  logits are gathered, so the sampled tokens agree; the clock is rank 0's
+  reading broadcast at each read; a cancel is agreed at each chunk
+  boundary; the host tier's budget is the rank's share of the bytes.
+  Under ``NEXUS_SANITIZE`` the lockstep audit all-gathers a digest of the
+  host state at each wave and raises on a mismatch instead of hanging.
+  The byte ledger (pool, host tier) counts the model's whole kv heads,
+  summed over the ranks, as JAX's global arrays do.
 """
 
 from __future__ import annotations
@@ -73,16 +84,20 @@ from nexus_tpu_torch.api.runtime_spec import serve_dispatch_slack
 from nexus_tpu_torch.models.decoding import (
     _commit_speculation,
     _greedy_accept,
+    cache_for,
     copy_kv_blocks,
     gather_kv_block,
     init_kv_cache,
     init_paged_kv_cache,
+    local_heads,
     prompt_lookup_propose,
+    tensor_split,
     write_kv_blocks,
 )
 from nexus_tpu_torch.obs.gauges import LiveGauges
 from nexus_tpu_torch.obs.profiling import dispatch_annotation
 from nexus_tpu_torch.obs.recorder import FlightRecorder
+from nexus_tpu_torch.parallel.comm import AgreedClock, agree_any, check_lockstep, digest64
 from nexus_tpu_torch.runtime.host_cache import (
     HOST_CACHE_DTYPES,
     HostBlockStore,
@@ -533,7 +548,13 @@ class ServingEngine:
         self._max_queue_delay = float(max_queue_delay_s)
         if self._max_queue_delay < 0:
             raise ValueError(f"max_queue_delay_s must be >= 0, got {max_queue_delay_s}")
-        self._clock = clock
+        # tensor parallelism: the tensor ranks the params were cut for
+        # (``tensor_split``) run this engine in lockstep, agreeing on the
+        # clock and a cancel over a host group (and auditing it under
+        # NEXUS_SANITIZE)
+        self._tp, mesh = tensor_split(params, cfg)
+        self._lockstep = None if mesh is None else mesh.host_group("tensor")
+        self._clock = clock if self._lockstep is None else AgreedClock(clock, self._lockstep)
         # NEXUS_SANITIZE arms the engine's in-loop audits; read once, here
         self._sanitize = sanitizers_enabled()
         self.set_observability(tracer, flight_recorder, live_gauges, gauge_tags)
@@ -588,6 +609,8 @@ class ServingEngine:
                                            draft=self._draft)
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         per_elem = cfg.head_dim * 1 + 4 if self._quantized else cfg.head_dim * itemsize
+        # the ledger's bytes a position: the model's kv heads, summed over
+        # the tensor ranks (each pool holds its rank's share)
         self._pos_bytes = cfg.n_layers * cfg.n_kv_heads * per_elem * 2
         self._warmed = False
         self._serve_calls = 0
@@ -597,7 +620,10 @@ class ServingEngine:
     # ---------------------------------------------------------------- state
 
     def _build_kv_state(self) -> None:
-        self._host_store = (HostBlockStore(self._host_cache_bytes, dtype=self._host_cache_dtype)
+        # a tensor-parallel rank spills its own heads' planes: its share of
+        # the budget keeps every spill decision the one-rank engine's
+        self._host_store = (HostBlockStore(self._host_cache_bytes // self._tp,
+                                           dtype=self._host_cache_dtype)
                             if self._host_tier else None)
         self._alloc = (
             BlockAllocator(self._num_blocks, self._block_size,
@@ -635,18 +661,25 @@ class ServingEngine:
         self._live_gauges = bool(live_gauges)
         self._gauge_tags = list(gauge_tags or [])
 
+    @property
+    def lockstep_group(self):
+        """The host group of the tensor ranks that run this engine in
+        lockstep (``tensor_split`` of its params), None on one rank."""
+        return self._lockstep
+
     def _vec(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self._dev)
 
     def _fresh_cache(self):
         b, cfg = self._b, self._cfg
+        kv_heads = local_heads(self._params, cfg)[1]
         if self._paged:
             return init_paged_kv_cache(
-                cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b, self._num_blocks + 1,
+                cfg.n_layers, kv_heads, cfg.head_dim, cfg.dtype, b, self._num_blocks + 1,
                 self._block_size, self._blocks_per_row, quantized=self._quantized,
                 device=self._dev)
-        c = init_kv_cache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.dtype, b,
-                          self._max_len, quantized=self._quantized, device=self._dev)
+        c = init_kv_cache(cfg.n_layers, kv_heads, cfg.head_dim, cfg.dtype, b, self._max_len,
+                          quantized=self._quantized, device=self._dev)
         c["length"] = torch.zeros((b,), dtype=torch.int32, device=self._dev)
         return c
 
@@ -705,9 +738,7 @@ class ServingEngine:
         shapes (a draft is small by design) with per-row lengths; rollback
         is a pointer rewind. No block table and no prefix sharing: the draft
         teacher-forces every admitted prompt from position 0."""
-        d = self._draft_cfg
-        c = init_kv_cache(d.n_layers, d.n_kv_heads, d.head_dim, d.dtype, self._b, self._max_len,
-                          quantized=getattr(d, "kv_cache_quantized", False), device=self._dev)
+        c = cache_for(self._draft_params, self._draft_cfg, self._b, self._max_len, self._dev)
         c["length"] = torch.zeros((self._b,), dtype=torch.int32, device=self._dev)
         return c
 
@@ -1299,6 +1330,9 @@ class ServingEngine:
                     raise
             if not wave:
                 return
+            if self._sanitize and self._lockstep is not None:
+                admitted_digest[0] = digest64(admitted_digest[0], [
+                    (w[0], w[2], w[3].tobytes(), w[6]) for w in wave])
             # the insert: prompts into their rows of the token buffer, the
             # rows' pointers and depths to their matched lengths
             now = self._clock()
@@ -1375,6 +1409,24 @@ class ServingEngine:
                               aged=int(getattr(self._policy, "last_wave_meta", {}).get("aged", 0)),
                               restores=len(restore_jobs), cow=len(cow_pairs))
 
+        # the lockstep audit's running digest of every admission
+        admitted_digest = [0]
+
+        def audit_lockstep(where: str) -> None:
+            """Under NEXUS_SANITIZE, over tensor ranks: every rank's host
+            state (admissions, rows, block table, committed tokens) must be
+            the same, or the ranks fail here together."""
+            if not (self._sanitize and self._lockstep is not None):
+                return
+            digest = digest64(admitted_digest[0], chunks, committed, len(pending),
+                              [None if st is None else (st.request_idx, st.emitted)
+                               for st in rows], table_np.tobytes())
+            try:
+                check_lockstep(digest, self._lockstep, f"{where}, wave {chunks}")
+            except AssertionError as e:
+                trip_flight("sanitizer", {"error": str(e)})
+                raise
+
         def poll_source() -> None:
             """Due arrivals into the wait queue: requests, results, arrival
             stamps and the queue grow in lock-step."""
@@ -1403,13 +1455,17 @@ class ServingEngine:
         police_deadlines()
         admit_into([r for r in range(b) if rows[r] is None])
         police_depth()
+        audit_lockstep("first admission")
         if shed_count + deadline_miss_count >= self._storm_threshold:
             # the arrival burst itself overflowed the bounded queue
             trip_flight("shed_storm" if shed_count >= deadline_miss_count else "deadline_storm",
                         {"wave": 0, "shed": shed_count, "deadline": deadline_miss_count})
 
         while any(r is not None for r in rows) or pending or source_live():
-            if cancel is not None and cancel.cancelled():
+            stop = cancel is not None and cancel.cancelled()
+            if self._lockstep is not None:
+                stop = agree_any(stop, self._lockstep)  # one decision for every rank
+            if stop:
                 elapsed = max(0.0, self._clock() - t0)
                 drained: List[DrainedRequest] = []
                 for r in range(b):
@@ -1586,6 +1642,7 @@ class ServingEngine:
             police_deadlines()
             admit_into([r for r in range(b) if rows[r] is None])
             police_depth()
+            audit_lockstep("wave boundary")
             # the wave boundary's observability
             shed_d = shed_count - shed_wave0
             miss_d = deadline_miss_count - miss_wave0
@@ -1697,8 +1754,10 @@ class ServingEngine:
                     metrics["restored_blocks"] = alloc.restores
                     metrics["restore_hit_tokens"] = restore_hit_tokens
                     metrics["restore_hit_requests"] = restore_hit_requests
-                    metrics["host_cache_bytes"] = hs["bytes"]
-                    metrics["host_cache_bytes_peak"] = hs["bytes_peak"]
+                    # summed over the tensor ranks, whose stores hold alike
+                    # shaped entries of their own heads
+                    metrics["host_cache_bytes"] = hs["bytes"] * self._tp
+                    metrics["host_cache_bytes_peak"] = hs["bytes_peak"] * self._tp
                     metrics["host_cache_dtype"] = host_store.dtype
                     metrics["host_cache_evictions"] = alloc.host_evictions
                     # the spilled tier's slot of the partition: entries

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.utils.hw import resolve_device
 
@@ -202,21 +203,25 @@ def _check_shape(name: str, t: torch.Tensor, shape: Tuple[int, ...], why: str = 
 
 
 @torch.no_grad()
-def _fill(out: torch.Tensor, reader: CheckpointReader, name: str, transpose: bool) -> None:
-    """``out`` = the checkpoint's ``name`` (transposed), cast to ``out``'s
-    dtype on ``out``'s device."""
+def _fill(out: torch.Tensor, reader: CheckpointReader, name: str, transpose: bool,
+          take=None) -> None:
+    """``out`` = the checkpoint's ``name`` (transposed; a tensor-parallel
+    rank's block of it by ``take``), cast to ``out``'s dtype on ``out``'s
+    device."""
     t = reader.tensor(name)
     if transpose:
         t = t.T
+    if take is not None:
+        t = take(t)
     _check_shape(name, t, out.shape, " (config/checkpoint mismatch)")
     out.copy_(t.to(out.device))
 
 
 def _fill_stacked(out: torch.Tensor, reader: CheckpointReader, template: str,
-                  transpose: bool) -> None:
+                  transpose: bool, take=None) -> None:
     """``out[i]`` = ``template.format(i)`` for every layer, one at a time."""
     for i in range(out.shape[0]):
-        _fill(out[i], reader, template.format(i), transpose)
+        _fill(out[i], reader, template.format(i), transpose, take)
 
 
 def _check_depth(reader: CheckpointReader, L: int, last: str, past_prefix: str = "") -> None:
@@ -231,15 +236,21 @@ Device = Optional[Union[str, torch.device]]
 
 
 def _convert(family_name: str, body, path: str, cfg, device: Device,
-             progress: Optional[Callable[[str], None]]) -> Dict[str, Any]:
+             progress: Optional[Callable[[str], None]], shard=None) -> Dict[str, Any]:
     """The frame the three converters share: the checkpoint opened and
     closed, the family's empty parameters allocated on ``device`` and handed
-    to ``body(reader, params, cfg, note)`` to fill."""
+    to ``body(reader, params, cfg, note, take)`` to fill. With a
+    ``TensorShard`` the leaves are the rank's blocks, and ``take(path)``
+    gives the function that cuts a whole tensor read for the leaf at
+    ``path`` (None: keep it whole)."""
     reader = CheckpointReader(path)
     note = progress or (lambda msg: logger.info("%s", msg))
+    family = get_family(family_name)
     try:
-        params = get_family(family_name).empty_params(cfg, resolve_device(device))
-        body(reader, params, cfg, note)
+        params = family.empty_params(cfg, resolve_device(device), shard=shard)
+        take = (lambda leaf_path: None) if shard is None else LeafCuts(
+            family.logical_axes(cfg), shard, family.TENSOR_GROUPS).take
+        body(reader, params, cfg, note, take)
         return params
     finally:
         reader.close()
@@ -260,30 +271,31 @@ _HF_LLAMA_LAYERS: Dict[str, Tuple[str, bool]] = {
 }
 
 
-def _llama_body(reader, params, cfg, note) -> None:
+def _llama_body(reader, params, cfg, note, take) -> None:
     L = cfg.n_layers
     _check_depth(reader, L, f"model.layers.{L - 1}.input_layernorm.weight",
                  past_prefix=f"model.layers.{L}.")
     for ours, (tmpl, transpose) in _HF_LLAMA_LAYERS.items():
         note(f"converting {ours} ({L} layers)")
-        _fill_stacked(params["layers"][ours], reader, tmpl, transpose)
+        _fill_stacked(params["layers"][ours], reader, tmpl, transpose, take(f"layers/{ours}"))
     note("converting embed / final_norm / lm_head")
-    _fill(params["embed"], reader, "model.embed_tokens.weight", False)
+    _fill(params["embed"], reader, "model.embed_tokens.weight", False, take("embed"))
     if "lm_head.weight" in reader:
-        _fill(params["lm_head"], reader, "lm_head.weight", True)
+        _fill(params["lm_head"], reader, "lm_head.weight", True, take("lm_head"))
     else:  # tied word embeddings (Llama-3.2 style)
-        _fill(params["lm_head"], reader, "model.embed_tokens.weight", True)
+        _fill(params["lm_head"], reader, "model.embed_tokens.weight", True, take("lm_head"))
     _fill(params["final_norm"], reader, "model.norm.weight", False)
 
 
 def convert_hf_llama(path: str, cfg, device: Device = None,
-                     progress: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+                     progress: Optional[Callable[[str], None]] = None,
+                     shard=None) -> Dict[str, Any]:
     """HF-format Llama safetensors checkpoint → the port's parameter dict on
-    ``device`` (default CUDA). Tied-embedding checkpoints (no
-    ``lm_head.weight``, e.g. Llama-3.2-1B) use the embedding transposed.
-    Raises ValueError on a shape or layer-count mismatch with ``cfg``,
-    KeyError on a missing tensor."""
-    return _convert("llama", _llama_body, path, cfg, device, progress)
+    ``device`` (default CUDA; a tensor rank's blocks with a ``TensorShard``).
+    Tied-embedding checkpoints (no ``lm_head.weight``, e.g. Llama-3.2-1B)
+    use the embedding transposed. Raises ValueError on a shape or
+    layer-count mismatch with ``cfg``, KeyError on a missing tensor."""
+    return _convert("llama", _llama_body, path, cfg, device, progress, shard)
 
 
 def hf_tensors_llama(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -340,14 +352,18 @@ _HF_NEOX_PLAIN: Dict[str, Tuple[str, bool]] = {
 _HF_NEOX_QKV = "gpt_neox.layers.{}.attention.query_key_value."
 
 
-def _gptneox_body(reader, params, cfg, note) -> None:
+def _gptneox_body(reader, params, cfg, note, take) -> None:
     L, d = cfg.n_layers, cfg.d_model
     _check_depth(reader, L, f"gpt_neox.layers.{L - 1}.input_layernorm.weight")
     layers = params["layers"]
     for ours, (tmpl, transpose) in _HF_NEOX_PLAIN.items():
         note(f"converting {ours} ({L} layers)")
-        _fill_stacked(layers[ours], reader, tmpl, transpose)
+        _fill_stacked(layers[ours], reader, tmpl, transpose, take(f"layers/{ours}"))
     note("converting fused qkv")
+    # a tensor-parallel rank cuts after the de-interleave: its heads' block
+    # of each of the q, k and v thirds
+    take_w = take("layers/wqkv") or (lambda t: t)
+    take_b = take("layers/b_qkv") or (lambda t: t)
     with torch.no_grad():
         for i in range(L):
             w = reader.tensor(_HF_NEOX_QKV.format(i) + "weight")
@@ -357,23 +373,24 @@ def _gptneox_body(reader, params, cfg, note) -> None:
                                  f"{(3 * d, d)}")
             _check_shape("query_key_value.bias", b, (3 * d,))
             w = _deinterleave_neox_qkv(w.to(layers["wqkv"].device), cfg.n_heads, cfg.head_dim)
-            layers["wqkv"][i].copy_(w.T)
-            layers["b_qkv"][i].copy_(_deinterleave_neox_qkv(
-                b.to(layers["b_qkv"].device), cfg.n_heads, cfg.head_dim))
+            layers["wqkv"][i].copy_(take_w(w.T))
+            layers["b_qkv"][i].copy_(take_b(_deinterleave_neox_qkv(
+                b.to(layers["b_qkv"].device), cfg.n_heads, cfg.head_dim)))
     note("converting embed / final norm / head")
-    _fill(params["embed"], reader, "gpt_neox.embed_in.weight", False)
+    _fill(params["embed"], reader, "gpt_neox.embed_in.weight", False, take("embed"))
     _fill(params["final_norm"], reader, "gpt_neox.final_layer_norm.weight", False)
     _fill(params["final_norm_b"], reader, "gpt_neox.final_layer_norm.bias", False)
-    _fill(params["lm_head"], reader, "embed_out.weight", True)
+    _fill(params["lm_head"], reader, "embed_out.weight", True, take("lm_head"))
 
 
 def convert_hf_gptneox(path: str, cfg, device: Device = None,
-                       progress: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+                       progress: Optional[Callable[[str], None]] = None,
+                       shard=None) -> Dict[str, Any]:
     """HF GPTNeoXForCausalLM safetensors checkpoint → the port's parameter
-    dict on ``device``: the fused ``query_key_value`` is de-interleaved per
-    head (:func:`_deinterleave_neox_qkv`), ``embed_out`` is the untied
-    head."""
-    return _convert("gptneox", _gptneox_body, path, cfg, device, progress)
+    dict on ``device`` (a tensor rank's blocks with a ``TensorShard``): the
+    fused ``query_key_value`` is de-interleaved per head
+    (:func:`_deinterleave_neox_qkv`), ``embed_out`` is the untied head."""
+    return _convert("gptneox", _gptneox_body, path, cfg, device, progress, shard)
 
 
 def hf_tensors_gptneox(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -421,7 +438,7 @@ _HF_MIXTRAL_EXPERTS: Dict[str, str] = {
 }
 
 
-def _mixtral_body(reader, params, cfg, note) -> None:
+def _mixtral_body(reader, params, cfg, note, take) -> None:
     L, E = cfg.n_layers, cfg.n_experts
     _check_depth(reader, L, f"model.layers.{L - 1}.input_layernorm.weight")
     layers = params["layers"]
@@ -442,11 +459,12 @@ def _mixtral_body(reader, params, cfg, note) -> None:
 
 
 def convert_hf_mixtral(path: str, cfg, device: Device = None,
-                       progress: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+                       progress: Optional[Callable[[str], None]] = None,
+                       shard=None) -> Dict[str, Any]:
     """HF MixtralForCausalLM safetensors checkpoint → the port's parameter
     dict on ``device`` (expert-stacked (L, E, in, out) FFN weights, the
-    router in float32)."""
-    return _convert("mixtral", _mixtral_body, path, cfg, device, progress)
+    router in float32); ``shard`` must be None (models/mixtral.py)."""
+    return _convert("mixtral", _mixtral_body, path, cfg, device, progress, shard)
 
 
 def hf_tensors_mixtral(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -488,12 +506,15 @@ HF_TENSORS: Dict[str, Callable[..., Dict[str, torch.Tensor]]] = {
 }
 
 
-def load_pretrained(family_name: str, path: str, cfg, device: Device = None) -> Dict[str, Any]:
+def load_pretrained(family_name: str, path: str, cfg, device: Device = None,
+                    shard=None) -> Dict[str, Any]:
     """What the entry point calls: convert ``path`` for ``family_name`` onto
-    ``device`` (default CUDA; raises when no card is visible)."""
+    ``device`` (default CUDA; raises when no card is visible). With a
+    ``parallel.sharding.TensorShard`` (Llama, GPT-NeoX) each rank reads
+    every tensor, a layer at a time, and keeps its block."""
     try:
         converter = CONVERTERS[family_name]
     except KeyError:
         raise ValueError(f"no safetensors converter for family {family_name!r} "
                          f"(have: {sorted(CONVERTERS)})")
-    return converter(path, cfg, device=device)
+    return converter(path, cfg, device=device, shard=shard)

@@ -28,6 +28,10 @@ interval saves are asynchronous). Its restores write into the caller's
 tensors one array chunk at a time, each zstd frame decoded straight into a
 host buffer of the chunk's size; ``restore_params`` reads the ``params.*``
 arrays alone (JAX's reads the optimizer moments too, then drops them).
+
+``restore_param_shard`` is the params-only restore of a tensor-parallel
+rank: each leaf read whole into host memory, then cut to the rank's block
+(parallel/sharding.py::shard_params) and moved onto the device.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from nexus_tpu_torch.models.params import tree_leaves
+from nexus_tpu_torch.parallel.sharding import shard_params
 from nexus_tpu_torch.train import orbax_format
 from nexus_tpu_torch.train.trainer import OptState, TrainState, load_whole_state, whole_state
 
@@ -305,6 +310,21 @@ class RankedCheckpointer:
         self.inner.restore(whole, step)
         load_whole_state(state, whole)
         return state
+
+
+def restore_param_shard(checkpointer, family, cfg, device, shard, step: Optional[int] = None):
+    """The params of ``step`` (the latest by default), restored whole into
+    host memory by ``checkpointer.restore_params`` (either format), as the
+    tensor rank ``shard`` holds them, on ``device``."""
+    whole = checkpointer.restore_params(family.empty_params(cfg, "cpu"), step=step)
+    local = shard_params(whole, family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
+    del whole
+
+    def to_device(tree):
+        return {k: to_device(v) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    return to_device(local)
 
 
 def detect_format(directory: str) -> str:

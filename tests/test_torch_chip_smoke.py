@@ -1043,3 +1043,54 @@ def test_the_profile_table_counts_kernel_rows_only():
     assert [k for k, _, _ in table["top_device"]] == ["ncclDevKernel_SendRecv",
                                                       "flash_fwd_kernel", "nvjet_gemm"]
     assert table["top_host"][0][0] == "aten::mm"
+
+
+def test_the_token_share_gate(monkeypatch):
+    """The share counts each request's tokens up to its first difference;
+    a run under it fails, and so does a planted run that reaches it."""
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    one = {"completion_ids": [[1, 2, 3, 4], [5, 6, 7, 8]]}
+    assert cs.token_share(one["completion_ids"], [[1, 2, 9, 4], [5, 6, 7, 8]]) == 6 / 8
+    assert cs.token_share(one["completion_ids"], [[0, 2, 3, 4], [5, 6, 7, 8]]) == 4 / 8
+    wrong = {"completion_ids": [[0] * 4, [0] * 4]}
+    assert cs.check_tp_share("x", one, one, planted=wrong) == {"clean": 1.0, "planted": 0.0}
+    with pytest.raises(AssertionError, match="token share"):
+        cs.check_tp_share("x", one, wrong)
+    with pytest.raises(AssertionError, match="planted kv-head block passes"):
+        cs.check_tp_share("x", one, one, planted=one)
+
+
+@pytest.mark.parametrize("name", ["llama", "gptneox"])
+def test_the_paged_feed_is_the_dense_one_and_a_rolled_pool_fails_the_limit(name, monkeypatch):
+    """The teacher-forced feed through a paged pool (feeds of 8, then of 1)
+    gives the dense feed's logits at tiny widths in float32 on the CPU, and
+    D1 reading the pool's kv heads rolled by one moves them past the logits
+    limit, which the gate then reports; a clean feed past the limit, or a
+    fault under it, fails."""
+    import numpy as np
+    import torch
+
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    family = get_family(name)
+    cfg = family.config("tiny", dtype=torch.float32)
+    params = _decode_params(family, cfg, torch.device("cpu"), 0)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 24)))
+    dense = cs._teacher_forced(family, params, cfg, tokens)
+    paged = cs._teacher_forced(family, params, cfg, tokens, paged=True)
+    torch.testing.assert_close(paged, dense, rtol=1e-5, atol=1e-5)
+    with cs._planted("kv_head_block"):
+        rolled = cs._teacher_forced(family, params, cfg, tokens, paged=True)
+
+    def ranks(clean, fault):
+        logits = {"paged/clean": clean, "paged/kv_head_block": fault}
+        return [{"logits": {name: {"logits": logits, "checksum": {"paged/clean": 1.0}}}}]
+
+    ratios = cs.check_tp_logits({name: {"paged": dense}}, ranks(paged, rolled))
+    assert ratios[name]["paged/clean"] < 1e-3 < 1 < ratios[name]["paged/kv_head_block"]
+    with pytest.raises(AssertionError, match="planted faults pass"):
+        cs.check_tp_logits({name: {"paged": dense}}, ranks(paged, paged))
+    with pytest.raises(AssertionError, match="over ranks"):
+        cs.check_tp_logits({name: {"paged": dense}}, ranks(rolled, rolled))

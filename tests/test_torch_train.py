@@ -259,6 +259,16 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # get JAX's plan_for_devices(2), tensor 2
     pytest.param(dict(parallelism={"fsdp": 2, "sequence": 8}), NotImplementedError,
                  "tensor axis.*item 4b", 2, id="replanned-tensor-4b"),
+    # infer and serve run over the tensor axis only (item 4b, part one):
+    # serve over data, a target whose kv heads (the tiny Llama's 2) do not
+    # tile a tensor axis of 4, and Mixtral over the tensor axis (item 4c)
+    pytest.param(dict(mode="serve", parallelism={"data": 2}), NotImplementedError,
+                 "mode 'serve' .item 4b. over the data axis", 2, id="serve-data-4b"),
+    pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
+                 "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),
+    pytest.param(dict(mode="infer", model={"family": "mixtral"}, parallelism={"tensor": 2}),
+                 NotImplementedError, "MoE over a sharded token axis .item 4c", 2,
+                 id="infer-mixtral-tensor-4c"),
 ])
 def test_unported_paths_raise(monkeypatch, over, exc, match, world):
     """Over ``world`` ranks (the group's size and rank stand in for an

@@ -195,3 +195,142 @@ def save_and_restore(directory, plan_kw, fmt, mode, seed):
 def _bits(t: torch.Tensor) -> np.ndarray:
     """The raw bits of a bf16 tensor."""
     return t.detach().contiguous().view(torch.int16).numpy().copy()
+
+
+# ------------------------------------------------------ tensor parallelism
+# (tests/test_torch_tensor_parallel.py)
+
+
+class _FakeClock:
+    """A clock the heartbeat advances: wall-clock-free ledgers."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self, _committed=None) -> None:
+        self.t += 0.1
+
+
+def tp_entry(spec, sanitize=False):
+    """The port's entry point on this rank, on the CPU (``NEXUS_SANITIZE``
+    armed with ``sanitize``)."""
+    import os
+
+    from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
+
+    if sanitize:
+        os.environ["NEXUS_SANITIZE"] = "1"
+    try:
+        return run_template_runtime(spec, device="cpu")
+    finally:
+        os.environ.pop("NEXUS_SANITIZE", None)
+
+
+def _tp_params(family_name, cfg_kw, jax_params, mesh):
+    from nexus_tpu_torch import interop
+    from nexus_tpu_torch.models.registry import get_family
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
+                                                               mesh=mesh)
+    for t in family.leaves(params):
+        t.requires_grad_(False)
+    return family, cfg, params
+
+
+def tp_logits(family_name, cfg_kw, jax_params, tokens):
+    """A teacher-forced feed of ``tokens`` (B, T) through the family's
+    forward_decode on this tensor rank (a dense cache), then one more
+    token: the whole logits of both feeds, and the rank's kv heads."""
+    from nexus_tpu_torch.models.decoding import cache_for, local_heads
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+
+    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
+    family, cfg, params = _tp_params(family_name, cfg_kw, jax_params, mesh)
+    toks = torch.from_numpy(tokens).long()
+    with use_mesh(mesh), torch.no_grad():
+        cache = cache_for(params, cfg, toks.shape[0], toks.shape[1] + 4, "cpu")
+        first, cache = family.forward_decode(params, cfg, toks, cache)
+        nxt = first[:, -1].argmax(-1)[:, None]
+        second, _ = family.forward_decode(params, cfg, nxt, cache)
+    return {"prefill": _np(first), "step": _np(second),
+            "heads": local_heads(params, cfg), "cache_heads": cache["k"].shape[3]}
+
+
+def tp_engine(cfg_kw, jax_params, queue, engine_kw):
+    """The tiny Llama's serving engine on this tensor rank over ``queue``
+    [(prompt, max_new)] with the sanitizer's audits on and a fake clock:
+    each request's tokens, the metrics, the host store's stats and the
+    post-serve audits' verdict."""
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from nexus_tpu_torch.runtime.serving import ServeRequest, ServingEngine
+    from nexus_tpu_torch.testing import sanitizers as tsan
+
+    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
+    family, cfg, params = _tp_params("llama", cfg_kw, jax_params, mesh)
+    clock = _FakeClock()
+    with use_mesh(mesh):
+        eng = ServingEngine(family.forward_decode, params, cfg, clock=clock, **engine_kw)
+        eng._sanitize = True  # the in-loop audits and the lockstep audit
+        res, met = eng.serve([ServeRequest(prompt=p, max_new_tokens=n) for p, n in queue],
+                             heartbeat=clock.tick)
+    tsan.audit_pool_partition(met)
+    tsan.audit_prefix_tree(eng)
+    tsan.audit_host_cache(eng)
+    return {"tokens": [r.tokens for r in res], "metrics": met,
+            "host": eng.last_host_store.stats() if eng.last_host_store is not None else None,
+            "pool_heads": eng._kv_cache["k"].shape[3]}
+
+
+def tp_diverge(cfg_kw, jax_params, queue, bad_rank):
+    """The engine over ``queue`` with ``NEXUS_SANITIZE`` armed, rank
+    ``bad_rank`` given another first prompt: the lockstep audit must raise
+    on every rank."""
+    import os
+
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from nexus_tpu_torch.runtime.serving import ServeRequest, ServingEngine
+
+    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
+    family, cfg, params = _tp_params("llama", cfg_kw, jax_params, mesh)
+    queue = [list(q) for q in queue]
+    if dist.get_rank() == bad_rank:
+        queue[0][0] = [(t + 1) % cfg.vocab_size for t in queue[0][0]]
+    os.environ["NEXUS_SANITIZE"] = "1"
+    try:
+        with use_mesh(mesh):
+            eng = ServingEngine(family.forward_decode, params, cfg, batch_size=2, max_len=64,
+                                kv_block_size=8, chunk=2, prefill_chunk=4)
+            eng.serve([ServeRequest(prompt=p, max_new_tokens=n) for p, n in queue])
+    finally:
+        os.environ.pop("NEXUS_SANITIZE", None)
+
+
+def tp_loaded_blocks(family_name, cfg_kw, hf_path, ck_dir):
+    """This tensor rank's blocks of the params ``load_pretrained`` reads
+    from ``hf_path`` and ``restore_param_shard`` from the checkpoint in
+    ``ck_dir`` (by tree path)."""
+    from nexus_tpu_torch.models.params import tree_items
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.runtime.weights import load_pretrained
+    from nexus_tpu_torch.train.checkpoint import (latest_step, make_checkpointer,
+                                                  restore_param_shard)
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    shard = tensor_shard(build_mesh(MeshPlan(tensor=dist.get_world_size())))
+    out = {}
+    if hf_path:
+        out["hf"] = {k: _np(t) for k, t in tree_items(
+            load_pretrained(family_name, hf_path, cfg, "cpu", shard=shard))}
+    if ck_dir:
+        ck = make_checkpointer(ck_dir, fmt="auto")
+        out["ck"] = {k: _np(t) for k, t in tree_items(
+            restore_param_shard(ck, family, cfg, "cpu", shard, step=latest_step(ck_dir)))}
+    return out
