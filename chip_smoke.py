@@ -51,7 +51,7 @@ Phases, each of which raises on failure:
    plain serve's tokens;
 8. the host spill tier under open-loop traffic, with ``NEXUS_SANITIZE=1``
    and the port's audits installed: ``serve-chat-host`` streams a Poisson
-   chat trace (32 roots over 20 s, half of them 3-turn sessions, 256-token
+   chat trace (16 roots over 10 s, half of them 3-turn sessions, 256-token
    preambles from a pool of 4) through a 48-block pool with a 2 GiB host
    tier, and ``serve-host-int8`` 16 roots over 10 s demoting to int8; past
    the serve gates, blocks must be spilled and restored, restores must
@@ -89,14 +89,14 @@ Phases, each of which raises on failure:
 12. GPT-NeoX at its published widths and depths, and the MLP:
    ``gptneox-train`` (Pythia-1.4B, preset ``1b``, all 24 layers, batch 4 x
    seq 2048, 6 steps: the loss falls, K1-K3 launched); ``gptneox-infer``
-   and ``gptneox-serve`` (GPT-NeoX-20B, preset ``20b``, all 44 layers: the
+   and ``gptneox-serve`` (GPT-NeoX-20B, preset ``20b``, 22 of its 44 layers: the
    infer phase's shape, and the serve queue cut to 16 requests, D1 at T 1
    and 8 at head dim 96; peak memory under 60 GB); ``mlp-train`` (preset
    ``small`` of the spec's default family, named by no family key,
    float32, batch 64, 200 steps: the last loss under half the first);
 13. pretrained weights and text prompts: ``pretrained-llama`` exports the
-   seed's random Llama-3-8B weights (all 32 layers, ~16 GB) as four
-   safetensors shards and model.safetensors.index.json, writes a
+   seed's random Llama-3-8B weights (16 layers, PRETRAINED_LAYERS; ~8 GB)
+   as four safetensors shards and model.safetensors.index.json, writes a
    tokenizer.json (256 byte tokens, merges learned from a fixed text, two
    special tokens), and loads the shards back bit for bit
    (``load_pretrained``; seconds, GB/s, peak); ``infer-pretrained`` (8 rows,
@@ -135,12 +135,12 @@ Phases, each of which raises on failure:
    gradients held to flash over the whole sequence on one rank and to the
    plain versions; then the visiting block's kernels held and timed on the
    card alone beside SDPA at that shape), ``ring-neox``
-   (examples/train-gptneox-long-context.yaml at preset ``1b``, all 24
-   layers, over {sequence: 2}, one row of 8192, 3 steps: losses finite and
+   (examples/train-gptneox-long-context.yaml at preset ``1b``, 6 of its 24
+   layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 3 steps: losses finite and
    equal on both ranks, K1-K3 on each, peaks under 60 GB; then 2 layers of
    it, 5 steps, every step's loss and grad norm within RING_LOSS_RTOL and
    RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
-   model's gradient timed) and ``ring-fsdp-neox`` (4 layers over {fsdp: 2,
+   model's gradient timed) and ``ring-fsdp-neox`` (2 layers over {fsdp: 2,
    sequence: 2}, B 2 x S 8192, 4 steps, saving the last: every step's loss
    and grad norm within those limits of the one-rank run's, each rank
    holding half the AdamW state bytes, the step restored into one rank bit
@@ -157,19 +157,33 @@ Phases, each of which raises on failure:
    Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
    pool at the rank's kv heads read by D1 (feeds of 8, then of 1), with D1
    reading the pool's kv heads rolled by one past the limit; ``infer-tp``
-   (examples/infer-llama8b.yaml at its published widths, all 32 layers,
+   (examples/infer-llama8b.yaml at its published widths, 8 of its 32 layers,
    re-planned to {tensor: 2}, the infer phase's shape: the same ids on both
    ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 16
    requests) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
-   TP_NEOX_LAYERS layers, 8 requests): the serve gates on each rank, D1 at
+   SERVE_TP_NEOX_LAYERS (6) layers, 8 requests): the serve gates on each rank, D1 at
    T 1 and 8 at the rank's head counts only, the same completions on both
    ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
    16 requests on one card): the token share they commit before their
    first difference at least TP_SERVE_SHARE_LIMIT;
-17. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax, ring and tensor-parallel phase's launches), the
-   script's wall time, the card's name and power limit, and as the last
-   line ``{"ok": true, "device": {...}}``.
+17. training over a sharded tensor axis, the ranks sharing the card over
+   gloo: K1-K3 at the heads one rank holds (TP_TRAIN_SHAPES: Llama-3-8B over
+   tensor 2 and 4, Pythia-1.4B over 2), held to their plain versions and
+   timed beside their bounds and SDPA (in phase 2); ``train-tp``
+   (examples/train-llama8b-fsdp.yaml at its published widths, TRAIN_TP: 2
+   layers, 2 rows of 4096, 4 steps, re-planned to {tensor: 2} over 2
+   ranks) and ``train-tp-fsdp-neox`` (Pythia-1.4B widths, 2 layers, 4 rows
+   of 2048, over {fsdp: 2, tensor: 2}, 4 ranks: 4 steps saved as an Orbax
+   step, resumed for a fifth, whose step restores into one card bit for bit
+   against every rank's parameters and AdamW blocks): every step's loss and
+   grad norm within TP_TRAIN_LOSS_RTOL and TP_TRAIN_NORM_RTOL of the same
+   runs on one card, the two planted faults of TP_TRAIN_FAULTS past them,
+   K1-K3 on every rank, peaks per rank;
+18. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring and tensor-parallel phase's launches), each
+   phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
     python3 chip_smoke.py --ring-fsdp-neox-nccl
 
@@ -189,6 +203,17 @@ of rank 0.
 runs the tensor-parallel gates alone on one card (the teacher-forced logits,
 serve-tp against serve-tp-1card) and serve-tp once more with D1 reading the
 pool's kv heads rolled by one, whose token share must fall under the limit.
+
+    python3 chip_smoke.py --train-tp-gates
+
+runs the tensor-parallel train phases alone on one card (K1-K3 at their
+rank shapes, train-tp, train-tp-fsdp-neox).
+
+    python3 chip_smoke.py --train-tp-nccl
+
+runs train-tp over every card of a 4-card machine ({tensor: 4}), a rank a
+card over NCCL, beside the same spec on one card, and profiles rank 0's
+step PROFILE_STEP.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -286,6 +311,20 @@ KERNEL_REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# each phase's seconds in this run, in order ([phase-seconds] lines)
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds logged and kept under
+    ``name`` in PHASE_SECONDS."""
+    t0 = time.monotonic()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = round(time.monotonic() - t0, 1)
+    log(f"[phase-seconds] {name} {PHASE_SECONDS[name]} s")
+    return out
 
 
 def _cuda_time_ms(fn, reps: int = 10) -> float:
@@ -1014,7 +1053,8 @@ def phase_build() -> float:
 def phase_kernels():
     """K1-K3 against their plain versions: the edge and key-tail shapes,
     the Mixtral checkpoint phase's shape, then the Llama, Mixtral and
-    Pythia-1.4B train shapes, each timed and held to planted faults.
+    Pythia-1.4B train shapes, each timed and held to planted faults, and
+    the tensor-parallel train ranks' shapes (TP_TRAIN_SHAPES), timed.
     Returns (worst max-abs error per kernel, {shape name: timings})."""
     import torch
 
@@ -1039,6 +1079,15 @@ def phase_kernels():
             log(f"[kernels] planted faults of tile {tile} at the {label} shape, error over "
                 f"limit (all must exceed 1): {faults}")
         del inputs
+        _free_card()
+    # the heads one rank of a tensor-parallel train phase holds
+    for label, shape in TP_TRAIN_SHAPES.items():
+        ratios = {}
+        errs, times[label], inputs = check_kernels(shape, gen, ratios, timed=True)
+        del inputs
+        log(f"[kernels] {label} shape {shape}: max-abs {errs}, error over limit {ratios}, "
+            f"timings {times[label]}")
+        worst = {k: max(worst[k], errs[k]) for k in worst}
         _free_card()
     return worst, times
 
@@ -1243,7 +1292,10 @@ HOST_CACHE_BYTES = 2 << 30  # 512 blocks of the 8b pool (4 MiB each)
 
 
 # the host-tier phases: (roots, seconds the roots arrive over, other keys)
-HOST_PHASES = {"serve-chat-host": (32, 20.0, {}),
+# (the chat trace was 32 roots over 20 s until the tensor-parallel train
+# phases needed the script's time: 16 over 10 s keep its arrival rate, and
+# a CPU replay at 45 and 130 ms a step still spills and restores)
+HOST_PHASES = {"serve-chat-host": (16, 10.0, {}),
                "serve-host-int8": (16, 10.0, {"hostCacheDtype": "int8"})}
 
 
@@ -1693,10 +1745,11 @@ def run_mixtral_phases() -> dict:
 
 # ------------------------------------------------------ GPT-NeoX and the MLP
 #
-# GPT-NeoX at two published configurations, at full width and depth:
-# Pythia-1.4B (preset ``1b``: d 2048, 24 layers, 16 heads of 128) trains, K1-K3
-# under MHA; GPT-NeoX-20B (preset ``20b``: d 6144, 44 layers, 64 heads of 96,
-# 20.55 B parameters, 41.1 GB in bf16) infers and serves, D1 at head dim 96.
+# GPT-NeoX at two published configurations, at full width:
+# Pythia-1.4B (preset ``1b``: d 2048, 24 layers, 16 heads of 128) trains at
+# full depth, K1-K3 under MHA; GPT-NeoX-20B (preset ``20b``: d 6144, 44
+# layers, 64 heads of 96, 20.55 B parameters, 41.1 GB in bf16) infers and
+# serves at NEOX_SERVE_LAYERS of its layers, D1 at head dim 96.
 # 20B cannot train on one card (~16 bytes a parameter with AdamW's state).
 # The MLP (BASELINE config #2) trains in float32 and runs no kernel.
 
@@ -1707,13 +1760,20 @@ def neox_train_spec() -> dict:
                       "warmupSteps": 0, "seed": 0}}
 
 
+# GPT-NeoX-20B's infer and serve depth: 22 of its 44 layers (all 44 until
+# the tensor-parallel train phases needed the script's time)
+NEOX_SERVE_LAYERS = 22
+
+
 def neox_infer_spec() -> dict:
-    return dict(INFER_SPEC, model={"family": "gptneox", "preset": "20b"})  # all 44 layers
+    return dict(INFER_SPEC, model={"family": "gptneox", "preset": "20b",
+                                   "overrides": {"n_layers": NEOX_SERVE_LAYERS}})
 
 
 def neox_serve_spec() -> dict:
     return dict(_serve_spec(num_requests=16),
-                model={"family": "gptneox", "preset": "20b"})  # all 44 layers
+                model={"family": "gptneox", "preset": "20b",
+                       "overrides": {"n_layers": NEOX_SERVE_LAYERS}})
 
 
 def mlp_train_spec() -> dict:
@@ -1781,6 +1841,10 @@ PRETRAINED_QUESTIONS = (
 PRETRAINED_NEW_TOKENS = 32
 # the two other families, cut to 2 layers: (preset, layers)
 PRETRAINED_SMALL = {"mixtral": ("8x7b", 2), "gptneox": ("20b", 2)}
+# pretrained-llama's depth: 16 of Llama-3-8B's 32 layers, ~8 GB as four
+# shards (all 32 until the tensor-parallel train phases needed the
+# script's time)
+PRETRAINED_LAYERS = 16
 
 
 def write_tokenizer_json(path: str, text: str = PRETRAINED_TEXT, n_merges: int = 300) -> str:
@@ -1916,7 +1980,7 @@ def timed_load(name: str, family_name: str, path: str, cfg, exported, nbytes: in
 
 
 def pretrained_weights(directory: str, tokenizer: str) -> dict:
-    return {"family": "llama", "preset": "8b",  # all 32 layers
+    return {"family": "llama", "preset": "8b", "overrides": {"n_layers": PRETRAINED_LAYERS},
             "weights": {"format": "safetensors", "path": directory, "tokenizer": tokenizer}}
 
 
@@ -1928,7 +1992,8 @@ def pretrained_infer_spec(directory: str = "", tokenizer: str = "", prompt_ids=N
     if prompt_ids is None:
         model, infer["prompt"] = pretrained_weights(directory, tokenizer), PRETRAINED_PROMPT
     else:
-        model, infer["promptTokenIds"] = {"family": "llama", "preset": "8b"}, list(prompt_ids)
+        model = {"family": "llama", "preset": "8b", "overrides": {"n_layers": PRETRAINED_LAYERS}}
+        infer["promptTokenIds"] = list(prompt_ids)
     return {"kind": "jax_xla", "mode": "infer", "model": model,
             "train": {"batchSize": 8, "seed": 0}, "infer": infer}
 
@@ -2011,7 +2076,7 @@ PRETRAINED_KEYS = ("bytes", "export_s", "load_s", "load_gb_per_s", "load_peak_gb
 
 
 def phase_pretrained_llama() -> dict:
-    """Llama-3-8B at all 32 layers: the seed's random weights exported as four
+    """Llama-3-8B at PRETRAINED_LAYERS layers: the seed's random weights exported as four
     shards and an index, loaded back bit for bit; infer-pretrained from the
     text prompt against the same run from its token ids on random weights;
     serve-pretrained over 8 text prompts through the fused prefix-cached
@@ -2029,7 +2094,7 @@ def phase_pretrained_llama() -> dict:
     try:
         log(f"[pretrained-llama] {shutil.disk_usage(root).free / 1e9:.1f} GB free under {root}")
         _free_card()
-        cfg = llama.config("8b")
+        cfg = llama.config("8b", n_layers=PRETRAINED_LAYERS)
         params = _decode_params(llama, cfg, torch.device("cuda"), seed=0)
         ckpt = os.path.join(root, "llama-8b")
         t1 = time.monotonic()
@@ -2476,6 +2541,11 @@ RING_VISIT_SHAPES = {
 # gradients not divided by the ranks, 1.14e-5 and 3 (PERF.md §6)
 RING_LOSS_RTOL = 1e-4
 RING_GRAD_NORM_RTOL = 5e-4
+# ring-neox's long run: 6 of Pythia-1.4B's 24 layers (all 24 until the
+# tensor-parallel train phases needed the script's time)
+RING_NEOX_LAYERS = 6
+# ring-fsdp-neox's depth: 2 layers (4 until the same cut)
+RING_FSDP_LAYERS = 2
 # examples/train-gptneox-long-context.yaml's runtime block, cut to one card
 # as each comment says (the template itself is YAML, and the card's machine
 # need not have a YAML reader)
@@ -2778,8 +2848,9 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
     """One rank of a training phase, each spec in turn: the entry point's
     metrics, each step's loss and grad norm, this rank's kernel launches,
     peak memory and bytes of AdamW moments, and with ``record_saves`` the
-    fingerprints of each save: this rank's blocks of the AdamW moments and
-    (rank 0) the whole state the step holds. With ``collective_numel``, the
+    fingerprints of each save: this rank's parameters (its tensor blocks)
+    and blocks of the AdamW moments and (rank 0) the whole state the step
+    holds (under a tensor axis, rank 0's tensor blocks). With ``collective_numel``, the
     last run's metrics add ``collective_time`` of that many elements; with
     ``profile``, rank 0 profiles each run's step PROFILE_STEP."""
     import torch
@@ -2803,6 +2874,7 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
             whole = whole_state(state)
             saves.append({"step": out, "blocks": state_fingerprints(state.opt_state.mu
                                                                     + state.opt_state.nu),
+                          "params": state_fingerprints(state.leaves),
                           "whole": state_fingerprints(state_tensors(whole))
                           if dist.get_rank() == 0 else None})
             return out
@@ -2952,14 +3024,15 @@ def _single_rank(name: str, spec: dict, profile: bool = False) -> dict:
 
 
 def phase_ring_neox() -> dict:
-    """ring-neox: the long-context template at Pythia-1.4B widths, all 24
-    layers, over {sequence: 2}; then 2 layers of it at 1 rank and at 2
-    ranks, every step's loss and grad norm equal within RING_LOSS_RTOL
-    and RING_GRAD_NORM_RTOL."""
+    """ring-neox: the long-context template at Pythia-1.4B widths,
+    RING_NEOX_LAYERS layers, over {sequence: 2}; then 2 layers of it at 1
+    rank and at 2 ranks, every step's loss and grad norm equal within
+    RING_LOSS_RTOL and RING_GRAD_NORM_RTOL."""
     small = long_context_spec(n_layers=2, steps=5)
     single = _single_rank("ring-neox-1rank", small)
     t0 = time.monotonic()
-    runs = _rank_runs({"ring-neox": long_context_spec(), "ring-neox-2layer": small}, RING_RANKS)
+    runs = _rank_runs({"ring-neox": long_context_spec(n_layers=RING_NEOX_LAYERS),
+                       "ring-neox-2layer": small}, RING_RANKS)
     runs["ring-neox"][0]["phase_wall_s"] = time.monotonic() - t0
     runs, ranked = runs["ring-neox"], runs["ring-neox-2layer"]
     worst = check_same_losses("ring-neox-2layer", ranked[0], single)
@@ -2984,9 +3057,11 @@ def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
         ck = {"enabled": True, "directory": os.path.join(root, "ck"), "intervalSteps": 0,
               "keep": 1}
         par = {"fsdp": 2, "sequence": 2}
-        spec = long_context_spec(n_layers=4, steps=4, parallelism=par, batch=2, checkpoint=ck)
+        spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=4, parallelism=par, batch=2,
+                                 checkpoint=ck)
         single = _single_rank("ring-fsdp-neox-1rank",
-                              long_context_spec(n_layers=4, steps=4, parallelism=par, batch=2),
+                              long_context_spec(n_layers=RING_FSDP_LAYERS, steps=4,
+                                                parallelism=par, batch=2),
                               profile=backend == "nccl")
         t0 = time.monotonic()
         runs = _rank_runs({"ring-fsdp-neox": spec}, 4, record_saves=True,
@@ -3035,9 +3110,9 @@ def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
 
 def run_ring_phases() -> dict:
     """ring-ops, ring-neox and ring-fsdp-neox, in that order."""
-    out = {"ring-ops": phase_ring_ops()}
-    out.update(phase_ring_neox())
-    out.update(phase_ring_fsdp_neox())
+    out = {"ring-ops": timed("ring-ops", phase_ring_ops)}
+    out.update(timed("ring-neox", phase_ring_neox))
+    out.update(timed("ring-fsdp-neox", phase_ring_fsdp_neox))
     return out
 
 
@@ -3087,15 +3162,16 @@ TP_DECODE_SHAPES = {
     "llama8b_tp8": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=4, Hkv=1),
     "neox20b_tp2": dict(NEOX_DECODE_SHAPE, Hq=32, Hkv=32),
 }
-# examples/infer-llama8b.yaml's runtime block at its published widths, all
-# 32 layers; template: promptLength 128, maxNewTokens 512, 5 iterations, an
-# Orbax step of the 8B pretraining run; here the infer phase's shape (8 rows,
-# 512 + 64 tokens) with one timed iteration (each takes ~16 s over gloo on
-# one card) on the seed's random weights. Its tensor: 8 re-plans to
-# {tensor: 2} over 2 ranks (JAX's plan_for_devices)
+# examples/infer-llama8b.yaml's runtime block at its published widths, 8 of
+# its 32 layers (all 32 until the tensor-parallel train phases needed the
+# script's time); template: promptLength 128, maxNewTokens 512, 5
+# iterations, an Orbax step of the 8B pretraining run; here the infer
+# phase's shape (8 rows, 512 + 64 tokens) with one timed iteration (~16 s at
+# 32 layers over gloo on one card) on the seed's random weights. Its
+# tensor: 8 re-plans to {tensor: 2} over 2 ranks (JAX's plan_for_devices)
 INFER_TP_SPEC = {
     "kind": "jax_xla", "mode": "infer",
-    "model": {"family": "llama", "preset": "8b"},
+    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": 8}},
     "parallelism": {"tensor": 8},
     "train": {"batchSize": 8, "seed": 0},
     "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
@@ -3115,6 +3191,9 @@ TP_LOGIT_LIMIT = 0.05
 # cut to TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
 # script's time)
 TP_NEOX_LAYERS = 22
+# serve-tp-neox's depth: 6 layers (TP_NEOX_LAYERS until the tensor-parallel
+# train phases needed the script's time; the logits keep TP_NEOX_LAYERS)
+SERVE_TP_NEOX_LAYERS = 6
 # the feeds each family's teacher-forced logits take over the ranks, and
 # the planted faults each must catch: Llama-3-8B (all 32 layers) through a
 # dense cache and through a paged pool read by D1 at the rank's heads, and
@@ -3157,7 +3236,7 @@ def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
 def serve_tp_neox_spec() -> dict:
     return dict(_serve_spec(num_requests=8), parallelism={"tensor": TP_RANKS},
                 model={"family": "gptneox", "preset": "20b",
-                       "overrides": {"n_layers": TP_NEOX_LAYERS}})
+                       "overrides": {"n_layers": SERVE_TP_NEOX_LAYERS}})
 
 
 def phase_tp_decode_kernel():
@@ -3688,6 +3767,377 @@ def run_serve_over_nccl() -> int:
     return 0
 
 
+# ------------------------------------------------ tensor parallelism (training)
+#
+# Training over a sharded tensor axis: each rank a spawned process holding
+# its tensor block of the parameters and of their AdamW moments, Megatron's
+# split (column-parallel inputs through copy_to_tensor, row-parallel sums
+# through reduce_from_tensor, the vocab-parallel embedding and loss). On one
+# card the ranks share it over gloo: every collective of a step (the
+# forward's reduces, their replay under the dots_attn recompute, the
+# backward's sums at the column-parallel inputs) is staged through host
+# memory, so these runs say nothing of NVLink. ``--train-tp-nccl`` runs
+# train-tp over NCCL, a rank a card.
+
+# K1-K3 at the heads one training rank holds: Llama-3-8B (32 q / 8 kv heads)
+# over tensor 2 at train-tp's rows (B 2) and over tensor 4 at one row (K3's
+# grid, B x Hkv x S/128, is then 64 CTAs on 132 SMs); Pythia-1.4B (16 heads)
+# over tensor 2 at its train shape
+TP_TRAIN_SHAPES = {
+    "llama8b_tp2": dict(MAIN_SHAPE, Hq=16, Hkv=4),
+    "llama8b_tp4": dict(MAIN_SHAPE, B=1, Hq=8, Hkv=2),
+    "pythia_tp2": dict(PYTHIA_SHAPE, Hq=8, Hkv=8),
+}
+# examples/train-llama8b-fsdp.yaml's runtime block at its published widths
+# (d 4096, heads 32 / 8, d_ff 14336, V 128256, remat dots_attn, ce_chunk
+# 8192), cut as each comment says; its {data: 2, fsdp: 16, tensor: 2} does
+# not tile 2 ranks, which re-plan it to {tensor: 2} (JAX's
+# plan_for_devices), and 4 ranks to {tensor: 4}
+TRAIN_TP = {
+    "kind": "jax_xla", "mode": "train",
+    # template: 32 layers
+    "model": {"family": "llama", "preset": "8b",
+              "overrides": {"remat": True, "remat_policy": "dots_attn", "ce_chunk": 8192,
+                            "n_layers": 2}},
+    "parallelism": {"data": 2, "fsdp": 16, "tensor": 2},
+    # template: batchSize 128, seqLen 8192, 50000 steps, warmupSteps 2000;
+    # here 2 rows of 4096 (the main train phase's shape) and 4 steps, warmup
+    # 1 so that 4 steps move the weights
+    "train": {"batchSize": 2, "seqLen": 4096, "steps": 4, "learningRate": 3.0e-4,
+              "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
+    # template: a token corpus (none on this machine): the synthetic stream
+    "data": {"prefetch": 2},
+    # template: a checkpoint every 500 steps and a profile window: off
+    # (train-tp-fsdp-neox saves and resumes)
+    "checkpoint": {"enabled": False},
+}
+# Pythia-1.4B widths (preset 1b: d 2048, 16 heads, d_ff 8192, V 50304) at 2
+# of its 24 layers over {fsdp: 2, tensor: 2}, 4 rows of 2048 (two a batch
+# rank), dense loss, no remat; an Orbax step saved after 4 steps and resumed
+# for a fifth
+TP_NEOX = {
+    "kind": "jax_xla", "mode": "train",
+    "model": {"family": "gptneox", "preset": "1b", "overrides": {"n_layers": 2}},
+    "parallelism": {"fsdp": 2, "tensor": 2},
+    "train": {"batchSize": 4, "seqLen": 2048, "steps": 4, "learningRate": 3.0e-4,
+              "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
+    "data": {"prefetch": 2},
+}
+# every step's loss and grad norm over the ranks against the same spec on
+# one card. bf16: each row-parallel partial sum is rounded to bf16 before
+# the reduce, and the vocab-parallel loss sums its ranks' partial sums in
+# another order. The H100 read, clean, 1.92e-5 / 1.90e-5 (train-tp) and
+# 6.84e-5 / 8.38e-5 (train-tp-fsdp-neox); the planted faults moved the grad
+# norm by 0.211 and 0.290 (train-tp), 0.223 and 0.490 (neox), the loss not
+# at all (warmup 1: step 1's learning rate is 0) (PERF.md §6). The limits
+# sit >7x above every clean reading and >100x below every fault
+TP_TRAIN_LOSS_RTOL = 5e-4
+TP_TRAIN_NORM_RTOL = 2e-3
+# the planted faults of the train phases: the all-reduce of copy_to_tensor's
+# backward left out (each rank's column-parallel inputs get its own heads'
+# share of their gradient alone), and the gradient norm taken over the
+# rank's own blocks alone
+TP_TRAIN_FAULTS = ("no_copy_reduce", "block_norm")
+TP_FAULT_STEPS = 2
+
+
+def train_tp_spec(steps: int = 4, planted: Optional[str] = None) -> dict:
+    import copy
+
+    spec = copy.deepcopy(TRAIN_TP)
+    spec["train"]["steps"] = steps
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+def tp_neox_spec(directory: str, steps: int, planted: Optional[str] = None) -> dict:
+    import copy
+
+    spec = copy.deepcopy(TP_NEOX)
+    spec["train"]["steps"] = steps
+    if directory:
+        spec["checkpoint"] = {"enabled": True, "directory": directory, "intervalSteps": 0,
+                              "keep": 1, "resume": True}
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+@contextlib.contextmanager
+def planted_train_fault(fault: Optional[str]):
+    """One of TP_TRAIN_FAULTS for a block (module attributes patched in
+    this process, never the repo)."""
+    import torch
+
+    from nexus_tpu_torch.parallel import tensor as T
+    from nexus_tpu_torch.train import trainer as Tr
+
+    if fault is None:
+        yield
+        return
+    if fault == "no_copy_reduce":
+        saved, T._Copy.backward = T._Copy.backward, staticmethod(lambda ctx, g: (g, None))
+        owner, name = T._Copy, "backward"
+    elif fault == "block_norm":
+        saved = Tr.sharded_norm
+        Tr.sharded_norm = lambda blocks, cut, mesh: torch.sqrt(
+            sum((g.float().square().sum() for g in blocks),
+                torch.zeros((), device=blocks[0].device)))
+        owner, name = Tr, "sharded_norm"
+    else:
+        raise ValueError(f"unknown planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        setattr(owner, name, staticmethod(saved) if owner is T._Copy else saved)
+
+
+def step_differences(ranked: dict, single: dict) -> dict:
+    """The worst relative difference of the loss and of the grad norm over
+    the steps both runs took."""
+    a, b = ranked["steps"], single["steps"][:len(ranked["steps"])]
+    if not a or len(a) != len(b):
+        raise AssertionError(f"step histories of unlike length: {a} vs {b}")
+    return {key: max(abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b))
+            for i, key in enumerate(("loss", "grad_norm"))}
+
+
+def check_train_tp(name: str, ranked: dict, single: dict, faults: dict) -> dict:
+    """``ranked``'s steps within TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL of
+    the one-card run's, and each planted fault's run past one of them:
+    {"clean": worst differences, fault: worst differences over its limits}."""
+    limits = {"loss": TP_TRAIN_LOSS_RTOL, "grad_norm": TP_TRAIN_NORM_RTOL}
+    clean = step_differences(ranked, single)
+    log(f"[{name}] (loss, grad norm) a step over ranks {ranked['steps']} vs one card "
+        f"{single['steps']}: worst relative difference {clean} (limits {limits}; "
+        f"{card_label()})")
+    over = {k: v for k, v in clean.items() if not v <= limits[k]}
+    if over:
+        raise AssertionError(f"{name}: over the ranks {over}, limits {limits}")
+    out = {"clean": clean}
+    for fault, run in faults.items():
+        worst = step_differences(run, single)
+        out[fault] = {k: v / limits[k] for k, v in worst.items()}
+        log(f"[{name}] planted {fault}: steps {run['steps']}, worst relative difference "
+            f"{worst}, over its limit {out[fault]} (one must exceed 1)")
+        if not max(out[fault].values()) > 1.0:
+            raise AssertionError(f"{name}: the planted {fault} passes the limits: {worst}")
+    return out
+
+
+def train_tp_rank(specs: list, record_saves: bool = False, profile: bool = False) -> list:
+    """One rank of a tensor-parallel train phase: ``train_rank`` of each
+    spec, under the planted fault its ``planted`` key names (the faulted
+    runs' ranks may part: their checks are the caller's)."""
+    out = []
+    for spec in specs:
+        spec = dict(spec)
+        with planted_train_fault(spec.pop("planted", None)):
+            out += train_rank([spec], record_saves=record_saves, profile=profile)
+    return out
+
+
+def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo",
+                    record_saves: bool = False) -> dict:
+    """{run name: each rank's metrics} of ``specs`` in one spawn of
+    ``world`` ranks; the clean runs (no ``planted`` key) checked by
+    ``check_rank_runs``."""
+    from nexus_tpu_torch.testing.dist import spawn
+
+    _free_card()
+    t0 = time.monotonic()
+    by_rank = spawn(train_tp_rank, world, (list(specs.values()), record_saves,
+                                           backend == "nccl"), backend=backend, threads=2)
+    wall = time.monotonic() - t0
+    log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s ({card_label()})")
+    out = {}
+    for i, (run, spec) in enumerate(specs.items()):
+        runs = [rank[i] for rank in by_rank]
+        out[run] = check_rank_runs(run, runs) if "planted" not in spec else runs
+    out[name][0]["spawn_wall_s"] = wall
+    return out
+
+
+def phase_train_tp(backend: str = "gloo", world: int = TP_RANKS) -> dict:
+    """train-tp: TRAIN_TP over ``world`` ranks (re-planned to {tensor:
+    world}), every step's loss and grad norm against the same spec on one
+    card, each planted fault past the limits, K1-K3 on every rank."""
+    single = _single_rank("train-tp-1card", train_tp_spec())
+    specs = {"train-tp": train_tp_spec()}
+    if backend == "gloo":
+        specs.update({f"train-tp-{f}": train_tp_spec(TP_FAULT_STEPS, planted=f)
+                      for f in TP_TRAIN_FAULTS})
+    runs = _train_tp_ranks("train-tp", specs, world, backend)
+    faults = {f: runs[f"train-tp-{f}"][0] for f in TP_TRAIN_FAULTS if f"train-tp-{f}" in runs}
+    gates = check_train_tp("train-tp", runs["train-tp"][0], single, faults)
+    ranked = runs["train-tp"]
+    log(f"[train-tp] tokens_per_sec {ranked[0]['tokens_per_sec']} over {world} ranks "
+        f"({backend}), one card at the same spec {single['tokens_per_sec']}; K1-K3 launches "
+        f"by rank {[r['launches'] for r in ranked]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranked]} ({card_label()})")
+    return {"train-tp": ranked[0], "train-tp-1card": single, "train-tp-gates": gates,
+            "train-tp-by_rank": {"launches": [r["launches"] for r in ranked],
+                                 "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]}}
+
+
+def check_tp_neox_step(spec: dict, runs: list) -> None:
+    """The Orbax step the ranks saved, restored into one card: each rank's
+    parameters equal its tensor block of it, and its AdamW blocks its fsdp
+    block of that, bit for bit."""
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.parallel.sharding import TensorShard
+    from nexus_tpu_torch.train.checkpoint import OrbaxCheckpointer
+    from nexus_tpu_torch.train.trainer import leaf_paths
+
+    _free_card()
+    family, cfg, state = fresh_train_state(spec)
+    OrbaxCheckpointer(spec["checkpoint"]["directory"]).restore(state)
+    paths = leaf_paths(state.params, state.leaves)
+    tensor = spec["parallelism"]["tensor"]
+    for r in runs:
+        saves = r["saves"]
+        if len(saves) != 1 or saves[0]["step"] != state.step:
+            raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']} saves {saves}")
+        cuts = LeafCuts(family.logical_axes(cfg), TensorShard(r["rank"] % tensor, tensor),
+                        family.TENSOR_GROUPS)
+        block = [cuts.take(p)(t) for p, t in zip(paths, state.leaves)]
+        moments = [cuts.take(p)(t) for p, t in zip(paths * 2, state.opt_state.mu
+                                                   + state.opt_state.nu)]
+        if state_fingerprints(block) != saves[0]["params"]:
+            raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']}'s parameters differ "
+                                 "from its block of the saved step")
+        if state_fingerprints(fsdp_blocks(moments, 2, r["rank"] // tensor)) != saves[0]["blocks"]:
+            raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']}'s AdamW blocks differ "
+                                 "from the saved step's")
+    log(f"[train-tp-fsdp-neox] step {state.step}, written by {len(runs)} ranks, restores into "
+        "one card bit for bit: every rank's parameters and AdamW blocks")
+    del state
+    _free_card()
+
+
+def phase_train_tp_fsdp_neox() -> dict:
+    """train-tp-fsdp-neox: TP_NEOX over 4 ranks, {fsdp: 2, tensor: 2}: 4
+    steps saved as an Orbax step and resumed for a fifth, whose save
+    restores into one card bit for bit; every step against the same two
+    runs on one card, each planted fault past the limits."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="tp-neox-")
+    try:
+        one, ranked_dir = os.path.join(root, "one"), os.path.join(root, "ranks")
+        first = _single_rank("train-tp-fsdp-neox-1card", tp_neox_spec(one, 4))
+        resumed = _single_rank("train-tp-fsdp-neox-1card-resume", tp_neox_spec(one, 5))
+        single = dict(first, steps=first["steps"] + resumed["steps"])
+        specs = {"train-tp-fsdp-neox": tp_neox_spec(ranked_dir, 4),
+                 "train-tp-fsdp-neox-resume": tp_neox_spec(ranked_dir, 5)}
+        specs.update({f"train-tp-fsdp-neox-{f}": tp_neox_spec("", TP_FAULT_STEPS, planted=f)
+                      for f in TP_TRAIN_FAULTS})
+        runs = _train_tp_ranks("train-tp-fsdp-neox", specs, 4, record_saves=True)
+        ranked, again = runs["train-tp-fsdp-neox"], runs["train-tp-fsdp-neox-resume"]
+        if any(r["resumed_from_step"] != 4 for r in again):
+            raise AssertionError(f"train-tp-fsdp-neox: resumed from "
+                                 f"{[r['resumed_from_step'] for r in again]}")
+        # keep 1: the resumed run's save (step 5) is the one on disk
+        check_tp_neox_step(specs["train-tp-fsdp-neox"], again)
+        both = dict(ranked[0], steps=ranked[0]["steps"] + again[0]["steps"])
+        faults = {f: runs[f"train-tp-fsdp-neox-{f}"][0] for f in TP_TRAIN_FAULTS}
+        gates = check_train_tp("train-tp-fsdp-neox", both, single, faults)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[train-tp-fsdp-neox] tokens_per_sec {ranked[0]['tokens_per_sec']} over 4 ranks "
+        f"(gloo), one card at the same spec {first['tokens_per_sec']}; launches by rank "
+        f"{[r['launches'] for r in ranked]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranked]}, AdamW bytes by rank "
+        f"{[r['optimizer_state_bytes'] for r in ranked]} ({card_label()})")
+    return {"train-tp-fsdp-neox": ranked[0], "train-tp-fsdp-neox-1card": first,
+            "train-tp-fsdp-neox-gates": gates,
+            "train-tp-fsdp-neox-by_rank": {
+                "launches": [r["launches"] for r in ranked],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in ranked],
+                "optimizer_state_bytes": [r["optimizer_state_bytes"] for r in ranked]}}
+
+
+def run_train_tp_phases() -> dict:
+    """train-tp, then train-tp-fsdp-neox."""
+    out = timed("train-tp", phase_train_tp)
+    out.update(timed("train-tp-fsdp-neox", phase_train_tp_fsdp_neox))
+    return out
+
+
+TT_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "n_devices", "mfu", "final_loss",
+           "loss_history", "steps", "phase_wall_s", "spawn_wall_s", "peak_mem_gb",
+           "optimizer_state_bytes")
+
+
+def train_tp_summary(tt: dict) -> dict:
+    return {name: ({k: run[k] for k in TT_KEYS if k in run}
+                   if isinstance(run, dict) and "loss_history" in run else run)
+            for name, run in tt.items()}
+
+
+def train_tp_launches(tt: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in each tensor-parallel train
+    phase."""
+    return {phase: [by[name] for by in tt[f"{phase}-by_rank"]["launches"]]
+            for phase in ("train-tp", "train-tp-fsdp-neox")}
+
+
+def phase_tp_train_kernels() -> tuple:
+    """K1-K3 at TP_TRAIN_SHAPES alone (``--train-tp-gates``): held to their
+    plain versions and timed. Returns (worst max-abs per kernel, {shape:
+    timings})."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    worst, times = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}, {}
+    for label, shape in TP_TRAIN_SHAPES.items():
+        ratios = {}
+        errs, times[label], inputs = check_kernels(shape, gen, ratios, timed=True)
+        del inputs
+        log(f"[kernels] {label} shape {shape}: max-abs {errs}, error over limit {ratios}, "
+            f"timings {times[label]}, bounds {_bounds_ms(shape)} ({card_label()})")
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        _free_card()
+    return worst, times
+
+
+def run_train_tp_gates() -> int:
+    """``--train-tp-gates``: the tensor-parallel train phases alone on one
+    card, the kernels built and held at the rank shapes first."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    worst, times = phase_tp_train_kernels()
+    tt = run_train_tp_phases()
+    log("[summary] " + json.dumps({"tp_train_kernel_worst": worst,
+                                   "tp_train_kernel_timings": times, **train_tp_summary(tt)}))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+def run_train_tp_over_nccl() -> int:
+    """``--train-tp-nccl``: train-tp over every card of the machine, a rank
+    a card over NCCL (4 cards: {tensor: 4}), beside the same spec on one
+    card in the same call; rank 0's step PROFILE_STEP profiled."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    world = torch.cuda.device_count()
+    tt = phase_train_tp(backend="nccl", world=world)
+    if tt["train-tp"].get("profile"):
+        log(f"[train-tp-nccl] rank 0's step {PROFILE_STEP} profiled ({card_label()}): "
+            f"{json.dumps(tt['train-tp']['profile'])}")
+    log("[summary] " + json.dumps(train_tp_summary(tt)))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
 DRAFT_REF = {"family": "llama", "preset": "draft",
              "overrides": {"vocab_size": 128256, "max_seq_len": 8192}}
 
@@ -3744,6 +4194,10 @@ def main(argv=None) -> int:
                         help="run only serve-tp over {tensor: 4}, a rank a card over NCCL")
     parser.add_argument("--tp-gates", action="store_true",
                         help="run only the tensor-parallel gates, with a planted pool fault")
+    parser.add_argument("--train-tp-gates", action="store_true",
+                        help="run only the tensor-parallel train phases and their kernel shapes")
+    parser.add_argument("--train-tp-nccl", action="store_true",
+                        help="run only train-tp over every card, a rank a card over NCCL")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3766,58 +4220,68 @@ def main(argv=None) -> int:
         return run_serve_over_nccl()
     if args.tp_gates:
         return run_tp_gates()
+    if args.train_tp_gates:
+        return run_train_tp_gates()
+    if args.train_tp_nccl:
+        return run_train_tp_over_nccl()
     started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
         + ", ".join(f"{m} {importlib.util.find_spec(m) is not None}"
                     for m in ("ml_dtypes", "safetensors", "regex", "tokenizers")))
 
-    build_s = phase_build()
-    worst, shape_times = phase_kernels()
+    build_s = timed("build", phase_build)
+    worst, shape_times = timed("kernels", phase_kernels)
     times = shape_times["main"]
-    worst["fused_paged_decode_attention"], decode_times, p_bf16 = phase_decode_kernel()
-    main_run = phase_train("main", _train_spec(n_layers=4, steps=8))
-    phase_train("remat", _train_spec(n_layers=2, steps=4, remat=True,
-                                     remat_policy="full", ce_chunk=8192))
-    infer_run = phase_infer()
-    serve_run = phase_serve("serve", _serve_spec())
-    phase_serve("serve-int8", _serve_spec(num_requests=8, kvPoolDtype="int8"))
+    worst["fused_paged_decode_attention"], decode_times, p_bf16 = timed("decode-kernel",
+                                                                        phase_decode_kernel)
+    main_run = timed("main", phase_train, "main", _train_spec(n_layers=4, steps=8))
+    timed("remat", phase_train, "remat", _train_spec(n_layers=2, steps=4, remat=True,
+                                                     remat_policy="full", ce_chunk=8192))
+    infer_run = timed("infer", phase_infer)
+    serve_run = timed("serve", phase_serve, "serve", _serve_spec())
+    timed("serve-int8", phase_serve, "serve-int8", _serve_spec(num_requests=8,
+                                                               kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
-    # (16 of the queue's requests: the script's time)
-    gather = phase_serve("serve-gather", _serve_spec(num_requests=16, attentionPath="gather"),
-                         must_launch=False)
+    # (8 of the queue's requests: the script's time)
+    gather = timed("serve-gather", phase_serve, "serve-gather",
+                   _serve_spec(num_requests=8, attentionPath="gather"), must_launch=False)
     same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
     # speculation: verify windows of numSpeculative + 1 = 5 through D1
-    lookup = phase_serve("serve-lookup", _serve_spec(num_requests=16, promptLookupNgram=2,
-                                                     numSpeculative=4), must_t=(5,))
-    draft = phase_serve("serve-draft", _serve_spec(num_requests=8, numSpeculative=4,
-                                                   draft=DRAFT_REF), must_t=(5,))
+    lookup = timed("serve-lookup", phase_serve, "serve-lookup",
+                   _serve_spec(num_requests=16, promptLookupNgram=2, numSpeculative=4),
+                   must_t=(5,))
+    draft = timed("serve-draft", phase_serve, "serve-draft",
+                  _serve_spec(num_requests=8, numSpeculative=4, draft=DRAFT_REF), must_t=(5,))
     # a prefill chunk past 16 tokens through D1 (a feed it once refused)
-    prefill32 = phase_serve("serve-prefill32", _serve_spec(num_requests=8, prefillChunk=32),
-                            must_t=(32,))
+    prefill32 = timed("serve-prefill32", phase_serve, "serve-prefill32",
+                      _serve_spec(num_requests=8, prefillChunk=32), must_t=(32,))
     for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
                       ("serve-prefill32", prefill32)):
         same[name] = _same_tokens(name, serve_run, run)
     # the host tier under an open-loop chat trace (bf16 payloads), and the
     # same kind of traffic demoting to int8 on the way out; each also
     # served with the tier off, for information
-    host = {name: phase_serve_host(name, host_phase_spec(name)) for name in HOST_PHASES}
+    host = {name: timed(name, phase_serve_host, name, host_phase_spec(name))
+            for name in HOST_PHASES}
     host_same = {}
     for name in HOST_PHASES:
-        off = phase_serve(f"{name}-off", host_phase_spec(name, host_cache_bytes=0))
+        off = timed(f"{name}-off", phase_serve, f"{name}-off",
+                    host_phase_spec(name, host_cache_bytes=0))
         host_same[name] = _same_tokens(name, off, host[name], ref="the same trace without the "
                                        "host tier")
     # four replicas behind the prefix-affinity router, and one traced engine
-    fleet = phase_serve_fleet(_serve_spec(**FLEET_SPEC_KEYS))
-    traced = phase_serve_traced(_serve_spec(num_requests=8))
-    mixtral = run_mixtral_phases()
-    neox = run_neox_mlp_phases()
-    pretrained = run_pretrained_phases()
-    orbax = run_orbax_phases()
+    fleet = timed("serve-fleet", phase_serve_fleet, _serve_spec(**FLEET_SPEC_KEYS))
+    traced = timed("serve-traced", phase_serve_traced, _serve_spec(num_requests=8))
+    mixtral = timed("mixtral", run_mixtral_phases)
+    neox = timed("gptneox-mlp", run_neox_mlp_phases)
+    pretrained = timed("pretrained", run_pretrained_phases)
+    orbax = timed("orbax", run_orbax_phases)
     ring = run_ring_phases()
-    tp = run_tp_phases(serve_run)
+    tp = timed("tensor-parallel-serve", run_tp_phases, serve_run)
     worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
                                                 tp["tp-decode-kernel"]["worst"])
+    tt = run_train_tp_phases()
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -3843,6 +4307,8 @@ def main(argv=None) -> int:
             "ring_launches": ring_launches(ring, n),
             # per rank: the tensor-parallel phases (D1 at the rank's heads)
             "tensor_parallel_launches": tp_launches(tp, n),
+            # per rank: the tensor-parallel train phases (K1-K3 at the rank's heads)
+            "tensor_train_launches": train_tp_launches(tt, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -3895,6 +4361,12 @@ def main(argv=None) -> int:
                   for phase, run in orbax.items()},
         "ring": ring_summary(ring),
         "tensor_parallel": tp_summary(tp),
+        "tensor_parallel_train": train_tp_summary(tt),
+        "tp_train_kernel_timings": {
+            label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
+                         for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)
+            for label, shape in TP_TRAIN_SHAPES.items()},
+        "phase_seconds": PHASE_SECONDS,
         "serve_traced": {k: traced.get(k) for k in (
             "tokens_per_sec", "committed_tokens", "wall_s", "phase_wall_s", "traced",
             "flight_recorder_events", "flight_dumps", "live_gauge_publishes", "launches")},

@@ -100,6 +100,13 @@ def tensor_split(params: Dict[str, Any], cfg: Any) -> Tuple[int, Optional[Any]]:
     return degree, (None if degree == 1 else tensor_mesh(degree))
 
 
+def tensor_group(params: Dict[str, Any], cfg: Any):
+    """The process group of the tensor axis the params were cut for, or
+    None for whole params (no collective)."""
+    mesh = tensor_split(params, cfg)[1]
+    return None if mesh is None else mesh.group("tensor")
+
+
 def cache_for(params: Dict[str, Any], cfg: Any, batch: int, max_len: int,
               device) -> Dict[str, Any]:
     """``init_kv_cache`` at the params' kv heads (a rank's block of them
@@ -240,8 +247,7 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
         if start + t > max_len:
             raise ValueError(f"a feed of {t} at length {start} overruns the cache ({max_len})")
 
-    mesh = tensor_split(params, cfg)[1]
-    group = None if mesh is None else mesh.group("tensor")
+    group = tensor_group(params, cfg)
     x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
     cos_full, sin_full = _rope_tables(max_len, rope_dims or cfg.head_dim, cfg.rope_theta, dev)
     steps = torch.arange(t, device=dev)

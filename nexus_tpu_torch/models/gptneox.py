@@ -17,6 +17,13 @@ Attention dispatches as the JAX rule does (``ops/attention.py``): head dim
 path. The decode entry points run ``models/decoding.py``'s generic scaffold
 with this block and the final LayerNorm; the serving engine reads the
 paged pool through the paged-decode kernel at any of those head dims.
+
+Params cut for a tensor axis train at the rank's heads, as Llama's do
+(models/llama.py): ``wqkv`` / ``b_qkv`` (cut per third) and ``w_in`` /
+``b_in`` column-parallel, ``wo`` and ``w_out`` row-parallel, the two
+branches' partial sums reduced in one collective a layer and the
+replicated biases ``b_o`` / ``b_out`` added once after it, the vocabulary
+split.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from nexus_tpu_torch.models.decoding import tensor_group
 from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
@@ -35,6 +43,8 @@ from nexus_tpu_torch.ops.norms import layer_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
+                                             reduce_from_tensor, vocab_parallel_embed)
 
 LAYER_KEYS = ("wqkv", "b_qkv", "wo", "b_o", "w_in", "b_in", "w_out", "b_out", "ln1", "ln1_b",
               "ln2", "ln2_b")
@@ -238,7 +248,7 @@ def _qkv(cfg: GPTNeoXConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor],
 
 
 def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor], attend,
-                cos: torch.Tensor, sin: torch.Tensor, reduce=None) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor, reduce=None, copy=None) -> torch.Tensor:
     """The NeoX block with attention as ``attend(q, k, v)``: the one copy
     of the block body shared by the train-time forward and the KV-cache
     decode (``generic_forward_decode``'s layer_fn contract). The
@@ -246,12 +256,15 @@ def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tens
     ``nexus::flash_fwd``), which the ``dots_attn`` policy keeps.
     ``reduce`` (a tensor-parallel rank's sum over its group): the two
     branches' partial products are summed in one collective, then the
-    replicated biases ``b_o`` and ``b_out`` are added once."""
+    replicated biases ``b_o`` and ``b_out`` are added once. ``copy``
+    (training over a tensor axis): the inputs of the column-parallel
+    products, whose gradients it sums over the group."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, layer_norm(x, layer["ln1"], layer["ln1_b"], cfg.norm_eps), layer, cos,
-                   sin)
+    copy = copy or (lambda y: y)
+    q, k, v = _qkv(cfg, copy(layer_norm(x, layer["ln1"], layer["ln1_b"], cfg.norm_eps)), layer,
+                   cos, sin)
     attn = attend(q, k, v).reshape(b, s, -1) @ layer["wo"]
-    h2 = layer_norm(x, layer["ln2"], layer["ln2_b"], cfg.norm_eps)
+    h2 = copy(layer_norm(x, layer["ln2"], layer["ln2_b"], cfg.norm_eps))
     mlp = F.gelu(h2 @ layer["w_in"] + layer["b_in"], approximate="tanh") @ layer["w_out"]
     if reduce is not None:
         return x + reduce(attn + mlp) + layer["b_o"] + layer["b_out"]
@@ -259,9 +272,9 @@ def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tens
     return x + (attn + layer["b_o"]) + (mlp + layer["b_out"])
 
 
-def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args) -> torch.Tensor:
+def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args, group=None) -> torch.Tensor:
     """One layer of the forward: ``args`` are the layer's tensors in
-    ``LAYER_KEYS`` order, then cos and sin."""
+    ``LAYER_KEYS`` order, then cos and sin; ``group``: the tensor axis's."""
     layer = dict(zip(LAYER_KEYS, args))
     cos, sin = args[len(LAYER_KEYS):]
 
@@ -270,7 +283,11 @@ def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args) -> torch.Tensor:
             return ring_attention_sharded(q, k, v)
         return attention(q, k, v, causal=True, impl=cfg.attn_impl)
 
-    return _block_with(cfg, x, layer, attend, cos, sin)
+    if group is None:
+        return _block_with(cfg, x, layer, attend, cos, sin)
+    return _block_with(cfg, x, layer, attend, cos, sin,
+                       reduce=lambda y: reduce_from_tensor(y, group),
+                       copy=lambda y: copy_to_tensor(y, group))
 
 
 def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Tensor,
@@ -279,11 +296,12 @@ def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Ten
     Under a sequence-sharded mesh ``tokens`` is this rank's block, whose
     positions start past the blocks before it."""
     s = tokens.shape[1]
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    group = tensor_group(params, cfg)
+    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.rotary_dims, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
                             device=x.device)
-    block = lambda *a: _block(cfg, *a)  # noqa: E731
+    block = lambda *a: _block(cfg, *a, group=group)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     for layer in zip(*(params["layers"][k].unbind(0) for k in LAYER_KEYS)):
@@ -293,22 +311,26 @@ def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Ten
 
 def forward(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Tensor,
             position_offset: int = 0) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, V) float32."""
+    """tokens (B, S) → logits (B, S, V) float32 (the whole vocabulary's,
+    gathered, under a tensor axis)."""
     x = forward_hidden(params, cfg, tokens, position_offset)
-    return (x @ params["lm_head"]).float()
+    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg))
 
 
 def loss_fn(params: Dict[str, Any], cfg: GPTNeoXConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy; ``ce_chunk`` routes to the vocab-chunked
-    exact CE as in the other families. batch: {'tokens': (B, S+1)}."""
+    exact CE as in the other families (vocab-parallel under a tensor
+    axis). batch: {'tokens': (B, S+1)}."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden = forward_hidden(params, cfg, inputs)
+    group = tensor_group(params, cfg)
     if cfg.ce_chunk > 0:
-        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk)
+        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
+                                    group=group)
     else:
-        loss = dense_softmax_xent(hidden, params["lm_head"], targets)
+        loss = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
     return loss, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())}
 
 

@@ -7,6 +7,15 @@ weights stacked along a leading layer dim, ``(L, d_in, d_out)``, applied as
 The layer loop is a Python loop over ``unbind(0)`` of the stacks (one
 backward op per stack, not one full-size gradient per layer). Attention
 dispatches to the CUDA flash kernels on the card (``ops/attention.py``).
+
+Params cut for a tensor axis (``parallel/sharding.py::shard_params``) train
+and run at the rank's heads, read from the weights' shapes: Megatron's
+split, as GSPMD partitions JAX's model under ``DEFAULT_LOGICAL_RULES``.
+``wq`` / ``wk`` / ``wv`` and ``w_gate`` / ``w_up`` are column-parallel (their
+input through ``copy_to_tensor``), ``wo`` and ``w_down`` row-parallel (their
+partial sums, in the model dtype, through ``reduce_from_tensor``), the
+embedding and ``lm_head`` split over the vocabulary (the vocab-parallel
+lookup and cross entropy); parallel/tensor.py has the collectives.
 The decode entry points (``forward_decode``, ``generate``) run the shared
 scaffold of ``models/decoding.py``.
 """
@@ -20,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from nexus_tpu_torch.models.decoding import tensor_group
 from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
@@ -27,6 +37,8 @@ from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
+                                             reduce_from_tensor, vocab_parallel_embed)
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln_attn", "ln_mlp")
 
@@ -195,10 +207,13 @@ def leaves(params: Dict[str, Any]):
 
 
 def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
-           w_down, ln_attn, ln_mlp, cos, sin) -> torch.Tensor:
+           w_down, ln_attn, ln_mlp, cos, sin, group=None) -> torch.Tensor:
+    """One layer at the heads the weights hold; ``group``: the tensor
+    axis's, whose ranks hold blocks of the projections (module doc)."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, ln_attn, cfg.norm_eps)
+    hd = cfg.head_dim
+    hq, hkv = wq.shape[-1] // hd, wk.shape[-1] // hd
+    h = copy_to_tensor(rms_norm(x, ln_attn, cfg.norm_eps), group)
     q = (h @ wq).reshape(b, s, hq, hd)
     k = (h @ wk).reshape(b, s, hkv, hd)
     v = (h @ wv).reshape(b, s, hkv, hd)
@@ -208,11 +223,11 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
         attn = ring_attention_sharded(q, k, v)
     else:
         attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    x = x + attn.reshape(b, s, hq * hd) @ wo
+    x = x + reduce_from_tensor(attn.reshape(b, s, hq * hd) @ wo, group)
 
-    h = rms_norm(x, ln_mlp, cfg.norm_eps)
+    h = copy_to_tensor(rms_norm(x, ln_mlp, cfg.norm_eps), group)
     gated = F.silu(h @ w_gate) * (h @ w_up)
-    return x + gated @ w_down
+    return x + reduce_from_tensor(gated @ w_down, group)
 
 
 def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
@@ -221,11 +236,12 @@ def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
     a sequence-sharded mesh ``tokens`` is this rank's block, whose
     positions start past the blocks before it."""
     s = tokens.shape[1]
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    group = tensor_group(params, cfg)
+    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
                             device=x.device)
-    block = lambda *a: _block(cfg, *a)  # noqa: E731
+    block = lambda *a: _block(cfg, *a, group=group)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     per_layer = zip(*(params["layers"][k].unbind(0) for k in LAYER_KEYS))
@@ -236,21 +252,25 @@ def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
 
 def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
             position_offset: int = 0) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, V) float32."""
+    """tokens (B, S) → logits (B, S, V) float32 (the whole vocabulary's,
+    gathered, under a tensor axis)."""
     x = forward_hidden(params, cfg, tokens, position_offset)
-    return (x @ params["lm_head"]).float()
+    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg))
 
 
 def loss_fn(params: Dict[str, Any], cfg: LlamaConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Next-token cross entropy. batch: {'tokens': (B, S+1)}."""
+    """Next-token cross entropy (vocab-parallel under a tensor axis).
+    batch: {'tokens': (B, S+1)}."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden = forward_hidden(params, cfg, inputs)
+    group = tensor_group(params, cfg)
     if cfg.ce_chunk > 0:
-        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk)
+        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
+                                    group=group)
     else:
-        loss = dense_softmax_xent(hidden, params["lm_head"], targets)
+        loss = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
     return loss, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())}
 
 

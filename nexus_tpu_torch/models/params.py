@@ -59,6 +59,21 @@ class LeafCuts:
         dims, groups = self.dims[path], self.groups.get(path, 1)
         return lambda x: self.shard.take(x, dims, groups)
 
+    def join(self, path: str, blocks) -> torch.Tensor:
+        """The whole leaf at ``path`` from every tensor rank's block."""
+        return self.shard.join(blocks, self.dims[path], self.groups.get(path, 1))
+
+    def whole_shape(self, path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The whole leaf's shape from the shape of a rank's block of it."""
+        return tuple(shape) if self.shard is None else self.shard.whole_shape(shape,
+                                                                              self.dims[path])
+
+    def is_cut(self, path: str) -> bool:
+        """Whether the leaf at ``path`` (a whole stacked leaf) is a block
+        on each rank; False with no shard."""
+        dims = self.dims[path]
+        return self.shard is not None and self.shard.is_cut(dims, len(dims))
+
     def fill_normal_(self, path: str, out: torch.Tensor, whole: Tuple[int, ...],
                      generator: torch.Generator, scale: float, stack_dims: int = 0) -> None:
         """``fill_normal_`` of the leaf at ``path`` (whole shape ``whole``)."""

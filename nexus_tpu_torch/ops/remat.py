@@ -19,6 +19,23 @@ drops whatever recompute no saved value needs. A PyTorch recompute
 replays a block's ops in order, and what a saved op skips is that op
 itself: a tag placed after attention would skip nothing. The attention's
 last op is therefore the tag, and the policy names it.
+
+Collectives inside a block (a tensor-parallel rank's, parallel/tensor.py):
+the recompute replays the forward's ``reduce_from_tensor`` all-reduces
+that lie before the last tensor the backward needs, under every policy (a
+non-reentrant recompute stops there; ``dots`` / ``dots_attn`` keep the
+products' outputs, the partial sums before each reduce, not the reduces,
+which are no products). A Llama layer replays the reduce after ``wo`` (its
+sum feeds the MLP's norm, whose backward needs it), not the one after
+``w_down``; a GPT-NeoX layer's one reduce is its last op, replayed by no
+policy. ``copy_to_tensor`` runs no collective forward; its all-reduce runs
+once, in the backward. Every rank replays the same collectives in the
+same order: a block's recompute runs when its first saved tensor is
+unpacked, at the same point of every rank's identical backward. GSPMD's
+recompute in JAX saves the same dot outputs by name and reruns what the
+backward needs after them. Ring attention's shifts (ops/ring_attention.py)
+come before the attention's saved outputs, so every policy replays them
+too, ``dots_attn`` keeping only the flash forward's outputs.
 """
 
 from __future__ import annotations

@@ -83,19 +83,20 @@ def by_dtype(tensors: List[torch.Tensor]) -> List[List[int]]:
     return list(groups.values())
 
 
-def all_reduce(x: torch.Tensor, group, mean: bool = False) -> torch.Tensor:
-    """The sum (or mean) of ``x`` over ``group``, on ``x``'s device; ``x``
-    itself when the group is None (one rank)."""
+def all_reduce(x: torch.Tensor, group, mean: bool = False,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or mean, or another ``op``) of ``x`` over ``group``, on
+    ``x``'s device; ``x`` itself when the group is None (one rank)."""
     if group is None:
         return x
     buf = _wire(x, group)
     if buf is x:
         buf = x.clone()
-    return _all_reduce_(buf, group, mean).to(x.device)
+    return _all_reduce_(buf, group, mean, op).to(x.device)
 
 
-def _all_reduce_(buf: torch.Tensor, group, mean: bool) -> torch.Tensor:
-    dist.all_reduce(buf, group=group)
+def _all_reduce_(buf: torch.Tensor, group, mean: bool, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(buf, op=op, group=group)
     return buf / dist.get_world_size(group) if mean else buf
 
 

@@ -10,6 +10,11 @@ list onto the plan's shape.
 
 The active mesh (``use_mesh``) is what ``ops/ring_attention.py`` reads, as
 the JAX op reads the mesh of the enclosing ``with mesh:``.
+
+The port's world is the initialised group, or a process group of it made
+the world inside ``use_world`` (several small worlds in one group of
+processes, as the tests run them): a mesh over such a world runs
+collectives over the whole of it only, one group for all its axes.
 """
 
 from __future__ import annotations
@@ -101,6 +106,8 @@ class Mesh:
         self.plan = plan
         self.rank = rank
         self.world = plan.total()
+        # the process group of the whole mesh
+        self.world_group = dist.group.WORLD if _world is None else _world
         self.shape: Dict[str, int] = dict(zip(AXES, plan.shape))
         self.coords: Dict[str, int] = self._coords(rank)
         self._groups: Dict[Tuple[str, ...], Optional[object]] = {}
@@ -132,14 +139,17 @@ class Mesh:
         """The process group of this rank's peers along ``axes``, or None
         when those axes have one rank (nothing to communicate). Made at
         first use with a collective call: every rank asks for the same
-        groups in the same order, as every rank runs the same program."""
-        key = tuple(a for a in AXES if a in axes)
+        groups in the same order, as every rank runs the same program.
+        Axes of one rank are left out of the key: ``group("fsdp",
+        "tensor")`` with one tensor rank is ``group("fsdp")``."""
+        key = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
         if key not in self._groups:
             if self.size(*key) == 1:
                 self._groups[key] = None
             elif self.size(*key) == self.world:
-                self._groups[key] = dist.group.WORLD
+                self._groups[key] = self.world_group
             else:
+                self._whole_world()
                 mine, _ = dist.new_subgroups_by_enumeration(self.ranks_along(key))
                 self._groups[key] = mine
         return self._groups[key]
@@ -149,27 +159,56 @@ class Mesh:
         values (a clock reading, a flag, a digest) that need no card: the
         group itself when the world's backend is gloo, else a gloo group
         of the same ranks, made at first use as ``group`` makes its own."""
-        key = ("host",) + tuple(a for a in AXES if a in axes)
+        key = ("host",) + tuple(a for a in AXES if a in axes and self.shape[a] > 1)
         if key not in self._groups:
             group = self.group(*axes)
             if group is None or dist.get_backend() == "gloo":
                 self._groups[key] = group
             elif self.size(*key[1:]) == self.world:
+                self._whole_world()
                 self._groups[key] = dist.new_group(list(range(self.world)), backend="gloo")
             else:
+                self._whole_world()
                 mine, _ = dist.new_subgroups_by_enumeration(self.ranks_along(key[1:]),
                                                             backend="gloo")
                 self._groups[key] = mine
         return self._groups[key]
+
+    def _whole_world(self) -> None:
+        if self.world_group is not dist.group.WORLD:
+            raise ValueError(f"{self!r} runs over a part of the initialised group "
+                             "(parallel.mesh.use_world): its collectives span the whole of it "
+                             "only")
 
     def __repr__(self) -> str:
         sized = {a: s for a, s in self.shape.items() if s > 1}
         return f"Mesh({sized or 'one device'}, rank {self.rank} at {self.coords})"
 
 
+# the process group that is the port's world inside ``use_world``
+_world = None
+
+
+@contextlib.contextmanager
+def use_world(group) -> Iterator[object]:
+    """Make ``group`` (this rank's group of a partition of the initialised
+    group, e.g. one of ``dist.new_subgroups``') the port's world inside the
+    block: ``world_size``, ``build_mesh`` and every mesh built there see its
+    ranks alone."""
+    global _world
+    prev, _world = _world, group
+    try:
+        yield group
+    finally:
+        _world = prev
+
+
 def world_size() -> int:
-    """The ranks of the initialised ``torch.distributed`` group, else 1."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    """The ranks of the port's world: the initialised ``torch.distributed``
+    group (or ``use_world``'s), else 1."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(_world)
 
 
 def build_mesh(plan: MeshPlan, world: Optional[int] = None) -> Mesh:
@@ -180,7 +219,7 @@ def build_mesh(plan: MeshPlan, world: Optional[int] = None) -> Mesh:
     if plan.total() != world:
         raise ValueError(f"mesh plan {plan.shape} (product {plan.total()}) does not tile "
                          f"{world} devices")
-    rank = dist.get_rank() if world > 1 else 0
+    rank = dist.get_rank(_world) if world > 1 else 0
     return Mesh(plan, rank)
 
 

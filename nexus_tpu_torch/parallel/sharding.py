@@ -9,14 +9,16 @@ tensor dims onto mesh axes. The port applies them by hand:
   dims the rules put on ``tensor`` (heads, kv heads, qkv, mlp, vocab), as
   JAX's ``shard_params`` places them. A fused leaf may cut each of several
   equal runs of a dim in turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each
-  by head). The other axes keep parameters whole on every rank; the
-  trainer shards the optimizer state over ``fsdp`` (train/trainer.py).
+  by head). ``TensorShard.join`` is the inverse: every rank's block of a
+  leaf back into the whole leaf (what a checkpoint holds). The other axes
+  keep parameters whole on every rank; the trainer shards the optimizer
+  state over ``fsdp`` (train/trainer.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +105,41 @@ class TensorShard:
             x = x.unflatten(i, (groups, self.size, n // (groups * self.size)))
             x = x.select(i + 1, self.rank).flatten(i, i + 1)
         return x
+
+    def join(self, blocks: Sequence[torch.Tensor], dims: Tuple[Optional[str], ...],
+             groups: int = 1) -> torch.Tensor:
+        """The whole tensor from every rank's block (``blocks`` in rank
+        order, one per rank of the axis): the inverse of ``take``, fused
+        runs included. A tensor with no dim on ``tensor`` is the same
+        on every rank: rank 0's block is the whole."""
+        if len(blocks) != self.size:
+            raise ValueError(f"{len(blocks)} blocks for {self.size} tensor ranks")
+        cut = self._cut_dims(dims, blocks[0].dim())
+        if not cut:
+            return blocks[0]
+        if len(cut) > 1:
+            raise ValueError(f"dims {dims} put {len(cut)} dims on tensor: a rank's blocks do "
+                             "not tile such a tensor")
+        i = cut[0]
+        n = blocks[0].shape[i]
+        if n % groups:
+            raise ValueError(f"dim {dims[len(dims) - blocks[0].dim() + i]!r} of {n} does not "
+                             f"split into {groups} run(s)")
+        runs = [b.unflatten(i, (groups, n // groups)) for b in blocks]
+        return torch.stack(runs, dim=i + 1).flatten(i, i + 2)
+
+    def whole_shape(self, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...]
+                    ) -> Tuple[int, ...]:
+        """The shape of the whole tensor whose block on a rank has ``shape``."""
+        out = list(shape)
+        for i in self._cut_dims(dims, len(shape)):
+            out[i] *= self.size
+        return tuple(out)
+
+    def is_cut(self, dims: Tuple[Optional[str], ...], ndim: int) -> bool:
+        """Whether a tensor of ``ndim`` trailing ``dims`` has a block on
+        each rank (else every rank holds it whole)."""
+        return bool(self._cut_dims(dims, ndim))
 
     def shape(self, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...]) -> Tuple[int, ...]:
         """The shape of this rank's block of a whole tensor of ``shape``."""

@@ -1,15 +1,25 @@
 """The collectives of the ``tensor`` axis: the ones GSPMD inserts in JAX
 where a Megatron split of the projections needs them (the counterpart of
 the placements ``nexus_tpu/parallel/sharding.py`` gives heads, mlp and
-vocab). Forward only: they serve decoding, which runs under no autograd.
+vocab).
 
 A rank holds the columns of its heads in ``wq`` / ``wk`` / ``wv`` (and the
 first layer of the MLP) and the matching rows of ``wo`` (and of the MLP's
 second layer): each row-parallel product gives a partial sum that
-``reduce_from_tensor`` adds up over the ranks. The vocabulary is split
-too: ``vocab_parallel_embed`` looks up the rows of this rank's range and
-sums, and ``gather_from_tensor`` assembles the logits of every rank's
-range, so every rank samples from the same whole logits.
+``reduce_from_tensor`` adds up over the ranks (Megatron's *g*). The
+vocabulary is split too: ``vocab_parallel_embed`` looks up the rows of this
+rank's range and sums, and ``gather_from_tensor`` assembles the logits of
+every rank's range, so every rank samples from the same whole logits.
+
+Training differentiates through them as ``torch.autograd.Function``s:
+``reduce_from_tensor`` is an all-reduce forward and the identity backward
+(each rank's partial product gets the whole gradient of the sum);
+``copy_to_tensor`` (Megatron's *f*) is the identity forward and an
+all-reduce backward, at the input of every column-parallel product, where
+each rank's gradient holds its own heads' (or columns') share alone; the
+embedding's backward sends each token's gradient to its owner's rows only.
+Under no autograd (decoding) each runs its forward alone: one collective
+each, and none for *f*.
 
 Each goes through ``parallel/comm.py``: under gloo a CUDA tensor is staged
 through host memory.
@@ -39,10 +49,39 @@ def tensor_mesh(size: int):
     return mesh
 
 
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's partial ``x`` over the tensor group (after a
-    row-parallel product); ``x`` itself without a group."""
-    return all_reduce(x, group)
+    row-parallel product); the gradient passes through unchanged. ``x``
+    itself without a group."""
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (replicated over the tensor group) as the input of a
+    column-parallel product: the identity, whose gradient is summed over
+    the group. ``x`` itself without a group."""
+    return x if group is None else _Copy.apply(x, group)
 
 
 def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor, group,

@@ -29,18 +29,25 @@ Every mode runs on one device, or as one rank of an initialised
 ``torch.distributed`` group: the world is the group, and the declared
 parallelism is the mesh when it tiles the world (else JAX's plan for the
 world's size). Training takes its slice of the global batch on each rank,
-and a sharded ``sequence`` axis selects ring attention. Infer and serve of
-Llama and GPT-NeoX run over a mesh whose only axis above 1 is ``tensor``:
-each rank holds its block of the params (random init, a checkpoint's, or
-``model.weights``; parallel/sharding.py) and of the KV cache, the decode
-scaffold runs the axis's collectives (parallel/tensor.py), and the engine
-runs in lockstep on every rank (runtime/serving.py). A speculative draft
-whose heads do not tile the axis runs whole on every rank. Over more than
-one rank what is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item: training over ``tensor`` and infer / serve over ``data``,
-``fsdp`` or ``sequence`` (4b), a model whose heads do not tile ``tensor``
-(4b), ``expert`` and the MoE family (4c), ``pipeline`` (4d). Only rank 0
-writes the serve trace dump.
+and a sharded ``sequence`` axis selects ring attention. Llama and GPT-NeoX
+also train over a sharded ``tensor`` axis, alone or with ``data`` and
+``fsdp``: each rank holds its block of the params (random init drawn whole
+a layer at a time, each rank keeping its block; parallel/sharding.py) and
+of their AdamW moments, the model runs Megatron's split with the axis's
+collectives (parallel/tensor.py) and the vocab-parallel loss, and the
+checkpoints hold JAX's global arrays. Infer and serve of Llama and GPT-NeoX
+run over a mesh whose only axis above 1 is ``tensor``: each rank holds its
+block of the params (random init, a checkpoint's, or ``model.weights``)
+and of the KV cache, the decode scaffold runs the axis's collectives, and
+the engine runs in lockstep on every rank (runtime/serving.py). A
+speculative draft whose heads do not tile the axis runs whole on every
+rank. Over more than one rank what is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item: infer / serve over
+``data``, ``fsdp`` or ``sequence``, training over ``sequence`` together
+with ``tensor``, and the MLP family over ``tensor`` (4b part three), a
+model whose heads, d_ff or vocab do not tile ``tensor`` (4b), ``expert``
+and the MoE family (4c), ``pipeline`` (4d). Only rank 0 writes the serve
+trace dump.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch.distributed as dist
 
 from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 from nexus_tpu_torch.models.decoding import prompt_lookup_generate, speculative_generate
+from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
@@ -117,10 +125,15 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
     if runtime.mode != "train":
         batch_axes = [a for a in ("data", "fsdp", "sequence") if mesh.shape[a] > 1]
         if batch_axes:
-            why.append(f"mode {runtime.mode!r} (item 4b) over the {', '.join(batch_axes)} "
-                       "axis: infer and serve run over the tensor axis only")
+            why.append(f"mode {runtime.mode!r} (item 4b, part three) over the "
+                       f"{', '.join(batch_axes)} axis: infer and serve run over the tensor "
+                       "axis only")
     elif mesh.shape["tensor"] > 1:
-        why.append("training over the tensor axis (item 4b)")
+        if runtime.model.family == "mlp":
+            why.append("the mlp family over the tensor axis (item 4b, part three)")
+        if mesh.shape["sequence"] > 1:
+            why.append("training over the sequence axis together with the tensor axis "
+                       "(item 4b, part three)")
     if mesh.shape["expert"] > 1 or runtime.model.family == "mixtral":
         why.append("the expert axis and MoE over a sharded token axis (item 4c)")
     if mesh.shape["pipeline"] > 1:
@@ -133,8 +146,8 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
         why.append(f"attn_impl {attn!r} over the sequence axis (item 4a runs it only as 'ring')")
     if why:
         raise NotImplementedError(
-            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp and sequence axes "
-            "of training and the tensor axis of infer and serve; not ported yet: "
+            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp, sequence and "
+            "tensor axes of training and the tensor axis of infer and serve; not ported yet: "
             f"{', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
 
 
@@ -148,8 +161,8 @@ def _untiled(cfg, size: int) -> list:
 def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
     """A target model the tensor axis cannot split: refused (item 4b)."""
     size = mesh.shape["tensor"]
-    if size == 1 or runtime.mode == "train" or not hasattr(cfg, "n_heads"):
-        return  # (the MLP neither infers nor serves: its own error follows)
+    if size == 1 or not hasattr(cfg, "n_heads"):
+        return  # (the MLP family over the axis was refused before)
     bad = _untiled(cfg, size)
     if bad:
         raise NotImplementedError(
@@ -247,8 +260,14 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
     )
     gen = torch.Generator(device=dev)
     gen.manual_seed(tr.seed)
-    params = family.init(gen, cfg, dev)
-    state = init_train_state(params, family.leaves(params), optimizer, mesh=mesh)
+    shard = tensor_shard(mesh)
+    cuts = None
+    if shard is None:
+        params = family.init(gen, cfg, dev)
+    else:  # the rank's blocks of the one-rank draw
+        params = family.init(gen, cfg, dev, shard=shard)
+        cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
+    state = init_train_state(params, family.leaves(params), optimizer, mesh=mesh, cuts=cuts)
     step_fn = make_train_step(
         lambda p, batch: family.loss_fn(p, cfg, batch), optimizer,
         grad_accum=tr.gradient_accumulation, mesh=mesh,

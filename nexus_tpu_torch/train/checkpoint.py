@@ -29,8 +29,11 @@ tensors one array chunk at a time, each zstd frame decoded straight into a
 host buffer of the chunk's size; ``restore_params`` reads the ``params.*``
 arrays alone (JAX's reads the optimizer moments too, then drops them).
 
-``restore_param_shard`` is the params-only restore of a tensor-parallel
-rank: each leaf read whole into host memory, then cut to the rank's block
+``RankedCheckpointer`` is a rank's view of either format over a mesh: the
+step it writes is the one a one-device run writes, whatever the mesh, so
+any number of ranks restores it. ``restore_param_shard`` is the
+params-only restore of a tensor-parallel rank: each leaf read whole into
+host memory, then cut to the rank's block
 (parallel/sharding.py::shard_params) and moved onto the device.
 """
 
@@ -50,6 +53,7 @@ import torch.distributed as dist
 from nexus_tpu_torch.models.params import tree_leaves
 from nexus_tpu_torch.parallel.sharding import shard_params
 from nexus_tpu_torch.train import orbax_format
+from nexus_tpu_torch.train.tensor_leaves import Gatherer, block_targets, is_array, materialize
 from nexus_tpu_torch.train.trainer import OptState, TrainState, load_whole_state, whole_state
 
 # numpy's descr for an ml_dtypes bfloat16 array, as the JAX package's
@@ -73,7 +77,9 @@ def all_steps(directory: str) -> List[int]:
 
 
 def _host(x) -> tuple:
-    """(numpy array, its npy descr) of a leaf: a tensor or a Python int."""
+    """(numpy array, its npy descr) of a leaf: a tensor, a gathered leaf
+    or a Python int."""
+    x = materialize(x)
     if not torch.is_tensor(x):
         arr = np.asarray(x, dtype=np.int32)
         return arr, np.lib.format.dtype_to_descr(arr.dtype)
@@ -97,7 +103,9 @@ def _write_npz(path: str, leaves: List[Any]) -> None:
                 f.write(memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B"))
 
 
-def _copy_into(target: torch.Tensor, arr: np.ndarray, name: str) -> None:
+def _copy_into(target, arr: np.ndarray, name: str) -> None:
+    """Copy ``arr`` into ``target``, a tensor or a ``BlockTarget`` (which
+    keeps its block of the whole leaf)."""
     if tuple(arr.shape) != tuple(target.shape):
         raise ValueError(f"checkpoint leaf {name} has shape {arr.shape}, the restore target "
                          f"{tuple(target.shape)}")
@@ -256,7 +264,7 @@ class NpzCheckpointer(_Steps):
         opt = state.opt_state
         with self._open("state.npz", len(leaves), step) as z:
             for i, target in enumerate(leaves):
-                if torch.is_tensor(target):
+                if is_array(target):
                     _copy_into(target, z[f"leaf_{i}"], f"leaf_{i}")
             opt.count = int(z[f"leaf_{n}"])
             if opt.schedule_count is not None:
@@ -281,7 +289,10 @@ class RankedCheckpointer:
     the step as a one-device run would, and every rank waits for it; a
     restore reads the whole step on every rank and keeps this rank's
     blocks. So a step written by any number of ranks restores into any
-    other."""
+    other. Under a sharded tensor axis rank 0's writer gathers each leaf's
+    tensor blocks as it reads the leaf, and a restore reads each whole leaf
+    and keeps the rank's block of its parameter and moments
+    (train/tensor_leaves.py)."""
 
     def __init__(self, inner, mesh):
         self.inner = inner
@@ -293,9 +304,19 @@ class RankedCheckpointer:
     def save(self, state, step: Optional[int] = None) -> int:
         whole = whole_state(state)
         step = int(state.step) if step is None else int(step)
-        if self.mesh.rank == 0:
-            self.inner.save(whole, step)
-        dist.barrier()
+        if state.cuts is None:
+            if self.mesh.rank == 0:
+                self.inner.save(whole, step)
+        else:
+            gatherer = Gatherer(whole, self.mesh)
+            if self.mesh.rank == 0:
+                try:
+                    self.inner.save(gatherer.proxy(), step)
+                finally:
+                    gatherer.done()
+            elif gatherer.follows:
+                gatherer.follow()
+        dist.barrier(group=self.mesh.world_group)
         return step
 
     def restore(self, state, step: Optional[int] = None):
@@ -306,8 +327,13 @@ class RankedCheckpointer:
             whole = TrainState(state.params, state.leaves, OptState(
                 mu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
                 nu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
-                count=opt.count, schedule_count=opt.schedule_count), state.step)
-        self.inner.restore(whole, step)
+                count=opt.count, schedule_count=opt.schedule_count), state.step,
+                cuts=state.cuts, cut=state.cut)
+        target = whole if state.cuts is None else block_targets(whole)
+        self.inner.restore(target, step)
+        whole.opt_state.count = target.opt_state.count
+        whole.opt_state.schedule_count = target.opt_state.schedule_count
+        whole.step = target.step
         load_whole_state(state, whole)
         return state
 

@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from nexus_tpu_torch.train.tensor_leaves import BlockTarget, is_array, materialize
 from nexus_tpu_torch.utils import ocdbt, zstd
 
 ITEM = "default"
@@ -75,7 +76,7 @@ class Leaf:
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        return tuple(self.value.shape) if torch.is_tensor(self.value) else ()
+        return tuple(self.value.shape) if is_array(self.value) else ()
 
 
 def _tree(tree, keys: Tuple[str, ...], types: Tuple[int, ...]):
@@ -118,7 +119,7 @@ def state_leaves(state) -> List[Leaf]:
 
 
 def zarr_dtype(x) -> str:
-    if not torch.is_tensor(x):
+    if not is_array(x):
         return "<i4"
     if x.dtype not in _ZARR_DTYPE:
         raise ValueError(f"no zarr dtype for {x.dtype}")
@@ -139,7 +140,9 @@ def _chunk_key(index: Sequence[int]) -> str:
 
 
 def _host(x) -> np.ndarray:
-    """The C-order host bytes of a leaf (a tensor or a Python int)."""
+    """The C-order host bytes of a leaf (a tensor, a gathered leaf or a
+    Python int)."""
+    x = materialize(x)
     if not torch.is_tensor(x):
         return np.asarray(x, dtype=np.int32)
     x = x.detach().contiguous().cpu()
@@ -150,7 +153,7 @@ def _host(x) -> np.ndarray:
 
 def _device_str(x) -> str:
     """The device as JAX names it (``str(jax.Device)``)."""
-    if torch.is_tensor(x) and x.device.type == "cuda":
+    if is_array(x) and x.device.type == "cuda":
         return f"cuda:{x.device.index or 0}"
     return "TFRT_CPU_0"
 
@@ -313,7 +316,12 @@ def restore_leaves(path: str, leaves: List[Leaf], what: str) -> Tuple[Dict[str, 
         for leaf in leaves:
             if leaf.value is None:
                 continue
-            if torch.is_tensor(leaf.value):
+            if isinstance(leaf.value, BlockTarget):  # read whole on the host, keep the block
+                whole = torch.empty(leaf.value.shape, dtype=leaf.value.dtype)
+                reader.read_into(leaf.name, whole)
+                leaf.value.copy_(whole)
+                del whole
+            elif torch.is_tensor(leaf.value):
                 reader.read_into(leaf.name, leaf.value)
             else:
                 ints[leaf.name] = reader.read_int(leaf.name)

@@ -9,15 +9,24 @@ bias-corrected; weight decay is decoupled and applies to every parameter;
 the moments are kept in the parameter dtype, as optax keeps them. Parameters
 are updated in place (no second copy of the model in memory).
 
-On a mesh of several ranks each rank holds the whole model and computes
-the gradients of its slice of the batch; the step averages them over every
-rank, so the clip and the update see the gradient of the global batch, and
-reports metrics averaged over every rank. Under ``fsdp`` the gradients are
-reduce-scattered instead: each rank keeps the AdamW moments of its block of
-every parameter (``FsdpShards``), updates that block, and the blocks are
-gathered back into the whole parameters for the next step. (JAX gathers
-each layer's parameters just in time inside the step; the results are the
-same.)
+On a mesh of several ranks each rank computes the gradients of its slice
+of the batch; the step averages them over the batch axes (``data``,
+``fsdp``, ``sequence``), so the clip and the update see the gradient of the
+global batch, and reports metrics averaged over every rank. Under ``fsdp``
+the gradients are reduce-scattered instead: each rank keeps the AdamW
+moments of its block of every parameter (``FsdpShards``), updates that
+block, and the blocks are gathered back into the whole parameters for the
+next step. (JAX gathers each layer's parameters just in time inside the
+step; the results are the same.)
+
+Under a sharded ``tensor`` axis each rank holds its tensor block of the
+leaves the rules cut (``TrainState.cuts``) and the whole of the others (the
+norms, GPT-NeoX's replicated biases), and everything above applies to those
+blocks: the fsdp blocks are blocks of the tensor block. The global norm
+that the clip reads is JAX's ``optax.global_norm`` over the global arrays:
+the squares of the cut leaves are summed over the tensor ranks, those of
+the whole leaves counted once, then both over ``fsdp``; so every rank
+clips by one factor and the whole leaves stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -30,9 +39,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from nexus_tpu_torch.models.params import LeafCuts, tree_items
 from nexus_tpu_torch.parallel.comm import (all_gather, all_reduce, all_reduce_coalesced,
                                            by_dtype, reduce_scatter)
 from nexus_tpu_torch.parallel.mesh import AXES, Mesh
+
+# the axes over which ranks hold different rows or positions of the batch:
+# their gradients are averaged over them
+BATCH_AXES = ("data", "fsdp", "sequence")
 from nexus_tpu_torch.utils.hw import sync_host
 
 
@@ -145,9 +159,11 @@ class FsdpShards:
         self.n = mesh.shape["fsdp"]
         self.index = mesh.index("fsdp")
         self.group = mesh.group("fsdp")
-        # the ranks holding the same blocks: every axis but fsdp
-        self.peers = mesh.group(*(a for a in AXES if a != "fsdp"))
-        self.world = mesh.world
+        # the ranks holding the same blocks of gradients of other rows or
+        # positions: the other batch axes (never tensor, whose ranks hold
+        # blocks of other columns)
+        self.peers = mesh.group(*(a for a in BATCH_AXES if a != "fsdp"))
+        self.batch_ranks = mesh.size(*BATCH_AXES)
 
     def _padded(self, t: torch.Tensor) -> torch.Tensor:
         flat = t.reshape(-1)
@@ -176,16 +192,16 @@ class FsdpShards:
         return out
 
     def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """This rank's block of each gradient averaged over every rank, in
-        the gradient's dtype (as GSPMD reduces them in JAX): one
+        """This rank's block of each gradient averaged over the batch axes,
+        in the gradient's dtype (as GSPMD reduces them in JAX): one
         reduce-scatter over the fsdp axis and one all-reduce over the other
-        axes a dtype, over the gradients laid out so that each rank's
+        batch axes a dtype, over the gradients laid out so that each rank's
         blocks lie together."""
         out: List[torch.Tensor] = [None] * len(grads)  # type: ignore[list-item]
         for idx in by_dtype(grads):
             cols = [self._padded(grads[i]).view(self.n, -1) for i in idx]
             block = reduce_scatter(torch.cat(cols, dim=1), self.group)
-            block = all_reduce(block, self.peers) / self.world
+            block = all_reduce(block, self.peers) / self.batch_ranks
             for i, b in zip(idx, block.split([c.shape[1] for c in cols])):
                 out[i] = b
         return out
@@ -198,29 +214,49 @@ class TrainState:
     opt_state: OptState  # whole, or this rank's blocks under ``shards``
     step: int = 0
     shards: Optional[FsdpShards] = None
+    # under a sharded tensor axis: the family's leaves as this rank holds
+    # them (parallel/sharding.py), and whether each of ``leaves`` is a block
+    cuts: Optional[LeafCuts] = None
+    cut: Optional[List[bool]] = None
+
+
+def leaf_paths(params: Any, leaves: List[torch.Tensor]) -> List[str]:
+    """The tree path of each of ``leaves`` in ``params``."""
+    path = {id(t): p for p, t in tree_items(params)}
+    return [path[id(t)] for t in leaves]
 
 
 def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW,
-                     mesh: Optional[Mesh] = None) -> TrainState:
+                     mesh: Optional[Mesh] = None, cuts: Optional[LeafCuts] = None
+                     ) -> TrainState:
     """The state of a fresh run; on a mesh with a sharded ``fsdp`` axis the
-    AdamW moments are this rank's blocks."""
+    AdamW moments are this rank's blocks. ``cuts``: the leaves as a rank of
+    a sharded tensor axis holds them (``params`` are its blocks)."""
+    cut = None
+    if cuts is not None and cuts.shard is not None:
+        cut = [cuts.is_cut(p) for p in leaf_paths(params, leaves)]
+    else:
+        cuts = None
     if mesh is None or mesh.shape["fsdp"] == 1:
-        return TrainState(params, leaves, optimizer.init(leaves))
+        return TrainState(params, leaves, optimizer.init(leaves), cuts=cuts, cut=cut)
     shards = FsdpShards(mesh)
-    return TrainState(params, leaves, optimizer.init(shards.local(leaves)), shards=shards)
+    return TrainState(params, leaves, optimizer.init(shards.local(leaves)), shards=shards,
+                      cuts=cuts, cut=cut)
 
 
 def whole_state(state: TrainState) -> TrainState:
-    """``state`` with whole moments: itself, or (a collective over the
-    fsdp axis) a copy whose moments are gathered from every rank's blocks.
-    What a checkpoint holds."""
+    """``state`` with moments whole over the fsdp axis: itself, or (a
+    collective over the fsdp axis) a copy whose moments are gathered from
+    every rank's blocks. Under a tensor axis they are this rank's tensor
+    blocks (the checkpointer gathers those leaf by leaf)."""
     if state.shards is None:
         return state
     opt = state.opt_state
     full = OptState(mu=state.shards.gather(opt.mu, state.leaves),
                     nu=state.shards.gather(opt.nu, state.leaves),
                     count=opt.count, schedule_count=opt.schedule_count)
-    return TrainState(state.params, state.leaves, full, state.step)
+    return TrainState(state.params, state.leaves, full, state.step, cuts=state.cuts,
+                      cut=state.cut)
 
 
 def load_whole_state(state: TrainState, whole: TrainState) -> None:
@@ -233,10 +269,28 @@ def load_whole_state(state: TrainState, whole: TrainState) -> None:
     state.step = whole.step
 
 
+def sharded_norm(blocks: List[torch.Tensor], cut: Optional[List[bool]],
+                 mesh: Mesh) -> torch.Tensor:
+    """The global norm of the gradient whose blocks this rank holds
+    (averaged over the batch axes already): the squares of the blocks of
+    tensor-cut leaves summed over the ranks of fsdp and tensor, those of
+    the other leaves over fsdp alone (each tensor rank holds them whole).
+    One collective: both sums over the two axes, the second then divided by
+    the tensor ranks (a power of two: exact)."""
+    cut = cut or [False] * len(blocks)
+    zero = torch.zeros((), device=blocks[0].device)
+    sq = torch.stack([sum((g.float().square().sum() for g, c in zip(blocks, cut) if c), zero),
+                      sum((g.float().square().sum() for g, c in zip(blocks, cut) if not c),
+                          zero)])
+    sq = all_reduce(sq, mesh.group("fsdp", "tensor"))
+    return torch.sqrt(sq[0] + sq[1] / mesh.shape["tensor"])
+
+
 def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """Every rank's scalar metrics averaged over the mesh in one
     collective; perplexity as the exp of the mean of its log (the exp of
-    the mean loss)."""
+    the mean loss). The tensor ranks of one batch slice report one loss,
+    so averaging over them too changes nothing."""
     names = sorted(metrics)
     vals = torch.stack([metrics[k].float().log() if k == "perplexity" else metrics[k].float()
                         for k in names])
@@ -258,8 +312,8 @@ def make_train_step(
     and divides by the count; every metric is averaged over them and
     perplexity re-derived from the mean loss. Metrics are device scalars
     (no host sync). On a ``mesh`` of several ranks ``batch`` is this
-    rank's slice, and gradients and metrics are averaged over the mesh
-    (see the module doc)."""
+    rank's slice, gradients are averaged over the batch axes and metrics
+    over the mesh (see the module doc)."""
 
     def compute_grads(state: TrainState, batch):
         if grad_accum == 1:
@@ -287,22 +341,20 @@ def make_train_step(
         grads, metrics = compute_grads(state, batch)
         if mesh is None or mesh.world == 1:
             metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
-        elif state.shards is None:
-            metrics = _mean_metrics(metrics, mesh)
-            grads = all_reduce_coalesced(grads, mesh.group(*AXES), mean=True)
-            metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
+            state.step += 1
+            return state, metrics
+        metrics = _mean_metrics(metrics, mesh)
+        shards = state.shards
+        if shards is None:
+            g_blocks = all_reduce_coalesced(grads, mesh.group(*BATCH_AXES), mean=True)
+            p_blocks = state.leaves
         else:
-            metrics = _mean_metrics(metrics, mesh)
-            shards = state.shards
             g_blocks = shards.reduce_grads(grads)
-            del grads
-            # the norm of the whole gradient: the blocks' squares summed
-            # over the fsdp axis (the other axes hold the same blocks)
-            sq = sum((g.float().square().sum() for g in g_blocks),
-                     torch.zeros((), device=g_blocks[0].device))
-            norm = torch.sqrt(all_reduce(sq, shards.group))
             p_blocks = shards.local(state.leaves)
-            metrics["grad_norm"] = optimizer.update(p_blocks, g_blocks, state.opt_state, norm=norm)
+        del grads
+        norm = sharded_norm(g_blocks, state.cut, mesh)
+        metrics["grad_norm"] = optimizer.update(p_blocks, g_blocks, state.opt_state, norm=norm)
+        if shards is not None:
             with torch.no_grad():
                 for p, whole in zip(state.leaves, shards.gather(p_blocks, state.leaves)):
                     p.copy_(whole)

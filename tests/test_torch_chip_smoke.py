@@ -1,6 +1,7 @@
 """chip_smoke.py's parts that need no card: the paged-decode kernel's
 bound, counted by hand on small shapes; the key-tail shapes, the decode
-error gate, the serve phases' specs and their same-token count.
+error gate, the serve phases' specs and their same-token count; the
+tensor-parallel train phases' specs, gates and planted faults.
 
 The bound counts each input byte once: every row's visible slots past the
 Hydragen split, and the visible slots under the split once for the whole
@@ -524,13 +525,16 @@ def test_the_mixtral_kernel_shapes_are_the_mixtral_train_phases():
 ], ids=["train", "infer", "serve"])
 def test_the_gptneox_phases_are_valid_specs_at_published_widths_and_depths(make, preset):
     """Every GPT-NeoX phase passes the port's validate() and runs its
-    preset whole: Pythia-1.4B trains, GPT-NeoX-20B infers and serves, no
-    override of width or depth."""
+    preset's widths: Pythia-1.4B trains whole, GPT-NeoX-20B infers and
+    serves at NEOX_SERVE_LAYERS of its 44 layers (the script's time), no
+    other override."""
     from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 
     rt = JaxXlaRuntime.from_dict(make())
     assert rt.validate() == []
-    assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == ("gptneox", preset, {})
+    depth = {} if rt.mode == "train" else {"n_layers": cs.NEOX_SERVE_LAYERS}
+    assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == ("gptneox", preset,
+                                                                            depth)
     if rt.mode == "serve":
         assert rt.serve.num_requests == 16 and rt.serve.attention_path == "fused"
         assert rt.serve.prefix_cache and rt.serve.kv_pool_dtype == "native"
@@ -689,7 +693,9 @@ def test_the_pretrained_phase_specs_are_valid_at_8b_widths():
                  cs.pretrained_serve_spec("/ck", "/ck/tokenizer.json")):
         rt = JaxXlaRuntime.from_dict(spec)
         assert rt.validate() == []
-        assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == ("llama", "8b", {})
+        # the published widths, depth cut to PRETRAINED_LAYERS (the script's time)
+        assert (rt.model.family, rt.model.preset, dict(rt.model.overrides)) == (
+            "llama", "8b", {"n_layers": cs.PRETRAINED_LAYERS})
         assert rt.train.batch_size == 8
     serve = JaxXlaRuntime.from_dict(cs.pretrained_serve_spec("/ck", "/t")).serve
     assert len(serve.prompts) == 8 and serve.attention_path == "fused" and serve.prefix_cache
@@ -1094,3 +1100,77 @@ def test_the_paged_feed_is_the_dense_one_and_a_rolled_pool_fails_the_limit(name,
         cs.check_tp_logits({name: {"paged": dense}}, ranks(paged, paged))
     with pytest.raises(AssertionError, match="over ranks"):
         cs.check_tp_logits({name: {"paged": dense}}, ranks(rolled, rolled))
+
+
+# ------------------------------------------------ tensor-parallel training
+
+
+def test_train_tp_is_the_fsdp_template_cut_in_depth_steps_and_batch():
+    """TRAIN_TP keeps examples/train-llama8b-fsdp.yaml's model, widths,
+    overrides and parallelism (re-planned by the ranks' count), cutting
+    only what its comments list."""
+    import yaml
+
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices
+
+    with open("examples/train-llama8b-fsdp.yaml") as f:
+        rt = yaml.safe_load(f)["spec"]["runtime"]
+    spec = cs.train_tp_spec()
+    assert spec["model"]["family"] == rt["model"]["family"] and spec["model"]["preset"] == "8b"
+    over = dict(spec["model"]["overrides"])
+    assert over.pop("n_layers") == 2 and over == rt["model"]["overrides"]
+    assert spec["parallelism"] == rt["parallelism"]
+    plan = MeshPlan.from_parallelism(JaxXlaRuntime.from_dict(spec).parallelism)
+    assert plan.total() == 64 and plan_for_devices(2).tensor == 2
+    assert plan_for_devices(4).tensor == 4
+    assert cs.train_tp_spec(2, planted="block_norm")["planted"] == "block_norm"
+    neox = cs.tp_neox_spec("/x", 5)
+    JaxXlaRuntime.from_dict(neox)
+    assert neox["checkpoint"]["resume"] and neox["parallelism"] == {"fsdp": 2, "tensor": 2}
+    assert "checkpoint" not in cs.tp_neox_spec("", 2)
+
+
+def test_the_train_rank_shapes_are_the_ranks_heads():
+    for label, (hq, hkv, ranks) in {"llama8b_tp2": (32, 8, 2), "llama8b_tp4": (32, 8, 4),
+                                    "pythia_tp2": (16, 16, 2)}.items():
+        shape = cs.TP_TRAIN_SHAPES[label]
+        assert (shape["Hq"], shape["Hkv"]) == (hq // ranks, hkv // ranks)
+
+
+def _steps(*pairs):
+    return {"steps": list(pairs)}
+
+
+def test_the_train_tp_gates_pass_clean_runs_and_catch_faults(monkeypatch):
+    monkeypatch.setattr(cs, "card_label", lambda: "no card")
+    one = _steps((10.0, 2.0), (9.0, 3.0))
+    clean = _steps((10.0 * (1 + cs.TP_TRAIN_LOSS_RTOL / 2), 2.0), (9.0, 3.0))
+    fault = _steps((10.0, 2.0 * (1 + 3 * cs.TP_TRAIN_NORM_RTOL)))
+    out = cs.check_train_tp("x", clean, one, {"f": fault})
+    assert out["f"]["grad_norm"] == pytest.approx(3.0)
+    with pytest.raises(AssertionError, match="over the ranks"):
+        cs.check_train_tp("x", _steps((10.0, 2.0 * (1 + 2 * cs.TP_TRAIN_NORM_RTOL)),
+                                      (9.0, 3.0)), one, {})
+    with pytest.raises(AssertionError, match="planted f passes"):
+        cs.check_train_tp("x", clean, one, {"f": clean})
+    with pytest.raises(AssertionError, match="unlike length"):
+        cs.step_differences(_steps(), one)
+
+
+def test_the_planted_train_faults_patch_and_restore():
+    import torch
+
+    from nexus_tpu_torch.parallel import tensor as T
+    from nexus_tpu_torch.train import trainer as Tr
+
+    backward, norm = T._Copy.backward, Tr.sharded_norm
+    with cs.planted_train_fault("no_copy_reduce"):
+        g = torch.ones(2)
+        assert T._Copy.backward(None, g)[0] is g
+    with cs.planted_train_fault("block_norm"):
+        assert float(Tr.sharded_norm([torch.full((4,), 2.0)], [True], None)) == 4.0
+    assert T._Copy.backward is backward and Tr.sharded_norm is norm
+    with pytest.raises(ValueError, match="unknown planted fault"):
+        with cs.planted_train_fault("nope"):
+            pass

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from chip_smoke import (DECODE_EDGE_SHAPES, DECODE_SERVE_QUEUE_SHAPE, DECODE_TIMED_SHAPES,
-                        KEY_TAIL_SHAPES, check_decode, decode_case, decode_exact_share,
-                        decode_planted_faults, excess)
+                        KEY_TAIL_SHAPES, TP_TRAIN_SHAPES, check_decode, check_kernels,
+                        decode_case, decode_exact_share, decode_planted_faults, excess)
 from nexus_tpu_torch.ops import attention as A
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +78,17 @@ def test_kernels_match_plain_versions(card, shape):
     for name, got, ref in zip(("dk", "dv"), A.flash_bwd_dkv(q, k, v, do, lse_p, delta, *opts),
                               A.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, *opts)):
         _close(got, ref, name)
+
+
+@pytest.mark.parametrize("label", sorted(TP_TRAIN_SHAPES))
+def test_kernels_match_plain_versions_at_the_tensor_train_rank_shapes(card, label):
+    """K1-K3 at the heads one rank of a tensor-parallel train phase holds
+    (Llama-3-8B over tensor 2 and 4, Pythia-1.4B over 2), held to their
+    plain versions with chip_smoke's limits (``check_kernels`` raises past
+    them)."""
+    ratios = {}
+    check_kernels(TP_TRAIN_SHAPES[label], torch.Generator(device=card).manual_seed(0), ratios)
+    assert ratios and max(ratios.values()) <= 1.0
 
 
 def test_autograd_function_launches_each_kernel_once(card):

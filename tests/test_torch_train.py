@@ -237,15 +237,17 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     pytest.param(dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}},
                       parallelism={"sequence": 2}), NotImplementedError, "not ported.*item 4c",
                  2, id="over2-NotImplementedError-not ported"),
-    # the other axes and modes not ported over several ranks
-    pytest.param(dict(parallelism={"tensor": 2}), NotImplementedError, "tensor axis.*item 4b",
-                 2, id="tensor-4b"),
+    # the other axes and modes not ported over several ranks. Training over
+    # the tensor axis runs since item 4b part two (tests/test_torch_tensor_
+    # train.py); with a sharded sequence axis beside it, it is part three
+    pytest.param(dict(parallelism={"tensor": 2, "sequence": 2}), NotImplementedError,
+                 "tensor axis .item 4b, part three", 4, id="tensor-4b"),
     pytest.param(dict(parallelism={"data": 2, "expert": 2}), NotImplementedError,
                  "expert axis.*item 4c", 4, id="expert-4c"),
     pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
                  "pipeline axis.*item 4d", 4, id="pipeline-4d"),
     pytest.param(dict(mode="infer", parallelism={"data": 2}), NotImplementedError,
-                 "mode 'infer' .item 4b", 2, id="infer-4b"),
+                 "mode 'infer' .item 4b, part three", 2, id="infer-4b"),
     # attention other than the ring over a sharded sequence axis would
     # attend within each rank's block alone (JAX gathers the sequence)
     pytest.param(dict(model={"overrides": {"attn_impl": "flash"}},
@@ -255,15 +257,17 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
                              "overrides": {"attn_impl": "xla"}},
                       parallelism={"sequence": 2}), NotImplementedError,
                  "attn_impl 'xla' over the sequence axis", 2, id="sequence-xla"),
-    # a plan that does not tile the ranks is re-planned, as in JAX: 2 ranks
-    # get JAX's plan_for_devices(2), tensor 2
+    # a plan that does not tile the ranks is re-planned, as in JAX: 8 ranks
+    # get JAX's plan_for_devices(8), tensor 8, which the tiny Llama's 4 heads
+    # do not tile (2 ranks, tensor 2, train since item 4b part two)
     pytest.param(dict(parallelism={"fsdp": 2, "sequence": 8}), NotImplementedError,
-                 "tensor axis.*item 4b", 2, id="replanned-tensor-4b"),
+                 "tensor axis of 8 ranks does not tile.*item 4b", 8, id="replanned-tensor-4b"),
     # infer and serve run over the tensor axis only (item 4b, part one):
     # serve over data, a target whose kv heads (the tiny Llama's 2) do not
     # tile a tensor axis of 4, and Mixtral over the tensor axis (item 4c)
     pytest.param(dict(mode="serve", parallelism={"data": 2}), NotImplementedError,
-                 "mode 'serve' .item 4b. over the data axis", 2, id="serve-data-4b"),
+                 "mode 'serve' .item 4b, part three. over the data axis", 2,
+                 id="serve-data-4b"),
     pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
                  "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),
     pytest.param(dict(mode="infer", model={"family": "mixtral"}, parallelism={"tensor": 2}),

@@ -1,5 +1,6 @@
 """What the ranks of the multi-rank tests run (tests/test_torch_mesh.py,
-test_torch_ring_attention.py, test_torch_parallel_train.py): each function
+test_torch_ring_attention.py, test_torch_parallel_train.py,
+test_torch_tensor_parallel.py, test_torch_tensor_train.py): each function
 runs on every rank of a group that nexus_tpu_torch/testing/dist.py spawns.
 
 The ranks import this module by name, so it imports torch and the port
@@ -162,12 +163,17 @@ def save_and_restore(directory, plan_kw, fmt, mode, seed):
     from nexus_tpu_torch.train.trainer import (build_optimizer, init_train_state,
                                                make_train_step, whole_state)
 
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.parallel.sharding import tensor_shard
+
     cfg = llama.config("tiny", dtype="bfloat16", attn_impl="xla")
     gen = torch.Generator().manual_seed(seed)
-    params = llama.init(gen, cfg, "cpu")
     mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = tensor_shard(mesh)  # under a tensor axis: the rank's blocks
+    params = llama.init(gen, cfg, "cpu", shard=shard)
     opt = build_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=4)
-    state = init_train_state(params, llama.leaves(params), opt, mesh=mesh)
+    state = init_train_state(params, llama.leaves(params), opt, mesh=mesh,
+                             cuts=LeafCuts(llama.logical_axes(cfg), shard, llama.TENSOR_GROUPS))
     ck = make_checkpointer(directory, keep=2, fmt=fmt)
     if mesh.world > 1:
         ck = RankedCheckpointer(ck, mesh)
@@ -183,13 +189,14 @@ def save_and_restore(directory, plan_kw, fmt, mode, seed):
         return {"step": whole.step, "count": whole.opt_state.count,
                 "schedule_count": whole.opt_state.schedule_count,
                 "tensors": [_bits(t) for t in list(whole.leaves) + whole.opt_state.mu
-                            + whole.opt_state.nu]}
+                            + whole.opt_state.nu], "tensor_index": mesh.index("tensor")}
     ck.restore(state)
     return {"step": state.step, "count": state.opt_state.count,
             "schedule_count": state.opt_state.schedule_count,
             "params": [_bits(t) for t in state.leaves],
             "blocks": [_bits(t) for t in state.opt_state.mu + state.opt_state.nu],
-            "fsdp_index": mesh.index("fsdp"), "fsdp": mesh.shape["fsdp"]}
+            "fsdp_index": mesh.index("fsdp"), "fsdp": mesh.shape["fsdp"],
+            "tensor_index": mesh.index("tensor")}
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -333,4 +340,76 @@ def tp_loaded_blocks(family_name, cfg_kw, hf_path, ck_dir):
         ck = make_checkpointer(ck_dir, fmt="auto")
         out["ck"] = {k: _np(t) for k, t in tree_items(
             restore_param_shard(ck, family, cfg, "cpu", shard, step=latest_step(ck_dir)))}
+    return out
+
+
+# ---------------------------------------------- tensor-parallel training
+# (tests/test_torch_tensor_train.py)
+
+
+def worlds(calls_by_world):
+    """The group split into ``len(calls_by_world)`` worlds of equal size,
+    world i (ranks in order) running ``many(calls_by_world[i])``, its ranks
+    seeing it as the port's world (``parallel.mesh.use_world``)."""
+    from nexus_tpu_torch.parallel.mesh import use_world
+
+    n = dist.get_world_size() // len(calls_by_world)
+    group, _ = dist.new_subgroups(n)
+    with use_world(group):
+        return many(calls_by_world[dist.get_rank() // n])
+
+
+def tp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
+    """The port's train step on this rank of a mesh of ``plan_kw`` (the
+    port's world) from the JAX params cut to its tensor block, over the
+    global ``batches`` (each rank keeps its rows): per-step loss and grad
+    norm, and this rank's blocks of the parameters after the last step by
+    tree path."""
+    from nexus_tpu_torch import interop
+    from nexus_tpu_torch.models.params import LeafCuts, tree_items
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.sharding import batch_spec, tensor_shard
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
+                                                               mesh=mesh)
+    opt = build_optimizer(**opt_kw)
+    cuts = LeafCuts(family.logical_axes(cfg), tensor_shard(mesh), family.TENSOR_GROUPS)
+    state = init_train_state(params, family.leaves(params), opt, mesh=mesh, cuts=cuts)
+    step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
+    losses, norms = [], []
+    with use_mesh(mesh):
+        for batch in batches:
+            local = batch_spec({"tokens": batch}, mesh)
+            state, m = step(state, {"tokens": torch.from_numpy(local["tokens"]).long()})
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    return {"loss": losses, "grad_norm": norms, "tensor_index": mesh.index("tensor"),
+            "params": {k: _np(t) for k, t in tree_items(state.params)}}
+
+
+def vocab_ce(hidden, lm_head, targets, chunk):
+    """The vocab-parallel cross entropy on this rank of the port's world,
+    every rank a block of ``lm_head``'s columns: for the dense loss and the
+    chunked one, the loss and the gradients of the whole ``hidden`` and of
+    this rank's block of ``lm_head``."""
+    from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
+    from nexus_tpu_torch.parallel.mesh import world_size
+
+    mesh = build_mesh(MeshPlan(tensor=world_size()))
+    group = mesh.group("tensor")
+    n = lm_head.shape[1] // mesh.shape["tensor"]
+    r = mesh.index("tensor")
+    out = {"tensor_index": r}
+    for name, fn in (("dense", lambda h, w, t: dense_softmax_xent(h, w, t, group=group)),
+                     ("chunked", lambda h, w, t: chunked_softmax_xent(h, w, t, chunk=chunk,
+                                                                     group=group))):
+        h = torch.from_numpy(hidden).requires_grad_()
+        w = torch.from_numpy(lm_head[:, r * n:(r + 1) * n].copy()).requires_grad_()
+        loss = fn(h, w, torch.from_numpy(targets).long())
+        loss.backward()
+        out[name] = {"loss": loss.item(), "d_hidden": _np(h.grad), "d_lm_head": _np(w.grad)}
     return out
