@@ -41,8 +41,8 @@ Phases, each of which raises on failure:
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
    and the paged-decode kernel launched; then 8 requests on the int8 pool,
-   (for information) 16 of its requests on the gather path, and three more
-   phases with the same gates: ``serve-lookup`` (16 requests, prompt-lookup
+   (for information) 8 of its requests on the gather path, and three more
+   phases with the same gates: ``serve-lookup`` (8 requests, prompt-lookup
    speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (8
    requests, the ``draft`` preset at the target's vocabulary and context
    as the proposer) and ``serve-prefill32`` (8 requests, prefillChunk 32),
@@ -51,9 +51,10 @@ Phases, each of which raises on failure:
    plain serve's tokens;
 8. the host spill tier under open-loop traffic, with ``NEXUS_SANITIZE=1``
    and the port's audits installed: ``serve-chat-host`` streams a Poisson
-   chat trace (16 roots over 10 s, half of them 3-turn sessions, 256-token
-   preambles from a pool of 4) through a 48-block pool with a 2 GiB host
-   tier, and ``serve-host-int8`` 16 roots over 10 s demoting to int8; past
+   chat trace (10 roots over 6.25 s, half of them 3-turn sessions 4 s of
+   think time apart, 256-token preambles from a pool of 4) through a
+   48-block pool with a 2 GiB host tier, and ``serve-host-int8`` 10 roots
+   over 6.25 s demoting to int8; past
    the serve gates, blocks must be spilled and restored, restores must
    serve prompt tokens, and the tree and the store must agree at the end;
    each trace is served again with the tier off, and how many requests
@@ -76,7 +77,7 @@ Phases, each of which raises on failure:
    events recorded, and the Prometheus text holding the engine's
    ``serve_queue_depth``;
 11. Mixtral-8x7B at its published widths, cut in depth: ``mixtral-train``
-   (2 layers, batch 1 x seq 8192, sliding window 4096, 6 steps: the loss
+   (2 layers, batch 1 x seq 8192, sliding window 4096, 4 steps: the loss
    falls, the scatter dispatch, a dropped share in [0, 1), K1-K3
    launched); ``mixtral-remat`` (the same under ``remat_policy:
    dots_attn`` and then ``full``, 4 steps each: K1 launches once per layer
@@ -85,17 +86,17 @@ Phases, each of which raises on failure:
    window: 4 steps, the step-4 state restored and saved again byte for
    byte, then resumed to 6 steps from step 4; the trace names K1);
    ``mixtral-infer`` and ``mixtral-serve`` (16 layers; the infer and serve
-   phases' shapes, 16 requests; D1 at T 1 and 8; peak memory under 60 GB);
+   phases' shapes, 8 requests; D1 at T 1 and 8; peak memory under 60 GB);
 12. GPT-NeoX at its published widths and depths, and the MLP:
    ``gptneox-train`` (Pythia-1.4B, preset ``1b``, all 24 layers, batch 4 x
    seq 2048, 6 steps: the loss falls, K1-K3 launched); ``gptneox-infer``
-   and ``gptneox-serve`` (GPT-NeoX-20B, preset ``20b``, 22 of its 44 layers: the
+   and ``gptneox-serve`` (GPT-NeoX-20B, preset ``20b``, 11 of its 44 layers: the
    infer phase's shape, and the serve queue cut to 16 requests, D1 at T 1
    and 8 at head dim 96; peak memory under 60 GB); ``mlp-train`` (preset
    ``small`` of the spec's default family, named by no family key,
    float32, batch 64, 200 steps: the last loss under half the first);
 13. pretrained weights and text prompts: ``pretrained-llama`` exports the
-   seed's random Llama-3-8B weights (16 layers, PRETRAINED_LAYERS; ~8 GB)
+   seed's random Llama-3-8B weights (8 layers, PRETRAINED_LAYERS; ~5 GB)
    as four safetensors shards and model.safetensors.index.json, writes a
    tokenizer.json (256 byte tokens, merges learned from a fixed text, two
    special tokens), and loads the shards back bit for bit
@@ -135,13 +136,13 @@ Phases, each of which raises on failure:
    gradients held to flash over the whole sequence on one rank and to the
    plain versions; then the visiting block's kernels held and timed on the
    card alone beside SDPA at that shape), ``ring-neox``
-   (examples/train-gptneox-long-context.yaml at preset ``1b``, 6 of its 24
-   layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 3 steps: losses finite and
+   (examples/train-gptneox-long-context.yaml at preset ``1b``, 4 of its 24
+   layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 2 steps: losses finite and
    equal on both ranks, K1-K3 on each, peaks under 60 GB; then 2 layers of
-   it, 5 steps, every step's loss and grad norm within RING_LOSS_RTOL and
+   it, 4 steps, every step's loss and grad norm within RING_LOSS_RTOL and
    RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
    model's gradient timed) and ``ring-fsdp-neox`` (2 layers over {fsdp: 2,
-   sequence: 2}, B 2 x S 8192, 4 steps, saving the last: every step's loss
+   sequence: 2}, B 2 x S 8192, 3 steps, saving the last: every step's loss
    and grad norm within those limits of the one-rank run's, each rank
    holding half the AdamW state bytes, the step restored into one rank bit
    for bit against the whole state rank 0 wrote and every rank's blocks);
@@ -157,30 +158,51 @@ Phases, each of which raises on failure:
    Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
    pool at the rank's kv heads read by D1 (feeds of 8, then of 1), with D1
    reading the pool's kv heads rolled by one past the limit; ``infer-tp``
-   (examples/infer-llama8b.yaml at its published widths, 8 of its 32 layers,
+   (examples/infer-llama8b.yaml at its published widths, 4 of its 32 layers,
    re-planned to {tensor: 2}, the infer phase's shape: the same ids on both
-   ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 16
+   ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 4
    requests) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
-   SERVE_TP_NEOX_LAYERS (6) layers, 8 requests): the serve gates on each rank, D1 at
+   SERVE_TP_NEOX_LAYERS (6) layers, 4 requests): the serve gates on each rank, D1 at
    T 1 and 8 at the rank's head counts only, the same completions on both
    ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
-   16 requests on one card): the token share they commit before their
-   first difference at least TP_SERVE_SHARE_LIMIT;
+   4 requests on one card): the token share they commit before their
+   first difference at least TP_SERVE_SHARE_LIMIT; ``serve-moe-tp``
+   (Mixtral-8x7B widths at MOE_SERVE_LAYERS (8) layers, mixtral-serve's 8
+   requests) with the same serve gates, beside ``serve-moe-tp-1card`` (the
+   same on one card; both pin the dispatch ``auto`` resolves over ranks),
+   and Mixtral's teacher-forced logits at mixtral-serve's 16 layers through
+   a dense cache within TP_LOGIT_LIMITS["mixtral"] of one rank's, those of
+   the tokens whose routing flips at no layer within TP_LOGIT_LIMIT (the
+   flipped tokens counted), the MoE layer's reduce skipped past the limit;
 17. training over a sharded tensor axis, the ranks sharing the card over
    gloo: K1-K3 at the heads one rank holds (TP_TRAIN_SHAPES: Llama-3-8B over
    tensor 2 and 4, Pythia-1.4B over 2), held to their plain versions and
    timed beside their bounds and SDPA (in phase 2); ``train-tp``
    (examples/train-llama8b-fsdp.yaml at its published widths, TRAIN_TP: 2
-   layers, 2 rows of 4096, 4 steps, re-planned to {tensor: 2} over 2
+   layers, 2 rows of 4096, 3 steps, re-planned to {tensor: 2} over 2
    ranks) and ``train-tp-fsdp-neox`` (Pythia-1.4B widths, 2 layers, 4 rows
    of 2048, over {fsdp: 2, tensor: 2}, 4 ranks: 4 steps saved as an Orbax
    step, resumed for a fifth, whose step restores into one card bit for bit
    against every rank's parameters and AdamW blocks): every step's loss and
    grad norm within TP_TRAIN_LOSS_RTOL and TP_TRAIN_NORM_RTOL of the same
    runs on one card, the two planted faults of TP_TRAIN_FAULTS past them,
-   K1-K3 on every rank, peaks per rank;
-18. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax, ring and tensor-parallel phase's launches), each
+   K1-K3 on every rank, peaks per rank; K1-K3 at Mixtral-8x7B's {tensor: 2}
+   rank heads too (16 / 4 under the 4096 window);
+18. MoE over ranks (module item 4c), the ranks sharing the card over gloo:
+   ``train-moe-tp`` (examples/moe-mixtral-fanout.yaml at its published
+   widths, MOE_TRAIN: 2 layers, one row of 4096, 3 steps, re-planned to
+   {tensor: 2} over 2 ranks) and ``train-moe-ep`` (1 layer, 2 rows, capacity
+   factor MOE_EP_CF, over {fsdp: 2, expert: 2}, 4 ranks: one step saved as
+   an Orbax step and resumed for a second), both at the dispatch the
+   template's ``auto`` resolves over ranks (the dense one): every step's
+   loss, grad norm, aux loss and dropped share within MOE_LIMITS of the same
+   spec on one card (the dispatch pinned alike), the planted faults of
+   MOE_TP_FAULTS and MOE_EP_FAULTS past them, K1-K3 on every rank, peaks per
+   rank, the dense dispatch's bytes; ``moe-dispatch``: both dispatches and
+   the rank's expert products timed at each phase's rank shape, the two
+   dispatches' tokens equal within bf16's rounding;
+19. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring, tensor-parallel and MoE phase's launches), each
    phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -214,6 +236,18 @@ rank shapes, train-tp, train-tp-fsdp-neox).
 runs train-tp over every card of a 4-card machine ({tensor: 4}), a rank a
 card over NCCL, beside the same spec on one card, and profiles rank 0's
 step PROFILE_STEP.
+
+    python3 chip_smoke.py --moe-gates
+
+runs the MoE phases alone on one card (K1-K3 at Mixtral's rank shape,
+train-moe-tp, train-moe-ep, and serve-moe-tp beside serve-moe-tp-1card with
+Mixtral's logits over the ranks).
+
+    python3 chip_smoke.py --moe-nccl
+
+on a 4-card machine, a rank a card over NCCL: serves the whole
+Mixtral-8x7B (32 layers) over {tensor: 4} and runs train-moe-ep over
+{expert: 4} beside the same spec on one card.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -1131,11 +1165,14 @@ def phase_train(name: str, spec, must_fall: bool = True, kernels=None) -> dict:
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
+    spec = dict(spec)
+    cancel = _NoFinalSave() if spec.pop("no_final_save", False) else None
     _free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     m, launches, missing = _launches_during(
-        lambda: run_template_runtime(spec), A.TRAIN_KERNELS if kernels is None else kernels)
+        lambda: run_template_runtime(spec, cancel=cancel),
+        A.TRAIN_KERNELS if kernels is None else kernels)
     wall = time.monotonic() - t0
     hist = m["loss_history"]
     m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1278,7 +1315,8 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
 
 # the host-tier phases' traffic: an open-loop chat trace (Poisson arrivals;
 # half the roots are 3-turn sessions whose turn k+1 prompt is turn k's
-# history, arriving after ~8 s of think time; 256-token preambles from a pool
+# history, arriving after ~4 s of think time (8 until the MoE phases over
+# ranks needed the script's time: the turns' waits set the phases' walls); 256-token preambles from a pool
 # of 4, Zipf 1.1), 64 new tokens a request, through a pool of 48 blocks (the
 # worst request needs 16, eight rows of them 128): the traffic between a
 # session's turns spills its history to host RAM, and the next turn restores
@@ -1286,17 +1324,20 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
 # they still restore blocks with decode steps three times slower than the
 # card's; at 64 blocks the 16-root trace stopped restoring at twice slower.
 CHAT_TRACE = {"arrival": "poisson", "traceMultiTurnFrac": 0.5, "traceTurns": 3,
-              "tracePrefixPool": 4, "traceZipfA": 1.1, "traceThinkSeconds": 8.0,
+              "tracePrefixPool": 4, "traceZipfA": 1.1, "traceThinkSeconds": 4.0,
               "maxNewMin": 64, "maxNewMax": 64, "kvNumBlocks": 48}
 HOST_CACHE_BYTES = 2 << 30  # 512 blocks of the 8b pool (4 MiB each)
 
 
 # the host-tier phases: (roots, seconds the roots arrive over, other keys)
 # (the chat trace was 32 roots over 20 s until the tensor-parallel train
-# phases needed the script's time: 16 over 10 s keep its arrival rate, and
-# a CPU replay at 45 and 130 ms a step still spills and restores)
-HOST_PHASES = {"serve-chat-host": (16, 10.0, {}),
-               "serve-host-int8": (16, 10.0, {"hostCacheDtype": "int8"})}
+# phases, 16 over 10 s until the MoE phases over ranks needed the script's
+# time: 10 over 6.25 s keep its arrival rate, and a CPU replay at 45 and 130
+# ms a step still spills and restores, with 4 s of think time too: at 45 ms
+# 71 blocks spilled, 25 restored, a 21.7 s wall against 30.1 s at 8 s; 8 over
+# 5 s did not restore at 45 ms)
+HOST_PHASES = {"serve-chat-host": (10, 6.25, {}),
+               "serve-host-int8": (10, 6.25, {"hostCacheDtype": "int8"})}
 
 
 def host_phase_spec(name: str, host_cache_bytes: int = HOST_CACHE_BYTES):
@@ -1492,12 +1533,15 @@ def phase_serve_traced(spec) -> dict:
 # Training opts into the public 4096-position sliding window.
 
 MIXTRAL_SERVE_LAYERS = 16
+# mixtral-serve's requests (16 until serve-moe-tp, which serves the same
+# requests over 2 tensor ranks, needed the script's time)
+MIXTRAL_SERVE_REQUESTS = 8
 # infer and serve at Mixtral-8x7B's and GPT-NeoX-20B's widths: the weights
 # plus the cache stay under this
 PEAK_GB = 60.0
 
 
-def mixtral_train_spec(n_layers: int = 2, steps: int = 6, seq_len: int = 8192, **extra):
+def mixtral_train_spec(n_layers: int = 2, steps: int = 4, seq_len: int = 8192, **extra):
     overrides = {"n_layers": n_layers, "sliding_window": MIXTRAL_WINDOW}
     overrides.update(extra)
     return {"kind": "jax_xla", "mode": "train",
@@ -1506,11 +1550,11 @@ def mixtral_train_spec(n_layers: int = 2, steps: int = 6, seq_len: int = 8192, *
                       "learningRate": 3e-4, "warmupSteps": 0, "seed": 0}}
 
 
-def check_mixtral_train(name: str, m: dict) -> None:
-    """Past ``phase_train``'s gates: the scatter dispatch (``auto`` on one
-    device) and a dropped share in [0, 1)."""
-    if m.get("moe_dispatch") != "scatter":
-        raise AssertionError(f"{name}: moe_dispatch {m.get('moe_dispatch')!r}, not 'scatter'")
+def check_mixtral_train(name: str, m: dict, dispatch: str = "scatter") -> None:
+    """Past ``phase_train``'s gates: the ``dispatch`` reported (scatter is
+    ``auto`` on one device) and a dropped share in [0, 1)."""
+    if m.get("moe_dispatch") != dispatch:
+        raise AssertionError(f"{name}: moe_dispatch {m.get('moe_dispatch')!r}, not {dispatch!r}")
     dropped = m.get("router_dropped_fraction")
     if dropped is None or not 0.0 <= dropped < 1.0:
         raise AssertionError(f"{name}: router_dropped_fraction {dropped} outside [0, 1)")
@@ -1530,7 +1574,8 @@ def check_remat(name: str, launches: dict, policy: str, layers: int, steps: int)
 
 def phase_mixtral_remat() -> dict:
     """The train phase's spec under ``remat_policy: dots_attn`` and then
-    ``full``, 4 steps each: K1's launches and each run's peak memory."""
+    ``full``, 4 steps each (2 of them timed: the loss must fall): K1's
+    launches and each run's peak memory."""
     out = {}
     for policy in ("dots_attn", "full"):
         spec = mixtral_train_spec(steps=4, remat=True, remat_policy=policy)
@@ -1682,7 +1727,7 @@ def mixtral_infer_spec() -> dict:
                                    "overrides": {"n_layers": MIXTRAL_SERVE_LAYERS}})
 
 
-def mixtral_serve_spec(num_requests: int = 16) -> dict:
+def mixtral_serve_spec(num_requests: int = MIXTRAL_SERVE_REQUESTS) -> dict:
     return dict(_serve_spec(num_requests=num_requests),
                 model={"family": "mixtral", "preset": "8x7b",
                        "overrides": {"n_layers": MIXTRAL_SERVE_LAYERS}})
@@ -1760,9 +1805,10 @@ def neox_train_spec() -> dict:
                       "warmupSteps": 0, "seed": 0}}
 
 
-# GPT-NeoX-20B's infer and serve depth: 22 of its 44 layers (all 44 until
-# the tensor-parallel train phases needed the script's time)
-NEOX_SERVE_LAYERS = 22
+# GPT-NeoX-20B's infer and serve depth: 11 of its 44 layers (all 44 until
+# the tensor-parallel train phases, 22 until the MoE phases over ranks
+# needed the script's time)
+NEOX_SERVE_LAYERS = 11
 
 
 def neox_infer_spec() -> dict:
@@ -1840,11 +1886,12 @@ PRETRAINED_QUESTIONS = (
 )
 PRETRAINED_NEW_TOKENS = 32
 # the two other families, cut to 2 layers: (preset, layers)
-PRETRAINED_SMALL = {"mixtral": ("8x7b", 2), "gptneox": ("20b", 2)}
-# pretrained-llama's depth: 16 of Llama-3-8B's 32 layers, ~8 GB as four
-# shards (all 32 until the tensor-parallel train phases needed the
-# script's time)
-PRETRAINED_LAYERS = 16
+# (Mixtral at 1 layer since the MoE phases over ranks needed the script's time)
+PRETRAINED_SMALL = {"mixtral": ("8x7b", 1), "gptneox": ("20b", 2)}
+# pretrained-llama's depth: 8 of Llama-3-8B's 32 layers, ~5 GB as four
+# shards (all 32 until the tensor-parallel train phases, 16 until the MoE
+# phases over ranks needed the script's time)
+PRETRAINED_LAYERS = 8
 
 
 def write_tokenizer_json(path: str, text: str = PRETRAINED_TEXT, n_merges: int = 300) -> str:
@@ -2541,9 +2588,10 @@ RING_VISIT_SHAPES = {
 # gradients not divided by the ranks, 1.14e-5 and 3 (PERF.md §6)
 RING_LOSS_RTOL = 1e-4
 RING_GRAD_NORM_RTOL = 5e-4
-# ring-neox's long run: 6 of Pythia-1.4B's 24 layers (all 24 until the
-# tensor-parallel train phases needed the script's time)
-RING_NEOX_LAYERS = 6
+# ring-neox's long run: 4 of Pythia-1.4B's 24 layers (all 24 until the
+# tensor-parallel train phases, 6 until the MoE phases over ranks needed the
+# script's time)
+RING_NEOX_LAYERS = 4
 # ring-fsdp-neox's depth: 2 layers (4 until the same cut)
 RING_FSDP_LAYERS = 2
 # examples/train-gptneox-long-context.yaml's runtime block, cut to one card
@@ -2766,10 +2814,16 @@ def collective_time(numel: int, reps: int = 3) -> dict:
             "backend": dist.get_backend()}
 
 
+# what recorded_steps keeps of each step's metrics, in this order (Mixtral
+# adds its aux loss and dropped share)
+STEP_KEYS = ("loss", "grad_norm", "aux", "router_dropped_fraction")
+
+
 @contextlib.contextmanager
 def recorded_steps(profile_step: int = 0):
     """While open, each train step the entry point runs appends its
-    (loss, grad norm) to the yielded list, the warmup steps' too: device
+    (loss, grad norm[, aux, dropped share]) to the yielded list, the warmup
+    steps' too: device
     scalars while the run goes on (no host sync a step, so the timed steps
     are not slowed), floats once it closes. With ``profile_step``, the
     step of that number (1-based; PROFILE_STEP, the second warmup step,
@@ -2800,7 +2854,7 @@ def recorded_steps(profile_step: int = 0):
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
                 steps.profile = profile_table(prof, wall)
-            steps.append((m["loss"], m["grad_norm"]))
+            steps.append(tuple(m[k] for k in STEP_KEYS if k in m))
             return state, m
         return recording
 
@@ -2809,7 +2863,7 @@ def recorded_steps(profile_step: int = 0):
         yield steps
     finally:
         E.make_train_step = make
-        steps[:] = [(float(loss), float(norm)) for loss, norm in steps]
+        steps[:] = [tuple(float(x) for x in step) for step in steps]
 
 
 def profile_table(prof, wall_s: float, top: int = 12) -> dict:
@@ -2843,6 +2897,16 @@ def profile_table(prof, wall_s: float, top: int = 12) -> dict:
 PROFILE_STEP = 2
 
 
+class _NoFinalSave:
+    """A cancel that never cancels and is hard: the entry point then skips
+    its final checkpoint (``run_template_runtime``'s ``cancel.hard``)."""
+
+    hard = True
+
+    def cancelled(self) -> bool:
+        return False
+
+
 def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 0,
                profile: bool = False) -> list:
     """One rank of a training phase, each spec in turn: the entry point's
@@ -2862,13 +2926,13 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
     from nexus_tpu_torch.train.trainer import whole_state
 
     _rank_device()
-    # the run's train state, for its moments' bytes
+    # the run's train state, for its moments' bytes; both patches are put
+    # back at the end, or a later call's would nest in them and keep its
+    # states alive
     states, init_state = [], E.init_train_state
     E.init_train_state = lambda *a, **kw: states.append(init_state(*a, **kw)) or states[-1]
-    saves = []
+    saves, orig = [], C.RankedCheckpointer.save
     if record_saves:
-        orig = C.RankedCheckpointer.save
-
         def save(self, state, step=None):
             out = orig(self, state, step)
             whole = whole_state(state)
@@ -2881,21 +2945,30 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
 
         C.RankedCheckpointer.save = save
     out = []
-    for spec in specs:
-        _free_card()
-        torch.cuda.reset_peak_memory_stats()
-        for w in A.KERNEL_WRAPPERS:
-            w.launches = 0
-        with recorded_steps(PROFILE_STEP if profile and dist.get_rank() == 0 else 0) as steps:
-            m = E.run_template_runtime(spec)
-        m["launches"] = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
-        m["steps"], m["profile"] = list(steps), steps.profile
-        m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        opt = states.pop().opt_state
-        m["optimizer_state_bytes"] = sum(t.numel() * t.element_size() for t in opt.mu + opt.nu)
-        m["rank"] = dist.get_rank()
-        m["saves"], saves = saves, []
-        out.append(m)
+    try:
+        for spec in specs:
+            spec = dict(spec)
+            # a resumed run whose own final save no gate reads skips it
+            cancel = _NoFinalSave() if spec.pop("no_final_save", False) else None
+            _free_card()
+            torch.cuda.reset_peak_memory_stats()
+            for w in A.KERNEL_WRAPPERS:
+                w.launches = 0
+            t0 = time.monotonic()
+            with recorded_steps(PROFILE_STEP if profile and dist.get_rank() == 0 else 0) as steps:
+                m = E.run_template_runtime(spec, cancel=cancel)
+            m["phase_wall_s"] = time.monotonic() - t0
+            m["launches"] = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
+            m["steps"], m["profile"] = list(steps), steps.profile
+            m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            opt = states.pop().opt_state
+            m["optimizer_state_bytes"] = sum(t.numel() * t.element_size()
+                                             for t in opt.mu + opt.nu)
+            m["rank"] = dist.get_rank()
+            m["saves"], saves = saves, []
+            out.append(m)
+    finally:
+        E.init_train_state, C.RankedCheckpointer.save = init_state, orig
     if collective_numel:
         out[-1]["all_reduce"] = collective_time(collective_numel)
     return out
@@ -2939,26 +3012,6 @@ def _model_config(spec: dict):
 
     return get_family(spec["model"]["family"]).config(spec["model"]["preset"],
                                                       **spec["model"]["overrides"])
-
-
-def _rank_runs(named_specs: dict, world: int, record_saves: bool = False,
-               backend: str = "gloo") -> dict:
-    """Each spec of {name: spec} in turn on ``world`` ranks (one spawn;
-    over gloo they share the card): {name: each rank's metrics}, each
-    checked by ``check_rank_runs``. The last spec's metrics add the time of
-    an all-reduce of a gradient of its model's size. Over NCCL (a card a
-    rank) rank 0 profiles each run's step PROFILE_STEP."""
-    from nexus_tpu_torch.testing.dist import spawn
-
-    _free_card()
-    t0 = time.monotonic()
-    specs = list(named_specs.values())
-    by_rank = spawn(train_rank, world, (specs, record_saves, _model_config(specs[-1]).param_count(),
-                                        backend == "nccl"),
-                    backend=backend, threads=2)
-    log(f"[{'/'.join(named_specs)}] {world} ranks, spawn wall {time.monotonic() - t0:.1f} s")
-    return {name: check_rank_runs(name, [rank[i] for rank in by_rank])
-            for i, name in enumerate(named_specs)}
 
 
 def check_rank_runs(name: str, runs: list) -> list:
@@ -3023,18 +3076,22 @@ def _single_rank(name: str, spec: dict, profile: bool = False) -> dict:
     return m
 
 
-def phase_ring_neox() -> dict:
-    """ring-neox: the long-context template at Pythia-1.4B widths,
-    RING_NEOX_LAYERS layers, over {sequence: 2}; then 2 layers of it at 1
-    rank and at 2 ranks, every step's loss and grad norm equal within
-    RING_LOSS_RTOL and RING_GRAD_NORM_RTOL."""
-    small = long_context_spec(n_layers=2, steps=5)
+def plan_ring_neox():
+    """ring-neox (a plan of ``run_plans``, over RING_RANKS ranks): the
+    long-context template at Pythia-1.4B widths, RING_NEOX_LAYERS layers,
+    over {sequence: 2}; then 2 layers of it at 1 rank and at 2 ranks, every
+    step's loss and grad norm equal within RING_LOSS_RTOL and
+    RING_GRAD_NORM_RTOL, and an all-reduce of that model's gradient timed."""
+    # 4 steps (5 until the MoE phases over ranks needed the script's time)
+    small = long_context_spec(n_layers=2, steps=4)
     single = _single_rank("ring-neox-1rank", small)
-    t0 = time.monotonic()
-    runs = _rank_runs({"ring-neox": long_context_spec(n_layers=RING_NEOX_LAYERS),
-                       "ring-neox-2layer": small}, RING_RANKS)
-    runs["ring-neox"][0]["phase_wall_s"] = time.monotonic() - t0
+    # the long run: 2 steps (3 until the MoE phases over ranks needed the
+    # script's time)
+    runs = yield {"ring-neox": long_context_spec(n_layers=RING_NEOX_LAYERS, steps=2),
+                  "ring-neox-2layer": dict(small,
+                                           collective_numel=_model_config(small).param_count())}
     runs, ranked = runs["ring-neox"], runs["ring-neox-2layer"]
+    log(f"[ring-neox-2layer] all-reduce by rank {[r['all_reduce'] for r in ranked]}")
     worst = check_same_losses("ring-neox-2layer", ranked[0], single)
     return {"ring-neox": runs[0], "ring-neox-1rank": single, "ring-neox-2layer": ranked[0],
             "ring-neox-by_rank": {"launches": [r["launches"] for r in runs],
@@ -3042,9 +3099,10 @@ def phase_ring_neox() -> dict:
             "ring-neox-2layer-worst_rel": worst}
 
 
-def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
-    """ring-fsdp-neox: Pythia-1.4B widths at 4 layers, B 2 x S 8192 over
-    {fsdp: 2, sequence: 2} (4 ranks), 4 steps, saving its last: every
+def plan_ring_fsdp_neox(backend: str = "gloo"):
+    """ring-fsdp-neox (a plan of ``run_plans``, over 4 ranks): Pythia-1.4B
+    widths at RING_FSDP_LAYERS layers, B 2 x S 8192 over
+    {fsdp: 2, sequence: 2} (4 ranks), 3 steps, saving its last: every
     step's loss and grad norm equal the one-rank run's, each rank holds half the AdamW state bytes (its
     block and padding), and the step restored into one rank holds bit for
     bit the whole state rank 0 wrote and each rank's blocks."""
@@ -3057,16 +3115,14 @@ def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
         ck = {"enabled": True, "directory": os.path.join(root, "ck"), "intervalSteps": 0,
               "keep": 1}
         par = {"fsdp": 2, "sequence": 2}
-        spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=4, parallelism=par, batch=2,
+        # 3 steps (4 until the MoE phases over ranks needed the script's time)
+        spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=3, parallelism=par, batch=2,
                                  checkpoint=ck)
         single = _single_rank("ring-fsdp-neox-1rank",
-                              long_context_spec(n_layers=RING_FSDP_LAYERS, steps=4,
+                              long_context_spec(n_layers=RING_FSDP_LAYERS, steps=3,
                                                 parallelism=par, batch=2),
                               profile=backend == "nccl")
-        t0 = time.monotonic()
-        runs = _rank_runs({"ring-fsdp-neox": spec}, 4, record_saves=True,
-                          backend=backend)["ring-fsdp-neox"]
-        runs[0]["phase_wall_s"] = time.monotonic() - t0
+        runs = (yield {"ring-fsdp-neox": dict(spec, record_saves=True)})["ring-fsdp-neox"]
         worst = check_same_losses("ring-fsdp-neox", runs[0], single)
         cfg = _model_config(spec)
         whole_bytes = 2 * cfg.param_count() * cfg.dtype.itemsize  # two moments a parameter
@@ -3106,14 +3162,6 @@ def phase_ring_fsdp_neox(backend: str = "gloo") -> dict:
                                        "optimizer_state_bytes": [r["optimizer_state_bytes"]
                                                                  for r in runs]},
             "ring-fsdp-neox-worst_rel": worst}
-
-
-def run_ring_phases() -> dict:
-    """ring-ops, ring-neox and ring-fsdp-neox, in that order."""
-    out = {"ring-ops": timed("ring-ops", phase_ring_ops)}
-    out.update(timed("ring-neox", phase_ring_neox))
-    out.update(timed("ring-fsdp-neox", phase_ring_fsdp_neox))
-    return out
 
 
 def ring_launches(ring: dict, name: str) -> dict:
@@ -3162,16 +3210,16 @@ TP_DECODE_SHAPES = {
     "llama8b_tp8": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=4, Hkv=1),
     "neox20b_tp2": dict(NEOX_DECODE_SHAPE, Hq=32, Hkv=32),
 }
-# examples/infer-llama8b.yaml's runtime block at its published widths, 8 of
-# its 32 layers (all 32 until the tensor-parallel train phases needed the
-# script's time); template: promptLength 128, maxNewTokens 512, 5
+# examples/infer-llama8b.yaml's runtime block at its published widths, 4 of
+# its 32 layers (all 32 until the tensor-parallel train phases, 8 until the
+# MoE phases over ranks needed the script's time); template: promptLength 128, maxNewTokens 512, 5
 # iterations, an Orbax step of the 8B pretraining run; here the infer
 # phase's shape (8 rows, 512 + 64 tokens) with one timed iteration (~16 s at
 # 32 layers over gloo on one card) on the seed's random weights. Its
 # tensor: 8 re-plans to {tensor: 2} over 2 ranks (JAX's plan_for_devices)
 INFER_TP_SPEC = {
     "kind": "jax_xla", "mode": "infer",
-    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": 8}},
+    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": 4}},
     "parallelism": {"tensor": 8},
     "train": {"batchSize": 8, "seed": 0},
     "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
@@ -3187,6 +3235,15 @@ TP_PROMPT_LEN = 64
 # The limit sits >3x above every clean error and >5x below the nearest
 # fault; every fault must fail it
 TP_LOGIT_LIMIT = 0.05
+# Mixtral-8x7B at 16 layers read 0.0523 clean and 0.245 with the MoE
+# layer's reduce skipped. The excess over Llama's sits on the tokens whose
+# top-2 experts flip (a near-tie that the split's rounding tips): 5 of the
+# 64 flipped at some layer and carry the 0.0523; the 59 others read 0.0288
+# (a flip reaches them through the attention) and those before the first
+# flip 0.0092 (``--moe-gates``; PERF.md, §6).
+# The whole feed is held to 0.1, ~2x from each reading, and the tokens that
+# never flip to TP_LOGIT_LIMIT (check_tp_logits)
+TP_LOGIT_LIMITS = {"mixtral": 0.1}
 # GPT-NeoX-20B over {tensor: 2}: 8 requests of the serve queue; 44 layers
 # cut to TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
 # script's time)
@@ -3204,13 +3261,18 @@ TP_LOGIT_CASES = {
     "llama": ("8b", {}, {"dense": ("clean", "no_wdown_reduce", "gather_order"),
                          "paged": ("clean", "kv_head_block")}),
     "gptneox": ("20b", {"n_layers": TP_NEOX_LAYERS}, {"paged": ("clean", "kv_head_block")}),
+    # Mixtral-8x7B at the serve depth through a dense cache; every second
+    # reduce of a layer is its MoE layer's partial sum
+    "mixtral": ("8x7b", {"n_layers": MIXTRAL_SERVE_LAYERS},
+                {"dense": ("clean", "no_wdown_reduce")}),
 }
-# serve-tp's completions against the one-card serve of the same 16 requests:
+# serve-tp's completions against the one-card serve of the same requests:
 # the share of the one-card run's new tokens that serve-tp commits before its
 # first differing token, summed over the requests (bf16 rounding, which the
 # tensor split changes, parts random-weight near-ties). The H100 read 0.394,
-# and 0.053 with the pool's kv heads rolled (``--tp-gates``; PERF.md, §6):
-# the limit sits near their geometric mean, ~2.6x from each
+# and 0.053 with the pool's kv heads rolled, over 16 requests, and 0.2445
+# and 0.0219 over SERVE_TP_REQUESTS (4) (``--tp-gates``; PERF.md, §6): the
+# limit sits 1.6x under the clean share and 6.8x over the planted one
 TP_SERVE_SHARE_LIMIT = 0.15
 
 
@@ -3227,14 +3289,34 @@ def card_label() -> str:
     return _CARD[0]
 
 
+# serve-tp's requests: the serve queue's first 4 (16 until the MoE phases
+# over ranks needed the script's time)
+SERVE_TP_REQUESTS = 4
+
+
 def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
-    """serve-tp: the serve phase's queue cut to 16 requests (fused, prefix
-    cache) over {tensor: ``tensor``}."""
-    return dict(_serve_spec(num_requests=16), parallelism={"tensor": tensor})
+    """serve-tp: the serve phase's queue cut to SERVE_TP_REQUESTS requests
+    (fused, prefix cache) over {tensor: ``tensor``}."""
+    return dict(_serve_spec(num_requests=SERVE_TP_REQUESTS), parallelism={"tensor": tensor})
+
+
+# serve-moe-tp's depth: 8 of Mixtral-8x7B's 32 layers (mixtral-serve's 16
+# until the script's time asked for fewer)
+MOE_SERVE_LAYERS = 8
+
+
+def moe_serve_spec(tensor: int = TP_RANKS, n_layers: int = MOE_SERVE_LAYERS) -> dict:
+    """serve-moe-tp: mixtral-serve's requests at Mixtral-8x7B's widths and
+    ``n_layers`` layers over {tensor: ``tensor``} (one card at 1), the MoE
+    dispatch pinned to the one ``auto`` resolves over ranks on both."""
+    spec = mixtral_serve_spec()
+    spec["model"]["overrides"].update(n_layers=n_layers, dispatch_impl=MOE_DISPATCH_OVER_RANKS)
+    return dict(spec, parallelism={"tensor": tensor})
 
 
 def serve_tp_neox_spec() -> dict:
-    return dict(_serve_spec(num_requests=8), parallelism={"tensor": TP_RANKS},
+    # 4 requests (8 until the MoE phases over ranks needed the script's time)
+    return dict(_serve_spec(num_requests=4), parallelism={"tensor": TP_RANKS},
                 model={"family": "gptneox", "preset": "20b",
                        "overrides": {"n_layers": SERVE_TP_NEOX_LAYERS}})
 
@@ -3305,24 +3387,60 @@ def _teacher_forced(family, params, cfg, tokens, paged: bool = False):
     return torch.cat(out, dim=1)
 
 
-def tp_reference_logits() -> dict:
-    """The one-rank logits of each TP_LOGIT_CASES feed on this card, from
-    the seed's random weights (the infer-tp spec's for Llama):
-    {family: {feed: logits}}."""
+@contextlib.contextmanager
+def _recorded_routes():
+    """While open, the experts that each MoE layer's routing picks for each
+    token, (T, k) sorted along k on the host, land in the yielded list in
+    call order (a dense feed: one entry a layer)."""
+    from nexus_tpu_torch.models import mixtral as Mx
+
+    seen, route = [], Mx.top_k_routing
+
+    def recording(*a, **kw):
+        r = route(*a, **kw)
+        seen.append(r.expert_index.sort(-1).values.cpu())
+        return r
+
+    Mx.top_k_routing = recording
+    try:
+        yield seen
+    finally:
+        Mx.top_k_routing = route
+
+
+def _feed(family, params, cfg, tokens, feed: str) -> dict:
+    """``_teacher_forced`` of ``feed``: {feed: logits}, and for a dense feed
+    of an MoE model {"feed/routes": (layers, B·T, k) experts picked}."""
+    import torch
+
+    with _recorded_routes() as routes:
+        out = {feed: _teacher_forced(family, params, cfg, tokens, paged=feed == "paged")}
+    if routes and feed == "dense":
+        out[f"{feed}/routes"] = torch.stack(routes)
+    return out
+
+
+def tp_reference_logits(names=None) -> dict:
+    """The one-rank logits of each TP_LOGIT_CASES feed (of the families
+    ``names``, all by default) on this card, from the seed's random weights
+    (the infer-tp spec's for Llama): {family: {feed: logits}}, and an MoE
+    model's routes (``_feed``)."""
     import torch
 
     from nexus_tpu_torch.models.registry import get_family
     from nexus_tpu_torch.runtime import entrypoints as E
 
     refs = {}
-    for name, (preset, overrides, feeds) in TP_LOGIT_CASES.items():
+    for name in names or TP_LOGIT_CASES:
+        preset, overrides, feeds = TP_LOGIT_CASES[name]
         _free_card()
         family = get_family(name)
         cfg = family.config(preset, **overrides)
         params = E._decode_params(family, cfg, torch.device("cuda"), 0)
         tokens = _tp_prompt(cfg.vocab_size)
-        refs[name] = {feed: _teacher_forced(family, params, cfg, tokens, paged=feed == "paged")
-                      for feed in feeds}
+        refs[name] = {}
+        for feed in feeds:
+            refs[name].update(_feed(family, params, cfg, tokens, feed))
         del params
     _free_card()
     return refs
@@ -3374,32 +3492,37 @@ def _planted(fault: str):
 
 def _tp_logits_rank(mesh, name: str) -> dict:
     """This rank's logits of family ``name``'s TP_LOGIT_CASES feeds, each
-    clean and under its planted faults, {"feed/fault": logits} (rank 0
-    returns them; every rank a checksum of its clean ones)."""
+    clean and under its planted faults, {"feed/fault": logits}, and an MoE
+    model's routes of each clean dense feed (rank 0 returns them; every
+    rank a checksum of its clean logits)."""
     import torch
 
     from nexus_tpu_torch.models.registry import get_family
     from nexus_tpu_torch.parallel.mesh import use_mesh
-    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.parallel.sharding import model_shard
     from nexus_tpu_torch.runtime import entrypoints as E
 
     preset, overrides, feeds = TP_LOGIT_CASES[name]
     family = get_family(name)
     cfg = family.config(preset, **overrides)
     dev = torch.device("cuda", torch.cuda.current_device())
-    out = {}
+    out, routes = {}, {}
     with use_mesh(mesh):
-        params = E._decode_params(family, cfg, dev, 0, tensor_shard(mesh))
+        params = E._decode_params(family, cfg, dev, 0, model_shard(mesh))
         tokens = _tp_prompt(cfg.vocab_size).to(dev)
         for feed, faults in feeds.items():
             for fault in faults:
                 with _planted(fault):
-                    out[f"{feed}/{fault}"] = _teacher_forced(family, params, cfg, tokens,
-                                                             paged=feed == "paged")
+                    got = _feed(family, params, cfg, tokens, feed)
+                out[f"{feed}/{fault}"] = got.pop(feed)
+                if fault == "clean":
+                    routes.update(got)
     del params
     _free_card()
     checksum = {k: float(v.double().sum()) for k, v in out.items() if k.endswith("/clean")}
-    return {"logits": out if mesh.rank == 0 else None, "checksum": checksum}
+    mine = mesh.rank == 0
+    return {"logits": out if mine else None, "routes": routes if mine else None,
+            "checksum": checksum}
 
 
 @contextlib.contextmanager
@@ -3479,13 +3602,13 @@ def _profile_decode_step(mesh) -> Optional[dict]:
     from nexus_tpu_torch.models import llama
     from nexus_tpu_torch.models.decoding import cache_for
     from nexus_tpu_torch.parallel.mesh import use_mesh
-    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.parallel.sharding import model_shard
     from nexus_tpu_torch.runtime import entrypoints as E
 
     cfg = llama.config("8b")
     dev = torch.device("cuda", torch.cuda.current_device())
     with use_mesh(mesh), torch.inference_mode():
-        params = E._decode_params(llama, cfg, dev, 0, tensor_shard(mesh))
+        params = E._decode_params(llama, cfg, dev, 0, model_shard(mesh))
         gen = torch.Generator().manual_seed(0)
         prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen).to(dev)
         cache = cache_for(params, cfg, 8, 520, dev)
@@ -3509,12 +3632,15 @@ def _profile_decode_step(mesh) -> Optional[dict]:
     return profile_table(prof, wall)
 
 
-def tp_rank(phases: list) -> dict:
+def tp_rank(phases: list, logit_names=None) -> dict:
     """One rank of the tensor-parallel phases, each of ``phases`` in turn:
-    ``logits`` (each family's teacher-forced feeds, clean and planted),
-    ``infer-tp``, ``serve-tp``, ``serve-tp-planted`` (serve-tp with the
-    pool's kv-head block planted wrong), ``serve-tp-neox``, ``serve-tp-4``
-    (serve-tp over every rank), ``all-reduce`` and ``profile``."""
+    ``logits`` (each family's teacher-forced feeds, clean and planted; the
+    families ``logit_names``, all by default), ``infer-tp``, ``serve-tp``,
+    ``serve-tp-planted`` (serve-tp with the pool's kv-head block planted
+    wrong), ``serve-tp-neox``, ``serve-moe-tp`` (Mixtral-8x7B at the serve
+    depth), ``serve-moe-whole`` (the whole Mixtral-8x7B over every rank),
+    ``serve-tp-4`` (serve-tp over every rank), ``all-reduce`` and
+    ``profile``."""
     import torch.distributed as dist
 
     from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
@@ -3524,7 +3650,8 @@ def tp_rank(phases: list) -> dict:
     out = {"rank": dist.get_rank()}
     for phase in phases:
         if phase == "logits":
-            out[phase] = {name: _tp_logits_rank(mesh, name) for name in TP_LOGIT_CASES}
+            out[phase] = {name: _tp_logits_rank(mesh, name)
+                          for name in logit_names or TP_LOGIT_CASES}
         elif phase == "infer-tp":
             out[phase] = _tp_run(INFER_TP_SPEC)
         elif phase == "serve-tp":
@@ -3534,6 +3661,10 @@ def tp_rank(phases: list) -> dict:
                 out[phase] = _tp_run(serve_tp_spec())
         elif phase == "serve-tp-neox":
             out[phase] = _tp_run(serve_tp_neox_spec())
+        elif phase == "serve-moe-tp":
+            out[phase] = _tp_run(moe_serve_spec(TP_RANKS))
+        elif phase == "serve-moe-whole":
+            out[phase] = _tp_run(moe_serve_spec(dist.get_world_size(), 32))
         elif phase == "serve-tp-4":
             out[phase] = _tp_run(serve_tp_spec(dist.get_world_size()))
         elif phase == "all-reduce":
@@ -3543,31 +3674,69 @@ def tp_rank(phases: list) -> dict:
     return out
 
 
+def route_flips(want, got, ref_routes, routes) -> dict:
+    """Where an MoE model's routing over the ranks (``routes``) differs from
+    one rank's (``ref_routes``), both (layers, B·T, k), on a feed whose
+    (B, T, V) logits are ``want`` on one rank and ``got`` over the ranks:
+    the tokens whose top-k experts differ at some layer (and how many at
+    each layer), and the logits' largest error over one rank's largest
+    logit on the tokens that never flip, on those that do, and on those
+    before their row's first flip (which no flip reaches through the
+    causal attention)."""
+    b, t = want.shape[:2]
+    flips = (ref_routes != routes).any(-1)  # (layers, B·T)
+    flipped = flips.any(0).view(b, t)
+    reached = flipped.int().cummax(1).values.bool()
+    err = (got - want).abs().amax(-1) / want.abs().max()  # (B, T)
+
+    def worst(sel):
+        return float(err[sel].max()) if bool(sel.any()) else 0.0
+
+    return {"tokens": b * t, "flipped_tokens": int(flipped.sum()),
+            "flips_by_layer": flips.sum(-1).tolist(), "flipped": worst(flipped),
+            "unflipped": worst(~flipped), "before_first_flip": worst(~reached)}
+
+
 def check_tp_logits(refs: dict, ranks: list) -> dict:
-    """Each family's clean logits over the ranks within TP_LOGIT_LIMIT of
+    """Each family's clean logits over the ranks within its limit
+    (TP_LOGIT_LIMITS, else TP_LOGIT_LIMIT) of
     one rank's (``refs``, by feed), the same on every rank (checksums), and
     each planted fault past the limit: {family: {"feed/fault": error over
-    the limit}}."""
+    the limit}}. Where a feed's routes were recorded (an MoE model), the
+    tokens whose routing never flips must be within TP_LOGIT_LIMIT, the
+    dense families' limit: {family: {"feed/routes": ``route_flips``}} too."""
     out = {}
     for name, ref in refs.items():
         sums = [r["logits"][name]["checksum"] for r in ranks]
         if any(x != sums[0] for x in sums):
             raise AssertionError(f"logits-tp: the ranks' {name} logits differ (checksums {sums})")
+        limit = TP_LOGIT_LIMITS.get(name, TP_LOGIT_LIMIT)
+        flips = {}
+        for key, routes in (ranks[0]["logits"][name].get("routes") or {}).items():
+            feed = key.split("/")[0]
+            got = ranks[0]["logits"][name]["logits"][f"{feed}/clean"]
+            flips[key] = route_flips(ref[feed], got, ref[key], routes)
+            log(f"[logits-tp] {name}, {feed} feed: routing over the ranks against one rank's "
+                f"{flips[key]} (the unflipped tokens' limit {TP_LOGIT_LIMIT}; {card_label()})")
+            if not flips[key]["unflipped"] <= TP_LOGIT_LIMIT:
+                raise AssertionError(f"logits-tp: {name}'s tokens whose routing does not flip "
+                                     f"are {flips[key]['unflipped']} from one rank's, limit "
+                                     f"{TP_LOGIT_LIMIT}")
         errs = {}
         for key, x in ranks[0]["logits"][name]["logits"].items():
             want = ref[key.split("/")[0]]
             errs[key] = float((x - want).abs().max() / want.abs().max())
         log(f"[logits-tp] {name}, teacher-forced {TP_PROMPT_LEN} tokens, max |over ranks - one "
-            f"rank| / max |one rank| by feed/fault: {errs} (limit {TP_LOGIT_LIMIT}; the planted "
+            f"rank| / max |one rank| by feed/fault: {errs} (limit {limit}; the planted "
             f"faults must exceed it; {card_label()})")
-        over = {k: v for k, v in errs.items() if k.endswith("/clean") and not v <= TP_LOGIT_LIMIT}
+        over = {k: v for k, v in errs.items() if k.endswith("/clean") and not v <= limit}
         if over:
-            raise AssertionError(f"logits-tp: {name} over ranks {over}, limit {TP_LOGIT_LIMIT}")
-        passed = [k for k, v in errs.items() if not k.endswith("/clean") and v <= TP_LOGIT_LIMIT]
+            raise AssertionError(f"logits-tp: {name} over ranks {over}, limit {limit}")
+        passed = [k for k, v in errs.items() if not k.endswith("/clean") and v <= limit]
         if passed:
             raise AssertionError(f"logits-tp: {name}'s planted faults pass the limit: {passed} "
                                  f"({errs})")
-        out[name] = {k: v / TP_LOGIT_LIMIT for k, v in errs.items()}
+        out[name] = {k: v / limit for k, v in errs.items()} | flips
     return out
 
 
@@ -3657,12 +3826,13 @@ def run_tp_phases(serve_run: dict) -> dict:
     infer-tp, serve-tp and serve-tp-neox: {phase: [each rank's metrics]},
     with the D1 timings at the rank shapes under ``tp-decode-kernel``."""
     worst, decode_times = phase_tp_decode_kernel()
-    out = run_tp_ranks(["logits", "infer-tp", "serve-tp", "serve-tp-neox", "all-reduce"])
+    out = run_tp_ranks(["logits", "infer-tp", "serve-tp", "serve-tp-neox", "serve-moe-tp",
+                        "all-reduce"])
     check_tp_infer("infer-tp", out["infer-tp"])
     check_tp_serve("serve-tp-neox", out["serve-tp-neox"],
                    rank_heads(serve_tp_neox_spec(), TP_RANKS))
     log(f"[serve-tp] tokens_per_sec {out['serve-tp'][0]['tokens_per_sec']} over {TP_RANKS} ranks "
-        f"sharing the card over gloo (16 requests), ttft_p50_s "
+        f"sharing the card over gloo ({SERVE_TP_REQUESTS} requests), ttft_p50_s "
         f"{out['serve-tp'][0].get('ttft_p50_s')}; the one-card serve phase (32 requests): "
         f"{serve_run['tokens_per_sec']}, ttft_p50_s {serve_run.get('ttft_p50_s')} "
         f"({card_label()})")
@@ -3670,29 +3840,43 @@ def run_tp_phases(serve_run: dict) -> dict:
     return out
 
 
-def run_tp_ranks(phases: list) -> dict:
-    """The one-rank logits and the one-card serve-tp, then ``phases`` (with
-    ``logits`` and ``serve-tp`` among them) on a spawn of TP_RANKS ranks
-    sharing the card over gloo, and the gates of the logits and of
-    serve-tp (with ``serve-tp-planted``'s token share when it ran):
-    {phase: [each rank's metrics]}."""
+def run_tp_ranks(phases: list, logit_names=None) -> dict:
+    """The one-rank logits (of the families ``logit_names``, all by
+    default) and, with ``serve-tp`` among ``phases``, the one-card
+    serve-tp; then ``phases`` (``logits`` among them) on a spawn of
+    TP_RANKS ranks sharing the card over gloo, and the gates of the logits,
+    of serve-tp (with ``serve-tp-planted``'s token share when it ran) and
+    of serve-moe-tp: {phase: [each rank's metrics]}."""
     from nexus_tpu_torch.testing.dist import spawn
 
-    refs = tp_reference_logits()
-    one = phase_serve("serve-tp-1card", serve_tp_spec(1), must_t=(1, 8))
+    refs = tp_reference_logits(logit_names)
+    one = (phase_serve("serve-tp-1card", serve_tp_spec(1), must_t=(1, 8))
+           if "serve-tp" in phases else None)
+    one_moe = (phase_serve("serve-moe-tp-1card", moe_serve_spec(1), must_t=(1, 8))
+               if "serve-moe-tp" in phases else None)
     _free_card()
     t0 = time.monotonic()
-    ranks = spawn(tp_rank, TP_RANKS, (phases,), threads=2)
+    ranks = spawn(tp_rank, TP_RANKS, (phases, logit_names), threads=2)
     log(f"[tp] {TP_RANKS} ranks, spawn wall {time.monotonic() - t0:.1f} s"
         + ("; a layer's all-reduces over gloo (host-staged) by rank "
            f"{[r['all-reduce'] for r in ranks]}" if "all-reduce" in phases else "")
         + f" ({card_label()})")
     out = {name: [r[name] for r in ranks] for name in phases if name != "logits"}
     out["logits-tp"] = check_tp_logits(refs, ranks)
-    check_tp_serve("serve-tp", out["serve-tp"], rank_heads(serve_tp_spec(), TP_RANKS))
-    planted = out.get("serve-tp-planted")
-    out["serve-tp-share"] = check_tp_share("serve-tp", one, out["serve-tp"][0],
-                                           planted and planted[0])
+    if "serve-tp" in phases:
+        check_tp_serve("serve-tp", out["serve-tp"], rank_heads(serve_tp_spec(), TP_RANKS))
+        planted = out.get("serve-tp-planted")
+        out["serve-tp-share"] = check_tp_share("serve-tp", one, out["serve-tp"][0],
+                                               planted and planted[0])
+    if "serve-moe-tp" in phases:
+        check_tp_serve("serve-moe-tp", out["serve-moe-tp"], rank_heads(moe_serve_spec(),
+                                                                        TP_RANKS))
+        out["serve-moe-tp-1card"] = one_moe
+        log(f"[serve-moe-tp] tokens_per_sec {out['serve-moe-tp'][0]['tokens_per_sec']} over "
+            f"{TP_RANKS} ranks (gloo), the same requests on one card "
+            f"{one_moe['tokens_per_sec']}; peak GB by rank "
+            f"{[round(r['peak_mem_gb'], 2) for r in out['serve-moe-tp']]}, one card "
+            f"{one_moe['peak_mem_gb']:.2f} ({card_label()})")
     return out
 
 
@@ -3705,7 +3889,7 @@ def run_tp_gates() -> int:
 
     started = time.monotonic()
     phase_build()
-    out = run_tp_ranks(["logits", "serve-tp", "serve-tp-planted"])
+    out = run_tp_ranks(["logits", "serve-tp", "serve-tp-planted"], ["llama", "gptneox"])
     log("[summary] " + json.dumps({
         "logits_error_over_limit": out["logits-tp"], "serve_tp_share": out["serve-tp-share"],
         "serve-tp": [{k: r.get(k) for k in TP_KEYS if k in r} for r in out["serve-tp"]]}))
@@ -3716,16 +3900,18 @@ def run_tp_gates() -> int:
 
 def tp_summary(tp: dict) -> dict:
     return {name: [{k: r.get(k) for k in TP_KEYS if k in r} for r in runs]
-            for name, runs in tp.items() if name in ("infer-tp", "serve-tp", "serve-tp-neox")} | {
+            for name, runs in tp.items()
+            if name in ("infer-tp", "serve-tp", "serve-tp-neox", "serve-moe-tp")} | {
         "tp_decode_kernel_timings": tp["tp-decode-kernel"]["times"],
         "logits_error_over_limit": tp["logits-tp"], "serve_tp_share": tp["serve-tp-share"],
-        "all_reduce_a_layer": tp["all-reduce"]}
+        "all_reduce_a_layer": tp["all-reduce"],
+        "serve_moe_tp_1card": {k: tp["serve-moe-tp-1card"].get(k) for k in TP_KEYS}}
 
 
 def tp_launches(tp: dict, name: str) -> dict:
     """``name``'s launches on each rank of each tensor-parallel phase."""
     return {phase: [r["launches"][name] for r in tp[phase]]
-            for phase in ("infer-tp", "serve-tp", "serve-tp-neox")}
+            for phase in ("infer-tp", "serve-tp", "serve-tp-neox", "serve-moe-tp")}
 
 
 def run_serve_over_nccl() -> int:
@@ -3787,6 +3973,9 @@ TP_TRAIN_SHAPES = {
     "llama8b_tp2": dict(MAIN_SHAPE, Hq=16, Hkv=4),
     "llama8b_tp4": dict(MAIN_SHAPE, B=1, Hq=8, Hkv=2),
     "pythia_tp2": dict(PYTHIA_SHAPE, Hq=8, Hkv=8),
+    # Mixtral-8x7B over {tensor: 2}: a rank's 16 / 4 heads under the 4096
+    # window (the mixtral train shape's S 8192)
+    "mixtral_tp2": dict(MIXTRAL_SHAPE, Hq=16, Hkv=4),
 }
 # examples/train-llama8b-fsdp.yaml's runtime block at its published widths
 # (d 4096, heads 32 / 8, d_ff 14336, V 128256, remat dots_attn, ce_chunk
@@ -3801,9 +3990,10 @@ TRAIN_TP = {
                             "n_layers": 2}},
     "parallelism": {"data": 2, "fsdp": 16, "tensor": 2},
     # template: batchSize 128, seqLen 8192, 50000 steps, warmupSteps 2000;
-    # here 2 rows of 4096 (the main train phase's shape) and 4 steps, warmup
-    # 1 so that 4 steps move the weights
-    "train": {"batchSize": 2, "seqLen": 4096, "steps": 4, "learningRate": 3.0e-4,
+    # here 2 rows of 4096 (the main train phase's shape) and 3 steps (4 until
+    # the MoE phases over ranks needed the script's time), warmup 1 so that
+    # the steps move the weights
+    "train": {"batchSize": 2, "seqLen": 4096, "steps": 3, "learningRate": 3.0e-4,
               "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
     # template: a token corpus (none on this machine): the synthetic stream
     "data": {"prefetch": 2},
@@ -3838,10 +4028,12 @@ TP_TRAIN_NORM_RTOL = 2e-3
 # share of their gradient alone), and the gradient norm taken over the
 # rank's own blocks alone
 TP_TRAIN_FAULTS = ("no_copy_reduce", "block_norm")
-TP_FAULT_STEPS = 2
+# (2 until the MoE phases over ranks needed the script's time: warmup 1
+# reads each fault's grad norm at the first step)
+TP_FAULT_STEPS = 1
 
 
-def train_tp_spec(steps: int = 4, planted: Optional[str] = None) -> dict:
+def train_tp_spec(steps: int = 3, planted: Optional[str] = None) -> dict:
     import copy
 
     spec = copy.deepcopy(TRAIN_TP)
@@ -3866,8 +4058,8 @@ def tp_neox_spec(directory: str, steps: int, planted: Optional[str] = None) -> d
 
 @contextlib.contextmanager
 def planted_train_fault(fault: Optional[str]):
-    """One of TP_TRAIN_FAULTS for a block (module attributes patched in
-    this process, never the repo)."""
+    """One of TP_TRAIN_FAULTS or MOE_TP_FAULTS / MOE_EP_FAULTS for a block
+    (module attributes patched in this process, never the repo)."""
     import torch
 
     from nexus_tpu_torch.parallel import tensor as T
@@ -3885,6 +4077,25 @@ def planted_train_fault(fault: Optional[str]):
             sum((g.float().square().sum() for g in blocks),
                 torch.zeros((), device=blocks[0].device)))
         owner, name = Tr, "sharded_norm"
+    elif fault == "whole_norm":
+        saved = Tr.sharded_norm
+        Tr.sharded_norm = lambda blocks, copies, mesh: saved(blocks, None, mesh)
+        owner, name = Tr, "sharded_norm"
+    elif fault == "no_expert_copy":
+        from nexus_tpu_torch.models import mixtral as Mx
+
+        saved = Mx.copy_to_tensor
+        # f's two-dimensional inputs: the expert path's (T, d_model) tokens,
+        # left out, and the (T, 2) combine weights of the top-2 routing
+        Mx.copy_to_tensor = lambda x, group: (x if x.dim() == 2 and x.shape[-1] != 2
+                                              else saved(x, group))
+        owner, name = Mx, "copy_to_tensor"
+    elif fault == "per_rank_routing":
+        from nexus_tpu_torch.models import mixtral as Mx
+
+        saved = Mx.token_grid
+        Mx.token_grid = lambda mesh: None
+        owner, name = Mx, "token_grid"
     else:
         raise ValueError(f"unknown planted fault {fault!r}")
     try:
@@ -3893,82 +4104,121 @@ def planted_train_fault(fault: Optional[str]):
         setattr(owner, name, staticmethod(saved) if owner is T._Copy else saved)
 
 
-def step_differences(ranked: dict, single: dict) -> dict:
-    """The worst relative difference of the loss and of the grad norm over
-    the steps both runs took."""
+def step_differences(ranked: dict, single: dict, keys=("loss", "grad_norm")) -> dict:
+    """The worst difference of each metric of ``keys`` (of STEP_KEYS) over
+    the steps both runs took: relative, but absolute for the dropped share
+    (0 when nothing drops)."""
     a, b = ranked["steps"], single["steps"][:len(ranked["steps"])]
     if not a or len(a) != len(b):
         raise AssertionError(f"step histories of unlike length: {a} vs {b}")
-    return {key: max(abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b))
-            for i, key in enumerate(("loss", "grad_norm"))}
+    out = {}
+    for key in keys:
+        i = STEP_KEYS.index(key)
+        scale = (lambda y: 1.0) if key == "router_dropped_fraction" else abs
+        out[key] = max(abs(x[i] - y[i]) / scale(y[i]) for x, y in zip(a, b))
+    return out
 
 
-def check_train_tp(name: str, ranked: dict, single: dict, faults: dict) -> dict:
-    """``ranked``'s steps within TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL of
-    the one-card run's, and each planted fault's run past one of them:
-    {"clean": worst differences, fault: worst differences over its limits}."""
-    limits = {"loss": TP_TRAIN_LOSS_RTOL, "grad_norm": TP_TRAIN_NORM_RTOL}
-    clean = step_differences(ranked, single)
-    log(f"[{name}] (loss, grad norm) a step over ranks {ranked['steps']} vs one card "
-        f"{single['steps']}: worst relative difference {clean} (limits {limits}; "
-        f"{card_label()})")
+def check_train_tp(name: str, ranked: dict, single: dict, faults: dict,
+                   limits: Optional[dict] = None) -> dict:
+    """``ranked``'s steps within ``limits`` of the one-card run's (by
+    default TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL on the loss and grad
+    norm), and each planted fault's run past one of them: {"clean": worst
+    differences, fault: worst differences over its limits}."""
+    limits = limits or {"loss": TP_TRAIN_LOSS_RTOL, "grad_norm": TP_TRAIN_NORM_RTOL}
+    clean = step_differences(ranked, single, tuple(limits))
+    log(f"[{name}] {tuple(limits)} a step over ranks {ranked['steps']} vs one card "
+        f"{single['steps']}: worst difference {clean} (limits {limits}; {card_label()})")
     over = {k: v for k, v in clean.items() if not v <= limits[k]}
     if over:
         raise AssertionError(f"{name}: over the ranks {over}, limits {limits}")
     out = {"clean": clean}
     for fault, run in faults.items():
-        worst = step_differences(run, single)
+        worst = step_differences(run, single, tuple(limits))
         out[fault] = {k: v / limits[k] for k, v in worst.items()}
-        log(f"[{name}] planted {fault}: steps {run['steps']}, worst relative difference "
-            f"{worst}, over its limit {out[fault]} (one must exceed 1)")
+        log(f"[{name}] planted {fault}: steps {run['steps']}, worst difference {worst}, over "
+            f"its limit {out[fault]} (one must exceed 1)")
         if not max(out[fault].values()) > 1.0:
             raise AssertionError(f"{name}: the planted {fault} passes the limits: {worst}")
     return out
 
 
-def train_tp_rank(specs: list, record_saves: bool = False, profile: bool = False) -> list:
-    """One rank of a tensor-parallel train phase: ``train_rank`` of each
-    spec, under the planted fault its ``planted`` key names (the faulted
-    runs' ranks may part: their checks are the caller's)."""
+def train_tp_rank(specs: list, profile: bool = False) -> list:
+    """One rank of the train phases over ranks: ``train_rank`` of each spec,
+    under the planted fault its ``planted`` key names (the faulted runs'
+    ranks may part: their checks are the caller's), recording its saves
+    when its ``record_saves`` key is set and timing an all-reduce of its
+    ``collective_numel`` elements after it."""
     out = []
     for spec in specs:
         spec = dict(spec)
+        record = spec.pop("record_saves", False)
+        numel = spec.pop("collective_numel", 0)
         with planted_train_fault(spec.pop("planted", None)):
-            out += train_rank([spec], record_saves=record_saves, profile=profile)
+            out += train_rank([spec], record_saves=record, collective_numel=numel,
+                              profile=profile)
     return out
 
 
-def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo",
-                    record_saves: bool = False) -> dict:
+def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -> dict:
     """{run name: each rank's metrics} of ``specs`` in one spawn of
     ``world`` ranks; the clean runs (no ``planted`` key) checked by
     ``check_rank_runs``."""
+    import torch
+
     from nexus_tpu_torch.testing.dist import spawn
 
     _free_card()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{name}] before the spawn this process holds {torch.cuda.memory_reserved() / 1e9:.2f} "
+        f"GB; the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
     t0 = time.monotonic()
-    by_rank = spawn(train_tp_rank, world, (list(specs.values()), record_saves,
-                                           backend == "nccl"), backend=backend, threads=2)
+    by_rank = spawn(train_tp_rank, world, (list(specs.values()), backend == "nccl"),
+                    backend=backend, threads=2)
     wall = time.monotonic() - t0
     log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s ({card_label()})")
     out = {}
     for i, (run, spec) in enumerate(specs.items()):
         runs = [rank[i] for rank in by_rank]
         out[run] = check_rank_runs(run, runs) if "planted" not in spec else runs
-    out[name][0]["spawn_wall_s"] = wall
+        out[run][0]["spawn_wall_s"] = wall
     return out
 
 
-def phase_train_tp(backend: str = "gloo", world: int = TP_RANKS) -> dict:
-    """train-tp: TRAIN_TP over ``world`` ranks (re-planned to {tensor:
-    world}), every step's loss and grad norm against the same spec on one
-    card, each planted fault past the limits, K1-K3 on every rank."""
+def run_plans(world: int, plans: list, backend: str = "gloo") -> dict:
+    """Train phases whose rank runs share one spawn of ``world`` ranks (its
+    ranks pay torch's import and the card's set-up once). Each plan is a
+    generator: it runs its one-card references, yields its {run: spec},
+    is sent {run: each rank's metrics} and returns its phase's result;
+    the results are merged."""
+    specs, names = {}, []
+    for plan in plans:
+        mine = next(plan)
+        specs.update(mine)
+        names.append(list(mine))
+    runs = _train_tp_ranks("/".join(n[0] for n in names), specs, world, backend)
+    out = {}
+    for plan, mine in zip(plans, names):
+        try:
+            plan.send({n: runs[n] for n in mine})
+        except StopIteration as done:
+            out.update(done.value)
+        else:
+            raise RuntimeError("a train plan yielded its runs twice")
+    return out
+
+
+def plan_train_tp(backend: str = "gloo", world: int = TP_RANKS):
+    """train-tp (a plan of ``run_plans``): TRAIN_TP over ``world`` ranks
+    (re-planned to {tensor: world}), every step's loss and grad norm against
+    the same spec on one card, each planted fault past the limits, K1-K3 on
+    every rank."""
     single = _single_rank("train-tp-1card", train_tp_spec())
     specs = {"train-tp": train_tp_spec()}
     if backend == "gloo":
         specs.update({f"train-tp-{f}": train_tp_spec(TP_FAULT_STEPS, planted=f)
                       for f in TP_TRAIN_FAULTS})
-    runs = _train_tp_ranks("train-tp", specs, world, backend)
+    runs = yield specs
     faults = {f: runs[f"train-tp-{f}"][0] for f in TP_TRAIN_FAULTS if f"train-tp-{f}" in runs}
     gates = check_train_tp("train-tp", runs["train-tp"][0], single, faults)
     ranked = runs["train-tp"]
@@ -4016,11 +4266,12 @@ def check_tp_neox_step(spec: dict, runs: list) -> None:
     _free_card()
 
 
-def phase_train_tp_fsdp_neox() -> dict:
-    """train-tp-fsdp-neox: TP_NEOX over 4 ranks, {fsdp: 2, tensor: 2}: 4
-    steps saved as an Orbax step and resumed for a fifth, whose save
-    restores into one card bit for bit; every step against the same two
-    runs on one card, each planted fault past the limits."""
+def plan_train_tp_fsdp_neox():
+    """train-tp-fsdp-neox (a plan of ``run_plans``): TP_NEOX over 4 ranks,
+    {fsdp: 2, tensor: 2}: 4 steps saved as an Orbax step and resumed for a
+    fifth, whose save restores into one card bit for bit; every step
+    against the same two runs on one card, each planted fault past the
+    limits."""
     import shutil
 
     root = tempfile.mkdtemp(prefix="tp-neox-")
@@ -4033,7 +4284,7 @@ def phase_train_tp_fsdp_neox() -> dict:
                  "train-tp-fsdp-neox-resume": tp_neox_spec(ranked_dir, 5)}
         specs.update({f"train-tp-fsdp-neox-{f}": tp_neox_spec("", TP_FAULT_STEPS, planted=f)
                       for f in TP_TRAIN_FAULTS})
-        runs = _train_tp_ranks("train-tp-fsdp-neox", specs, 4, record_saves=True)
+        runs = yield {run: dict(spec, record_saves=True) for run, spec in specs.items()}
         ranked, again = runs["train-tp-fsdp-neox"], runs["train-tp-fsdp-neox-resume"]
         if any(r["resumed_from_step"] != 4 for r in again):
             raise AssertionError(f"train-tp-fsdp-neox: resumed from "
@@ -4059,15 +4310,15 @@ def phase_train_tp_fsdp_neox() -> dict:
 
 
 def run_train_tp_phases() -> dict:
-    """train-tp, then train-tp-fsdp-neox."""
-    out = timed("train-tp", phase_train_tp)
-    out.update(timed("train-tp-fsdp-neox", phase_train_tp_fsdp_neox))
+    """train-tp, then train-tp-fsdp-neox, each in a spawn of its own."""
+    out = timed("train-tp", run_plans, TP_RANKS, [plan_train_tp()])
+    out.update(timed("train-tp-fsdp-neox", run_plans, 4, [plan_train_tp_fsdp_neox()]))
     return out
 
 
 TT_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "n_devices", "mfu", "final_loss",
            "loss_history", "steps", "phase_wall_s", "spawn_wall_s", "peak_mem_gb",
-           "optimizer_state_bytes")
+           "optimizer_state_bytes", "moe_dispatch", "router_dropped_fraction")
 
 
 def train_tp_summary(tt: dict) -> dict:
@@ -4083,16 +4334,16 @@ def train_tp_launches(tt: dict, name: str) -> dict:
             for phase in ("train-tp", "train-tp-fsdp-neox")}
 
 
-def phase_tp_train_kernels() -> tuple:
-    """K1-K3 at TP_TRAIN_SHAPES alone (``--train-tp-gates``): held to their
-    plain versions and timed. Returns (worst max-abs per kernel, {shape:
-    timings})."""
+def phase_tp_train_kernels(shapes: Optional[dict] = None) -> tuple:
+    """K1-K3 at ``shapes`` (TP_TRAIN_SHAPES) alone (``--train-tp-gates``,
+    ``--moe-gates``): held to their plain versions and timed. Returns
+    (worst max-abs per kernel, {shape: timings})."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     worst, times = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}, {}
-    for label, shape in TP_TRAIN_SHAPES.items():
+    for label, shape in (shapes or TP_TRAIN_SHAPES).items():
         ratios = {}
         errs, times[label], inputs = check_kernels(shape, gen, ratios, timed=True)
         del inputs
@@ -4128,11 +4379,354 @@ def run_train_tp_over_nccl() -> int:
     started = time.monotonic()
     phase_build()
     world = torch.cuda.device_count()
-    tt = phase_train_tp(backend="nccl", world=world)
+    tt = run_plans(world, [plan_train_tp("nccl", world)], "nccl")
     if tt["train-tp"].get("profile"):
         log(f"[train-tp-nccl] rank 0's step {PROFILE_STEP} profiled ({card_label()}): "
             f"{json.dumps(tt['train-tp']['profile'])}")
     log("[summary] " + json.dumps(train_tp_summary(tt)))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+# ------------------------------------------- MoE over ranks (module item 4c)
+#
+# examples/moe-mixtral-fanout.yaml's runtime block at its published widths
+# (Mixtral-8x7B: d 4096, heads 32 / 8, d_ff 14336, 8 experts top 2, V 32000;
+# remat, ce_chunk 8192), cut as each comment says. Its {data 2, fsdp 2,
+# expert 8, sequence 4} (128 chips) re-plans to {tensor: 2} over 2 ranks
+# (JAX's plan_for_devices): train-moe-tp. train-moe-ep runs it over {fsdp:
+# 2, expert: 2} on 4 ranks, where routing crosses the ranks.
+MOE_RANKS = 2
+# what the entry point resolves the template's ``dispatch_impl: auto`` to over
+# more than one rank (JAX's rule): the dense (T, E, C) dispatch. The one-card
+# twins of the MoE phases over ranks pin it, so that each comparison holds
+# the split alone and not the choice of dispatch too
+MOE_DISPATCH_OVER_RANKS = "einsum"
+MOE_TRAIN = {
+    "kind": "jax_xla", "mode": "train",
+    # template: 32 layers
+    "model": {"family": "mixtral", "preset": "8x7b",
+              "overrides": {"remat": True, "ce_chunk": 8192, "n_layers": 2}},
+    "parallelism": {"data": 2, "fsdp": 2, "expert": 8, "sequence": 4},
+    # template: batchSize 64, seqLen 32768, 20000 steps, warmupSteps 1000;
+    # here one row of 4096, 3 steps, warmup 1 so that 3 steps move the weights
+    "train": {"batchSize": 1, "seqLen": 4096, "steps": 3, "learningRate": 1.2e-4,
+              "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
+    # template: a token corpus at /data/corpus.int32 (not on this machine):
+    # the synthetic stream
+    "data": {"prefetch": 2},
+    # template: a checkpoint every 250 steps (train-moe-ep saves one)
+    "checkpoint": {"enabled": False},
+}
+# train-moe-ep: 1 layer, 2 rows of 4096 (one an fsdp rank), warmup 0, and a
+# capacity factor of 0.5 (the preset's 1.25): a random router spreads the global
+# 8192 tokens evenly enough that nothing drops at 1.25, and routing each
+# rank's tokens alone would then give the same step (MOE_EP_CF)
+MOE_EP_PLAN = {"fsdp": 2, "expert": 2}
+MOE_EP_CF = 0.5
+# every step's loss, grad norm, aux loss (relative) and dropped share
+# (absolute) over the ranks against the same spec on one card, bf16: the
+# MoE layer's partial outputs are rounded to bf16 before their sum, and
+# over tensor the attention's too. The H100 read, clean, (loss, grad norm,
+# aux, dropped) at the dense dispatch on both sides (``--moe-gates``)
+# 1.68e-5 / 1.11e-4 / 9.05e-6 / 0 (train-moe-tp) and 4.54e-6 / 7.73e-6 / 0
+# / 0 (train-moe-ep); with scatter on both sides 2.00e-4 / 1.33e-4 /
+# 1.47e-5 / 0 and 1.52e-5 / 1.17e-5 / 1.19e-6 / 0 (the first
+# ``--moe-gates``), train-moe-ep 1.14e-6 / 1.09e-6 / 0 / 0 (the whole runs
+# after it). The planted faults moved the grad norm by 7.10e-3
+# (no_expert_copy), 1.09e-2 (per_rank_routing, beside the aux loss by
+# 1.11e-4 and the loss by 2.58e-4) and 5.59e-2 (whole_norm) (PERF.md, §6).
+# The limits sit >5x above every clean reading, and each fault's grad norm
+# >7x above its limit
+MOE_LIMITS = {"loss": 1e-3, "grad_norm": 1e-3, "aux": 2e-4, "router_dropped_fraction": 2e-3}
+# the planted faults: the expert path's copy_to_tensor left out (each rank's
+# tokens get its own experts' share of their gradient alone); each rank
+# routing its own tokens (local capacity and slots); the norm taking every
+# leaf as whole on each model rank (the expert-cut leaves' squares divided
+# by the expert ranks)
+MOE_TP_FAULTS = ("no_expert_copy",)
+MOE_EP_FAULTS = ("per_rank_routing", "whole_norm")
+# a fault shows at the first step (warmup 1: step 1's learning rate is 0,
+# its grad norm and loss are read before any update)
+MOE_FAULT_STEPS = 1
+
+
+def moe_train_spec(steps: int = 3, planted: Optional[str] = None, **train) -> dict:
+    import copy
+
+    spec = copy.deepcopy(MOE_TRAIN)
+    spec["train"].update(steps=steps, **train)
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+def one_card_twin(spec: dict) -> dict:
+    """``spec`` for one card, its MoE dispatch pinned to the one its ranks
+    resolve (MOE_DISPATCH_OVER_RANKS)."""
+    import copy
+
+    twin = copy.deepcopy(spec)
+    twin["model"].setdefault("overrides", {})["dispatch_impl"] = MOE_DISPATCH_OVER_RANKS
+    return twin
+
+
+def moe_ep_spec(directory: str, steps: int, planted: Optional[str] = None,
+                plan: Optional[dict] = None) -> dict:
+    """train-moe-ep: MOE_TRAIN at 1 layer, 2 rows, MOE_EP_CF, over ``plan``
+    (MOE_EP_PLAN); an Orbax checkpoint in ``directory`` (resumed) when
+    given."""
+    # warmup 0: the one step the ranks save moves the weights (at warmup 1
+    # its learning rate is 0), so the resumed step reads restored weights
+    # that differ from the initial ones
+    spec = moe_train_spec(steps, planted, batchSize=2, warmupSteps=0)
+    spec["model"]["overrides"].update(n_layers=1, capacity_factor=MOE_EP_CF)
+    spec["parallelism"] = dict(plan or MOE_EP_PLAN)
+    if directory:
+        spec["checkpoint"] = {"enabled": True, "directory": directory, "intervalSteps": 0,
+                              "keep": 1, "resume": True, "format": "orbax"}
+    return spec
+
+
+def moe_dense_bytes(spec: dict, world: int) -> int:
+    """The bytes of the dense dispatch's (T, E, C) f32 dispatch and combine
+    tensors on one rank of ``spec`` over ``world`` ranks (its experts and
+    tokens): what the einsum dispatch would build a layer."""
+    from nexus_tpu_torch.ops.moe import default_capacity
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices
+
+    cfg = _model_config(spec)
+    plan = MeshPlan(**spec.get("parallelism", {}))
+    if plan.total() != world:  # re-planned, as the entry point does
+        plan = plan_for_devices(world)
+    tokens = spec["train"]["batchSize"] * spec["train"]["seqLen"]
+    cap = default_capacity(tokens, cfg.n_experts, cfg.n_experts_per_token, cfg.capacity_factor)
+    local = tokens // (plan.data * plan.fsdp * plan.sequence)
+    return 2 * 4 * local * (cfg.n_experts // plan.expert) * cap
+
+
+# the rank shapes of the MoE dispatch in the train phases over ranks, (tokens,
+# the rank's experts, capacity, the rank's d_ff): train-moe-tp's {tensor: 2}
+# (4096 tokens, all 8 experts, int(4096 * 2 * 1.25 / 8), half of d_ff) and
+# train-moe-ep's {fsdp: 2, expert: 2} (4096 of 8192 tokens, 4 experts,
+# int(8192 * 2 * 0.5 / 8), all of d_ff)
+MOE_DISPATCH_SHAPES = {"train-moe-tp": (4096, 8, 1280, 7168),
+                       "train-moe-ep": (4096, 4, 1024, 14336)}
+
+
+def phase_moe_dispatch() -> dict:
+    """Both MoE dispatches at each MOE_DISPATCH_SHAPES rank shape (d 4096,
+    top 2 of 8 experts, bf16 tokens, random router logits): the dense one
+    (the routing's (T, E, C) f32 tensors built, the tokens contracted into
+    the (E, C, D) buffers and back) and the scatter one, each forward and
+    forward + backward, beside the rank's expert products on the same
+    buffers. Both must give the tokens back within bf16's rounding of the
+    combine weights (2^-6 of the largest token value). {shape: timings}."""
+    import torch
+    import torch.nn.functional as F
+
+    from nexus_tpu_torch.ops import moe as M
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    d, e, k = 4096, 8, 2
+    for name, (t, local, cap, ff) in MOE_DISPATCH_SHAPES.items():
+        def normal(*shape, scale=1.0):
+            x = torch.randn(*shape, generator=gen, device="cuda") * scale
+            return x.to(torch.bfloat16).requires_grad_()
+
+        x = normal(t, d)
+        routing = M.top_k_routing(torch.randn(t, e, generator=gen, device="cuda"), k, cap,
+                                  dense=False)
+        weights = routing.weights.clone().requires_grad_()
+        routing = routing._replace(weights=weights)
+        wg, wu = normal(local, d, ff, scale=d ** -0.5), normal(local, d, ff, scale=d ** -0.5)
+        wd = normal(local, ff, d, scale=ff ** -0.5)
+
+        def dense():
+            r = M.expert_block(routing, 0, local, cap, dense=True)
+            return M.moe_combine_dense(M.moe_dispatch_dense(x, r).to(torch.bfloat16), r)
+
+        def scatter():
+            r = M.expert_block(routing, 0, local, cap)
+            return M.moe_combine_scatter(M.moe_dispatch_scatter(x, r, local, cap), r)
+
+        buf = M.moe_dispatch_scatter(
+            x.detach(), M.expert_block(routing, 0, local, cap), local, cap).requires_grad_()
+
+        def experts():
+            gated = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum(
+                "ecd,edf->ecf", buf, wu)
+            return torch.einsum("ecf,efd->ecd", gated, wd)
+
+        def both(fn, wrt):
+            return lambda: torch.autograd.grad(fn().float().sum(), wrt)
+
+        with torch.no_grad():
+            diff = float((dense().float() - scatter().float()).abs().max() / x.abs().max())
+        timing = {"dense_bytes": 2 * 4 * t * local * cap, "max_diff_over_max_x": diff}
+        for step, fn, wrt in (("dense", dense, (x, weights)), ("scatter", scatter, (x, weights)),
+                              ("experts", experts, (buf, wg, wu, wd))):
+            with torch.no_grad():
+                timing[f"{step}_fwd_ms"] = _cuda_time_ms(fn, reps=5)
+            timing[f"{step}_fwd_bwd_ms"] = _cuda_time_ms(both(fn, wrt), reps=5)
+        out[name] = timing
+        log(f"[moe-dispatch] {name} rank shape (T {t}, experts {local}, C {cap}, d {d}, d_ff "
+            f"{ff}): {timing} ({card_label()})")
+        del x, routing, weights, wg, wu, wd, buf
+        if not diff <= 2 ** -6:
+            raise AssertionError(f"moe-dispatch {name}: the dense and scatter dispatches differ "
+                                 f"by {diff} of the largest token value (limit {2 ** -6})")
+    _free_card()
+    return out
+
+
+def _moe_summary_line(name: str, ranked: list, single: dict, world: int, backend: str,
+                      spec: dict) -> None:
+    log(f"[{name}] tokens_per_sec {ranked[0]['tokens_per_sec']} over {world} ranks ({backend}), "
+        f"one card at the same spec {single['tokens_per_sec']}; K1-K3 launches by rank "
+        f"{[r['launches'] for r in ranked]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranked]} (one card "
+        f"{single['peak_mem_gb']:.2f}), AdamW bytes by rank "
+        f"{[r['optimizer_state_bytes'] for r in ranked]}, the dense dispatch's (T, E, C) "
+        f"tensors a layer a rank {moe_dense_bytes(spec, world)} bytes ({card_label()})")
+
+
+def plan_train_moe_tp(backend: str = "gloo", world: int = MOE_RANKS):
+    """train-moe-tp (a plan of ``run_plans``): MOE_TRAIN over ``world``
+    ranks (re-planned to {tensor: world}), every step's loss, grad norm, aux
+    loss and dropped share against the same spec on one card, the planted
+    fault past the limits, K1-K3 on every rank."""
+    dispatch = phase_moe_dispatch()
+    single = _single_rank("train-moe-tp-1card", one_card_twin(moe_train_spec()))
+    specs = {"train-moe-tp": moe_train_spec()}
+    if backend == "gloo":
+        specs.update({f"train-moe-tp-{f}": moe_train_spec(MOE_FAULT_STEPS, planted=f)
+                      for f in MOE_TP_FAULTS})
+    runs = yield specs
+    ranked = runs["train-moe-tp"]
+    for m in ranked + [single]:  # the dispatch auto resolves over ranks, a dropped share in [0, 1)
+        check_mixtral_train("train-moe-tp", m, MOE_DISPATCH_OVER_RANKS)
+    faults = {f: runs[f"train-moe-tp-{f}"][0] for f in MOE_TP_FAULTS if f"train-moe-tp-{f}" in runs}
+    gates = check_train_tp("train-moe-tp", ranked[0], single, faults, MOE_LIMITS)
+    _moe_summary_line("train-moe-tp", ranked, single, world, backend, moe_train_spec())
+    return {"train-moe-tp": ranked[0], "train-moe-tp-1card": single, "train-moe-tp-gates": gates,
+            "moe-dispatch": dispatch,
+            "train-moe-tp-by_rank": {"launches": [r["launches"] for r in ranked],
+                                     "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]}}
+
+
+def plan_train_moe_ep(backend: str = "gloo", plan: Optional[dict] = None):
+    """train-moe-ep (a plan of ``run_plans``): MOE_TRAIN at 1 layer over ``plan`` (MOE_EP_PLAN, 4
+    ranks): one step saved as an Orbax step and resumed for a second (which
+    saves nothing), every step's metrics against the same on one card, whose
+    second step resumes the ranks' save; each planted fault past the limits
+    (over gloo), K1-K3 on every rank. The tokens/s reported are the resumed
+    runs' (one step past the first step's loads)."""
+    import shutil
+
+    plan = dict(plan or MOE_EP_PLAN)
+    world = 1
+    for n in plan.values():
+        world *= n
+    # one card takes the first step, and after the ranks' run resumes the
+    # step they saved for the second (a resumed run reads the data stream
+    # from its start again): a step written by the ranks restores into one
+    # card, and both resumed steps start from that state
+    first = _single_rank("train-moe-ep-1card", one_card_twin(moe_ep_spec("", 1, plan=plan)))
+    root = tempfile.mkdtemp(prefix="moe-ep-")
+    try:
+        ranked_dir = os.path.join(root, "ranks")
+        resume = dict(moe_ep_spec(ranked_dir, 2, plan=plan), no_final_save=True)
+        specs = {"train-moe-ep": moe_ep_spec(ranked_dir, 1, plan=plan),
+                 "train-moe-ep-resume": resume}
+        if backend == "gloo":
+            specs.update({f"train-moe-ep-{f}": moe_ep_spec("", MOE_FAULT_STEPS, planted=f,
+                                                           plan=plan) for f in MOE_EP_FAULTS})
+        runs = yield specs
+        resumed = _single_rank("train-moe-ep-1card-resume", one_card_twin(resume))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    single = dict(first, steps=first["steps"] + resumed["steps"])
+    ranked, again = runs["train-moe-ep"], runs["train-moe-ep-resume"]
+    if any(r["resumed_from_step"] != 1 for r in again + [resumed]):
+        raise AssertionError(f"train-moe-ep: resumed from "
+                             f"{[r['resumed_from_step'] for r in again + [resumed]]}")
+    for m in ranked + again + [first, resumed]:
+        check_mixtral_train("train-moe-ep", m, MOE_DISPATCH_OVER_RANKS)
+    both = dict(ranked[0], steps=ranked[0]["steps"] + again[0]["steps"])
+    faults = {f: runs[f"train-moe-ep-{f}"][0] for f in MOE_EP_FAULTS if f"train-moe-ep-{f}" in runs}
+    gates = check_train_tp("train-moe-ep", both, single, faults, MOE_LIMITS)
+    _moe_summary_line("train-moe-ep", again, resumed, world, backend,
+                      moe_ep_spec("", 2, plan=plan))
+    return {"train-moe-ep": again[0], "train-moe-ep-1card": resumed, "train-moe-ep-gates": gates,
+            "train-moe-ep-by_rank": {"launches": [r["launches"] for r in ranked],
+                                     "peak_mem_gb": [max(r["peak_mem_gb"], q["peak_mem_gb"])
+                                                     for r, q in zip(ranked, again)],
+                                     "optimizer_state_bytes": [r["optimizer_state_bytes"]
+                                                               for r in ranked]}}
+
+
+def run_moe_train_phases() -> dict:
+    """train-moe-tp, then train-moe-ep, each in a spawn of its own."""
+    out = timed("train-moe-tp", run_plans, MOE_RANKS, [plan_train_moe_tp()])
+    out.update(timed("train-moe-ep", run_plans, 4, [plan_train_moe_ep()]))
+    return out
+
+
+def moe_train_launches(mt: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in each MoE train phase."""
+    return {phase: [by[name] for by in mt[f"{phase}-by_rank"]["launches"]]
+            for phase in ("train-moe-tp", "train-moe-ep")}
+
+
+def run_moe_gates() -> int:
+    """``--moe-gates``: the MoE phases alone on one card, the kernels built
+    and held at Mixtral's rank shape first: train-moe-tp, train-moe-ep and
+    (with the tensor-parallel logits of Mixtral and its one-card twin)
+    serve-moe-tp."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    worst, times = phase_tp_train_kernels({"mixtral_tp2": TP_TRAIN_SHAPES["mixtral_tp2"]})
+    mt = run_moe_train_phases()
+    tp = timed("serve-moe-tp", run_tp_ranks, ["logits", "serve-moe-tp"], ["mixtral"])
+    log("[summary] " + json.dumps({
+        "moe_kernel_worst": worst, "moe_kernel_timings": times,
+        "moe_train": train_tp_summary(mt), "logits_error_over_limit": tp["logits-tp"],
+        "serve_moe_tp": [{k: r.get(k) for k in TP_KEYS if k in r} for r in tp["serve-moe-tp"]],
+        "phase_seconds": PHASE_SECONDS}))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+def run_moe_over_nccl() -> int:
+    """``--moe-nccl``: on every card of a 4-card machine, a rank a card over
+    NCCL: the whole Mixtral-8x7B (32 layers, ~23.4 GB of bf16 weights a
+    rank) served over {tensor: 4}, and train-moe-ep over {expert: 4} beside
+    the same spec on one card."""
+    import torch
+
+    from nexus_tpu_torch.testing.dist import spawn
+
+    started = time.monotonic()
+    phase_build()
+    world = torch.cuda.device_count()
+    t0 = time.monotonic()
+    ranks = spawn(tp_rank, world, (["serve-moe-whole"],), backend="nccl", threads=2)
+    whole = [r["serve-moe-whole"] for r in ranks]
+    check_tp_serve("serve-moe-whole", whole, rank_heads(moe_serve_spec(world, 32), world))
+    log(f"[serve-moe-whole] the whole Mixtral-8x7B over {{tensor: {world}}} (nccl): "
+        f"tokens_per_sec {whole[0]['tokens_per_sec']}, ttft_p50_s {whole[0].get('ttft_p50_s')}, "
+        f"peak GB by rank {[round(r['peak_mem_gb'], 2) for r in whole]}, spawn wall "
+        f"{time.monotonic() - t0:.1f} s ({card_label()})")
+    ep = run_plans(world, [plan_train_moe_ep("nccl", {"expert": world})], "nccl")
+    log("[summary] " + json.dumps({
+        "serve_moe_whole": [{k: r.get(k) for k in TP_KEYS if k in r} for r in whole],
+        "moe_ep_nccl": train_tp_summary(ep)}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
     return 0
@@ -4177,7 +4771,7 @@ def run_fsdp_over_nccl() -> int:
 
     started = time.monotonic()
     phase_build()
-    ring = phase_ring_fsdp_neox(backend="nccl")
+    ring = run_plans(4, [plan_ring_fsdp_neox("nccl")], "nccl")
     log("[summary] " + json.dumps(ring_summary({"ring-ops": {}, **ring})))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
@@ -4198,6 +4792,11 @@ def main(argv=None) -> int:
                         help="run only the tensor-parallel train phases and their kernel shapes")
     parser.add_argument("--train-tp-nccl", action="store_true",
                         help="run only train-tp over every card, a rank a card over NCCL")
+    parser.add_argument("--moe-gates", action="store_true",
+                        help="run only the MoE phases over ranks and their kernel shape")
+    parser.add_argument("--moe-nccl", action="store_true",
+                        help="serve the whole Mixtral-8x7B over {tensor: 4} and run "
+                             "train-moe-ep over {expert: 4}, a rank a card over NCCL")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4224,6 +4823,10 @@ def main(argv=None) -> int:
         return run_train_tp_gates()
     if args.train_tp_nccl:
         return run_train_tp_over_nccl()
+    if args.moe_gates:
+        return run_moe_gates()
+    if args.moe_nccl:
+        return run_moe_over_nccl()
     started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
@@ -4249,7 +4852,7 @@ def main(argv=None) -> int:
     same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
     # speculation: verify windows of numSpeculative + 1 = 5 through D1
     lookup = timed("serve-lookup", phase_serve, "serve-lookup",
-                   _serve_spec(num_requests=16, promptLookupNgram=2, numSpeculative=4),
+                   _serve_spec(num_requests=8, promptLookupNgram=2, numSpeculative=4),
                    must_t=(5,))
     draft = timed("serve-draft", phase_serve, "serve-draft",
                   _serve_spec(num_requests=8, numSpeculative=4, draft=DRAFT_REF), must_t=(5,))
@@ -4277,11 +4880,18 @@ def main(argv=None) -> int:
     neox = timed("gptneox-mlp", run_neox_mlp_phases)
     pretrained = timed("pretrained", run_pretrained_phases)
     orbax = timed("orbax", run_orbax_phases)
-    ring = run_ring_phases()
+    ring = {"ring-ops": timed("ring-ops", phase_ring_ops)}
     tp = timed("tensor-parallel-serve", run_tp_phases, serve_run)
     worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
                                                 tp["tp-decode-kernel"]["worst"])
-    tt = run_train_tp_phases()
+    # the train phases over ranks, three to a spawn of 2 and three to one of
+    # 4 (each spawn's ranks pay torch's import and the card's set-up once)
+    tt = timed("ring-neox,train-tp,train-moe-tp", run_plans, 2,
+               [plan_ring_neox(), plan_train_tp(), plan_train_moe_tp()])
+    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep", run_plans, 4,
+                    [plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(), plan_train_moe_ep()]))
+    mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
+    ring.update({k: tt.pop(k) for k in list(tt) if k.startswith("ring-")})
 
     from nexus_tpu_torch.ops import attention as A
 
@@ -4309,6 +4919,8 @@ def main(argv=None) -> int:
             "tensor_parallel_launches": tp_launches(tp, n),
             # per rank: the tensor-parallel train phases (K1-K3 at the rank's heads)
             "tensor_train_launches": train_tp_launches(tt, n),
+            # per rank: the MoE train phases over {tensor: 2} and {fsdp: 2, expert: 2}
+            "moe_train_launches": moe_train_launches(mt, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -4362,6 +4974,7 @@ def main(argv=None) -> int:
         "ring": ring_summary(ring),
         "tensor_parallel": tp_summary(tp),
         "tensor_parallel_train": train_tp_summary(tt),
+        "moe_train": train_tp_summary(mt),
         "tp_train_kernel_timings": {
             label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
                          for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)

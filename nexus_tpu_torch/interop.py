@@ -6,9 +6,10 @@ cfg, device)``: the JAX family's param pytree with numpy leaves (e.g.
 ``jax.tree.map(np.asarray, params)``), and return the port's parameter
 pytree: the same layout (stacked layers, ``x @ W`` products; the MLP's list
 of layers), so both compute the same function. Every leaf's shape is checked
-against the config; Mixtral's router stays float32. Llama and GPT-NeoX take
-a ``mesh`` (or a ``TensorShard``) too: the params then come back as that
-tensor rank's blocks (``parallel/sharding.py::shard_params``)."""
+against the config; Mixtral's router stays float32. Llama, GPT-NeoX and
+Mixtral take a ``mesh`` (or a ``ModelShard``) too: the params then come
+back as that rank's blocks over the model axes
+(``parallel/sharding.py::shard_params``)."""
 
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ def llama_params_from_jax(np_tree: Dict[str, Any], cfg: llama.LlamaConfig,
 
 
 def mixtral_params_from_jax(np_tree: Dict[str, Any], cfg: mixtral.MixtralConfig,
-                            device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    return _params_from_jax(mixtral, np_tree, cfg, device)
+                            device: Union[str, torch.device] = "cpu",
+                            mesh=None) -> Dict[str, Any]:
+    return _params_from_jax(mixtral, np_tree, cfg, device, mesh)
 
 
 def gptneox_params_from_jax(np_tree: Dict[str, Any], cfg: gptneox.GPTNeoXConfig,

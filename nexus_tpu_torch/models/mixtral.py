@@ -12,6 +12,18 @@ through ``ops/moe.py``'s scatter (``dispatch_impl: scatter``, what the
 entry point resolves ``auto`` to on its one device) or the dense einsum
 dispatch. Attention runs the flash kernels on the card, with the sliding
 window (``sliding_window``, 0 = full causal) through K1-K3's window path.
+
+Over ranks (module item 4c), as GSPMD partitions JAX's model under
+``logical_axes``: params cut by ``parallel/sharding.py::shard_params``
+over the model axes hold the rank's heads and vocabulary block (the
+``tensor`` axis: Llama's Megatron split of the attention and the
+vocab-parallel loss) and its block of the experts (the ``expert`` axis)
+at its block of d_ff (``tensor``); the router is whole on every rank. The
+MoE layer routes the global token population of the batch axes
+(``ops/moe.py::global_top_k_routing``: tokens are replicated over the
+model axes, so every rank of them routes alike), computes its experts'
+share, and sums the ranks' partial outputs in one all-reduce over the
+model axes (rounded to the model dtype first: JAX sums before it rounds).
 """
 
 from __future__ import annotations
@@ -23,21 +35,29 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.params import fill_normal_
+from nexus_tpu_torch.models.decoding import tensor_group
+from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
 from nexus_tpu_torch.ops.moe import (
+    TokenGrid,
     default_capacity,
+    expert_block,
+    global_top_k_routing,
     moe_combine_dense,
     moe_combine_scatter,
     moe_dispatch_dense,
     moe_dispatch_scatter,
+    token_grid,
     top_k_routing,
 )
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.mesh import active_mesh
+from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
+                                             reduce_from_tensor, vocab_parallel_embed)
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down", "ln_attn",
               "ln_mlp")
@@ -133,31 +153,50 @@ def param_shapes(cfg: MixtralConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def _whole(shard) -> None:
-    """Mixtral's leaves are whole on every rank: a tensor shard is refused
-    (Mixtral over a tensor axis is item 4b, ROADMAP 'Port to PyTorch/CUDA')."""
-    if shard is not None:
-        raise NotImplementedError("Mixtral over a sharded tensor axis is not ported yet "
-                                  "(item 4b, ROADMAP 'Port to PyTorch/CUDA')")
+def logical_axes(cfg: MixtralConfig) -> Dict[str, Any]:
+    """Each leaf's logical dims (JAX's ``logical_axes``): the expert stacks'
+    expert dim on ``expert`` and their d_ff on ``tensor`` (``mlp``), the
+    router replicated, the attention and vocabulary as Llama's."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "wq": ("layer", "embed", "qkv"),
+            "wk": ("layer", "embed", "qkv"),
+            "wv": ("layer", "embed", "qkv"),
+            "wo": ("layer", "qkv", "embed"),
+            "router": ("layer", "embed", None),
+            "w_gate": ("layer", "expert", "embed", "mlp"),
+            "w_up": ("layer", "expert", "embed", "mlp"),
+            "w_down": ("layer", "expert", "mlp", "embed"),
+            "ln_attn": ("layer", None),
+            "ln_mlp": ("layer", None),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+# no fused leaf: every cut dim is one run (parallel/sharding.py::shard_params)
+TENSOR_GROUPS: Dict[str, int] = {}
 
 
 def empty_params(cfg: MixtralConfig, device: Union[str, torch.device] = "cuda",
                  shard=None) -> Dict[str, Any]:
     """The parameter dict with every leaf allocated and not yet written
-    (the router in f32, every other leaf in ``cfg.dtype``); ``shard`` must
-    be None."""
-    _whole(shard)
+    (the router in f32, every other leaf in ``cfg.dtype``). With a
+    ``parallel.sharding.ModelShard``, each leaf is this rank's block."""
     shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
 
-    def empty(name):
+    def empty(name, path):
         dtype = torch.float32 if name == "router" else cfg.dtype
-        return torch.empty(shapes[name], device=device, dtype=dtype)
+        return torch.empty(cuts.shape(path, shapes[name]), device=device, dtype=dtype)
 
     return {
-        "embed": empty("embed"),
-        "layers": {k: empty(k) for k in LAYER_KEYS},
-        "final_norm": empty("final_norm"),
-        "lm_head": empty("lm_head"),
+        "embed": empty("embed", "embed"),
+        "layers": {k: empty(k, f"layers/{k}") for k in LAYER_KEYS},
+        "final_norm": empty("final_norm", "final_norm"),
+        "lm_head": empty("lm_head", "lm_head"),
     }
 
 
@@ -166,9 +205,10 @@ def init(generator: torch.Generator, cfg: MixtralConfig,
     """The JAX init's scales (normal, 1/sqrt(fan_in), out-projections by
     1/sqrt(2L) more, norms ones, the router f32), drawn in f32 one layer
     at a time and one expert at a time for the expert stacks: the peak
-    over the weights is one slice. Leaves require grad; ``shard`` must be
-    None."""
-    _whole(shard)
+    over the weights is one slice. With a ``ModelShard`` every slice (each
+    layer, each expert) is drawn whole in the one-rank order and the rank
+    keeps its block: the same seed gives the same model on every mesh.
+    Leaves require grad."""
     d, f = cfg.d_model, cfg.d_ff
     hq_hd = cfg.n_heads * cfg.head_dim
     resid = 1.0 / math.sqrt(2 * cfg.n_layers)
@@ -176,13 +216,16 @@ def init(generator: torch.Generator, cfg: MixtralConfig,
                     "wo": (hq_hd ** -0.5 * resid, 1), "router": (d ** -0.5, 1),
                     "w_gate": (d ** -0.5, 2), "w_up": (d ** -0.5, 2),
                     "w_down": (f ** -0.5 * resid, 2)}
-    params = empty_params(cfg, device)
-    fill_normal_(params["embed"], generator, 1.0)
+    shapes = param_shapes(cfg)
+    cuts = LeafCuts(logical_axes(cfg), shard, TENSOR_GROUPS)
+    params = empty_params(cfg, device, shard)
+    cuts.fill_normal_("embed", params["embed"], shapes["embed"], generator, 1.0)
     for name, (scale, stack_dims) in layer_scales.items():
-        fill_normal_(params["layers"][name], generator, scale, stack_dims=stack_dims)
+        cuts.fill_normal_(f"layers/{name}", params["layers"][name], shapes[name], generator,
+                          scale, stack_dims=stack_dims)
     for norm in (params["layers"]["ln_attn"], params["layers"]["ln_mlp"], params["final_norm"]):
         norm.fill_(1.0)
-    fill_normal_(params["lm_head"], generator, d ** -0.5)
+    cuts.fill_normal_("lm_head", params["lm_head"], shapes["lm_head"], generator, d ** -0.5)
     for t in leaves(params):
         t.requires_grad_(True)
     return params
@@ -199,38 +242,89 @@ def leaves(params: Dict[str, Any]):
 # ----------------------------------------------------------------- forward
 
 
-def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor]):
-    """x (B, S, D) → (out (B, S, D), aux loss, dropped fraction)."""
+def moe_split(layers: Dict[str, torch.Tensor], cfg: MixtralConfig) -> Tuple[int, Any]:
+    """(the first expert, the group) of the experts' weights this rank
+    holds, read from their shapes as ``local_heads`` reads the heads:
+    ``w_gate``'s experts (cut over ``expert``) and d_ff (over ``tensor``)
+    against the config's. The group is the active mesh's over the model
+    axes that cut them, whose ranks' partial outputs sum to the layer's;
+    (0, None) for whole weights."""
+    w = layers["w_gate"]
+    e_local, f_local = w.shape[-3], w.shape[-1]
+    degrees = (cfg.n_experts // e_local, cfg.d_ff // f_local)
+    if degrees == (1, 1):
+        return 0, None
+    mesh = active_mesh()
+    have = (1, 1) if mesh is None else (mesh.shape["expert"], mesh.shape["tensor"])
+    if have != degrees:
+        raise ValueError(f"the experts' weights are cut for {{expert, tensor}} = {degrees} but "
+                         f"the active mesh has {have} (run inside parallel.mesh.use_mesh of "
+                         "the mesh they were sharded for)")
+    return mesh.index("expert") * e_local, mesh.group("expert", "tensor")
+
+
+def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
+             first: int = 0, group=None, grid: Optional[TokenGrid] = None,
+             reduce: bool = True):
+    """x (B, S, D) → (out (B, S, D), aux loss, dropped fraction).
+
+    The router (whole on every rank) routes ``x``: over the global token
+    population of the batch axes when ``grid`` is given (this rank's rows
+    of it), else over ``x``'s B·S tokens. This rank's experts, those from
+    ``first`` that ``layer``'s stacks hold, at its block of d_ff, take the
+    selections routed to them; their combine is this rank's partial
+    output, rounded to the model dtype and summed over ``group`` (the
+    model axes that cut the experts) when ``reduce``, else returned as it
+    is (the decode scaffold sums it). Over a group, two inputs pass
+    through ``copy_to_tensor``: the expert path's tokens and the combine
+    weights, whose gradients each rank holds its own experts' share of.
+    The router's own path does not: its aux loss is the same on every
+    rank of the group, and so is its gradient."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     router_logits = xf.float() @ layer["router"]  # (T, E)
-    cap = default_capacity(t, cfg.n_experts, cfg.n_experts_per_token, cfg.capacity_factor)
+    t_all = t if grid is None else t * grid.ranks
+    cap = default_capacity(t_all, cfg.n_experts, cfg.n_experts_per_token, cfg.capacity_factor)
     dispatch = "einsum" if cfg.dispatch_impl == "auto" else cfg.dispatch_impl
     if dispatch not in ("einsum", "scatter"):
         raise ValueError(f"unknown dispatch_impl {cfg.dispatch_impl!r}; "
                          "expected 'auto', 'einsum', or 'scatter'")
-    routing = top_k_routing(router_logits, cfg.n_experts_per_token, cap,
-                            dense=dispatch == "einsum")
-    if dispatch == "scatter":
-        expert_in = moe_dispatch_scatter(xf, routing, cfg.n_experts, cap).to(cfg.dtype)
+    k = cfg.n_experts_per_token
+    if grid is None:
+        routing = top_k_routing(router_logits, k, cap, dense=False)
     else:
-        expert_in = moe_dispatch_dense(xf, routing).to(cfg.dtype)
+        routing = global_top_k_routing(router_logits, k, cap, (b, s), grid)
+    routing = routing._replace(weights=copy_to_tensor(routing.weights, group))
+    n_local = layer["w_gate"].shape[0]
+    routing = expert_block(routing, first, n_local, cap, dense=dispatch == "einsum")
+    xe = copy_to_tensor(xf, group)
+    if dispatch == "scatter":
+        expert_in = moe_dispatch_scatter(xe, routing, n_local, cap).to(cfg.dtype)
+    else:
+        expert_in = moe_dispatch_dense(xe, routing).to(cfg.dtype)
     gated = F.silu(torch.einsum("ecd,edf->ecf", expert_in, layer["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", expert_in, layer["w_up"])
-    expert_out = torch.einsum("ecf,efd->ecd", gated, layer["w_down"])  # (E, C, D)
+    expert_out = torch.einsum("ecf,efd->ecd", gated, layer["w_down"])  # (E_local, C, D)
     if dispatch == "scatter":
         out = moe_combine_scatter(expert_out, routing)
     else:
         out = moe_combine_dense(expert_out, routing)
-    return out.reshape(b, s, d).to(cfg.dtype), routing.aux_loss, routing.dropped_fraction
+    out = out.reshape(b, s, d).to(cfg.dtype)
+    if reduce:
+        out = reduce_from_tensor(out, group)
+    return out, routing.aux_loss, routing.dropped_fraction
 
 
 def _block(cfg: MixtralConfig, x, aux, dropped, wq, wk, wv, wo, router, w_gate, w_up, w_down,
-           ln_attn, ln_mlp, cos, sin):
+           ln_attn, ln_mlp, cos, sin, group=None, moe=(0, None, None)):
+    """One layer at the heads and experts the weights hold: ``group`` the
+    tensor axis's (Llama's split of the attention), ``moe`` the MoE
+    layer's (first expert, group, token grid) (``_moe_ffn``)."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rms_norm(x, ln_attn, cfg.norm_eps)
+    hd = cfg.head_dim
+    hq, hkv = wq.shape[-1] // hd, wk.shape[-1] // hd
+    h = copy_to_tensor(rms_norm(x, ln_attn, cfg.norm_eps), group)
     q = apply_rope((h @ wq).reshape(b, s, hq, hd), cos, sin)
     k = apply_rope((h @ wk).reshape(b, s, hkv, hd), cos, sin)
     v = (h @ wv).reshape(b, s, hkv, hd)
@@ -239,11 +333,11 @@ def _block(cfg: MixtralConfig, x, aux, dropped, wq, wk, wv, wo, router, w_gate, 
         attn = ring_attention_sharded(q, k, v, window=cfg.sliding_window)
     else:
         attn = attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.sliding_window)
-    x = x + attn.reshape(b, s, hq * hd) @ wo
+    x = x + reduce_from_tensor(attn.reshape(b, s, hq * hd) @ wo, group)
 
     h2 = rms_norm(x, ln_mlp, cfg.norm_eps)
     layer = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
-    moe_out, layer_aux, layer_dropped = _moe_ffn(cfg, h2, layer)
+    moe_out, layer_aux, layer_dropped = _moe_ffn(cfg, h2, layer, *moe)
     return x + moe_out, aux + layer_aux, dropped + layer_dropped
 
 
@@ -251,12 +345,14 @@ def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Ten
     """tokens (B, S) → (final-norm hidden (B, S, d), layer-mean aux loss,
     layer-mean dropped-selection fraction). Under a sequence-sharded mesh
     ``tokens`` is this rank's block, whose positions start past the blocks
-    before it."""
+    before it; under the batch axes routing covers the global batch."""
     s = tokens.shape[1]
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    group = tensor_group(params, cfg)
+    moe = (*moe_split(params["layers"], cfg), token_grid(active_mesh()))
+    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
                             position_offset=sequence_offset(s), device=x.device)
-    block = lambda *a: _block(cfg, *a)  # noqa: E731
+    block = lambda *a: _block(cfg, *a, group=group, moe=moe)  # noqa: E731
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     aux = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -267,22 +363,25 @@ def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Ten
 
 
 def forward(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor):
-    """tokens (B, S) → (logits (B, S, V) float32, layer-mean aux loss)."""
+    """tokens (B, S) → (logits (B, S, V) float32, the whole vocabulary's
+    under a tensor axis; layer-mean aux loss)."""
     x, aux, _ = forward_hidden(params, cfg, tokens)
-    return (x @ params["lm_head"]).float(), aux
+    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg)), aux
 
 
 def loss_fn(params: Dict[str, Any], cfg: MixtralConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """ce + router_aux_weight · aux (the layer-mean load-balance loss).
-    batch: {'tokens': (B, S+1)}."""
+    """ce (vocab-parallel under a tensor axis) + router_aux_weight · aux
+    (the layer-mean load-balance loss). batch: {'tokens': (B, S+1)}."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, aux, dropped = forward_hidden(params, cfg, inputs)
+    group = tensor_group(params, cfg)
     if cfg.ce_chunk > 0:
-        ce = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk)
+        ce = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
+                                  group=group)
     else:
-        ce = dense_softmax_xent(hidden, params["lm_head"], targets)
+        ce = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
     loss = ce + cfg.router_aux_weight * aux
     metrics = {"loss": loss, "ce": ce, "aux": aux, "perplexity": torch.exp(ce),
                "router_dropped_fraction": dropped}
@@ -300,14 +399,23 @@ def init_kv_cache(cfg: MixtralConfig, batch: int, max_len: int, device="cpu") ->
 
 
 def _decode_ffn(cfg: MixtralConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor]):
-    return _moe_ffn(cfg, h, layer)[0]  # the aux loss is irrelevant at inference
+    """The MoE layer of a decode feed: routed over the feed's B·T tokens,
+    the same on every rank; under a tensor axis this rank's partial output
+    (its d_ff block), which the scaffold sums over the axis. The aux loss
+    is irrelevant at inference."""
+    if layer["w_gate"].shape[0] != cfg.n_experts:
+        raise NotImplementedError("decoding with the experts cut over an expert axis is not "
+                                  "ported yet (item 4c, part two; ROADMAP 'Port to "
+                                  "PyTorch/CUDA')")
+    return _moe_ffn(cfg, h, layer, reduce=False)[0]
 
 
 def forward_decode(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor,
                    cache: Dict[str, Any]):
     """Incremental decode with the routed-MoE FFN: tokens (B, T) appended
     at cache['length'] → (logits (B, T, V) f32, cache) (models/decoding.py).
-    Routing and capacity cover this feed's B·T tokens, as in JAX."""
+    Routing and capacity cover this feed's B·T tokens, as in JAX. Params
+    cut over a tensor axis decode at the rank's heads and d_ff block."""
     from nexus_tpu_torch.models.decoding import scanned_forward_decode
 
     return scanned_forward_decode(params, cfg, tokens, cache, _decode_ffn)

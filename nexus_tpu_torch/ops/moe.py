@@ -14,14 +14,26 @@ probabilities go to the lower expert index by an explicit stable sort
 (``lax.top_k``'s order; ``torch.topk`` promises none), and the dense
 (T, E, C) tensors are built only when asked for (``dense=True``): eager
 PyTorch has no dead-code elimination to drop them from the scatter path.
+
+Over ranks (module item 4c): ``global_top_k_routing`` routes a rank's
+tokens as JAX routes the global batch under GSPMD (capacity, slots, drops
+and the aux loss over the global token population, from an all-gather of
+the small (T, k) expert indices over the batch axes), and
+``expert_block`` gives the routing as a rank that holds a block of the
+experts (the ``expert`` axis) acts on it: its dispatch and combine cover
+its own experts only, and the model sums the ranks' partial outputs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from nexus_tpu_torch.parallel.comm import all_gather
+from nexus_tpu_torch.parallel.mesh import Mesh
 
 
 class RoutingResult(NamedTuple):
@@ -37,6 +49,46 @@ class RoutingResult(NamedTuple):
     weights: torch.Tensor  # (T, k) f32 renormalised combine weights
 
 
+def _top_k(probs: torch.Tensor, num_selected: int):
+    """(top_idx, renormalised top_probs) of (T, E) probabilities; descending
+    and stable: equal probabilities keep the lower index first."""
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    top_idx = order[:, :num_selected]  # (T, k)
+    top_probs = torch.gather(probs, 1, top_idx)
+    return top_idx, top_probs / top_probs.sum(-1, keepdim=True)
+
+
+def _slots(top_idx: torch.Tensor, e: int, capacity: int):
+    """(slot_idx, valid, sel_mask) of (T, k) selections: the position of
+    each (token, choice) in its expert's buffer, a running count over the
+    token-major (T*k, E) selections (exact in integers); past ``capacity``
+    a selection is dropped (valid 0) and its slot clamped."""
+    t, k = top_idx.shape
+    sel_mask = F.one_hot(top_idx.long(), e).float()  # (T, k, E)
+    flat_mask = sel_mask.reshape(t * k, e).to(torch.int32)
+    positions = (torch.cumsum(flat_mask, 0, dtype=torch.int32) * flat_mask - 1)
+    positions = positions.reshape(t, k, e)
+    in_capacity = (positions >= 0) & (positions < capacity)
+    sel = sel_mask.to(torch.int32)
+    slot_idx = (positions.clamp(0, capacity - 1) * sel).sum(-1, dtype=torch.int32)
+    valid = (in_capacity.float() * sel_mask).sum(-1)
+    return slot_idx, valid, sel_mask
+
+
+def _dense(top_idx: torch.Tensor, slot_idx: torch.Tensor, valid: torch.Tensor,
+           weights: torch.Tensor, e: int, capacity: int):
+    """The (T, E, C) dispatch mask and combine weights of the index form."""
+    t, k = top_idx.shape
+    rows = torch.arange(t, device=top_idx.device)[:, None].expand(t, k)
+    where = (rows.reshape(-1), top_idx.reshape(-1).long(), slot_idx.reshape(-1).long())
+    zeros = torch.zeros((t, e, capacity), dtype=torch.float32, device=top_idx.device)
+    # each (token, expert) pair holds at most one selection: the sums
+    # below take one term, as JAX's sums over k do
+    dispatch = zeros.index_put(where, valid.reshape(-1), accumulate=True)
+    combine = zeros.index_put(where, (weights * valid).reshape(-1), accumulate=True)
+    return dispatch, combine
+
+
 def top_k_routing(router_logits: torch.Tensor, num_selected: int, capacity: int,
                   dense: bool = True) -> RoutingResult:
     """Top-k token → expert assignment with per-expert capacity.
@@ -46,40 +98,107 @@ def top_k_routing(router_logits: torch.Tensor, num_selected: int, capacity: int,
     dispatch and combine tensors (the einsum dispatch reads them)."""
     t, e = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)  # (T, E)
-    # descending and stable: equal probabilities keep the lower index first
-    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
-    top_idx = order[:, :num_selected]  # (T, k)
-    top_probs = torch.gather(probs, 1, top_idx)
-    top_probs = top_probs / top_probs.sum(-1, keepdim=True)
-
+    top_idx, top_probs = _top_k(probs, num_selected)
+    slot_idx, valid, sel_mask = _slots(top_idx, e, capacity)
     # Switch aux loss: E * sum_e (fraction of tokens routed to e) * (mean prob e)
-    sel_mask = F.one_hot(top_idx, e).float()  # (T, k, E)
-    tokens_per_expert = sel_mask.sum(1).mean(0)
-    aux_loss = e * torch.sum(tokens_per_expert * probs.mean(0))
-
-    # position of each (token, choice) in its expert's buffer: a running
-    # count over the token-major (T*k, E) selections (exact in integers)
-    flat_mask = sel_mask.reshape(t * num_selected, e).to(torch.int32)
-    positions = (torch.cumsum(flat_mask, 0, dtype=torch.int32) * flat_mask - 1)
-    positions = positions.reshape(t, num_selected, e)
-    in_capacity = (positions >= 0) & (positions < capacity)
-    pos_clamped = positions.clamp(0, capacity - 1)
-    sel = sel_mask.to(torch.int32)
-    slot_idx = (pos_clamped * sel).sum(-1, dtype=torch.int32)
-    valid = (in_capacity.float() * sel_mask).sum(-1)
+    aux_loss = e * torch.sum(sel_mask.sum(1).mean(0) * probs.mean(0))
     dropped = torch.clamp(1.0 - valid.sum() / (t * num_selected), min=0.0)
-
     dispatch = combine = None
     if dense:
-        rows = torch.arange(t, device=probs.device)[:, None].expand(t, num_selected)
-        where = (rows.reshape(-1), top_idx.reshape(-1), slot_idx.reshape(-1).long())
-        zeros = torch.zeros((t, e, capacity), dtype=torch.float32, device=probs.device)
-        # each (token, expert) pair holds at most one selection: the sums
-        # below take one term, as JAX's sums over k do
-        dispatch = zeros.index_put(where, valid.reshape(-1), accumulate=True)
-        combine = zeros.index_put(where, (top_probs * valid).reshape(-1), accumulate=True)
+        dispatch, combine = _dense(top_idx, slot_idx, valid, top_probs, e, capacity)
     return RoutingResult(combine, dispatch, aux_loss, probs, dropped, top_idx.to(torch.int32),
                          slot_idx, valid, top_probs)
+
+
+@dataclass(frozen=True)
+class TokenGrid:
+    """Where a rank's (b, s) tokens lie in the global (B, S) batch: row
+    block ``row`` of ``rows`` (the ``data`` × ``fsdp`` ranks, data outer,
+    as ``parallel/sharding.py::batch_spec`` cuts them) and column block
+    ``col`` of ``cols`` (the ``sequence`` ranks); ``group`` holds those
+    ranks, in its rank order data-major, then fsdp, then sequence."""
+
+    group: Any
+    rows: int
+    cols: int
+    row: int
+    col: int
+
+    @property
+    def ranks(self) -> int:
+        return self.rows * self.cols
+
+
+def token_grid(mesh: Optional[Mesh]) -> Optional[TokenGrid]:
+    """The mesh's ``TokenGrid``, or None when its batch axes (``data``,
+    ``fsdp``, ``sequence``) have one rank: every token is this rank's."""
+    if mesh is None or mesh.size("data", "fsdp", "sequence") == 1:
+        return None
+    return TokenGrid(mesh.group("data", "fsdp", "sequence"), mesh.size("data", "fsdp"),
+                     mesh.shape["sequence"],
+                     mesh.index("data") * mesh.shape["fsdp"] + mesh.index("fsdp"),
+                     mesh.index("sequence"))
+
+
+def global_top_k_routing(router_logits: torch.Tensor, num_selected: int, capacity: int,
+                         batch_shape: Tuple[int, int], grid: TokenGrid) -> RoutingResult:
+    """``top_k_routing`` of the global token population, on one rank of a
+    ``grid`` whose ranks hold the batch's (b, s) blocks (``batch_shape``):
+    what JAX's ``top_k_routing`` computes on the global (B·S, E) logits
+    under GSPMD, for this rank's rows. ``capacity`` is the global one
+    (``default_capacity`` of the global token count).
+
+    The rank's (T, k) int32 expert indices are all-gathered over the grid
+    (never the (T, E) probabilities) and put into the global token order:
+    rows data-major, and under ``sequence`` each row's column blocks side
+    by side, so a rank's tokens are not one run of that order. Slots come
+    from the running count over all T·k selections of that order, as in
+    JAX; this rank keeps the ``slot_index`` and ``valid`` of its own rows.
+    The dropped fraction counts the global selections.
+
+    The aux loss is E · Σ_e f_e · P_e with ``f_e`` the global share of
+    selections of expert e (from indices: no gradient) and ``P_e`` the
+    rank's own mean probability. Every rank holds as many tokens, so the
+    mean over the grid's ranks of this local aux loss is JAX's global one,
+    and the mean of their gradients (what the trainer takes over the batch
+    axes) is its gradient. The dense (T, E, C) tensors are not built here
+    (``expert_block`` builds those of a rank's experts)."""
+    t, e = router_logits.shape
+    b, s = batch_shape
+    k = num_selected
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    top_idx, top_probs = _top_k(probs, k)
+    gathered = all_gather(top_idx.to(torch.int32).contiguous(), grid.group)
+    order = gathered.view(grid.rows, grid.cols, b, s, k).permute(0, 2, 1, 3, 4).reshape(-1, k)
+    slot_idx, valid, sel_mask = _slots(order, e, capacity)
+    aux_loss = e * torch.sum(sel_mask.sum(1).mean(0) * probs.mean(0))
+    dropped = torch.clamp(1.0 - valid.sum() / valid.numel(), min=0.0)
+
+    def mine(x):
+        return x.view(grid.rows, b, grid.cols, s, k)[grid.row, :, grid.col].reshape(t, k)
+
+    return RoutingResult(None, None, aux_loss, probs, dropped, top_idx.to(torch.int32),
+                         mine(slot_idx), mine(valid), top_probs)
+
+
+def expert_block(routing: RoutingResult, first: int, count: int, capacity: int,
+                 dense: bool = False) -> RoutingResult:
+    """``routing`` as a rank holding experts [first, first + count) acts
+    on it: ``expert_index`` counted from the block's first expert, the
+    selections of other experts' invalid (``valid`` 0, pointed at a
+    clamped slot of the block, to which they add zeros), and with
+    ``dense`` the (T, count, C) dispatch and combine tensors of the block.
+    The whole set of experts (first 0, count E) is ``routing`` itself,
+    dense tensors built when asked."""
+    idx = routing.expert_index.long() - first
+    mine = (idx >= 0) & (idx < count)
+    valid = routing.valid * mine
+    idx = idx.clamp(0, count - 1).to(torch.int32)
+    dispatch = combine = None
+    if dense:
+        dispatch, combine = _dense(idx, routing.slot_index, valid, routing.weights, count,
+                                   capacity)
+    return routing._replace(combine=combine, dispatch=dispatch, expert_index=idx, valid=valid)
 
 
 def moe_dispatch_dense(x: torch.Tensor, routing: RoutingResult) -> torch.Tensor:

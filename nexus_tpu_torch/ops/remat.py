@@ -20,7 +20,7 @@ replays a block's ops in order, and what a saved op skips is that op
 itself: a tag placed after attention would skip nothing. The attention's
 last op is therefore the tag, and the policy names it.
 
-Collectives inside a block (a tensor-parallel rank's, parallel/tensor.py):
+Collectives inside a block (a model-axes rank's, parallel/tensor.py):
 the recompute replays the forward's ``reduce_from_tensor`` all-reduces
 that lie before the last tensor the backward needs, under every policy (a
 non-reentrant recompute stops there; ``dots`` / ``dots_attn`` keep the
@@ -28,7 +28,16 @@ products' outputs, the partial sums before each reduce, not the reduces,
 which are no products). A Llama layer replays the reduce after ``wo`` (its
 sum feeds the MLP's norm, whose backward needs it), not the one after
 ``w_down``; a GPT-NeoX layer's one reduce is its last op, replayed by no
-policy. ``copy_to_tensor`` runs no collective forward; its all-reduce runs
+policy. A Mixtral layer (models/mixtral.py) runs up to three
+collectives forward: the reduce after ``wo`` (a tensor axis), the
+all-gather of the routing's expert indices over the batch axes
+(ops/moe.py::global_top_k_routing) and the reduce of the MoE layer's
+partial outputs over the model axes (expert, tensor). Every policy
+replays the first two (the MoE norm's backward needs the attention's sum;
+the dispatch's and the combine's backward need the slots) and none the
+last, whose sum only feeds the residual add; ``dots`` and ``dots_attn``
+keep the router's product (an ``aten.mm``), not the experts' (``aten.bmm``).
+``copy_to_tensor`` runs no collective forward; its all-reduce runs
 once, in the backward. Every rank replays the same collectives in the
 same order: a block's recompute runs when its first saved tensor is
 unpacked, at the same point of every rank's identical backward. GSPMD's

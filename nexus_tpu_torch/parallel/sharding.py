@@ -6,19 +6,23 @@ tensor dims onto mesh axes. The port applies them by hand:
 * ``batch_spec`` cuts this rank's slice out of the global batch (rows over
   ``data`` and ``fsdp``, columns over ``sequence``);
 * ``shard_params`` cuts this rank's block out of every parameter along the
-  dims the rules put on ``tensor`` (heads, kv heads, qkv, mlp, vocab), as
-  JAX's ``shard_params`` places them. A fused leaf may cut each of several
-  equal runs of a dim in turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each
-  by head). ``TensorShard.join`` is the inverse: every rank's block of a
-  leaf back into the whole leaf (what a checkpoint holds). The other axes
-  keep parameters whole on every rank; the trainer shards the optimizer
-  state over ``fsdp`` (train/trainer.py).
+  dims the rules put on the model axes, ``expert`` (the MoE stacks' expert
+  dim) and ``tensor`` (heads, kv heads, qkv, mlp, vocab), as JAX's
+  ``shard_params`` places them (``ModelShard``; ``TensorShard`` for a tensor
+  axis alone). A fused leaf may cut each of several equal runs of a dim in
+  turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each by head).
+  ``ModelShard.join`` is the inverse: every rank's block of a leaf back
+  into the whole leaf (what a checkpoint holds). The batch axes keep
+  parameters whole on every rank; the trainer shards the optimizer state
+  over ``fsdp`` (train/trainer.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -77,63 +81,97 @@ def batch_spec(batch: Dict[str, np.ndarray], mesh: Mesh) -> Dict[str, np.ndarray
     return out
 
 
+# the mesh axes that cut parameters, in mesh order (outer → inner): the
+# experts of the MoE stacks over ``expert``, heads, d_ff and vocabulary
+# over ``tensor``
+MODEL_AXES: Tuple[str, ...] = ("expert", "tensor")
+
+
 @dataclass(frozen=True)
-class TensorShard:
-    """This rank's place on the ``tensor`` axis: block ``rank`` of ``size``
-    of every dim the rules put on it."""
+class ModelShard:
+    """This rank's place on the model axes: block ``ranks[i]`` of
+    ``sizes[i]`` of every dim the rules put on ``MODEL_AXES[i]``. A leaf
+    may be cut along a dim of each axis (Mixtral's ``w_gate``: its experts
+    over ``expert``, its d_ff over ``tensor``), along one, or along none.
+    ``TensorShard(rank, size)`` is the shard of a tensor axis alone."""
 
-    rank: int
-    size: int
+    ranks: Tuple[int, ...] = (0, 0)
+    sizes: Tuple[int, ...] = (1, 1)
 
-    def _cut_dims(self, dims: Tuple[Optional[str], ...], ndim: int) -> list:
-        """The positions, among the ``ndim`` trailing dims of ``dims``, that
-        ``logical_to_spec`` puts on ``tensor``."""
-        return [i for i, axis in enumerate(logical_to_spec(tuple(dims)[len(dims) - ndim:]))
-                if axis == "tensor"]
+    @property
+    def tensor(self) -> Tuple[int, int]:
+        """(rank, size) on the tensor axis."""
+        return self.ranks[1], self.sizes[1]
+
+    @property
+    def expert(self) -> Tuple[int, int]:
+        """(rank, size) on the expert axis."""
+        return self.ranks[0], self.sizes[0]
+
+    def _cut_dims(self, dims: Tuple[Optional[str], ...], ndim: int) -> Dict[int, int]:
+        """{axis index in MODEL_AXES: position among the ``ndim`` trailing
+        dims of ``dims``} of each dim ``logical_to_spec`` puts on a model
+        axis of more than one rank."""
+        out: Dict[int, int] = {}
+        for i, axis in enumerate(logical_to_spec(tuple(dims)[len(dims) - ndim:])):
+            if axis in MODEL_AXES and self.sizes[MODEL_AXES.index(axis)] > 1:
+                a = MODEL_AXES.index(axis)
+                if a in out:
+                    raise ValueError(f"dims {dims} put two dims on {axis}: a rank's blocks do "
+                                     "not tile such a tensor")
+                out[a] = i
+        return out
+
+    def _what(self, dims, ndim: int, i: int) -> str:
+        return repr(tuple(dims)[len(dims) - ndim + i])
 
     def take(self, x: torch.Tensor, dims: Tuple[Optional[str], ...],
              groups: int = 1) -> torch.Tensor:
         """This rank's block of ``x``, a whole tensor whose dims are the
-        trailing ones of ``dims`` (a stacked leaf or one layer of it): each
-        dim on ``tensor`` is read as ``groups`` equal runs, and the rank
-        keeps its block of each run, in order."""
-        for i in self._cut_dims(dims, x.dim()):
-            n = x.shape[i]
-            if n % (groups * self.size):
-                raise ValueError(f"dim {dims[len(dims) - x.dim() + i]!r} of {n} does not split "
-                                 f"into {groups} run(s) over {self.size} tensor ranks")
-            x = x.unflatten(i, (groups, self.size, n // (groups * self.size)))
-            x = x.select(i + 1, self.rank).flatten(i, i + 1)
+        trailing ones of ``dims`` (a stacked leaf or a slice of it): along
+        each cut dim the rank keeps its block; a dim on ``tensor`` is read as
+        ``groups`` equal runs, and the rank keeps its block of each run, in
+        order."""
+        for a, i in self._cut_dims(dims, x.dim()).items():
+            runs, size, n = (groups if a == 1 else 1), self.sizes[a], x.shape[i]
+            if n % (runs * size):
+                raise ValueError(f"dim {self._what(dims, x.dim(), i)} of {n} does not split "
+                                 f"into {runs} run(s) over {size} {MODEL_AXES[a]} ranks")
+            x = x.unflatten(i, (runs, size, n // (runs * size)))
+            x = x.select(i + 1, self.ranks[a]).flatten(i, i + 1)
         return x
 
     def join(self, blocks: Sequence[torch.Tensor], dims: Tuple[Optional[str], ...],
              groups: int = 1) -> torch.Tensor:
-        """The whole tensor from every rank's block (``blocks`` in rank
-        order, one per rank of the axis): the inverse of ``take``, fused
-        runs included. A tensor with no dim on ``tensor`` is the same
-        on every rank: rank 0's block is the whole."""
-        if len(blocks) != self.size:
-            raise ValueError(f"{len(blocks)} blocks for {self.size} tensor ranks")
+        """The whole tensor from every rank's block: ``blocks`` in the rank
+        order of the model axes' group (expert-major, then tensor), one per
+        rank; the inverse of ``take``, fused runs included. Ranks that
+        differ only on an axis that does not cut the tensor hold the same
+        block: the first of them is used."""
+        ne, nt = self.sizes
+        if len(blocks) != ne * nt:
+            raise ValueError(f"{len(blocks)} blocks for {ne * nt} ranks of the model axes")
         cut = self._cut_dims(dims, blocks[0].dim())
-        if not cut:
-            return blocks[0]
-        if len(cut) > 1:
-            raise ValueError(f"dims {dims} put {len(cut)} dims on tensor: a rank's blocks do "
-                             "not tile such a tensor")
-        i = cut[0]
-        n = blocks[0].shape[i]
-        if n % groups:
-            raise ValueError(f"dim {dims[len(dims) - blocks[0].dim() + i]!r} of {n} does not "
-                             f"split into {groups} run(s)")
-        runs = [b.unflatten(i, (groups, n // groups)) for b in blocks]
-        return torch.stack(runs, dim=i + 1).flatten(i, i + 2)
+
+        def joined(parts, a, runs):
+            if a not in cut:
+                return parts[0]
+            i, n = cut[a], parts[0].shape[cut[a]]
+            if n % runs:
+                raise ValueError(f"dim {self._what(dims, parts[0].dim(), i)} of {n} does not "
+                                 f"split into {runs} run(s)")
+            stacked = torch.stack([b.unflatten(i, (runs, n // runs)) for b in parts], dim=i + 1)
+            return stacked.flatten(i, i + 2)
+
+        rows = [joined(blocks[e * nt:(e + 1) * nt], 1, groups) for e in range(ne)]
+        return joined(rows, 0, 1)
 
     def whole_shape(self, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...]
                     ) -> Tuple[int, ...]:
         """The shape of the whole tensor whose block on a rank has ``shape``."""
         out = list(shape)
-        for i in self._cut_dims(dims, len(shape)):
-            out[i] *= self.size
+        for a, i in self._cut_dims(dims, len(shape)).items():
+            out[i] *= self.sizes[a]
         return tuple(out)
 
     def is_cut(self, dims: Tuple[Optional[str], ...], ndim: int) -> bool:
@@ -141,35 +179,71 @@ class TensorShard:
         each rank (else every rank holds it whole)."""
         return bool(self._cut_dims(dims, ndim))
 
+    def copies(self, dims: Tuple[Optional[str], ...], ndim: int) -> int:
+        """How many ranks of the model axes hold the same block of such a
+        tensor: the product of the sizes of the axes that do not cut it."""
+        cut = self._cut_dims(dims, ndim)
+        return math.prod(n for a, n in enumerate(self.sizes) if a not in cut)
+
     def shape(self, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...]) -> Tuple[int, ...]:
         """The shape of this rank's block of a whole tensor of ``shape``."""
         out = list(shape)
-        for i in self._cut_dims(dims, len(shape)):
-            if out[i] % self.size:
-                raise ValueError(f"dim {dims[len(dims) - len(shape) + i]!r} of {out[i]} does "
-                                 f"not split over {self.size} tensor ranks")
-            out[i] //= self.size
+        for a, i in self._cut_dims(dims, len(shape)).items():
+            if out[i] % self.sizes[a]:
+                raise ValueError(f"dim {self._what(dims, len(shape), i)} of {out[i]} does not "
+                                 f"split over {self.sizes[a]} {MODEL_AXES[a]} ranks")
+            out[i] //= self.sizes[a]
         return tuple(out)
 
+    def local_index(self, idx: Tuple[int, ...], dims: Tuple[Optional[str], ...],
+                    shape: Tuple[int, ...]) -> Optional[Tuple[int, ...]]:
+        """Where the slice at ``idx`` of the leading dims of a whole tensor
+        of ``shape`` lies in this rank's block, or None when its block does
+        not hold it (a leading dim cut: the MoE stacks' expert dim)."""
+        cut = {i: a for a, i in self._cut_dims(dims, len(shape)).items()}
+        out = []
+        for i, j in enumerate(idx):
+            if i in cut:
+                a = cut[i]
+                n = shape[i] // self.sizes[a]
+                j -= self.ranks[a] * n
+                if not 0 <= j < n:
+                    return None
+            out.append(j)
+        return tuple(out)
 
-def tensor_shard(mesh: Optional[Mesh]) -> Optional[TensorShard]:
-    """The mesh's ``TensorShard``, or None when its tensor axis has one rank."""
-    if mesh is None or mesh.shape["tensor"] == 1:
+    def experts(self, n_experts: int) -> range:
+        """The experts whose weights this rank holds."""
+        rank, size = self.expert
+        return range(rank * n_experts // size, (rank + 1) * n_experts // size)
+
+
+def TensorShard(rank: int, size: int) -> ModelShard:  # noqa: N802 (a shard's constructor)
+    """This rank's place on a ``tensor`` axis alone: block ``rank`` of
+    ``size`` of every dim the rules put on it."""
+    return ModelShard((0, rank), (1, size))
+
+
+def model_shard(mesh: Optional[Mesh]) -> Optional[ModelShard]:
+    """The mesh's shard over its model axes (``expert`` and ``tensor``), or
+    None when both have one rank: what training, infer and serve cut by."""
+    if mesh is None or mesh.size(*MODEL_AXES) == 1:
         return None
-    return TensorShard(mesh.index("tensor"), mesh.shape["tensor"])
+    return ModelShard(tuple(mesh.index(a) for a in MODEL_AXES),
+                      tuple(mesh.shape[a] for a in MODEL_AXES))
 
 
 def shard_params(params, logical_tree, mesh, groups: Optional[Dict[str, int]] = None):
     """This rank's block of every leaf of ``params`` along the dims that
-    ``logical_to_spec`` maps to ``tensor`` (the counterpart of JAX's
+    ``logical_to_spec`` maps to a model axis (the counterpart of JAX's
     ``shard_params``, which places each leaf by its logical dims), each
     cut by ``LeafCuts.take``. ``logical_tree`` mirrors ``params`` with
     tuples of logical dim names; ``groups`` names the fused leaves by tree
     path (``layers/wqkv``) with the number of equal runs their cut dim
-    holds. ``mesh`` is a ``Mesh`` or a ``TensorShard``. Each block is a
-    copy of its own, so the whole leaf can be freed; with no tensor axis
-    the params come back as they are."""
-    shard = mesh if isinstance(mesh, TensorShard) else tensor_shard(mesh)
+    holds. ``mesh`` is a ``ModelShard`` or a ``Mesh`` (its
+    ``model_shard``). Each block is a copy of its own, so the whole leaf can be freed; with
+    no cut the params come back as they are."""
+    shard = mesh if isinstance(mesh, ModelShard) else model_shard(mesh)
     if shard is None:
         return params
     cuts = LeafCuts(logical_tree, shard, groups)

@@ -23,31 +23,38 @@ draft's come from ``draftCheckpointDirectory`` or its seed. With
 ``model.weights.tokenizer``, ``infer.prompt`` and ``serve.prompts`` are
 text (utils/tokenizer.py), tokenized before any weights load, and the
 metrics carry the decoded ``completion`` / ``completions``. Family
-``mixtral`` resolves ``dispatch_impl: auto`` to the scatter dispatch.
+``mixtral`` resolves ``dispatch_impl: auto`` as JAX does: the scatter
+dispatch on one device, the einsum one over several ranks (reported as
+``moe_dispatch``); an explicit pin wins in both packages.
 
 Every mode runs on one device, or as one rank of an initialised
 ``torch.distributed`` group: the world is the group, and the declared
 parallelism is the mesh when it tiles the world (else JAX's plan for the
 world's size). Training takes its slice of the global batch on each rank,
-and a sharded ``sequence`` axis selects ring attention. Llama and GPT-NeoX
-also train over a sharded ``tensor`` axis, alone or with ``data`` and
-``fsdp``: each rank holds its block of the params (random init drawn whole
-a layer at a time, each rank keeping its block; parallel/sharding.py) and
-of their AdamW moments, the model runs Megatron's split with the axis's
-collectives (parallel/tensor.py) and the vocab-parallel loss, and the
-checkpoints hold JAX's global arrays. Infer and serve of Llama and GPT-NeoX
-run over a mesh whose only axis above 1 is ``tensor``: each rank holds its
-block of the params (random init, a checkpoint's, or ``model.weights``)
-and of the KV cache, the decode scaffold runs the axis's collectives, and
-the engine runs in lockstep on every rank (runtime/serving.py). A
-speculative draft whose heads do not tile the axis runs whole on every
-rank. Over more than one rank what is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item: infer / serve over
-``data``, ``fsdp`` or ``sequence``, training over ``sequence`` together
-with ``tensor``, and the MLP family over ``tensor`` (4b part three), a
-model whose heads, d_ff or vocab do not tile ``tensor`` (4b), ``expert``
-and the MoE family (4c), ``pipeline`` (4d). Only rank 0 writes the serve
-trace dump.
+and a sharded ``sequence`` axis selects ring attention. Every family with
+parameters cut by logical dims trains over the model axes too: ``tensor``
+(Llama, GPT-NeoX, Mixtral; alone or with ``data``, ``fsdp`` and
+``expert``) and ``expert`` (Mixtral's expert stacks; a dense family's
+ranks there are replicas, as in JAX). Each rank holds its block of the
+params (random init drawn whole a slice at a time, each rank keeping its
+block; parallel/sharding.py) and of their AdamW moments, the model runs
+Megatron's split with the axes' collectives (parallel/tensor.py), the
+vocab-parallel loss and, for Mixtral, routing over the global token
+population of the batch axes (ops/moe.py), and the checkpoints hold JAX's
+global arrays. Infer and serve of Llama, GPT-NeoX and Mixtral run over a
+mesh whose only axis above 1 is ``tensor``: each rank holds its block of
+the params (random init, a checkpoint's, or ``model.weights``) and of the
+KV cache, the decode scaffold runs the axis's collectives, and the engine
+runs in lockstep on every rank (runtime/serving.py). A speculative draft
+whose dims do not tile the axis runs whole on every rank. Over more than
+one rank what is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item: infer / serve over ``data``, ``fsdp`` or ``sequence``,
+training over ``sequence`` together with ``tensor``, the MLP family over
+``tensor`` and heads that do not tile ``tensor`` (4b part three), infer /
+serve over ``expert`` (4c part two), ``pipeline`` (4d). A d_ff or
+vocabulary that does not tile ``tensor``, or experts that do not tile
+``expert``, raise ``ValueError``: JAX cannot place such a model either.
+Only rank 0 writes the serve trace dump.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.parallel.comm import check_backend
 from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
-from nexus_tpu_torch.parallel.sharding import batch_spec, tensor_shard
+from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
@@ -87,18 +94,19 @@ from nexus_tpu_torch.utils.tokenizer import load_tokenizer
 logger = logging.getLogger("nexus_tpu_torch.runtime")
 
 
-def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = False
-                      ) -> Dict[str, Any]:
+def resolve_overrides(family: str, overrides: Dict[str, Any], remat: bool = False,
+                      world: int = 1) -> Dict[str, Any]:
     """The model overrides a run builds its config from: ``train.remat``
     folded in (not for ``mlp``, which has no remat, as in JAX), and
-    Mixtral's ``dispatch_impl`` resolved by the JAX rule on a one-device
-    program, the port's only kind: the scatter dispatch (the einsum one is
-    for sharded meshes). An explicit override wins."""
+    Mixtral's ``dispatch_impl`` resolved by the JAX rule from the mesh's
+    ``world`` ranks: the scatter dispatch on one, the einsum one over more
+    (what JAX reports as ``moe_dispatch`` on such a mesh). An explicit
+    override wins."""
     out = dict(overrides)
     if remat and family != "mlp" and "remat" not in out:
         out["remat"] = True
     if family == "mixtral" and "dispatch_impl" not in out:
-        out["dispatch_impl"] = "scatter"
+        out["dispatch_impl"] = "scatter" if world == 1 else "einsum"
     return out
 
 
@@ -114,7 +122,7 @@ def _resolve_mesh(runtime: JaxXlaRuntime, world: int):
 
 
 # the families whose params and decode run over a sharded tensor axis
-TENSOR_FAMILIES = ("llama", "gptneox")
+TENSOR_FAMILIES = ("llama", "gptneox", "mixtral")
 
 
 def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
@@ -128,14 +136,14 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
             why.append(f"mode {runtime.mode!r} (item 4b, part three) over the "
                        f"{', '.join(batch_axes)} axis: infer and serve run over the tensor "
                        "axis only")
+        if mesh.shape["expert"] > 1:
+            why.append(f"mode {runtime.mode!r} over the expert axis (item 4c, part two)")
     elif mesh.shape["tensor"] > 1:
         if runtime.model.family == "mlp":
             why.append("the mlp family over the tensor axis (item 4b, part three)")
         if mesh.shape["sequence"] > 1:
             why.append("training over the sequence axis together with the tensor axis "
                        "(item 4b, part three)")
-    if mesh.shape["expert"] > 1 or runtime.model.family == "mixtral":
-        why.append("the expert axis and MoE over a sharded token axis (item 4c)")
     if mesh.shape["pipeline"] > 1:
         why.append("the pipeline axis (item 4d)")
     attn = runtime.model.overrides.get("attn_impl", "ring")
@@ -146,28 +154,46 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
         why.append(f"attn_impl {attn!r} over the sequence axis (item 4a runs it only as 'ring')")
     if why:
         raise NotImplementedError(
-            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp, sequence and "
-            "tensor axes of training and the tensor axis of infer and serve; not ported yet: "
-            f"{', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
+            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp, sequence, expert "
+            "and tensor axes of training and the tensor axis of infer and serve; not ported "
+            f"yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
 
 
-def _untiled(cfg, size: int) -> list:
-    """The dims of ``cfg`` a tensor axis of ``size`` does not split."""
-    dims = {"q heads": cfg.n_heads, "kv heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size}
+def _untiled_heads(cfg, size: int) -> list:
+    """The head counts of ``cfg`` a tensor axis of ``size`` does not split."""
+    dims = {"q heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
+    return [f"{name} {n}" for name, n in dims.items() if n % size]
+
+
+def _untiled_dims(cfg, size: int) -> list:
+    """The d_ff and vocabulary of ``cfg`` a tensor axis of ``size`` does not
+    split."""
+    dims = {"d_ff": cfg.d_ff, "vocab": cfg.vocab_size}
     return [f"{name} {n}" for name, n in dims.items() if n % size]
 
 
 def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
-    """A target model the tensor axis cannot split: refused (item 4b)."""
+    """A target model the model axes cannot split. Heads that do not tile
+    ``tensor`` are the port's limit (JAX cuts the flat heads × head_dim
+    columns: item 4b, part three); a d_ff or vocabulary that does not tile
+    ``tensor``, or experts that do not tile ``expert``, JAX cannot place
+    either (``jax.device_put`` raises): ValueError."""
     size = mesh.shape["tensor"]
-    if size == 1 or not hasattr(cfg, "n_heads"):
-        return  # (the MLP family over the axis was refused before)
-    bad = _untiled(cfg, size)
-    if bad:
-        raise NotImplementedError(
-            f"the tensor axis of {size} ranks does not tile the model ({', '.join(bad)}); "
-            "sharding such a model is not ported yet (item 4b, ROADMAP 'Port to PyTorch/CUDA')")
+    if size > 1 and hasattr(cfg, "n_heads"):  # (the MLP over the axis was refused before)
+        bad = _untiled_heads(cfg, size)
+        if bad:
+            raise NotImplementedError(
+                f"the tensor axis of {size} ranks does not tile the model ({', '.join(bad)}); "
+                "sharding heads that do not tile the axis is not ported yet (item 4b, part "
+                "three, ROADMAP 'Port to PyTorch/CUDA')")
+        bad = _untiled_dims(cfg, size)
+        if bad:
+            raise ValueError(f"the tensor axis of {size} ranks does not tile the model "
+                             f"({', '.join(bad)}): JAX cannot shard such a model either")
+    n_expert = mesh.shape["expert"]
+    if n_expert > 1 and getattr(cfg, "n_experts", n_expert) % n_expert:
+        raise ValueError(f"the expert axis of {n_expert} ranks does not tile the model's "
+                         f"{cfg.n_experts} experts: JAX cannot shard such a model either")
 
 
 def _draft_shard(ref, d_cfg, mesh):
@@ -175,12 +201,14 @@ def _draft_shard(ref, d_cfg, mesh):
     draft's family runs over the axis and its dims tile it, else None (the
     draft whole on every rank: a deliberate difference, JAX shards it by
     GSPMD)."""
-    shard = tensor_shard(mesh)
+    shard = model_shard(mesh)
     if shard is None:
         return None
-    if ref.family not in TENSOR_FAMILIES or _untiled(d_cfg, shard.size):
+    size = shard.tensor[1]
+    if ref.family not in TENSOR_FAMILIES or _untiled_heads(d_cfg, size) + _untiled_dims(
+            d_cfg, size):
         logger.info("the draft %s/%s does not tile the tensor axis of %d ranks: it runs whole "
-                    "on every rank", ref.family, ref.preset, shard.size)
+                    "on every rank", ref.family, ref.preset, size)
         return None
     return shard
 
@@ -224,7 +252,7 @@ def run_template_runtime(
 
     family = get_family(runtime.model.family)
     overrides = resolve_overrides(runtime.model.family, runtime.model.overrides,
-                                  remat=runtime.train.remat)
+                                  remat=runtime.train.remat, world=mesh.world)
     if mesh.shape["sequence"] > 1 and runtime.model.family != "mlp":
         # a sharded sequence axis is context parallelism: the ring, exact
         # over the sequence blocks (another attn_impl was refused above)
@@ -260,11 +288,13 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
     )
     gen = torch.Generator(device=dev)
     gen.manual_seed(tr.seed)
-    shard = tensor_shard(mesh)
+    # the rank's blocks of the one-rank draw over the model axes (the mlp
+    # family has no logical dims: whole on every rank)
+    shard = model_shard(mesh) if hasattr(family, "logical_axes") else None
     cuts = None
     if shard is None:
         params = family.init(gen, cfg, dev)
-    else:  # the rank's blocks of the one-rank draw
+    else:
         params = family.init(gen, cfg, dev, shard=shard)
         cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
     state = init_train_state(params, family.leaves(params), optimizer, mesh=mesh, cuts=cuts)
@@ -505,7 +535,7 @@ def _run_infer(runtime, family, cfg, dev, mesh):
             raise ValueError(f"infer prompt ({prompt_len} tokens) leaves no room for new "
                              f"tokens within max_seq_len {ctx}")
     params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev,
-                                                         tensor_shard(mesh))
+                                                         model_shard(mesh))
     if ids is not None:
         prompt = torch.tensor(ids, dtype=torch.int32)[None, :].expand(tr.batch_size, -1)
     else:
@@ -735,7 +765,7 @@ def _run_serve(runtime, family, cfg, dev, mesh, cancel=None, heartbeat=None):
     tokenizer, literal_ids = _literal_prompts(runtime, cfg)
     trace = _synthetic_trace(sv, tr, cfg) if sv.arrival != "closed" and not literal_ids else None
     params, weights_loaded, restored_step = _load_params(runtime, family, cfg, dev,
-                                                         tensor_shard(mesh))
+                                                         model_shard(mesh))
     # NEXUS_SERVE_TRACE=<path>: trace this run and write the dump there (every
     # rank traces, as every rank runs the same host program; rank 0 writes)
     trace_path = os.environ.get("NEXUS_SERVE_TRACE", "").strip()

@@ -31,6 +31,8 @@ own stdlib writer (``save_safetensors``).
 
 from __future__ import annotations
 
+import functools
+
 import json
 import logging
 import os
@@ -240,7 +242,7 @@ def _convert(family_name: str, body, path: str, cfg, device: Device,
     """The frame the three converters share: the checkpoint opened and
     closed, the family's empty parameters allocated on ``device`` and handed
     to ``body(reader, params, cfg, note, take)`` to fill. With a
-    ``TensorShard`` the leaves are the rank's blocks, and ``take(path)``
+    ``ModelShard`` the leaves are the rank's blocks, and ``take(path)``
     gives the function that cuts a whole tensor read for the leaf at
     ``path`` (None: keep it whole)."""
     reader = CheckpointReader(path)
@@ -291,7 +293,7 @@ def convert_hf_llama(path: str, cfg, device: Device = None,
                      progress: Optional[Callable[[str], None]] = None,
                      shard=None) -> Dict[str, Any]:
     """HF-format Llama safetensors checkpoint → the port's parameter dict on
-    ``device`` (default CUDA; a tensor rank's blocks with a ``TensorShard``).
+    ``device`` (default CUDA; a rank's blocks with a ``ModelShard``).
     Tied-embedding checkpoints (no ``lm_head.weight``, e.g. Llama-3.2-1B)
     use the embedding transposed. Raises ValueError on a shape or
     layer-count mismatch with ``cfg``, KeyError on a missing tensor."""
@@ -387,7 +389,7 @@ def convert_hf_gptneox(path: str, cfg, device: Device = None,
                        progress: Optional[Callable[[str], None]] = None,
                        shard=None) -> Dict[str, Any]:
     """HF GPTNeoXForCausalLM safetensors checkpoint → the port's parameter
-    dict on ``device`` (a tensor rank's blocks with a ``TensorShard``): the
+    dict on ``device`` (a rank's blocks with a ``ModelShard``): the
     fused ``query_key_value`` is de-interleaved per head
     (:func:`_deinterleave_neox_qkv`), ``embed_out`` is the untied head."""
     return _convert("gptneox", _gptneox_body, path, cfg, device, progress, shard)
@@ -438,24 +440,28 @@ _HF_MIXTRAL_EXPERTS: Dict[str, str] = {
 }
 
 
-def _mixtral_body(reader, params, cfg, note, take) -> None:
+def _mixtral_body(reader, params, cfg, note, take, shard=None) -> None:
     L, E = cfg.n_layers, cfg.n_experts
     _check_depth(reader, L, f"model.layers.{L - 1}.input_layernorm.weight")
     layers = params["layers"]
     for ours, (tmpl, transpose) in _HF_MIXTRAL_ATTN.items():
         note(f"converting {ours} ({L} layers)")
-        _fill_stacked(layers[ours], reader, tmpl, transpose)
+        _fill_stacked(layers[ours], reader, tmpl, transpose, take(f"layers/{ours}"))
     note("converting router")  # HF gate.weight is (E, d); the port's (L, d, E) f32
     _fill_stacked(layers["router"], reader, _HF_MIXTRAL_ROUTER, True)
+    # a rank of the expert axis reads its own experts only, each cut to its
+    # block of d_ff by ``take``
+    experts = range(E) if shard is None else shard.experts(E)
     for ours, tmpl in _HF_MIXTRAL_EXPERTS.items():
-        note(f"converting {ours} ({L} layers x {E} experts)")
+        note(f"converting {ours} ({L} layers x {len(experts)} of {E} experts)")
         for i in range(L):
-            for e in range(E):
-                _fill(layers[ours][i, e], reader, tmpl.format(i, e), True)
+            for j, e in enumerate(experts):
+                _fill(layers[ours][i, j], reader, tmpl.format(i, e), True,
+                      take(f"layers/{ours}"))
     note("converting embed / final_norm / lm_head")
-    _fill(params["embed"], reader, "model.embed_tokens.weight", False)
+    _fill(params["embed"], reader, "model.embed_tokens.weight", False, take("embed"))
     _fill(params["final_norm"], reader, "model.norm.weight", False)
-    _fill(params["lm_head"], reader, "lm_head.weight", True)
+    _fill(params["lm_head"], reader, "lm_head.weight", True, take("lm_head"))
 
 
 def convert_hf_mixtral(path: str, cfg, device: Device = None,
@@ -463,8 +469,10 @@ def convert_hf_mixtral(path: str, cfg, device: Device = None,
                        shard=None) -> Dict[str, Any]:
     """HF MixtralForCausalLM safetensors checkpoint → the port's parameter
     dict on ``device`` (expert-stacked (L, E, in, out) FFN weights, the
-    router in float32); ``shard`` must be None (models/mixtral.py)."""
-    return _convert("mixtral", _mixtral_body, path, cfg, device, progress, shard)
+    router in float32); with a ``ModelShard`` the rank's blocks: its heads
+    and vocabulary block, and its experts at its block of d_ff."""
+    return _convert("mixtral", functools.partial(_mixtral_body, shard=shard), path, cfg, device,
+                    progress, shard)
 
 
 def hf_tensors_mixtral(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -510,8 +518,8 @@ def load_pretrained(family_name: str, path: str, cfg, device: Device = None,
                     shard=None) -> Dict[str, Any]:
     """What the entry point calls: convert ``path`` for ``family_name`` onto
     ``device`` (default CUDA; raises when no card is visible). With a
-    ``parallel.sharding.TensorShard`` (Llama, GPT-NeoX) each rank reads
-    every tensor, a layer at a time, and keeps its block."""
+    ``parallel.sharding.ModelShard`` each rank reads every tensor it holds
+    a block of, a layer (and an expert) at a time, and keeps its block."""
     try:
         converter = CONVERTERS[family_name]
     except KeyError:

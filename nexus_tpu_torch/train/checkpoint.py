@@ -289,10 +289,10 @@ class RankedCheckpointer:
     the step as a one-device run would, and every rank waits for it; a
     restore reads the whole step on every rank and keeps this rank's
     blocks. So a step written by any number of ranks restores into any
-    other. Under a sharded tensor axis rank 0's writer gathers each leaf's
-    tensor blocks as it reads the leaf, and a restore reads each whole leaf
-    and keeps the rank's block of its parameter and moments
-    (train/tensor_leaves.py)."""
+    other. Under sharded model axes (``expert``, ``tensor``) rank 0's writer
+    gathers each leaf's blocks from its group of those axes as it reads the
+    leaf, and a restore reads each whole leaf and keeps the rank's block of
+    its parameter and moments (train/tensor_leaves.py)."""
 
     def __init__(self, inner, mesh):
         self.inner = inner
@@ -328,7 +328,7 @@ class RankedCheckpointer:
                 mu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
                 nu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
                 count=opt.count, schedule_count=opt.schedule_count), state.step,
-                cuts=state.cuts, cut=state.cut)
+                cuts=state.cuts, cut=state.cut, copies=state.copies)
         target = whole if state.cuts is None else block_targets(whole)
         self.inner.restore(target, step)
         whole.opt_state.count = target.opt_state.count

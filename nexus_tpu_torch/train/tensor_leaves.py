@@ -1,12 +1,13 @@
-"""A tensor-parallel rank's train state as the checkpoint formats see it:
-whole leaves, gathered or cut one at a time (counterpart of the global
-arrays JAX's checkpointer reads and writes under a mesh).
+"""The train state of a rank of sharded model axes (``expert``,
+``tensor``) as the checkpoint formats see it: whole leaves, gathered or cut
+one at a time (counterpart of the global arrays JAX's checkpointer reads
+and writes under a mesh).
 
-A step holds every leaf whole, as one device would write it. A save over a
-sharded ``tensor`` axis lets rank 0's writer read a ``GatheredLeaf`` in
-place of each leaf the rules cut: reading it gathers that leaf's blocks
-from the ranks of rank 0's tensor group and joins them
-(``TensorShard.join``), a leaf at a time, so no rank holds more than one
+A step holds every leaf whole, as one device would write it. A save over
+sharded model axes lets rank 0's writer read a ``GatheredLeaf`` in place
+of each leaf the rules cut: reading it gathers that leaf's blocks from the
+ranks of rank 0's group of the model axes and joins both cuts
+(``ModelShard.join``), a leaf at a time, so no rank holds more than one
 whole leaf beyond its own blocks. The writer may read the leaves in any
 order and any number of times: before each gather rank 0 broadcasts the
 leaf's index over the group's host group, and its peers, which run
@@ -26,13 +27,14 @@ import torch.distributed as dist
 
 from nexus_tpu_torch.parallel.comm import all_gather
 from nexus_tpu_torch.parallel.mesh import AXES
+from nexus_tpu_torch.parallel.sharding import MODEL_AXES
 from nexus_tpu_torch.train.trainer import OptState, TrainState, leaf_paths
 
 
 class GatheredLeaf:
-    """A leaf whose blocks the tensor ranks hold, as a writer reads it: its
+    """A leaf whose blocks the model-axes ranks hold, as a writer reads it: its
     whole ``shape``, ``dtype`` and ``device``, and ``whole()``, the gather
-    (a collective that rank 0's tensor group joins)."""
+    (a collective that rank 0's group of the model axes joins)."""
 
     def __init__(self, gatherer: "Gatherer", index: int, block: torch.Tensor):
         self.gatherer = gatherer
@@ -46,7 +48,7 @@ class GatheredLeaf:
 
 
 class BlockTarget:
-    """A rank's tensor block as a restore target: the whole leaf's
+    """A rank's block of a leaf as a restore target: the whole leaf's
     ``shape`` and the block's ``dtype``; ``copy_(whole)`` keeps the block."""
 
     def __init__(self, block: torch.Tensor, take: Callable[[torch.Tensor], torch.Tensor],
@@ -81,7 +83,7 @@ def _map_tree(tree, f):
 
 def stand_in(state, wrap: Callable[[int, torch.Tensor, str], Any]):
     """``state`` (its moments whole over fsdp) with the parameter and the
-    moments of every tensor-cut leaf replaced by ``wrap(index, tensor,
+    moments of every cut leaf replaced by ``wrap(index, tensor,
     path)``: the index counts the parameters, then the first moments, then
     the second. The counts and the step are copied."""
     paths = leaf_paths(state.params, state.leaves)
@@ -101,10 +103,11 @@ def stand_in(state, wrap: Callable[[int, torch.Tensor, str], Any]):
 
 
 class Gatherer:
-    """The leaf-at-a-time gathers of one save over a sharded tensor axis,
-    on every rank: rank 0 drives them through ``proxy()``'s leaves and ends
-    them with ``done()``; the other ranks of its tensor group ``follow()``;
-    the rest of the world takes no part (``follows`` is False)."""
+    """The leaf-at-a-time gathers of one save over sharded model axes, on
+    every rank: rank 0 drives them through ``proxy()``'s leaves and ends
+    them with ``done()``; the other ranks of its group of the model axes
+    ``follow()``; the rest of the world takes no part (``follows`` is
+    False)."""
 
     def __init__(self, state, mesh):
         self.state = state
@@ -112,10 +115,10 @@ class Gatherer:
         self.paths = leaf_paths(state.params, state.leaves)
         opt = state.opt_state
         self.tensors: List[torch.Tensor] = list(state.leaves) + list(opt.mu) + list(opt.nu)
-        self.size = mesh.shape["tensor"]
-        self.group = mesh.group("tensor")
-        self.host = mesh.host_group("tensor")
-        self.follows = all(mesh.index(a) == 0 for a in AXES if a != "tensor")
+        self.size = mesh.size(*MODEL_AXES)
+        self.group = mesh.group(*MODEL_AXES)
+        self.host = mesh.host_group(*MODEL_AXES)
+        self.follows = all(mesh.index(a) == 0 for a in AXES if a not in MODEL_AXES)
 
     def whole_shape(self, index: int) -> tuple:
         return self.cuts.whole_shape(self.paths[index % len(self.paths)],
@@ -149,7 +152,7 @@ class Gatherer:
 
 def block_targets(state):
     """``state`` (its moments whole over fsdp) as a restore target: each
-    tensor-cut tensor a ``BlockTarget`` of its whole leaf."""
+    cut tensor a ``BlockTarget`` of its whole leaf."""
     cuts = state.cuts
     return stand_in(state, lambda i, t, p: BlockTarget(t, cuts.take(p),
                                                        cuts.whole_shape(p, t.shape)))

@@ -19,14 +19,18 @@ block, and the blocks are gathered back into the whole parameters for the
 next step. (JAX gathers each layer's parameters just in time inside the
 step; the results are the same.)
 
-Under a sharded ``tensor`` axis each rank holds its tensor block of the
-leaves the rules cut (``TrainState.cuts``) and the whole of the others (the
-norms, GPT-NeoX's replicated biases), and everything above applies to those
-blocks: the fsdp blocks are blocks of the tensor block. The global norm
-that the clip reads is JAX's ``optax.global_norm`` over the global arrays:
-the squares of the cut leaves are summed over the tensor ranks, those of
-the whole leaves counted once, then both over ``fsdp``; so every rank
-clips by one factor and the whole leaves stay equal on every rank.
+Under sharded model axes (``tensor``, and ``expert`` for the MoE stacks)
+each rank holds its block of the leaves the rules cut (``TrainState.cuts``)
+and the whole of the others (the norms, the router, GPT-NeoX's replicated
+biases), and everything above applies to those blocks: the fsdp blocks are
+blocks of the model block. The model axes are no batch axes: their ranks
+see the same tokens and no gradient is averaged over them (over ``expert``
+a dense family's ranks all compute the same step: a replica axis, as in
+JAX). The global norm that the clip reads is JAX's ``optax.global_norm``
+over the global arrays: each leaf's squares are summed over the model
+ranks and ``fsdp`` and divided by the number of model ranks holding the
+same block; so every rank clips by one factor and the replicated leaves
+stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -160,8 +164,8 @@ class FsdpShards:
         self.index = mesh.index("fsdp")
         self.group = mesh.group("fsdp")
         # the ranks holding the same blocks of gradients of other rows or
-        # positions: the other batch axes (never tensor, whose ranks hold
-        # blocks of other columns)
+        # positions: the other batch axes (never a model axis, expert or
+        # tensor, whose ranks hold other blocks or see the same tokens)
         self.peers = mesh.group(*(a for a in BATCH_AXES if a != "fsdp"))
         self.batch_ranks = mesh.size(*BATCH_AXES)
 
@@ -214,10 +218,12 @@ class TrainState:
     opt_state: OptState  # whole, or this rank's blocks under ``shards``
     step: int = 0
     shards: Optional[FsdpShards] = None
-    # under a sharded tensor axis: the family's leaves as this rank holds
-    # them (parallel/sharding.py), and whether each of ``leaves`` is a block
+    # under sharded model axes: the family's leaves as this rank holds them
+    # (parallel/sharding.py), whether each of ``leaves`` is a block, and how
+    # many model-axes ranks hold the same block of it
     cuts: Optional[LeafCuts] = None
     cut: Optional[List[bool]] = None
+    copies: Optional[List[int]] = None
 
 
 def leaf_paths(params: Any, leaves: List[torch.Tensor]) -> List[str]:
@@ -231,17 +237,20 @@ def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW,
                      ) -> TrainState:
     """The state of a fresh run; on a mesh with a sharded ``fsdp`` axis the
     AdamW moments are this rank's blocks. ``cuts``: the leaves as a rank of
-    a sharded tensor axis holds them (``params`` are its blocks)."""
-    cut = None
+    sharded model axes holds them (``params`` are its blocks)."""
+    cut = copies = None
     if cuts is not None and cuts.shard is not None:
-        cut = [cuts.is_cut(p) for p in leaf_paths(params, leaves)]
+        paths = leaf_paths(params, leaves)
+        cut = [cuts.is_cut(p) for p in paths]
+        copies = [cuts.copies(p) for p in paths]
     else:
         cuts = None
     if mesh is None or mesh.shape["fsdp"] == 1:
-        return TrainState(params, leaves, optimizer.init(leaves), cuts=cuts, cut=cut)
+        return TrainState(params, leaves, optimizer.init(leaves), cuts=cuts, cut=cut,
+                          copies=copies)
     shards = FsdpShards(mesh)
     return TrainState(params, leaves, optimizer.init(shards.local(leaves)), shards=shards,
-                      cuts=cuts, cut=cut)
+                      cuts=cuts, cut=cut, copies=copies)
 
 
 def whole_state(state: TrainState) -> TrainState:
@@ -256,7 +265,7 @@ def whole_state(state: TrainState) -> TrainState:
                     nu=state.shards.gather(opt.nu, state.leaves),
                     count=opt.count, schedule_count=opt.schedule_count)
     return TrainState(state.params, state.leaves, full, state.step, cuts=state.cuts,
-                      cut=state.cut)
+                      cut=state.cut, copies=state.copies)
 
 
 def load_whole_state(state: TrainState, whole: TrainState) -> None:
@@ -269,28 +278,31 @@ def load_whole_state(state: TrainState, whole: TrainState) -> None:
     state.step = whole.step
 
 
-def sharded_norm(blocks: List[torch.Tensor], cut: Optional[List[bool]],
+def sharded_norm(blocks: List[torch.Tensor], copies: Optional[List[int]],
                  mesh: Mesh) -> torch.Tensor:
     """The global norm of the gradient whose blocks this rank holds
-    (averaged over the batch axes already): the squares of the blocks of
-    tensor-cut leaves summed over the ranks of fsdp and tensor, those of
-    the other leaves over fsdp alone (each tensor rank holds them whole).
-    One collective: both sums over the two axes, the second then divided by
-    the tensor ranks (a power of two: exact)."""
-    cut = cut or [False] * len(blocks)
+    (averaged over the batch axes already): each leaf's squares summed over
+    the ranks of fsdp and of the model axes (``expert``, ``tensor``), then
+    divided by ``copies``, the number of model-axes ranks that hold the
+    same block of it (1 for a leaf cut by both axes; the axis's size for a
+    leaf cut by the other alone; both sizes for a leaf whole on every rank,
+    the default when ``copies`` is None). One collective: a sum for each
+    number of copies, each divided after it (a power of two: exact)."""
+    whole = mesh.size("expert", "tensor")
+    copies = copies or [whole] * len(blocks)
+    kinds = sorted(set(copies))
     zero = torch.zeros((), device=blocks[0].device)
-    sq = torch.stack([sum((g.float().square().sum() for g, c in zip(blocks, cut) if c), zero),
-                      sum((g.float().square().sum() for g, c in zip(blocks, cut) if not c),
-                          zero)])
-    sq = all_reduce(sq, mesh.group("fsdp", "tensor"))
-    return torch.sqrt(sq[0] + sq[1] / mesh.shape["tensor"])
+    sq = torch.stack([sum((g.float().square().sum() for g, c in zip(blocks, copies) if c == n),
+                          zero) for n in kinds])
+    sq = all_reduce(sq, mesh.group("fsdp", "expert", "tensor"))
+    return torch.sqrt(sum(sq[i] / n for i, n in enumerate(kinds)))
 
 
 def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """Every rank's scalar metrics averaged over the mesh in one
     collective; perplexity as the exp of the mean of its log (the exp of
-    the mean loss). The tensor ranks of one batch slice report one loss,
-    so averaging over them too changes nothing."""
+    the mean loss). The model-axes ranks (expert, tensor) of one batch
+    slice report one loss, so averaging over them too changes nothing."""
     names = sorted(metrics)
     vals = torch.stack([metrics[k].float().log() if k == "perplexity" else metrics[k].float()
                         for k in names])
@@ -352,7 +364,7 @@ def make_train_step(
             g_blocks = shards.reduce_grads(grads)
             p_blocks = shards.local(state.leaves)
         del grads
-        norm = sharded_norm(g_blocks, state.cut, mesh)
+        norm = sharded_norm(g_blocks, state.copies, mesh)
         metrics["grad_norm"] = optimizer.update(p_blocks, g_blocks, state.opt_state, norm=norm)
         if shards is not None:
             with torch.no_grad():

@@ -1,7 +1,8 @@
 """chip_smoke.py's parts that need no card: the paged-decode kernel's
 bound, counted by hand on small shapes; the key-tail shapes, the decode
 error gate, the serve phases' specs and their same-token count; the
-tensor-parallel train phases' specs, gates and planted faults.
+tensor-parallel train phases' specs, gates and planted faults; the MoE
+phases' specs, gates, planted faults and the dense dispatch's bytes.
 
 The bound counts each input byte once: every row's visible slots past the
 Hydragen split, and the visible slots under the split once for the whole
@@ -388,6 +389,11 @@ def test_the_mixtral_serve_phase_weights_fit_under_the_peak_gate():
 
 def test_the_mixtral_train_gates():
     cs.check_mixtral_train("x", {"moe_dispatch": "scatter", "router_dropped_fraction": 0.08})
+    cs.check_mixtral_train("x", {"moe_dispatch": "einsum", "router_dropped_fraction": 0.0},
+                           "einsum")
+    with pytest.raises(AssertionError, match="not 'einsum'"):
+        cs.check_mixtral_train("x", {"moe_dispatch": "scatter", "router_dropped_fraction": 0.0},
+                               "einsum")
     for bad, needle in (({"moe_dispatch": "einsum", "router_dropped_fraction": 0.1},
                          "moe_dispatch"),
                         ({"moe_dispatch": "scatter", "router_dropped_fraction": 1.0},
@@ -1102,6 +1108,71 @@ def test_the_paged_feed_is_the_dense_one_and_a_rolled_pool_fails_the_limit(name,
         cs.check_tp_logits({name: {"paged": dense}}, ranks(rolled, rolled))
 
 
+def test_route_flips_splits_the_error_by_the_tokens_whose_routing_flips():
+    """By hand: 2 layers, 1 row of 4 tokens, top 2; token 2's experts
+    differ at layer 1. The error of each token is its largest logit
+    difference over one rank's largest logit (10)."""
+    import torch
+
+    want = torch.zeros(1, 4, 3)
+    want[0, 0, 0] = 10.0
+    got = want.clone()
+    got[0, :, 1] += torch.tensor([0.1, 0.2, 3.0, 0.5])
+    ref = torch.tensor([[[0, 1], [2, 3], [0, 4], [1, 2]]] * 2)
+    routes = ref.clone()
+    routes[1, 2] = torch.tensor([0, 5])
+    out = cs.route_flips(want, got, ref, routes)
+    assert out["tokens"] == 4 and out["flipped_tokens"] == 1 and out["flips_by_layer"] == [0, 1]
+    assert out["flipped"] == pytest.approx(0.3) and out["unflipped"] == pytest.approx(0.05)
+    assert out["before_first_flip"] == pytest.approx(0.02)
+    nothing = cs.route_flips(want, got, ref, ref)
+    assert nothing["flipped_tokens"] == 0 and nothing["flipped"] == 0.0
+    assert nothing["before_first_flip"] == nothing["unflipped"] == pytest.approx(0.3)
+
+
+def test_an_moe_feed_records_its_routes_and_its_unflipped_tokens_are_gated(monkeypatch):
+    """A tiny Mixtral's dense feed records one (B·T, k) route a layer (the
+    patch put back after); check_tp_logits holds the tokens whose routing
+    does not flip to TP_LOGIT_LIMIT, beside the whole feed's family limit."""
+    import numpy as np
+    import torch
+
+    from nexus_tpu_torch.models import mixtral
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    cfg = mixtral.config("tiny", dtype=torch.float32)
+    params = _decode_params(mixtral, cfg, torch.device("cpu"), 0)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (1, 12)))
+    route = mixtral.top_k_routing
+    ref = cs._feed(mixtral, params, cfg, tokens, "dense")
+    assert mixtral.top_k_routing is route
+    assert ref["dense/routes"].shape == (cfg.n_layers, 12, cfg.n_experts_per_token)
+    assert "dense/routes" not in cs._feed(mixtral, params, cfg, tokens, "paged")
+    logits = ref["dense"]
+    scale = logits.abs().max()
+    limit = cs.TP_LOGIT_LIMITS["mixtral"]
+    fault = logits + 2 * limit * scale
+    routes = ref["dense/routes"].clone()
+    routes[0, 5] = routes[0, 5].flip(0) + 1  # token 5 flips at layer 0
+
+    def ranks(clean, routes):
+        return [{"logits": {"mixtral": {
+            "logits": {"dense/clean": clean, "dense/no_wdown_reduce": fault},
+            "routes": {"dense/routes": routes}, "checksum": {"dense/clean": 1.0}}}}]
+
+    # an error past TP_LOGIT_LIMIT on the flipped token alone passes
+    moved = logits.clone()
+    moved[0, 5, 0] += 1.5 * cs.TP_LOGIT_LIMIT * scale
+    out = cs.check_tp_logits({"mixtral": ref}, ranks(moved, routes))
+    info = out["mixtral"]["dense/routes"]
+    assert info["flipped_tokens"] == 1 and info["unflipped"] == 0.0
+    assert info["flipped"] == pytest.approx(1.5 * cs.TP_LOGIT_LIMIT, rel=1e-4)
+    # on a token that keeps its routing it fails
+    with pytest.raises(AssertionError, match="routing does not flip"):
+        cs.check_tp_logits({"mixtral": ref}, ranks(moved, ref["dense/routes"]))
+
+
 # ------------------------------------------------ tensor-parallel training
 
 
@@ -1133,7 +1204,8 @@ def test_train_tp_is_the_fsdp_template_cut_in_depth_steps_and_batch():
 
 def test_the_train_rank_shapes_are_the_ranks_heads():
     for label, (hq, hkv, ranks) in {"llama8b_tp2": (32, 8, 2), "llama8b_tp4": (32, 8, 4),
-                                    "pythia_tp2": (16, 16, 2)}.items():
+                                    "pythia_tp2": (16, 16, 2),
+                                    "mixtral_tp2": (32, 8, 2)}.items():
         shape = cs.TP_TRAIN_SHAPES[label]
         assert (shape["Hq"], shape["Hkv"]) == (hq // ranks, hkv // ranks)
 
@@ -1174,3 +1246,146 @@ def test_the_planted_train_faults_patch_and_restore():
     with pytest.raises(ValueError, match="unknown planted fault"):
         with cs.planted_train_fault("nope"):
             pass
+
+
+# ------------------------------------------------------------ MoE over ranks
+
+
+def _fanout_runtime():
+    import yaml
+
+    with open("examples/moe-mixtral-fanout.yaml") as f:
+        docs = [d for d in yaml.safe_load_all(f) if d["kind"] == "NexusAlgorithmTemplate"]
+    return docs[0]["spec"]["runtime"]
+
+
+def test_the_moe_train_specs_are_the_fanout_template_cut():
+    """MOE_TRAIN keeps examples/moe-mixtral-fanout.yaml's model, widths,
+    overrides and parallelism (re-planned by the ranks' count), cutting
+    only what its comments list; train-moe-ep runs it over {fsdp: 2,
+    expert: 2} at 1 layer, 2 rows and MOE_EP_CF, resuming an Orbax step."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.parallel.mesh import plan_for_devices
+
+    rt = _fanout_runtime()
+    spec = cs.moe_train_spec()
+    assert (spec["model"]["family"], spec["model"]["preset"]) == ("mixtral", "8x7b")
+    over = dict(spec["model"]["overrides"])
+    assert over.pop("n_layers") == 2  # dispatch_impl as the template leaves it: auto
+    assert over == rt["model"]["overrides"] and spec["parallelism"] == rt["parallelism"]
+    twin = cs.one_card_twin(spec)
+    assert twin["model"]["overrides"] == dict(spec["model"]["overrides"], dispatch_impl="einsum")
+    assert "dispatch_impl" not in spec["model"]["overrides"]  # the twin is a copy
+    assert plan_for_devices(cs.MOE_RANKS).tensor == cs.MOE_RANKS
+    JaxXlaRuntime.from_dict(spec)
+    assert cs.moe_train_spec(1, planted="no_expert_copy")["planted"] == "no_expert_copy"
+    ep = cs.moe_ep_spec("/x", 3)
+    JaxXlaRuntime.from_dict(ep)
+    assert ep["parallelism"] == cs.MOE_EP_PLAN and ep["train"]["batchSize"] == 2
+    assert ep["model"]["overrides"]["n_layers"] == 1
+    assert ep["model"]["overrides"]["capacity_factor"] == cs.MOE_EP_CF
+    assert ep["checkpoint"]["resume"] and ep["checkpoint"]["format"] == "orbax"
+    assert not cs.moe_ep_spec("", 1)["checkpoint"]["enabled"]
+    assert cs.moe_ep_spec("", 1, plan={"expert": 4})["parallelism"] == {"expert": 4}
+
+
+def test_the_dispatch_timing_shapes_are_the_train_phases_rank_shapes():
+    """MOE_DISPATCH_SHAPES: each MoE train phase's tokens a rank, the rank's
+    experts and d_ff, and the global capacity, from its spec and plan."""
+    from nexus_tpu_torch.ops.moe import default_capacity
+
+    # {tensor: 2}: every expert, half of d_ff; {fsdp: 2, expert: 2}: half
+    # of the tokens and of the experts, all of d_ff
+    for name, spec, world, experts, ff in (
+            ("train-moe-tp", cs.moe_train_spec(), cs.MOE_RANKS, 8, 14336 // 2),
+            ("train-moe-ep", cs.moe_ep_spec("", 1), 4, 4, 14336)):
+        cfg = cs._model_config(spec)
+        tokens = spec["train"]["batchSize"] * spec["train"]["seqLen"]
+        cap = default_capacity(tokens, cfg.n_experts, cfg.n_experts_per_token,
+                               cfg.capacity_factor)
+        assert cs.MOE_DISPATCH_SHAPES[name] == (4096, experts, cap, ff)
+        assert cs.moe_dense_bytes(spec, world) == 2 * 4 * 4096 * experts * cap
+
+
+def test_the_dense_dispatch_bytes_are_counted_by_hand():
+    # train-moe-tp re-planned to {tensor: 2}: 4096 tokens, 8 experts,
+    # capacity int(4096 * 2 * 1.25 / 8) = 1280, two f32 tensors
+    assert cs.moe_dense_bytes(cs.moe_train_spec(), 2) == 2 * 4 * 4096 * 8 * 1280
+    # train-moe-ep over {fsdp: 2, expert: 2}: 4096 of 8192 tokens a rank, 4
+    # experts, capacity int(8192 * 2 * 0.5 / 8) = 1024
+    assert cs.moe_dense_bytes(cs.moe_ep_spec("", 1), 4) == 2 * 4 * 4096 * 4 * 1024
+
+
+def test_the_moe_gates_hold_the_dropped_share_absolute(monkeypatch):
+    monkeypatch.setattr(cs, "card_label", lambda: "no card")
+    lim = cs.MOE_LIMITS
+    one = _steps((10.0, 2.0, 1.5, 0.0), (9.0, 3.0, 1.4, 0.25))
+    clean = _steps((10.0 * (1 + lim["loss"] / 2), 2.0, 1.5, lim["router_dropped_fraction"] / 2),
+                   (9.0, 3.0, 1.4, 0.25))
+    out = cs.check_train_tp("x", clean, one, {}, lim)
+    assert out["clean"]["router_dropped_fraction"] == pytest.approx(
+        lim["router_dropped_fraction"] / 2)
+    aux_fault = _steps((10.0, 2.0, 1.5 * (1 + 4 * lim["aux"]), 0.0))
+    assert cs.check_train_tp("x", clean, one, {"f": aux_fault}, lim)["f"]["aux"] == \
+        pytest.approx(4.0)
+    with pytest.raises(AssertionError, match="over the ranks"):
+        cs.check_train_tp("x", _steps((10.0, 2.0, 1.5, 2 * lim["router_dropped_fraction"]),
+                                      (9.0, 3.0, 1.4, 0.25)), one, {}, lim)
+    with pytest.raises(AssertionError, match="planted f passes"):
+        cs.check_train_tp("x", clean, one, {"f": clean}, lim)
+
+
+def test_the_moe_planted_faults_patch_and_restore(monkeypatch):
+    """Each fault patches what its comment says for the block, and puts it
+    back: the norm given no copies, f skipped for the (T, d) tokens alone
+    (not the (T, 2) combine weights nor a 3-d input), no token grid."""
+    import torch
+
+    from nexus_tpu_torch.models import mixtral as Mx
+    from nexus_tpu_torch.parallel import tensor as T
+    from nexus_tpu_torch.train import trainer as Tr
+
+    calls = []
+    monkeypatch.setattr(Tr, "sharded_norm", lambda blocks, copies, mesh: calls.append(copies))
+    monkeypatch.setattr(T._Copy, "apply", lambda x, group: calls.append(tuple(x.shape)) or x)
+    norm, copy, grid = Tr.sharded_norm, Mx.copy_to_tensor, Mx.token_grid
+    with cs.planted_train_fault("whole_norm"):
+        Tr.sharded_norm([], [1, 2], None)
+    with cs.planted_train_fault("no_expert_copy"):
+        for shape in ((3, 8), (3, 2), (1, 3, 8)):
+            Mx.copy_to_tensor(torch.ones(shape), "group")
+    with cs.planted_train_fault("per_rank_routing"):
+        assert Mx.token_grid("any mesh") is None
+    assert calls == [None, (3, 2), (1, 3, 8)]
+    assert (Tr.sharded_norm, Mx.copy_to_tensor, Mx.token_grid) == (norm, copy, grid)
+
+
+def test_recorded_steps_keep_the_moe_metrics():
+    """Mixtral's steps carry (loss, grad norm, aux, dropped share), the
+    MoE gates' four metrics."""
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    spec = {"kind": "jax_xla", "mode": "train", "model": {"family": "mixtral", "preset": "tiny"},
+            "train": {"batchSize": 2, "seqLen": 32, "steps": 2, "learningRate": 3e-3}}
+    with cs.recorded_steps() as steps:
+        m = E.run_template_runtime(spec, device="cpu")
+    assert len(steps) == 2 and all(len(step) == 4 for step in steps)
+    assert steps[-1][0] == m["loss_history"][-1] and steps[-1][3] == m["router_dropped_fraction"]
+
+
+def test_serve_moe_tp_serves_mixtral_serves_requests_over_two_ranks():
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+
+    spec, one = cs.moe_serve_spec(), cs.mixtral_serve_spec()
+    JaxXlaRuntime.from_dict(spec)
+    assert spec["parallelism"] == {"tensor": cs.TP_RANKS} and "parallelism" not in one
+    assert spec["serve"] == one["serve"] and spec["serve"]["numRequests"] == 8
+    assert spec["model"]["overrides"] == {"n_layers": cs.MOE_SERVE_LAYERS,
+                                          "dispatch_impl": cs.MOE_DISPATCH_OVER_RANKS}
+    assert cs.moe_serve_spec(1)["parallelism"] == {"tensor": 1}
+    assert cs.moe_serve_spec(1)["model"]["overrides"] == spec["model"]["overrides"]
+    assert cs.moe_serve_spec(4, 32)["model"]["overrides"]["n_layers"] == 32
+    assert cs.rank_heads(spec, cs.TP_RANKS) == (16, 4, 128)
+    preset, over, feeds = cs.TP_LOGIT_CASES["mixtral"]
+    assert preset == "8x7b" and over == {"n_layers": cs.MIXTRAL_SERVE_LAYERS}
+    assert feeds == {"dense": ("clean", "no_wdown_reduce")}

@@ -230,20 +230,23 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
     pytest.param(dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}),
                  ValueError, "dots", 1, id="over1-ValueError-dots"),
-    # Mixtral over several ranks: MoE over a sharded token axis (item 4c).
-    # The id is the one of the case from when ring attention was refused
-    # at one device, where it runs now (test_llama_ring_attention_raises_
-    # naming_item_4 below)
+    # Mixtral over a sharded sequence axis together with the tensor axis
+    # (item 4b, part three). The id is the one of the case from when Mixtral
+    # over any ranks was refused (item 4c; it trains over the ring since,
+    # tests/test_torch_moe_parallel.py), and before that ring attention at
+    # one device
     pytest.param(dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}},
-                      parallelism={"sequence": 2}), NotImplementedError, "not ported.*item 4c",
-                 2, id="over2-NotImplementedError-not ported"),
+                      parallelism={"sequence": 2, "tensor": 2}), NotImplementedError,
+                 "not ported.*item 4b, part three", 4, id="over2-NotImplementedError-not ported"),
     # the other axes and modes not ported over several ranks. Training over
     # the tensor axis runs since item 4b part two (tests/test_torch_tensor_
     # train.py); with a sharded sequence axis beside it, it is part three
     pytest.param(dict(parallelism={"tensor": 2, "sequence": 2}), NotImplementedError,
                  "tensor axis .item 4b, part three", 4, id="tensor-4b"),
-    pytest.param(dict(parallelism={"data": 2, "expert": 2}), NotImplementedError,
-                 "expert axis.*item 4c", 4, id="expert-4c"),
+    # serving over the expert axis (item 4c, part two; training runs over it
+    # since part one, a replica axis for a dense family)
+    pytest.param(dict(mode="serve", parallelism={"expert": 2}), NotImplementedError,
+                 "expert axis .item 4c, part two", 2, id="expert-4c"),
     pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
                  "pipeline axis.*item 4d", 4, id="pipeline-4d"),
     pytest.param(dict(mode="infer", parallelism={"data": 2}), NotImplementedError,
@@ -264,15 +267,32 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
                  "tensor axis of 8 ranks does not tile.*item 4b", 8, id="replanned-tensor-4b"),
     # infer and serve run over the tensor axis only (item 4b, part one):
     # serve over data, a target whose kv heads (the tiny Llama's 2) do not
-    # tile a tensor axis of 4, and Mixtral over the tensor axis (item 4c)
+    # tile a tensor axis of 4
     pytest.param(dict(mode="serve", parallelism={"data": 2}), NotImplementedError,
                  "mode 'serve' .item 4b, part three. over the data axis", 2,
                  id="serve-data-4b"),
     pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
                  "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),
-    pytest.param(dict(mode="infer", model={"family": "mixtral"}, parallelism={"tensor": 2}),
-                 NotImplementedError, "MoE over a sharded token axis .item 4c", 2,
+    # Mixtral infers over the tensor axis since item 4c (tests/test_torch_
+    # moe_parallel.py); with the expert axis beside it, it is part two
+    pytest.param(dict(mode="infer", model={"family": "mixtral"},
+                      parallelism={"expert": 2, "tensor": 2}), NotImplementedError,
+                 "mode 'infer' over the expert axis .item 4c, part two", 4,
                  id="infer-mixtral-tensor-4c"),
+    # experts that do not tile the expert axis: JAX cannot place them either
+    # (a ValueError naming no item)
+    pytest.param(dict(model={"family": "mixtral"}, parallelism={"expert": 8}),
+                 ValueError, "expert axis of 8 ranks does not tile the model's 4 experts: JAX "
+                 "cannot", 8, id="expert-untiled-experts"),
+    # a d_ff or a vocabulary that does not tile the tensor axis: no item,
+    # JAX cannot shard such a model either
+    pytest.param(dict(model={"overrides": {"d_ff": 129}}, parallelism={"tensor": 2}),
+                 ValueError, "does not tile the model .d_ff 129.: JAX cannot", 2,
+                 id="tensor-untiled-d_ff"),
+    pytest.param(dict(mode="serve", model={"overrides": {"vocab_size": 255}},
+                      parallelism={"tensor": 2}),
+                 ValueError, "does not tile the model .vocab 255.: JAX cannot", 2,
+                 id="tensor-untiled-vocab"),
 ])
 def test_unported_paths_raise(monkeypatch, over, exc, match, world):
     """Over ``world`` ranks (the group's size and rank stand in for an

@@ -1,6 +1,7 @@
 """What the ranks of the multi-rank tests run (tests/test_torch_mesh.py,
 test_torch_ring_attention.py, test_torch_parallel_train.py,
-test_torch_tensor_parallel.py, test_torch_tensor_train.py): each function
+test_torch_tensor_parallel.py, test_torch_tensor_train.py,
+test_torch_moe_parallel.py): each function
 runs on every rank of a group that nexus_tpu_torch/testing/dist.py spawns.
 
 The ranks import this module by name, so it imports torch and the port
@@ -14,7 +15,7 @@ import torch
 import torch.distributed as dist
 
 from nexus_tpu_torch.ops import ring_attention as R
-from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh
+from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh, world_size
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -164,12 +165,12 @@ def save_and_restore(directory, plan_kw, fmt, mode, seed):
                                                make_train_step, whole_state)
 
     from nexus_tpu_torch.models.params import LeafCuts
-    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.parallel.sharding import model_shard
 
     cfg = llama.config("tiny", dtype="bfloat16", attn_impl="xla")
     gen = torch.Generator().manual_seed(seed)
     mesh = build_mesh(MeshPlan(**plan_kw))
-    shard = tensor_shard(mesh)  # under a tensor axis: the rank's blocks
+    shard = model_shard(mesh)  # under a tensor axis: the rank's blocks
     params = llama.init(gen, cfg, "cpu", shard=shard)
     opt = build_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=4)
     state = init_train_state(params, llama.leaves(params), opt, mesh=mesh,
@@ -254,9 +255,9 @@ def tp_logits(family_name, cfg_kw, jax_params, tokens):
     forward_decode on this tensor rank (a dense cache), then one more
     token: the whole logits of both feeds, and the rank's kv heads."""
     from nexus_tpu_torch.models.decoding import cache_for, local_heads
-    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, world_size
 
-    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
+    mesh = build_mesh(MeshPlan(tensor=world_size()))
     family, cfg, params = _tp_params(family_name, cfg_kw, jax_params, mesh)
     toks = torch.from_numpy(tokens).long()
     with use_mesh(mesh), torch.no_grad():
@@ -268,17 +269,18 @@ def tp_logits(family_name, cfg_kw, jax_params, tokens):
             "heads": local_heads(params, cfg), "cache_heads": cache["k"].shape[3]}
 
 
-def tp_engine(cfg_kw, jax_params, queue, engine_kw):
-    """The tiny Llama's serving engine on this tensor rank over ``queue``
+def tp_engine(cfg_kw, jax_params, queue, engine_kw, family_name="llama"):
+    """The tiny model's serving engine (Llama by default) on this tensor
+    rank over ``queue``
     [(prompt, max_new)] with the sanitizer's audits on and a fake clock:
     each request's tokens, the metrics, the host store's stats and the
     post-serve audits' verdict."""
-    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, world_size
     from nexus_tpu_torch.runtime.serving import ServeRequest, ServingEngine
     from nexus_tpu_torch.testing import sanitizers as tsan
 
-    mesh = build_mesh(MeshPlan(tensor=dist.get_world_size()))
-    family, cfg, params = _tp_params("llama", cfg_kw, jax_params, mesh)
+    mesh = build_mesh(MeshPlan(tensor=world_size()))
+    family, cfg, params = _tp_params(family_name, cfg_kw, jax_params, mesh)
     clock = _FakeClock()
     with use_mesh(mesh):
         eng = ServingEngine(family.forward_decode, params, cfg, clock=clock, **engine_kw)
@@ -324,14 +326,14 @@ def tp_loaded_blocks(family_name, cfg_kw, hf_path, ck_dir):
     from nexus_tpu_torch.models.params import tree_items
     from nexus_tpu_torch.models.registry import get_family
     from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh
-    from nexus_tpu_torch.parallel.sharding import tensor_shard
+    from nexus_tpu_torch.parallel.sharding import model_shard
     from nexus_tpu_torch.runtime.weights import load_pretrained
     from nexus_tpu_torch.train.checkpoint import (latest_step, make_checkpointer,
                                                   restore_param_shard)
 
     family = get_family(family_name)
     cfg = family.config("tiny", **cfg_kw)
-    shard = tensor_shard(build_mesh(MeshPlan(tensor=dist.get_world_size())))
+    shard = model_shard(build_mesh(MeshPlan(tensor=dist.get_world_size())))
     out = {}
     if hf_path:
         out["hf"] = {k: _np(t) for k, t in tree_items(
@@ -368,7 +370,7 @@ def tp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
     from nexus_tpu_torch import interop
     from nexus_tpu_torch.models.params import LeafCuts, tree_items
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.parallel.sharding import batch_spec, tensor_shard
+    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
     from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 
     family = get_family(family_name)
@@ -377,7 +379,7 @@ def tp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
     params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
                                                                mesh=mesh)
     opt = build_optimizer(**opt_kw)
-    cuts = LeafCuts(family.logical_axes(cfg), tensor_shard(mesh), family.TENSOR_GROUPS)
+    cuts = LeafCuts(family.logical_axes(cfg), model_shard(mesh), family.TENSOR_GROUPS)
     state = init_train_state(params, family.leaves(params), opt, mesh=mesh, cuts=cuts)
     step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
     losses, norms = [], []
@@ -412,4 +414,137 @@ def vocab_ce(hidden, lm_head, targets, chunk):
         loss = fn(h, w, torch.from_numpy(targets).long())
         loss.backward()
         out[name] = {"loss": loss.item(), "d_hidden": _np(h.grad), "d_lm_head": _np(w.grad)}
+    return out
+
+
+# ------------------------------------ MoE over ranks and the expert axis
+# (tests/test_torch_moe_parallel.py)
+
+
+def _coords(mesh):
+    return {a: mesh.index(a) for a in ("data", "fsdp", "expert", "sequence", "tensor")}
+
+
+def moe_routing(logits, plan_kw, capacity, k):
+    """``global_top_k_routing`` on this rank of a mesh of ``plan_kw`` (the
+    port's world) over its block of the global (B, S, E) ``logits``: its
+    expert indices, slots, valid flags, the dropped fraction and its local
+    aux loss, and the mesh coordinates."""
+    from nexus_tpu_torch.ops.moe import global_top_k_routing, token_grid
+
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    grid = token_grid(mesh)
+    b, s = logits.shape[0] // grid.rows, logits.shape[1] // grid.cols
+    block = logits[grid.row * b:(grid.row + 1) * b, grid.col * s:(grid.col + 1) * s]
+    r = global_top_k_routing(torch.from_numpy(block.reshape(b * s, -1).copy()), k, capacity,
+                             (b, s), grid)
+    return {"expert_index": r.expert_index.numpy(), "slot_index": r.slot_index.numpy(),
+            "valid": r.valid.numpy(), "dropped": r.dropped_fraction.item(),
+            "aux": r.aux_loss.item(), "coords": _coords(mesh)}
+
+
+def model_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
+    """The port's train step on this rank of a mesh of ``plan_kw`` (the
+    port's world), from the JAX params cut to its blocks over the model
+    axes, over the global ``batches`` (each rank keeps its slice): every
+    step's metrics (loss, grad norm and, for Mixtral, aux and the dropped
+    fraction), this rank's blocks of the parameters after the last step by
+    tree path, and its mesh coordinates."""
+    from nexus_tpu_torch import interop
+    from nexus_tpu_torch.models.params import LeafCuts, tree_items
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = model_shard(mesh)
+    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
+                                                               mesh=shard)
+    opt = build_optimizer(**opt_kw)
+    cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
+    state = init_train_state(params, family.leaves(params), opt, mesh=mesh, cuts=cuts)
+    step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
+    keys = ("loss", "grad_norm", "aux", "router_dropped_fraction")
+    out = {k: [] for k in keys}
+    with use_mesh(mesh):
+        for batch in batches:
+            local = batch_spec({"tokens": batch}, mesh)
+            state, m = step(state, {"tokens": torch.from_numpy(local["tokens"]).long()})
+            for k in keys:
+                if k in m:
+                    out[k].append(m[k].item())
+    out.update(coords=_coords(mesh), copies=state.copies,
+               params={k: _np(t) for k, t in tree_items(state.params)})
+    return out
+
+
+def tp_generate(family_name, cfg_kw, jax_params, prompt, n_new):
+    """Greedy ``generate`` of ``prompt`` on this tensor rank: the ids."""
+    mesh = build_mesh(MeshPlan(tensor=world_size()))
+    family, cfg, params = _tp_params(family_name, cfg_kw, jax_params, mesh)
+    with use_mesh(mesh):
+        ids = family.generate(params, cfg, torch.from_numpy(prompt).long(), n_new)
+    return {"ids": ids.numpy()}
+
+
+def model_save_and_restore(family_name, cfg_kw, directory, plan_kw, fmt, mode, seed):
+    """``save_and_restore`` for any family over any mesh of the port's
+    world, the params cut by the mesh's model axes: 'save' trains 2 steps
+    of the tiny model and saves, returning the whole state (params and
+    moments, as bits) rank 0 wrote; 'restore' restores the latest step and
+    resumes one step, returning this rank's parameters and blocks of the
+    moments as restored, and the resumed step's loss."""
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
+    from nexus_tpu_torch.train.checkpoint import RankedCheckpointer, make_checkpointer
+    from nexus_tpu_torch.train.data import synthetic_lm_batches
+    from nexus_tpu_torch.train.trainer import (build_optimizer, init_train_state,
+                                               make_train_step, whole_state)
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = model_shard(mesh)
+    params = family.init(torch.Generator().manual_seed(seed), cfg, "cpu", shard=shard)
+    opt = build_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=4)
+    state = init_train_state(params, family.leaves(params), opt, mesh=mesh,
+                             cuts=LeafCuts(family.logical_axes(cfg), shard,
+                                           family.TENSOR_GROUPS))
+    ck = make_checkpointer(directory, keep=2, fmt=fmt)
+    if mesh.world > 1:
+        ck = RankedCheckpointer(ck, mesh)
+    step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
+    data = synthetic_lm_batches(4, 16, cfg.vocab_size, seed=seed)
+
+    def run(n):
+        nonlocal state
+        loss = None
+        with use_mesh(mesh):
+            for _ in range(n):
+                local = batch_spec(next(data), mesh)
+                state, m = step(state, {"tokens": torch.from_numpy(local["tokens"]).long()})
+                loss = m["loss"].item()
+        return loss
+
+    if mode == "save":
+        run(2)
+        ck.save(state)
+        whole = whole_state(state)
+        return {"step": whole.step, "count": whole.opt_state.count,
+                "schedule_count": whole.opt_state.schedule_count,
+                "tensors": [_bits(t) for t in list(whole.leaves) + whole.opt_state.mu
+                            + whole.opt_state.nu], "coords": _coords(mesh)}
+    ck.restore(state)
+    out = {"step": state.step, "count": state.opt_state.count,
+           "schedule_count": state.opt_state.schedule_count,
+           "params": [_bits(t) for t in state.leaves],
+           "blocks": [_bits(t) for t in state.opt_state.mu + state.opt_state.nu],
+           "coords": _coords(mesh), "fsdp": mesh.shape["fsdp"]}
+    # the data stream past the two steps the saving run took
+    for _ in range(2):
+        next(data)
+    out["resumed_loss"] = run(1)
     return out
