@@ -40,18 +40,18 @@ Phases, each of which raises on failure:
    prefix-cached engine: 32 requests (prompts 320..512 with a 256-token
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
-   and the paged-decode kernel launched; then 8 requests on the int8 pool,
-   (for information) 8 of its requests on the gather path, and three more
-   phases with the same gates: ``serve-lookup`` (8 requests, prompt-lookup
-   speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (8
+   and the paged-decode kernel launched; then 4 requests on the int8 pool,
+   (for information) 4 of its requests on the gather path, and three more
+   phases with the same gates: ``serve-lookup`` (4 requests, prompt-lookup
+   speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (4
    requests, the ``draft`` preset at the target's vocabulary and context
-   as the proposer) and ``serve-prefill32`` (8 requests, prefillChunk 32),
+   as the proposer) and ``serve-prefill32`` (4 requests, prefillChunk 32),
    each of which must launch the kernel at its feed width (5, 5, 32); the
    speculation ledger and, for information, how many requests commit the
    plain serve's tokens;
 8. the host spill tier under open-loop traffic, with ``NEXUS_SANITIZE=1``
    and the port's audits installed: ``serve-chat-host`` streams a Poisson
-   chat trace (10 roots over 6.25 s, half of them 3-turn sessions 4 s of
+   chat trace (10 roots over 6.25 s, half of them 3-turn sessions 2 s of
    think time apart, 256-token preambles from a pool of 4) through a
    48-block pool with a 2 GiB host tier, and ``serve-host-int8`` 10 roots
    over 6.25 s demoting to int8; past
@@ -96,7 +96,7 @@ Phases, each of which raises on failure:
    ``small`` of the spec's default family, named by no family key,
    float32, batch 64, 200 steps: the last loss under half the first);
 13. pretrained weights and text prompts: ``pretrained-llama`` exports the
-   seed's random Llama-3-8B weights (8 layers, PRETRAINED_LAYERS; ~5 GB)
+   seed's random Llama-3-8B weights (4 layers, PRETRAINED_LAYERS; ~3.8 GB)
    as four safetensors shards and model.safetensors.index.json, writes a
    tokenizer.json (256 byte tokens, merges learned from a fixed text, two
    special tokens), and loads the shards back bit for bit
@@ -136,13 +136,13 @@ Phases, each of which raises on failure:
    gradients held to flash over the whole sequence on one rank and to the
    plain versions; then the visiting block's kernels held and timed on the
    card alone beside SDPA at that shape), ``ring-neox``
-   (examples/train-gptneox-long-context.yaml at preset ``1b``, 4 of its 24
+   (examples/train-gptneox-long-context.yaml at preset ``1b``, 2 of its 24
    layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 2 steps: losses finite and
    equal on both ranks, K1-K3 on each, peaks under 60 GB; then 2 layers of
    it, 4 steps, every step's loss and grad norm within RING_LOSS_RTOL and
    RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
    model's gradient timed) and ``ring-fsdp-neox`` (2 layers over {fsdp: 2,
-   sequence: 2}, B 2 x S 8192, 3 steps, saving the last: every step's loss
+   sequence: 2}, B 2 x S 8192, 2 steps, saving the last: every step's loss
    and grad norm within those limits of the one-rank run's, each rank
    holding half the AdamW state bytes, the step restored into one rank bit
    for bit against the whole state rank 0 wrote and every rank's blocks);
@@ -153,21 +153,22 @@ Phases, each of which raises on failure:
    queue's depths, held to its plain version and timed beside its bound and
    SDPA); the teacher-forced logits of a fixed 64-token prompt over the
    ranks within TP_LOGIT_LIMIT of one rank's, equal on both ranks:
-   Llama-3-8B's through a dense cache, with two planted faults (no reduce
-   after w_down; the vocab gather in the wrong order) past the limit, and
+   Llama-3-8B's (TP_LLAMA_LOGIT_LAYERS, 16) through a dense cache, with two
+   planted faults (no reduce after w_down; the vocab gather in the wrong
+   order) past the limit, and
    Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
    pool at the rank's kv heads read by D1 (feeds of 8, then of 1), with D1
    reading the pool's kv heads rolled by one past the limit; ``infer-tp``
    (examples/infer-llama8b.yaml at its published widths, 4 of its 32 layers,
    re-planned to {tensor: 2}, the infer phase's shape: the same ids on both
    ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 4
-   requests) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
+   requests at SERVE_TP_LAYERS, 8) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
    SERVE_TP_NEOX_LAYERS (6) layers, 4 requests): the serve gates on each rank, D1 at
    T 1 and 8 at the rank's head counts only, the same completions on both
    ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
    4 requests on one card): the token share they commit before their
    first difference at least TP_SERVE_SHARE_LIMIT; ``serve-moe-tp``
-   (Mixtral-8x7B widths at MOE_SERVE_LAYERS (8) layers, mixtral-serve's 8
+   (Mixtral-8x7B widths at MOE_SERVE_LAYERS (4) layers, mixtral-serve's 8
    requests) with the same serve gates, beside ``serve-moe-tp-1card`` (the
    same on one card; both pin the dispatch ``auto`` resolves over ranks),
    and Mixtral's teacher-forced logits at mixtral-serve's 16 layers through
@@ -201,8 +202,30 @@ Phases, each of which raises on failure:
    rank, the dense dispatch's bytes; ``moe-dispatch``: both dispatches and
    the rank's expert products timed at each phase's rank shape, the two
    dispatches' tokens equal within bf16's rounding;
-19. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax, ring, tensor-parallel and MoE phase's launches), each
+19. the rest of the batch and tensor axes (module item 4b, part three), in
+   the spawn of 4 of phase 17 and 18, the ranks sharing the card over gloo:
+   ``infer-dp-tp`` (examples/infer-llama8b.yaml at its published widths, 4
+   layers, 8 rows, prompt 128, 64 new tokens, over {data: 2, tensor: 2}:
+   every rank's ids of the whole batch equal; the teacher-forced logits of
+   every row, each rank feeding its rows, gathered in row order, within
+   TP_LOGIT_LIMIT of one card's, with the rows gathered in reverse order
+   and a data rank fed its peer's rows past it), ``serve-fsdp-tp`` (the
+   serve queue at 4 layers, 8 requests, over {fsdp: 2, tensor: 2}: the
+   serve gates and the same ledger on every rank, serve-tp's token share
+   against the same requests on one card, and the lockstep audit firing on
+   every rank when an fsdp replica is given another first prompt),
+   ``train-ring-tp`` (the long-context template at Pythia-1.4B widths, 2
+   layers, one row of 8192 over {sequence: 2, tensor: 2}, 3 steps: the
+   tensor limits against one card, the ring shifted over the whole world
+   past them; K1-K3 at the ring visit of a tensor rank's 8 heads held and
+   timed in phase 2), ``train-moe-ring-tp`` (MOE_TRAIN at 1 layer, one row
+   of 4096 over {sequence: 2, tensor: 2}, 2 steps: MOE_LIMITS, the norm
+   counting each leaf's copies wrong past them) and ``mlp-tp`` (the MLP
+   ``small`` preset over {fsdp: 2, tensor: 2}, 20 steps: the tensor limits,
+   the column-parallel inputs' gradient sum left out past them);
+20. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring, tensor-parallel, MoE and batch-axes phase's launches,
+   and K1-K3's timings and bounds at the ring visit of a tensor rank's heads), each
    phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -248,6 +271,18 @@ Mixtral's logits over the ranks).
 on a 4-card machine, a rank a card over NCCL: serves the whole
 Mixtral-8x7B (32 layers) over {tensor: 4} and runs train-moe-ep over
 {expert: 4} beside the same spec on one card.
+
+    python3 chip_smoke.py --batch-axes-gates
+
+runs the batch-axes phases alone on one card (K1-K3 at the ring visit of a
+tensor rank's heads, train-ring-tp, train-moe-ring-tp, mlp-tp, infer-dp-tp,
+serve-fsdp-tp).
+
+    python3 chip_smoke.py --batch-axes-nccl
+
+on a 4-card machine, a rank a card over NCCL: infer-dp-tp over {data: 2,
+tensor: 2} and serve-fsdp-tp over {fsdp: 2, tensor: 2}, beside the same
+specs on one card.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -1212,7 +1247,8 @@ INFER_SPEC = {
 
 def phase_infer(spec=INFER_SPEC, name: str = "infer") -> dict:
     """``mode: infer`` (Llama-3-8B at full depth by default): greedy decode
-    of 64 new tokens after a 512-token prompt, 8 rows, the dense KV cache."""
+    of 64 new tokens after a 512-token prompt, 8 rows, the dense KV cache;
+    finite logits and the spec's output shape."""
     from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 
     _free_card()
@@ -1223,8 +1259,10 @@ def phase_infer(spec=INFER_SPEC, name: str = "infer") -> dict:
         f"output_shape {m['output_shape']}, last_logits_finite {m['last_logits_finite']}")
     if not m["last_logits_finite"]:
         raise AssertionError(f"{name}: the last logits are not finite")
-    if m["output_shape"] != [8, 512 + 64]:
-        raise AssertionError(f"{name}: output shape {m['output_shape']} != [8, 576]")
+    inf = spec["infer"]
+    shape = [spec["train"]["batchSize"], inf["promptLength"] + inf["maxNewTokens"]]
+    if m["output_shape"] != shape:
+        raise AssertionError(f"{name}: output shape {m['output_shape']} != {shape}")
     return m
 
 
@@ -1238,6 +1276,11 @@ def _serve_spec(num_requests: int = 32, **extra):
             "model": {"family": "llama", "preset": "8b"},  # all 32 layers
             "train": {"batchSize": 8, "seed": 0}, "serve": serve}
 
+
+# the serve variants' requests (serve-int8, -gather, -lookup, -draft,
+# -prefill32): the serve queue's first 4 (8 until the batch-axes phases
+# needed the script's time)
+SERVE_VARIANT_REQUESTS = 4
 
 SPEC_KEYS = ("speculative_kind", "num_speculative", "target_forwards", "acceptance_rate",
              "accepted_per_round", "decode_dispatches_per_committed_token")
@@ -1315,8 +1358,9 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
 
 # the host-tier phases' traffic: an open-loop chat trace (Poisson arrivals;
 # half the roots are 3-turn sessions whose turn k+1 prompt is turn k's
-# history, arriving after ~4 s of think time (8 until the MoE phases over
-# ranks needed the script's time: the turns' waits set the phases' walls); 256-token preambles from a pool
+# history, arriving after ~2 s of think time (8 until the MoE phases over
+# ranks, 4 until the batch-axes phases needed the script's time: the turns'
+# waits set the phases' walls); 256-token preambles from a pool
 # of 4, Zipf 1.1), 64 new tokens a request, through a pool of 48 blocks (the
 # worst request needs 16, eight rows of them 128): the traffic between a
 # session's turns spills its history to host RAM, and the next turn restores
@@ -1324,7 +1368,7 @@ def phase_serve(name: str, spec, must_launch=True, must_t=()) -> dict:
 # they still restore blocks with decode steps three times slower than the
 # card's; at 64 blocks the 16-root trace stopped restoring at twice slower.
 CHAT_TRACE = {"arrival": "poisson", "traceMultiTurnFrac": 0.5, "traceTurns": 3,
-              "tracePrefixPool": 4, "traceZipfA": 1.1, "traceThinkSeconds": 4.0,
+              "tracePrefixPool": 4, "traceZipfA": 1.1, "traceThinkSeconds": 2.0,
               "maxNewMin": 64, "maxNewMax": 64, "kvNumBlocks": 48}
 HOST_CACHE_BYTES = 2 << 30  # 512 blocks of the 8b pool (4 MiB each)
 
@@ -1335,7 +1379,8 @@ HOST_CACHE_BYTES = 2 << 30  # 512 blocks of the 8b pool (4 MiB each)
 # time: 10 over 6.25 s keep its arrival rate, and a CPU replay at 45 and 130
 # ms a step still spills and restores, with 4 s of think time too: at 45 ms
 # 71 blocks spilled, 25 restored, a 21.7 s wall against 30.1 s at 8 s; 8 over
-# 5 s did not restore at 45 ms)
+# 5 s did not restore at 45 ms; at 2 s of think time 55 spilled and 8
+# restored at both 45 and 130 ms a step, a 17.3 s wall at 45 ms)
 HOST_PHASES = {"serve-chat-host": (10, 6.25, {}),
                "serve-host-int8": (10, 6.25, {"hostCacheDtype": "int8"})}
 
@@ -1888,10 +1933,10 @@ PRETRAINED_NEW_TOKENS = 32
 # the two other families, cut to 2 layers: (preset, layers)
 # (Mixtral at 1 layer since the MoE phases over ranks needed the script's time)
 PRETRAINED_SMALL = {"mixtral": ("8x7b", 1), "gptneox": ("20b", 2)}
-# pretrained-llama's depth: 8 of Llama-3-8B's 32 layers, ~5 GB as four
+# pretrained-llama's depth: 4 of Llama-3-8B's 32 layers, ~3.8 GB as four
 # shards (all 32 until the tensor-parallel train phases, 16 until the MoE
-# phases over ranks needed the script's time)
-PRETRAINED_LAYERS = 8
+# phases over ranks, 8 until the batch-axes phases needed the script's time)
+PRETRAINED_LAYERS = 4
 
 
 def write_tokenizer_json(path: str, text: str = PRETRAINED_TEXT, n_merges: int = 300) -> str:
@@ -2588,11 +2633,12 @@ RING_VISIT_SHAPES = {
 # gradients not divided by the ranks, 1.14e-5 and 3 (PERF.md §6)
 RING_LOSS_RTOL = 1e-4
 RING_GRAD_NORM_RTOL = 5e-4
-# ring-neox's long run: 4 of Pythia-1.4B's 24 layers (all 24 until the
-# tensor-parallel train phases, 6 until the MoE phases over ranks needed the
-# script's time)
-RING_NEOX_LAYERS = 4
-# ring-fsdp-neox's depth: 2 layers (4 until the same cut)
+# ring-neox's long run: 2 of Pythia-1.4B's 24 layers (all 24 until the
+# tensor-parallel train phases, 6 until the MoE phases over ranks, 4 until
+# the batch-axes phases needed the script's time)
+RING_NEOX_LAYERS = 2
+# ring-fsdp-neox's depth: 2 layers (4 until the MoE phases over ranks); 2
+# steps (3 until the batch-axes phases)
 RING_FSDP_LAYERS = 2
 # examples/train-gptneox-long-context.yaml's runtime block, cut to one card
 # as each comment says (the template itself is YAML, and the card's machine
@@ -3014,9 +3060,10 @@ def _model_config(spec: dict):
                                                       **spec["model"]["overrides"])
 
 
-def check_rank_runs(name: str, runs: list) -> list:
-    """Every rank's losses finite and equal, K1-K3 launched on every rank,
-    each rank's peak under PEAK_GB."""
+def check_rank_runs(name: str, runs: list, kernels=None) -> list:
+    """Every rank's losses finite and equal, each kernel of ``kernels``
+    (K1-K3 by default; the MLP runs none) launched on every rank, each
+    rank's peak under PEAK_GB."""
     import math
 
     from nexus_tpu_torch.ops import attention as A
@@ -3024,7 +3071,7 @@ def check_rank_runs(name: str, runs: list) -> list:
     world = len(runs)
     hist = runs[0]["loss_history"]
     log(f"[{name}] {world} ranks, tokens_per_sec {runs[0]['tokens_per_sec']}, "
-        f"per rank (tokens_per_sec_per_chip) {runs[0]['tokens_per_sec_per_chip']}, "
+        f"per rank (tokens_per_sec_per_chip) {runs[0].get('tokens_per_sec_per_chip')}, "
         f"n_devices {runs[0]['n_devices']}, steps (loss, grad norm) {runs[0]['steps']}, "
         f"loss_history {hist}, launches by rank {[r['launches'] for r in runs]}, peak GB by rank "
         f"{[round(r['peak_mem_gb'], 2) for r in runs]}, AdamW state bytes by rank "
@@ -3039,7 +3086,8 @@ def check_rank_runs(name: str, runs: list) -> list:
         raise AssertionError(f"{name}: the ranks report different losses: "
                              f"{[r['loss_history'] for r in runs]}")
     for r in runs:
-        missing = [w.__name__ for w in A.TRAIN_KERNELS if r["launches"][w.__name__] == 0]
+        missing = [w.__name__ for w in (A.TRAIN_KERNELS if kernels is None else kernels)
+                   if r["launches"][w.__name__] == 0]
         if missing:
             raise AssertionError(f"{name}: rank {r['rank']} never launched {missing}")
         check_peak(f"{name} rank {r['rank']}", r["peak_mem_gb"])
@@ -3064,12 +3112,12 @@ def check_same_losses(name: str, ranked: dict, single: dict) -> dict:
     return worst
 
 
-def _single_rank(name: str, spec: dict, profile: bool = False) -> dict:
-    """``phase_train`` of ``spec`` on this process's card, each step's
-    (loss, grad norm) recorded; with ``profile`` its step PROFILE_STEP
-    profiled."""
+def _single_rank(name: str, spec: dict, profile: bool = False, kernels=None) -> dict:
+    """``phase_train`` of ``spec`` on this process's card (``kernels`` as
+    there), each step's (loss, grad norm) recorded; with ``profile`` its
+    step PROFILE_STEP profiled."""
     with recorded_steps(PROFILE_STEP if profile else 0) as steps:
-        m = phase_train(name, spec, must_fall=False)
+        m = phase_train(name, spec, must_fall=False, kernels=kernels)
     m["steps"], m["profile"] = list(steps), steps.profile
     if steps.profile:
         log(f"[{name}] step {PROFILE_STEP} profiled: {json.dumps(steps.profile)}")
@@ -3102,7 +3150,7 @@ def plan_ring_neox():
 def plan_ring_fsdp_neox(backend: str = "gloo"):
     """ring-fsdp-neox (a plan of ``run_plans``, over 4 ranks): Pythia-1.4B
     widths at RING_FSDP_LAYERS layers, B 2 x S 8192 over
-    {fsdp: 2, sequence: 2} (4 ranks), 3 steps, saving its last: every
+    {fsdp: 2, sequence: 2} (4 ranks), 2 steps, saving its last: every
     step's loss and grad norm equal the one-rank run's, each rank holds half the AdamW state bytes (its
     block and padding), and the step restored into one rank holds bit for
     bit the whole state rank 0 wrote and each rank's blocks."""
@@ -3116,10 +3164,10 @@ def plan_ring_fsdp_neox(backend: str = "gloo"):
               "keep": 1}
         par = {"fsdp": 2, "sequence": 2}
         # 3 steps (4 until the MoE phases over ranks needed the script's time)
-        spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=3, parallelism=par, batch=2,
+        spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=2, parallelism=par, batch=2,
                                  checkpoint=ck)
         single = _single_rank("ring-fsdp-neox-1rank",
-                              long_context_spec(n_layers=RING_FSDP_LAYERS, steps=3,
+                              long_context_spec(n_layers=RING_FSDP_LAYERS, steps=2,
                                                 parallelism=par, batch=2),
                               profile=backend == "nccl")
         runs = (yield {"ring-fsdp-neox": dict(spec, record_saves=True)})["ring-fsdp-neox"]
@@ -3244,21 +3292,25 @@ TP_LOGIT_LIMIT = 0.05
 # The whole feed is held to 0.1, ~2x from each reading, and the tokens that
 # never flip to TP_LOGIT_LIMIT (check_tp_logits)
 TP_LOGIT_LIMITS = {"mixtral": 0.1}
-# GPT-NeoX-20B over {tensor: 2}: 8 requests of the serve queue; 44 layers
-# cut to TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
-# script's time)
-TP_NEOX_LAYERS = 22
+# GPT-NeoX-20B's depth in the logits over {tensor: 2}: 44 layers cut to
+# TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
+# script's time: 22 until the batch-axes phases)
+TP_NEOX_LAYERS = 11
+# Llama-3-8B's depth in the logits over ranks: 16 of 32 layers (all 32 until
+# the batch-axes phases needed the script's time)
+TP_LLAMA_LOGIT_LAYERS = 16
 # serve-tp-neox's depth: 6 layers (TP_NEOX_LAYERS until the tensor-parallel
 # train phases needed the script's time; the logits keep TP_NEOX_LAYERS)
 SERVE_TP_NEOX_LAYERS = 6
 # the feeds each family's teacher-forced logits take over the ranks, and
-# the planted faults each must catch: Llama-3-8B (all 32 layers) through a
+# the planted faults each must catch: Llama-3-8B (TP_LLAMA_LOGIT_LAYERS) through a
 # dense cache and through a paged pool read by D1 at the rank's heads, and
 # GPT-NeoX-20B (TP_NEOX_LAYERS layers: its thirds, biases and parallel
 # residual) through the paged pool; ``kv_head_block`` has D1 read the pool
 # with its kv heads rolled by one, the wrong head block for every q head
 TP_LOGIT_CASES = {
-    "llama": ("8b", {}, {"dense": ("clean", "no_wdown_reduce", "gather_order"),
+    "llama": ("8b", {"n_layers": TP_LLAMA_LOGIT_LAYERS},
+              {"dense": ("clean", "no_wdown_reduce", "gather_order"),
                          "paged": ("clean", "kv_head_block")}),
     "gptneox": ("20b", {"n_layers": TP_NEOX_LAYERS}, {"paged": ("clean", "kv_head_block")}),
     # Mixtral-8x7B at the serve depth through a dense cache; every second
@@ -3292,17 +3344,23 @@ def card_label() -> str:
 # serve-tp's requests: the serve queue's first 4 (16 until the MoE phases
 # over ranks needed the script's time)
 SERVE_TP_REQUESTS = 4
+# serve-tp's depth: 8 of Llama-3-8B's 32 layers (all 32 until the batch-axes
+# phases needed the script's time: 62 s of serve wall over 2 gloo ranks)
+SERVE_TP_LAYERS = 8
 
 
 def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
     """serve-tp: the serve phase's queue cut to SERVE_TP_REQUESTS requests
-    (fused, prefix cache) over {tensor: ``tensor``}."""
-    return dict(_serve_spec(num_requests=SERVE_TP_REQUESTS), parallelism={"tensor": tensor})
+    (fused, prefix cache) and SERVE_TP_LAYERS layers over {tensor:
+    ``tensor``}."""
+    spec = _serve_spec(num_requests=SERVE_TP_REQUESTS)
+    spec["model"] = dict(spec["model"], overrides={"n_layers": SERVE_TP_LAYERS})
+    return dict(spec, parallelism={"tensor": tensor})
 
 
-# serve-moe-tp's depth: 8 of Mixtral-8x7B's 32 layers (mixtral-serve's 16
-# until the script's time asked for fewer)
-MOE_SERVE_LAYERS = 8
+# serve-moe-tp's depth: 4 of Mixtral-8x7B's 32 layers (mixtral-serve's 16,
+# then 8, until the script's time asked for fewer)
+MOE_SERVE_LAYERS = 4
 
 
 def moe_serve_spec(tensor: int = TP_RANKS, n_layers: int = MOE_SERVE_LAYERS) -> dict:
@@ -3976,6 +4034,10 @@ TP_TRAIN_SHAPES = {
     # Mixtral-8x7B over {tensor: 2}: a rank's 16 / 4 heads under the 4096
     # window (the mixtral train shape's S 8192)
     "mixtral_tp2": dict(MIXTRAL_SHAPE, Hq=16, Hkv=4),
+    # train-ring-tp's visiting block: Pythia-1.4B's ring visit (rank 1's
+    # block from rank 0, S 8192 over 2 sequence ranks) at the 8 heads one
+    # of 2 tensor ranks holds
+    "pythia_ring_visit_tp2": dict(RING_VISIT_SHAPES["pythia"], Hq=8, Hkv=8),
 }
 # examples/train-llama8b-fsdp.yaml's runtime block at its published widths
 # (d 4096, heads 32 / 8, d_ff 14336, V 128256, remat dots_attn, ce_chunk
@@ -4058,8 +4120,10 @@ def tp_neox_spec(directory: str, steps: int, planted: Optional[str] = None) -> d
 
 @contextlib.contextmanager
 def planted_train_fault(fault: Optional[str]):
-    """One of TP_TRAIN_FAULTS or MOE_TP_FAULTS / MOE_EP_FAULTS for a block
-    (module attributes patched in this process, never the repo)."""
+    """One of TP_TRAIN_FAULTS, MOE_TP_FAULTS / MOE_EP_FAULTS or
+    RING_TP_FAULTS (the ring shifted over the whole world, not the rank's
+    sequence group) for a block (module attributes patched in this process,
+    never the repo)."""
     import torch
 
     from nexus_tpu_torch.parallel import tensor as T
@@ -4090,6 +4154,14 @@ def planted_train_fault(fault: Optional[str]):
         Mx.copy_to_tensor = lambda x, group: (x if x.dim() == 2 and x.shape[-1] != 2
                                               else saved(x, group))
         owner, name = Mx, "copy_to_tensor"
+    elif fault == "world_ring":
+        import torch.distributed as dist
+
+        from nexus_tpu_torch.ops import ring_attention as R
+
+        saved = R.ring_attention
+        R.ring_attention = lambda q, k, v, group, **kw: saved(q, k, v, dist.group.WORLD, **kw)
+        owner, name = R, "ring_attention"
     elif fault == "per_rank_routing":
         from nexus_tpu_torch.models import mixtral as Mx
 
@@ -4144,13 +4216,17 @@ def check_train_tp(name: str, ranked: dict, single: dict, faults: dict,
 
 
 def train_tp_rank(specs: list, profile: bool = False) -> list:
-    """One rank of the train phases over ranks: ``train_rank`` of each spec,
-    under the planted fault its ``planted`` key names (the faulted runs'
+    """One rank of the train phases over ranks: ``train_rank`` of each spec
+    (``batch_axes_rank`` of one with a ``rank_phase`` key), under the
+    planted fault its ``planted`` key names (the faulted runs'
     ranks may part: their checks are the caller's), recording its saves
     when its ``record_saves`` key is set and timing an all-reduce of its
     ``collective_numel`` elements after it."""
     out = []
     for spec in specs:
+        if "rank_phase" in spec:  # an infer, serve or logits run of the batch axes
+            out.append(batch_axes_rank(spec))
+            continue
         spec = dict(spec)
         record = spec.pop("record_saves", False)
         numel = spec.pop("collective_numel", 0)
@@ -4162,8 +4238,8 @@ def train_tp_rank(specs: list, profile: bool = False) -> list:
 
 def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -> dict:
     """{run name: each rank's metrics} of ``specs`` in one spawn of
-    ``world`` ranks; the clean runs (no ``planted`` key) checked by
-    ``check_rank_runs``."""
+    ``world`` ranks; the clean train runs (no ``planted`` or
+    ``rank_phase`` key) checked by ``check_rank_runs``."""
     import torch
 
     from nexus_tpu_torch.testing.dist import spawn
@@ -4180,7 +4256,10 @@ def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -
     out = {}
     for i, (run, spec) in enumerate(specs.items()):
         runs = [rank[i] for rank in by_rank]
-        out[run] = check_rank_runs(run, runs) if "planted" not in spec else runs
+        if "planted" not in spec and "rank_phase" not in spec:
+            mlp = spec["model"].get("family") == "mlp"
+            runs = check_rank_runs(run, runs, kernels=() if mlp else None)
+        out[run] = runs
         out[run][0]["spawn_wall_s"] = wall
     return out
 
@@ -4732,6 +4811,499 @@ def run_moe_over_nccl() -> int:
     return 0
 
 
+# ------------- the rest of the batch and tensor axes (module item 4b, part three)
+#
+# Infer and serve over the batch axes beside tensor, training over sequence
+# x tensor and the MLP over tensor, each rank a spawned process sharing the
+# card over gloo (every collective staged through host memory). They run in
+# the spawn of 4 of the train phases (``run_plans``): each plan below runs
+# its one-card references, yields its rank runs, and gates them.
+# ``--batch-axes-nccl`` runs infer-dp-tp and serve-fsdp-tp a rank a card.
+
+# infer-dp-tp: examples/infer-llama8b.yaml at its published widths, cut to
+# BATCH_AXES_LAYERS of its 32 layers (two ranks of each data index hold a
+# tensor block; the script's time); template: tensor 8, promptLength 128,
+# maxNewTokens 512, 5 iterations, an Orbax step of the 8B run; here {data:
+# 2, tensor: 2} (rows over data as JAX's cache layout puts them, heads over
+# tensor), its prompt length, 64 new tokens, one timed iteration, the seed's
+# random weights
+BATCH_AXES_LAYERS = 4
+DP_TP_PLAN = {"data": 2, "tensor": 2}
+INFER_DP_TP = {
+    "kind": "jax_xla", "mode": "infer",
+    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": BATCH_AXES_LAYERS}},
+    "parallelism": DP_TP_PLAN,
+    "train": {"batchSize": 8, "seed": 0},
+    "infer": {"promptLength": 128, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
+}
+# serve-fsdp-tp: the serve queue (serve-llama8b.yaml's model at its published
+# widths; template: 32 layers from HF safetensors, 16 rows, 256 requests
+# streamed as a Poisson trace over 4 replicas with prompt lookup and a host
+# tier) cut to BATCH_AXES_LAYERS layers and 8 requests, over {fsdp: 2,
+# tensor: 2}: JAX's plan for 16 chips ({tensor: 8, fsdp: 2},
+# ``plan_for_devices``) at 4 ranks. The fsdp ranks are replicas of one
+# engine in lockstep (JAX's paged pool has no batch sharding)
+FSDP_TP_PLAN = {"fsdp": 2, "tensor": 2}
+SERVE_FSDP_TP_REQUESTS = 8
+# the teacher-forced logits of infer-dp-tp's whole prompt (8 rows of 128),
+# each rank feeding its rows: the last DP_LOGIT_POSITIONS positions of every
+# row, gathered in row order, against one card's
+DP_LOGIT_POSITIONS = 16
+# the planted faults of the rows: the ranks' row blocks gathered in reverse
+# order, and each data rank fed its peer's rows
+DP_ROW_FAULTS = ("rows_reversed", "peer_rows")
+# train-ring-tp: the long-context template at Pythia-1.4B widths, 2 of its
+# 24 layers, one row of 8192 over {sequence: 2, tensor: 2} (a rank's 8 heads
+# of 4096 positions; the ring over its tensor index's sequence group), 3
+# steps, against one card at the tensor limits; the planted fault rings over
+# the whole world instead, for 2 steps (at random weights the attention is
+# near uniform, and the first step's grad norm moves by 1.7x the limit alone)
+RING_TP_PLAN = {"sequence": 2, "tensor": 2}
+RING_TP_FAULTS = ("world_ring",)
+RING_TP_FAULT_STEPS = 2
+# train-moe-ring-tp: MOE_TRAIN at 1 layer, one row of 4096 over {sequence:
+# 2, tensor: 2}, 2 steps, routing over the global tokens, against one card
+# at MOE_LIMITS; the norm taking every leaf as whole on each tensor rank
+# (the copies of a leaf counted wrong beside the sequence axis) past them
+# (the expert path's copy_to_tensor left out moved the grad norm by 1.5e-4
+# only at this depth and shape)
+MOE_RING_TP_FAULTS = ("whole_norm",)
+# mlp-tp: the mlp-train phase's spec (the MLP ``small`` preset, float32) over
+# {fsdp: 2, tensor: 2}, 20 of its 200 steps, against one card at the tensor
+# limits; the column-parallel inputs' gradient sum left out past them
+MLP_TP_STEPS = 20
+MLP_TP_FAULTS = ("no_copy_reduce",)
+
+
+def infer_dp_tp_spec(parallelism: Optional[dict] = None) -> dict:
+    import copy
+
+    spec = copy.deepcopy(INFER_DP_TP)
+    spec["parallelism"] = dict(DP_TP_PLAN if parallelism is None else parallelism)
+    return spec
+
+
+def serve_fsdp_tp_spec(parallelism: Optional[dict] = None) -> dict:
+    spec = _serve_spec(num_requests=SERVE_FSDP_TP_REQUESTS)
+    spec["model"] = dict(spec["model"], overrides={"n_layers": BATCH_AXES_LAYERS})
+    return dict(spec, parallelism=dict(FSDP_TP_PLAN if parallelism is None else parallelism))
+
+
+def ring_tp_spec(steps: int = 3, planted: Optional[str] = None) -> dict:
+    spec = long_context_spec(n_layers=2, steps=steps, parallelism=dict(RING_TP_PLAN))
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+def moe_ring_tp_spec(steps: int = 2, planted: Optional[str] = None) -> dict:
+    spec = moe_train_spec(steps, planted)
+    spec["model"]["overrides"]["n_layers"] = 1
+    spec["parallelism"] = dict(RING_TP_PLAN)
+    return spec
+
+
+def mlp_tp_spec(steps: int = MLP_TP_STEPS, planted: Optional[str] = None) -> dict:
+    spec = mlp_train_spec()
+    spec["model"] = dict(spec["model"], family="mlp")
+    spec["train"] = dict(spec["train"], steps=steps)
+    spec["parallelism"] = dict(FSDP_TP_PLAN)
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+def dp_prompt(vocab: int):
+    """infer-dp-tp's whole prompt, drawn as the entry point draws it."""
+    import torch
+
+    b, p = INFER_DP_TP["train"]["batchSize"], INFER_DP_TP["infer"]["promptLength"]
+    return torch.randint(0, vocab, (b, p), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(INFER_DP_TP["train"]["seed"]))
+
+
+def dp_reference_logits():
+    """One card's teacher-forced logits of dp_prompt, the last
+    DP_LOGIT_POSITIONS positions of every row, on the host."""
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    _free_card()
+    cfg = _model_config(INFER_DP_TP)
+    params = E._decode_params(llama, cfg, torch.device("cuda"), INFER_DP_TP["train"]["seed"])
+    out = _teacher_forced(llama, params, cfg, dp_prompt(cfg.vocab_size).cuda())
+    del params
+    _free_card()
+    return out[:, -DP_LOGIT_POSITIONS:].contiguous()
+
+
+@contextlib.contextmanager
+def planted_rows(fault: Optional[str]):
+    """One of DP_ROW_FAULTS for a block (module attributes patched in this
+    process, never the repo): ``rows_reversed`` joins the ranks' blocks of
+    rows in reverse order; ``peer_rows`` gives each rank the next data
+    rank's block of rows."""
+    from nexus_tpu_torch.parallel import sharding as S
+
+    decode, gather = S.decode_rows, S.gather_rows
+
+    def reversed_rows(x, mesh, rows):
+        whole = gather(x, mesh, rows)
+        n = mesh.size(*rows.axes) if rows.axes else 1
+        return whole.unflatten(0, (n, -1)).flip(0).flatten(0, 1)
+
+    def peer_rows(mesh, batch):
+        rows = decode(mesh, batch)
+        size = rows.stop - rows.start
+        start = (rows.start + size) % batch
+        return type(rows)(rows.axes, start, start + size, batch)
+
+    if fault == "rows_reversed":
+        S.gather_rows = reversed_rows
+    elif fault == "peer_rows":
+        S.decode_rows = peer_rows
+    elif fault not in (None, "clean"):
+        raise ValueError(f"unknown planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        S.decode_rows, S.gather_rows = decode, gather
+
+
+def _dp_logits_rank(plan: dict) -> dict:
+    """This rank's teacher-forced logits of its rows of dp_prompt (through
+    ``decode_rows``), gathered over the batch axes (``gather_rows``), clean
+    and under each of DP_ROW_FAULTS: rank 0 returns them, every rank a
+    checksum of the clean ones."""
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.parallel import sharding as S
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    mesh = build_mesh(MeshPlan(**plan))
+    cfg = _model_config(INFER_DP_TP)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    prompt = dp_prompt(cfg.vocab_size)
+    out, mine = {}, None
+    with use_mesh(mesh):
+        params = E._decode_params(llama, cfg, dev, INFER_DP_TP["train"]["seed"],
+                                  S.model_shard(mesh))
+        for fault in ("clean",) + DP_ROW_FAULTS:
+            with planted_rows(fault):
+                rows = S.decode_rows(mesh, prompt.shape[0])
+                mine = mine or [rows.start, rows.stop]  # the clean run's rows
+                local = _teacher_forced(llama, params, cfg,
+                                        prompt[rows.start:rows.stop].to(dev))
+                out[fault] = S.gather_rows(local[:, -DP_LOGIT_POSITIONS:].contiguous(), mesh,
+                                           rows)
+    del params
+    _free_card()
+    return {"logits": out if mesh.rank == 0 else None,
+            "checksum": float(out["clean"].double().sum()), "rows": mine}
+
+
+def _diverged_serve(spec: dict, bad_rank: int) -> dict:
+    """``spec``'s serve with NEXUS_SANITIZE armed, rank ``bad_rank`` given
+    another first prompt: the lockstep audit's message on this rank (None
+    when it did not fire)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    queue = E._synthetic_queue
+
+    def other(sv, tr, cfg):
+        requests = queue(sv, tr, cfg)
+        first = [(t + 1) % cfg.vocab_size for t in requests[0].prompt]
+        return [dataclasses.replace(requests[0], prompt=first)] + requests[1:]
+
+    if dist.get_rank() == bad_rank:
+        E._synthetic_queue = other
+    os.environ["NEXUS_SANITIZE"] = "1"
+    message = None
+    try:
+        E.run_template_runtime(spec)
+    except AssertionError as e:
+        message = str(e)
+    finally:
+        E._synthetic_queue = queue
+        os.environ.pop("NEXUS_SANITIZE", None)
+        _free_card()
+    return {"audit": message}
+
+
+def batch_axes_rank(spec: dict) -> dict:
+    """One rank's run of a batch-axes phase (``spec["rank_phase"]``):
+    ``dp-logits`` (``_dp_logits_rank``), ``entry`` (``_tp_run`` of
+    ``spec["spec"]``) or ``diverged`` (``_diverged_serve``)."""
+    _rank_device()
+    phase = spec["rank_phase"]
+    if phase == "dp-logits":
+        return _dp_logits_rank(spec["plan"])
+    if phase == "entry":
+        return _tp_run(spec["spec"])
+    if phase == "diverged":
+        return _diverged_serve(spec["spec"], spec["bad_rank"])
+    raise ValueError(f"unknown batch-axes phase {phase!r}")
+
+
+def check_dp_logits(ref, ranks: list) -> dict:
+    """infer-dp-tp's logits of every row gathered over the ranks within
+    TP_LOGIT_LIMIT of one card's (``ref``), the same on every rank
+    (checksums), and each of DP_ROW_FAULTS past the limit: {fault: error
+    over the limit}."""
+    sums = [r["checksum"] for r in ranks]
+    if any(x != sums[0] for x in sums):
+        raise AssertionError(f"infer-dp-tp: the ranks' gathered logits differ (checksums {sums})")
+    errs = {fault: float((x - ref).abs().max() / ref.abs().max())
+            for fault, x in ranks[0]["logits"].items()}
+    log(f"[infer-dp-tp] teacher-forced logits of {tuple(ref.shape[:2])} rows x positions, max "
+        f"|over ranks - one card| / max |one card| by fault: {errs}; rows by rank "
+        f"{[r['rows'] for r in ranks]} (limit {TP_LOGIT_LIMIT}; the planted faults must exceed "
+        f"it; {card_label()})")
+    if not errs["clean"] <= TP_LOGIT_LIMIT:
+        raise AssertionError(f"infer-dp-tp: logits over ranks {errs['clean']}, limit "
+                             f"{TP_LOGIT_LIMIT}")
+    passed = [f for f in DP_ROW_FAULTS if errs[f] <= TP_LOGIT_LIMIT]
+    if passed:
+        raise AssertionError(f"infer-dp-tp: the planted faults pass the limit: {passed} ({errs})")
+    return {f: v / TP_LOGIT_LIMIT for f, v in errs.items()}
+
+
+def check_batch_infer(name: str, runs: list, one: dict) -> dict:
+    """Every rank returns the whole batch's ids, the same on every rank (so
+    across each tensor group), the output's shape and finite logits; the
+    share of one card's new tokens each row commits before its first
+    difference, for information."""
+    ids = [r["completion_ids_by_row"] for r in runs]
+    if any(x != ids[0] for x in ids):
+        raise AssertionError(f"{name}: the ranks return different ids")
+    b = INFER_DP_TP["train"]["batchSize"]
+    shape = [b, INFER_DP_TP["infer"]["promptLength"] + INFER_DP_TP["infer"]["maxNewTokens"]]
+    for r in runs:
+        if not r["last_logits_finite"] or r["output_shape"] != shape or len(ids[0]) != b:
+            raise AssertionError(f"{name}: rank output {r['output_shape']}, finite "
+                                 f"{r['last_logits_finite']}")
+        check_peak(f"{name} rank", r["peak_mem_gb"])
+    share = token_share(one["completion_ids_by_row"], ids[0])
+    log(f"[{name}] decode_tokens_per_sec {runs[0]['decode_tokens_per_sec']} over {len(runs)} "
+        f"ranks (per chip {runs[0]['decode_tokens_per_sec_per_chip']}), one card "
+        f"{one['decode_tokens_per_sec']}; iteration_seconds {runs[0]['iteration_seconds']}; "
+        f"peak GB by rank {[round(r['peak_mem_gb'], 2) for r in runs]}; the rows' token share "
+        f"against one card {share} (for information; {card_label()})")
+    return {"token_share_vs_one_card": share}
+
+
+# what every rank of a serve over ranks reports alike: all but its own peak,
+# wall and launches-by-kernel bookkeeping
+_PER_RANK_KEYS = ("peak_mem_gb", "phase_wall_s", "launches", "missing", "device",
+                  "spawn_wall_s")
+
+
+def check_batch_serve(name: str, runs: list, heads) -> None:
+    """The serve gates on every rank (``check_tp_serve``) and the same
+    ledger on every rank: the replicas over the batch axes run the tensor
+    ranks' engine in lockstep, so their metrics agree key for key."""
+    check_tp_serve(name, runs, heads)
+    first = {k: v for k, v in runs[0].items() if k not in _PER_RANK_KEYS}
+    for r in runs[1:]:
+        mine = {k: v for k, v in r.items() if k not in _PER_RANK_KEYS}
+        if mine != first:
+            diff = sorted(k for k in set(mine) | set(first) if mine.get(k) != first.get(k))
+            raise AssertionError(f"{name}: the ranks' ledgers differ in {diff}")
+
+
+def check_diverged(name: str, runs: list) -> None:
+    """The lockstep audit fired on every rank of a run whose ranks were
+    given different first prompts."""
+    log(f"[{name}] the lockstep audit by rank: {[r['audit'] for r in runs]}")
+    if not all(r["audit"] and "lockstep audit" in r["audit"] for r in runs):
+        raise AssertionError(f"{name}: the lockstep audit did not fire on every rank: "
+                             f"{[r['audit'] for r in runs]}")
+
+
+def plan_batch_axes(backend: str = "gloo", world: int = 4):
+    """infer-dp-tp and serve-fsdp-tp (a plan of ``run_plans`` over 4 ranks):
+    one card's teacher-forced logits, infer and serve of the same specs
+    first; then the ranks' logits (clean and under DP_ROW_FAULTS), infer,
+    serve and (over gloo) a serve whose fsdp replica 1 is given another
+    first prompt under NEXUS_SANITIZE; the gates after."""
+    ref = dp_reference_logits() if backend == "gloo" else None
+    one_infer = phase_infer(infer_dp_tp_spec({}), "infer-dp-tp-1card")
+    one_serve = phase_serve("serve-fsdp-tp-1card", serve_fsdp_tp_spec({}), must_t=(1, 8))
+    infer_plan = DP_TP_PLAN if world == 4 else {"data": world // 2, "tensor": 2}
+    serve_plan = FSDP_TP_PLAN if world == 4 else {"fsdp": world // 2, "tensor": 2}
+    specs = {"infer-dp-tp": {"rank_phase": "entry", "spec": infer_dp_tp_spec(infer_plan)},
+             "serve-fsdp-tp": {"rank_phase": "entry", "spec": serve_fsdp_tp_spec(serve_plan)}}
+    if backend == "gloo":
+        specs["infer-dp-tp-logits"] = {"rank_phase": "dp-logits", "plan": infer_plan}
+        # rank 2: fsdp index 1, a replica of rank 0 at tensor index 0
+        specs["serve-fsdp-tp-diverged"] = {
+            "rank_phase": "diverged", "bad_rank": 2,
+            "spec": dict(serve_fsdp_tp_spec(serve_plan),
+                         serve=dict(serve_fsdp_tp_spec()["serve"], numRequests=2))}
+    runs = yield specs
+    out = {"infer-dp-tp-1card": one_infer, "serve-fsdp-tp-1card": one_serve}
+    if ref is not None:
+        out["infer-dp-tp-logits"] = check_dp_logits(ref, runs["infer-dp-tp-logits"])
+        check_diverged("serve-fsdp-tp-diverged", runs["serve-fsdp-tp-diverged"])
+    out["infer-dp-tp-ids"] = check_batch_infer("infer-dp-tp", runs["infer-dp-tp"], one_infer)
+    serve = runs["serve-fsdp-tp"]
+    check_batch_serve("serve-fsdp-tp", serve, rank_heads(serve_fsdp_tp_spec(serve_plan), 2))
+    out["serve-fsdp-tp-share"] = check_tp_share("serve-fsdp-tp", one_serve, serve[0])
+    log(f"[serve-fsdp-tp] tokens_per_sec {serve[0]['tokens_per_sec']} over {world} ranks "
+        f"({backend}; per chip {serve[0]['tokens_per_sec_per_chip']}), one card "
+        f"{one_serve['tokens_per_sec']}; ttft_p50_s {serve[0].get('ttft_p50_s')} vs "
+        f"{one_serve.get('ttft_p50_s')}; peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in serve]} ({card_label()})")
+    out["infer-dp-tp"], out["serve-fsdp-tp"] = runs["infer-dp-tp"], serve
+    return out
+
+
+def plan_train_ring_tp():
+    """train-ring-tp (a plan of ``run_plans`` over 4 ranks): ring_tp_spec
+    against the same spec on one card at the tensor limits, RING_TP_FAULTS
+    past them, K1-K3 on every rank."""
+    single = _single_rank("train-ring-tp-1card", ring_tp_spec())
+    specs = {"train-ring-tp": ring_tp_spec()}
+    specs.update({f"train-ring-tp-{f}": ring_tp_spec(RING_TP_FAULT_STEPS, planted=f)
+                  for f in RING_TP_FAULTS})
+    runs = yield specs
+    ranked = runs["train-ring-tp"]
+    faults = {f: runs[f"train-ring-tp-{f}"][0] for f in RING_TP_FAULTS}
+    gates = check_train_tp("train-ring-tp", ranked[0], single, faults)
+    log(f"[train-ring-tp] tokens_per_sec {ranked[0]['tokens_per_sec']} over 4 ranks (gloo), one "
+        f"card {single['tokens_per_sec']}; launches by rank {[r['launches'] for r in ranked]}, "
+        f"peak GB by rank {[round(r['peak_mem_gb'], 2) for r in ranked]} ({card_label()})")
+    return {"train-ring-tp": ranked[0], "train-ring-tp-1card": single,
+            "train-ring-tp-gates": gates,
+            "train-ring-tp-by_rank": {"launches": [r["launches"] for r in ranked],
+                                      "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]}}
+
+
+def plan_train_moe_ring_tp():
+    """train-moe-ring-tp (a plan of ``run_plans`` over 4 ranks):
+    moe_ring_tp_spec against its one-card twin at MOE_LIMITS,
+    MOE_RING_TP_FAULTS past them, K1-K3 on every rank."""
+    single = _single_rank("train-moe-ring-tp-1card", one_card_twin(moe_ring_tp_spec()))
+    specs = {"train-moe-ring-tp": moe_ring_tp_spec()}
+    specs.update({f"train-moe-ring-tp-{f}": moe_ring_tp_spec(MOE_FAULT_STEPS, planted=f)
+                  for f in MOE_RING_TP_FAULTS})
+    runs = yield specs
+    ranked = runs["train-moe-ring-tp"]
+    for m in ranked + [single]:
+        check_mixtral_train("train-moe-ring-tp", m, MOE_DISPATCH_OVER_RANKS)
+    faults = {f: runs[f"train-moe-ring-tp-{f}"][0] for f in MOE_RING_TP_FAULTS}
+    gates = check_train_tp("train-moe-ring-tp", ranked[0], single, faults, MOE_LIMITS)
+    _moe_summary_line("train-moe-ring-tp", ranked, single, 4, "gloo", moe_ring_tp_spec())
+    return {"train-moe-ring-tp": ranked[0], "train-moe-ring-tp-1card": single,
+            "train-moe-ring-tp-gates": gates,
+            "train-moe-ring-tp-by_rank": {"launches": [r["launches"] for r in ranked],
+                                          "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]}}
+
+
+def plan_mlp_tp():
+    """mlp-tp (a plan of ``run_plans`` over 4 ranks): mlp_tp_spec against
+    the same spec on one card at the tensor limits, MLP_TP_FAULTS past
+    them."""
+    single = _single_rank("mlp-tp-1card", mlp_tp_spec(), kernels=())
+    specs = {"mlp-tp": mlp_tp_spec()}
+    specs.update({f"mlp-tp-{f}": mlp_tp_spec(TP_FAULT_STEPS, planted=f) for f in MLP_TP_FAULTS})
+    runs = yield specs
+    ranked = runs["mlp-tp"]
+    faults = {f: runs[f"mlp-tp-{f}"][0] for f in MLP_TP_FAULTS}
+    gates = check_train_tp("mlp-tp", ranked[0], single, faults)
+    log(f"[mlp-tp] steps/s {ranked[0]['steps_per_sec']} over 4 ranks (gloo), one card "
+        f"{single['steps_per_sec']}; final loss {ranked[0]['final_loss']} vs "
+        f"{single['final_loss']} ({card_label()})")
+    return {"mlp-tp": ranked[0], "mlp-tp-1card": single, "mlp-tp-gates": gates,
+            "mlp-tp-by_rank": {"launches": [r["launches"] for r in ranked],
+                               "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]}}
+
+
+# the batch-axes phases' plans, in the order the spawn of 4 runs them
+BATCH_AXES_PHASES = ("train-ring-tp", "train-moe-ring-tp", "mlp-tp", "infer-dp-tp",
+                     "serve-fsdp-tp")
+
+
+def batch_axes_plans() -> list:
+    return [plan_train_ring_tp(), plan_train_moe_ring_tp(), plan_mlp_tp(), plan_batch_axes()]
+
+
+def batch_axes_launches(ba: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in each batch-axes phase."""
+    out = {phase: [by[name] for by in ba[f"{phase}-by_rank"]["launches"]]
+           for phase in ("train-ring-tp", "train-moe-ring-tp", "mlp-tp")}
+    for phase in ("infer-dp-tp", "serve-fsdp-tp"):
+        out[phase] = [r["launches"][name] for r in ba[phase]]
+    return out
+
+
+BA_KEYS = TT_KEYS + TP_KEYS + ("steps_per_sec",)
+
+
+def batch_axes_summary(ba: dict) -> dict:
+    out = {}
+    for name, run in ba.items():
+        if isinstance(run, list):
+            out[name] = [{k: r.get(k) for k in BA_KEYS if k in r} for r in run]
+        elif isinstance(run, dict) and ("loss_history" in run or "committed_tokens" in run
+                                        or "decode_tokens_per_sec" in run):
+            out[name] = {k: run[k] for k in BA_KEYS if k in run}
+        else:
+            out[name] = run
+    return out
+
+
+def run_batch_axes_gates() -> int:
+    """``--batch-axes-gates``: the batch-axes phases alone on one card, the
+    kernels built and held at the ring's tensor-rank shape first."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    worst, times = phase_tp_train_kernels(
+        {"pythia_ring_visit_tp2": TP_TRAIN_SHAPES["pythia_ring_visit_tp2"]})
+    ba = timed("batch-axes", run_plans, 4, batch_axes_plans())
+    log("[summary] " + json.dumps({"ring_tp_kernel_worst": worst,
+                                   "ring_tp_kernel_timings": times,
+                                   "batch_axes": batch_axes_summary(ba),
+                                   "phase_seconds": PHASE_SECONDS}))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+def run_batch_axes_over_nccl() -> int:
+    """``--batch-axes-nccl``: infer-dp-tp and serve-fsdp-tp over every card
+    of the machine, a rank a card over NCCL (4 cards: {data: 2, tensor: 2}
+    and {fsdp: 2, tensor: 2}), beside the same specs on one card in the same
+    call."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    world = torch.cuda.device_count()
+    ba = run_plans(world, [plan_batch_axes("nccl", world)], "nccl")
+    infer, serve = ba["infer-dp-tp"][0], ba["serve-fsdp-tp"][0]
+    one_infer, one_serve = ba["infer-dp-tp-1card"], ba["serve-fsdp-tp-1card"]
+    log(f"[batch-axes-nccl] infer-dp-tp over {world} cards: decode_tokens_per_sec "
+        f"{infer['decode_tokens_per_sec']} (per card {infer['decode_tokens_per_sec_per_chip']}), "
+        f"one card {one_infer['decode_tokens_per_sec']}; serve-fsdp-tp: tokens_per_sec "
+        f"{serve['tokens_per_sec']} (per card {serve['tokens_per_sec_per_chip']}), one card "
+        f"{one_serve['tokens_per_sec']} ({card_label()})")
+    log("[summary] " + json.dumps(batch_axes_summary(ba)))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
 DRAFT_REF = {"family": "llama", "preset": "draft",
              "overrides": {"vocab_size": 128256, "max_seq_len": 8192}}
 
@@ -4797,6 +5369,10 @@ def main(argv=None) -> int:
     parser.add_argument("--moe-nccl", action="store_true",
                         help="serve the whole Mixtral-8x7B over {tensor: 4} and run "
                              "train-moe-ep over {expert: 4}, a rank a card over NCCL")
+    parser.add_argument("--batch-axes-gates", action="store_true",
+                        help="run only the batch-axes phases (module item 4b, part three)")
+    parser.add_argument("--batch-axes-nccl", action="store_true",
+                        help="run only infer-dp-tp and serve-fsdp-tp, a rank a card over NCCL")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4827,6 +5403,10 @@ def main(argv=None) -> int:
         return run_moe_gates()
     if args.moe_nccl:
         return run_moe_over_nccl()
+    if args.batch_axes_gates:
+        return run_batch_axes_gates()
+    if args.batch_axes_nccl:
+        return run_batch_axes_over_nccl()
     started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
@@ -4843,22 +5423,26 @@ def main(argv=None) -> int:
                                                      remat_policy="full", ce_chunk=8192))
     infer_run = timed("infer", phase_infer)
     serve_run = timed("serve", phase_serve, "serve", _serve_spec())
-    timed("serve-int8", phase_serve, "serve-int8", _serve_spec(num_requests=8,
+    timed("serve-int8", phase_serve, "serve-int8", _serve_spec(num_requests=SERVE_VARIANT_REQUESTS,
                                                                kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
     # (8 of the queue's requests: the script's time)
     gather = timed("serve-gather", phase_serve, "serve-gather",
-                   _serve_spec(num_requests=8, attentionPath="gather"), must_launch=False)
+                   _serve_spec(num_requests=SERVE_VARIANT_REQUESTS, attentionPath="gather"),
+                   must_launch=False)
     same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
     # speculation: verify windows of numSpeculative + 1 = 5 through D1
     lookup = timed("serve-lookup", phase_serve, "serve-lookup",
-                   _serve_spec(num_requests=8, promptLookupNgram=2, numSpeculative=4),
+                   _serve_spec(num_requests=SERVE_VARIANT_REQUESTS, promptLookupNgram=2,
+                               numSpeculative=4),
                    must_t=(5,))
     draft = timed("serve-draft", phase_serve, "serve-draft",
-                  _serve_spec(num_requests=8, numSpeculative=4, draft=DRAFT_REF), must_t=(5,))
+                  _serve_spec(num_requests=SERVE_VARIANT_REQUESTS, numSpeculative=4,
+                              draft=DRAFT_REF), must_t=(5,))
     # a prefill chunk past 16 tokens through D1 (a feed it once refused)
     prefill32 = timed("serve-prefill32", phase_serve, "serve-prefill32",
-                      _serve_spec(num_requests=8, prefillChunk=32), must_t=(32,))
+                      _serve_spec(num_requests=SERVE_VARIANT_REQUESTS, prefillChunk=32),
+                      must_t=(32,))
     for name, run in (("serve-lookup", lookup), ("serve-draft", draft),
                       ("serve-prefill32", prefill32)):
         same[name] = _same_tokens(name, serve_run, run)
@@ -4885,11 +5469,14 @@ def main(argv=None) -> int:
     worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
                                                 tp["tp-decode-kernel"]["worst"])
     # the train phases over ranks, three to a spawn of 2 and three to one of
-    # 4 (each spawn's ranks pay torch's import and the card's set-up once)
+    # 4 with the batch-axes phases (each spawn's ranks pay torch's import and
+    # the card's set-up once)
     tt = timed("ring-neox,train-tp,train-moe-tp", run_plans, 2,
                [plan_ring_neox(), plan_train_tp(), plan_train_moe_tp()])
-    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep", run_plans, 4,
-                    [plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(), plan_train_moe_ep()]))
+    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes", run_plans, 4,
+                    [plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(), plan_train_moe_ep()]
+                    + batch_axes_plans()))
+    ba = {k: tt.pop(k) for k in list(tt) if k.startswith(BATCH_AXES_PHASES)}
     mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
     ring.update({k: tt.pop(k) for k in list(tt) if k.startswith("ring-")})
 
@@ -4902,6 +5489,12 @@ def main(argv=None) -> int:
     launches = dict(main_run["launches"])
     launches["fused_paged_decode_attention"] = (
         serve_run["launches"]["fused_paged_decode_attention"])
+    # K1-K3 at train-ring-tp's visiting block (a tensor rank's heads), held
+    # to their plain versions and timed in the kernel phase
+    visit = TP_TRAIN_SHAPES["pythia_ring_visit_tp2"]
+    ring_tp_visit = {k: dict(v, shape=visit, bound_ms=_bounds_ms(visit)[k][0],
+                             bound_by=_bounds_ms(visit)[k][1])
+                     for k, v in shape_times["pythia_ring_visit_tp2"].items()}
     kernels = []
     for w in A.KERNEL_WRAPPERS:
         n = w.__name__
@@ -4921,6 +5514,10 @@ def main(argv=None) -> int:
             "tensor_train_launches": train_tp_launches(tt, n),
             # per rank: the MoE train phases over {tensor: 2} and {fsdp: 2, expert: 2}
             "moe_train_launches": moe_train_launches(mt, n),
+            # per rank: the batch-axes phases (K1-K3 in the ring at a tensor
+            # rank's heads, D1 at the tensor rank's heads under fsdp replicas)
+            "batch_axes_launches": batch_axes_launches(ba, n),
+            "ring_tp_visit": ring_tp_visit.get(n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -4975,6 +5572,7 @@ def main(argv=None) -> int:
         "tensor_parallel": tp_summary(tp),
         "tensor_parallel_train": train_tp_summary(tt),
         "moe_train": train_tp_summary(mt),
+        "batch_axes": batch_axes_summary(ba),
         "tp_train_kernel_timings": {
             label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
                          for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)

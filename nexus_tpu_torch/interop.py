@@ -6,8 +6,8 @@ cfg, device)``: the JAX family's param pytree with numpy leaves (e.g.
 ``jax.tree.map(np.asarray, params)``), and return the port's parameter
 pytree: the same layout (stacked layers, ``x @ W`` products; the MLP's list
 of layers), so both compute the same function. Every leaf's shape is checked
-against the config; Mixtral's router stays float32. Llama, GPT-NeoX and
-Mixtral take a ``mesh`` (or a ``ModelShard``) too: the params then come
+against the config; Mixtral's router stays float32. Each takes a ``mesh``
+(or a ``ModelShard``) too: the params then come
 back as that rank's blocks over the model axes
 (``parallel/sharding.py::shard_params``)."""
 
@@ -63,5 +63,5 @@ def gptneox_params_from_jax(np_tree: Dict[str, Any], cfg: gptneox.GPTNeoXConfig,
 
 
 def mlp_params_from_jax(np_tree: Dict[str, Any], cfg: mlp.MlpConfig,
-                        device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
-    return _params_from_jax(mlp, np_tree, cfg, device)
+                        device: Union[str, torch.device] = "cpu", mesh=None) -> Dict[str, Any]:
+    return _params_from_jax(mlp, np_tree, cfg, device, mesh)

@@ -48,7 +48,7 @@ from nexus_tpu_torch.ops.attention import (
 )
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from nexus_tpu_torch.ops.sampling import sample_logits
+from nexus_tpu_torch.ops.sampling import gumbel_draw, row_uniforms, sample_logits
 from nexus_tpu_torch.parallel.tensor import (gather_from_tensor, reduce_from_tensor,
                                              tensor_mesh, vocab_parallel_embed)
 
@@ -365,13 +365,17 @@ def autoregressive_generate(forward_decode: Callable, params, cfg, prompt: torch
                             max_new_tokens: int, max_len: Optional[int] = None,
                             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                             generator: Optional[torch.Generator] = None,
-                            stop_token_id: int = -1, return_logits: bool = False):
+                            stop_token_id: int = -1, return_logits: bool = False,
+                            rows: Optional[Tuple[int, int]] = None):
     """prompt (B, P) → (B, P + max_new_tokens): chunked prefill, then one
     width-1 feed per new token. Greedy by default; ``temperature > 0``
     samples from ``generator`` (required) with top-k / top-p
-    (ops/sampling.py). ``stop_token_id >= 0``: a row that emitted it emits
-    it forever after (static shapes; callers trim). No host sync per step.
-    ``return_logits``: also return the last choice's logits (B, V)."""
+    (ops/sampling.py); ``rows`` = (first, total) when the prompt is rows
+    ``first:first + B`` of a batch of ``total`` decoded over ranks (each
+    row's draw keyed by its global row). ``stop_token_id >= 0``: a row
+    that emitted it emits it forever after (static shapes; callers trim).
+    No host sync per step. ``return_logits``: also return the last
+    choice's logits (B, V)."""
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature > 0 requires an explicit torch.Generator — a silent "
                          "fixed seed would make 'stochastic' sampling deterministic")
@@ -384,7 +388,8 @@ def autoregressive_generate(forward_decode: Callable, params, cfg, prompt: torch
     cache = cache_for(params, cfg, b, max_len, prompt.device)
 
     def pick(logits):
-        return sample_logits(logits, generator, temperature, top_k, top_p).to(prompt.dtype)
+        return sample_logits(logits, generator, temperature, top_k, top_p,
+                             rows=rows).to(prompt.dtype)
 
     last, cache = _chunked_prefill(forward_decode, params, cfg, prompt, cache)
     tok = pick(last)
@@ -490,13 +495,15 @@ def _correction_distribution(draft_probs, target_probs, accepted):
 
 
 def speculative_accept_step(draft_probs, target_probs, proposals, uniforms,
-                            generator: torch.Generator):
+                            generator: torch.Generator,
+                            rows: Optional[Tuple[int, int]] = None):
     """The standard speculative rejection rule (Leviathan et al.; Chen et
     al.), per row, over explicit uniforms: proposal i is accepted iff
     u_i < min(1, p_i / q_i) (p target, q draft, at the proposed token);
     the first rejection draws its replacement from the residual
     distribution (``_correction_distribution``), a fully accepted row draws
-    a bonus token from the target's last distribution, from ``generator``.
+    a bonus token from the target's last distribution, from ``generator``
+    (the draw of ``ops/sampling.py::gumbel_draw``, keyed by ``rows``).
     The committed tokens then follow the target's distribution exactly.
 
     draft_probs (B, k, V), target_probs (B, k+1, V), proposals (B, k),
@@ -511,7 +518,7 @@ def speculative_accept_step(draft_probs, target_probs, proposals, uniforms,
     accept = uniforms < torch.clamp(p_at / q_at.clamp(min=1e-30), max=1.0)
     accepted = accept.long().cumprod(dim=1).sum(dim=1)
     dist = _correction_distribution(draft_probs, target_probs, accepted)
-    correction = torch.multinomial(dist, 1, generator=generator)[:, 0]
+    correction = gumbel_draw(torch.log(dist), generator, rows)
     out = torch.where(idx[None, :] < accepted[:, None], proposals, torch.zeros_like(proposals))
     out = torch.cat([out, torch.zeros_like(out[:, :1])], dim=1)
     out.scatter_(1, accepted[:, None], correction[:, None].to(out.dtype))
@@ -557,7 +564,8 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
                          draft_forward_decode: Callable, draft_params, draft_cfg,
                          prompt: torch.Tensor, max_new_tokens: int, num_speculative: int = 4,
                          max_len: Optional[int] = None, temperature: float = 0.0,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         rows: Optional[Tuple[int, int]] = None):
     """Speculative decoding with a DRAFT model: per round the draft proposes
     ``num_speculative`` tokens (k+1 width-1 feeds through its own cache:
     the last feed puts the last proposal's K/V in, which the all-accepted
@@ -567,7 +575,9 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     Greedy by default, and then the output is exactly the target's greedy
     decode. ``temperature > 0`` (``generator`` required) draws proposals
     from the draft and accepts by ``speculative_accept_step``: the output
-    follows the target's distribution. Both models share a vocabulary.
+    follows the target's distribution; ``rows`` keys each row's draws by
+    its global row, as in ``autoregressive_generate``. Both models share a
+    vocabulary.
 
     prompt (B, P) → (tokens (B, P + max_new_tokens), stats): rounds,
     drafted and accepted proposals (over active rows). Rows that reach
@@ -590,12 +600,13 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     def choose(logits):
         if not sampled:
             return logits.argmax(dim=-1).to(prompt.dtype), None
-        probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(prompt.dtype), probs
+        scores = logits.float() / temperature
+        return (gumbel_draw(scores, generator, rows).to(prompt.dtype),
+                torch.softmax(scores, dim=-1))
 
     first_tok, _ = choose(t_last)
     buf = _speculation_buffer(prompt, first_tok, max_len)
-    rows = torch.arange(b, device=dev)
+    row_ids = torch.arange(b, device=dev)
     vec_p = torch.full((b,), p, dtype=torch.int32, device=dev)
     t_cache, d_cache = _set_len(t_cache, vec_p), _set_len(d_cache, vec_p)
     n_done = torch.ones((b,), dtype=torch.long, device=dev)
@@ -604,7 +615,7 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     while bool((n_done < max_new_tokens).any()):
         last_pos = p + n_done - 1
         active = n_done < max_new_tokens
-        last_tok = buf[rows, last_pos]
+        last_tok = buf[row_ids, last_pos]
         # 1) the draft's k+1 feeds
         tok, props, qs = last_tok, [], []
         for _ in range(k + 1):
@@ -619,9 +630,9 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
         # 3) acceptance
         if sampled:
             target_probs = torch.softmax(t_logits.float() / temperature, dim=-1)
-            uniforms = torch.rand((b, k), generator=generator, device=dev)
+            uniforms = row_uniforms(generator, (b, k), rows)
             accepted, out = speculative_accept_step(torch.stack(qs[:k], dim=1), target_probs,
-                                                    proposals, uniforms, generator)
+                                                    proposals, uniforms, generator, rows)
         else:
             accepted, out = _greedy_accept(proposals, t_logits.argmax(dim=-1))
         # 4) commit, and roll both pointers back to the last accepted proposal

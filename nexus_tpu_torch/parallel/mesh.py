@@ -174,6 +174,13 @@ class Mesh:
                 self._groups[key] = mine
         return self._groups[key]
 
+    def lockstep_group(self):
+        """Every rank of the mesh over gloo (``host_group`` of all its
+        axes), or None on one rank: the ranks that run one host program
+        in lockstep, as the serving engine's replicas over the batch axes
+        and its tensor ranks do."""
+        return self.host_group(*AXES)
+
     def _whole_world(self) -> None:
         if self.world_group is not dist.group.WORLD:
             raise ValueError(f"{self!r} runs over a part of the initialised group "

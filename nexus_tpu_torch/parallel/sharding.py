@@ -5,6 +5,9 @@ tensor dims onto mesh axes. The port applies them by hand:
 
 * ``batch_spec`` cuts this rank's slice out of the global batch (rows over
   ``data`` and ``fsdp``, columns over ``sequence``);
+* ``decode_rows`` gives a rank its rows of a decode batch by JAX's rule
+  for the infer cache (rows over the batch axes that tile them), and
+  ``gather_rows`` joins every rank's rows back in row order;
 * ``shard_params`` cuts this rank's block out of every parameter along the
   dims the rules put on the model axes, ``expert`` (the MoE stacks' expert
   dim) and ``tensor`` (heads, kv heads, qkv, mlp, vocab), as JAX's
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from nexus_tpu_torch.models.params import LeafCuts
+from nexus_tpu_torch.parallel.comm import all_gather
 from nexus_tpu_torch.parallel.mesh import Mesh
 
 # logical dim name → physical mesh axis (or tuple of axes)
@@ -79,6 +83,48 @@ def batch_spec(batch: Dict[str, np.ndarray], mesh: Mesh) -> Dict[str, np.ndarray
         cols = _block(tokens.shape[1] - 1, n_seq, mesh.index("sequence"), "sequence")
         out["tokens"] = tokens[:, cols.start:cols.stop + 1]
     return out
+
+
+@dataclass(frozen=True)
+class DecodeRows:
+    """A rank's rows of a decode batch (infer), by JAX's rule for its cache
+    layout: the rows lie over ``axes``, (``data``, ``fsdp``) where their
+    ranks tile the batch, else ``data`` alone where its ranks do, else none
+    (every rank holds every row). This rank holds rows ``start:stop`` of
+    ``total``; the ranks of the other axes (``sequence``, and those of the
+    batch axes the rows do not lie over) hold the same rows."""
+
+    axes: Tuple[str, ...]
+    start: int
+    stop: int
+    total: int
+
+
+def decode_rows(mesh: Mesh, batch: int) -> DecodeRows:
+    """This rank's ``DecodeRows`` of a ``batch`` of rows on ``mesh``
+    (``nexus_tpu/runtime/entrypoints.py``'s ``batch_axes``)."""
+    dp, d_only = mesh.size("data", "fsdp"), mesh.shape["data"]
+    if dp > 1 and batch % dp == 0:
+        axes: Tuple[str, ...] = ("data", "fsdp")
+    elif d_only > 1 and batch % d_only == 0:
+        axes = ("data",)
+    else:
+        return DecodeRows((), 0, batch, batch)
+    index = 0  # data-major, as JAX lays P(("data", "fsdp")) out
+    for a in axes:
+        index = index * mesh.shape[a] + mesh.index(a)
+    rows = _block(batch, mesh.size(*axes), index, "batch")
+    return DecodeRows(tuple(a for a in axes if mesh.shape[a] > 1), rows.start, rows.stop, batch)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, rows: DecodeRows) -> torch.Tensor:
+    """Every rank's block of rows of ``x`` (its ``rows`` of a batch, along
+    dim 0) joined in row order over the batch axes they lie over: the whole
+    batch's on every rank (``x`` itself when every rank holds every row)."""
+    if not rows.axes:
+        return x
+    n = mesh.size(*rows.axes)
+    return all_gather(x, mesh.group(*rows.axes)).view(n * x.shape[0], *x.shape[1:])
 
 
 # the mesh axes that cut parameters, in mesh order (outer → inner): the
@@ -249,15 +295,16 @@ def shard_params(params, logical_tree, mesh, groups: Optional[Dict[str, int]] = 
     cuts = LeafCuts(logical_tree, shard, groups)
 
     def cut(tree, prefix=""):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for key, value in tree.items():
+        for key, value in items:
             path = f"{prefix}{key}"
-            if isinstance(value, dict):
+            if isinstance(value, (dict, list)):
                 out[key] = cut(value, path + "/")
                 continue
             block = cuts.take(path)(value.detach())
             out[key] = block.clone(memory_format=torch.contiguous_format).requires_grad_(
                 value.requires_grad)
-        return out
+        return out if isinstance(tree, dict) else [out[i] for i in range(len(tree))]
 
     return cut(params)

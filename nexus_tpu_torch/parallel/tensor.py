@@ -100,11 +100,25 @@ def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor, group,
     return reduce_from_tensor(torch.where(inside, rows, torch.zeros_like(rows)), group)
 
 
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        whole = all_gather(x.contiguous(), group).view(n, *x.shape)
+        return whole.movedim(0, -2).reshape(*x.shape[:-1], n * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return g.chunk(n, dim=-1)[dist.get_rank(ctx.group)].contiguous(), None
+
+
 def gather_from_tensor(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """Every rank's block of the last dim of ``x``, joined in rank order:
-    this rank's (B, T, V / n) logits → the whole (B, T, V) on every rank."""
-    if group is None:
-        return x
-    n = dist.get_world_size(group)
-    whole = all_gather(x.contiguous(), group).view(n, *x.shape)
-    return whole.movedim(0, -2).reshape(*x.shape[:-1], n * x.shape[-1])
+    this rank's (B, T, V / n) logits → the whole (B, T, V) on every rank.
+    Its gradient is the rank's block of the whole one's: what follows runs
+    alike on every rank (a column-parallel product takes it through
+    ``copy_to_tensor``, which sums the ranks' shares). ``x`` itself without
+    a group."""
+    return x if group is None else _Gather.apply(x, group)

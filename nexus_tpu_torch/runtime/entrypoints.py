@@ -31,29 +31,34 @@ Every mode runs on one device, or as one rank of an initialised
 ``torch.distributed`` group: the world is the group, and the declared
 parallelism is the mesh when it tiles the world (else JAX's plan for the
 world's size). Training takes its slice of the global batch on each rank,
-and a sharded ``sequence`` axis selects ring attention. Every family with
+and a sharded ``sequence`` axis selects ring attention (over the sequence
+group of the rank's tensor index beside a tensor axis). Every family with
 parameters cut by logical dims trains over the model axes too: ``tensor``
-(Llama, GPT-NeoX, Mixtral; alone or with ``data``, ``fsdp`` and
-``expert``) and ``expert`` (Mixtral's expert stacks; a dense family's
-ranks there are replicas, as in JAX). Each rank holds its block of the
-params (random init drawn whole a slice at a time, each rank keeping its
-block; parallel/sharding.py) and of their AdamW moments, the model runs
-Megatron's split with the axes' collectives (parallel/tensor.py), the
-vocab-parallel loss and, for Mixtral, routing over the global token
-population of the batch axes (ops/moe.py), and the checkpoints hold JAX's
-global arrays. Infer and serve of Llama, GPT-NeoX and Mixtral run over a
-mesh whose only axis above 1 is ``tensor``: each rank holds its block of
-the params (random init, a checkpoint's, or ``model.weights``) and of the
-KV cache, the decode scaffold runs the axis's collectives, and the engine
-runs in lockstep on every rank (runtime/serving.py). A speculative draft
-whose dims do not tile the axis runs whole on every rank. Over more than
-one rank what is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item: infer / serve over ``data``, ``fsdp`` or ``sequence``,
-training over ``sequence`` together with ``tensor``, the MLP family over
-``tensor`` and heads that do not tile ``tensor`` (4b part three), infer /
-serve over ``expert`` (4c part two), ``pipeline`` (4d). A d_ff or
-vocabulary that does not tile ``tensor``, or experts that do not tile
-``expert``, raise ``ValueError``: JAX cannot place such a model either.
+(every family: the MLP's layer widths too; alone or with ``data``,
+``fsdp``, ``sequence`` and ``expert``) and ``expert`` (Mixtral's expert
+stacks; a dense family's ranks there are replicas, as in JAX). Each rank
+holds its block of the params (random init drawn whole a slice at a time,
+each rank keeping its block; parallel/sharding.py) and of their AdamW
+moments, the model runs Megatron's split with the axes' collectives
+(parallel/tensor.py), the vocab-parallel loss and, for Mixtral, routing
+over the global token population of the batch axes (ops/moe.py), and the
+checkpoints hold JAX's global arrays. Infer and serve of Llama, GPT-NeoX
+and Mixtral run over ``data``, ``fsdp``, ``sequence`` and ``tensor``: each
+rank holds its block of the params over ``tensor`` (random init, a
+checkpoint's, or ``model.weights``) and of the KV cache, the decode
+scaffold runs the axis's collectives, and the engine runs in lockstep on
+every rank (runtime/serving.py). Infer decodes each rank's block of rows
+over the batch axes that tile ``train.batchSize`` (JAX's cache layout;
+parallel/sharding.py::decode_rows) and gathers them in row order; the
+other ranks (``sequence``, and batch axes that do not tile the rows) are
+replicas, as are serve's over every axis but ``tensor`` (JAX's paged pool
+has no batch sharding). A speculative draft whose dims do not tile the
+axis runs whole on every rank. Over more than one rank what is not ported
+yet raises ``NotImplementedError`` naming its ROADMAP item: heads that do
+not tile ``tensor`` (4b part four), infer / serve over ``expert`` (4c
+part two), ``pipeline`` (4d). A d_ff, vocabulary or MLP width that does
+not tile ``tensor``, or experts that do not tile ``expert``, raise
+``ValueError``: JAX cannot place such a model either.
 Only rank 0 writes the serve trace dump.
 """
 
@@ -75,9 +80,9 @@ from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.models.registry import get_family
 from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
-from nexus_tpu_torch.parallel.comm import check_backend
+from nexus_tpu_torch.parallel.comm import all_reduce, check_backend
 from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
-from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
+from nexus_tpu_torch.parallel.sharding import batch_spec, decode_rows, gather_rows, model_shard
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
@@ -130,33 +135,24 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
     if mesh.world == 1:
         return
     why = []
-    if runtime.mode != "train":
-        batch_axes = [a for a in ("data", "fsdp", "sequence") if mesh.shape[a] > 1]
-        if batch_axes:
-            why.append(f"mode {runtime.mode!r} (item 4b, part three) over the "
-                       f"{', '.join(batch_axes)} axis: infer and serve run over the tensor "
-                       "axis only")
-        if mesh.shape["expert"] > 1:
-            why.append(f"mode {runtime.mode!r} over the expert axis (item 4c, part two)")
-    elif mesh.shape["tensor"] > 1:
-        if runtime.model.family == "mlp":
-            why.append("the mlp family over the tensor axis (item 4b, part three)")
-        if mesh.shape["sequence"] > 1:
-            why.append("training over the sequence axis together with the tensor axis "
-                       "(item 4b, part three)")
+    if runtime.mode != "train" and mesh.shape["expert"] > 1:
+        why.append(f"mode {runtime.mode!r} over the expert axis (item 4c, part two)")
     if mesh.shape["pipeline"] > 1:
         why.append("the pipeline axis (item 4d)")
     attn = runtime.model.overrides.get("attn_impl", "ring")
-    if mesh.shape["sequence"] > 1 and runtime.model.family != "mlp" and attn != "ring":
+    if (runtime.mode == "train" and mesh.shape["sequence"] > 1
+            and runtime.model.family != "mlp" and attn != "ring"):
         # JAX gathers the sequence around this attention (GSPMD); the port
         # shards the sequence only through the ring, and attending within
-        # the rank's block alone would train on wrong attention
+        # the rank's block alone would train on wrong attention (a decode
+        # reads its cache, never the ring: infer and serve hold every
+        # position on every rank)
         why.append(f"attn_impl {attn!r} over the sequence axis (item 4a runs it only as 'ring')")
     if why:
         raise NotImplementedError(
-            f"over {mesh.world} ranks ({mesh!r}) the port runs the data, fsdp, sequence, expert "
-            "and tensor axes of training and the tensor axis of infer and serve; not ported "
-            f"yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
+            f"over {mesh.world} ranks ({mesh!r}) the port runs every axis but pipeline in "
+            "training, and the data, fsdp, sequence and tensor axes in infer and serve; not "
+            f"ported yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
 
 
 def _untiled_heads(cfg, size: int) -> list:
@@ -166,26 +162,27 @@ def _untiled_heads(cfg, size: int) -> list:
 
 
 def _untiled_dims(cfg, size: int) -> list:
-    """The d_ff and vocabulary of ``cfg`` a tensor axis of ``size`` does not
-    split."""
-    dims = {"d_ff": cfg.d_ff, "vocab": cfg.vocab_size}
+    """The dims of ``cfg`` a tensor axis of ``size`` must split and does
+    not: a transformer's d_ff and vocabulary, the MLP's layer widths."""
+    names = ("d_ff", "vocab_size") if hasattr(cfg, "n_heads") else ("hidden_dim", "out_dim")
+    dims = {name.replace("_size", ""): getattr(cfg, name) for name in names}
     return [f"{name} {n}" for name, n in dims.items() if n % size]
 
 
 def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
     """A target model the model axes cannot split. Heads that do not tile
     ``tensor`` are the port's limit (JAX cuts the flat heads × head_dim
-    columns: item 4b, part three); a d_ff or vocabulary that does not tile
-    ``tensor``, or experts that do not tile ``expert``, JAX cannot place
-    either (``jax.device_put`` raises): ValueError."""
+    columns: item 4b, part four); a d_ff, vocabulary or MLP width that does
+    not tile ``tensor``, or experts that do not tile ``expert``, JAX cannot
+    place either (``jax.device_put`` raises): ValueError."""
     size = mesh.shape["tensor"]
-    if size > 1 and hasattr(cfg, "n_heads"):  # (the MLP over the axis was refused before)
-        bad = _untiled_heads(cfg, size)
+    if size > 1:
+        bad = _untiled_heads(cfg, size) if hasattr(cfg, "n_heads") else []
         if bad:
             raise NotImplementedError(
                 f"the tensor axis of {size} ranks does not tile the model ({', '.join(bad)}); "
                 "sharding heads that do not tile the axis is not ported yet (item 4b, part "
-                "three, ROADMAP 'Port to PyTorch/CUDA')")
+                "four, ROADMAP 'Port to PyTorch/CUDA')")
         bad = _untiled_dims(cfg, size)
         if bad:
             raise ValueError(f"the tensor axis of {size} ranks does not tile the model "
@@ -288,9 +285,8 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
     )
     gen = torch.Generator(device=dev)
     gen.manual_seed(tr.seed)
-    # the rank's blocks of the one-rank draw over the model axes (the mlp
-    # family has no logical dims: whole on every rank)
-    shard = model_shard(mesh) if hasattr(family, "logical_axes") else None
+    # the rank's blocks of the one-rank draw over the model axes
+    shard = model_shard(mesh)
     cuts = None
     if shard is None:
         params = family.init(gen, cfg, dev)
@@ -542,7 +538,11 @@ def _run_infer(runtime, family, cfg, dev, mesh):
         g = torch.Generator().manual_seed(tr.seed)
         prompt = torch.randint(0, cfg.vocab_size, (tr.batch_size, prompt_len), generator=g,
                                dtype=torch.int32)
-    prompt = prompt.contiguous().to(dev)
+    # every rank draws the whole prompt and decodes its rows (JAX's cache
+    # layout: rows over the batch axes that tile them), each with its own
+    # dense cache at its tensor block of kv heads
+    rows = decode_rows(mesh, tr.batch_size)
+    prompt = prompt[rows.start:rows.stop].contiguous().to(dev)
     gen = None
     if inf.temperature > 0:
         gen = torch.Generator(device=dev)
@@ -571,11 +571,13 @@ def _run_infer(runtime, family, cfg, dev, mesh):
             return speculative_generate(family.forward_decode, params, cfg,
                                         draft_family.forward_decode, draft_params, draft_cfg,
                                         prompt, max_new, num_speculative=inf.num_speculative,
-                                        temperature=inf.temperature, generator=gen)
+                                        temperature=inf.temperature, generator=gen,
+                                        rows=(rows.start, rows.total))
     else:
         sampling = {"stop_token_id": inf.stop_token_id}
         if gen is not None:
-            sampling.update(temperature=inf.temperature, generator=gen)
+            sampling.update(temperature=inf.temperature, generator=gen,
+                            rows=(rows.start, rows.total))
 
         def decode():
             return family.generate(params, cfg, prompt, max_new, return_logits=True, **sampling)
@@ -599,6 +601,7 @@ def _run_infer(runtime, family, cfg, dev, mesh):
             times.append(time.monotonic() - t0)
         # the plain decode's last logits (a speculative decode returns none)
         finite = {} if spec_extra else {"last_logits_finite": bool(torch.isfinite(last).all())}
+        out, times, finite, stats = _gather_rows(mesh, rows, out, times, finite, stats)
     if stats:
         drafted, accepted = stats["drafted"], stats["accepted"]
         spec_extra.update(
@@ -612,8 +615,10 @@ def _run_infer(runtime, family, cfg, dev, mesh):
     new_tokens = tr.batch_size * max_new
     best = min(times)
     # the first row's new token ids (every row decodes the same prompt when
-    # it is given): the port's key, what a caller checks the run by
-    completion_ids = [int(t) for t in out[0, prompt_len:].tolist()]
+    # it is given), and every row's: the port's keys, what a caller checks
+    # the run by
+    by_row = out[:, prompt_len:].tolist()
+    completion_ids = [int(t) for t in by_row[0]]
     text_extra = {}
     if tokenizer is not None:
         text_extra = {"prompt_tokens": prompt_len,
@@ -639,8 +644,37 @@ def _run_infer(runtime, family, cfg, dev, mesh):
         "device_kind": device_kind(dev),
         "output_shape": list(out.shape),
         "completion_ids": completion_ids,
+        "completion_ids_by_row": by_row,
         **finite,
     }
+
+
+def _gather_rows(mesh, rows, out, times, finite, stats):
+    """A rank's decode joined into the batch's, the same on every rank:
+    the rows gathered in row order over the batch axes they lie over;
+    each iteration's time the slowest rank's; the logits finite on every
+    rank; the speculation ledger summed over the rows' blocks (its rounds
+    the most any block ran, as one loop over every row runs). Nothing to
+    join on one rank."""
+    if mesh.world == 1:
+        return out, times, finite, stats
+    host = mesh.lockstep_group()
+    out = gather_rows(out, mesh, rows)
+    if rows.axes and stats:
+        blocks = mesh.host_group(*rows.axes)
+        counts = {k: v for k, v in stats.items() if k != "rounds"}
+        summed = all_reduce(torch.tensor(list(counts.values()), dtype=torch.int64), blocks)
+        rounds = all_reduce(torch.tensor([stats["rounds"]], dtype=torch.int64), blocks,
+                            op=dist.ReduceOp.MAX)
+        stats = {**dict(zip(counts, (int(x) for x in summed.tolist()))),
+                 "rounds": int(rounds.item())}
+    times = all_reduce(torch.tensor(times, dtype=torch.float64), host,
+                       op=dist.ReduceOp.MAX).tolist()
+    if finite:
+        ok = all_reduce(torch.tensor([int(finite["last_logits_finite"])]), host,
+                        op=dist.ReduceOp.MIN)
+        finite = {"last_logits_finite": bool(ok.item())}
+    return out, times, finite, stats
 
 
 def _decode_completion(tokenizer, new_ids, stop_token_id: int) -> str:

@@ -57,10 +57,12 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   ``torch.profiler.record_function`` scopes around the dispatch sites
   under ``NEXUS_OBS_JAX_TRACE=1``. The hooks read the engine's clock at
   the JAX engine's points and in its order, and no hook reads a tensor;
-* tensor parallelism: params cut over the active mesh's ``tensor`` axis
+* over ranks: params cut over the active mesh's ``tensor`` axis
   (parallel/sharding.py::shard_params) hold a rank's heads, and the pool
-  holds the rank's kv heads; every rank of the group runs the same engine
-  in lockstep. The host decisions come out alike on every rank: the
+  holds the rank's kv heads; the ranks of the other axes (``data``,
+  ``fsdp``, ``sequence``) are replicas of the same engine on the same
+  queue (JAX's pool has no batch sharding); every rank of the mesh runs
+  the engine in lockstep. The host decisions come out alike on every rank: the
   logits are gathered, so the sampled tokens agree; the clock is rank 0's
   reading broadcast at each read; a cancel is agreed at each chunk
   boundary; the host tier's budget is the rank's share of the bytes.
@@ -98,6 +100,7 @@ from nexus_tpu_torch.obs.gauges import LiveGauges
 from nexus_tpu_torch.obs.profiling import dispatch_annotation
 from nexus_tpu_torch.obs.recorder import FlightRecorder
 from nexus_tpu_torch.parallel.comm import AgreedClock, agree_any, check_lockstep, digest64
+from nexus_tpu_torch.parallel.mesh import active_mesh
 from nexus_tpu_torch.runtime.host_cache import (
     HOST_CACHE_DTYPES,
     HostBlockStore,
@@ -548,12 +551,13 @@ class ServingEngine:
         self._max_queue_delay = float(max_queue_delay_s)
         if self._max_queue_delay < 0:
             raise ValueError(f"max_queue_delay_s must be >= 0, got {max_queue_delay_s}")
-        # tensor parallelism: the tensor ranks the params were cut for
-        # (``tensor_split``) run this engine in lockstep, agreeing on the
-        # clock and a cancel over a host group (and auditing it under
-        # NEXUS_SANITIZE)
-        self._tp, mesh = tensor_split(params, cfg)
-        self._lockstep = None if mesh is None else mesh.host_group("tensor")
+        # over ranks: every rank of the active mesh runs this engine in
+        # lockstep (the tensor ranks the params were cut for, ``tensor_split``,
+        # and the replicas over the other axes), agreeing on the clock and a
+        # cancel over a host group (and auditing it under NEXUS_SANITIZE)
+        self._tp, _ = tensor_split(params, cfg)
+        mesh = active_mesh()
+        self._lockstep = None if mesh is None else mesh.lockstep_group()
         self._clock = clock if self._lockstep is None else AgreedClock(clock, self._lockstep)
         # NEXUS_SANITIZE arms the engine's in-loop audits; read once, here
         self._sanitize = sanitizers_enabled()
@@ -663,8 +667,8 @@ class ServingEngine:
 
     @property
     def lockstep_group(self):
-        """The host group of the tensor ranks that run this engine in
-        lockstep (``tensor_split`` of its params), None on one rank."""
+        """The host group of the ranks that run this engine in lockstep
+        (every rank of the active mesh), None on one rank."""
         return self._lockstep
 
     def _vec(self, x, dtype) -> torch.Tensor:

@@ -1389,3 +1389,152 @@ def test_serve_moe_tp_serves_mixtral_serves_requests_over_two_ranks():
     preset, over, feeds = cs.TP_LOGIT_CASES["mixtral"]
     assert preset == "8x7b" and over == {"n_layers": cs.MIXTRAL_SERVE_LAYERS}
     assert feeds == {"dense": ("clean", "no_wdown_reduce")}
+
+
+# -------------------------- the rest of the batch and tensor axes (item 4b)
+
+
+def _infer_template():
+    import yaml
+
+    with open("examples/infer-llama8b.yaml") as f:
+        return yaml.safe_load(f)["spec"]["runtime"]
+
+
+def test_the_batch_axes_specs_are_the_templates_cut():
+    """infer-dp-tp is examples/infer-llama8b.yaml at its widths cut to
+    BATCH_AXES_LAYERS over {data: 2, tensor: 2}; serve-fsdp-tp the serve
+    queue at that depth over JAX's 16-chip plan at 4 ranks; train-ring-tp
+    the long-context template over {sequence: 2, tensor: 2}; the MoE and MLP
+    phases their templates over 4 ranks; each a valid runtime block."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.parallel.mesh import plan_for_devices
+
+    rt = _infer_template()
+    infer = cs.infer_dp_tp_spec()
+    assert (infer["model"]["family"], infer["model"]["preset"]) == (
+        rt["model"]["family"], rt["model"]["preset"])
+    assert infer["model"]["overrides"] == {"n_layers": cs.BATCH_AXES_LAYERS}
+    assert infer["infer"]["promptLength"] == rt["infer"]["promptLength"] == 128
+    assert infer["parallelism"] == {"data": 2, "tensor": 2}
+    assert cs.infer_dp_tp_spec({})["parallelism"] == {}
+    # JAX's plan for 16 chips, {tensor: 8, fsdp: 2}, at 4 ranks
+    plan = plan_for_devices(16)
+    assert (plan.tensor, plan.fsdp) == (8, 2)
+    serve = cs.serve_fsdp_tp_spec()
+    assert serve["parallelism"] == {"fsdp": 2, "tensor": 2}
+    assert serve["serve"]["numRequests"] == cs.SERVE_FSDP_TP_REQUESTS
+    assert serve["model"]["overrides"] == {"n_layers": cs.BATCH_AXES_LAYERS}
+    assert serve["serve"] == dict(cs._serve_spec()["serve"], numRequests=8)
+    ring = cs.ring_tp_spec()
+    assert ring["parallelism"] == {"sequence": 2, "tensor": 2}
+    assert ring["train"]["seqLen"] == 8192 and ring["model"]["overrides"]["n_layers"] == 2
+    moe = cs.moe_ring_tp_spec()
+    assert moe["parallelism"] == {"sequence": 2, "tensor": 2}
+    assert moe["model"]["overrides"]["n_layers"] == 1 and moe["train"]["steps"] == 2
+    mlp = cs.mlp_tp_spec()
+    assert mlp["model"] == {"family": "mlp", "preset": "small"}
+    assert mlp["parallelism"] == {"fsdp": 2, "tensor": 2}
+    assert mlp["train"]["steps"] == cs.MLP_TP_STEPS
+    assert cs.mlp_tp_spec(1, planted="no_copy_reduce")["planted"] == "no_copy_reduce"
+    for spec in (infer, serve, ring, moe, mlp):
+        JaxXlaRuntime.from_dict(spec)
+    assert cs.rank_heads(serve, 2) == (16, 4, 128)
+
+
+def test_the_ring_visit_at_a_tensor_ranks_heads():
+    shape = cs.TP_TRAIN_SHAPES["pythia_ring_visit_tp2"]
+    assert shape == dict(cs.RING_VISIT_SHAPES["pythia"], Hq=8, Hkv=8)
+    cfg = cs._model_config(cs.ring_tp_spec())
+    assert cfg.n_heads // cs.RING_TP_PLAN["tensor"] == shape["Hq"]
+    assert cs.ring_tp_spec()["train"]["seqLen"] // cs.RING_TP_PLAN["sequence"] == shape["Sq"]
+
+
+def test_the_dp_logits_gate_passes_clean_rows_and_catches_faults(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    ref = torch.randn(8, 4, 16)
+    swapped = torch.cat([ref[4:], ref[:4]])
+    near = ref * (1 + cs.TP_LOGIT_LIMIT / 4)
+    ranks = [{"logits": {"clean": near, "rows_reversed": swapped, "peer_rows": swapped},
+              "checksum": 1.0, "rows": [0, 4]}, {"checksum": 1.0, "rows": [4, 8]}]
+    out = cs.check_dp_logits(ref, ranks)
+    assert out["clean"] < 1 and out["rows_reversed"] > 1 and out["peer_rows"] > 1
+    with pytest.raises(AssertionError, match="faults pass the limit"):
+        cs.check_dp_logits(ref, [dict(ranks[0], logits=dict(ranks[0]["logits"],
+                                                             peer_rows=near)), ranks[1]])
+    with pytest.raises(AssertionError, match="logits over ranks"):
+        cs.check_dp_logits(ref, [dict(ranks[0], logits=dict(ranks[0]["logits"],
+                                                             clean=swapped)), ranks[1]])
+    with pytest.raises(AssertionError, match="differ"):
+        cs.check_dp_logits(ref, [ranks[0], dict(ranks[1], checksum=2.0)])
+
+
+def test_the_planted_row_faults_move_the_rows_and_restore():
+    import torch
+
+    from nexus_tpu_torch.parallel import sharding as S
+    from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
+
+    decode, gather = S.decode_rows, S.gather_rows
+    mesh = Mesh(MeshPlan(data=2, tensor=2), rank=0)
+    assert (S.decode_rows(mesh, 8).start, S.decode_rows(mesh, 8).stop) == (0, 4)
+    with cs.planted_rows("peer_rows"):
+        rows = S.decode_rows(mesh, 8)
+        assert (rows.start, rows.stop, rows.axes) == (4, 8, ("data",))
+    x = torch.arange(8.0)[:, None]
+
+    def fake_gather(t, m, rows):  # the two data ranks' blocks, in order
+        return torch.cat([t, t + 4])
+
+    S.gather_rows = fake_gather
+    try:
+        with cs.planted_rows("rows_reversed"):
+            got = S.gather_rows(x[:4], mesh, decode(mesh, 8))
+        assert got[:, 0].tolist() == [4, 5, 6, 7, 0, 1, 2, 3]
+    finally:
+        S.gather_rows = gather
+    assert (S.decode_rows, S.gather_rows) == (decode, gather)
+    with pytest.raises(ValueError, match="unknown planted fault"):
+        with cs.planted_rows("nope"):
+            pass
+
+
+def test_the_batch_gates_fail_unlike_ranks(monkeypatch):
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    b = cs.INFER_DP_TP["train"]["batchSize"]
+    shape = [b, 128 + 64]
+    ids = [[1, 2, 3]] * b
+    run = {"completion_ids_by_row": ids, "last_logits_finite": True, "output_shape": shape,
+           "peak_mem_gb": 1.0, "decode_tokens_per_sec": 1.0,
+           "decode_tokens_per_sec_per_chip": 0.25, "iteration_seconds": [1.0]}
+    one = dict(run, completion_ids_by_row=[[1, 2, 4]] * b)
+    assert cs.check_batch_infer("x", [run, run], one) == {"token_share_vs_one_card": 2 / 3}
+    with pytest.raises(AssertionError, match="different ids"):
+        cs.check_batch_infer("x", [run, dict(run, completion_ids_by_row=[[0]] * b)], one)
+    with pytest.raises(AssertionError, match="rank output"):
+        cs.check_batch_infer("x", [dict(run, output_shape=[4, 192])], one)
+    monkeypatch.setattr(cs, "check_tp_serve", lambda *a: None)
+    serve = {"tokens_per_sec": 3.0, "committed_tokens": 9, "peak_mem_gb": 1.0,
+             "phase_wall_s": 2.0, "spawn_wall_s": 5.0}
+    cs.check_batch_serve("x", [serve, dict(serve, peak_mem_gb=2.0, phase_wall_s=1.0)], ())
+    with pytest.raises(AssertionError, match=r"ledgers differ in \['committed_tokens'\]"):
+        cs.check_batch_serve("x", [serve, dict(serve, committed_tokens=8)], ())
+    cs.check_diverged("x", [{"audit": "lockstep audit (first admission)"}] * 2)
+    with pytest.raises(AssertionError, match="did not fire"):
+        cs.check_diverged("x", [{"audit": "lockstep audit (x)"}, {"audit": None}])
+
+
+def test_the_world_ring_fault_rings_over_the_world_and_restores(monkeypatch):
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.ops import ring_attention as R
+
+    seen = []
+    monkeypatch.setattr(R, "ring_attention",
+                        lambda q, k, v, group, **kw: seen.append((group, kw)))
+    ring = R.ring_attention
+    with cs.planted_train_fault("world_ring"):
+        R.ring_attention(1, 2, 3, "sequence group", causal=True)
+    assert seen == [(dist.group.WORLD, {"causal": True})] and R.ring_attention is ring

@@ -392,15 +392,23 @@ def test_fsdp_peers_are_the_other_batch_axes_never_tensor(monkeypatch):
     assert shards.batch_ranks == 4  # the divisor: the ranks of other rows
 
 
+# each case's id is the one from when it was refused for item 4b, part
+# three: training over sequence x tensor, the MLP over tensor and Mixtral
+# over sequence x tensor run since (tests/test_torch_sequence_tensor.py), and
+# each case now holds what still refuses beside those axes
 @pytest.mark.parametrize("over,match,world", [
-    (dict(parallelism={"sequence": 2, "tensor": 2}),
-     "sequence axis together with the tensor axis .item 4b, part three", 4),
-    (dict(model={"family": "mlp", "preset": "small"}, parallelism={"tensor": 2}),
-     "mlp family over the tensor axis .item 4b, part three", 2),
-    # Mixtral over the ring beside the tensor axis (it trains over each alone
-    # since item 4c, tests/test_torch_moe_parallel.py)
-    pytest.param(dict(model={"family": "mixtral"}, parallelism={"sequence": 2, "tensor": 2}),
-                 "sequence axis together with the tensor axis .item 4b, part three", 4,
+    # an attention other than the ring over the sequence axis beside tensor
+    pytest.param(dict(model={"overrides": {"attn_impl": "flash"}},
+                      parallelism={"sequence": 2, "tensor": 2}),
+                 "attn_impl 'flash' over the sequence axis", 4,
+                 id="over0-sequence axis together with the tensor axis .item 4b, part three-4"),
+    # the MLP over tensor beside the pipeline axis (item 4d)
+    pytest.param(dict(model={"family": "mlp", "preset": "small"},
+                      parallelism={"pipeline": 2, "tensor": 2}), "pipeline axis .item 4d", 4,
+                 id="over1-mlp family over the tensor axis .item 4b, part three-2"),
+    # Mixtral over sequence beside a tensor axis its 2 kv heads do not tile
+    pytest.param(dict(model={"family": "mixtral"}, parallelism={"sequence": 2, "tensor": 4}),
+                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
                  id="mixtral-sequence-tensor-4b"),
     (dict(model={"family": "gptneox", "preset": "tiny"}, parallelism={"tensor": 8}),
      "does not tile the model .q heads 4.*item 4b", 8),

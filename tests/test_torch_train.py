@@ -230,27 +230,33 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # a remat policy neither package has ('dots' and 'dots_attn' are ported)
     pytest.param(dict(model={"overrides": {"remat": True, "remat_policy": "dots_saveable"}}),
                  ValueError, "dots", 1, id="over1-ValueError-dots"),
-    # Mixtral over a sharded sequence axis together with the tensor axis
-    # (item 4b, part three). The id is the one of the case from when Mixtral
-    # over any ranks was refused (item 4c; it trains over the ring since,
-    # tests/test_torch_moe_parallel.py), and before that ring attention at
-    # one device
-    pytest.param(dict(model={"family": "mixtral", "overrides": {"attn_impl": "ring"}},
+    # Mixtral over a sharded sequence axis together with the tensor axis with
+    # an attention other than the ring (which JAX gathers the sequence
+    # around). The id is the one of the case from when Mixtral over any
+    # ranks was refused (item 4c), then Mixtral over sequence x tensor (item
+    # 4b, part three: it trains over them since, tests/test_torch_sequence_
+    # tensor.py), and before that ring attention at one device
+    pytest.param(dict(model={"family": "mixtral", "overrides": {"attn_impl": "xla"}},
                       parallelism={"sequence": 2, "tensor": 2}), NotImplementedError,
-                 "not ported.*item 4b, part three", 4, id="over2-NotImplementedError-not ported"),
+                 "not ported.*attn_impl 'xla' over the sequence axis", 4,
+                 id="over2-NotImplementedError-not ported"),
     # the other axes and modes not ported over several ranks. Training over
     # the tensor axis runs since item 4b part two (tests/test_torch_tensor_
-    # train.py); with a sharded sequence axis beside it, it is part three
-    pytest.param(dict(parallelism={"tensor": 2, "sequence": 2}), NotImplementedError,
-                 "tensor axis .item 4b, part three", 4, id="tensor-4b"),
+    # train.py), beside a sharded sequence axis since part three; heads that
+    # do not tile the axis (the tiny Llama's 2 kv heads over 4) are part four
+    pytest.param(dict(parallelism={"tensor": 4, "sequence": 2}), NotImplementedError,
+                 "tensor axis of 4 ranks does not tile the model .kv heads 2.*item 4b, part "
+                 "four", 8, id="tensor-4b"),
     # serving over the expert axis (item 4c, part two; training runs over it
     # since part one, a replica axis for a dense family)
     pytest.param(dict(mode="serve", parallelism={"expert": 2}), NotImplementedError,
                  "expert axis .item 4c, part two", 2, id="expert-4c"),
     pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
                  "pipeline axis.*item 4d", 4, id="pipeline-4d"),
-    pytest.param(dict(mode="infer", parallelism={"data": 2}), NotImplementedError,
-                 "mode 'infer' .item 4b, part three", 2, id="infer-4b"),
+    # infer over data runs since item 4b part three: over data beside a
+    # tensor axis its kv heads do not tile, it is part four
+    pytest.param(dict(mode="infer", parallelism={"data": 2, "tensor": 4}), NotImplementedError,
+                 "does not tile the model .kv heads 2.*item 4b, part four", 8, id="infer-4b"),
     # attention other than the ring over a sharded sequence axis would
     # attend within each rank's block alone (JAX gathers the sequence)
     pytest.param(dict(model={"overrides": {"attn_impl": "flash"}},
@@ -265,11 +271,12 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     # do not tile (2 ranks, tensor 2, train since item 4b part two)
     pytest.param(dict(parallelism={"fsdp": 2, "sequence": 8}), NotImplementedError,
                  "tensor axis of 8 ranks does not tile.*item 4b", 8, id="replanned-tensor-4b"),
-    # infer and serve run over the tensor axis only (item 4b, part one):
-    # serve over data, a target whose kv heads (the tiny Llama's 2) do not
-    # tile a tensor axis of 4
-    pytest.param(dict(mode="serve", parallelism={"data": 2}), NotImplementedError,
-                 "mode 'serve' .item 4b, part three. over the data axis", 2,
+    # infer and serve run over data, fsdp, sequence and tensor (item 4b,
+    # parts one and three: tests/test_torch_batch_axes.py), but not a
+    # target whose kv heads (the tiny Llama's 2) do not tile a tensor axis
+    # of 4 (part four), beside data or alone
+    pytest.param(dict(mode="serve", parallelism={"data": 2, "tensor": 4}), NotImplementedError,
+                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
                  id="serve-data-4b"),
     pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
                  "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),

@@ -548,3 +548,37 @@ def model_save_and_restore(family_name, cfg_kw, directory, plan_kw, fmt, mode, s
         next(data)
     out["resumed_loss"] = run(1)
     return out
+
+
+# -------------------------------------- infer and serve over the batch axes
+# (tests/test_torch_batch_axes.py)
+
+
+def diverged_entry(spec, bad_rank):
+    """The entry point with ``NEXUS_SANITIZE`` armed, rank ``bad_rank`` of
+    the port's world serving a synthetic queue whose first prompt differs
+    from its peers': the lockstep audit's message on this rank (None when
+    it did not fire)."""
+    import dataclasses
+    import os
+
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    queue = E._synthetic_queue
+
+    def other(sv, tr, cfg):
+        requests = queue(sv, tr, cfg)
+        first = [(t + 1) % cfg.vocab_size for t in requests[0].prompt]
+        return [dataclasses.replace(requests[0], prompt=first)] + requests[1:]
+
+    if build_mesh(MeshPlan(data=world_size())).rank == bad_rank:
+        E._synthetic_queue = other
+    os.environ["NEXUS_SANITIZE"] = "1"
+    try:
+        E.run_template_runtime(spec, device="cpu")
+    except AssertionError as e:
+        return str(e)
+    finally:
+        E._synthetic_queue = queue
+        os.environ.pop("NEXUS_SANITIZE", None)
+    return None
