@@ -34,10 +34,10 @@ Phases, each of which raises on failure:
 5. a second run, 2 layers of the same widths, with full-block remat and the
    vocab-chunked loss (ce_chunk 8192);
 6. ``mode: infer`` at Llama-3-8B, all 32 layers: 8 rows, a 512-token
-   prompt, 64 greedy new tokens, 2 timed iterations; finite logits and the
+   prompt, 64 greedy new tokens, 1 timed iteration; finite logits and the
    output's shape;
 7. ``mode: serve`` at Llama-3-8B, all 32 layers, through the paged,
-   prefix-cached engine: 32 requests (prompts 320..512 with a 256-token
+   prefix-cached engine: 16 requests (prompts 320..512 with a 256-token
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
    and the paged-decode kernel launched; then 4 requests on the int8 pool,
@@ -61,7 +61,7 @@ Phases, each of which raises on failure:
    commit the same tokens is logged for information;
 9. ``serve-fleet``: ``serve.replicas: 4`` behind the prefix-affinity router
    (affinityDepth 2, spillCandidates 2, spillThreshold 4), Llama-3-8B at
-   all 32 layers, 8 rows and an auto-sized pool per replica, one set of
+   16 of its 32 layers, 8 rows and an auto-sized pool per replica, one set of
    weights; a Poisson chat trace (32 roots over 20 s, a quarter of them
    2-turn sessions, 256-token preambles from a pool of 4, Zipf 1.1, 64 new
    tokens) replayed as a closed queue with its arrival stamps, with
@@ -153,7 +153,7 @@ Phases, each of which raises on failure:
    queue's depths, held to its plain version and timed beside its bound and
    SDPA); the teacher-forced logits of a fixed 64-token prompt over the
    ranks within TP_LOGIT_LIMIT of one rank's, equal on both ranks:
-   Llama-3-8B's (TP_LLAMA_LOGIT_LAYERS, 16) through a dense cache, with two
+   Llama-3-8B's (TP_LLAMA_LOGIT_LAYERS, 8) through a dense cache, with two
    planted faults (no reduce after w_down; the vocab gather in the wrong
    order) past the limit, and
    Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
@@ -162,8 +162,8 @@ Phases, each of which raises on failure:
    (examples/infer-llama8b.yaml at its published widths, 4 of its 32 layers,
    re-planned to {tensor: 2}, the infer phase's shape: the same ids on both
    ranks, peaks per rank); ``serve-tp`` (the serve queue cut to 4
-   requests at SERVE_TP_LAYERS, 8) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
-   SERVE_TP_NEOX_LAYERS (6) layers, 4 requests): the serve gates on each rank, D1 at
+   requests at SERVE_TP_LAYERS, 4) and ``serve-tp-neox`` (GPT-NeoX-20B widths cut to
+   SERVE_TP_NEOX_LAYERS (3) layers, 4 requests): the serve gates on each rank, D1 at
    T 1 and 8 at the rank's head counts only, the same completions on both
    ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
    4 requests on one card): the token share they commit before their
@@ -223,8 +223,26 @@ Phases, each of which raises on failure:
    counting each leaf's copies wrong past them) and ``mlp-tp`` (the MLP
    ``small`` preset over {fsdp: 2, tensor: 2}, 20 steps: the tensor limits,
    the column-parallel inputs' gradient sum left out past them);
-20. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax, ring, tensor-parallel, MoE and batch-axes phase's launches,
+20. infer and serve over the expert axis (module item 4c, parts two and
+   three), in the same spawn of 4: ``infer-moe-ep`` (mixtral-infer's spec at
+   Mixtral-8x7B widths, MOE_EP_LAYERS (4) layers, 8 rows, prompt 128, 64 new
+   tokens, over {data: 2, expert: 2}: every rank's ids of the whole batch
+   equal; the teacher-forced logits of every row, each rank feeding its rows
+   as infer feeds them (a prefill, then one position a feed), within
+   TP_LOGIT_LIMITS["mixtral"] of one card's under the ranks' routing and,
+   where a token's routing never parts, within TP_LOGIT_LIMIT of one card's
+   own run, no valid flag moved before a feed's first flip; each rank
+   routing its rows alone and the MoE sum skipped over expert caught), and
+   ``serve-moe-ep`` (serve-moe-tp's spec over {expert: 2, tensor: 2}: the
+   serve gates and the same ledger on every rank, D1 at 16 / 4 heads a
+   rank, the token share against serve-moe-tp-1card, and the lockstep audit
+   firing when an expert peer is given another first prompt); and in
+   ``moe-dispatch`` each train-moe-ep rank's C_local (its expert buffers'
+   rows, ``ops/moe.py::own_slots``) with the expert products timed at
+   C_global and at C_local;
+21. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring, tensor-parallel, MoE, batch-axes and
+   expert-axis phase's launches,
    and K1-K3's timings and bounds at the ring visit of a tensor rank's heads), each
    phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -263,14 +281,16 @@ step PROFILE_STEP.
     python3 chip_smoke.py --moe-gates
 
 runs the MoE phases alone on one card (K1-K3 at Mixtral's rank shape,
-train-moe-tp, train-moe-ep, and serve-moe-tp beside serve-moe-tp-1card with
-Mixtral's logits over the ranks).
+serve-moe-tp beside serve-moe-tp-1card with Mixtral's logits over the ranks,
+train-moe-tp, then train-moe-ep, infer-moe-ep and serve-moe-ep in one spawn
+of 4).
 
     python3 chip_smoke.py --moe-nccl
 
 on a 4-card machine, a rank a card over NCCL: serves the whole
-Mixtral-8x7B (32 layers) over {tensor: 4} and runs train-moe-ep over
-{expert: 4} beside the same spec on one card.
+Mixtral-8x7B (32 layers) over {tensor: 4}, runs train-moe-ep over {expert:
+4}, infer-moe-ep over {data: 2, expert: 2} and serve-moe-ep over {expert:
+2, tensor: 2}, each beside the same spec on one card.
 
     python3 chip_smoke.py --batch-axes-gates
 
@@ -1237,11 +1257,13 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
+# one timed iteration after the untimed warm-up (2 until the expert axis's
+# phases needed the script's time)
 INFER_SPEC = {
     "kind": "jax_xla", "mode": "infer",
     "model": {"family": "llama", "preset": "8b"},  # all 32 layers
     "train": {"batchSize": 8, "seed": 0},
-    "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 2, "temperature": 0.0},
+    "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
 }
 
 
@@ -1281,6 +1303,9 @@ def _serve_spec(num_requests: int = 32, **extra):
 # -prefill32): the serve queue's first 4 (8 until the batch-axes phases
 # needed the script's time)
 SERVE_VARIANT_REQUESTS = 4
+# the serve phase's requests: the queue's first 16 (32 until the expert
+# axis's phases needed the script's time)
+SERVE_REQUESTS = 16
 
 SPEC_KEYS = ("speculative_kind", "num_speculative", "target_forwards", "acceptance_rate",
              "accepted_per_round", "decode_dispatches_per_committed_token")
@@ -1415,7 +1440,10 @@ def phase_serve_host(name: str, spec) -> dict:
 
 
 # the fleet phase: the shape of examples/serve-llama8b.yaml's fleet (4
-# replicas, affinity routing at depth 2) over a chat trace of 32 roots
+# replicas, affinity routing at depth 2) over a chat trace of 32 roots, at
+# FLEET_LAYERS of Llama-3-8B's 32 layers (all 32 until the expert axis's
+# phases needed the script's time)
+FLEET_LAYERS = 16
 FLEET_SPEC_KEYS = {"arrival": "poisson", "arrivalDurationSeconds": 20.0, "tracePrefixPool": 4,
                    "traceZipfA": 1.1, "traceMultiTurnFrac": 0.25, "traceTurns": 2,
                    "maxNewMin": 64, "maxNewMax": 64, "replicas": 4, "routerPolicy": "affinity",
@@ -1639,26 +1667,48 @@ def mixtral_ckpt_spec(directory: str, profile_dir: str, steps: int) -> dict:
     return spec
 
 
-def differing_members(a: str, b: str, chunk: int = 1 << 26) -> list:
-    """The ``leaf_*`` members of two npz files whose bytes differ (or that
-    one of them lacks)."""
+def _member_spans(path: str) -> dict:
+    """{member: (offset of its stored bytes, their size, compression)} of
+    a zip file, from its central directory and local headers."""
+    import struct
     import zipfile
 
+    out = {}
+    with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+        for info in z.infolist():
+            f.seek(info.header_offset + 26)
+            name_len, extra_len = struct.unpack("<HH", f.read(4))
+            out[info.filename] = (info.header_offset + 30 + name_len + extra_len,
+                                  info.compress_size, info.compress_type)
+    return out
+
+
+def differing_members(a: str, b: str, chunk: int = 1 << 26) -> list:
+    """The ``leaf_*`` members of two npz files whose bytes differ (or that
+    one of them lacks): each member's stored bytes read straight from the
+    files and compared, ``chunk`` bytes at a time (np.savez stores its
+    members uncompressed, so they are the members' bytes; a compressed
+    member is compared as stored)."""
+    spans_a, spans_b = _member_spans(a), _member_spans(b)
     bad = []
-    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
-        names = sorted(set(za.namelist()) | set(zb.namelist()))
-        for name in names:
-            if name not in za.namelist() or name not in zb.namelist():
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        for name in sorted(set(spans_a) | set(spans_b)):
+            if name not in spans_a or name not in spans_b:
                 bad.append(name)
                 continue
-            with za.open(name) as fa, zb.open(name) as fb:
-                while True:
-                    x, y = fa.read(chunk), fb.read(chunk)
-                    if x != y:
-                        bad.append(name)
-                        break
-                    if not x:
-                        break
+            (at, size, kind), (bt, other, other_kind) = spans_a[name], spans_b[name]
+            if (size, kind) != (other, other_kind):
+                bad.append(name)
+                continue
+            fa.seek(at)
+            fb.seek(bt)
+            left = size
+            while left:
+                n = min(chunk, left)
+                if fa.read(n) != fb.read(n):
+                    bad.append(name)
+                    break
+                left -= n
     return bad
 
 
@@ -3294,14 +3344,14 @@ TP_LOGIT_LIMIT = 0.05
 TP_LOGIT_LIMITS = {"mixtral": 0.1}
 # GPT-NeoX-20B's depth in the logits over {tensor: 2}: 44 layers cut to
 # TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
-# script's time: 22 until the batch-axes phases)
-TP_NEOX_LAYERS = 11
-# Llama-3-8B's depth in the logits over ranks: 16 of 32 layers (all 32 until
-# the batch-axes phases needed the script's time)
-TP_LLAMA_LOGIT_LAYERS = 16
-# serve-tp-neox's depth: 6 layers (TP_NEOX_LAYERS until the tensor-parallel
-# train phases needed the script's time; the logits keep TP_NEOX_LAYERS)
-SERVE_TP_NEOX_LAYERS = 6
+# script's time: 22 until the batch-axes phases, 11 until the expert axis's)
+TP_NEOX_LAYERS = 6
+# Llama-3-8B's depth in the logits over ranks: 8 of 32 layers (all 32 until
+# the batch-axes phases, 16 until the expert axis's, needed the script's time)
+TP_LLAMA_LOGIT_LAYERS = 8
+# serve-tp-neox's depth: 3 layers (TP_NEOX_LAYERS until the tensor-parallel
+# train phases, 6 until the expert axis's phases needed the script's time)
+SERVE_TP_NEOX_LAYERS = 3
 # the feeds each family's teacher-forced logits take over the ranks, and
 # the planted faults each must catch: Llama-3-8B (TP_LLAMA_LOGIT_LAYERS) through a
 # dense cache and through a paged pool read by D1 at the rank's heads, and
@@ -3344,9 +3394,10 @@ def card_label() -> str:
 # serve-tp's requests: the serve queue's first 4 (16 until the MoE phases
 # over ranks needed the script's time)
 SERVE_TP_REQUESTS = 4
-# serve-tp's depth: 8 of Llama-3-8B's 32 layers (all 32 until the batch-axes
-# phases needed the script's time: 62 s of serve wall over 2 gloo ranks)
-SERVE_TP_LAYERS = 8
+# serve-tp's depth: 4 of Llama-3-8B's 32 layers (all 32 until the batch-axes
+# phases needed the script's time: 62 s of serve wall over 2 gloo ranks; 8
+# until the expert axis's)
+SERVE_TP_LAYERS = 4
 
 
 def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
@@ -3447,23 +3498,28 @@ def _teacher_forced(family, params, cfg, tokens, paged: bool = False):
 
 @contextlib.contextmanager
 def _recorded_routes():
-    """While open, the experts that each MoE layer's routing picks for each
-    token, (T, k) sorted along k on the host, land in the yielded list in
-    call order (a dense feed: one entry a layer)."""
+    """While open, each MoE layer's routing of a feed (``top_k_routing``,
+    or ``global_top_k_routing`` of a rank's rows) lands in the yielded list
+    in call order (a dense feed: one entry a layer) as (the experts picked
+    for each token, (T, k) sorted along k, and their valid flags in the
+    same order), on the host."""
+    import torch
+
     from nexus_tpu_torch.models import mixtral as Mx
 
-    seen, route = [], Mx.top_k_routing
+    seen, whole, split = [], Mx.top_k_routing, Mx.global_top_k_routing
 
-    def recording(*a, **kw):
-        r = route(*a, **kw)
-        seen.append(r.expert_index.sort(-1).values.cpu())
+    def keep(r):
+        order = r.expert_index.sort(-1)
+        seen.append((order.values.cpu(), torch.gather(r.valid, 1, order.indices.long()).cpu()))
         return r
 
-    Mx.top_k_routing = recording
+    Mx.top_k_routing = lambda *a, **kw: keep(whole(*a, **kw))
+    Mx.global_top_k_routing = lambda *a, **kw: keep(split(*a, **kw))
     try:
         yield seen
     finally:
-        Mx.top_k_routing = route
+        Mx.top_k_routing, Mx.global_top_k_routing = whole, split
 
 
 def _feed(family, params, cfg, tokens, feed: str) -> dict:
@@ -3474,7 +3530,7 @@ def _feed(family, params, cfg, tokens, feed: str) -> dict:
     with _recorded_routes() as routes:
         out = {feed: _teacher_forced(family, params, cfg, tokens, paged=feed == "paged")}
     if routes and feed == "dense":
-        out[f"{feed}/routes"] = torch.stack(routes)
+        out[f"{feed}/routes"] = torch.stack([experts for experts, _ in routes])
     return out
 
 
@@ -4592,6 +4648,10 @@ def moe_dense_bytes(spec: dict, world: int) -> int:
 # int(8192 * 2 * 0.5 / 8), all of d_ff)
 MOE_DISPATCH_SHAPES = {"train-moe-tp": (4096, 8, 1280, 7168),
                        "train-moe-ep": (4096, 4, 1024, 14336)}
+# the rank shape whose expert buffers hold the rank's own selections (module
+# item 4c part three): train-moe-ep's, each of its ranks one of 2 row blocks
+# (fsdp) and one of 2 expert blocks of the global routing
+MOE_OWN_SHAPE = ("train-moe-ep", 2, 2)
 
 
 def phase_moe_dispatch() -> dict:
@@ -4650,6 +4710,8 @@ def phase_moe_dispatch() -> dict:
             with torch.no_grad():
                 timing[f"{step}_fwd_ms"] = _cuda_time_ms(fn, reps=5)
             timing[f"{step}_fwd_bwd_ms"] = _cuda_time_ms(both(fn, wrt), reps=5)
+        if name == MOE_OWN_SHAPE[0]:
+            timing["own_buffers"] = own_buffer_times(gen, t, local, cap, wg, wu, wd)
         out[name] = timing
         log(f"[moe-dispatch] {name} rank shape (T {t}, experts {local}, C {cap}, d {d}, d_ff "
             f"{ff}): {timing} ({card_label()})")
@@ -4658,6 +4720,59 @@ def phase_moe_dispatch() -> dict:
             raise AssertionError(f"moe-dispatch {name}: the dense and scatter dispatches differ "
                                  f"by {diff} of the largest token value (limit {2 ** -6})")
     _free_card()
+    return out
+
+
+def own_capacities(routing, t: int, local: int, cap: int) -> dict:
+    """{"rows r, experts e": C_local} of each rank of MOE_OWN_SHAPE under
+    ``routing``, a global routing of its row blocks' tokens (``t`` a
+    block) at capacity ``cap``: the rank of row block r and expert block e
+    (``local`` experts) buffers its own valid selections
+    (``ops/moe.py::own_slots``)."""
+    from nexus_tpu_torch.ops import moe as M
+
+    _, blocks, expert_blocks = MOE_OWN_SHAPE
+    out = {}
+    for r in range(blocks):
+        mine = routing._replace(**{f: getattr(routing, f)[r * t:(r + 1) * t] for f in (
+            "expert_index", "slot_index", "valid", "weights")})
+        for e in range(expert_blocks):
+            out[f"rows {r}, experts {e}"] = M.own_slots(
+                M.expert_block(mine, e * local, local, cap), local)[1]
+    return out
+
+
+def own_buffer_times(gen, t: int, local: int, cap: int, wg, wu, wd) -> dict:
+    """Module item 4c part three at MOE_OWN_SHAPE: each rank's C_local
+    (``ops/moe.py::own_slots``) under the global routing of random router
+    logits over the row blocks' tokens (T ``t`` a block, top 2 of 8, the
+    global capacity ``cap``), and the rank's expert products over
+    (``local``, C, d) bf16 buffers timed forward and with the backward at
+    C_global and at each rank's C_local."""
+    import torch
+    import torch.nn.functional as F
+
+    from nexus_tpu_torch.ops import moe as M
+
+    routing = M.top_k_routing(torch.randn(t * MOE_OWN_SHAPE[1], 8, generator=gen,
+                                          device="cuda"), 2, cap, dense=False)
+    c_local = own_capacities(routing, t, local, cap)
+    out = {"c_global": cap, "c_local": c_local}
+    for c in sorted({cap, *c_local.values()}):
+        buf = (torch.randn(local, c, wg.shape[1], generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_())
+
+        def experts():
+            gated = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * torch.einsum(
+                "ecd,edf->ecf", buf, wu)
+            return torch.einsum("ecf,efd->ecd", gated, wd)
+
+        with torch.no_grad():
+            fwd = _cuda_time_ms(experts, reps=5)
+        bwd = _cuda_time_ms(lambda: torch.autograd.grad(experts().float().sum(),
+                                                        (buf, wg, wu, wd)), reps=5)
+        out[f"experts_C{c}"] = {"fwd_ms": fwd, "fwd_bwd_ms": bwd}
+        del buf
     return out
 
 
@@ -4747,13 +4862,6 @@ def plan_train_moe_ep(backend: str = "gloo", plan: Optional[dict] = None):
                                                                for r in ranked]}}
 
 
-def run_moe_train_phases() -> dict:
-    """train-moe-tp, then train-moe-ep, each in a spawn of its own."""
-    out = timed("train-moe-tp", run_plans, MOE_RANKS, [plan_train_moe_tp()])
-    out.update(timed("train-moe-ep", run_plans, 4, [plan_train_moe_ep()]))
-    return out
-
-
 def moe_train_launches(mt: dict, name: str) -> dict:
     """Kernel ``name``'s launches per rank in each MoE train phase."""
     return {phase: [by[name] for by in mt[f"{phase}-by_rank"]["launches"]]
@@ -4762,21 +4870,24 @@ def moe_train_launches(mt: dict, name: str) -> dict:
 
 def run_moe_gates() -> int:
     """``--moe-gates``: the MoE phases alone on one card, the kernels built
-    and held at Mixtral's rank shape first: train-moe-tp, train-moe-ep and
-    (with the tensor-parallel logits of Mixtral and its one-card twin)
-    serve-moe-tp."""
+    and held at Mixtral's rank shape first: serve-moe-tp (with the
+    tensor-parallel logits of Mixtral and its one-card twin), train-moe-tp,
+    then train-moe-ep, infer-moe-ep and serve-moe-ep in one spawn of 4."""
     import torch
 
     started = time.monotonic()
     phase_build()
     worst, times = phase_tp_train_kernels({"mixtral_tp2": TP_TRAIN_SHAPES["mixtral_tp2"]})
-    mt = run_moe_train_phases()
     tp = timed("serve-moe-tp", run_tp_ranks, ["logits", "serve-moe-tp"], ["mixtral"])
+    mt = timed("train-moe-tp", run_plans, MOE_RANKS, [plan_train_moe_tp()])
+    mt.update(timed("train-moe-ep,moe-ep", run_plans, 4,
+                    [plan_train_moe_ep(), plan_moe_ep_serving(tp["serve-moe-tp-1card"])]))
+    ep = {k: mt.pop(k) for k in list(mt) if k.startswith(MOE_EP_PHASES)}
     log("[summary] " + json.dumps({
         "moe_kernel_worst": worst, "moe_kernel_timings": times,
         "moe_train": train_tp_summary(mt), "logits_error_over_limit": tp["logits-tp"],
         "serve_moe_tp": [{k: r.get(k) for k in TP_KEYS if k in r} for r in tp["serve-moe-tp"]],
-        "phase_seconds": PHASE_SECONDS}))
+        "moe_ep": batch_axes_summary(ep), "phase_seconds": PHASE_SECONDS}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
     return 0
@@ -4785,8 +4896,9 @@ def run_moe_gates() -> int:
 def run_moe_over_nccl() -> int:
     """``--moe-nccl``: on every card of a 4-card machine, a rank a card over
     NCCL: the whole Mixtral-8x7B (32 layers, ~23.4 GB of bf16 weights a
-    rank) served over {tensor: 4}, and train-moe-ep over {expert: 4} beside
-    the same spec on one card."""
+    rank) served over {tensor: 4}, then train-moe-ep over {expert: 4},
+    infer-moe-ep over {data: 2, expert: 2} and serve-moe-ep over {expert:
+    2, tensor: 2} beside the same specs on one card."""
     import torch
 
     from nexus_tpu_torch.testing.dist import spawn
@@ -4802,10 +4914,19 @@ def run_moe_over_nccl() -> int:
         f"tokens_per_sec {whole[0]['tokens_per_sec']}, ttft_p50_s {whole[0].get('ttft_p50_s')}, "
         f"peak GB by rank {[round(r['peak_mem_gb'], 2) for r in whole]}, spawn wall "
         f"{time.monotonic() - t0:.1f} s ({card_label()})")
-    ep = run_plans(world, [plan_train_moe_ep("nccl", {"expert": world})], "nccl")
+    one_moe = phase_serve("serve-moe-tp-1card", moe_serve_spec(1), must_t=(1, 8))
+    ep = run_plans(world, [plan_train_moe_ep("nccl", {"expert": world}),
+                           plan_moe_ep_serving(one_moe, "nccl", world)], "nccl")
+    serving = {k: ep.pop(k) for k in list(ep) if k.startswith(MOE_EP_PHASES)}
+    infer, one_infer = serving["infer-moe-ep"][0], serving["infer-moe-ep-1card"]
+    log(f"[moe-ep-nccl] infer-moe-ep over {world} cards: decode_tokens_per_sec "
+        f"{infer['decode_tokens_per_sec']} (per card {infer['decode_tokens_per_sec_per_chip']}), "
+        f"one card {one_infer['decode_tokens_per_sec']}; serve-moe-ep: tokens_per_sec "
+        f"{serving['serve-moe-ep'][0]['tokens_per_sec']}, one card {one_moe['tokens_per_sec']} "
+        f"({card_label()})")
     log("[summary] " + json.dumps({
         "serve_moe_whole": [{k: r.get(k) for k in TP_KEYS if k in r} for r in whole],
-        "moe_ep_nccl": train_tp_summary(ep)}))
+        "moe_ep_nccl": train_tp_summary(ep), "moe_ep_serving": batch_axes_summary(serving)}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
     return 0
@@ -5039,13 +5160,16 @@ def _diverged_serve(spec: dict, bad_rank: int) -> dict:
 
 
 def batch_axes_rank(spec: dict) -> dict:
-    """One rank's run of a batch-axes phase (``spec["rank_phase"]``):
-    ``dp-logits`` (``_dp_logits_rank``), ``entry`` (``_tp_run`` of
+    """One rank's run of a batch-axes or expert-axis phase
+    (``spec["rank_phase"]``): ``dp-logits`` (``_dp_logits_rank``),
+    ``moe-ep-logits`` (``_moe_ep_logits_rank``), ``entry`` (``_tp_run`` of
     ``spec["spec"]``) or ``diverged`` (``_diverged_serve``)."""
     _rank_device()
     phase = spec["rank_phase"]
     if phase == "dp-logits":
         return _dp_logits_rank(spec["plan"])
+    if phase == "moe-ep-logits":
+        return _moe_ep_logits_rank(spec["plan"])
     if phase == "entry":
         return _tp_run(spec["spec"])
     if phase == "diverged":
@@ -5076,16 +5200,17 @@ def check_dp_logits(ref, ranks: list) -> dict:
     return {f: v / TP_LOGIT_LIMIT for f, v in errs.items()}
 
 
-def check_batch_infer(name: str, runs: list, one: dict) -> dict:
+def check_batch_infer(name: str, runs: list, one: dict, spec: Optional[dict] = None) -> dict:
     """Every rank returns the whole batch's ids, the same on every rank (so
-    across each tensor group), the output's shape and finite logits; the
-    share of one card's new tokens each row commits before its first
-    difference, for information."""
+    across each tensor or expert group), ``spec``'s output shape (infer-dp-
+    tp's by default) and finite logits; the share of one card's new tokens
+    each row commits before its first difference, for information."""
+    spec = spec or INFER_DP_TP
     ids = [r["completion_ids_by_row"] for r in runs]
     if any(x != ids[0] for x in ids):
         raise AssertionError(f"{name}: the ranks return different ids")
-    b = INFER_DP_TP["train"]["batchSize"]
-    shape = [b, INFER_DP_TP["infer"]["promptLength"] + INFER_DP_TP["infer"]["maxNewTokens"]]
+    b = spec["train"]["batchSize"]
+    shape = [b, spec["infer"]["promptLength"] + spec["infer"]["maxNewTokens"]]
     for r in runs:
         if not r["last_logits_finite"] or r["output_shape"] != shape or len(ids[0]) != b:
             raise AssertionError(f"{name}: rank output {r['output_shape']}, finite "
@@ -5274,6 +5399,7 @@ def run_batch_axes_gates() -> int:
     log("[summary] " + json.dumps({"ring_tp_kernel_worst": worst,
                                    "ring_tp_kernel_timings": times,
                                    "batch_axes": batch_axes_summary(ba),
+        "moe_ep": batch_axes_summary(ep),
                                    "phase_seconds": PHASE_SECONDS}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
@@ -5302,6 +5428,370 @@ def run_batch_axes_over_nccl() -> int:
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
     return 0
+
+
+# ------ infer and serve over the expert axis (module item 4c, parts two and three)
+#
+# Mixtral-8x7B's widths over the expert axis beside data or tensor, each rank
+# a spawned process sharing the card over gloo, in the spawn of 4 of the
+# train phases (``run_plans``). ``--moe-nccl`` runs them a rank a card too.
+
+# infer-moe-ep: mixtral-infer's spec (the infer phase's 8 rows) at
+# MOE_EP_LAYERS of the 32 layers, prompt 128 (512 in mixtral-infer), 64 new
+# tokens, one timed iteration, over {data: 2, expert: 2}: the rows over data
+# (JAX's cache layout), the experts over expert, the capacity factor of the
+# preset (1.25); the dispatch pinned to the one ``auto`` resolves over ranks
+MOE_EP_LAYERS = 4
+MOE_EP_INFER_PLAN = {"data": 2, "expert": 2}
+# serve-moe-ep: serve-moe-tp's spec (MOE_SERVE_LAYERS, mixtral-serve's 8
+# requests) over {expert: 2, tensor: 2}, held to serve-moe-tp-1card
+MOE_EP_SERVE_PLAN = {"expert": 2, "tensor": 2}
+# the teacher-forced logits of infer-moe-ep's whole prompt, as infer feeds
+# it: its first 112 positions in one feed (the prefill: 896 tokens, whose
+# capacity of 280 an expert drops nothing), then its last
+# MOE_EP_LOGIT_STEPS positions one a feed (the steps: 8 tokens a feed, whose
+# capacity of 2 an expert drops selections, where each rank's 4 rows alone
+# would drop others); the last MOE_EP_LOGIT_STEPS positions of each held.
+# A top-k near-tie that the split's rounding tips parts a token's logits
+# from one card's by what another expert gives it: the H100 read 0.119 on
+# such a token of the prefill (a flip at the last layer) and 0.109 of the
+# steps, 0.006 on the tokens whose routing never parts (PERF.md, §6). So
+# each token is held to one card's run under the ranks' own routing
+# (``replayed_routes``) within TP_LOGIT_LIMITS["mixtral"], and to one
+# card's own run within TP_LOGIT_LIMIT where its routing never parts
+MOE_EP_LOGIT_STEPS = 16
+# the planted faults of the expert axis: each rank routing its rows alone
+# (the fault this slice repairs), and the MoE layer's partial outputs summed
+# over the tensor axis alone (none here: skipped over expert)
+MOE_EP_ROUTE_FAULTS = ("rows_alone", "moe_tensor_only")
+MOE_EP_PHASES = ("infer-moe-ep", "serve-moe-ep")
+
+
+def infer_moe_ep_spec(parallelism: Optional[dict] = None) -> dict:
+    spec = mixtral_infer_spec()
+    spec["model"] = dict(spec["model"], overrides={"n_layers": MOE_EP_LAYERS,
+                                                   "dispatch_impl": MOE_DISPATCH_OVER_RANKS})
+    spec["infer"] = dict(spec["infer"], promptLength=128, iterations=1)
+    return dict(spec, parallelism=dict(MOE_EP_INFER_PLAN if parallelism is None else parallelism))
+
+
+def serve_moe_ep_spec(parallelism: Optional[dict] = None) -> dict:
+    return dict(moe_serve_spec(), parallelism=dict(MOE_EP_SERVE_PLAN if parallelism is None
+                                                   else parallelism))
+
+
+def moe_ep_prompt(vocab: int):
+    """infer-moe-ep's whole prompt, drawn as the entry point draws it."""
+    import torch
+
+    spec = infer_moe_ep_spec()
+    b, p = spec["train"]["batchSize"], spec["infer"]["promptLength"]
+    return torch.randint(0, vocab, (b, p), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(spec["train"]["seed"]))
+
+
+def moe_ep_feeds(params, cfg, tokens, replay: Optional[dict] = None) -> dict:
+    """``tokens`` (B, P) fed through Mixtral's forward_decode into a dense
+    cache as infer feeds them: P - MOE_EP_LOGIT_STEPS positions in one
+    feed (``prefill``), then one a feed (``steps``). For each part its last
+    MOE_EP_LOGIT_STEPS positions' (B, n, V) float32 logits and their MoE
+    layers' routing (``_recorded_routes``): experts and valid flags, (B, n
+    · layers, k) each, position-major, on the host; and every MoE call's
+    experts, (B, tokens a row · calls, k) (``route_calls``). With
+    ``replay`` (another run's feeds), every MoE call takes that run's
+    experts (``replayed_routes``)."""
+    import torch
+
+    from nexus_tpu_torch.models import mixtral as Mx
+    from nexus_tpu_torch.models.decoding import cache_for
+
+    b, p = tokens.shape
+    n = MOE_EP_LOGIT_STEPS
+    first = p - n
+    calls = [] if replay is None else route_calls(replay, cfg.n_layers)
+    with torch.inference_mode(), replayed_routes(calls):
+        cache = cache_for(params, cfg, b, p, tokens.device)
+        with _recorded_routes() as routes:
+            logits, cache = Mx.forward_decode(params, cfg, tokens[:, :first], cache)
+        every = [experts.view(b, first, -1) for experts, _ in routes]
+
+        def held(i):  # a layer's (B · first, k) → its last n positions, (B, n, k)
+            return torch.stack([r[i].view(b, first, -1)[:, -n:] for r in routes], 2).flatten(1, 2)
+
+        out = {"prefill": {"logits": logits[:, -n:].float().cpu(), "experts": held(0),
+                           "valid": held(1), "calls": torch.cat(every, dim=1)}}
+        steps = []
+        with _recorded_routes() as routes:
+            for i in range(first, p):
+                logits, cache = Mx.forward_decode(params, cfg, tokens[:, i:i + 1], cache)
+                steps.append(logits.float().cpu())
+    experts = torch.stack([e for e, _ in routes], dim=1)
+    out["steps"] = {"logits": torch.cat(steps, dim=1), "experts": experts,
+                    "valid": torch.stack([v for _, v in routes], dim=1), "calls": experts}
+    return out
+
+
+def route_calls(feeds: dict, layers: int) -> list:
+    """Every MoE call's experts of ``moe_ep_feeds``' ``feeds`` in call
+    order, (B · T, k) each: the prefill's layers, then each step's."""
+    prefill, steps = feeds["prefill"]["calls"], feeds["steps"]["calls"]
+    b, k = prefill.shape[0], prefill.shape[-1]
+    per_layer = prefill.shape[1] // layers
+    return ([prefill[:, i * per_layer:(i + 1) * per_layer].reshape(-1, k) for i in range(layers)]
+            + [steps[:, j] for j in range(steps.shape[1])])
+
+
+@contextlib.contextmanager
+def replayed_routes(calls: list):
+    """While open, the MoE layer's ``top_k_routing`` of each call takes the
+    next of ``calls``' (T, k) experts (none: its own top-k): the weights
+    renormalised over them, the capacity's slots and valid flags, the aux
+    loss and the dropped share of those choices, as ``top_k_routing``
+    computes them for its own."""
+    import torch
+
+    from nexus_tpu_torch.models import mixtral as Mx
+    from nexus_tpu_torch.ops import moe as M
+
+    whole, pending = Mx.top_k_routing, list(calls)
+
+    def replay(router_logits, k, capacity, dense=True):
+        t, e = router_logits.shape
+        top_idx = pending.pop(0).to(router_logits.device).long()
+        probs = torch.softmax(router_logits.float(), dim=-1)
+        top_probs = torch.gather(probs, 1, top_idx)
+        top_probs = top_probs / top_probs.sum(-1, keepdim=True)
+        slot_idx, valid, sel_mask = M._slots(top_idx, e, capacity)
+        aux = e * torch.sum(sel_mask.sum(1).mean(0) * probs.mean(0))
+        dropped = torch.clamp(1.0 - valid.sum() / (t * k), min=0.0)
+        dispatch = combine = None
+        if dense:
+            dispatch, combine = M._dense(top_idx, slot_idx, valid, top_probs, e, capacity)
+        return M.RoutingResult(combine, dispatch, aux, probs, dropped, top_idx.to(torch.int32),
+                               slot_idx, valid, top_probs)
+
+    if pending:
+        Mx.top_k_routing = replay
+    try:
+        yield
+    finally:
+        Mx.top_k_routing = whole
+        if pending:
+            raise AssertionError(f"{len(pending)} replayed routes were never taken")
+
+
+def moe_ep_reference_logits(replays: Optional[dict] = None) -> dict:
+    """One card's ``moe_ep_feeds`` of moe_ep_prompt from the seed's random
+    weights: its own routing's, or {fault: feeds} under each of
+    ``replays``' routing."""
+    import torch
+
+    from nexus_tpu_torch.models import mixtral
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    _free_card()
+    spec = infer_moe_ep_spec({})
+    cfg = _model_config(spec)
+    params = E._decode_params(mixtral, cfg, torch.device("cuda"), spec["train"]["seed"])
+    tokens = moe_ep_prompt(cfg.vocab_size).cuda()
+    if replays is None:
+        out = moe_ep_feeds(params, cfg, tokens)
+    else:
+        out = {fault: moe_ep_feeds(params, cfg, tokens, replay=feeds)
+               for fault, feeds in replays.items()}
+    del params
+    _free_card()
+    return out
+
+
+@contextlib.contextmanager
+def planted_moe_route(fault: Optional[str]):
+    """One of MOE_EP_ROUTE_FAULTS for a block (module attributes patched in
+    this process, never the repo): ``rows_alone`` has the decode's MoE
+    layer route each rank's rows alone (no rows in use); ``moe_tensor_only``
+    sums its partial outputs over the tensor axis alone."""
+    from nexus_tpu_torch.models import mixtral as Mx
+    from nexus_tpu_torch.parallel.mesh import active_mesh
+
+    rows, split = Mx.split_rows, Mx.moe_split
+
+    def tensor_only(layers, cfg):
+        first, _ = split(layers, cfg)
+        return first, active_mesh().group("tensor")
+
+    if fault == "rows_alone":
+        Mx.split_rows = lambda: None
+    elif fault == "moe_tensor_only":
+        Mx.moe_split = tensor_only
+    elif fault not in (None, "clean"):
+        raise ValueError(f"unknown planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        Mx.split_rows, Mx.moe_split = rows, split
+
+
+def _moe_ep_logits_rank(plan: dict) -> dict:
+    """This rank's ``moe_ep_feeds`` of its rows of moe_ep_prompt (through
+    ``decode_rows``, under ``use_decode_rows``), clean and under each of
+    MOE_EP_ROUTE_FAULTS, gathered in row order over the batch axes: rank 0
+    returns them, every rank a checksum of the clean logits and its rows."""
+    import torch
+
+    from nexus_tpu_torch.models import mixtral
+    from nexus_tpu_torch.parallel import sharding as S
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    mesh = build_mesh(MeshPlan(**plan))
+    spec = infer_moe_ep_spec()
+    cfg = _model_config(spec)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    prompt = moe_ep_prompt(cfg.vocab_size)
+    rows = S.decode_rows(mesh, prompt.shape[0])
+    out = {}
+    with use_mesh(mesh):
+        params = E._decode_params(mixtral, cfg, dev, spec["train"]["seed"], S.model_shard(mesh))
+        for fault in ("clean",) + MOE_EP_ROUTE_FAULTS:
+            with planted_moe_route(fault), S.use_decode_rows(rows):
+                mine = moe_ep_feeds(params, cfg, prompt[rows.start:rows.stop].to(dev))
+            out[fault] = {part: {k: S.gather_rows(v.contiguous(), mesh, rows)
+                                 for k, v in feeds.items()} for part, feeds in mine.items()}
+    del params
+    _free_card()
+    return {"feeds": out if mesh.rank == 0 else None, "rows": [rows.start, rows.stop],
+            "checksum": sum(float(f["logits"].double().sum()) for f in out["clean"].values())}
+
+
+def valid_mismatches(ref_routes, routes, ref_valid, valid, b: int) -> int:
+    """Valid flags that differ from the reference's, (layers, feeds · B, k)
+    of feeds of one position (B tokens a feed, in row order), on the tokens
+    of a feed that come before its first token whose top-k differs from
+    the reference's at that layer: a routing of the feed's tokens in one
+    order with one capacity keeps the same selections there."""
+    k = ref_routes.shape[-1]
+    flips = (ref_routes != routes).any(-1).view(ref_routes.shape[0], -1, b)
+    before = ~flips.int().cummax(2).values.bool()
+    return int(((ref_valid != valid).view(*before.shape, k) & before[..., None]).sum())
+
+
+def _by_layer(x, layers: int):
+    """(B, positions · layers, k) position-major → (layers, B · positions,
+    k), the layout ``route_flips`` reads (row-major over B × positions)."""
+    b, n, k = x.shape
+    return x.view(b, n // layers, layers, k).permute(2, 0, 1, 3).reshape(layers, -1, k)
+
+
+def _by_feed(x, layers: int):
+    """(B, feeds · layers, k) feed-major → (layers, feeds · B, k), each
+    feed's tokens in row order (``valid_mismatches``)."""
+    b, n, k = x.shape
+    return x.view(b, n // layers, layers, k).permute(2, 1, 0, 3).reshape(layers, -1, k)
+
+
+def check_moe_ep_logits(ref: dict, replayed: dict, ranks: list,
+                        layers: int = MOE_EP_LAYERS) -> dict:
+    """infer-moe-ep's teacher-forced logits of every row, each rank feeding
+    its rows, against one card's: the same on every rank (checksums).
+    Clean: every token of the prefill and of the steps within
+    TP_LOGIT_LIMITS["mixtral"] of one card's run under the ranks' routing
+    (``replayed``, {fault: feeds}); those whose routing (experts or valid
+    flags) parts from one card's own run (``ref``) at no layer within
+    TP_LOGIT_LIMIT of it (``route_flips``); and no valid flag of the steps
+    moved before its feed's first top-k flip (``valid_mismatches``). Each
+    of MOE_EP_ROUTE_FAULTS is caught by the steps' valid flags or past
+    TP_LOGIT_LIMITS["mixtral"] of one card under its routing. {fault:
+    {part: readings}, and for a fault what caught it}."""
+    import torch
+
+    sums = [r["checksum"] for r in ranks]
+    if any(x != sums[0] for x in sums):
+        raise AssertionError(f"infer-moe-ep: the ranks' gathered logits differ (checksums {sums})")
+    b = ref["steps"]["logits"].shape[0]
+    limit = TP_LOGIT_LIMITS["mixtral"]
+    out = {}
+    for fault, feeds in ranks[0]["feeds"].items():
+        out[fault] = {}
+        for part, got in feeds.items():
+            want, same = ref[part]["logits"], replayed[fault][part]["logits"]
+            both = [torch.cat([x["experts"], x["valid"].to(x["experts"].dtype)], -1)
+                    for x in (ref[part], got)]
+            flips = route_flips(want, got["logits"], *(_by_layer(x, layers) for x in both))
+            err = float((got["logits"] - want).abs().max() / want.abs().max())
+            same_err = float((got["logits"] - same).abs().max() / same.abs().max())
+            out[fault][part] = dict(flips, error=err, same_routes_error=same_err)
+        top_k = [_by_feed(x["steps"][key], layers) for x in (ref, feeds)
+                 for key in ("experts", "valid")]
+        out[fault]["steps"]["valid_mismatches"] = valid_mismatches(top_k[0], top_k[2], top_k[1],
+                                                                   top_k[3], b)
+    log(f"[infer-moe-ep] teacher-forced logits of {b} rows x {MOE_EP_LOGIT_STEPS} positions of "
+        f"the prefill and of the steps over the ranks against one card (its own routing; "
+        f"same_routes_error: under the ranks' routing), by fault: {out}; rows by rank "
+        f"{[r['rows'] for r in ranks]} (limits: under the ranks' routing {limit}, the tokens "
+        f"whose routing never parts {TP_LOGIT_LIMIT}; {card_label()})")
+    clean = out["clean"]
+    if (clean["steps"]["valid_mismatches"]
+            or not max(x["same_routes_error"] for x in clean.values()) <= limit
+            or not max(x["unflipped"] for x in clean.values()) <= TP_LOGIT_LIMIT):
+        raise AssertionError(f"infer-moe-ep: over the ranks {clean} (limits: under the ranks' "
+                             f"routing {limit}, the unflipped tokens {TP_LOGIT_LIMIT}, no valid "
+                             "flag before a flip)")
+    for fault in MOE_EP_ROUTE_FAULTS:
+        got = out[fault]
+        caught = ([] if not got["steps"]["valid_mismatches"] else ["valid flags"]) + (
+            [] if max(x["same_routes_error"] for x in got.values() if isinstance(x, dict))
+            <= limit else ["logits"])
+        if not caught:
+            raise AssertionError(f"infer-moe-ep: the planted {fault} passes every gate ({got})")
+        got["caught_by"] = caught
+    return out
+
+
+def plan_moe_ep_serving(one_moe: dict, backend: str = "gloo", world: int = 4):
+    """infer-moe-ep and serve-moe-ep (a plan of ``run_plans`` over 4
+    ranks): one card's teacher-forced logits and infer of the same spec
+    first (serve-moe-ep is held to ``one_moe``, serve-moe-tp-1card's run);
+    then the ranks' logits (clean and under MOE_EP_ROUTE_FAULTS), infer,
+    serve and (over gloo) a serve whose expert peer 1 is given another
+    first prompt under NEXUS_SANITIZE; the gates after."""
+    ref = moe_ep_reference_logits() if backend == "gloo" else None
+    one_infer = phase_infer(infer_moe_ep_spec({}), "infer-moe-ep-1card")
+    infer_plan = MOE_EP_INFER_PLAN if world == 4 else {"data": world // 2, "expert": 2}
+    serve_plan = MOE_EP_SERVE_PLAN if world == 4 else {"expert": world // 2, "tensor": 2}
+    specs = {"infer-moe-ep": {"rank_phase": "entry", "spec": infer_moe_ep_spec(infer_plan)},
+             "serve-moe-ep": {"rank_phase": "entry", "spec": serve_moe_ep_spec(serve_plan)}}
+    if backend == "gloo":
+        specs["infer-moe-ep-logits"] = {"rank_phase": "moe-ep-logits", "plan": infer_plan}
+        # rank 2: expert index 1 at tensor index 0, rank 0's expert peer
+        specs["serve-moe-ep-diverged"] = {
+            "rank_phase": "diverged", "bad_rank": 2,
+            "spec": dict(serve_moe_ep_spec(serve_plan),
+                         serve=dict(serve_moe_ep_spec()["serve"], numRequests=2))}
+    runs = yield specs
+    out = {"infer-moe-ep-1card": one_infer}
+    if ref is not None:
+        logits = runs["infer-moe-ep-logits"]
+        replayed = moe_ep_reference_logits(logits[0]["feeds"])
+        out["infer-moe-ep-logits"] = check_moe_ep_logits(ref, replayed, logits)
+        check_diverged("serve-moe-ep-diverged", runs["serve-moe-ep-diverged"])
+    out["infer-moe-ep-ids"] = check_batch_infer("infer-moe-ep", runs["infer-moe-ep"], one_infer,
+                                                infer_moe_ep_spec())
+    serve = runs["serve-moe-ep"]
+    check_batch_serve("serve-moe-ep", serve, rank_heads(serve_moe_ep_spec(serve_plan),
+                                                        serve_plan["tensor"]))
+    out["serve-moe-ep-share"] = check_tp_share("serve-moe-ep", one_moe, serve[0])
+    log(f"[serve-moe-ep] tokens_per_sec {serve[0]['tokens_per_sec']} over {world} ranks "
+        f"({backend}; per chip {serve[0]['tokens_per_sec_per_chip']}), serve-moe-tp-1card "
+        f"{one_moe['tokens_per_sec']}; ttft_p50_s {serve[0].get('ttft_p50_s')} vs "
+        f"{one_moe.get('ttft_p50_s')}; peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in serve]} ({card_label()})")
+    out["infer-moe-ep"], out["serve-moe-ep"] = runs["infer-moe-ep"], serve
+    return out
+
+
+def moe_ep_launches(ep: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in infer-moe-ep and serve-moe-ep."""
+    return {phase: [r["launches"][name] for r in ep[phase]] for phase in MOE_EP_PHASES}
 
 
 DRAFT_REF = {"family": "llama", "preset": "draft",
@@ -5422,7 +5912,7 @@ def main(argv=None) -> int:
     timed("remat", phase_train, "remat", _train_spec(n_layers=2, steps=4, remat=True,
                                                      remat_policy="full", ce_chunk=8192))
     infer_run = timed("infer", phase_infer)
-    serve_run = timed("serve", phase_serve, "serve", _serve_spec())
+    serve_run = timed("serve", phase_serve, "serve", _serve_spec(num_requests=SERVE_REQUESTS))
     timed("serve-int8", phase_serve, "serve-int8", _serve_spec(num_requests=SERVE_VARIANT_REQUESTS,
                                                                kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
@@ -5458,7 +5948,9 @@ def main(argv=None) -> int:
         host_same[name] = _same_tokens(name, off, host[name], ref="the same trace without the "
                                        "host tier")
     # four replicas behind the prefix-affinity router, and one traced engine
-    fleet = timed("serve-fleet", phase_serve_fleet, _serve_spec(**FLEET_SPEC_KEYS))
+    fleet_spec = _serve_spec(**FLEET_SPEC_KEYS)
+    fleet_spec["model"] = dict(fleet_spec["model"], overrides={"n_layers": FLEET_LAYERS})
+    fleet = timed("serve-fleet", phase_serve_fleet, fleet_spec)
     traced = timed("serve-traced", phase_serve_traced, _serve_spec(num_requests=8))
     mixtral = timed("mixtral", run_mixtral_phases)
     neox = timed("gptneox-mlp", run_neox_mlp_phases)
@@ -5473,9 +5965,11 @@ def main(argv=None) -> int:
     # the card's set-up once)
     tt = timed("ring-neox,train-tp,train-moe-tp", run_plans, 2,
                [plan_ring_neox(), plan_train_tp(), plan_train_moe_tp()])
-    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes", run_plans, 4,
+    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes,moe-ep",
+                    run_plans, 4,
                     [plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(), plan_train_moe_ep()]
-                    + batch_axes_plans()))
+                    + batch_axes_plans() + [plan_moe_ep_serving(tp["serve-moe-tp-1card"])]))
+    ep = {k: tt.pop(k) for k in list(tt) if k.startswith(MOE_EP_PHASES)}
     ba = {k: tt.pop(k) for k in list(tt) if k.startswith(BATCH_AXES_PHASES)}
     mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
     ring.update({k: tt.pop(k) for k in list(tt) if k.startswith("ring-")})
@@ -5517,6 +6011,9 @@ def main(argv=None) -> int:
             # per rank: the batch-axes phases (K1-K3 in the ring at a tensor
             # rank's heads, D1 at the tensor rank's heads under fsdp replicas)
             "batch_axes_launches": batch_axes_launches(ba, n),
+            # per rank: infer-moe-ep (the dense cache: none) and serve-moe-ep
+            # (D1 at an {expert: 2, tensor: 2} rank's heads)
+            "moe_ep_launches": moe_ep_launches(ep, n),
             "ring_tp_visit": ring_tp_visit.get(n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
@@ -5573,6 +6070,7 @@ def main(argv=None) -> int:
         "tensor_parallel_train": train_tp_summary(tt),
         "moe_train": train_tp_summary(mt),
         "batch_axes": batch_axes_summary(ba),
+        "moe_ep": batch_axes_summary(ep),
         "tp_train_kernel_timings": {
             label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
                          for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)

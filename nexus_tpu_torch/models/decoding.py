@@ -49,6 +49,9 @@ from nexus_tpu_torch.ops.attention import (
 from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.ops.sampling import gumbel_draw, row_uniforms, sample_logits
+from nexus_tpu_torch.parallel.comm import agree_any
+from nexus_tpu_torch.parallel.mesh import active_mesh
+from nexus_tpu_torch.parallel.sharding import split_rows
 from nexus_tpu_torch.parallel.tensor import (gather_from_tensor, reduce_from_tensor,
                                              tensor_mesh, vocab_parallel_embed)
 
@@ -326,10 +329,12 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
     return logits, new_cache
 
 
-def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable):
+def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable, ffn_sums: bool = False):
     """Llama-block decode (RMSNorm → roped GQA → residual → ``ffn``) over
     the generic scaffold, at the heads the params hold; a tensor-parallel
-    rank sums ``wo``'s and the FFN's partial products (``reduce``)."""
+    rank sums ``wo``'s partial product (``reduce``), and the FFN's too
+    unless ``ffn_sums``: an FFN that sums its own partial output over its
+    own group (Mixtral's MoE layer, over ``expert`` and ``tensor``)."""
     hq, hkv = local_heads(params, cfg)
     hd = cfg.head_dim
 
@@ -341,7 +346,8 @@ def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable):
         v = (h @ layer["wv"]).reshape(b, t, hkv, hd)
         x = x + reduce(attend(q, k, v).reshape(b, t, hq * hd) @ layer["wo"])
         h2 = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
-        return x + reduce(ffn(cfg, h2, layer))
+        y = ffn(cfg, h2, layer)
+        return x + (y if ffn_sums else reduce(y))
 
     return generic_forward_decode(params, cfg, tokens, cache, layer_fn)
 
@@ -554,6 +560,20 @@ def _speculation_room(p: int, max_new_tokens: int, k: int, max_len, cap: int) ->
     return max_len
 
 
+def _rows_left(n_done: torch.Tensor, max_new_tokens: int) -> bool:
+    """Whether another speculation round runs: while a row of this rank
+    has tokens left, or, when the feeds hold this rank's block of a batch
+    (``parallel/sharding.py::use_decode_rows``), while a row of any rank
+    of the rows does. Every rank of the rows then runs the same rounds, as
+    JAX's one loop over the batch does (a done row keeps feeding, and
+    commits nothing), so that the collectives of each round's feeds meet."""
+    left = bool((n_done < max_new_tokens).any())
+    rows = split_rows()
+    if rows is None:
+        return left
+    return agree_any(left, active_mesh().host_group(*rows.axes))
+
+
 def _stats(rounds, drafted, accepted, **extra) -> Dict[str, int]:
     return {"rounds": int(rounds), "drafted": int(drafted), "accepted": int(accepted),
             **{k: int(v) for k, v in extra.items()}}
@@ -582,7 +602,8 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     prompt (B, P) → (tokens (B, P + max_new_tokens), stats): rounds,
     drafted and accepted proposals (over active rows). Rows that reach
     ``max_new_tokens`` freeze while the rest drain; one host read a round
-    decides whether another runs, none inside it."""
+    decides whether another runs, none inside it (``_rows_left``: agreed
+    over the rows' ranks when the prompt is a rank's rows of a batch)."""
     sampled = temperature > 0.0
     if sampled and generator is None:
         raise ValueError("temperature > 0 requires an explicit torch.Generator")
@@ -612,7 +633,7 @@ def speculative_generate(target_forward_decode: Callable, target_params, target_
     n_done = torch.ones((b,), dtype=torch.long, device=dev)
     zero = torch.zeros((), dtype=torch.long, device=dev)
     rounds, drafted, n_accepted = 0, zero, zero
-    while bool((n_done < max_new_tokens).any()):
+    while _rows_left(n_done, max_new_tokens):
         last_pos = p + n_done - 1
         active = n_done < max_new_tokens
         last_tok = buf[row_ids, last_pos]
@@ -673,7 +694,7 @@ def prompt_lookup_generate(forward_decode: Callable, params, cfg, prompt: torch.
     n_done = torch.ones((b,), dtype=torch.long, device=dev)
     zero = torch.zeros((), dtype=torch.long, device=dev)
     rounds, drafted, n_accepted, hits = 0, zero, zero, zero
-    while bool((n_done < max_new_tokens).any()):
+    while _rows_left(n_done, max_new_tokens):
         last_pos = p + n_done - 1
         active = n_done < max_new_tokens
         proposals, found = prompt_lookup_propose(buf, last_pos, k, ngram)

@@ -24,6 +24,10 @@ MoE layer routes the global token population of the batch axes
 model axes, so every rank of them routes alike), computes its experts'
 share, and sums the ranks' partial outputs in one all-reduce over the
 model axes (rounded to the model dtype first: JAX sums before it rounds).
+A rank with batch peers sizes its expert buffers by its own selections
+(C_local, ``ops/moe.py::own_slots``). Decoding runs the same layer over
+the model axes; an infer rank that decodes a block of the batch's rows
+routes the whole batch's tokens of each feed (``_decode_ffn``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from nexus_tpu_torch.ops.moe import (
     moe_combine_scatter,
     moe_dispatch_dense,
     moe_dispatch_scatter,
+    own_slots,
+    rows_grid,
     token_grid,
     top_k_routing,
 )
@@ -56,6 +62,7 @@ from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.parallel.mesh import active_mesh
+from nexus_tpu_torch.parallel.sharding import split_rows
 from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
                                              reduce_from_tensor, vocab_parallel_embed)
 
@@ -264,18 +271,18 @@ def moe_split(layers: Dict[str, torch.Tensor], cfg: MixtralConfig) -> Tuple[int,
 
 
 def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
-             first: int = 0, group=None, grid: Optional[TokenGrid] = None,
-             reduce: bool = True):
+             first: int = 0, group=None, grid: Optional[TokenGrid] = None):
     """x (B, S, D) → (out (B, S, D), aux loss, dropped fraction).
 
     The router (whole on every rank) routes ``x``: over the global token
     population of the batch axes when ``grid`` is given (this rank's rows
     of it), else over ``x``'s B·S tokens. This rank's experts, those from
     ``first`` that ``layer``'s stacks hold, at its block of d_ff, take the
-    selections routed to them; their combine is this rank's partial
+    selections routed to them, in buffers of the global capacity, or
+    under a ``grid`` of C_local rows that hold this rank's own selections
+    only (``ops/moe.py::own_slots``); their combine is this rank's partial
     output, rounded to the model dtype and summed over ``group`` (the
-    model axes that cut the experts) when ``reduce``, else returned as it
-    is (the decode scaffold sums it). Over a group, two inputs pass
+    model axes that cut the experts). Over a group, two inputs pass
     through ``copy_to_tensor``: the expert path's tokens and the combine
     weights, whose gradients each rank holds its own experts' share of.
     The router's own path does not: its aux loss is the same on every
@@ -297,7 +304,12 @@ def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor]
         routing = global_top_k_routing(router_logits, k, cap, (b, s), grid)
     routing = routing._replace(weights=copy_to_tensor(routing.weights, group))
     n_local = layer["w_gate"].shape[0]
-    routing = expert_block(routing, first, n_local, cap, dense=dispatch == "einsum")
+    dense = dispatch == "einsum"
+    if grid is None:
+        routing = expert_block(routing, first, n_local, cap, dense=dense)
+    else:
+        # the rank's buffers hold its own tokens' selections: C_local rows
+        routing, cap = own_slots(expert_block(routing, first, n_local, cap), n_local, dense)
     xe = copy_to_tensor(xf, group)
     if dispatch == "scatter":
         expert_in = moe_dispatch_scatter(xe, routing, n_local, cap).to(cfg.dtype)
@@ -310,9 +322,7 @@ def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor]
         out = moe_combine_scatter(expert_out, routing)
     else:
         out = moe_combine_dense(expert_out, routing)
-    out = out.reshape(b, s, d).to(cfg.dtype)
-    if reduce:
-        out = reduce_from_tensor(out, group)
+    out = reduce_from_tensor(out.reshape(b, s, d).to(cfg.dtype), group)
     return out, routing.aux_loss, routing.dropped_fraction
 
 
@@ -399,26 +409,28 @@ def init_kv_cache(cfg: MixtralConfig, batch: int, max_len: int, device="cpu") ->
 
 
 def _decode_ffn(cfg: MixtralConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor]):
-    """The MoE layer of a decode feed: routed over the feed's B·T tokens,
-    the same on every rank; under a tensor axis this rank's partial output
-    (its d_ff block), which the scaffold sums over the axis. The aux loss
+    """The MoE layer of a decode feed, the whole layer's output on every
+    rank. Routing covers the feed's B·T tokens, or the batch's when the
+    feed holds this rank's block of its rows (``parallel/sharding.py::
+    use_decode_rows``: routed over the rows' ranks as JAX routes the whole
+    feed). The rank's experts (``moe_split``) at its d_ff block take their
+    selections, and their partial outputs, each rounded to the model
+    dtype, are summed once over the (expert, tensor) group. The aux loss
     is irrelevant at inference."""
-    if layer["w_gate"].shape[0] != cfg.n_experts:
-        raise NotImplementedError("decoding with the experts cut over an expert axis is not "
-                                  "ported yet (item 4c, part two; ROADMAP 'Port to "
-                                  "PyTorch/CUDA')")
-    return _moe_ffn(cfg, h, layer, reduce=False)[0]
+    first, group = moe_split(layer, cfg)
+    return _moe_ffn(cfg, h, layer, first, group, rows_grid(active_mesh(), split_rows()))[0]
 
 
 def forward_decode(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor,
                    cache: Dict[str, Any]):
     """Incremental decode with the routed-MoE FFN: tokens (B, T) appended
     at cache['length'] → (logits (B, T, V) f32, cache) (models/decoding.py).
-    Routing and capacity cover this feed's B·T tokens, as in JAX. Params
-    cut over a tensor axis decode at the rank's heads and d_ff block."""
+    Routing and capacity cover this feed's B·T tokens (the batch's, when
+    the feed holds a rank's rows of it), as in JAX. Params cut over the
+    model axes decode at the rank's heads, experts and d_ff block."""
     from nexus_tpu_torch.models.decoding import scanned_forward_decode
 
-    return scanned_forward_decode(params, cfg, tokens, cache, _decode_ffn)
+    return scanned_forward_decode(params, cfg, tokens, cache, _decode_ffn, ffn_sums=True)
 
 
 def generate(params: Dict[str, Any], cfg: MixtralConfig, prompt: torch.Tensor,

@@ -22,6 +22,12 @@ the small (T, k) expert indices over the batch axes), and
 ``expert_block`` gives the routing as a rank that holds a block of the
 experts (the ``expert`` axis) acts on it: its dispatch and combine cover
 its own experts only, and the model sums the ranks' partial outputs.
+Capacity is the global one, but a rank with batch peers holds its own
+tokens' selections only: ``own_slots`` numbers them densely, so that its
+expert buffers are (E_local, C_local, D), C_local the most any of its
+experts keeps, and not the (E_local, C_global, D) only its share fills (a
+deliberate difference: JAX's GSPMD buffers are global). ``rows_grid`` is
+the grid of an infer decode whose rows lie over the batch axes.
 """
 
 from __future__ import annotations
@@ -140,6 +146,20 @@ def token_grid(mesh: Optional[Mesh]) -> Optional[TokenGrid]:
                      mesh.index("sequence"))
 
 
+def rows_grid(mesh: Optional[Mesh], rows) -> Optional[TokenGrid]:
+    """The ``TokenGrid`` of a decode feed that holds this rank's block of
+    a batch's rows (``rows``, a ``parallel/sharding.py::DecodeRows``):
+    the ranks of ``rows.axes`` hold the row blocks, data-major, each the
+    whole feed's width (one column). None when every rank holds every
+    row (no ``rows``, or none of its axes has two ranks)."""
+    if mesh is None or rows is None or not rows.axes:
+        return None
+    index = 0
+    for a in rows.axes:
+        index = index * mesh.shape[a] + mesh.index(a)
+    return TokenGrid(mesh.group(*rows.axes), mesh.size(*rows.axes), 1, index, 0)
+
+
 def global_top_k_routing(router_logits: torch.Tensor, num_selected: int, capacity: int,
                          batch_shape: Tuple[int, int], grid: TokenGrid) -> RoutingResult:
     """``top_k_routing`` of the global token population, on one rank of a
@@ -199,6 +219,33 @@ def expert_block(routing: RoutingResult, first: int, count: int, capacity: int,
         dispatch, combine = _dense(idx, routing.slot_index, valid, routing.weights, count,
                                    capacity)
     return routing._replace(combine=combine, dispatch=dispatch, expert_index=idx, valid=valid)
+
+
+def own_slots(routing: RoutingResult, count: int,
+              dense: bool = False) -> Tuple[RoutingResult, int]:
+    """(``routing``, capacity) for buffers that hold this rank's own
+    selections only: ``routing`` is a rank's ``expert_block`` of a global
+    routing over ``count`` experts, and each valid selection's slot is
+    renumbered densely among its expert's valid selections, in token
+    order (the order of their global slots). The capacity is C_local, the
+    most valid selections any of the ``count`` experts holds (at least
+    1), read on the host. Valid flags, weights, the aux loss and the
+    dropped fraction stay the global routing's: only where a kept
+    selection lies in its expert's buffer moves, and the expert FFN acts
+    on each row alone. An invalid selection points at slot 0, to which it
+    adds zeros. With ``dense``, the (T, count, C_local) dispatch and
+    combine tensors too."""
+    t, k = routing.expert_index.shape
+    mask = (F.one_hot(routing.expert_index.long(), count).to(torch.int32)
+            * routing.valid.to(torch.int32)[..., None]).reshape(t * k, count)
+    counts = torch.cumsum(mask, 0, dtype=torch.int32)
+    capacity = max(int(counts[-1].max()), 1) if t * k else 1
+    slots = ((counts - 1).clamp(min=0) * mask).sum(-1, dtype=torch.int32).reshape(t, k)
+    dispatch = combine = None
+    if dense:
+        dispatch, combine = _dense(routing.expert_index, slots, routing.valid, routing.weights,
+                                   count, capacity)
+    return routing._replace(slot_index=slots, dispatch=dispatch, combine=combine), capacity
 
 
 def moe_dispatch_dense(x: torch.Tensor, routing: RoutingResult) -> torch.Tensor:

@@ -38,10 +38,14 @@ def check_backend(backend: str, world: int, device_count: int) -> None:
 
 
 def _wire(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` where the group's collectives take it: a host copy of a CUDA
-    tensor under gloo, else ``x`` itself (contiguous)."""
+    """``x`` where the group's collectives take it, contiguous: a host copy
+    of a CUDA tensor under gloo, else ``x`` itself. A collective runs over
+    the buffer in memory order, so two ranks whose tensors of one shape
+    are laid out otherwise (an einsum's output strides follow its
+    operands' shapes) would combine unlike elements: the copy is always
+    row-major."""
     if x.is_cuda and dist.get_backend(group) == "gloo":
-        return x.detach().to("cpu")
+        return x.detach().to("cpu").contiguous()
     return x.contiguous()
 
 

@@ -6,8 +6,9 @@ tensor dims onto mesh axes. The port applies them by hand:
 * ``batch_spec`` cuts this rank's slice out of the global batch (rows over
   ``data`` and ``fsdp``, columns over ``sequence``);
 * ``decode_rows`` gives a rank its rows of a decode batch by JAX's rule
-  for the infer cache (rows over the batch axes that tile them), and
-  ``gather_rows`` joins every rank's rows back in row order;
+  for the infer cache (rows over the batch axes that tile them),
+  ``use_decode_rows`` tells the model's decode that its feeds hold those
+  rows, and ``gather_rows`` joins every rank's rows back in row order;
 * ``shard_params`` cuts this rank's block out of every parameter along the
   dims the rules put on the model axes, ``expert`` (the MoE stacks' expert
   dim) and ``tensor`` (heads, kv heads, qkv, mlp, vocab), as JAX's
@@ -22,10 +23,10 @@ tensor dims onto mesh axes. The port applies them by hand:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
-
+import contextlib
 import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +116,32 @@ def decode_rows(mesh: Mesh, batch: int) -> DecodeRows:
         index = index * mesh.shape[a] + mesh.index(a)
     rows = _block(batch, mesh.size(*axes), index, "batch")
     return DecodeRows(tuple(a for a in axes if mesh.shape[a] > 1), rows.start, rows.stop, batch)
+
+
+# the rows the decode feeds hold while ``use_decode_rows`` is open
+_decoding: Optional[DecodeRows] = None
+
+
+@contextlib.contextmanager
+def use_decode_rows(rows: DecodeRows) -> Iterator[DecodeRows]:
+    """Make ``rows`` the rows every decode feed holds inside the block (a
+    rank's block of an infer batch): what mixes the rows of a feed acts
+    over the rows' ranks together, as JAX acts on the whole batch. The
+    MoE layer routes the batch's tokens (``ops/moe.py::rows_grid``) and
+    the speculative loops run their rounds in step. Process-wide, as the
+    active mesh is."""
+    global _decoding
+    prev, _decoding = _decoding, rows
+    try:
+        yield rows
+    finally:
+        _decoding = prev
+
+
+def split_rows() -> Optional[DecodeRows]:
+    """The ``use_decode_rows`` rows when they lie over some axis, else
+    None (every rank holds every row, or no block is open)."""
+    return _decoding if _decoding is not None and _decoding.axes else None
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh, rows: DecodeRows) -> torch.Tensor:

@@ -43,22 +43,27 @@ moments, the model runs Megatron's split with the axes' collectives
 (parallel/tensor.py), the vocab-parallel loss and, for Mixtral, routing
 over the global token population of the batch axes (ops/moe.py), and the
 checkpoints hold JAX's global arrays. Infer and serve of Llama, GPT-NeoX
-and Mixtral run over ``data``, ``fsdp``, ``sequence`` and ``tensor``: each
-rank holds its block of the params over ``tensor`` (random init, a
-checkpoint's, or ``model.weights``) and of the KV cache, the decode
-scaffold runs the axis's collectives, and the engine runs in lockstep on
-every rank (runtime/serving.py). Infer decodes each rank's block of rows
-over the batch axes that tile ``train.batchSize`` (JAX's cache layout;
+and Mixtral run over every axis but ``pipeline``: each rank holds its
+block of the params over the model axes, ``tensor`` and ``expert`` (random
+init, a checkpoint's, or ``model.weights``; Mixtral's expert stacks over
+``expert``, a dense family's ranks there replicas, as in training) and of
+the KV cache over ``tensor``; the decode scaffold runs the axes'
+collectives (Mixtral's MoE layer sums its partial outputs over both), and
+the engine runs in lockstep on every rank of the mesh
+(runtime/serving.py). Infer decodes each rank's block of rows over the
+batch axes that tile ``train.batchSize`` (JAX's cache layout;
 parallel/sharding.py::decode_rows) and gathers them in row order; the
-other ranks (``sequence``, and batch axes that do not tile the rows) are
-replicas, as are serve's over every axis but ``tensor`` (JAX's paged pool
-has no batch sharding). A speculative draft whose dims do not tile the
-axis runs whole on every rank. Over more than one rank what is not ported
-yet raises ``NotImplementedError`` naming its ROADMAP item: heads that do
-not tile ``tensor`` (4b part four), infer / serve over ``expert`` (4c
-part two), ``pipeline`` (4d). A d_ff, vocabulary or MLP width that does
-not tile ``tensor``, or experts that do not tile ``expert``, raise
-``ValueError``: JAX cannot place such a model either.
+MoE layer routes each feed's tokens of the whole batch and speculative
+rounds run in step over the rows' ranks (``use_decode_rows``). The other
+ranks (``sequence``, ``expert``, and batch axes that do not tile the
+rows) hold the same rows, as do serve's over every axis but ``tensor``
+(JAX's paged pool has no batch sharding). A speculative draft whose dims
+do not tile the model axes runs whole on every rank. Over more than one
+rank what is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item: heads that do not tile ``tensor`` (4b part four),
+``pipeline`` (4d). A d_ff, vocabulary or MLP width that does not tile
+``tensor``, or experts that do not tile ``expert``, raise ``ValueError``:
+JAX cannot place such a model either.
 Only rank 0 writes the serve trace dump.
 """
 
@@ -82,7 +87,8 @@ from nexus_tpu_torch.fleet import PrefixAffinityRouter, serve_fleet_local
 from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.parallel.comm import all_reduce, check_backend
 from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
-from nexus_tpu_torch.parallel.sharding import batch_spec, decode_rows, gather_rows, model_shard
+from nexus_tpu_torch.parallel.sharding import (batch_spec, decode_rows, gather_rows, model_shard,
+                                              use_decode_rows)
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
@@ -135,8 +141,6 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
     if mesh.world == 1:
         return
     why = []
-    if runtime.mode != "train" and mesh.shape["expert"] > 1:
-        why.append(f"mode {runtime.mode!r} over the expert axis (item 4c, part two)")
     if mesh.shape["pipeline"] > 1:
         why.append("the pipeline axis (item 4d)")
     attn = runtime.model.overrides.get("attn_impl", "ring")
@@ -150,8 +154,7 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
         why.append(f"attn_impl {attn!r} over the sequence axis (item 4a runs it only as 'ring')")
     if why:
         raise NotImplementedError(
-            f"over {mesh.world} ranks ({mesh!r}) the port runs every axis but pipeline in "
-            "training, and the data, fsdp, sequence and tensor axes in infer and serve; not "
+            f"over {mesh.world} ranks ({mesh!r}) the port runs every axis but pipeline; not "
             f"ported yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
 
 
@@ -194,9 +197,10 @@ def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
 
 
 def _draft_shard(ref, d_cfg, mesh):
-    """The tensor shard a speculative draft runs at: the target's when the
-    draft's family runs over the axis and its dims tile it, else None (the
-    draft whole on every rank: a deliberate difference, JAX shards it by
+    """The shard a speculative draft runs at: the target's when the
+    draft's family runs over the axis and its dims tile ``tensor`` (a
+    dense draft is then a replica over ``expert``), else None (the draft
+    whole on every rank: a deliberate difference, JAX shards it by
     GSPMD)."""
     shard = model_shard(mesh)
     if shard is None:
@@ -402,7 +406,7 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
 
 def _decode_params(family, cfg, dev, seed: int, shard=None):
     """Random weights from ``seed`` for decoding, with no autograd state;
-    with a ``TensorShard``, the rank's blocks of the one-rank draw."""
+    with a ``ModelShard``, the rank's blocks of the one-rank draw."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = family.init(gen, cfg, dev, shard=shard)
@@ -433,7 +437,8 @@ def _load_params(runtime, family, cfg, dev, shard=None):
     checkpoint converted onto ``dev``; step -1), else the template's
     checkpoint block when it is enabled and holds a checkpoint (a train ->
     checkpoint -> infer round trip), else random from train.seed (-1:
-    nothing restored). With a ``TensorShard``, each as the rank's blocks."""
+    nothing restored). With a ``ModelShard``, each as the rank's blocks
+    (Mixtral's experts over ``expert``, heads and d_ff over ``tensor``)."""
     w = runtime.model.weights
     if w is not None and w.path:
         params = load_pretrained(runtime.model.family, w.path, cfg, dev, shard=shard)
@@ -590,7 +595,9 @@ def _run_infer(runtime, family, cfg, dev, mesh):
             stats.update(extra)  # the last timed run's
         return out, extra
 
-    with torch.inference_mode():
+    # the decode mixes the rows' blocks where JAX's does (the MoE layer
+    # routes the whole batch's tokens) and runs speculative rounds in step
+    with torch.inference_mode(), use_decode_rows(rows):
         out, last = run_once()  # first-use costs: kernel loads, allocator growth
         sync_host(dev)
         times = []

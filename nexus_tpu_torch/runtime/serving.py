@@ -59,9 +59,11 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   the JAX engine's points and in its order, and no hook reads a tensor;
 * over ranks: params cut over the active mesh's ``tensor`` axis
   (parallel/sharding.py::shard_params) hold a rank's heads, and the pool
-  holds the rank's kv heads; the ranks of the other axes (``data``,
-  ``fsdp``, ``sequence``) are replicas of the same engine on the same
-  queue (JAX's pool has no batch sharding); every rank of the mesh runs
+  holds the rank's kv heads; over ``expert`` Mixtral's params hold the
+  rank's experts, and its pool the same heads as its expert peers' (JAX's
+  pool layout); the ranks of the other axes (``data``, ``fsdp``,
+  ``sequence``) are replicas of the same engine on the same queue (JAX's
+  pool has no batch sharding); every rank of the mesh runs
   the engine in lockstep. The host decisions come out alike on every rank: the
   logits are gathered, so the sampled tokens agree; the clock is rank 0's
   reading broadcast at each read; a cancel is agreed at each chunk

@@ -1538,3 +1538,263 @@ def test_the_world_ring_fault_rings_over_the_world_and_restores(monkeypatch):
     with cs.planted_train_fault("world_ring"):
         R.ring_attention(1, 2, 3, "sequence group", causal=True)
     assert seen == [(dist.group.WORLD, {"causal": True})] and R.ring_attention is ring
+
+
+# ------------------- infer and serve over the expert axis (item 4c, parts two, three)
+
+
+def test_the_expert_axis_specs_are_mixtral_infer_and_serve_cut():
+    """infer-moe-ep is mixtral-infer's spec at MOE_EP_LAYERS, prompt 128,
+    over {data: 2, expert: 2}, the rows over data; serve-moe-ep is
+    serve-moe-tp's over {expert: 2, tensor: 2}, D1 at 16 / 4 heads a rank;
+    both pin the dispatch ``auto`` resolves over ranks."""
+    from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
+    from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from nexus_tpu_torch.parallel.sharding import decode_rows
+
+    infer, mixtral_infer = cs.infer_moe_ep_spec(), cs.mixtral_infer_spec()
+    assert infer["model"]["family"] == "mixtral" and infer["model"]["preset"] == "8x7b"
+    assert infer["model"]["overrides"] == {"n_layers": cs.MOE_EP_LAYERS,
+                                           "dispatch_impl": cs.MOE_DISPATCH_OVER_RANKS}
+    assert infer["infer"] == dict(mixtral_infer["infer"], promptLength=128, iterations=1)
+    assert infer["train"] == mixtral_infer["train"] and infer["infer"]["maxNewTokens"] == 64
+    assert infer["parallelism"] == {"data": 2, "expert": 2}
+    assert cs.infer_moe_ep_spec({})["parallelism"] == {}
+    serve = cs.serve_moe_ep_spec()
+    assert serve["parallelism"] == {"expert": 2, "tensor": 2}
+    assert {k: v for k, v in serve.items() if k != "parallelism"} == {
+        k: v for k, v in cs.moe_serve_spec().items() if k != "parallelism"}
+    assert cs.rank_heads(serve, 2) == (16, 4, 128)
+    for spec in (infer, serve):
+        JaxXlaRuntime.from_dict(spec)
+    rows = [decode_rows(Mesh(MeshPlan(**cs.MOE_EP_INFER_PLAN), r), 8) for r in range(4)]
+    assert [(x.start, x.stop, x.axes) for x in rows] == [(0, 4, ("data",))] * 2 + [
+        (4, 8, ("data",))] * 2
+    assert cs.moe_ep_prompt(32000).shape == (8, 128)
+
+
+@pytest.fixture(scope="module")
+def tiny_moe_feeds():
+    """A tiny Mixtral's ``moe_ep_feeds`` of 8 rows of 12 tokens (8 in the
+    prefill, the last 4 one a feed): the whole batch's, each half of the
+    rows fed alone (each rank routing its rows alone), and the whole batch
+    replayed under each of those two routings."""
+    import numpy as np
+    import torch
+
+    from nexus_tpu_torch.models import mixtral
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+
+    steps = cs.MOE_EP_LOGIT_STEPS
+    cs.MOE_EP_LOGIT_STEPS = 4
+    try:
+        cfg = mixtral.config("tiny", dtype=torch.float32)
+        params = _decode_params(mixtral, cfg, torch.device("cpu"), 0)
+        tokens = torch.as_tensor(np.random.RandomState(3).randint(0, cfg.vocab_size, (8, 12)))
+        whole = cs.moe_ep_feeds(params, cfg, tokens)
+        halves = [cs.moe_ep_feeds(params, cfg, tokens[r:r + 4]) for r in (0, 4)]
+        alone = {part: {k: torch.cat([h[part][k] for h in halves]) for k in feeds}
+                 for part, feeds in whole.items()}
+        replayed = {name: cs.moe_ep_feeds(params, cfg, tokens, replay=feeds)
+                    for name, feeds in (("whole", whole), ("alone", alone))}
+    finally:
+        cs.MOE_EP_LOGIT_STEPS = steps
+    return cfg, whole, alone, replayed
+
+
+def test_moe_ep_feeds_record_each_layer_of_each_held_position(tiny_moe_feeds):
+    import numpy as np
+    import torch
+
+    from nexus_tpu_torch.models import mixtral
+    from nexus_tpu_torch.models.decoding import cache_for
+
+    cfg, whole, _, replayed = tiny_moe_feeds
+    k = cfg.n_experts_per_token
+    assert sorted(whole) == ["prefill", "steps"]
+    for part in whole.values():
+        assert part["logits"].shape == (8, 4, cfg.vocab_size)
+        assert part["experts"].shape == part["valid"].shape == (8, 4 * cfg.n_layers, k)
+        assert bool((part["experts"][..., 1:] > part["experts"][..., :1]).all())  # sorted
+    assert whole["prefill"]["calls"].shape == (8, 8 * cfg.n_layers, k)
+    assert len(cs.route_calls(whole, cfg.n_layers)) == cfg.n_layers * (1 + 4)
+    # one card replaying its own routing gives its own logits, bit for bit
+    for part in whole:
+        assert torch.equal(replayed["whole"][part]["logits"], whole[part]["logits"])
+    # the prefill's last position is the last row of the 8-token feed
+    from nexus_tpu_torch.runtime.entrypoints import _decode_params
+    params = _decode_params(mixtral, cfg, torch.device("cpu"), 0)
+    tokens = torch.as_tensor(np.random.RandomState(3).randint(0, cfg.vocab_size, (8, 12)))
+    logits, _ = mixtral.forward_decode(params, cfg, tokens[:, :8],
+                                       cache_for(params, cfg, 8, 12, "cpu"))
+    assert torch.equal(whole["prefill"]["logits"], logits[:, -4:].float())
+    assert mixtral.top_k_routing.__module__ == "nexus_tpu_torch.ops.moe"
+    assert mixtral.global_top_k_routing.__module__ == "nexus_tpu_torch.ops.moe"
+
+
+def test_the_route_layouts_put_tokens_where_the_gates_read_them():
+    """``_by_layer`` lays a feed-major (B, feeds · layers, k) record out as
+    (layers, B · feeds, k) row-major over rows × feeds (``route_flips``);
+    ``_by_feed`` as (layers, feeds · B, k), each feed's rows in order."""
+    import torch
+
+    b, feeds, layers = 2, 3, 2
+    # entry (row, feed, layer) holds 100 row + 10 feed + layer
+    x = torch.tensor([[[100 * r + 10 * f + l] for f in range(feeds) for l in range(layers)]
+                      for r in range(b)])
+    by_layer, by_feed = cs._by_layer(x, layers), cs._by_feed(x, layers)
+    assert by_layer[1, :, 0].tolist() == [1, 11, 21, 101, 111, 121]
+    assert by_feed[1, :, 0].tolist() == [1, 101, 11, 111, 21, 121]
+
+
+def test_valid_mismatches_count_only_before_a_feeds_first_flip():
+    import torch
+
+    # one layer, two feeds of 3 rows: in feed 0 row 1 flips its experts
+    ref = torch.tensor([[[0, 1], [1, 2], [2, 3], [0, 1], [1, 2], [2, 3]]])
+    routes = ref.clone()
+    routes[0, 1] = torch.tensor([0, 3])
+    ref_valid = torch.ones(1, 6, 2)
+    valid = ref_valid.clone()
+    valid[0, 2, 0] = 0  # after feed 0's flip: a consequence, not counted
+    assert cs.valid_mismatches(ref, routes, ref_valid, valid, 3) == 0
+    valid[0, 0, 1] = 0  # before it
+    valid[0, 4, 0] = 0  # feed 1 has no flip
+    assert cs.valid_mismatches(ref, routes, ref_valid, valid, 3) == 2
+
+
+def test_the_moe_ep_logits_gate_on_a_tiny_mixtral(monkeypatch, tiny_moe_feeds):
+    """The one card's feeds pass; each rank's rows routed alone is caught
+    (by the valid flags, by one card under its routing, or both), and so
+    are logits off by twice the limit; a token whose routing parts passes
+    far from one card's own logits while it is close to them under its
+    routing; a valid flag moved before any flip, logits off under the
+    ranks' routing, a fault that equals one card and unlike ranks fail."""
+    import torch
+
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    cfg, whole, alone, replayed = tiny_moe_feeds
+    layers = cfg.n_layers
+    limit = cs.TP_LOGIT_LIMITS["mixtral"]
+
+    def moved(part, **kw):
+        return dict(whole, **{part: dict(whole[part], **kw)})
+
+    off = moved("prefill", logits=whole["prefill"]["logits"] * (1 + 2 * limit))
+
+    def check(clean, rows_alone=alone, tensor_only=off, checksum=1.0, same=None):
+        same = dict({"clean": whole, "rows_alone": replayed["alone"],
+                     "moe_tensor_only": whole}, **(same or {}))
+        ranks = [{"feeds": {"clean": clean, "rows_alone": rows_alone,
+                            "moe_tensor_only": tensor_only}, "checksum": 1.0, "rows": [0, 4]},
+                 {"checksum": checksum, "rows": [4, 8]}]
+        return cs.check_moe_ep_logits(whole, same, ranks, layers)
+
+    out = check(whole)
+    assert out["clean"]["prefill"]["error"] == out["clean"]["steps"]["same_routes_error"] == 0.0
+    assert out["clean"]["steps"]["valid_mismatches"] == 0
+    assert out["rows_alone"]["caught_by"] and out["moe_tensor_only"]["caught_by"] == ["logits"]
+    valid = whole["steps"]["valid"].clone()
+    valid[0, 0, 0] = 1 - valid[0, 0, 0]
+    with pytest.raises(AssertionError, match="over the ranks"):
+        check(moved("steps", valid=valid))
+    with pytest.raises(AssertionError, match="over the ranks"):  # off under the same routing
+        check(off)
+    # a token whose routing parts may read far from one card's own run,
+    # and within the limit of one card's under the ranks' routing
+    experts = whole["steps"]["experts"].clone()
+    experts[0, 0] = experts[0, 0].flip(0) + 1
+    far = whole["steps"]["logits"].clone()
+    far[0, 0] *= 1 + 2 * limit
+    parted = moved("steps", experts=experts, logits=far)
+    out = check(parted, same={"clean": parted})
+    assert out["clean"]["steps"]["flipped_tokens"] == 1
+    assert out["clean"]["steps"]["unflipped"] == 0.0
+    assert out["clean"]["steps"]["error"] > limit
+    with pytest.raises(AssertionError, match="moe_tensor_only passes every gate"):
+        check(whole, tensor_only=whole)
+    with pytest.raises(AssertionError, match="differ"):
+        check(whole, checksum=2.0)
+    assert torch.equal(whole["steps"]["logits"], tiny_moe_feeds[1]["steps"]["logits"])
+
+
+def test_replayed_routes_take_every_call_and_put_the_routing_back():
+    import torch
+
+    from nexus_tpu_torch.models import mixtral as Mx
+
+    route = Mx.top_k_routing
+    logits = torch.randn(6, 4, generator=torch.Generator().manual_seed(1))
+    chosen = torch.tensor([[0, 1], [0, 1], [0, 1], [2, 3], [3, 2], [0, 1]])
+    with cs.replayed_routes([chosen]):
+        r = Mx.top_k_routing(logits, 2, 2, dense=False)
+    assert Mx.top_k_routing is route
+    assert r.expert_index.tolist() == chosen.tolist()
+    assert r.valid.tolist() == [[1, 1], [1, 1], [0, 0], [1, 1], [1, 1], [0, 0]]
+    probs = torch.softmax(logits, -1)
+    picked = torch.gather(probs, 1, chosen)
+    assert torch.allclose(r.weights, picked / picked.sum(-1, keepdim=True))
+    with pytest.raises(AssertionError, match="1 replayed routes were never taken"):
+        with cs.replayed_routes([chosen]):
+            pass
+    with cs.replayed_routes([]):
+        assert Mx.top_k_routing is route
+
+
+def test_the_planted_moe_route_faults_patch_and_restore(monkeypatch):
+    from nexus_tpu_torch.models import mixtral as Mx
+    from nexus_tpu_torch.parallel import mesh as M
+
+    class FakeMesh:
+        def group(self, *axes):
+            return "group of " + "/".join(axes)
+
+    rows, split = Mx.split_rows, Mx.moe_split
+    monkeypatch.setattr(M, "_active", FakeMesh())
+    monkeypatch.setattr(Mx, "split_rows", lambda: "rows")
+    with cs.planted_moe_route("rows_alone"):
+        assert Mx.split_rows() is None
+    assert Mx.split_rows() == "rows"
+    monkeypatch.setattr(Mx, "moe_split", lambda layers, cfg: (2, "expert and tensor"))
+    with cs.planted_moe_route("moe_tensor_only"):
+        assert Mx.moe_split({}, None) == (2, "group of tensor")
+    assert Mx.moe_split({}, None) == (2, "expert and tensor")
+    with pytest.raises(ValueError, match="unknown planted fault"):
+        with cs.planted_moe_route("nope"):
+            pass
+    monkeypatch.undo()
+    assert (Mx.split_rows, Mx.moe_split) == (rows, split)
+
+
+def test_own_capacities_are_each_ranks_largest_kept_count():
+    """moe-dispatch's C_local report: the rank of row block r and expert
+    block e holds, for each of its experts, the valid selections of its
+    rows; its C_local is the most of them (at least 1), under C_global."""
+    import torch
+
+    from nexus_tpu_torch.ops.moe import top_k_routing
+
+    name, blocks, expert_blocks = cs.MOE_OWN_SHAPE
+    t, local, cap = 64, 8 // expert_blocks, 24
+    assert name == "train-moe-ep" and cs.MOE_DISPATCH_SHAPES[name][1] == local
+    routing = top_k_routing(torch.randn(blocks * t, 8, generator=torch.Generator().manual_seed(4)),
+                            2, cap, dense=False)
+    got = cs.own_capacities(routing, t, local, cap)
+    for r in range(blocks):
+        idx = routing.expert_index[r * t:(r + 1) * t]
+        valid = routing.valid[r * t:(r + 1) * t] > 0
+        for e in range(expert_blocks):
+            kept = [int(((idx == x) & valid).sum()) for x in range(e * local, (e + 1) * local)]
+            assert got[f"rows {r}, experts {e}"] == max(max(kept), 1) <= cap
+    assert min(got.values()) < cap  # the later row block keeps less than C_global
+
+
+def test_the_batch_infer_gate_takes_the_expert_phases_spec(monkeypatch):
+    monkeypatch.setattr(cs, "card_label", lambda: "cpu")
+    spec = cs.infer_moe_ep_spec()
+    run = {"completion_ids_by_row": [[1, 2]] * 8, "last_logits_finite": True,
+           "output_shape": [8, 128 + 64], "peak_mem_gb": 1.0, "decode_tokens_per_sec": 1.0,
+           "decode_tokens_per_sec_per_chip": 0.25, "iteration_seconds": [1.0]}
+    assert cs.check_batch_infer("x", [run] * 4, run, spec) == {"token_share_vs_one_card": 1.0}
+    with pytest.raises(AssertionError, match="rank output"):
+        cs.check_batch_infer("x", [dict(run, output_shape=[8, 512 + 64])], run, spec)

@@ -247,10 +247,12 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     pytest.param(dict(parallelism={"tensor": 4, "sequence": 2}), NotImplementedError,
                  "tensor axis of 4 ranks does not tile the model .kv heads 2.*item 4b, part "
                  "four", 8, id="tensor-4b"),
-    # serving over the expert axis (item 4c, part two; training runs over it
-    # since part one, a replica axis for a dense family)
-    pytest.param(dict(mode="serve", parallelism={"expert": 2}), NotImplementedError,
-                 "expert axis .item 4c, part two", 2, id="expert-4c"),
+    # serving over the expert axis runs since item 4c part two (tests/test_
+    # torch_expert_serving.py; training since part one, a replica axis for a
+    # dense family); beside it the pipeline axis is still refused (item 4d).
+    # The id is the one of the case from when serving over expert was refused
+    pytest.param(dict(mode="serve", parallelism={"expert": 2, "pipeline": 2}),
+                 NotImplementedError, "not ported.*pipeline axis .item 4d", 4, id="expert-4c"),
     pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
                  "pipeline axis.*item 4d", 4, id="pipeline-4d"),
     # infer over data runs since item 4b part three: over data beside a
@@ -281,10 +283,13 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
     pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
                  "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),
     # Mixtral infers over the tensor axis since item 4c (tests/test_torch_
-    # moe_parallel.py); with the expert axis beside it, it is part two
+    # moe_parallel.py), with the expert axis beside it since part two
+    # (tests/test_torch_expert_serving.py); a tensor axis its kv heads (the
+    # tiny preset's 2) do not tile is part four of item 4b. The id is the one
+    # of the case from when infer over expert and tensor was refused
     pytest.param(dict(mode="infer", model={"family": "mixtral"},
-                      parallelism={"expert": 2, "tensor": 2}), NotImplementedError,
-                 "mode 'infer' over the expert axis .item 4c, part two", 4,
+                      parallelism={"expert": 2, "tensor": 4}), NotImplementedError,
+                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
                  id="infer-mixtral-tensor-4c"),
     # experts that do not tile the expert axis: JAX cannot place them either
     # (a ValueError naming no item)

@@ -1,7 +1,8 @@
 """What the ranks of the multi-rank tests run (tests/test_torch_mesh.py,
 test_torch_ring_attention.py, test_torch_parallel_train.py,
 test_torch_tensor_parallel.py, test_torch_tensor_train.py,
-test_torch_moe_parallel.py): each function
+test_torch_moe_parallel.py, test_torch_batch_axes.py,
+test_torch_expert_serving.py): each function
 runs on every rank of a group that nexus_tpu_torch/testing/dist.py spawns.
 
 The ranks import this module by name, so it imports torch and the port
@@ -582,3 +583,33 @@ def diverged_entry(spec, bad_rank):
         E._synthetic_queue = queue
         os.environ.pop("NEXUS_SANITIZE", None)
     return None
+
+
+# ------------------------------------------ infer and serve over the expert axis
+# (tests/test_torch_expert_serving.py)
+
+
+def rows_logits(family_name, cfg_kw, jax_params, tokens, plan_kw, steps):
+    """Teacher-forced logits of the global (B, P) ``tokens`` on this rank of
+    a mesh of ``plan_kw`` (the port's world), as infer decodes them: the
+    rank's rows (``decode_rows``) in one dense-cache feed of the first P -
+    ``steps`` positions, then ``steps`` feeds of one position, under
+    ``use_decode_rows``; the whole batch's (B, P, V) logits gathered in
+    row order, and the rank's rows."""
+    from nexus_tpu_torch.models.decoding import cache_for
+    from nexus_tpu_torch.parallel.sharding import (decode_rows, gather_rows, model_shard,
+                                                   use_decode_rows)
+
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    family, cfg, params = _tp_params(family_name, cfg_kw, jax_params, model_shard(mesh))
+    rows = decode_rows(mesh, tokens.shape[0])
+    toks = torch.from_numpy(tokens[rows.start:rows.stop].copy()).long()
+    p = toks.shape[1]
+    with use_mesh(mesh), use_decode_rows(rows), torch.no_grad():
+        cache = cache_for(params, cfg, toks.shape[0], p, "cpu")
+        out = []
+        for at, width in [(0, p - steps)] + [(i, 1) for i in range(p - steps, p)]:
+            logits, cache = family.forward_decode(params, cfg, toks[:, at:at + width], cache)
+            out.append(logits)
+        whole = gather_rows(torch.cat(out, dim=1).contiguous(), mesh, rows)
+    return {"logits": _np(whole), "rows": [rows.start, rows.stop]}
