@@ -41,7 +41,7 @@ Phases, each of which raises on failure:
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
    and the paged-decode kernel launched; then 4 requests on the int8 pool,
-   (for information) 4 of its requests on the gather path, and three more
+   (for information) 2 of its requests on the gather path, and three more
    phases with the same gates: ``serve-lookup`` (4 requests, prompt-lookup
    speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (4
    requests, the ``draft`` preset at the target's vocabulary and context
@@ -57,11 +57,9 @@ Phases, each of which raises on failure:
    over 6.25 s demoting to int8; past
    the serve gates, blocks must be spilled and restored, restores must
    serve prompt tokens, and the tree and the store must agree at the end;
-   each trace is served again with the tier off, and how many requests
-   commit the same tokens is logged for information;
 9. ``serve-fleet``: ``serve.replicas: 4`` behind the prefix-affinity router
    (affinityDepth 2, spillCandidates 2, spillThreshold 4), Llama-3-8B at
-   16 of its 32 layers, 8 rows and an auto-sized pool per replica, one set of
+   8 of its 32 layers, 8 rows and an auto-sized pool per replica, one set of
    weights; a Poisson chat trace (32 roots over 20 s, a quarter of them
    2-turn sessions, 256-token preambles from a pool of 4, Zipf 1.1, 64 new
    tokens) replayed as a closed queue with its arrival stamps, with
@@ -82,7 +80,7 @@ Phases, each of which raises on failure:
    launched); ``mixtral-remat`` (the same under ``remat_policy:
    dots_attn`` and then ``full``, 4 steps each: K1 launches once per layer
    per step, and twice under ``full``); ``mixtral-ckpt`` (1 layer, seq
-   2048, npz checkpoints every 2 steps keeping 1, a one-step profiler
+   2048, npz checkpoints every 4 steps keeping 1, a one-step profiler
    window: 4 steps, the step-4 state restored and saved again byte for
    byte, then resumed to 6 steps from step 4; the trace names K1);
    ``mixtral-infer`` and ``mixtral-serve`` (16 layers; the infer and serve
@@ -110,9 +108,9 @@ Phases, each of which raises on failure:
    (Mixtral-8x7B and GPT-NeoX-20B at 2 layers, one file each) load bit for
    bit; all in temporary directories that the phases remove;
 14. Orbax checkpoints (``checkpoint.format: orbax``, the spec's default):
-   ``llama-orbax`` trains Llama-3-8B at its published widths cut to 2 layers
-   (~1.49 G parameters, ~8.9 GB a step) with a checkpoint block that names
-   no format (interval 2, keep 1), B 2 x S 4096 for 4 steps, then resumes
+   ``llama-orbax`` trains Llama-3-8B at its published widths cut to 1 layer
+   (~1.27 G parameters, ~7.6 GB a step) with a checkpoint block that names
+   no format (interval 4, keep 1), B 2 x S 4096 for 4 steps, then resumes
    to 6: the second run starts at step 4, one step is kept, no staging
    directory survives, every OCDBT frame's CRC32C holds, a fresh state
    restored from step 4 equals the trained one bit for bit on the card, and
@@ -143,9 +141,10 @@ Phases, each of which raises on failure:
    RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
    model's gradient timed) and ``ring-fsdp-neox`` (2 layers over {fsdp: 2,
    sequence: 2}, B 2 x S 8192, 2 steps, saving the last: every step's loss
-   and grad norm within those limits of the one-rank run's, each rank
-   holding half the AdamW state bytes, the step restored into one rank bit
-   for bit against the whole state rank 0 wrote and every rank's blocks);
+   and grad norm within those limits of the one-rank run's, each rank's
+   AdamW moments the bytes its blocks reckon, the step restored into one
+   rank bit for bit against every rank's blocks of the parameters and
+   moments);
 16. infer and serve over a sharded tensor axis, 2 ranks sharing the card
    over gloo: ``tp-decode-kernel`` (D1 at the heads one rank holds:
    Llama-3-8B over tensor 2, 4 and 8, Hq/Hkv 16/4, 8/2, 4/1, and
@@ -182,9 +181,10 @@ Phases, each of which raises on failure:
    (examples/train-llama8b-fsdp.yaml at its published widths, TRAIN_TP: 2
    layers, 2 rows of 4096, 3 steps, re-planned to {tensor: 2} over 2
    ranks) and ``train-tp-fsdp-neox`` (Pythia-1.4B widths, 2 layers, 4 rows
-   of 2048, over {fsdp: 2, tensor: 2}, 4 ranks: 4 steps saved as an Orbax
-   step, resumed for a fifth, whose step restores into one card bit for bit
-   against every rank's parameters and AdamW blocks): every step's loss and
+   of 2048, over {fsdp: 2, tensor: 2}, 4 ranks: 2 steps saved as an Orbax
+   step, resumed for a third, whose step restores into one card bit for bit
+   against every rank's blocks of the parameters and AdamW moments): every
+   step's loss and
    grad norm within TP_TRAIN_LOSS_RTOL and TP_TRAIN_NORM_RTOL of the same
    runs on one card, the two planted faults of TP_TRAIN_FAULTS past them,
    K1-K3 on every rank, peaks per rank; K1-K3 at Mixtral-8x7B's {tensor: 2}
@@ -240,7 +240,20 @@ Phases, each of which raises on failure:
    ``moe-dispatch`` each train-moe-ep rank's C_local (its expert buffers'
    rows, ``ops/moe.py::own_slots``) with the expert products timed at
    C_global and at C_local;
-21. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+21. parameters sharded over fsdp (module item 4e), in the same spawn of 4:
+   ``train-fsdp`` (examples/train-llama8b-fsdp.yaml at its published widths,
+   TRAIN_TP's cuts, its parallelism declared {fsdp: 4}, 4 rows of 2048:
+   every step's loss and grad norm within TP_TRAIN_LOSS_RTOL and
+   TP_TRAIN_NORM_RTOL of ``train-fsdp-1card``, the same spec on one card;
+   each rank's bytes on its card between steps within RESIDENT_RTOL of its
+   blocks of the parameters and moments reckoned from the leaf shapes; the
+   blocks gathered in rolled order and the reduce-scatter replaced by the
+   rank's own gradient past the limits (at 1 layer and rows of 512, against
+   the same on one card); K1-K3 on every rank, held and timed
+   at the rank's shape in phase 2). Every train phase over ranks reports
+   each rank's resident bytes and peak beside the reckoned ones; the fsdp
+   phases of 15, 17, 18 and 19 hold the new layout;
+22. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
    MLP, pretrained, Orbax, ring, tensor-parallel, MoE, batch-axes and
    expert-axis phase's launches,
    and K1-K3's timings and bounds at the ring visit of a tensor rank's heads), each
@@ -303,6 +316,13 @@ serve-fsdp-tp).
 on a 4-card machine, a rank a card over NCCL: infer-dp-tp over {data: 2,
 tensor: 2} and serve-fsdp-tp over {fsdp: 2, tensor: 2}, beside the same
 specs on one card.
+
+    python3 chip_smoke.py --fsdp-nccl
+
+on a 4-card machine, a rank a card over NCCL: the whole 32-layer
+Llama-3-8B of examples/train-llama8b-fsdp.yaml over {fsdp: 4}, 4 rows of
+8192, 3 steps: tokens/s, mfu, each card's peak and resident bytes (the
+resident gate), a falling loss.
 
 Imports nothing of JAX. Exits non-zero without a result line when no card is
 visible or the port is missing.
@@ -1303,6 +1323,9 @@ def _serve_spec(num_requests: int = 32, **extra):
 # -prefill32): the serve queue's first 4 (8 until the batch-axes phases
 # needed the script's time)
 SERVE_VARIANT_REQUESTS = 4
+# serve-gather's requests: the queue's first 2 (8, then 4, until the fsdp
+# phase needed the script's time)
+GATHER_REQUESTS = 2
 # the serve phase's requests: the queue's first 16 (32 until the expert
 # axis's phases needed the script's time)
 SERVE_REQUESTS = 16
@@ -1442,8 +1465,8 @@ def phase_serve_host(name: str, spec) -> dict:
 # the fleet phase: the shape of examples/serve-llama8b.yaml's fleet (4
 # replicas, affinity routing at depth 2) over a chat trace of 32 roots, at
 # FLEET_LAYERS of Llama-3-8B's 32 layers (all 32 until the expert axis's
-# phases needed the script's time)
-FLEET_LAYERS = 16
+# phases needed the script's time, 16 until the fsdp phase did)
+FLEET_LAYERS = 8
 FLEET_SPEC_KEYS = {"arrival": "poisson", "arrivalDurationSeconds": 20.0, "tracePrefixPool": 4,
                    "traceZipfA": 1.1, "traceMultiTurnFrac": 0.25, "traceTurns": 2,
                    "maxNewMin": 64, "maxNewMax": 64, "replicas": 4, "routerPolicy": "affinity",
@@ -1661,8 +1684,10 @@ def phase_mixtral_remat() -> dict:
 
 def mixtral_ckpt_spec(directory: str, profile_dir: str, steps: int) -> dict:
     spec = mixtral_train_spec(n_layers=1, steps=steps, seq_len=2048)
+    # a save every 4 steps (every 2 until the fsdp phase needed the
+    # script's time: a 13.7 GB save fewer)
     spec["checkpoint"] = {"enabled": True, "format": "npz", "directory": directory,
-                          "intervalSteps": 2, "keep": 1}
+                          "intervalSteps": 4, "keep": 1}
     spec["profile"] = {"enabled": True, "directory": profile_dir, "startStep": 1, "numSteps": 1}
     return spec
 
@@ -1774,7 +1799,7 @@ def _dir_bytes(path: str) -> int:
 
 
 def phase_mixtral_ckpt() -> dict:
-    """1 layer of Mixtral-8x7B, seq 2048: 4 steps saving every 2 (keep 1)
+    """1 layer of Mixtral-8x7B, seq 2048: 4 steps saving at 4 (keep 1)
     with a one-step profiler window, the step-4 state restored and re-saved,
     then the same spec resumed to 6 steps; in a temporary directory that the
     phase removes."""
@@ -2311,12 +2336,13 @@ def run_pretrained_phases() -> dict:
 
 # ------------------------------------------------------------ Orbax checkpoints
 #
-# Llama-3-8B at its published widths cut to 2 layers: 1.49 G parameters
-# (embed and lm_head 0.53 G each, 0.22 G a layer), 2.98 GB of bf16 params and
-# ~8.9 GB a step with both AdamW moments (bf16, as the params); the depth is
-# cut for disk and time, the widths are the published ones.
+# Llama-3-8B at its published widths cut to 1 layer: 1.27 G parameters
+# (embed and lm_head 0.53 G each, 0.22 G a layer), 2.54 GB of bf16 params and
+# ~7.6 GB a step with both AdamW moments (bf16, as the params); the depth is
+# cut for disk and time, the widths are the published ones (2 layers until
+# the fsdp phase needed the script's time).
 
-ORBAX_LAYERS = 2
+ORBAX_LAYERS = 1
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                              "orbax_llama_tiny")
 ORBAX_KEYS = ("steps_on_disk", "step_bytes", "save_s", "save_gb_per_s", "restore_s",
@@ -2328,7 +2354,9 @@ ORBAX_KEYS = ("steps_on_disk", "step_bytes", "save_s", "save_gb_per_s", "restore
 
 def orbax_train_spec(directory: str, steps: int) -> dict:
     spec = _train_spec(n_layers=ORBAX_LAYERS, steps=steps)
-    spec["checkpoint"] = {"enabled": True, "directory": directory, "intervalSteps": 2,
+    # a save every 4 timed steps (every 2 until the fsdp phase needed the
+    # script's time: a save fewer)
+    spec["checkpoint"] = {"enabled": True, "directory": directory, "intervalSteps": 4,
                           "keep": 1, "resume": True}  # no format: Orbax, the default
     return spec
 
@@ -3007,19 +3035,22 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
                profile: bool = False) -> list:
     """One rank of a training phase, each spec in turn: the entry point's
     metrics, each step's loss and grad norm, this rank's kernel launches,
-    peak memory and bytes of AdamW moments, and with ``record_saves`` the
-    fingerprints of each save: this rank's parameters (its tensor blocks)
-    and blocks of the AdamW moments and (rank 0) the whole state the step
-    holds (under a tensor axis, rank 0's tensor blocks). With ``collective_numel``, the
-    last run's metrics add ``collective_time`` of that many elements; with
-    ``profile``, rank 0 profiles each run's step PROFILE_STEP."""
+    peak memory, bytes of AdamW moments, the bytes allocated on its card
+    after the last step (``resident_bytes``) beside those its blocks of the
+    parameters and moments take by their shapes (``reckoned_bytes``) and
+    the peak through the steps, before the final save (``step_peak_gb``),
+    and with ``record_saves`` the fingerprints of each save: this rank's
+    blocks of the parameters and of the AdamW moments (every rank's blocks
+    together tile the state the step holds). With
+    ``collective_numel``, the last run's metrics add ``collective_time`` of
+    that many elements; with ``profile``, rank 0 profiles each run's step
+    PROFILE_STEP."""
     import torch
     import torch.distributed as dist
 
     from nexus_tpu_torch.ops import attention as A
     from nexus_tpu_torch.runtime import entrypoints as E
     from nexus_tpu_torch.train import checkpoint as C
-    from nexus_tpu_torch.train.trainer import whole_state
 
     _rank_device()
     # the run's train state, for its moments' bytes; both patches are put
@@ -3031,12 +3062,9 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
     if record_saves:
         def save(self, state, step=None):
             out = orig(self, state, step)
-            whole = whole_state(state)
             saves.append({"step": out, "blocks": state_fingerprints(state.opt_state.mu
                                                                     + state.opt_state.nu),
-                          "params": state_fingerprints(state.leaves),
-                          "whole": state_fingerprints(state_tensors(whole))
-                          if dist.get_rank() == 0 else None})
+                          "params": state_fingerprints(state.leaves)})
             return out
 
         C.RankedCheckpointer.save = save
@@ -3050,10 +3078,16 @@ def train_rank(specs: list, record_saves: bool = False, collective_numel: int = 
             torch.cuda.reset_peak_memory_stats()
             for w in A.KERNEL_WRAPPERS:
                 w.launches = 0
+            between = []  # (allocated, peak so far) after each timed step
             t0 = time.monotonic()
             with recorded_steps(PROFILE_STEP if profile and dist.get_rank() == 0 else 0) as steps:
-                m = E.run_template_runtime(spec, cancel=cancel)
+                # what the card holds between steps: the parameters and moments
+                m = E.run_template_runtime(spec, cancel=cancel, heartbeat=lambda _: between.append(
+                    (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())))
             m["phase_wall_s"] = time.monotonic() - t0
+            m["resident_bytes"], step_peak = between[-1] if between else (None, None)
+            m["step_peak_gb"] = step_peak and step_peak / 1e9
+            m["reckoned_bytes"] = reckoned_bytes(spec, dist.get_world_size(), dist.get_rank())
             m["launches"] = {w.__name__: w.launches for w in A.KERNEL_WRAPPERS}
             m["steps"], m["profile"] = list(steps), steps.profile
             m["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -3089,25 +3123,74 @@ def state_fingerprints(tensors) -> list:
     return out
 
 
-def fsdp_blocks(tensors, n: int, index: int) -> list:
-    """Block ``index`` of ``n`` of each tensor's flat elements, padded as
-    train/trainer.py::FsdpShards lays them."""
-    import torch.nn.functional as F
+def rank_plan(spec: dict, world: int):
+    """The mesh plan the entry point runs ``spec`` on over ``world`` ranks:
+    the declared one when it tiles them, else JAX's plan for them."""
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices
 
-    out = []
-    for t in tensors:
-        flat = t.detach().reshape(-1)
-        flat = F.pad(flat, (0, -flat.numel() % n))
-        c = flat.numel() // n
-        out.append(flat[index * c:(index + 1) * c])
-    return out
+    plan = MeshPlan(**spec.get("parallelism", {}))
+    return plan if plan.total() == world else plan_for_devices(world)
+
+
+def rank_cuts(spec: dict, world: int, rank: int):
+    """(family, config, LeafCuts) of rank ``rank`` of ``spec`` over ``world``
+    ranks: its blocks over fsdp and the model axes
+    (parallel/sharding.py::param_shard), as the train entry point cuts
+    them."""
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.mesh import Mesh
+    from nexus_tpu_torch.parallel.sharding import param_shard
+
+    family = get_family(spec["model"].get("family", "mlp"))
+    cfg = _model_config(spec)
+    shard = param_shard(Mesh(rank_plan(spec, world), rank)) if world > 1 else None
+    return family, cfg, LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
+
+
+def rank_blocks(spec: dict, world: int, rank: int, state) -> list:
+    """Rank ``rank``'s blocks of a whole (one-card) train ``state``: its
+    parameters, then its moments, in the optimizer's order."""
+    from nexus_tpu_torch.train.trainer import leaf_paths
+
+    _, _, cuts = rank_cuts(spec, world, rank)
+    paths = leaf_paths(state.params, state.leaves)
+    tensors = state_tensors(state)
+    if cuts.shard is None:
+        return tensors
+    return [cuts.take(paths[i % len(paths)])(t) for i, t in enumerate(tensors)]
+
+
+def reckoned_bytes(spec: dict, world: int, rank: int) -> dict:
+    """The bytes rank ``rank`` of ``spec`` holds between steps, reckoned
+    from the leaves' shapes: its blocks of the parameters and of their two
+    AdamW moments (in the parameters' dtypes); and, a floor of its peak,
+    ``peak_floor``: those, the gradient's blocks, and what the fsdp
+    gathers hold at once: ``embed`` and ``lm_head`` and two layers' weights
+    (the running layer's and a recompute's), each whole over fsdp (still
+    the rank's block over the model axes)."""
+    import math
+
+    from nexus_tpu_torch.models.params import tree_items
+
+    family, cfg, cuts = rank_cuts(spec, world, rank)
+    fsdp = rank_plan(spec, world).fsdp
+    held, gathered = {}, {}
+    for p, t in tree_items(family.empty_params(cfg, "meta")):
+        held[p] = math.prod(cuts.shape(p, t.shape)) * t.element_size()
+        gathered[p] = held[p] * (fsdp if cuts.is_cut(p, "fsdp") else 1)
+    total = sum(held.values())
+    layers = sum(n for p, n in gathered.items() if p.startswith("layers/"))
+    return {"params": total, "moments": 2 * total,
+            "peak_floor": 4 * total + sum(gathered.get(k, 0) for k in ("embed", "lm_head"))
+            + 2 * layers // getattr(cfg, "n_layers", 1)}
 
 
 def _model_config(spec: dict):
     from nexus_tpu_torch.models.registry import get_family
 
-    return get_family(spec["model"]["family"]).config(spec["model"]["preset"],
-                                                      **spec["model"]["overrides"])
+    return get_family(spec["model"].get("family", "mlp")).config(
+        spec["model"]["preset"], **spec["model"].get("overrides", {}))
 
 
 def check_rank_runs(name: str, runs: list, kernels=None) -> list:
@@ -3124,8 +3207,12 @@ def check_rank_runs(name: str, runs: list, kernels=None) -> list:
         f"per rank (tokens_per_sec_per_chip) {runs[0].get('tokens_per_sec_per_chip')}, "
         f"n_devices {runs[0]['n_devices']}, steps (loss, grad norm) {runs[0]['steps']}, "
         f"loss_history {hist}, launches by rank {[r['launches'] for r in runs]}, peak GB by rank "
-        f"{[round(r['peak_mem_gb'], 2) for r in runs]}, AdamW state bytes by rank "
-        f"{[r['optimizer_state_bytes'] for r in runs]}")
+        f"{[round(r['peak_mem_gb'], 2) for r in runs]} (through the steps "
+        f"{[r.get('step_peak_gb') and round(r['step_peak_gb'], 2) for r in runs]}; reckoned floor "
+        f"{[round(r['reckoned_bytes']['peak_floor'] / 1e9, 2) for r in runs]}), AdamW state "
+        f"bytes by rank {[r['optimizer_state_bytes'] for r in runs]}, resident bytes by rank "
+        f"{[r['resident_bytes'] for r in runs]} (reckoned "
+        f"{[r['reckoned_bytes']['params'] + r['reckoned_bytes']['moments'] for r in runs]})")
     if not (hist and all(math.isfinite(x) for x in hist)):
         raise AssertionError(f"{name}: losses not finite: {hist}")
     if "all_reduce" in runs[0]:
@@ -3180,8 +3267,9 @@ def plan_ring_neox():
     over {sequence: 2}; then 2 layers of it at 1 rank and at 2 ranks, every
     step's loss and grad norm equal within RING_LOSS_RTOL and
     RING_GRAD_NORM_RTOL, and an all-reduce of that model's gradient timed."""
-    # 4 steps (5 until the MoE phases over ranks needed the script's time)
-    small = long_context_spec(n_layers=2, steps=4)
+    # 3 steps (5 until the MoE phases over ranks needed the script's time,
+    # 4 until the fsdp phase did)
+    small = long_context_spec(n_layers=2, steps=3)
     single = _single_rank("ring-neox-1rank", small)
     # the long run: 2 steps (3 until the MoE phases over ranks needed the
     # script's time)
@@ -3201,9 +3289,10 @@ def plan_ring_fsdp_neox(backend: str = "gloo"):
     """ring-fsdp-neox (a plan of ``run_plans``, over 4 ranks): Pythia-1.4B
     widths at RING_FSDP_LAYERS layers, B 2 x S 8192 over
     {fsdp: 2, sequence: 2} (4 ranks), 2 steps, saving its last: every
-    step's loss and grad norm equal the one-rank run's, each rank holds half the AdamW state bytes (its
-    block and padding), and the step restored into one rank holds bit for
-    bit the whole state rank 0 wrote and each rank's blocks."""
+    step's loss and grad norm equal the one-rank run's, each rank's AdamW
+    moments take the bytes its blocks reckon, and the step restored into one
+    rank holds bit for bit each rank's blocks of the parameters and moments
+    (together, the whole state)."""
     import shutil
 
     from nexus_tpu_torch.train.checkpoint import OrbaxCheckpointer
@@ -3213,7 +3302,7 @@ def plan_ring_fsdp_neox(backend: str = "gloo"):
         ck = {"enabled": True, "directory": os.path.join(root, "ck"), "intervalSteps": 0,
               "keep": 1}
         par = {"fsdp": 2, "sequence": 2}
-        # 3 steps (4 until the MoE phases over ranks needed the script's time)
+        # 2 steps (4 until the MoE phases over ranks needed the script's time)
         spec = long_context_spec(n_layers=RING_FSDP_LAYERS, steps=2, parallelism=par, batch=2,
                                  checkpoint=ck)
         single = _single_rank("ring-fsdp-neox-1rank",
@@ -3222,13 +3311,11 @@ def plan_ring_fsdp_neox(backend: str = "gloo"):
                               profile=backend == "nccl")
         runs = (yield {"ring-fsdp-neox": dict(spec, record_saves=True)})["ring-fsdp-neox"]
         worst = check_same_losses("ring-fsdp-neox", runs[0], single)
-        cfg = _model_config(spec)
-        whole_bytes = 2 * cfg.param_count() * cfg.dtype.itemsize  # two moments a parameter
         for r in runs:
-            # a block of each leaf, padded to a multiple of 2 elements
-            if not whole_bytes / 2 <= r["optimizer_state_bytes"] <= whole_bytes / 2 + 4 * 64:
+            if r["optimizer_state_bytes"] != r["reckoned_bytes"]["moments"]:
                 raise AssertionError(f"ring-fsdp-neox: rank {r['rank']} holds "
-                                     f"{r['optimizer_state_bytes']} AdamW bytes of {whole_bytes}")
+                                     f"{r['optimizer_state_bytes']} AdamW bytes, its blocks "
+                                     f"{r['reckoned_bytes']['moments']}")
         saves = [r["saves"] for r in runs]
         if any(len(s) != 1 for s in saves):
             raise AssertionError(f"ring-fsdp-neox: saves by rank {[len(s) for s in saves]}")
@@ -3237,20 +3324,15 @@ def plan_ring_fsdp_neox(backend: str = "gloo"):
         OrbaxCheckpointer(ck["directory"]).restore(state)
         if state.step != saves[0][0]["step"]:
             raise AssertionError(f"ring-fsdp-neox: restored step {state.step}")
-        restored = state_tensors(state)
-        if state_fingerprints(restored) != saves[0][0]["whole"]:
-            raise AssertionError("ring-fsdp-neox: the one-rank restore differs from the state "
-                                 "rank 0 wrote")
-        moments = state.opt_state.mu + state.opt_state.nu
+        n = len(state.leaves)
         for r in runs:
-            # fsdp is the inner of (fsdp, sequence): rank = 2 fsdp + sequence
-            index = r["rank"] // par["sequence"]
-            if state_fingerprints(fsdp_blocks(moments, 2, index)) != r["saves"][0]["blocks"]:
-                raise AssertionError(f"ring-fsdp-neox: rank {r['rank']}'s AdamW blocks differ "
-                                     "from the restored step's")
-        log("[ring-fsdp-neox] the step written by 4 ranks restores into one bit for bit: the "
-            "whole state and every rank's blocks")
-        del state, restored, moments
+            blocks = state_fingerprints(rank_blocks(spec, 4, r["rank"], state))
+            if (blocks[:n], blocks[n:]) != (r["saves"][0]["params"], r["saves"][0]["blocks"]):
+                raise AssertionError(f"ring-fsdp-neox: rank {r['rank']}'s blocks differ from "
+                                     "the restored step's")
+        log("[ring-fsdp-neox] the step written by 4 ranks restores into one bit for bit: every "
+            "rank's blocks of the parameters and moments")
+        del state
         _free_card()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3272,7 +3354,8 @@ def ring_launches(ring: dict, name: str) -> dict:
 
 
 RING_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "n_devices", "mfu", "final_loss",
-             "loss_history", "phase_wall_s", "peak_mem_gb", "optimizer_state_bytes", "all_reduce")
+             "loss_history", "phase_wall_s", "peak_mem_gb", "step_peak_gb",
+             "optimizer_state_bytes", "resident_bytes", "reckoned_bytes", "all_reduce")
 
 
 def ring_summary(ring: dict) -> dict:
@@ -4094,6 +4177,9 @@ TP_TRAIN_SHAPES = {
     # block from rank 0, S 8192 over 2 sequence ranks) at the 8 heads one
     # of 2 tensor ranks holds
     "pythia_ring_visit_tp2": dict(RING_VISIT_SHAPES["pythia"], Hq=8, Hkv=8),
+    # train-fsdp's rank: Llama-3-8B's 32 / 8 heads over one row of 2048
+    # (4 rows over {fsdp: 4})
+    "llama8b_fsdp4": dict(MAIN_SHAPE, B=1, Sq=2048, Sk=2048),
 }
 # examples/train-llama8b-fsdp.yaml's runtime block at its published widths
 # (d 4096, heads 32 / 8, d_ff 14336, V 128256, remat dots_attn, ce_chunk
@@ -4121,8 +4207,10 @@ TRAIN_TP = {
 }
 # Pythia-1.4B widths (preset 1b: d 2048, 16 heads, d_ff 8192, V 50304) at 2
 # of its 24 layers over {fsdp: 2, tensor: 2}, 4 rows of 2048 (two a batch
-# rank), dense loss, no remat; an Orbax step saved after 4 steps and resumed
-# for a fifth
+# rank), dense loss, no remat; an Orbax step saved after TP_NEOX_SAVED steps
+# and resumed for one more
+# (4 until the fsdp phase needed the script's time)
+TP_NEOX_SAVED = 2
 TP_NEOX = {
     "kind": "jax_xla", "mode": "train",
     "model": {"family": "gptneox", "preset": "1b", "overrides": {"n_layers": 2}},
@@ -4176,12 +4264,14 @@ def tp_neox_spec(directory: str, steps: int, planted: Optional[str] = None) -> d
 
 @contextlib.contextmanager
 def planted_train_fault(fault: Optional[str]):
-    """One of TP_TRAIN_FAULTS, MOE_TP_FAULTS / MOE_EP_FAULTS or
+    """One of TP_TRAIN_FAULTS, MOE_TP_FAULTS / MOE_EP_FAULTS,
     RING_TP_FAULTS (the ring shifted over the whole world, not the rank's
-    sequence group) for a block (module attributes patched in this process,
-    never the repo)."""
+    sequence group) or FSDP_FAULTS for a block (module attributes patched
+    in this process, never the repo)."""
     import torch
+    import torch.distributed as dist
 
+    from nexus_tpu_torch.parallel import fsdp as F
     from nexus_tpu_torch.parallel import tensor as T
     from nexus_tpu_torch.train import trainer as Tr
 
@@ -4210,9 +4300,23 @@ def planted_train_fault(fault: Optional[str]):
         Mx.copy_to_tensor = lambda x, group: (x if x.dim() == 2 and x.shape[-1] != 2
                                               else saved(x, group))
         owner, name = Mx, "copy_to_tensor"
-    elif fault == "world_ring":
-        import torch.distributed as dist
+    elif fault == "rolled_join":
+        saved = F.gather_blocks
 
+        def rolled(blocks, dims, group):  # rank r's block lands where r + 1's belongs
+            return [torch.roll(w, b.shape[d], d)
+                    for w, b, d in zip(saved(blocks, dims, group), blocks, dims)]
+
+        F.gather_blocks = rolled
+        owner, name = F, "gather_blocks"
+    elif fault == "own_grad":
+        saved = F.reduce_blocks
+        # each rank keeps its own block of its own gradient: no sum over fsdp
+        F.reduce_blocks = lambda grads, dims, group: [
+            g.chunk(dist.get_world_size(group), d)[dist.get_rank(group)].contiguous()
+            for g, d in zip(grads, dims)]
+        owner, name = F, "reduce_blocks"
+    elif fault == "world_ring":
         from nexus_tpu_torch.ops import ring_attention as R
 
         saved = R.ring_attention
@@ -4248,11 +4352,13 @@ def step_differences(ranked: dict, single: dict, keys=("loss", "grad_norm")) -> 
 
 
 def check_train_tp(name: str, ranked: dict, single: dict, faults: dict,
-                   limits: Optional[dict] = None) -> dict:
+                   limits: Optional[dict] = None, fault_ref: Optional[dict] = None) -> dict:
     """``ranked``'s steps within ``limits`` of the one-card run's (by
     default TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL on the loss and grad
-    norm), and each planted fault's run past one of them: {"clean": worst
-    differences, fault: worst differences over its limits}."""
+    norm), and each planted fault's run past one of them against the same
+    one-card run, or ``fault_ref`` (the faults' own shape on one card):
+    {"clean": worst differences, fault: worst differences over its
+    limits}."""
     limits = limits or {"loss": TP_TRAIN_LOSS_RTOL, "grad_norm": TP_TRAIN_NORM_RTOL}
     clean = step_differences(ranked, single, tuple(limits))
     log(f"[{name}] {tuple(limits)} a step over ranks {ranked['steps']} vs one card "
@@ -4262,7 +4368,7 @@ def check_train_tp(name: str, ranked: dict, single: dict, faults: dict,
         raise AssertionError(f"{name}: over the ranks {over}, limits {limits}")
     out = {"clean": clean}
     for fault, run in faults.items():
-        worst = step_differences(run, single, tuple(limits))
+        worst = step_differences(run, fault_ref or single, tuple(limits))
         out[fault] = {k: v / limits[k] for k, v in worst.items()}
         log(f"[{name}] planted {fault}: steps {run['steps']}, worst difference {worst}, over "
             f"its limit {out[fault]} (one must exceed 1)")
@@ -4368,31 +4474,23 @@ def plan_train_tp(backend: str = "gloo", world: int = TP_RANKS):
 
 def check_tp_neox_step(spec: dict, runs: list) -> None:
     """The Orbax step the ranks saved, restored into one card: each rank's
-    parameters equal its tensor block of it, and its AdamW blocks its fsdp
-    block of that, bit for bit."""
-    from nexus_tpu_torch.models.params import LeafCuts
-    from nexus_tpu_torch.parallel.sharding import TensorShard
+    parameters and AdamW moments are its blocks of it (over fsdp and
+    tensor), bit for bit."""
     from nexus_tpu_torch.train.checkpoint import OrbaxCheckpointer
-    from nexus_tpu_torch.train.trainer import leaf_paths
 
     _free_card()
-    family, cfg, state = fresh_train_state(spec)
+    _, _, state = fresh_train_state(spec)
     OrbaxCheckpointer(spec["checkpoint"]["directory"]).restore(state)
-    paths = leaf_paths(state.params, state.leaves)
-    tensor = spec["parallelism"]["tensor"]
+    n = len(state.leaves)
     for r in runs:
         saves = r["saves"]
         if len(saves) != 1 or saves[0]["step"] != state.step:
             raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']} saves {saves}")
-        cuts = LeafCuts(family.logical_axes(cfg), TensorShard(r["rank"] % tensor, tensor),
-                        family.TENSOR_GROUPS)
-        block = [cuts.take(p)(t) for p, t in zip(paths, state.leaves)]
-        moments = [cuts.take(p)(t) for p, t in zip(paths * 2, state.opt_state.mu
-                                                   + state.opt_state.nu)]
-        if state_fingerprints(block) != saves[0]["params"]:
+        blocks = state_fingerprints(rank_blocks(spec, len(runs), r["rank"], state))
+        if blocks[:n] != saves[0]["params"]:
             raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']}'s parameters differ "
-                                 "from its block of the saved step")
-        if state_fingerprints(fsdp_blocks(moments, 2, r["rank"] // tensor)) != saves[0]["blocks"]:
+                                 "from its blocks of the saved step")
+        if blocks[n:] != saves[0]["blocks"]:
             raise AssertionError(f"train-tp-fsdp-neox: rank {r['rank']}'s AdamW blocks differ "
                                  "from the saved step's")
     log(f"[train-tp-fsdp-neox] step {state.step}, written by {len(runs)} ranks, restores into "
@@ -4403,25 +4501,26 @@ def check_tp_neox_step(spec: dict, runs: list) -> None:
 
 def plan_train_tp_fsdp_neox():
     """train-tp-fsdp-neox (a plan of ``run_plans``): TP_NEOX over 4 ranks,
-    {fsdp: 2, tensor: 2}: 4 steps saved as an Orbax step and resumed for a
-    fifth, whose save restores into one card bit for bit; every step
-    against the same two runs on one card, each planted fault past the
-    limits."""
+    {fsdp: 2, tensor: 2}: TP_NEOX_SAVED steps saved as an Orbax step and
+    resumed for one more, whose save restores into one card bit for bit;
+    every step against the same two runs on one card, each planted fault
+    past the limits."""
     import shutil
 
     root = tempfile.mkdtemp(prefix="tp-neox-")
     try:
         one, ranked_dir = os.path.join(root, "one"), os.path.join(root, "ranks")
-        first = _single_rank("train-tp-fsdp-neox-1card", tp_neox_spec(one, 4))
-        resumed = _single_rank("train-tp-fsdp-neox-1card-resume", tp_neox_spec(one, 5))
+        n = TP_NEOX_SAVED
+        first = _single_rank("train-tp-fsdp-neox-1card", tp_neox_spec(one, n))
+        resumed = _single_rank("train-tp-fsdp-neox-1card-resume", tp_neox_spec(one, n + 1))
         single = dict(first, steps=first["steps"] + resumed["steps"])
-        specs = {"train-tp-fsdp-neox": tp_neox_spec(ranked_dir, 4),
-                 "train-tp-fsdp-neox-resume": tp_neox_spec(ranked_dir, 5)}
+        specs = {"train-tp-fsdp-neox": tp_neox_spec(ranked_dir, n),
+                 "train-tp-fsdp-neox-resume": tp_neox_spec(ranked_dir, n + 1)}
         specs.update({f"train-tp-fsdp-neox-{f}": tp_neox_spec("", TP_FAULT_STEPS, planted=f)
                       for f in TP_TRAIN_FAULTS})
         runs = yield {run: dict(spec, record_saves=True) for run, spec in specs.items()}
         ranked, again = runs["train-tp-fsdp-neox"], runs["train-tp-fsdp-neox-resume"]
-        if any(r["resumed_from_step"] != 4 for r in again):
+        if any(r["resumed_from_step"] != TP_NEOX_SAVED for r in again):
             raise AssertionError(f"train-tp-fsdp-neox: resumed from "
                                  f"{[r['resumed_from_step'] for r in again]}")
         # keep 1: the resumed run's save (step 5) is the one on disk
@@ -4453,7 +4552,8 @@ def run_train_tp_phases() -> dict:
 
 TT_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "n_devices", "mfu", "final_loss",
            "loss_history", "steps", "phase_wall_s", "spawn_wall_s", "peak_mem_gb",
-           "optimizer_state_bytes", "moe_dispatch", "router_dropped_fraction")
+           "optimizer_state_bytes", "resident_bytes", "reckoned_bytes", "step_peak_gb",
+           "moe_dispatch", "router_dropped_fraction")
 
 
 def train_tp_summary(tt: dict) -> dict:
@@ -4466,7 +4566,8 @@ def train_tp_launches(tt: dict, name: str) -> dict:
     """Kernel ``name``'s launches per rank in each tensor-parallel train
     phase."""
     return {phase: [by[name] for by in tt[f"{phase}-by_rank"]["launches"]]
-            for phase in ("train-tp", "train-tp-fsdp-neox")}
+            for phase in ("train-tp", "train-tp-fsdp-neox", "train-fsdp")
+            if f"{phase}-by_rank" in tt}
 
 
 def phase_tp_train_kernels(shapes: Optional[dict] = None) -> tuple:
@@ -4518,6 +4619,136 @@ def run_train_tp_over_nccl() -> int:
     if tt["train-tp"].get("profile"):
         log(f"[train-tp-nccl] rank 0's step {PROFILE_STEP} profiled ({card_label()}): "
             f"{json.dumps(tt['train-tp']['profile'])}")
+    log("[summary] " + json.dumps(train_tp_summary(tt)))
+    log(f"[total] wall {time.monotonic() - started:.1f} s")
+    _print_device_lines(torch)
+    return 0
+
+
+# ------------------------- parameters sharded over fsdp (module item 4e)
+#
+# examples/train-llama8b-fsdp.yaml at its published widths (TRAIN_TP's cuts:
+# 2 of its 32 layers, 3 steps, warmup 2000 -> 1, synthetic data) with its
+# parallelism declared {fsdp: 4}: the template's own fsdp axis at 4 ranks (a
+# re-plan of its 64-chip {data 2, fsdp 16, tensor 2} would give {tensor:
+# 4}), 4 rows of 2048 (one a rank). Each rank holds its block of every leaf
+# with an embed dim and gathers a layer's weights inside the layer.
+FSDP_RANKS = 4
+FSDP_PLAN = {"fsdp": FSDP_RANKS}
+# the planted faults and the steps each runs: the gathered blocks joined in
+# rolled order (rank r's block where r + 1's belongs), and the gather's
+# backward keeping the rank's own gradient block in place of the sum over
+# fsdp. A roll of every gather permutes the residual stream's basis
+# consistently: with the norms' weights equal (ones at init) the rolled
+# model computes the same function, and each rank's update lands on its
+# neighbour's block. So the loss moves only once a wrong update has been
+# applied: at step 3 (warmup 1: step 1's learning rate is 0)
+FSDP_FAULTS = {"rolled_join": 3, "own_grad": TP_FAULT_STEPS}
+# ...at 1 of the 2 layers and rows of 512, against the same on one card: a
+# gloo step costs what it moves through host memory, and the embedding and
+# head (1.05 GB each, whole) are most of it
+FSDP_FAULT_SHAPE = {"n_layers": 1, "seq_len": 512}
+# each rank's bytes on its card between steps against its blocks of the
+# parameters and moments reckoned from the leaf shapes (the rest: the
+# prefetched batches and the libraries' workspaces)
+RESIDENT_RTOL = 0.05
+
+
+def train_fsdp_spec(steps: int = 3, planted: Optional[str] = None, n_layers: int = 2,
+                    seq_len: int = 2048) -> dict:
+    spec = train_tp_spec(steps, planted)
+    spec["parallelism"] = dict(FSDP_PLAN)
+    spec["model"]["overrides"]["n_layers"] = n_layers
+    spec["train"].update(batchSize=FSDP_RANKS, seqLen=seq_len)
+    return spec
+
+
+def check_resident(name: str, runs: list) -> list:
+    """Each rank's bytes on its card between steps within RESIDENT_RTOL of
+    its blocks of the parameters and moments reckoned from the leaf
+    shapes: the relative difference of each rank."""
+    out = []
+    for r in runs:
+        want = r["reckoned_bytes"]["params"] + r["reckoned_bytes"]["moments"]
+        out.append((r["resident_bytes"] - want) / want)
+    log(f"[{name}] resident bytes by rank {[r['resident_bytes'] for r in runs]} against the "
+        f"reckoned {[r['reckoned_bytes']['params'] + r['reckoned_bytes']['moments'] for r in runs]}"
+        f": relative {out} (limit {RESIDENT_RTOL}); peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 3) for r in runs]}, reckoned floor "
+        f"{[round(r['reckoned_bytes']['peak_floor'] / 1e9, 3) for r in runs]} ({card_label()})")
+    if not all(abs(x) <= RESIDENT_RTOL for x in out):
+        raise AssertionError(f"{name}: resident bytes off their blocks by {out}")
+    return out
+
+
+def fsdp_by_rank(runs: list) -> dict:
+    return {key: [r[key] for r in runs]
+            for key in ("launches", "peak_mem_gb", "step_peak_gb", "resident_bytes",
+                        "reckoned_bytes")}
+
+
+def plan_train_fsdp():
+    """train-fsdp (a plan of ``run_plans`` over FSDP_RANKS ranks): every
+    step's loss and grad norm within TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL
+    of the same spec on one card (train-fsdp-1card), each rank's resident
+    bytes within RESIDENT_RTOL of its reckoned blocks, FSDP_FAULTS (at
+    FSDP_FAULT_SHAPE) past the limits, K1-K3 on every rank."""
+    single = _single_rank("train-fsdp-1card", train_fsdp_spec())
+    fault_ref = _single_rank("train-fsdp-faults-1card", train_fsdp_spec(**FSDP_FAULT_SHAPE))
+    specs = {"train-fsdp": train_fsdp_spec()}
+    specs.update({f"train-fsdp-{f}": train_fsdp_spec(steps, planted=f, **FSDP_FAULT_SHAPE)
+                  for f, steps in FSDP_FAULTS.items()})
+    runs = yield specs
+    ranked = runs["train-fsdp"]
+    resident = check_resident("train-fsdp", ranked)
+    faults = {f: runs[f"train-fsdp-{f}"][0] for f in FSDP_FAULTS}
+    gates = check_train_tp("train-fsdp", ranked[0], single, faults, fault_ref=fault_ref)
+    log(f"[train-fsdp] tokens_per_sec {ranked[0]['tokens_per_sec']} over {FSDP_RANKS} ranks "
+        f"(gloo), one card at the same spec {single['tokens_per_sec']}; K1-K3 launches by rank "
+        f"{[r['launches'] for r in ranked]}; one card's peak {single['peak_mem_gb']:.3f} GB "
+        f"({card_label()})")
+    return {"train-fsdp": ranked[0], "train-fsdp-1card": single,
+            "train-fsdp-faults-1card": fault_ref,
+            "train-fsdp-gates": dict(gates, resident=resident),
+            "train-fsdp-by_rank": fsdp_by_rank(ranked)}
+
+
+def plan_train_fsdp_nccl():
+    """``--fsdp-nccl`` (a plan of ``run_plans``, a rank a card over NCCL):
+    the whole 32-layer Llama-3-8B of the template over {fsdp: 4}, 4 rows of
+    8192, 3 steps: a finite loss that falls over the steps, each card's
+    resident bytes within RESIDENT_RTOL of its blocks, K1-K3 on every rank.
+    No one-card twin: the whole model and its moments do not fit one
+    card."""
+    runs = (yield {"train-fsdp-nccl": train_fsdp_spec(n_layers=32, seq_len=8192)})
+    ranked = runs["train-fsdp-nccl"]
+    resident = check_resident("train-fsdp-nccl", ranked)
+    losses = [s[0] for s in ranked[0]["steps"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-fsdp-nccl: the loss did not fall: {losses}")
+    log(f"[train-fsdp-nccl] tokens_per_sec {ranked[0]['tokens_per_sec']}, per card "
+        f"{ranked[0]['tokens_per_sec_per_chip']}, mfu {ranked[0]['mfu']}, steps (loss, grad "
+        f"norm) {ranked[0]['steps']} ({card_label()})")
+    return {"train-fsdp-nccl": ranked[0], "train-fsdp-nccl-resident": resident,
+            "train-fsdp-nccl-by_rank": fsdp_by_rank(ranked)}
+
+
+def fsdp_plans() -> list:
+    """The phases that train over a sharded fsdp axis, in the spawn of 4
+    (mlp-tp, the fifth, is a batch-axes phase): train-fsdp, ring-fsdp-neox,
+    train-tp-fsdp-neox, train-moe-ep."""
+    return [plan_train_fsdp(), plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(),
+            plan_train_moe_ep()]
+
+
+def run_train_fsdp_over_nccl() -> int:
+    """``--fsdp-nccl``: plan_train_fsdp_nccl on the 4 cards of a machine,
+    a rank a card over NCCL, the kernels built first."""
+    import torch
+
+    started = time.monotonic()
+    phase_build()
+    tt = run_plans(4, [plan_train_fsdp_nccl()], "nccl")
     log("[summary] " + json.dumps(train_tp_summary(tt)))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
@@ -4629,12 +4860,9 @@ def moe_dense_bytes(spec: dict, world: int) -> int:
     tensors on one rank of ``spec`` over ``world`` ranks (its experts and
     tokens): what the einsum dispatch would build a layer."""
     from nexus_tpu_torch.ops.moe import default_capacity
-    from nexus_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices
 
     cfg = _model_config(spec)
-    plan = MeshPlan(**spec.get("parallelism", {}))
-    if plan.total() != world:  # re-planned, as the entry point does
-        plan = plan_for_devices(world)
+    plan = rank_plan(spec, world)
     tokens = spec["train"]["batchSize"] * spec["train"]["seqLen"]
     cap = default_capacity(tokens, cfg.n_experts, cfg.n_experts_per_token, cfg.capacity_factor)
     local = tokens // (plan.data * plan.fsdp * plan.sequence)
@@ -5863,6 +6091,9 @@ def main(argv=None) -> int:
                         help="run only the batch-axes phases (module item 4b, part three)")
     parser.add_argument("--batch-axes-nccl", action="store_true",
                         help="run only infer-dp-tp and serve-fsdp-tp, a rank a card over NCCL")
+    parser.add_argument("--fsdp-nccl", action="store_true",
+                        help="train the whole Llama-3-8B over {fsdp: 4}, a rank a card over "
+                             "NCCL")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -5897,6 +6128,8 @@ def main(argv=None) -> int:
         return run_batch_axes_gates()
     if args.batch_axes_nccl:
         return run_batch_axes_over_nccl()
+    if args.fsdp_nccl:
+        return run_train_fsdp_over_nccl()
     started = time.monotonic()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; importable: "
@@ -5916,9 +6149,9 @@ def main(argv=None) -> int:
     timed("serve-int8", phase_serve, "serve-int8", _serve_spec(num_requests=SERVE_VARIANT_REQUESTS,
                                                                kvPoolDtype="int8"))
     # for information, not a gate: bf16 rounding may flip late near-ties
-    # (8 of the queue's requests: the script's time)
+    # (the queue's first GATHER_REQUESTS requests: the script's time)
     gather = timed("serve-gather", phase_serve, "serve-gather",
-                   _serve_spec(num_requests=SERVE_VARIANT_REQUESTS, attentionPath="gather"),
+                   _serve_spec(num_requests=GATHER_REQUESTS, attentionPath="gather"),
                    must_launch=False)
     same = {"serve-gather": _same_tokens("serve", serve_run, gather)}
     # speculation: verify windows of numSpeculative + 1 = 5 through D1
@@ -5937,16 +6170,11 @@ def main(argv=None) -> int:
                       ("serve-prefill32", prefill32)):
         same[name] = _same_tokens(name, serve_run, run)
     # the host tier under an open-loop chat trace (bf16 payloads), and the
-    # same kind of traffic demoting to int8 on the way out; each also
-    # served with the tier off, for information
+    # same kind of traffic demoting to int8 on the way out (each was also
+    # served with the tier off, for information, until the fsdp phase
+    # needed the script's time)
     host = {name: timed(name, phase_serve_host, name, host_phase_spec(name))
             for name in HOST_PHASES}
-    host_same = {}
-    for name in HOST_PHASES:
-        off = timed(f"{name}-off", phase_serve, f"{name}-off",
-                    host_phase_spec(name, host_cache_bytes=0))
-        host_same[name] = _same_tokens(name, off, host[name], ref="the same trace without the "
-                                       "host tier")
     # four replicas behind the prefix-affinity router, and one traced engine
     fleet_spec = _serve_spec(**FLEET_SPEC_KEYS)
     fleet_spec["model"] = dict(fleet_spec["model"], overrides={"n_layers": FLEET_LAYERS})
@@ -5965,10 +6193,8 @@ def main(argv=None) -> int:
     # the card's set-up once)
     tt = timed("ring-neox,train-tp,train-moe-tp", run_plans, 2,
                [plan_ring_neox(), plan_train_tp(), plan_train_moe_tp()])
-    tt.update(timed("ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes,moe-ep",
-                    run_plans, 4,
-                    [plan_ring_fsdp_neox(), plan_train_tp_fsdp_neox(), plan_train_moe_ep()]
-                    + batch_axes_plans() + [plan_moe_ep_serving(tp["serve-moe-tp-1card"])]))
+    tt.update(timed("train-fsdp,ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes,moe-ep",
+                    run_plans, 4, fsdp_plans() + batch_axes_plans() + [plan_moe_ep_serving(tp["serve-moe-tp-1card"])]))
     ep = {k: tt.pop(k) for k in list(tt) if k.startswith(MOE_EP_PHASES)}
     ba = {k: tt.pop(k) for k in list(tt) if k.startswith(BATCH_AXES_PHASES)}
     mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
@@ -6038,7 +6264,6 @@ def main(argv=None) -> int:
             "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p50_s",
             "request_latency_p95_s", "slot_utilization", "prefix_hit_tokens", "hydragen_waves",
             "committed_tokens", "wall_s", "launches")},
-        "serve_gather_tokens_per_sec": gather["tokens_per_sec"],
         "serve_same_tokens_as_plain_serve": same,
         "serve_speculative": {name: {k: run.get(k) for k in (
             "tokens_per_sec", "ttft_p50_s", "request_latency_p50_s", "committed_tokens",
@@ -6049,7 +6274,6 @@ def main(argv=None) -> int:
             "requests", "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "request_latency_p95_s",
             "committed_tokens", "wall_s", "phase_wall_s", "launches") + HOST_KEYS}
             for name, run in host.items()},
-        "serve_host_same_tokens_as_tier_off": host_same,
         "serve_fleet": {k: fleet.get(k) for k in FLEET_KEYS + (
             "phase_wall_s", "peak_mem_gb", "per_replica", "launches")},
         "mixtral": {phase: {k: run.get(k) for k in MIXTRAL_KEYS if k in run}

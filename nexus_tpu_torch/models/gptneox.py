@@ -23,7 +23,9 @@ Params cut for a tensor axis train at the rank's heads, as Llama's do
 ``b_in`` column-parallel, ``wo`` and ``w_out`` row-parallel, the two
 branches' partial sums reduced in one collective a layer and the
 replicated biases ``b_o`` / ``b_out`` added once after it, the vocabulary
-split.
+split. Params cut over ``fsdp`` (training) gather a layer's matrices
+inside the block that remat wraps, as Llama's do; the biases and
+LayerNorms have no ``embed`` dim and stay whole (parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from nexus_tpu_torch.ops.norms import layer_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
 from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
                                              reduce_from_tensor, vocab_parallel_embed)
 
@@ -296,12 +299,16 @@ def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Ten
     Under a sequence-sharded mesh ``tokens`` is this rank's block, whose
     positions start past the blocks before it."""
     s = tokens.shape[1]
-    group = tensor_group(params, cfg)
-    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
+    group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
+    x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.rotary_dims, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
                             device=x.device)
-    block = lambda *a: _block(cfg, *a, group=group)  # noqa: E731
+    dims = embed_dims(logical_axes(cfg)["layers"], LAYER_KEYS)
+
+    def block(x, *a):  # the layer's weights gathered inside what remat wraps
+        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group)
+
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     for layer in zip(*(params["layers"][k].unbind(0) for k in LAYER_KEYS)):
@@ -314,7 +321,7 @@ def forward(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Tensor,
     """tokens (B, S) → logits (B, S, V) float32 (the whole vocabulary's,
     gathered, under a tensor axis)."""
     x = forward_hidden(params, cfg, tokens, position_offset)
-    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg))
+    return gather_from_tensor((x @ lm_head(params, cfg)).float(), tensor_group(params, cfg))
 
 
 def loss_fn(params: Dict[str, Any], cfg: GPTNeoXConfig,
@@ -325,12 +332,11 @@ def loss_fn(params: Dict[str, Any], cfg: GPTNeoXConfig,
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden = forward_hidden(params, cfg, inputs)
-    group = tensor_group(params, cfg)
+    group, head = tensor_group(params, cfg), lm_head(params, cfg)
     if cfg.ce_chunk > 0:
-        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
-                                    group=group)
+        loss = chunked_softmax_xent(hidden, head, targets, chunk=cfg.ce_chunk, group=group)
     else:
-        loss = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
+        loss = dense_softmax_xent(hidden, head, targets, group=group)
     return loss, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())}
 
 

@@ -15,7 +15,11 @@ split, as GSPMD partitions JAX's model under ``DEFAULT_LOGICAL_RULES``.
 input through ``copy_to_tensor``), ``wo`` and ``w_down`` row-parallel (their
 partial sums, in the model dtype, through ``reduce_from_tensor``), the
 embedding and ``lm_head`` split over the vocabulary (the vocab-parallel
-lookup and cross entropy); parallel/tensor.py has the collectives.
+lookup and cross entropy); parallel/tensor.py has the collectives. Params
+cut over ``fsdp`` too (training: ``param_shard``) hold a block of each
+leaf's ``embed`` dim: a layer gathers its weights inside the block that
+remat wraps, ``embed`` and ``lm_head`` are gathered where they are used
+(parallel/fsdp.py).
 The decode entry points (``forward_decode``, ``generate``) run the shared
 scaffold of ``models/decoding.py``.
 """
@@ -37,6 +41,7 @@ from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
 from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
                                              reduce_from_tensor, vocab_parallel_embed)
 
@@ -236,12 +241,16 @@ def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
     a sequence-sharded mesh ``tokens`` is this rank's block, whose
     positions start past the blocks before it."""
     s = tokens.shape[1]
-    group = tensor_group(params, cfg)
-    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
+    group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
+    x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
                             device=x.device)
-    block = lambda *a: _block(cfg, *a, group=group)  # noqa: E731
+    dims = embed_dims(logical_axes(cfg)["layers"], LAYER_KEYS)
+
+    def block(x, *a):  # the layer's weights gathered inside what remat wraps
+        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group)
+
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     per_layer = zip(*(params["layers"][k].unbind(0) for k in LAYER_KEYS))
@@ -255,7 +264,7 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
     """tokens (B, S) → logits (B, S, V) float32 (the whole vocabulary's,
     gathered, under a tensor axis)."""
     x = forward_hidden(params, cfg, tokens, position_offset)
-    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg))
+    return gather_from_tensor((x @ lm_head(params, cfg)).float(), tensor_group(params, cfg))
 
 
 def loss_fn(params: Dict[str, Any], cfg: LlamaConfig,
@@ -265,12 +274,11 @@ def loss_fn(params: Dict[str, Any], cfg: LlamaConfig,
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden = forward_hidden(params, cfg, inputs)
-    group = tensor_group(params, cfg)
+    group, head = tensor_group(params, cfg), lm_head(params, cfg)
     if cfg.ce_chunk > 0:
-        loss = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
-                                    group=group)
+        loss = chunked_softmax_xent(hidden, head, targets, chunk=cfg.ce_chunk, group=group)
     else:
-        loss = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
+        loss = dense_softmax_xent(hidden, head, targets, group=group)
     return loss, {"loss": loss.detach(), "perplexity": torch.exp(loss.detach())}
 
 

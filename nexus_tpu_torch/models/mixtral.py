@@ -25,7 +25,10 @@ model axes, so every rank of them routes alike), computes its experts'
 share, and sums the ranks' partial outputs in one all-reduce over the
 model axes (rounded to the model dtype first: JAX sums before it rounds).
 A rank with batch peers sizes its expert buffers by its own selections
-(C_local, ``ops/moe.py::own_slots``). Decoding runs the same layer over
+(C_local, ``ops/moe.py::own_slots``). In training the params are cut over
+``fsdp`` too (their ``embed`` dim: the router's rows, the expert stacks'
+d_model), and a layer gathers its weights inside the block that remat
+wraps (parallel/fsdp.py). Decoding runs the same layer over
 the model axes; an infer rank that decodes a block of the batch's rows
 routes the whole batch's tokens of each feed (``_decode_ffn``).
 """
@@ -61,6 +64,7 @@ from nexus_tpu_torch.ops.norms import rms_norm
 from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
 from nexus_tpu_torch.parallel.mesh import active_mesh
 from nexus_tpu_torch.parallel.sharding import split_rows
 from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
@@ -357,12 +361,17 @@ def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Ten
     ``tokens`` is this rank's block, whose positions start past the blocks
     before it; under the batch axes routing covers the global batch."""
     s = tokens.shape[1]
-    group = tensor_group(params, cfg)
+    group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
     moe = (*moe_split(params["layers"], cfg), token_grid(active_mesh()))
-    x = vocab_parallel_embed(params["embed"], tokens, group, cfg.dtype)
+    x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
                             position_offset=sequence_offset(s), device=x.device)
-    block = lambda *a: _block(cfg, *a, group=group, moe=moe)  # noqa: E731
+    dims = embed_dims(logical_axes(cfg)["layers"], LAYER_KEYS)
+
+    def block(x, aux, dropped, *a):  # the layer's weights gathered inside what remat wraps
+        layer = gather(a[:len(dims)], dims, fsdp)
+        return _block(cfg, x, aux, dropped, *layer, *a[len(dims):], group=group, moe=moe)
+
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)
     aux = dropped = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -376,7 +385,7 @@ def forward(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor):
     """tokens (B, S) → (logits (B, S, V) float32, the whole vocabulary's
     under a tensor axis; layer-mean aux loss)."""
     x, aux, _ = forward_hidden(params, cfg, tokens)
-    return gather_from_tensor((x @ params["lm_head"]).float(), tensor_group(params, cfg)), aux
+    return gather_from_tensor((x @ lm_head(params, cfg)).float(), tensor_group(params, cfg)), aux
 
 
 def loss_fn(params: Dict[str, Any], cfg: MixtralConfig,
@@ -386,12 +395,11 @@ def loss_fn(params: Dict[str, Any], cfg: MixtralConfig,
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, aux, dropped = forward_hidden(params, cfg, inputs)
-    group = tensor_group(params, cfg)
+    group, head = tensor_group(params, cfg), lm_head(params, cfg)
     if cfg.ce_chunk > 0:
-        ce = chunked_softmax_xent(hidden, params["lm_head"], targets, chunk=cfg.ce_chunk,
-                                  group=group)
+        ce = chunked_softmax_xent(hidden, head, targets, chunk=cfg.ce_chunk, group=group)
     else:
-        ce = dense_softmax_xent(hidden, params["lm_head"], targets, group=group)
+        ce = dense_softmax_xent(hidden, head, targets, group=group)
     loss = ce + cfg.router_aux_weight * aux
     metrics = {"loss": loss, "ce": ce, "aux": aux, "perplexity": torch.exp(ce),
                "router_dropped_fraction": dropped}

@@ -13,7 +13,9 @@ Tensor parallelism: JAX's logical dims put every layer's output columns
 their gradient is summed over the ranks' columns) and gathers the rank's
 output columns back into the whole activations (``gather_from_tensor``),
 as GSPMD reshards them between the layers, so every rank computes the same
-prediction and loss.
+prediction and loss. Over ``fsdp`` (training) each rank holds a block of
+every ``w``'s input rows (``embed``), gathered whole where the layer runs
+(parallel/fsdp.py); the biases stay whole.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from nexus_tpu_torch.models.params import LeafCuts, tree_leaves
+from nexus_tpu_torch.parallel.fsdp import fsdp_group, gather_one
 from nexus_tpu_torch.parallel.tensor import copy_to_tensor, gather_from_tensor, tensor_mesh
 
 
@@ -115,8 +118,10 @@ def forward(params: Dict[str, Any], cfg: MlpConfig, x: torch.Tensor) -> torch.Te
     a tensor axis (module doc)."""
     layers = params["layers"]
     group = tensor_group(params, cfg)
+    fsdp = fsdp_group(cfg.in_dim, layers[0]["w"].shape[0])
     for i, layer in enumerate(layers):
-        x = gather_from_tensor(copy_to_tensor(x, group) @ layer["w"] + layer["b"], group)
+        w = gather_one(layer["w"], 0, fsdp)
+        x = gather_from_tensor(copy_to_tensor(x, group) @ w + layer["b"], group)
         if i < len(layers) - 1:
             x = F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
     return x

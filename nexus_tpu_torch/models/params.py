@@ -6,8 +6,9 @@ package's pytrees.
 expert) dims at a time, in f32 on the generator's device, and writes each
 slice scaled into the tensor: the peak over the weights is one slice in
 f32, never the whole stack (at Mixtral-8x7B widths the stacked ``w_gate``
-alone is 30 GB in f32). ``LeafCuts`` gives a rank of the model axes
-(``expert``, ``tensor``) the blocks of its leaves (parallel/sharding.py).
+alone is 30 GB in f32). ``LeafCuts`` gives a rank of the parameter axes
+(``expert`` and ``tensor``; ``fsdp`` too in training) the blocks of its
+leaves (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def fill_normal_(out: torch.Tensor, generator: torch.Generator, scale: float,
                  where: Optional[Callable[[Tuple[int, ...]], Optional[Tuple[int, ...]]]] = None
                  ) -> torch.Tensor:
     """Fill ``out`` with N(0, 1) · ``scale``, drawn slice by slice over its
-    first ``stack_dims`` dims. A rank of the model axes holds a block of
+    first ``stack_dims`` dims. A rank of the parameter axes holds a block of
     the leaf: every slice of the whole leaf (``lead``: its stacked dims) is
     drawn ``whole`` (the slice's shape), ``where`` gives the slice's index
     in ``out`` (None: not this rank's; an expert of another rank) and
@@ -47,8 +48,8 @@ def fill_normal_(out: torch.Tensor, generator: torch.Generator, scale: float,
 
 
 class LeafCuts:
-    """A family's leaves as one rank of the model axes holds them (``shard``,
-    a ``parallel.sharding.ModelShard``): the block shape of each leaf
+    """A family's leaves as one rank of the parameter axes holds them
+    (``shard``, a ``parallel.sharding.ModelShard``): the block shape of each leaf
     (``shape``) and the function that cuts the rank's block out of a whole
     slice of it (``take``), from the family's logical dims and its fused
     leaves' runs (``groups``, by tree path). With no shard every leaf is
@@ -70,7 +71,8 @@ class LeafCuts:
         return lambda x: self.shard.take(x, dims, groups)
 
     def join(self, path: str, blocks) -> torch.Tensor:
-        """The whole leaf at ``path`` from every model-axes rank's block."""
+        """The whole leaf at ``path`` from every rank's block (in the rank
+        order of the shard's axes)."""
         return self.shard.join(blocks, self.dims[path], self.groups.get(path, 1))
 
     def whole_shape(self, path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -78,15 +80,16 @@ class LeafCuts:
         return tuple(shape) if self.shard is None else self.shard.whole_shape(shape,
                                                                               self.dims[path])
 
-    def is_cut(self, path: str) -> bool:
+    def is_cut(self, path: str, axis: Optional[str] = None) -> bool:
         """Whether the leaf at ``path`` (a whole stacked leaf) is a block
-        on each rank; False with no shard."""
+        on each rank (with ``axis``: a block along that axis); False with
+        no shard."""
         dims = self.dims[path]
-        return self.shard is not None and self.shard.is_cut(dims, len(dims))
+        return self.shard is not None and self.shard.is_cut(dims, len(dims), axis)
 
     def copies(self, path: str) -> int:
-        """How many ranks of the model axes hold the same block of the leaf
-        at ``path`` (1 with no shard)."""
+        """How many ranks of the shard's axes hold the same block of the
+        leaf at ``path`` (1 with no shard)."""
         dims = self.dims[path]
         return 1 if self.shard is None else self.shard.copies(dims, len(dims))
 

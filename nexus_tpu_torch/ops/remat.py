@@ -45,6 +45,18 @@ recompute in JAX saves the same dot outputs by name and reruns what the
 backward needs after them. Ring attention's shifts (ops/ring_attention.py)
 come before the attention's saved outputs, so every policy replays them
 too, ``dots_attn`` keeping only the flash forward's outputs.
+
+Under a sharded ``fsdp`` axis a block's first collective is the gather of
+its layer's weights (parallel/fsdp.py: one all-gather a dtype, inside the
+wrapped function): everything after it reads the whole weights, so every
+policy replays it, first, in every rank's recompute, in the same order as
+the forward ran it, and before the block's other collectives (the tensor
+reduces, the ring's shifts, Mixtral's index all-gather). What the block's
+recompute gathers lives until that layer's backward is done; the gather's
+backward reduce-scatters the weights' gradients as the block's last
+collective. Outside a wrapped block (remat off) the trainer's
+``saved_as_blocks`` keeps each saved whole weight as its block and the
+backward gathers it again where it unpacks it.
 """
 
 from __future__ import annotations

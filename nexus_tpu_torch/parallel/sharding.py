@@ -13,12 +13,14 @@ tensor dims onto mesh axes. The port applies them by hand:
   dims the rules put on the model axes, ``expert`` (the MoE stacks' expert
   dim) and ``tensor`` (heads, kv heads, qkv, mlp, vocab), as JAX's
   ``shard_params`` places them (``ModelShard``; ``TensorShard`` for a tensor
-  axis alone). A fused leaf may cut each of several equal runs of a dim in
-  turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each by head).
+  axis alone), and for training on ``fsdp`` too (``embed``:
+  ``param_shard``). A fused leaf may cut each of several equal runs of a
+  dim in turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each by head).
   ``ModelShard.join`` is the inverse: every rank's block of a leaf back
-  into the whole leaf (what a checkpoint holds). The batch axes keep
-  parameters whole on every rank; the trainer shards the optimizer state
-  over ``fsdp`` (train/trainer.py).
+  into the whole leaf (what a checkpoint holds). In infer and serve the
+  batch axes keep parameters whole on every rank; in training each
+  ``fsdp`` rank holds its block of every leaf with an ``embed`` dim, and
+  the layers gather them just in time (parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -155,40 +157,61 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, rows: DecodeRows) -> torch.Tensor:
 
 
 # the mesh axes that cut parameters, in mesh order (outer → inner): the
-# experts of the MoE stacks over ``expert``, heads, d_ff and vocabulary
-# over ``tensor``
-MODEL_AXES: Tuple[str, ...] = ("expert", "tensor")
+# ``embed`` dim over ``fsdp`` (training only), the experts of the MoE
+# stacks over ``expert``, heads, d_ff and vocabulary over ``tensor``
+PARAM_AXES: Tuple[str, ...] = ("fsdp", "expert", "tensor")
+# ...of which infer and serve cut by these (their fsdp ranks hold replicas)
+MODEL_AXES: Tuple[str, ...] = PARAM_AXES[1:]
+
+
+def _runs(a: int, groups: int) -> int:
+    """The equal runs of a dim cut by axis ``PARAM_AXES[a]``: a fused
+    leaf's ``groups`` on ``tensor``, one on any other axis."""
+    return groups if PARAM_AXES[a] == "tensor" else 1
 
 
 @dataclass(frozen=True)
 class ModelShard:
-    """This rank's place on the model axes: block ``ranks[i]`` of
-    ``sizes[i]`` of every dim the rules put on ``MODEL_AXES[i]``. A leaf
-    may be cut along a dim of each axis (Mixtral's ``w_gate``: its experts
-    over ``expert``, its d_ff over ``tensor``), along one, or along none.
-    ``TensorShard(rank, size)`` is the shard of a tensor axis alone."""
+    """This rank's place on the parameter axes: block ``ranks[i]`` of
+    ``sizes[i]`` of every dim the rules put on ``PARAM_AXES[i]``. Shorter
+    tuples name the inner axes, the outer ones left at one rank
+    (``ModelShard((e, t), (ne, nt))``: the model axes alone). A leaf may be
+    cut along a dim of each axis (Mixtral's ``w_gate``: its experts over
+    ``expert``, its d_model over ``fsdp``, its d_ff over ``tensor``), along
+    some, or along none. ``TensorShard(rank, size)`` is the shard of a
+    tensor axis alone."""
 
-    ranks: Tuple[int, ...] = (0, 0)
-    sizes: Tuple[int, ...] = (1, 1)
+    ranks: Tuple[int, ...] = (0, 0, 0)
+    sizes: Tuple[int, ...] = (1, 1, 1)
+
+    def __post_init__(self):
+        pad = len(PARAM_AXES) - len(self.ranks)
+        object.__setattr__(self, "ranks", (0,) * pad + tuple(self.ranks))
+        object.__setattr__(self, "sizes", (1,) * pad + tuple(self.sizes))
+
+    def on(self, axis: str) -> Tuple[int, int]:
+        """(rank, size) on ``axis``."""
+        i = PARAM_AXES.index(axis)
+        return self.ranks[i], self.sizes[i]
 
     @property
     def tensor(self) -> Tuple[int, int]:
         """(rank, size) on the tensor axis."""
-        return self.ranks[1], self.sizes[1]
+        return self.on("tensor")
 
     @property
     def expert(self) -> Tuple[int, int]:
         """(rank, size) on the expert axis."""
-        return self.ranks[0], self.sizes[0]
+        return self.on("expert")
 
     def _cut_dims(self, dims: Tuple[Optional[str], ...], ndim: int) -> Dict[int, int]:
-        """{axis index in MODEL_AXES: position among the ``ndim`` trailing
-        dims of ``dims``} of each dim ``logical_to_spec`` puts on a model
-        axis of more than one rank."""
+        """{axis index in ``PARAM_AXES``: position among the ``ndim`` trailing
+        dims of ``dims``} of each dim ``logical_to_spec`` puts on an axis of
+        more than one rank."""
         out: Dict[int, int] = {}
         for i, axis in enumerate(logical_to_spec(tuple(dims)[len(dims) - ndim:])):
-            if axis in MODEL_AXES and self.sizes[MODEL_AXES.index(axis)] > 1:
-                a = MODEL_AXES.index(axis)
+            if axis in PARAM_AXES and self.sizes[PARAM_AXES.index(axis)] > 1:
+                a = PARAM_AXES.index(axis)
                 if a in out:
                     raise ValueError(f"dims {dims} put two dims on {axis}: a rank's blocks do "
                                      "not tile such a tensor")
@@ -206,10 +229,10 @@ class ModelShard:
         ``groups`` equal runs, and the rank keeps its block of each run, in
         order."""
         for a, i in self._cut_dims(dims, x.dim()).items():
-            runs, size, n = (groups if a == 1 else 1), self.sizes[a], x.shape[i]
+            runs, size, n = _runs(a, groups), self.sizes[a], x.shape[i]
             if n % (runs * size):
                 raise ValueError(f"dim {self._what(dims, x.dim(), i)} of {n} does not split "
-                                 f"into {runs} run(s) over {size} {MODEL_AXES[a]} ranks")
+                                 f"into {runs} run(s) over {size} {PARAM_AXES[a]} ranks")
             x = x.unflatten(i, (runs, size, n // (runs * size)))
             x = x.select(i + 1, self.ranks[a]).flatten(i, i + 1)
         return x
@@ -217,27 +240,30 @@ class ModelShard:
     def join(self, blocks: Sequence[torch.Tensor], dims: Tuple[Optional[str], ...],
              groups: int = 1) -> torch.Tensor:
         """The whole tensor from every rank's block: ``blocks`` in the rank
-        order of the model axes' group (expert-major, then tensor), one per
-        rank; the inverse of ``take``, fused runs included. Ranks that
-        differ only on an axis that does not cut the tensor hold the same
-        block: the first of them is used."""
-        ne, nt = self.sizes
-        if len(blocks) != ne * nt:
-            raise ValueError(f"{len(blocks)} blocks for {ne * nt} ranks of the model axes")
+        order of the axes' group (row-major over ``PARAM_AXES``: fsdp-major, then
+        expert, then tensor), one per rank; the inverse of ``take``, fused
+        runs included. Ranks that differ only on an axis that does not cut
+        the tensor hold the same block: the first of them is used."""
+        if len(blocks) != math.prod(self.sizes):
+            raise ValueError(f"{len(blocks)} blocks for {math.prod(self.sizes)} ranks of "
+                             f"the axes {PARAM_AXES}")
         cut = self._cut_dims(dims, blocks[0].dim())
 
-        def joined(parts, a, runs):
+        def joined(parts, a):
             if a not in cut:
                 return parts[0]
-            i, n = cut[a], parts[0].shape[cut[a]]
+            i, n, runs = cut[a], parts[0].shape[cut[a]], _runs(a, groups)
             if n % runs:
                 raise ValueError(f"dim {self._what(dims, parts[0].dim(), i)} of {n} does not "
                                  f"split into {runs} run(s)")
             stacked = torch.stack([b.unflatten(i, (runs, n // runs)) for b in parts], dim=i + 1)
             return stacked.flatten(i, i + 2)
 
-        rows = [joined(blocks[e * nt:(e + 1) * nt], 1, groups) for e in range(ne)]
-        return joined(rows, 0, 1)
+        level = list(blocks)
+        for a in reversed(range(len(PARAM_AXES))):  # the innermost axis first
+            size = self.sizes[a]
+            level = [joined(level[j:j + size], a) for j in range(0, len(level), size)]
+        return level[0]
 
     def whole_shape(self, shape: Tuple[int, ...], dims: Tuple[Optional[str], ...]
                     ) -> Tuple[int, ...]:
@@ -247,13 +273,18 @@ class ModelShard:
             out[i] *= self.sizes[a]
         return tuple(out)
 
-    def is_cut(self, dims: Tuple[Optional[str], ...], ndim: int) -> bool:
+    def is_cut(self, dims: Tuple[Optional[str], ...], ndim: int,
+               axis: Optional[str] = None) -> bool:
         """Whether a tensor of ``ndim`` trailing ``dims`` has a block on
-        each rank (else every rank holds it whole)."""
-        return bool(self._cut_dims(dims, ndim))
+        each rank (else every rank holds it whole); with ``axis``, whether
+        that axis cuts it."""
+        cut = self._cut_dims(dims, ndim)
+        if axis is None:
+            return bool(cut)
+        return PARAM_AXES.index(axis) in cut
 
     def copies(self, dims: Tuple[Optional[str], ...], ndim: int) -> int:
-        """How many ranks of the model axes hold the same block of such a
+        """How many ranks of the axes hold the same block of such a
         tensor: the product of the sizes of the axes that do not cut it."""
         cut = self._cut_dims(dims, ndim)
         return math.prod(n for a, n in enumerate(self.sizes) if a not in cut)
@@ -264,7 +295,7 @@ class ModelShard:
         for a, i in self._cut_dims(dims, len(shape)).items():
             if out[i] % self.sizes[a]:
                 raise ValueError(f"dim {self._what(dims, len(shape), i)} of {out[i]} does not "
-                                 f"split over {self.sizes[a]} {MODEL_AXES[a]} ranks")
+                                 f"split over {self.sizes[a]} {PARAM_AXES[a]} ranks")
             out[i] //= self.sizes[a]
         return tuple(out)
 
@@ -297,25 +328,41 @@ def TensorShard(rank: int, size: int) -> ModelShard:  # noqa: N802 (a shard's co
     return ModelShard((0, rank), (1, size))
 
 
-def model_shard(mesh: Optional[Mesh]) -> Optional[ModelShard]:
-    """The mesh's shard over its model axes (``expert`` and ``tensor``), or
-    None when both have one rank: what training, infer and serve cut by."""
-    if mesh is None or mesh.size(*MODEL_AXES) == 1:
+def _shard(mesh: Optional[Mesh], axes: Tuple[str, ...]) -> Optional[ModelShard]:
+    """The mesh's shard over ``axes`` (the others held at one rank), or
+    None when they all have one rank."""
+    if mesh is None or mesh.size(*axes) == 1:
         return None
-    return ModelShard(tuple(mesh.index(a) for a in MODEL_AXES),
-                      tuple(mesh.shape[a] for a in MODEL_AXES))
+    return ModelShard(tuple(mesh.index(a) if a in axes else 0 for a in PARAM_AXES),
+                      tuple(mesh.shape[a] if a in axes else 1 for a in PARAM_AXES))
+
+
+def model_shard(mesh: Optional[Mesh]) -> Optional[ModelShard]:
+    """The mesh's shard over its model axes (``expert`` and ``tensor``, fsdp
+    at one rank), or None when both have one rank: what infer and serve cut
+    by (their ``fsdp`` ranks hold whole replicas)."""
+    return _shard(mesh, MODEL_AXES)
+
+
+def param_shard(mesh: Optional[Mesh]) -> Optional[ModelShard]:
+    """The mesh's shard over ``PARAM_AXES`` (``fsdp``, ``expert`` and
+    ``tensor``), or None when all three have one rank: what training cuts
+    by. A leaf's ``embed`` dim lies over ``fsdp`` (parallel/fsdp.py gathers
+    it in the layer that uses it)."""
+    return _shard(mesh, PARAM_AXES)
 
 
 def shard_params(params, logical_tree, mesh, groups: Optional[Dict[str, int]] = None):
     """This rank's block of every leaf of ``params`` along the dims that
-    ``logical_to_spec`` maps to a model axis (the counterpart of JAX's
+    ``logical_to_spec`` maps to an axis of the shard (the counterpart of JAX's
     ``shard_params``, which places each leaf by its logical dims), each
     cut by ``LeafCuts.take``. ``logical_tree`` mirrors ``params`` with
     tuples of logical dim names; ``groups`` names the fused leaves by tree
     path (``layers/wqkv``) with the number of equal runs their cut dim
-    holds. ``mesh`` is a ``ModelShard`` or a ``Mesh`` (its
-    ``model_shard``). Each block is a copy of its own, so the whole leaf can be freed; with
-    no cut the params come back as they are."""
+    holds. ``mesh`` is a ``ModelShard`` (``param_shard``'s for training)
+    or a ``Mesh`` (its ``model_shard``). Each block is a copy of its
+    own, so the whole leaf can be freed; with no cut the params come back
+    as they are."""
     shard = mesh if isinstance(mesh, ModelShard) else model_shard(mesh)
     if shard is None:
         return params

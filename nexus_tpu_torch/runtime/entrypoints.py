@@ -37,15 +37,19 @@ parameters cut by logical dims trains over the model axes too: ``tensor``
 (every family: the MLP's layer widths too; alone or with ``data``,
 ``fsdp``, ``sequence`` and ``expert``) and ``expert`` (Mixtral's expert
 stacks; a dense family's ranks there are replicas, as in JAX). Each rank
-holds its block of the params (random init drawn whole a slice at a time,
-each rank keeping its block; parallel/sharding.py) and of their AdamW
-moments, the model runs Megatron's split with the axes' collectives
-(parallel/tensor.py), the vocab-parallel loss and, for Mixtral, routing
-over the global token population of the batch axes (ops/moe.py), and the
-checkpoints hold JAX's global arrays. Infer and serve of Llama, GPT-NeoX
-and Mixtral run over every axis but ``pipeline``: each rank holds its
-block of the params over the model axes, ``tensor`` and ``expert`` (random
-init, a checkpoint's, or ``model.weights``; Mixtral's expert stacks over
+holds its block of the params over ``fsdp`` and the model axes (random
+init drawn whole a slice at a time, each rank keeping its block;
+parallel/sharding.py::param_shard) and of their AdamW moments: over
+``fsdp`` a block of every leaf's ``embed`` dim, which the model gathers a
+layer at a time, just in time, and whose gradient the gather's backward
+reduce-scatters (parallel/fsdp.py). The model runs Megatron's split with
+the axes' collectives (parallel/tensor.py), the vocab-parallel loss and,
+for Mixtral, routing over the global token population of the batch axes
+(ops/moe.py), and the checkpoints hold JAX's global arrays. Infer and
+serve of Llama, GPT-NeoX and Mixtral run over every axis but
+``pipeline``: each rank holds its block of the params over the model
+axes, ``tensor`` and ``expert``, whole over ``fsdp`` (random init, a
+checkpoint's, or ``model.weights``; Mixtral's expert stacks over
 ``expert``, a dense family's ranks there replicas, as in training) and of
 the KV cache over ``tensor``; the decode scaffold runs the axes'
 collectives (Mixtral's MoE layer sums its partial outputs over both), and
@@ -62,8 +66,9 @@ do not tile the model axes runs whole on every rank. Over more than one
 rank what is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item: heads that do not tile ``tensor`` (4b part four),
 ``pipeline`` (4d). A d_ff, vocabulary or MLP width that does not tile
-``tensor``, or experts that do not tile ``expert``, raise ``ValueError``:
-JAX cannot place such a model either.
+``tensor``, experts that do not tile ``expert``, or in training a d_model
+(the MLP: a layer's input width) that does not tile ``fsdp``, raise
+``ValueError``: JAX cannot place such a model either.
 Only rank 0 writes the serve trace dump.
 """
 
@@ -88,7 +93,7 @@ from nexus_tpu_torch.obs import ServeTracer
 from nexus_tpu_torch.parallel.comm import all_reduce, check_backend
 from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, plan_for_devices, use_mesh, world_size
 from nexus_tpu_torch.parallel.sharding import (batch_spec, decode_rows, gather_rows, model_shard,
-                                              use_decode_rows)
+                                              param_shard, use_decode_rows)
 from nexus_tpu_torch.runtime.serving import STATUS_OK, ServeRequest, ServingEngine
 from nexus_tpu_torch.runtime.traffic import TraceSource, synthesize_trace
 from nexus_tpu_torch.runtime.weights import load_pretrained
@@ -172,11 +177,23 @@ def _untiled_dims(cfg, size: int) -> list:
     return [f"{name} {n}" for name, n in dims.items() if n % size]
 
 
+def _embed_widths(cfg) -> dict:
+    """The widths a training rank cuts over ``fsdp`` (the ``embed`` dims): a
+    transformer's d_model, the MLP's layer inputs."""
+    if hasattr(cfg, "d_model"):
+        return {"d_model": cfg.d_model}
+    widths = {"in_dim": cfg.in_dim}
+    if cfg.n_layers > 1:
+        widths["hidden_dim"] = cfg.hidden_dim
+    return widths
+
+
 def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
-    """A target model the model axes cannot split. Heads that do not tile
-    ``tensor`` are the port's limit (JAX cuts the flat heads × head_dim
+    """A target model the parameter axes cannot split. Heads that do not
+    tile ``tensor`` are the port's limit (JAX cuts the flat heads × head_dim
     columns: item 4b, part four); a d_ff, vocabulary or MLP width that does
-    not tile ``tensor``, or experts that do not tile ``expert``, JAX cannot
+    not tile ``tensor``, experts that do not tile ``expert``, or (training)
+    a d_model or MLP layer input that does not tile ``fsdp``, JAX cannot
     place either (``jax.device_put`` raises): ValueError."""
     size = mesh.shape["tensor"]
     if size > 1:
@@ -194,6 +211,12 @@ def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
     if n_expert > 1 and getattr(cfg, "n_experts", n_expert) % n_expert:
         raise ValueError(f"the expert axis of {n_expert} ranks does not tile the model's "
                          f"{cfg.n_experts} experts: JAX cannot shard such a model either")
+    n_fsdp = mesh.shape["fsdp"]
+    if runtime.mode == "train" and n_fsdp > 1:
+        bad = [f"{name} {n}" for name, n in _embed_widths(cfg).items() if n % n_fsdp]
+        if bad:
+            raise ValueError(f"the fsdp axis of {n_fsdp} ranks does not tile the model "
+                             f"({', '.join(bad)}): JAX cannot shard such a model either")
 
 
 def _draft_shard(ref, d_cfg, mesh):
@@ -289,15 +312,15 @@ def _run_train(runtime, family, cfg, dev, mesh, max_steps, cancel=None, heartbea
     )
     gen = torch.Generator(device=dev)
     gen.manual_seed(tr.seed)
-    # the rank's blocks of the one-rank draw over the model axes
-    shard = model_shard(mesh)
+    # the rank's blocks of the one-rank draw over fsdp and the model axes
+    shard = param_shard(mesh)
     cuts = None
     if shard is None:
         params = family.init(gen, cfg, dev)
     else:
         params = family.init(gen, cfg, dev, shard=shard)
         cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
-    state = init_train_state(params, family.leaves(params), optimizer, mesh=mesh, cuts=cuts)
+    state = init_train_state(params, family.leaves(params), optimizer, cuts=cuts)
     step_fn = make_train_step(
         lambda p, batch: family.loss_fn(p, cfg, batch), optimizer,
         grad_accum=tr.gradient_accumulation, mesh=mesh,

@@ -54,7 +54,6 @@ from nexus_tpu_torch.models.params import tree_leaves
 from nexus_tpu_torch.parallel.sharding import shard_params
 from nexus_tpu_torch.train import orbax_format
 from nexus_tpu_torch.train.tensor_leaves import Gatherer, block_targets, is_array, materialize
-from nexus_tpu_torch.train.trainer import OptState, TrainState, load_whole_state, whole_state
 
 # numpy's descr for an ml_dtypes bfloat16 array, as the JAX package's
 # np.savez writes it; a plain 'V2' array would say '|V2'
@@ -284,15 +283,16 @@ class NpzCheckpointer(_Steps):
 
 
 class RankedCheckpointer:
-    """One rank's view of a checkpointer shared by the ranks of a mesh.
-    A save gathers the fsdp-sharded moments (a collective), rank 0 writes
-    the step as a one-device run would, and every rank waits for it; a
-    restore reads the whole step on every rank and keeps this rank's
-    blocks. So a step written by any number of ranks restores into any
-    other. Under sharded model axes (``expert``, ``tensor``) rank 0's writer
-    gathers each leaf's blocks from its group of those axes as it reads the
-    leaf, and a restore reads each whole leaf and keeps the rank's block of
-    its parameter and moments (train/tensor_leaves.py)."""
+    """One rank's view of a checkpointer shared by the ranks of a mesh:
+    the step it writes is the one a one-device run writes, whatever the
+    mesh, so a step written by any number of ranks restores into any
+    other. Each rank holds its blocks of the parameters and of their AdamW
+    moments over the parameter axes (``fsdp``, ``expert``, ``tensor``):
+    on a save rank 0's writer gathers each leaf's blocks from its group of
+    those axes as it reads the leaf, and every rank waits for the write; a
+    restore reads each whole leaf on every rank and keeps the rank's block
+    of its parameter and moments (train/tensor_leaves.py). With no axis
+    cut, rank 0 writes its own state."""
 
     def __init__(self, inner, mesh):
         self.inner = inner
@@ -302,13 +302,12 @@ class RankedCheckpointer:
         return getattr(self.inner, name)
 
     def save(self, state, step: Optional[int] = None) -> int:
-        whole = whole_state(state)
         step = int(state.step) if step is None else int(step)
         if state.cuts is None:
             if self.mesh.rank == 0:
-                self.inner.save(whole, step)
+                self.inner.save(state, step)
         else:
-            gatherer = Gatherer(whole, self.mesh)
+            gatherer = Gatherer(state, self.mesh)
             if self.mesh.rank == 0:
                 try:
                     self.inner.save(gatherer.proxy(), step)
@@ -320,21 +319,13 @@ class RankedCheckpointer:
         return step
 
     def restore(self, state, step: Optional[int] = None):
-        opt = state.opt_state
-        if state.shards is None:
-            whole = state
-        else:
-            whole = TrainState(state.params, state.leaves, OptState(
-                mu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
-                nu=[torch.empty_like(p, requires_grad=False) for p in state.leaves],
-                count=opt.count, schedule_count=opt.schedule_count), state.step,
-                cuts=state.cuts, cut=state.cut, copies=state.copies)
-        target = whole if state.cuts is None else block_targets(whole)
+        if state.cuts is None:
+            return self.inner.restore(state, step)
+        target = block_targets(state)
         self.inner.restore(target, step)
-        whole.opt_state.count = target.opt_state.count
-        whole.opt_state.schedule_count = target.opt_state.schedule_count
-        whole.step = target.step
-        load_whole_state(state, whole)
+        state.opt_state.count = target.opt_state.count
+        state.opt_state.schedule_count = target.opt_state.schedule_count
+        state.step = target.step
         return state
 
 

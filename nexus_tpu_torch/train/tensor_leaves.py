@@ -1,14 +1,14 @@
-"""The train state of a rank of sharded model axes (``expert``,
-``tensor``) as the checkpoint formats see it: whole leaves, gathered or cut
-one at a time (counterpart of the global arrays JAX's checkpointer reads
-and writes under a mesh).
+"""The train state of a rank of sharded parameter axes (``fsdp``,
+``expert``, ``tensor``) as the checkpoint formats see it: whole leaves,
+gathered or cut one at a time (counterpart of the global arrays JAX's
+checkpointer reads and writes under a mesh).
 
 A step holds every leaf whole, as one device would write it. A save over
-sharded model axes lets rank 0's writer read a ``GatheredLeaf`` in place
-of each leaf the rules cut: reading it gathers that leaf's blocks from the
-ranks of rank 0's group of the model axes and joins both cuts
-(``ModelShard.join``), a leaf at a time, so no rank holds more than one
-whole leaf beyond its own blocks. The writer may read the leaves in any
+sharded parameter axes lets rank 0's writer read a ``GatheredLeaf`` in
+place of each leaf the rules cut (its parameter and its two moments):
+reading it gathers that leaf's blocks from the ranks of rank 0's group of
+those axes and joins every cut (``ModelShard.join``), a leaf at a time, so
+no rank holds more than one whole leaf beyond its own blocks. The writer may read the leaves in any
 order and any number of times: before each gather rank 0 broadcasts the
 leaf's index over the group's host group, and its peers, which run
 ``Gatherer.follow``, join that gather; a negative index ends the save.
@@ -27,14 +27,14 @@ import torch.distributed as dist
 
 from nexus_tpu_torch.parallel.comm import all_gather
 from nexus_tpu_torch.parallel.mesh import AXES
-from nexus_tpu_torch.parallel.sharding import MODEL_AXES
+from nexus_tpu_torch.parallel.sharding import PARAM_AXES
 from nexus_tpu_torch.train.trainer import OptState, TrainState, leaf_paths
 
 
 class GatheredLeaf:
-    """A leaf whose blocks the model-axes ranks hold, as a writer reads it: its
-    whole ``shape``, ``dtype`` and ``device``, and ``whole()``, the gather
-    (a collective that rank 0's group of the model axes joins)."""
+    """A leaf whose blocks the parameter axes' ranks hold, as a writer reads
+    it: its whole ``shape``, ``dtype`` and ``device``, and ``whole()``, the
+    gather (a collective that rank 0's group of those axes joins)."""
 
     def __init__(self, gatherer: "Gatherer", index: int, block: torch.Tensor):
         self.gatherer = gatherer
@@ -82,8 +82,8 @@ def _map_tree(tree, f):
 
 
 def stand_in(state, wrap: Callable[[int, torch.Tensor, str], Any]):
-    """``state`` (its moments whole over fsdp) with the parameter and the
-    moments of every cut leaf replaced by ``wrap(index, tensor,
+    """``state`` with the parameter and the moments of every cut leaf
+    replaced by ``wrap(index, tensor,
     path)``: the index counts the parameters, then the first moments, then
     the second. The counts and the step are copied."""
     paths = leaf_paths(state.params, state.leaves)
@@ -103,9 +103,9 @@ def stand_in(state, wrap: Callable[[int, torch.Tensor, str], Any]):
 
 
 class Gatherer:
-    """The leaf-at-a-time gathers of one save over sharded model axes, on
-    every rank: rank 0 drives them through ``proxy()``'s leaves and ends
-    them with ``done()``; the other ranks of its group of the model axes
+    """The leaf-at-a-time gathers of one save over sharded parameter axes,
+    on every rank: rank 0 drives them through ``proxy()``'s leaves and ends
+    them with ``done()``; the other ranks of its group of those axes
     ``follow()``; the rest of the world takes no part (``follows`` is
     False)."""
 
@@ -115,10 +115,10 @@ class Gatherer:
         self.paths = leaf_paths(state.params, state.leaves)
         opt = state.opt_state
         self.tensors: List[torch.Tensor] = list(state.leaves) + list(opt.mu) + list(opt.nu)
-        self.size = mesh.size(*MODEL_AXES)
-        self.group = mesh.group(*MODEL_AXES)
-        self.host = mesh.host_group(*MODEL_AXES)
-        self.follows = all(mesh.index(a) == 0 for a in AXES if a not in MODEL_AXES)
+        self.size = mesh.size(*PARAM_AXES)
+        self.group = mesh.group(*PARAM_AXES)
+        self.host = mesh.host_group(*PARAM_AXES)
+        self.follows = all(mesh.index(a) == 0 for a in AXES if a not in PARAM_AXES)
 
     def whole_shape(self, index: int) -> tuple:
         return self.cuts.whole_shape(self.paths[index % len(self.paths)],
@@ -151,8 +151,8 @@ class Gatherer:
 
 
 def block_targets(state):
-    """``state`` (its moments whole over fsdp) as a restore target: each
-    cut tensor a ``BlockTarget`` of its whole leaf."""
+    """``state`` as a restore target: each cut tensor a ``BlockTarget`` of
+    its whole leaf."""
     cuts = state.cuts
     return stand_in(state, lambda i, t, p: BlockTarget(t, cuts.take(p),
                                                        cuts.whole_shape(p, t.shape)))

@@ -12,25 +12,28 @@ are updated in place (no second copy of the model in memory).
 On a mesh of several ranks each rank computes the gradients of its slice
 of the batch; the step averages them over the batch axes (``data``,
 ``fsdp``, ``sequence``), so the clip and the update see the gradient of the
-global batch, and reports metrics averaged over every rank. Under ``fsdp``
-the gradients are reduce-scattered instead: each rank keeps the AdamW
-moments of its block of every parameter (``FsdpShards``), updates that
-block, and the blocks are gathered back into the whole parameters for the
-next step. (JAX gathers each layer's parameters just in time inside the
-step; the results are the same.)
+global batch, and reports metrics averaged over every rank.
 
-Under sharded model axes (``tensor``, and ``expert`` for the MoE stacks)
-each rank holds its block of the leaves the rules cut (``TrainState.cuts``)
-and the whole of the others (the norms, the router, GPT-NeoX's replicated
-biases), and everything above applies to those blocks: the fsdp blocks are
-blocks of the model block. The model axes are no batch axes: their ranks
-see the same tokens and no gradient is averaged over them (over ``expert``
-a dense family's ranks all compute the same step: a replica axis, as in
-JAX). The global norm that the clip reads is JAX's ``optax.global_norm``
-over the global arrays: each leaf's squares are summed over the model
-ranks and ``fsdp`` and divided by the number of model ranks holding the
-same block; so every rank clips by one factor and the replicated leaves
-stay equal on every rank.
+Each rank holds its block of every leaf the rules cut over the parameter
+axes (``TrainState.cuts``; parallel/sharding.py::param_shard) and the
+whole of the others, and the AdamW moments of what it holds. Over ``fsdp``
+that is every leaf with an ``embed`` dim: the model gathers a layer's
+blocks just in time, inside the layer, and the gather's backward
+reduce-scatters their gradients, so such a leaf's gradient arrives
+summed over the fsdp ranks (parallel/fsdp.py); the step all-reduces it
+over the other batch axes. A leaf whole over ``fsdp`` (the norms,
+GPT-NeoX's biases, the MLP's) is all-reduced over every batch axis. Both
+are then divided by the batch ranks, and the update runs in place on the
+rank's blocks: no rank ever holds the whole parameters. Over the model
+axes (``tensor``, and ``expert`` for the MoE stacks) the leaves are cut
+by heads, d_ff, vocabulary and experts; these axes are no batch axes:
+their ranks see the same tokens and no gradient is averaged over them
+(over ``expert`` a dense family's ranks all compute the same step: a
+replica axis, as in JAX). The global norm that the clip reads is JAX's
+``optax.global_norm`` over the global arrays: each leaf's squares are
+summed over the ranks of fsdp × expert × tensor and divided by the
+number of them holding the same block; so every rank clips by one factor
+and the replicated leaves stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -38,20 +41,25 @@ from __future__ import annotations
 import math
 import os
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from nexus_tpu_torch.models.params import LeafCuts, tree_items
-from nexus_tpu_torch.parallel.comm import (all_gather, all_reduce, all_reduce_coalesced,
-                                           by_dtype, reduce_scatter)
+from nexus_tpu_torch.parallel.comm import all_reduce, all_reduce_coalesced
+from nexus_tpu_torch.parallel.fsdp import saved_as_blocks
 from nexus_tpu_torch.parallel.mesh import AXES, Mesh
+from nexus_tpu_torch.parallel.sharding import PARAM_AXES
+from nexus_tpu_torch.utils.hw import sync_host
 
 # the axes over which ranks hold different rows or positions of the batch:
 # their gradients are averaged over them
 BATCH_AXES = ("data", "fsdp", "sequence")
-from nexus_tpu_torch.utils.hw import sync_host
+# ...and those over which a leaf gathered over fsdp is all-reduced: its
+# gather's backward has summed it over fsdp already
+PEER_AXES = tuple(a for a in BATCH_AXES if a != "fsdp")
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int, decay_steps: int) -> Callable[[int], float]:
@@ -153,74 +161,15 @@ def build_optimizer(
     return AdamW(schedule, weight_decay=weight_decay, grad_clip=grad_clip, b1=b1, b2=b2)
 
 
-class FsdpShards:
-    """The optimizer state's layout over the ``fsdp`` axis: a leaf's flat
-    elements split into ``n`` blocks of ``ceil(numel / n)`` (the last
-    padded with zeros); rank i of the axis holds block i of each leaf's
-    moments and updates that block of the parameter."""
-
-    def __init__(self, mesh: Mesh):
-        self.n = mesh.shape["fsdp"]
-        self.index = mesh.index("fsdp")
-        self.group = mesh.group("fsdp")
-        # the ranks holding the same blocks of gradients of other rows or
-        # positions: the other batch axes (never a model axis, expert or
-        # tensor, whose ranks hold other blocks or see the same tokens)
-        self.peers = mesh.group(*(a for a in BATCH_AXES if a != "fsdp"))
-        self.batch_ranks = mesh.size(*BATCH_AXES)
-
-    def _padded(self, t: torch.Tensor) -> torch.Tensor:
-        flat = t.reshape(-1)
-        pad = -flat.numel() % self.n
-        return torch.nn.functional.pad(flat, (0, pad)) if pad else flat
-
-    def local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """This rank's block of each whole tensor (a copy)."""
-        out = []
-        for t in tensors:
-            flat = self._padded(t.detach())
-            c = flat.numel() // self.n
-            out.append(flat[self.index * c:(self.index + 1) * c].clone())
-        return out
-
-    def gather(self, blocks: List[torch.Tensor], like: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The whole tensors, shaped as ``like``, from every rank's blocks:
-        one all-gather a dtype over the blocks laid end to end."""
-        out: List[torch.Tensor] = [None] * len(blocks)  # type: ignore[list-item]
-        for idx in by_dtype(blocks):
-            # row r: rank r's blocks of these leaves, side by side
-            rows = all_gather(torch.cat([blocks[i] for i in idx]), self.group).view(self.n, -1)
-            for i, cols in zip(idx, rows.split([blocks[i].numel() for i in idx], dim=1)):
-                t = like[i]
-                out[i] = cols.reshape(-1)[:t.numel()].view(t.shape)
-        return out
-
-    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """This rank's block of each gradient averaged over the batch axes,
-        in the gradient's dtype (as GSPMD reduces them in JAX): one
-        reduce-scatter over the fsdp axis and one all-reduce over the other
-        batch axes a dtype, over the gradients laid out so that each rank's
-        blocks lie together."""
-        out: List[torch.Tensor] = [None] * len(grads)  # type: ignore[list-item]
-        for idx in by_dtype(grads):
-            cols = [self._padded(grads[i]).view(self.n, -1) for i in idx]
-            block = reduce_scatter(torch.cat(cols, dim=1), self.group)
-            block = all_reduce(block, self.peers) / self.batch_ranks
-            for i, b in zip(idx, block.split([c.shape[1] for c in cols])):
-                out[i] = b
-        return out
-
-
 @dataclass
 class TrainState:
-    params: Any  # dict of tensors (the model's layout)
+    params: Any  # dict of tensors (the model's layout; a rank's blocks)
     leaves: List[torch.Tensor]  # the same tensors, in the optimizer's order
-    opt_state: OptState  # whole, or this rank's blocks under ``shards``
+    opt_state: OptState  # the moments of what this rank holds
     step: int = 0
-    shards: Optional[FsdpShards] = None
-    # under sharded model axes: the family's leaves as this rank holds them
-    # (parallel/sharding.py), whether each of ``leaves`` is a block, and how
-    # many model-axes ranks hold the same block of it
+    # over sharded parameter axes: the family's leaves as this rank holds
+    # them (parallel/sharding.py), whether each of ``leaves`` is a block,
+    # and how many ranks of fsdp × expert × tensor hold the same block of it
     cuts: Optional[LeafCuts] = None
     cut: Optional[List[bool]] = None
     copies: Optional[List[int]] = None
@@ -233,11 +182,11 @@ def leaf_paths(params: Any, leaves: List[torch.Tensor]) -> List[str]:
 
 
 def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW,
-                     mesh: Optional[Mesh] = None, cuts: Optional[LeafCuts] = None
-                     ) -> TrainState:
-    """The state of a fresh run; on a mesh with a sharded ``fsdp`` axis the
-    AdamW moments are this rank's blocks. ``cuts``: the leaves as a rank of
-    sharded model axes holds them (``params`` are its blocks)."""
+                     cuts: Optional[LeafCuts] = None) -> TrainState:
+    """The state of a fresh run: AdamW moments shaped as ``leaves``.
+    ``cuts``: the leaves as a rank of a mesh's parameter axes holds them
+    (``params`` are its blocks, cut by ``parallel/sharding.py::
+    param_shard``)."""
     cut = copies = None
     if cuts is not None and cuts.shard is not None:
         paths = leaf_paths(params, leaves)
@@ -245,37 +194,7 @@ def init_train_state(params: Any, leaves: List[torch.Tensor], optimizer: AdamW,
         copies = [cuts.copies(p) for p in paths]
     else:
         cuts = None
-    if mesh is None or mesh.shape["fsdp"] == 1:
-        return TrainState(params, leaves, optimizer.init(leaves), cuts=cuts, cut=cut,
-                          copies=copies)
-    shards = FsdpShards(mesh)
-    return TrainState(params, leaves, optimizer.init(shards.local(leaves)), shards=shards,
-                      cuts=cuts, cut=cut, copies=copies)
-
-
-def whole_state(state: TrainState) -> TrainState:
-    """``state`` with moments whole over the fsdp axis: itself, or (a
-    collective over the fsdp axis) a copy whose moments are gathered from
-    every rank's blocks. Under a tensor axis they are this rank's tensor
-    blocks (the checkpointer gathers those leaf by leaf)."""
-    if state.shards is None:
-        return state
-    opt = state.opt_state
-    full = OptState(mu=state.shards.gather(opt.mu, state.leaves),
-                    nu=state.shards.gather(opt.nu, state.leaves),
-                    count=opt.count, schedule_count=opt.schedule_count)
-    return TrainState(state.params, state.leaves, full, state.step, cuts=state.cuts,
-                      cut=state.cut, copies=state.copies)
-
-
-def load_whole_state(state: TrainState, whole: TrainState) -> None:
-    """Set ``state`` from ``whole`` (a restored step; the parameters are
-    shared): this rank's blocks of its moments, its counts and step."""
-    opt, src = state.opt_state, whole.opt_state
-    if state.shards is not None:
-        opt.mu, opt.nu = state.shards.local(src.mu), state.shards.local(src.nu)
-    opt.count, opt.schedule_count = src.count, src.schedule_count
-    state.step = whole.step
+    return TrainState(params, leaves, optimizer.init(leaves), cuts=cuts, cut=cut, copies=copies)
 
 
 def sharded_norm(blocks: List[torch.Tensor], copies: Optional[List[int]],
@@ -283,19 +202,38 @@ def sharded_norm(blocks: List[torch.Tensor], copies: Optional[List[int]],
     """The global norm of the gradient whose blocks this rank holds
     (averaged over the batch axes already): each leaf's squares summed over
     the ranks of fsdp and of the model axes (``expert``, ``tensor``), then
-    divided by ``copies``, the number of model-axes ranks that hold the
-    same block of it (1 for a leaf cut by both axes; the axis's size for a
-    leaf cut by the other alone; both sizes for a leaf whole on every rank,
-    the default when ``copies`` is None). One collective: a sum for each
-    number of copies, each divided after it (a power of two: exact)."""
-    whole = mesh.size("expert", "tensor")
+    divided by ``copies``, the number of those ranks that hold the same
+    block of it (1 for a leaf cut by every one of them; fsdp × expert ×
+    tensor for a leaf whole on every rank, the default when ``copies`` is
+    None). One collective: a sum for each number of copies, each divided
+    after it (a power of two: exact)."""
+    whole = mesh.size(*PARAM_AXES)
     copies = copies or [whole] * len(blocks)
     kinds = sorted(set(copies))
     zero = torch.zeros((), device=blocks[0].device)
     sq = torch.stack([sum((g.float().square().sum() for g, c in zip(blocks, copies) if c == n),
                           zero) for n in kinds])
-    sq = all_reduce(sq, mesh.group("fsdp", "expert", "tensor"))
+    sq = all_reduce(sq, mesh.group(*PARAM_AXES))
     return torch.sqrt(sum(sq[i] / n for i, n in enumerate(kinds)))
+
+
+def reduce_grads(grads: List[torch.Tensor], gathered: Optional[List[bool]],
+                 mesh: Mesh) -> List[torch.Tensor]:
+    """Each gradient (of a rank's block) averaged over the batch axes, in
+    its own dtype (as GSPMD reduces them in JAX): a leaf gathered over fsdp
+    arrives summed over fsdp and is all-reduced over ``PEER_AXES``, any
+    other over every batch axis, one collective a dtype each; both divided
+    by the batch ranks."""
+    gathered = gathered or [False] * len(grads)
+    out: List[torch.Tensor] = [None] * len(grads)  # type: ignore[list-item]
+    n = mesh.size(*BATCH_AXES)
+    for flag, axes in ((True, PEER_AXES), (False, BATCH_AXES)):
+        idx = [i for i, g in enumerate(gathered) if g == flag]
+        if idx:
+            summed = all_reduce_coalesced([grads[i] for i in idx], mesh.group(*axes))
+            for i, g in zip(idx, summed):
+                out[i] = g / n
+    return out
 
 
 def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
@@ -320,8 +258,8 @@ def make_train_step(
     mesh: Optional[Mesh] = None,
 ):
     """``step(state, batch) -> (state, metrics)``. ``grad_accum > 1`` splits
-    the batch's leading dim into microbatches, sums their gradients in f32
-    and divides by the count; every metric is averaged over them and
+    the batch's leading dim into microbatches, sums their gradients (the
+    rank's blocks) in f32 and divides by the count; every metric is averaged over them and
     perplexity re-derived from the mean loss. Metrics are device scalars
     (no host sync). On a ``mesh`` of several ranks ``batch`` is this
     rank's slice, gradients are averaged over the batch axes and metrics
@@ -350,26 +288,20 @@ def make_train_step(
         return grads, metrics
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        grads, metrics = compute_grads(state, batch)
+        # the leaves that are blocks over fsdp, gathered in the layer
+        gathered = state.cuts and [state.cuts.is_cut(p, "fsdp")
+                                   for p in leaf_paths(state.params, state.leaves)]
+        # a gathered weight the graph saves is kept as its block (parallel/fsdp.py)
+        with saved_as_blocks() if gathered and any(gathered) else nullcontext():
+            grads, metrics = compute_grads(state, batch)
         if mesh is None or mesh.world == 1:
             metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state)
             state.step += 1
             return state, metrics
         metrics = _mean_metrics(metrics, mesh)
-        shards = state.shards
-        if shards is None:
-            g_blocks = all_reduce_coalesced(grads, mesh.group(*BATCH_AXES), mean=True)
-            p_blocks = state.leaves
-        else:
-            g_blocks = shards.reduce_grads(grads)
-            p_blocks = shards.local(state.leaves)
-        del grads
-        norm = sharded_norm(g_blocks, state.copies, mesh)
-        metrics["grad_norm"] = optimizer.update(p_blocks, g_blocks, state.opt_state, norm=norm)
-        if shards is not None:
-            with torch.no_grad():
-                for p, whole in zip(state.leaves, shards.gather(p_blocks, state.leaves)):
-                    p.copy_(whole)
+        grads = reduce_grads(grads, gathered, mesh)
+        norm = sharded_norm(grads, state.copies, mesh)
+        metrics["grad_norm"] = optimizer.update(state.leaves, grads, state.opt_state, norm=norm)
         state.step += 1
         return state, metrics
 

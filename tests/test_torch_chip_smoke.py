@@ -820,18 +820,18 @@ def test_the_pure_tokenizer_gate(tiny_export):
 
 
 def test_the_orbax_phase_specs_are_valid_at_8b_widths():
-    """The Orbax phases' specs: Llama-3-8B widths at 2 layers, a checkpoint
-    block that names no format (Orbax, the default), keep 1."""
+    """The Orbax phases' specs: Llama-3-8B widths at ORBAX_LAYERS layers, a
+    checkpoint block that names no format (Orbax, the default), keep 1."""
     from nexus_tpu_torch.api.runtime_spec import JaxXlaRuntime
 
     for spec in (cs.orbax_train_spec("/ck", 4), cs.orbax_infer_spec("/ck")):
         rt = JaxXlaRuntime.from_dict(spec)
         assert not rt.validate()
-        assert rt.model.preset == "8b" and rt.model.overrides == {"n_layers": 2}
+        assert rt.model.preset == "8b" and rt.model.overrides == {"n_layers": cs.ORBAX_LAYERS}
         assert rt.checkpoint.enabled and rt.checkpoint.format == "orbax"
         assert "format" not in spec["checkpoint"]
     train = JaxXlaRuntime.from_dict(cs.orbax_train_spec("/ck", 4))
-    assert (train.checkpoint.keep, train.checkpoint.interval_steps) == (1, 2)
+    assert (train.checkpoint.keep, train.checkpoint.interval_steps) == (1, 4)
     assert (train.train.batch_size, train.train.seq_len) == (2, 4096)
 
 
@@ -975,7 +975,8 @@ def _rank_run(rank, hist=(5.0,), launches=1, peak=10.0):
     return {"rank": rank, "loss_history": list(hist), "steps": [(h, 1.0) for h in hist],
             "tokens_per_sec": 1.0,
             "tokens_per_sec_per_chip": 0.5, "n_devices": 2, "peak_mem_gb": peak,
-            "optimizer_state_bytes": 8, "launches": dict.fromkeys(names, launches)}
+            "optimizer_state_bytes": 8, "launches": dict.fromkeys(names, launches),
+            "resident_bytes": 12, "reckoned_bytes": {"params": 4, "moments": 8, "peak_floor": 20}}
 
 
 @pytest.mark.parametrize("runs,needle", [
@@ -991,21 +992,40 @@ def test_the_rank_run_gates_fail_a_planted_fault(runs, needle):
 
 
 def test_fsdp_blocks_are_the_trainers_and_fingerprints_see_one_bit():
-    """chip_smoke's block slicing equals train/trainer.py::FsdpShards' (a
-    mesh of fsdp 2 built without a group: local() needs none), and a
-    fingerprint changes with one flipped bit or two swapped elements."""
+    """chip_smoke's blocks of a whole state are what each rank of the train
+    entry point holds over {fsdp: 2, sequence: 2} (its init over
+    ``param_shard``, the mesh built without a group), the moments cut
+    alike, and its reckoned bytes are theirs; a fingerprint changes with one
+    flipped bit or two swapped elements."""
     import torch
 
+    from nexus_tpu_torch.models import llama
     from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
-    from nexus_tpu_torch.train.trainer import FsdpShards
+    from nexus_tpu_torch.parallel.sharding import param_shard
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state
 
-    ts = [torch.randn(5, 3).to(torch.bfloat16), torch.randn(7), torch.randn(2, 2, 2)]
-    for index in range(2):
-        shards = FsdpShards.__new__(FsdpShards)
-        shards.n, shards.index = 2, index
-        for a, b in zip(cs.fsdp_blocks(ts, 2, index), shards.local(ts)):
+    spec = {"model": {"family": "llama", "preset": "tiny", "overrides": {"dtype": "bfloat16"}},
+            "parallelism": {"fsdp": 2, "sequence": 2}}
+    cfg = llama.config("tiny", dtype="bfloat16")
+    whole = llama.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    state = init_train_state(whole, llama.leaves(whole), build_optimizer())
+    for t in state.opt_state.mu + state.opt_state.nu:
+        t.normal_()
+    n = len(state.leaves)
+    for rank in range(4):
+        shard = param_shard(Mesh(MeshPlan(fsdp=2, sequence=2), rank))
+        held = llama.leaves(llama.init(torch.Generator().manual_seed(0), cfg, "cpu",
+                                       shard=shard))
+        blocks = cs.rank_blocks(spec, 4, rank, state)
+        assert len(blocks) == 3 * n
+        for a, b in zip(blocks, held):
             assert torch.equal(a, b)
-    assert Mesh(MeshPlan(fsdp=2, sequence=2), 3).index("fsdp") == 3 // 2
+        for a, b in zip(blocks[n:], held + held):  # the moments cut as the parameters
+            assert a.shape == b.shape
+        assert cs.reckoned_bytes(spec, 4, rank)["params"] == sum(
+            t.numel() * t.element_size() for t in held)
+        assert any(a.shape != t.shape for a, t in zip(blocks, state.leaves))
+    ts = [torch.randn(5, 3).to(torch.bfloat16), torch.randn(7), torch.randn(2, 2, 2)]
     base = cs.state_fingerprints(ts)
     flipped = ts[0].clone().view(torch.int16)
     flipped[2, 1] ^= 1

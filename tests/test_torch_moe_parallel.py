@@ -30,7 +30,7 @@ multi-rank case: the meshes of 4 ranks over the whole group, and those of
 
 In the main process: ``ModelShard`` take / join / copies at {expert: 2,
 tensor: 2}, init over ranks equal to one rank's draw, the norm's copies,
-``FsdpShards``' peers that exclude ``expert``, and the dispatch rule.
+the gradients' peers that exclude ``expert``, and the dispatch rule.
 """
 
 import copy
@@ -60,7 +60,7 @@ from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
 from nexus_tpu_torch.parallel.sharding import ModelShard, model_shard
 from nexus_tpu_torch.runtime.entrypoints import resolve_overrides
 from nexus_tpu_torch.testing.dist import spawn
-from nexus_tpu_torch.train.trainer import FsdpShards
+from nexus_tpu_torch.train import trainer as Tr
 
 import torch_dist_workers as workers
 
@@ -497,10 +497,21 @@ def test_join_undoes_take_over_expert_and_tensor():
 
 
 def test_fsdp_peers_are_the_other_batch_axes_never_expert(monkeypatch):
+    """A leaf gathered over fsdp (its gradient summed over fsdp by the
+    gather's backward) is all-reduced over the other batch axes, a whole
+    one over every batch axis: never over expert; both divided by the
+    batch ranks."""
     monkeypatch.setattr(Mesh, "group", lambda self, *axes: axes)
-    shards = FsdpShards(Mesh(MeshPlan(data=2, fsdp=2, expert=2, tensor=2)))
-    assert shards.peers == ("data", "sequence") and "expert" not in shards.peers
-    assert shards.batch_ranks == 4  # the divisor: the ranks of other rows
+    seen = []
+    monkeypatch.setattr(Tr, "all_reduce_coalesced",
+                        lambda ts, group: seen.append(group) or list(ts))
+    grads = [torch.full((2,), 8.0), torch.full((3,), 4.0)]
+    out = Tr.reduce_grads(grads, [True, False], Mesh(MeshPlan(data=2, fsdp=2, expert=2,
+                                                               tensor=2)))
+    assert seen == [("data", "sequence"), ("data", "fsdp", "sequence")]
+    assert not any("expert" in axes for axes in seen)
+    # the divisor: the 4 ranks of other rows
+    torch.testing.assert_close(out, [torch.full((2,), 2.0), torch.full((3,), 1.0)])
 
 
 def test_model_shard_of_a_mesh():

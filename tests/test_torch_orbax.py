@@ -453,13 +453,24 @@ def test_the_infer_templates_restore(tmp_path, name):
 # ------------------------------------------------- across world sizes
 
 
-def _fsdp_block(bits, n, index):
-    """Block ``index`` of ``n`` of a tensor's flat elements, padded with
-    zeros as train/trainer.py::FsdpShards lays them."""
-    flat = bits.reshape(-1)
-    flat = np.pad(flat, (0, -flat.size % n))
-    c = flat.size // n
-    return flat[index * c:(index + 1) * c]
+def _fsdp_block(bits, path, n, index):
+    """Block ``index`` of ``n`` of the tiny Llama's leaf at ``path`` (its
+    raw bits), as a training rank of {fsdp: n} holds it: cut along the
+    leaf's ``embed`` dim (parallel/sharding.py::param_shard)."""
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.parallel.sharding import ModelShard
+
+    cfg = tllama.config("tiny")
+    cuts = LeafCuts(tllama.logical_axes(cfg), ModelShard((index, 0, 0), (n, 1, 1)))
+    return cuts.take(path)(torch.from_numpy(bits)).contiguous().numpy()
+
+
+def _llama_leaf_paths():
+    from nexus_tpu_torch.models.params import tree_items
+
+    params = tllama.empty_params(tllama.config("tiny"), "meta")
+    path = {id(t): p for p, t in tree_items(params)}
+    return [path[id(t)] for t in tllama.leaves(params)]
 
 
 @pytest.fixture(scope="module")
@@ -491,20 +502,19 @@ def across_world_sizes(tmp_path_factory):
 def test_a_step_restores_bit_for_bit_across_world_sizes(across_world_sizes, fmt, direction):
     """A tiny bf16 Llama trained 2 steps and saved by 2 gloo ranks with
     {fsdp: 2} (rank 0 writes the gathered state) restores into one rank bit
-    for bit, and a step one rank saved restores into 2: each rank holds the
-    whole parameters and its blocks of the AdamW moments."""
+    for bit, and a step one rank saved restores into 2: each rank holds its
+    fsdp blocks of the parameters and of their AdamW moments."""
     ck, saved, loaded = across_world_sizes[(direction, fmt)]
     if loaded is None:
         loaded = [workers.save_and_restore(ck, {}, fmt, "restore", 7)]
     assert tck.latest_step(ck) == saved["step"] == 2
-    n_params = len(loaded[0]["params"])
-    whole_params, moments = saved["tensors"][:n_params], saved["tensors"][n_params:]
+    paths = _llama_leaf_paths()
     for got in loaded:
         assert (got["step"], got["count"], got["schedule_count"]) == (
             saved["step"], saved["count"], saved["schedule_count"])
-        for a, b in zip(got["params"], whole_params):
-            np.testing.assert_array_equal(a, b)
-        for a, b in zip(got["blocks"], moments):
-            np.testing.assert_array_equal(a.reshape(-1),
-                                          _fsdp_block(b, got["fsdp"], got["fsdp_index"]))
+        tensors = got["params"] + got["blocks"]
+        assert len(tensors) == len(saved["tensors"]) == 3 * len(paths)
+        for i, (a, b) in enumerate(zip(tensors, saved["tensors"])):
+            np.testing.assert_array_equal(
+                a, _fsdp_block(b, paths[i % len(paths)], got["fsdp"], got["fsdp_index"]))
 

@@ -1,6 +1,6 @@
 """Training over several ranks (the mesh, the batch and sequence axes, ring
-attention, fsdp-sharded AdamW state) against the JAX package, float32 on
-the CPU. One spawn of 4 gloo ranks runs every multi-rank case
+attention, parameters sharded over fsdp) against the JAX package, float32
+on the CPU. One spawn of 4 gloo ranks runs every multi-rank case
 (tests/torch_dist_workers.py::many):
 
 * the train step of tiny GPT-NeoX and Llama with ``attn_impl: ring`` over
@@ -14,7 +14,8 @@ the CPU. One spawn of 4 gloo ranks runs every multi-rank case
   random weights differently) and train 5 more; per-step losses (and
   Llama's saved parameters) to 1e-4 relative;
 * a Mixtral forward under its window with the ring over 2 ranks of
-  {data: 2, sequence: 2} against JAX's dense forward.
+  {data: 2, sequence: 2} against JAX's dense forward;
+* the fsdp gather's dtype buckets (parallel/fsdp.py).
 """
 
 import dataclasses
@@ -97,13 +98,17 @@ def _jax_run(spec, n_devices):
     return jrun(jspec.JaxXlaRuntime.from_dict(spec), devices=jax.devices()[:n_devices])
 
 
+# each leaf's shape and the dim its fsdp blocks cut
+_BUCKETS = [((4, 5), 0), ((6,), 0), ((3, 4), 1), ((2,), 0), ((3, 2, 3), 1)]
+
+
 def _bucket_arrays():
-    """Leaves of two dtypes, sizes odd and even, interleaved: the fsdp
-    buckets (one a dtype) must keep each leaf's blocks apart."""
+    """Leaves of two dtypes, of several sizes and cut dims, interleaved:
+    the gather's buckets (one a dtype) must keep each leaf's blocks
+    apart."""
     rng = np.random.default_rng(3)
-    shapes = [(3, 5), (7,), (4, 4), (1,), (2, 3, 3)]
     return [rng.standard_normal(s).astype(np.float32 if i % 2 else np.float64)
-            for i, s in enumerate(shapes)]
+            for i, (s, _) in enumerate(_BUCKETS)]
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +132,7 @@ def four_ranks(tmp_path_factory):
     calls.append(("forward_logits", ("mixtral", MIX_KW, _np_tree(mix_params), tokens,
                                      {"data": 2, "sequence": 2})))
     keys.append(("mixtral", None))
-    calls.append(("fsdp_buckets", (PAR, _bucket_arrays())))
+    calls.append(("fsdp_gather_buckets", (PAR, _bucket_arrays(), [d for _, d in _BUCKETS])))
     keys.append(("buckets", None))
     ranks = spawn(workers.many, 4, (calls,), tmpdir=str(root))
     out = {key: [r[i] for r in ranks] for i, key in enumerate(keys)}
@@ -194,19 +199,20 @@ def test_mixtral_ring_under_its_window_matches_dense_attention(four_ranks):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_fsdp_buckets_keep_each_leafs_blocks(four_ranks):
-    """One collective a dtype over leaves of mixed dtypes and sizes: the
-    whole leaves gather back exactly, and each rank's blocks of the
-    averaged gradients are its fsdp blocks of the mean over the 4 ranks
-    (rank r held the leaves times r + 1, so the mean is 2.5 times them)."""
+def test_fsdp_gather_buckets_keep_each_leafs_blocks(four_ranks):
+    """One collective a dtype over leaves of mixed dtypes, sizes and cut
+    dims: each rank's blocks gather back into the whole leaves exactly,
+    and its reduce-scattered gradients are its blocks of the sum over its
+    fsdp group (rank r's whole gradients were the leaves times r + 1)."""
     arrays = _bucket_arrays()
-    for r in four_ranks[("buckets", None)]:
+    ranks = four_ranks[("buckets", None)]
+    for r in ranks:
         for got, a in zip(r["gathered"], arrays):
-            np.testing.assert_array_equal(got, a.astype(np.float32))
+            np.testing.assert_array_equal(got, a)
         assert r["dtypes"] == [str(torch.float64 if a.dtype == np.float64 else torch.float32)
                                for a in arrays]
-        for got, a in zip(r["blocks"], arrays):
-            flat = np.pad(2.5 * a.reshape(-1), (0, -a.size % 2))
-            c = flat.size // 2
-            np.testing.assert_allclose(got, flat[r["fsdp_index"] * c:(r["fsdp_index"] + 1) * c],
-                                       rtol=1e-6)
+        # its fsdp group: the ranks of its sequence index (rank = 2 fsdp + sequence)
+        factor = sum(s["rank"] + 1 for s in ranks if s["rank"] % 2 == r["rank"] % 2)
+        for got, a, (_, dim) in zip(r["blocks"], arrays, _BUCKETS):
+            want = np.split(factor * a, 2, axis=dim)[r["fsdp_index"]]
+            np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -22,8 +22,8 @@ multi-rank case: those of 4 ranks over the whole group, the MLP over
   which JAX's checkpointer restores, against the one JAX saves.
 
 In the main process: the MLP's random init over {tensor: 2} is each
-rank's block of the one-rank init, ``FsdpShards`` and the norm count the
-copies right under {fsdp, sequence, tensor}.
+rank's block of the one-rank init, the gradients' peers and the norm count
+the copies right under {fsdp, sequence, tensor}.
 """
 
 import shutil
@@ -51,7 +51,7 @@ from nexus_tpu_torch.models.params import LeafCuts, tree_items
 from nexus_tpu_torch.parallel.mesh import Mesh, MeshPlan
 from nexus_tpu_torch.parallel.sharding import ModelShard, TensorShard, shard_params
 from nexus_tpu_torch.testing.dist import spawn
-from nexus_tpu_torch.train.trainer import FsdpShards, sharded_norm
+from nexus_tpu_torch.train.trainer import sharded_norm
 
 import torch_dist_workers as workers
 
@@ -262,14 +262,17 @@ def test_fsdp_peers_and_the_norm_count_the_copies_under_sequence_and_tensor(monk
     """Over {fsdp: 2, sequence: 2, tensor: 2}: the fsdp blocks' peers are the
     other batch axes (never tensor), the divisor their ranks; the norm sums
     each leaf's squares over fsdp and tensor and divides a replicated
-    leaf's by its tensor copies."""
-    asked = []
-    monkeypatch.setattr(Mesh, "group", lambda self, *axes: asked.append(axes) or axes)
+    leaf's by its copies."""
+    monkeypatch.setattr(Mesh, "group", lambda self, *axes: axes)
     mesh = Mesh(MeshPlan(fsdp=2, sequence=2, tensor=2))
-    shards = FsdpShards(mesh)
-    assert shards.peers == ("data", "sequence") and shards.batch_ranks == 4
     from nexus_tpu_torch.train import trainer as Tr
 
+    peers = []
+    monkeypatch.setattr(Tr, "all_reduce_coalesced",
+                        lambda ts, group: peers.append(group) or list(ts))
+    out = Tr.reduce_grads([torch.full((2,), 8.0)], [True], mesh)
+    assert peers == [("data", "sequence")]
+    torch.testing.assert_close(out[0], torch.full((2,), 2.0))  # over the 4 batch ranks
     seen = {}
     monkeypatch.setattr(Tr, "all_reduce", lambda x, group: seen.update(group=group) or x)
     cut, whole = torch.full((3,), 2.0), torch.full((2,), 3.0)

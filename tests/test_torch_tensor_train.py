@@ -22,7 +22,7 @@ its whole world), side by side:
   by JAX, and a one-rank step restored over {tensor: 2}.
 
 In the main process: ``TensorShard.join`` undoes ``take`` for every leaf,
-``FsdpShards``' peers exclude ``tensor``, and the refusals that remain.
+the gradients' peers exclude ``tensor``, and the refusals that remain.
 """
 
 import os
@@ -51,7 +51,7 @@ from nexus_tpu_torch.parallel.sharding import TensorShard
 from nexus_tpu_torch.runtime.entrypoints import run_template_runtime
 from nexus_tpu_torch.testing.dist import spawn
 from nexus_tpu_torch.train import checkpoint as tck
-from nexus_tpu_torch.train.trainer import FsdpShards
+from nexus_tpu_torch.train import trainer as Tr
 
 import torch_dist_workers as workers
 
@@ -385,11 +385,19 @@ def test_join_undoes_take_for_every_leaf(family, size):
 
 
 def test_fsdp_peers_are_the_other_batch_axes_never_tensor(monkeypatch):
-    asked = []
-    monkeypatch.setattr(Mesh, "group", lambda self, *axes: asked.append(axes) or axes)
-    shards = FsdpShards(Mesh(MeshPlan(data=2, fsdp=2, tensor=2)))
-    assert shards.peers == ("data", "sequence") and "tensor" not in shards.peers
-    assert shards.batch_ranks == 4  # the divisor: the ranks of other rows
+    """The gradient of a leaf gathered over fsdp is all-reduced over the
+    other batch axes, a whole leaf's over every batch axis: never over
+    tensor; both divided by the batch ranks."""
+    monkeypatch.setattr(Mesh, "group", lambda self, *axes: axes)
+    seen = []
+    monkeypatch.setattr(Tr, "all_reduce_coalesced",
+                        lambda ts, group: seen.append(group) or list(ts))
+    grads = [torch.full((2,), 8.0), torch.full((3,), 4.0)]
+    out = Tr.reduce_grads(grads, [True, False], Mesh(MeshPlan(data=2, fsdp=2, tensor=2)))
+    assert seen == [("data", "sequence"), ("data", "fsdp", "sequence")]
+    assert not any("tensor" in axes for axes in seen)
+    # the divisor: the 4 ranks of other rows
+    torch.testing.assert_close(out, [torch.full((2,), 2.0), torch.full((3,), 1.0)])
 
 
 # each case's id is the one from when it was refused for item 4b, part

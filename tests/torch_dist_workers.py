@@ -2,7 +2,7 @@
 test_torch_ring_attention.py, test_torch_parallel_train.py,
 test_torch_tensor_parallel.py, test_torch_tensor_train.py,
 test_torch_moe_parallel.py, test_torch_batch_axes.py,
-test_torch_expert_serving.py): each function
+test_torch_expert_serving.py, test_torch_fsdp_params.py): each function
 runs on every rank of a group that nexus_tpu_torch/testing/dist.py spawns.
 
 The ranks import this module by name, so it imports torch and the port
@@ -21,6 +21,40 @@ from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh, world_
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().numpy()
+
+
+def _fsdp_joined(state, mesh, tensors):
+    """``tensors`` (the state's leaves, or its leaves then moments, in the
+    optimizer's order), each block over fsdp joined with its fsdp peers':
+    this rank's blocks over the model axes alone (a collective over fsdp)."""
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.parallel.comm import all_gather
+    from nexus_tpu_torch.parallel.sharding import ModelShard
+    from nexus_tpu_torch.train.trainer import leaf_paths
+
+    n = mesh.shape["fsdp"]
+    if n == 1 or state.cuts is None:
+        return list(tensors)
+    cuts = LeafCuts(state.cuts.dims, ModelShard((mesh.index("fsdp"), 0, 0), (n, 1, 1)))
+    paths = leaf_paths(state.params, state.leaves)
+    out = []
+    for i, t in enumerate(tensors):
+        path = paths[i % len(paths)]
+        if not cuts.is_cut(path):
+            out.append(t)
+            continue
+        blocks = all_gather(t.detach().contiguous(), mesh.group("fsdp")).view(n, *t.shape)
+        out.append(cuts.join(path, list(blocks.unbind(0))))
+    return out
+
+
+def _joined_params(state, mesh):
+    """{tree path: this rank's parameters over the model axes} (its fsdp
+    blocks joined with its peers')."""
+    from nexus_tpu_torch.train.trainer import leaf_paths
+
+    joined = _fsdp_joined(state, mesh, state.leaves)
+    return {p: _np(t) for p, t in zip(leaf_paths(state.params, state.leaves), joined)}
 
 
 def ring_cases(inputs, cases_by_w):
@@ -74,20 +108,24 @@ def fail_on_rank(bad: int):
 def train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
     """The port's train step on this rank of a mesh of ``plan_kw`` over the
     global ``batches`` (each rank keeps its slice), from the JAX params'
-    numpy tree: per-step loss and grad norm, and the parameters after the
-    last step by tree path."""
+    numpy tree cut to the rank's blocks over fsdp: per-step loss and grad
+    norm, and the parameters after the last step by tree path (the fsdp
+    blocks joined)."""
     from nexus_tpu_torch import interop
-    from nexus_tpu_torch.models.params import tree_items
+    from nexus_tpu_torch.models.params import LeafCuts
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.parallel.sharding import batch_spec
+    from nexus_tpu_torch.parallel.sharding import batch_spec, param_shard
     from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 
     family = get_family(family_name)
     cfg = family.config("tiny", **cfg_kw)
-    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu")
     mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = param_shard(mesh)
+    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
+                                                               mesh=shard)
     opt = build_optimizer(**opt_kw)
-    state = init_train_state(params, family.leaves(params), opt, mesh=mesh)
+    state = init_train_state(params, family.leaves(params), opt,
+                             cuts=LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS))
     step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
     losses, norms = [], []
     with use_mesh(mesh):
@@ -96,8 +134,7 @@ def train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
             state, m = step(state, {"tokens": torch.from_numpy(local["tokens"]).long()})
             losses.append(m["loss"].item())
             norms.append(m["grad_norm"].item())
-    return {"loss": losses, "grad_norm": norms,
-            "params": {k: _np(t) for k, t in tree_items(state.params)}}
+    return {"loss": losses, "grad_norm": norms, "params": _joined_params(state, mesh)}
 
 
 def forward_logits(family_name, cfg_kw, jax_params, tokens, plan_kw):
@@ -128,22 +165,25 @@ def run_entry(spec):
     return run_template_runtime(spec, device="cpu")
 
 
-def fsdp_buckets(plan_kw, arrays):
-    """``FsdpShards``' bucketed collectives on this rank of a mesh of
-    ``plan_kw``, over ``arrays`` (mixed dtypes and sizes) as each rank's
-    gradients, rank r's being ``arrays`` times r + 1: the whole tensors
-    gathered back from this rank's blocks, and this rank's blocks of the
-    averaged gradients."""
-    from nexus_tpu_torch.train.trainer import FsdpShards
+def fsdp_gather_buckets(plan_kw, arrays, dims):
+    """``parallel/fsdp.py::gather`` on this rank of a mesh of ``plan_kw``
+    over its fsdp blocks of ``arrays`` (mixed dtypes and sizes, each cut
+    along its ``dims`` entry), then its backward with rank r's whole
+    gradients ``arrays`` times r + 1: the whole tensors gathered back, and
+    this rank's reduce-scattered gradient blocks."""
+    from nexus_tpu_torch.parallel import fsdp
 
     mesh = build_mesh(MeshPlan(**plan_kw))
-    shards = FsdpShards(mesh)
-    whole = [torch.from_numpy(a) for a in arrays]
-    gathered = shards.gather(shards.local(whole), whole)
-    grads = [t * (dist.get_rank() + 1) for t in whole]
-    blocks = shards.reduce_grads(grads)
-    return {"gathered": [_np(t) for t in gathered], "blocks": [_np(b) for b in blocks],
-            "fsdp_index": mesh.index("fsdp"), "dtypes": [str(b.dtype) for b in blocks]}
+    n, index = mesh.shape["fsdp"], mesh.index("fsdp")
+    blocks = [torch.from_numpy(a).chunk(n, d)[index].clone().requires_grad_()
+              for a, d in zip(arrays, dims)]
+    with use_mesh(mesh):
+        wholes = fsdp.gather(blocks, dims, mesh.group("fsdp"))
+    torch.autograd.backward(wholes, [torch.from_numpy(a) * (dist.get_rank() + 1)
+                                     for a in arrays])
+    return {"gathered": [w.detach().numpy() for w in wholes],
+            "blocks": [b.grad.numpy() for b in blocks], "fsdp_index": index,
+            "rank": dist.get_rank(), "dtypes": [str(b.grad.dtype) for b in blocks]}
 
 
 def many(calls):
@@ -154,27 +194,25 @@ def many(calls):
 
 def save_and_restore(directory, plan_kw, fmt, mode, seed):
     """The checkpoint round trips across world sizes. ``mode`` 'save':
-    train 2 steps of the tiny Llama on this mesh and save; return the whole
-    state (params and moments) rank 0 wrote. 'restore': restore the latest
-    step into a fresh state on this mesh; return this rank's parameters and
-    its blocks of the moments."""
+    train 2 steps of the tiny Llama on this mesh and save; return the state
+    (params and moments) rank 0 wrote, as this rank's blocks over the model
+    axes (its fsdp blocks joined). 'restore': restore the latest step into
+    a fresh state on this mesh; return this rank's blocks of its
+    parameters and of their moments."""
     from nexus_tpu_torch.models import llama
-    from nexus_tpu_torch.parallel.sharding import batch_spec
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.parallel.sharding import batch_spec, param_shard
     from nexus_tpu_torch.train.checkpoint import RankedCheckpointer, make_checkpointer
     from nexus_tpu_torch.train.data import synthetic_lm_batches
-    from nexus_tpu_torch.train.trainer import (build_optimizer, init_train_state,
-                                               make_train_step, whole_state)
-
-    from nexus_tpu_torch.models.params import LeafCuts
-    from nexus_tpu_torch.parallel.sharding import model_shard
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 
     cfg = llama.config("tiny", dtype="bfloat16", attn_impl="xla")
     gen = torch.Generator().manual_seed(seed)
     mesh = build_mesh(MeshPlan(**plan_kw))
-    shard = model_shard(mesh)  # under a tensor axis: the rank's blocks
+    shard = param_shard(mesh)  # the rank's blocks over fsdp and the model axes
     params = llama.init(gen, cfg, "cpu", shard=shard)
     opt = build_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=4)
-    state = init_train_state(params, llama.leaves(params), opt, mesh=mesh,
+    state = init_train_state(params, llama.leaves(params), opt,
                              cuts=LeafCuts(llama.logical_axes(cfg), shard, llama.TENSOR_GROUPS))
     ck = make_checkpointer(directory, keep=2, fmt=fmt)
     if mesh.world > 1:
@@ -187,11 +225,10 @@ def save_and_restore(directory, plan_kw, fmt, mode, seed):
                 local = batch_spec(next(data), mesh)
                 state, _ = step(state, {"tokens": torch.from_numpy(local["tokens"]).long()})
         ck.save(state)
-        whole = whole_state(state)
-        return {"step": whole.step, "count": whole.opt_state.count,
-                "schedule_count": whole.opt_state.schedule_count,
-                "tensors": [_bits(t) for t in list(whole.leaves) + whole.opt_state.mu
-                            + whole.opt_state.nu], "tensor_index": mesh.index("tensor")}
+        opt = state.opt_state
+        joined = _fsdp_joined(state, mesh, list(state.leaves) + opt.mu + opt.nu)
+        return {"step": state.step, "count": opt.count, "schedule_count": opt.schedule_count,
+                "tensors": [_bits(t) for t in joined], "tensor_index": mesh.index("tensor")}
     ck.restore(state)
     return {"step": state.step, "count": state.opt_state.count,
             "schedule_count": state.opt_state.schedule_count,
@@ -364,24 +401,26 @@ def worlds(calls_by_world):
 
 def tp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
     """The port's train step on this rank of a mesh of ``plan_kw`` (the
-    port's world) from the JAX params cut to its tensor block, over the
-    global ``batches`` (each rank keeps its rows): per-step loss and grad
-    norm, and this rank's blocks of the parameters after the last step by
-    tree path."""
+    port's world) from the JAX params cut to its blocks over fsdp and
+    tensor, over the global ``batches`` (each rank keeps its rows):
+    per-step loss and grad norm, and this rank's tensor blocks of the
+    parameters after the last step by tree path (its fsdp blocks
+    joined)."""
     from nexus_tpu_torch import interop
-    from nexus_tpu_torch.models.params import LeafCuts, tree_items
+    from nexus_tpu_torch.models.params import LeafCuts
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
+    from nexus_tpu_torch.parallel.sharding import batch_spec, param_shard
     from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 
     family = get_family(family_name)
     cfg = family.config("tiny", **cfg_kw)
     mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = param_shard(mesh)
     params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
-                                                               mesh=mesh)
+                                                               mesh=shard)
     opt = build_optimizer(**opt_kw)
-    cuts = LeafCuts(family.logical_axes(cfg), model_shard(mesh), family.TENSOR_GROUPS)
-    state = init_train_state(params, family.leaves(params), opt, mesh=mesh, cuts=cuts)
+    cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
+    state = init_train_state(params, family.leaves(params), opt, cuts=cuts)
     step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
     losses, norms = [], []
     with use_mesh(mesh):
@@ -391,7 +430,7 @@ def tp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw):
             losses.append(m["loss"].item())
             norms.append(m["grad_norm"].item())
     return {"loss": losses, "grad_norm": norms, "tensor_index": mesh.index("tensor"),
-            "params": {k: _np(t) for k, t in tree_items(state.params)}}
+            "params": _joined_params(state, mesh)}
 
 
 def vocab_ce(hidden, lm_head, targets, chunk):
@@ -449,23 +488,25 @@ def model_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw)
     port's world), from the JAX params cut to its blocks over the model
     axes, over the global ``batches`` (each rank keeps its slice): every
     step's metrics (loss, grad norm and, for Mixtral, aux and the dropped
-    fraction), this rank's blocks of the parameters after the last step by
-    tree path, and its mesh coordinates."""
+    fraction), this rank's blocks of the parameters over the model axes
+    after the last step by tree path (its fsdp blocks joined), how many
+    model-axes ranks hold each leaf's block, and its mesh coordinates."""
     from nexus_tpu_torch import interop
-    from nexus_tpu_torch.models.params import LeafCuts, tree_items
+    from nexus_tpu_torch.models.params import LeafCuts
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
-    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
+    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard, param_shard
+    from nexus_tpu_torch.train.trainer import (build_optimizer, init_train_state, leaf_paths,
+                                               make_train_step)
 
     family = get_family(family_name)
     cfg = family.config("tiny", **cfg_kw)
     mesh = build_mesh(MeshPlan(**plan_kw))
-    shard = model_shard(mesh)
+    shard = param_shard(mesh)
     params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
                                                                mesh=shard)
     opt = build_optimizer(**opt_kw)
     cuts = LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS)
-    state = init_train_state(params, family.leaves(params), opt, mesh=mesh, cuts=cuts)
+    state = init_train_state(params, family.leaves(params), opt, cuts=cuts)
     step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
     keys = ("loss", "grad_norm", "aux", "router_dropped_fraction")
     out = {k: [] for k in keys}
@@ -476,8 +517,11 @@ def model_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw)
             for k in keys:
                 if k in m:
                     out[k].append(m[k].item())
-    out.update(coords=_coords(mesh), copies=state.copies,
-               params={k: _np(t) for k, t in tree_items(state.params)})
+    model = model_shard(mesh)
+    copies = None if model is None else [
+        LeafCuts(family.logical_axes(cfg), model).copies(p)
+        for p in leaf_paths(state.params, state.leaves)]
+    out.update(coords=_coords(mesh), copies=copies, params=_joined_params(state, mesh))
     return out
 
 
@@ -492,26 +536,26 @@ def tp_generate(family_name, cfg_kw, jax_params, prompt, n_new):
 
 def model_save_and_restore(family_name, cfg_kw, directory, plan_kw, fmt, mode, seed):
     """``save_and_restore`` for any family over any mesh of the port's
-    world, the params cut by the mesh's model axes: 'save' trains 2 steps
-    of the tiny model and saves, returning the whole state (params and
-    moments, as bits) rank 0 wrote; 'restore' restores the latest step and
-    resumes one step, returning this rank's parameters and blocks of the
+    world, the params cut by the mesh's parameter axes: 'save' trains 2
+    steps of the tiny model and saves, returning the state (params and
+    moments, as bits) rank 0 wrote, as this rank's blocks over the model
+    axes (its fsdp blocks joined); 'restore' restores the latest step and
+    resumes one step, returning this rank's blocks of the parameters and
     moments as restored, and the resumed step's loss."""
     from nexus_tpu_torch.models.params import LeafCuts
     from nexus_tpu_torch.models.registry import get_family
-    from nexus_tpu_torch.parallel.sharding import batch_spec, model_shard
+    from nexus_tpu_torch.parallel.sharding import batch_spec, param_shard
     from nexus_tpu_torch.train.checkpoint import RankedCheckpointer, make_checkpointer
     from nexus_tpu_torch.train.data import synthetic_lm_batches
-    from nexus_tpu_torch.train.trainer import (build_optimizer, init_train_state,
-                                               make_train_step, whole_state)
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state, make_train_step
 
     family = get_family(family_name)
     cfg = family.config("tiny", **cfg_kw)
     mesh = build_mesh(MeshPlan(**plan_kw))
-    shard = model_shard(mesh)
+    shard = param_shard(mesh)
     params = family.init(torch.Generator().manual_seed(seed), cfg, "cpu", shard=shard)
     opt = build_optimizer(learning_rate=1e-2, warmup_steps=1, total_steps=4)
-    state = init_train_state(params, family.leaves(params), opt, mesh=mesh,
+    state = init_train_state(params, family.leaves(params), opt,
                              cuts=LeafCuts(family.logical_axes(cfg), shard,
                                            family.TENSOR_GROUPS))
     ck = make_checkpointer(directory, keep=2, fmt=fmt)
@@ -533,11 +577,10 @@ def model_save_and_restore(family_name, cfg_kw, directory, plan_kw, fmt, mode, s
     if mode == "save":
         run(2)
         ck.save(state)
-        whole = whole_state(state)
-        return {"step": whole.step, "count": whole.opt_state.count,
-                "schedule_count": whole.opt_state.schedule_count,
-                "tensors": [_bits(t) for t in list(whole.leaves) + whole.opt_state.mu
-                            + whole.opt_state.nu], "coords": _coords(mesh)}
+        opt = state.opt_state
+        joined = _fsdp_joined(state, mesh, list(state.leaves) + opt.mu + opt.nu)
+        return {"step": state.step, "count": opt.count, "schedule_count": opt.schedule_count,
+                "tensors": [_bits(t) for t in joined], "coords": _coords(mesh)}
     ck.restore(state)
     out = {"step": state.step, "count": state.opt_state.count,
            "schedule_count": state.opt_state.schedule_count,
@@ -613,3 +656,151 @@ def rows_logits(family_name, cfg_kw, jax_params, tokens, plan_kw, steps):
             out.append(logits)
         whole = gather_rows(torch.cat(out, dim=1).contiguous(), mesh, rows)
     return {"logits": _np(whole), "rows": [rows.start, rows.stop]}
+
+
+# ------------------------------------------- parameters sharded over fsdp
+# (tests/test_torch_fsdp_params.py)
+
+
+def _whole_params(state, mesh):
+    """{tree path: the whole leaf} from every rank's blocks over the
+    parameter axes (a collective over fsdp × expert × tensor)."""
+    from nexus_tpu_torch.parallel.comm import all_gather
+    from nexus_tpu_torch.parallel.sharding import PARAM_AXES
+    from nexus_tpu_torch.train.trainer import leaf_paths
+
+    paths = leaf_paths(state.params, state.leaves)
+    if state.cuts is None:
+        return {p: _np(t) for p, t in zip(paths, state.leaves)}
+    n, group = mesh.size(*PARAM_AXES), mesh.group(*PARAM_AXES)
+    out = {}
+    for p, t in zip(paths, state.leaves):
+        blocks = all_gather(t.detach().contiguous(), group).view(n, *t.shape)
+        out[p] = _np(state.cuts.join(p, list(blocks.unbind(0))))
+    return out
+
+
+def _fsdp_state(family_name, cfg_kw, jax_params, plan_kw, opt_kw):
+    """(family, cfg, mesh, optimizer, train state) of this rank: the JAX
+    params cut to its blocks over fsdp and the model axes."""
+    from nexus_tpu_torch import interop
+    from nexus_tpu_torch.models.params import LeafCuts
+    from nexus_tpu_torch.models.registry import get_family
+    from nexus_tpu_torch.parallel.sharding import param_shard
+    from nexus_tpu_torch.train.trainer import build_optimizer, init_train_state
+
+    family = get_family(family_name)
+    cfg = family.config("tiny", **cfg_kw)
+    mesh = build_mesh(MeshPlan(**plan_kw))
+    shard = param_shard(mesh)
+    params = getattr(interop, f"{family_name}_params_from_jax")(jax_params, cfg, "cpu",
+                                                               mesh=shard)
+    opt = build_optimizer(**opt_kw)
+    state = init_train_state(params, family.leaves(params), opt,
+                             cuts=LeafCuts(family.logical_axes(cfg), shard, family.TENSOR_GROUPS))
+    return family, cfg, mesh, opt, state
+
+
+def _local_batch(batch, mesh):
+    from nexus_tpu_torch.parallel.sharding import batch_spec
+
+    local = batch_spec(batch, mesh)
+    return {k: torch.from_numpy(x).long() if k == "tokens" else torch.from_numpy(x).float()
+            for k, x in local.items()}
+
+
+def fsdp_train_steps(family_name, cfg_kw, jax_params, batches, plan_kw, opt_kw, grad_accum):
+    """The port's train step (``grad_accum`` microbatches) on this rank of a
+    mesh of ``plan_kw`` from the JAX params cut to its blocks, over the
+    global ``batches`` (dicts of numpy arrays; each rank keeps its rows):
+    every step's loss and grad norm, the whole parameters after the last
+    step joined from every rank's blocks, and the shapes of this rank's
+    parameters and moments."""
+    from nexus_tpu_torch.train.trainer import make_train_step
+
+    family, cfg, mesh, opt, state = _fsdp_state(family_name, cfg_kw, jax_params, plan_kw,
+                                                opt_kw)
+    moments = state.opt_state.mu + state.opt_state.nu
+    shapes = {"params": [tuple(t.shape) for t in state.leaves],
+              "moments": [tuple(t.shape) for t in moments]}
+    step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, grad_accum=grad_accum,
+                           mesh=mesh)
+    losses, norms = [], []
+    with use_mesh(mesh):
+        for batch in batches:
+            state, m = step(state, _local_batch(batch, mesh))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    return {"loss": losses, "grad_norm": norms, "params": _whole_params(state, mesh),
+            "shapes": shapes, "coords": _coords(mesh)}
+
+
+def fsdp_saved_wholes(family_name, cfg_kw, jax_params, batch, plan_kw, opt_kw, planted=False):
+    """One train step on this rank, its loss read after the forward: the
+    shapes of the gathered whole weights that are still alive there (kept
+    for the backward: a saved tensor keeps its Python object alive), and
+    how many the forward gathered. ``planted``: the trainer's
+    ``saved_as_blocks`` left out (the fault that check must catch)."""
+    import contextlib
+    import gc
+    import weakref
+
+    from nexus_tpu_torch.parallel import fsdp
+    from nexus_tpu_torch.train import trainer as Tr
+
+    family, cfg, mesh, opt, state = _fsdp_state(family_name, cfg_kw, jax_params, plan_kw,
+                                                opt_kw)
+    made, seen, gather_blocks, saving = [], {}, fsdp.gather_blocks, Tr.saved_as_blocks
+
+    def recording(*args):
+        out = gather_blocks(*args)
+        made.extend(weakref.ref(t) for t in out)
+        return out
+
+    def loss_fn(p, b):
+        made.clear()
+        loss, metrics = family.loss_fn(p, cfg, b)
+        gc.collect()
+        seen["gathered"] = len(made)
+        seen["alive"] = [tuple(r().shape) for r in made if r() is not None]
+        return loss, metrics
+
+    fsdp.gather_blocks = recording
+    if planted:
+        Tr.saved_as_blocks = contextlib.nullcontext
+    try:
+        step = Tr.make_train_step(loss_fn, opt, mesh=mesh)
+        with use_mesh(mesh):
+            _, m = step(state, _local_batch(batch, mesh))
+    finally:
+        fsdp.gather_blocks, Tr.saved_as_blocks = gather_blocks, saving
+    return dict(seen, loss=m["loss"].item())
+
+
+def fsdp_left_behind(family_name, cfg_kw, jax_params, batch, plan_kw, opt_kw, steps=2):
+    """The bytes of the tensor storages still alive after ``steps`` train
+    steps on this rank, each of a fresh state dropped after it, beyond
+    those alive after one such step before them (which leaves the
+    libraries' first-use caches): what a step leaves behind."""
+    import gc
+
+    from nexus_tpu_torch.train.trainer import make_train_step
+
+    def live():
+        gc.collect()
+        return {id(o.untyped_storage()): o.untyped_storage().nbytes()
+                for o in gc.get_objects() if isinstance(o, torch.Tensor)}
+
+    def one_step():
+        family, cfg, mesh, opt, state = _fsdp_state(family_name, cfg_kw, jax_params, plan_kw,
+                                                    opt_kw)
+        step = make_train_step(lambda p, b: family.loss_fn(p, cfg, b), opt, mesh=mesh)
+        with use_mesh(mesh):
+            step(state, _local_batch(batch, mesh))
+
+    one_step()
+    before = live()
+    for _ in range(steps):
+        one_step()
+    after = live()
+    return sum(n for k, n in after.items() if k not in before)
