@@ -29,7 +29,7 @@ Phases, each of which raises on failure:
    the build that rounds P to bf16 beside it;
 4. the train path: ``run_template_runtime`` in ``mode: train``, family
    ``llama``, preset ``8b`` at Llama-3-8B's published widths with depth cut
-   to 4 layers, batch 2 x seq 4096, 8 steps; the loss must be finite and
+   to 4 layers, batch 2 x seq 4096, MAIN_STEPS (6) steps; the loss must be finite and
    fall, and every flash kernel must have launched during the run;
 5. a second run, 2 layers of the same widths, with full-block remat and the
    vocab-chunked loss (ce_chunk 8192);
@@ -37,15 +37,16 @@ Phases, each of which raises on failure:
    prompt, 64 greedy new tokens, 1 timed iteration; finite logits and the
    output's shape;
 7. ``mode: serve`` at Llama-3-8B, all 32 layers, through the paged,
-   prefix-cached engine: 16 requests (prompts 320..512 with a 256-token
+   prefix-cached engine: SERVE_REQUESTS (8) requests (prompts 320..512 with a 256-token
    shared preamble, budgets 32..128) over 8 rows, the fused path; every
    request ok, the committed tokens equal the budgets, a leak-free pool,
-   and the paged-decode kernel launched; then 4 requests on the int8 pool,
-   (for information) 2 of its requests on the gather path, and three more
-   phases with the same gates: ``serve-lookup`` (4 requests, prompt-lookup
-   speculation, promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (4
-   requests, the ``draft`` preset at the target's vocabulary and context
-   as the proposer) and ``serve-prefill32`` (4 requests, prefillChunk 32),
+   and the paged-decode kernel launched; then SERVE_VARIANT_REQUESTS (2)
+   requests on the int8 pool, (for information) 2 of its requests on the
+   gather path, and three more phases with the same gates:
+   ``serve-lookup`` (2 requests, prompt-lookup speculation,
+   promptLookupNgram 2, numSpeculative 4), ``serve-draft`` (2 requests, the
+   ``draft`` preset at the target's vocabulary and context as the proposer)
+   and ``serve-prefill32`` (2 requests, prefillChunk 32),
    each of which must launch the kernel at its feed width (5, 5, 32); the
    speculation ledger and, for information, how many requests commit the
    plain serve's tokens;
@@ -94,7 +95,7 @@ Phases, each of which raises on failure:
    ``small`` of the spec's default family, named by no family key,
    float32, batch 64, 200 steps: the last loss under half the first);
 13. pretrained weights and text prompts: ``pretrained-llama`` exports the
-   seed's random Llama-3-8B weights (4 layers, PRETRAINED_LAYERS; ~3.8 GB)
+   seed's random Llama-3-8B weights (2 layers, PRETRAINED_LAYERS; ~3.0 GB)
    as four safetensors shards and model.safetensors.index.json, writes a
    tokenizer.json (256 byte tokens, merges learned from a fixed text, two
    special tokens), and loads the shards back bit for bit
@@ -105,7 +106,7 @@ Phases, each of which raises on failure:
    weights; ``serve-pretrained`` serves 8 text prompts, 4 of them behind a
    200-word preamble, through the fused prefix-cached engine with the serve
    gates and 8 completions; ``pretrained-mixtral`` and ``pretrained-neox``
-   (Mixtral-8x7B and GPT-NeoX-20B at 2 layers, one file each) load bit for
+   (Mixtral-8x7B and GPT-NeoX-20B at 1 layer, one file each) load bit for
    bit; all in temporary directories that the phases remove;
 14. Orbax checkpoints (``checkpoint.format: orbax``, the spec's default):
    ``llama-orbax`` trains Llama-3-8B at its published widths cut to 1 layer
@@ -134,12 +135,13 @@ Phases, each of which raises on failure:
    gradients held to flash over the whole sequence on one rank and to the
    plain versions; then the visiting block's kernels held and timed on the
    card alone beside SDPA at that shape), ``ring-neox``
-   (examples/train-gptneox-long-context.yaml at preset ``1b``, 2 of its 24
-   layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 2 steps: losses finite and
-   equal on both ranks, K1-K3 on each, peaks under 60 GB; then 2 layers of
-   it, 4 steps, every step's loss and grad norm within RING_LOSS_RTOL and
-   RING_GRAD_NORM_RTOL of the one-rank run's, and an all-reduce of that
-   model's gradient timed) and ``ring-fsdp-neox`` (2 layers over {fsdp: 2,
+   (examples/train-gptneox-long-context.yaml at preset ``1b``, 1 of its 24
+   layers (RING_NEOX_LAYERS), over {sequence: 2}, one row of 8192, 2 steps:
+   losses finite and equal on both ranks, K1-K3 on each, peaks under 60 GB;
+   then 2 layers of it, 3 steps, every step's loss and grad norm within
+   RING_LOSS_RTOL and RING_GRAD_NORM_RTOL of the one-rank run's, and an
+   all-reduce of that model's gradient timed) and ``ring-fsdp-neox``
+   (RING_FSDP_LAYERS (1) layer over {fsdp: 2,
    sequence: 2}, B 2 x S 8192, 2 steps, saving the last: every step's loss
    and grad norm within those limits of the one-rank run's, each rank's
    AdamW moments the bytes its blocks reckon, the step restored into one
@@ -152,7 +154,7 @@ Phases, each of which raises on failure:
    queue's depths, held to its plain version and timed beside its bound and
    SDPA); the teacher-forced logits of a fixed 64-token prompt over the
    ranks within TP_LOGIT_LIMIT of one rank's, equal on both ranks:
-   Llama-3-8B's (TP_LLAMA_LOGIT_LAYERS, 8) through a dense cache, with two
+   Llama-3-8B's (TP_LLAMA_LOGIT_LAYERS, 4) through a dense cache, with two
    planted faults (no reduce after w_down; the vocab gather in the wrong
    order) past the limit, and
    Llama-3-8B's and GPT-NeoX-20B's (TP_NEOX_LAYERS layers) through a paged
@@ -167,7 +169,7 @@ Phases, each of which raises on failure:
    ranks, and serve-tp's completions against ``serve-tp-1card`` (the same
    4 requests on one card): the token share they commit before their
    first difference at least TP_SERVE_SHARE_LIMIT; ``serve-moe-tp``
-   (Mixtral-8x7B widths at MOE_SERVE_LAYERS (4) layers, mixtral-serve's 8
+   (Mixtral-8x7B widths at MOE_SERVE_LAYERS (2) layers, mixtral-serve's 8
    requests) with the same serve gates, beside ``serve-moe-tp-1card`` (the
    same on one card; both pin the dispatch ``auto`` resolves over ranks),
    and Mixtral's teacher-forced logits at mixtral-serve's 16 layers through
@@ -180,7 +182,7 @@ Phases, each of which raises on failure:
    timed beside their bounds and SDPA (in phase 2); ``train-tp``
    (examples/train-llama8b-fsdp.yaml at its published widths, TRAIN_TP: 2
    layers, 2 rows of 4096, 3 steps, re-planned to {tensor: 2} over 2
-   ranks) and ``train-tp-fsdp-neox`` (Pythia-1.4B widths, 2 layers, 4 rows
+   ranks) and ``train-tp-fsdp-neox`` (Pythia-1.4B widths, 1 layer, 4 rows
    of 2048, over {fsdp: 2, tensor: 2}, 4 ranks: 2 steps saved as an Orbax
    step, resumed for a third, whose step restores into one card bit for bit
    against every rank's blocks of the parameters and AdamW moments): every
@@ -204,22 +206,26 @@ Phases, each of which raises on failure:
    dispatches' tokens equal within bf16's rounding;
 19. the rest of the batch and tensor axes (module item 4b, part three), in
    the spawn of 4 of phase 17 and 18, the ranks sharing the card over gloo:
-   ``infer-dp-tp`` (examples/infer-llama8b.yaml at its published widths, 4
-   layers, 8 rows, prompt 128, 64 new tokens, over {data: 2, tensor: 2}:
+   ``infer-dp-tp`` (examples/infer-llama8b.yaml at its published widths,
+   BATCH_AXES_LAYERS (2) layers, 8 rows, prompt 128, 64 new tokens, over
+   {data: 2, tensor: 2}:
    every rank's ids of the whole batch equal; the teacher-forced logits of
    every row, each rank feeding its rows, gathered in row order, within
    TP_LOGIT_LIMIT of one card's, with the rows gathered in reverse order
    and a data rank fed its peer's rows past it), ``serve-fsdp-tp`` (the
-   serve queue at 4 layers, 8 requests, over {fsdp: 2, tensor: 2}: the
+   serve queue at BATCH_AXES_LAYERS layers, SERVE_FSDP_TP_REQUESTS (4)
+   requests, over {fsdp: 2, tensor: 2}: the
    serve gates and the same ledger on every rank, serve-tp's token share
    against the same requests on one card, and the lockstep audit firing on
    every rank when an fsdp replica is given another first prompt),
    ``train-ring-tp`` (the long-context template at Pythia-1.4B widths, 2
-   layers, one row of 8192 over {sequence: 2, tensor: 2}, 3 steps: the
+   layers, one row of 8192 over {sequence: 2, tensor: 2}, RING_TP_STEPS (2)
+   steps: the
    tensor limits against one card, the ring shifted over the whole world
    past them; K1-K3 at the ring visit of a tensor rank's 8 heads held and
    timed in phase 2), ``train-moe-ring-tp`` (MOE_TRAIN at 1 layer, one row
-   of 4096 over {sequence: 2, tensor: 2}, 2 steps: MOE_LIMITS, the norm
+   of 4096 over {sequence: 2, tensor: 2}, MOE_RING_TP_STEPS (1) step:
+   MOE_LIMITS, the norm
    counting each leaf's copies wrong past them) and ``mlp-tp`` (the MLP
    ``small`` preset over {fsdp: 2, tensor: 2}, 20 steps: the tensor limits,
    the column-parallel inputs' gradient sum left out past them);
@@ -242,21 +248,44 @@ Phases, each of which raises on failure:
    C_global and at C_local;
 21. parameters sharded over fsdp (module item 4e), in the same spawn of 4:
    ``train-fsdp`` (examples/train-llama8b-fsdp.yaml at its published widths,
-   TRAIN_TP's cuts, its parallelism declared {fsdp: 4}, 4 rows of 2048:
+   TRAIN_TP's cuts but TRAIN_FSDP_LAYERS (1) layer and TRAIN_FSDP_STEPS (2)
+   steps at warmup 0, its parallelism declared {fsdp: 4}, 4 rows of 2048:
    every step's loss and grad norm within TP_TRAIN_LOSS_RTOL and
    TP_TRAIN_NORM_RTOL of ``train-fsdp-1card``, the same spec on one card;
    each rank's bytes on its card between steps within RESIDENT_RTOL of its
    blocks of the parameters and moments reckoned from the leaf shapes; the
    blocks gathered in rolled order and the reduce-scatter replaced by the
-   rank's own gradient past the limits (at 1 layer and rows of 512, against
-   the same on one card); K1-K3 on every rank, held and timed
+   rank's own gradient past the limits (at 1 layer, rows of 512 and warmup
+   0, against the same on one card); K1-K3 on every rank, held and timed
    at the rank's shape in phase 2). Every train phase over ranks reports
    each rank's resident bytes and peak beside the reckoned ones; the fsdp
    phases of 15, 17, 18 and 19 hold the new layout;
-22. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
-   MLP, pretrained, Orbax, ring, tensor-parallel, MoE, batch-axes and
-   expert-axis phase's launches,
-   and K1-K3's timings and bounds at the ring visit of a tensor rank's heads), each
+22. heads that do not tile the tensor axis (module item 4b, part four):
+   ``untiled-kernels`` (K1-K3 and D1 at a rank's span of heads: Pythia-160M
+   over {tensor: 8}, 2 / 2 heads of 64 at one row of 2048, and Llama-3-8B
+   over {tensor: 16}, 2 q heads and the kv head they read, of 128, at one
+   row of 4096; D1 at both on the serve queue's depths, T 1 and 8; each
+   held to its plain version and timed beside its bound and the library
+   call), then a spawn of 8 ranks sharing the card over gloo:
+   ``untiled-train`` (GPT-NeoX preset ``160m``, Pythia-160M's published
+   widths at UNTILED_LAYERS (1) of its 12 layers, one row of 2048, 3 steps,
+   over {tensor: 8}: every step's loss and grad norm, and the norm of the
+   wqkv / b_qkv gradient, within TP_TRAIN_LOSS_RTOL / TP_TRAIN_NORM_RTOL of
+   ``untiled-train-1card``; the span gather's gradient kept unsummed past
+   the latter at step 1; K1-K3 on every rank), ``untiled-infer`` (8 rows,
+   prompt 128, 32 new tokens: the same ids on every rank; the teacher-forced
+   logits of 160 tokens within TP_LOGIT_LIMIT of one card's, every rank at
+   its span's 2 / 2 heads, a rank's output columns sliced from the span's
+   start past the limit), ``untiled-serve`` (the serve queue's first 4
+   requests through the paged pool: the serve gates, D1 at the span's heads
+   on every rank, the token share against one card) and ``untiled-gqa``
+   (the tiny Llama over {tensor: 8}, its q and kv columns both under a
+   head: a float32 train run and a bf16 serve run against one card's);
+23. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+   MLP, pretrained, Orbax, ring, tensor-parallel, MoE, batch-axes,
+   expert-axis and untiled-heads phase's launches, K1-K3's timings and
+   bounds at the ring visit of a tensor rank's heads, and K1-K3's and D1's
+   at the untiled spans), each
    phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -1321,14 +1350,17 @@ def _serve_spec(num_requests: int = 32, **extra):
 
 # the serve variants' requests (serve-int8, -gather, -lookup, -draft,
 # -prefill32): the serve queue's first 4 (8 until the batch-axes phases
-# needed the script's time)
-SERVE_VARIANT_REQUESTS = 4
+# needed the script's time, 4 until the spawn of 8's)
+SERVE_VARIANT_REQUESTS = 2
+# the main train phase's steps: 2 untimed warmup steps and 4 timed (8 until
+# the spawn of 8 needed the script's time)
+MAIN_STEPS = 6
 # serve-gather's requests: the queue's first 2 (8, then 4, until the fsdp
 # phase needed the script's time)
 GATHER_REQUESTS = 2
-# the serve phase's requests: the queue's first 16 (32 until the expert
-# axis's phases needed the script's time)
-SERVE_REQUESTS = 16
+# the serve phase's requests: the queue's first 8 (32 until the expert
+# axis's phases, 16 until the spawn of 8 needed the script's time)
+SERVE_REQUESTS = 8
 
 SPEC_KEYS = ("speculative_kind", "num_speculative", "target_forwards", "acceptance_rate",
              "accepted_per_round", "decode_dispatches_per_committed_token")
@@ -2005,13 +2037,15 @@ PRETRAINED_QUESTIONS = (
     "Who ran along the stone wall?", "What was new over the river?",
 )
 PRETRAINED_NEW_TOKENS = 32
-# the two other families, cut to 2 layers: (preset, layers)
-# (Mixtral at 1 layer since the MoE phases over ranks needed the script's time)
-PRETRAINED_SMALL = {"mixtral": ("8x7b", 1), "gptneox": ("20b", 2)}
-# pretrained-llama's depth: 4 of Llama-3-8B's 32 layers, ~3.8 GB as four
+# the two other families, cut to 1 layer: (preset, layers) (2 until the MoE
+# phases over ranks (Mixtral) and the spawn of 8 (GPT-NeoX-20B) needed the
+# script's time)
+PRETRAINED_SMALL = {"mixtral": ("8x7b", 1), "gptneox": ("20b", 1)}
+# pretrained-llama's depth: 2 of Llama-3-8B's 32 layers, ~3.0 GB as four
 # shards (all 32 until the tensor-parallel train phases, 16 until the MoE
-# phases over ranks, 8 until the batch-axes phases needed the script's time)
-PRETRAINED_LAYERS = 4
+# phases over ranks, 8 until the batch-axes phases, 4 until the spawn of 8
+# needed the script's time)
+PRETRAINED_LAYERS = 2
 
 
 def write_tokenizer_json(path: str, text: str = PRETRAINED_TEXT, n_merges: int = 300) -> str:
@@ -2711,13 +2745,13 @@ RING_VISIT_SHAPES = {
 # gradients not divided by the ranks, 1.14e-5 and 3 (PERF.md §6)
 RING_LOSS_RTOL = 1e-4
 RING_GRAD_NORM_RTOL = 5e-4
-# ring-neox's long run: 2 of Pythia-1.4B's 24 layers (all 24 until the
+# ring-neox's long run: 1 of Pythia-1.4B's 24 layers (all 24 until the
 # tensor-parallel train phases, 6 until the MoE phases over ranks, 4 until
-# the batch-axes phases needed the script's time)
-RING_NEOX_LAYERS = 2
-# ring-fsdp-neox's depth: 2 layers (4 until the MoE phases over ranks); 2
-# steps (3 until the batch-axes phases)
-RING_FSDP_LAYERS = 2
+# the batch-axes phases, 2 until the spawn of 8 needed the script's time)
+RING_NEOX_LAYERS = 1
+# ring-fsdp-neox's depth: 1 layer (4 until the MoE phases over ranks, 2
+# until the spawn of 8); 2 steps (3 until the batch-axes phases)
+RING_FSDP_LAYERS = 1
 # examples/train-gptneox-long-context.yaml's runtime block, cut to one card
 # as each comment says (the template itself is YAML, and the card's machine
 # need not have a YAML reader)
@@ -2870,23 +2904,21 @@ def check_ring_ops(label: str, shape: dict, results: list, seed: int) -> dict:
     return ratios
 
 
-def phase_ring_ops() -> dict:
-    """ring-ops: for each width, 2 ranks run the ring forward and backward
-    (launches per rank, errors against the references), then the visiting
-    block's kernels are held to their plain versions and timed on the card
-    alone (``check_kernels``; the library yardstick is SDPA at that shape:
+def plan_ring_ops():
+    """ring-ops (a plan of ``run_plans`` over RING_RANKS ranks): for each
+    width, the ranks run the ring forward and backward (launches per rank,
+    errors against the references), then the visiting block's kernels are
+    held to their plain versions and timed on the card alone
+    (``check_kernels``; the library yardstick is SDPA at that shape:
     non-causal, or with the window's mask)."""
     import torch
-
-    from nexus_tpu_torch.testing.dist import spawn
 
     out = {}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    t0 = time.monotonic()
     cases = [(shape, 100 + i) for i, shape in enumerate(RING_OPS_SHAPES.values())]
-    by_rank = spawn(ring_ops_rank, RING_RANKS, (cases,), backend="gloo")
-    log(f"[ring-ops] {RING_RANKS} ranks, wall {time.monotonic() - t0:.1f} s")
+    by_rank = [r["cases"] for r in
+               (yield {"ring-ops": {"rank_phase": "ring-ops", "cases": cases}})["ring-ops"]]
     for i, (label, shape) in enumerate(RING_OPS_SHAPES.items()):
         t0 = time.monotonic()
         results = [rank[i] for rank in by_rank]
@@ -2910,7 +2942,7 @@ def phase_ring_ops() -> dict:
         log(f"[ring-ops] {label} {shape}: launches per rank "
             f"{out[label]['launches_by_rank']} of each of K1-K3, error over limit {ratios}; "
             f"visiting block {visit}: max-abs {errs}, timings {times}")
-    return out
+    return {"ring-ops": out}
 
 
 def collective_time(numel: int, reps: int = 3) -> dict:
@@ -3391,16 +3423,16 @@ TP_DECODE_SHAPES = {
     "llama8b_tp8": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=4, Hkv=1),
     "neox20b_tp2": dict(NEOX_DECODE_SHAPE, Hq=32, Hkv=32),
 }
-# examples/infer-llama8b.yaml's runtime block at its published widths, 4 of
+# examples/infer-llama8b.yaml's runtime block at its published widths, 2 of
 # its 32 layers (all 32 until the tensor-parallel train phases, 8 until the
-# MoE phases over ranks needed the script's time); template: promptLength 128, maxNewTokens 512, 5
+# MoE phases over ranks, 4 until the spawn of 8 needed the script's time); template: promptLength 128, maxNewTokens 512, 5
 # iterations, an Orbax step of the 8B pretraining run; here the infer
 # phase's shape (8 rows, 512 + 64 tokens) with one timed iteration (~16 s at
 # 32 layers over gloo on one card) on the seed's random weights. Its
 # tensor: 8 re-plans to {tensor: 2} over 2 ranks (JAX's plan_for_devices)
 INFER_TP_SPEC = {
     "kind": "jax_xla", "mode": "infer",
-    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": 4}},
+    "model": {"family": "llama", "preset": "8b", "overrides": {"n_layers": 2}},
     "parallelism": {"tensor": 8},
     "train": {"batchSize": 8, "seed": 0},
     "infer": {"promptLength": 512, "maxNewTokens": 64, "iterations": 1, "temperature": 0.0},
@@ -3428,10 +3460,12 @@ TP_LOGIT_LIMITS = {"mixtral": 0.1}
 # GPT-NeoX-20B's depth in the logits over {tensor: 2}: 44 layers cut to
 # TP_NEOX_LAYERS (two ranks' blocks and caches on one card, and the
 # script's time: 22 until the batch-axes phases, 11 until the expert axis's)
-TP_NEOX_LAYERS = 6
-# Llama-3-8B's depth in the logits over ranks: 8 of 32 layers (all 32 until
-# the batch-axes phases, 16 until the expert axis's, needed the script's time)
-TP_LLAMA_LOGIT_LAYERS = 8
+# (6 until the spawn of 8's)
+TP_NEOX_LAYERS = 3
+# Llama-3-8B's depth in the logits over ranks: 4 of 32 layers (all 32 until
+# the batch-axes phases, 16 until the expert axis's, 8 until the spawn of
+# 8's needed the script's time)
+TP_LLAMA_LOGIT_LAYERS = 4
 # serve-tp-neox's depth: 3 layers (TP_NEOX_LAYERS until the tensor-parallel
 # train phases, 6 until the expert axis's phases needed the script's time)
 SERVE_TP_NEOX_LAYERS = 3
@@ -3492,9 +3526,9 @@ def serve_tp_spec(tensor: int = TP_RANKS) -> dict:
     return dict(spec, parallelism={"tensor": tensor})
 
 
-# serve-moe-tp's depth: 4 of Mixtral-8x7B's 32 layers (mixtral-serve's 16,
-# then 8, until the script's time asked for fewer)
-MOE_SERVE_LAYERS = 4
+# serve-moe-tp's depth: 2 of Mixtral-8x7B's 32 layers (mixtral-serve's 16,
+# then 8, then 4, until the script's time asked for fewer)
+MOE_SERVE_LAYERS = 2
 
 
 def moe_serve_spec(tensor: int = TP_RANKS, n_layers: int = MOE_SERVE_LAYERS) -> dict:
@@ -4017,14 +4051,15 @@ TP_KEYS = ("tokens_per_sec", "tokens_per_sec_per_chip", "ttft_p50_s", "ttft_p95_
            "decode_tokens_per_sec_per_chip", "iteration_seconds", "n_devices")
 
 
-def run_tp_phases(serve_run: dict) -> dict:
-    """tp-decode-kernel, then the one-card serve-tp and one spawn of
-    TP_RANKS ranks sharing the card over gloo for the teacher-forced logits,
-    infer-tp, serve-tp and serve-tp-neox: {phase: [each rank's metrics]},
-    with the D1 timings at the rank shapes under ``tp-decode-kernel``."""
+def plan_tp_phases(serve_run: dict):
+    """tp-decode-kernel, then (a plan of ``run_plans`` over TP_RANKS ranks,
+    ``plan_tp_ranks``) the teacher-forced logits, infer-tp, serve-tp,
+    serve-tp-neox and serve-moe-tp: {"tensor-parallel": {phase: [each
+    rank's metrics]}}, with the D1 timings at the rank shapes under
+    ``tp-decode-kernel``."""
     worst, decode_times = phase_tp_decode_kernel()
-    out = run_tp_ranks(["logits", "infer-tp", "serve-tp", "serve-tp-neox", "serve-moe-tp",
-                        "all-reduce"])
+    out = (yield from plan_tp_ranks(["logits", "infer-tp", "serve-tp", "serve-tp-neox",
+                                     "serve-moe-tp", "all-reduce"]))["tensor-parallel"]
     check_tp_infer("infer-tp", out["infer-tp"])
     check_tp_serve("serve-tp-neox", out["serve-tp-neox"],
                    rank_heads(serve_tp_neox_spec(), TP_RANKS))
@@ -4034,30 +4069,28 @@ def run_tp_phases(serve_run: dict) -> dict:
         f"{serve_run['tokens_per_sec']}, ttft_p50_s {serve_run.get('ttft_p50_s')} "
         f"({card_label()})")
     out["tp-decode-kernel"] = {"worst": worst, "times": decode_times}
-    return out
+    return {"tensor-parallel": out}
 
 
-def run_tp_ranks(phases: list, logit_names=None) -> dict:
+def plan_tp_ranks(phases: list, logit_names=None):
     """The one-rank logits (of the families ``logit_names``, all by
     default) and, with ``serve-tp`` among ``phases``, the one-card
-    serve-tp; then ``phases`` (``logits`` among them) on a spawn of
-    TP_RANKS ranks sharing the card over gloo, and the gates of the logits,
-    of serve-tp (with ``serve-tp-planted``'s token share when it ran) and
-    of serve-moe-tp: {phase: [each rank's metrics]}."""
-    from nexus_tpu_torch.testing.dist import spawn
-
+    serve-tp; then (a plan of ``run_plans`` over TP_RANKS ranks sharing the
+    card over gloo) ``phases`` (``logits`` among them) in ``tp_rank``, and
+    the gates of the logits, of serve-tp (with ``serve-tp-planted``'s token
+    share when it ran) and of serve-moe-tp: {"tensor-parallel": {phase:
+    [each rank's metrics]}}."""
     refs = tp_reference_logits(logit_names)
     one = (phase_serve("serve-tp-1card", serve_tp_spec(1), must_t=(1, 8))
            if "serve-tp" in phases else None)
     one_moe = (phase_serve("serve-moe-tp-1card", moe_serve_spec(1), must_t=(1, 8))
                if "serve-moe-tp" in phases else None)
     _free_card()
-    t0 = time.monotonic()
-    ranks = spawn(tp_rank, TP_RANKS, (phases, logit_names), threads=2)
-    log(f"[tp] {TP_RANKS} ranks, spawn wall {time.monotonic() - t0:.1f} s"
-        + ("; a layer's all-reduces over gloo (host-staged) by rank "
-           f"{[r['all-reduce'] for r in ranks]}" if "all-reduce" in phases else "")
-        + f" ({card_label()})")
+    ranks = (yield {"tensor-parallel": {"rank_phase": "tp", "phases": phases,
+                                        "logit_names": logit_names}})["tensor-parallel"]
+    if "all-reduce" in phases:
+        log("[tp] a layer's all-reduces over gloo (host-staged) by rank "
+            f"{[r['all-reduce'] for r in ranks]} ({card_label()})")
     out = {name: [r[name] for r in ranks] for name in phases if name != "logits"}
     out["logits-tp"] = check_tp_logits(refs, ranks)
     if "serve-tp" in phases:
@@ -4074,7 +4107,13 @@ def run_tp_ranks(phases: list, logit_names=None) -> dict:
             f"{one_moe['tokens_per_sec']}; peak GB by rank "
             f"{[round(r['peak_mem_gb'], 2) for r in out['serve-moe-tp']]}, one card "
             f"{one_moe['peak_mem_gb']:.2f} ({card_label()})")
-    return out
+    return {"tensor-parallel": out}
+
+
+def run_tp_ranks(phases: list, logit_names=None) -> dict:
+    """``plan_tp_ranks`` in a spawn of its own: {phase: [each rank's
+    metrics]}."""
+    return run_plans(TP_RANKS, [plan_tp_ranks(phases, logit_names)])["tensor-parallel"]
 
 
 def run_tp_gates() -> int:
@@ -4205,15 +4244,16 @@ TRAIN_TP = {
     # (train-tp-fsdp-neox saves and resumes)
     "checkpoint": {"enabled": False},
 }
-# Pythia-1.4B widths (preset 1b: d 2048, 16 heads, d_ff 8192, V 50304) at 2
-# of its 24 layers over {fsdp: 2, tensor: 2}, 4 rows of 2048 (two a batch
+# Pythia-1.4B widths (preset 1b: d 2048, 16 heads, d_ff 8192, V 50304) at 1
+# of its 24 layers (2 until the spawn of 8 needed the script's time: 12.6 +
+# 15.1 s of the spawn of 4's rank 0) over {fsdp: 2, tensor: 2}, 4 rows of 2048 (two a batch
 # rank), dense loss, no remat; an Orbax step saved after TP_NEOX_SAVED steps
 # and resumed for one more
-# (4 until the fsdp phase needed the script's time)
-TP_NEOX_SAVED = 2
+# (4 until the fsdp phase, 2 until the spawn of 8 needed the script's time)
+TP_NEOX_SAVED = 1
 TP_NEOX = {
     "kind": "jax_xla", "mode": "train",
-    "model": {"family": "gptneox", "preset": "1b", "overrides": {"n_layers": 2}},
+    "model": {"family": "gptneox", "preset": "1b", "overrides": {"n_layers": 1}},
     "parallelism": {"fsdp": 2, "tensor": 2},
     "train": {"batchSize": 4, "seqLen": 2048, "steps": 4, "learningRate": 3.0e-4,
               "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
@@ -4392,9 +4432,15 @@ def train_tp_rank(specs: list, profile: bool = False) -> list:
         spec = dict(spec)
         record = spec.pop("record_saves", False)
         numel = spec.pop("collective_numel", 0)
-        with planted_train_fault(spec.pop("planted", None)):
+        planted = spec.pop("planted", None)
+        fault = (planted_span(planted) if planted in UNTILED_TRAIN_FAULTS
+                 else planted_train_fault(planted))
+        norms = span_grad_norms() if spec.pop("span_norms", False) else contextlib.nullcontext()
+        with fault, norms as seen:
             out += train_rank([spec], record_saves=record, collective_numel=numel,
                               profile=profile)
+        if seen is not None:
+            out[-1]["span_norms"] = list(seen)
     return out
 
 
@@ -4414,13 +4460,18 @@ def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -
     by_rank = spawn(train_tp_rank, world, (list(specs.values()), backend == "nccl"),
                     backend=backend, threads=2)
     wall = time.monotonic() - t0
-    log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s ({card_label()})")
+    log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s; rank 0's seconds by "
+        "run " + json.dumps({run: round(rank0.get("phase_wall_s", 0.0), 1) for run, rank0 in
+                             zip(specs, by_rank[0])}) + f" ({card_label()})")
     out = {}
     for i, (run, spec) in enumerate(specs.items()):
         runs = [rank[i] for rank in by_rank]
         if "planted" not in spec and "rank_phase" not in spec:
-            mlp = spec["model"].get("family") == "mlp"
-            runs = check_rank_runs(run, runs, kernels=() if mlp else None)
+            # the MLP, and a model whose head dim the flash kernels do not
+            # take (the tiny presets': the dense path), launch none
+            dense = (spec["model"].get("family") == "mlp"
+                     or _model_config(spec).head_dim not in (64, 128))
+            runs = check_rank_runs(run, runs, kernels=() if dense else None)
         out[run] = runs
         out[run][0]["spawn_wall_s"] = wall
     return out
@@ -4628,7 +4679,8 @@ def run_train_tp_over_nccl() -> int:
 # ------------------------- parameters sharded over fsdp (module item 4e)
 #
 # examples/train-llama8b-fsdp.yaml at its published widths (TRAIN_TP's cuts:
-# 2 of its 32 layers, 3 steps, warmup 2000 -> 1, synthetic data) with its
+# 3 steps, warmup 2000 -> 1, synthetic data; TRAIN_FSDP_LAYERS of its 32
+# layers) with its
 # parallelism declared {fsdp: 4}: the template's own fsdp axis at 4 ranks (a
 # re-plan of its 64-chip {data 2, fsdp 16, tensor 2} would give {tensor:
 # 4}), 4 rows of 2048 (one a rank). Each rank holds its block of every leaf
@@ -4642,24 +4694,33 @@ FSDP_PLAN = {"fsdp": FSDP_RANKS}
 # consistently: with the norms' weights equal (ones at init) the rolled
 # model computes the same function, and each rank's update lands on its
 # neighbour's block. So the loss moves only once a wrong update has been
-# applied: at step 3 (warmup 1: step 1's learning rate is 0)
-FSDP_FAULTS = {"rolled_join": 3, "own_grad": TP_FAULT_STEPS}
-# ...at 1 of the 2 layers and rows of 512, against the same on one card: a
+# applied: at step 2 with warmup 0, where step 1's update lands (3 steps at
+# warmup 1, whose step 1 has a learning rate of 0, until the spawn of 8
+# needed the script's time: 43.6 s of the spawn of 4's rank 0)
+FSDP_FAULTS = {"rolled_join": 2, "own_grad": TP_FAULT_STEPS}
+# ...at 1 layer, rows of 512 and warmup 0, against the same on one card: a
 # gloo step costs what it moves through host memory, and the embedding and
 # head (1.05 GB each, whole) are most of it
-FSDP_FAULT_SHAPE = {"n_layers": 1, "seq_len": 512}
+FSDP_FAULT_SHAPE = {"n_layers": 1, "seq_len": 512, "warmup": 0}
+# train-fsdp's depth: 1 of the template's 32 layers, and 2 steps at warmup
+# 0, so that its second step reads the first's update (2 layers and
+# TRAIN_TP's 3 steps at warmup 1 until the spawn of 8 needed the script's
+# time: 67.4 s of the spawn of 4's rank 0, at 22.5 s a gloo step)
+TRAIN_FSDP_LAYERS = 1
+TRAIN_FSDP_STEPS = 2
 # each rank's bytes on its card between steps against its blocks of the
 # parameters and moments reckoned from the leaf shapes (the rest: the
 # prefetched batches and the libraries' workspaces)
 RESIDENT_RTOL = 0.05
 
 
-def train_fsdp_spec(steps: int = 3, planted: Optional[str] = None, n_layers: int = 2,
-                    seq_len: int = 2048) -> dict:
+def train_fsdp_spec(steps: int = 3, planted: Optional[str] = None,
+                    n_layers: int = TRAIN_FSDP_LAYERS, seq_len: int = 2048,
+                    warmup: int = 1) -> dict:
     spec = train_tp_spec(steps, planted)
     spec["parallelism"] = dict(FSDP_PLAN)
     spec["model"]["overrides"]["n_layers"] = n_layers
-    spec["train"].update(batchSize=FSDP_RANKS, seqLen=seq_len)
+    spec["train"].update(batchSize=FSDP_RANKS, seqLen=seq_len, warmupSteps=warmup)
     return spec
 
 
@@ -4693,9 +4754,9 @@ def plan_train_fsdp():
     of the same spec on one card (train-fsdp-1card), each rank's resident
     bytes within RESIDENT_RTOL of its reckoned blocks, FSDP_FAULTS (at
     FSDP_FAULT_SHAPE) past the limits, K1-K3 on every rank."""
-    single = _single_rank("train-fsdp-1card", train_fsdp_spec())
+    single = _single_rank("train-fsdp-1card", train_fsdp_spec(TRAIN_FSDP_STEPS, warmup=0))
     fault_ref = _single_rank("train-fsdp-faults-1card", train_fsdp_spec(**FSDP_FAULT_SHAPE))
-    specs = {"train-fsdp": train_fsdp_spec()}
+    specs = {"train-fsdp": train_fsdp_spec(TRAIN_FSDP_STEPS, warmup=0)}
     specs.update({f"train-fsdp-{f}": train_fsdp_spec(steps, planted=f, **FSDP_FAULT_SHAPE)
                   for f, steps in FSDP_FAULTS.items()})
     runs = yield specs
@@ -5115,7 +5176,8 @@ def run_moe_gates() -> int:
         "moe_kernel_worst": worst, "moe_kernel_timings": times,
         "moe_train": train_tp_summary(mt), "logits_error_over_limit": tp["logits-tp"],
         "serve_moe_tp": [{k: r.get(k) for k in TP_KEYS if k in r} for r in tp["serve-moe-tp"]],
-        "moe_ep": batch_axes_summary(ep), "phase_seconds": PHASE_SECONDS}))
+        "moe_ep": batch_axes_summary(ep),
+        "untiled": untiled_summary(ut), "phase_seconds": PHASE_SECONDS}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
     return 0
@@ -5175,8 +5237,8 @@ def run_moe_over_nccl() -> int:
 # maxNewTokens 512, 5 iterations, an Orbax step of the 8B run; here {data:
 # 2, tensor: 2} (rows over data as JAX's cache layout puts them, heads over
 # tensor), its prompt length, 64 new tokens, one timed iteration, the seed's
-# random weights
-BATCH_AXES_LAYERS = 4
+# random weights (4 layers until the spawn of 8 needed the script's time)
+BATCH_AXES_LAYERS = 2
 DP_TP_PLAN = {"data": 2, "tensor": 2}
 INFER_DP_TP = {
     "kind": "jax_xla", "mode": "infer",
@@ -5188,12 +5250,13 @@ INFER_DP_TP = {
 # serve-fsdp-tp: the serve queue (serve-llama8b.yaml's model at its published
 # widths; template: 32 layers from HF safetensors, 16 rows, 256 requests
 # streamed as a Poisson trace over 4 replicas with prompt lookup and a host
-# tier) cut to BATCH_AXES_LAYERS layers and 8 requests, over {fsdp: 2,
+# tier) cut to BATCH_AXES_LAYERS layers and 4 requests (8 until the spawn of
+# 8 needed the script's time), over {fsdp: 2,
 # tensor: 2}: JAX's plan for 16 chips ({tensor: 8, fsdp: 2},
 # ``plan_for_devices``) at 4 ranks. The fsdp ranks are replicas of one
 # engine in lockstep (JAX's paged pool has no batch sharding)
 FSDP_TP_PLAN = {"fsdp": 2, "tensor": 2}
-SERVE_FSDP_TP_REQUESTS = 8
+SERVE_FSDP_TP_REQUESTS = 4
 # the teacher-forced logits of infer-dp-tp's whole prompt (8 rows of 128),
 # each rank feeding its rows: the last DP_LOGIT_POSITIONS positions of every
 # row, gathered in row order, against one card's
@@ -5209,6 +5272,10 @@ DP_ROW_FAULTS = ("rows_reversed", "peer_rows")
 # near uniform, and the first step's grad norm moves by 1.7x the limit alone)
 RING_TP_PLAN = {"sequence": 2, "tensor": 2}
 RING_TP_FAULTS = ("world_ring",)
+# train-ring-tp's and train-moe-ring-tp's steps (3 and 2 until the spawn of 8
+# needed the script's time)
+RING_TP_STEPS = 2
+MOE_RING_TP_STEPS = 1
 RING_TP_FAULT_STEPS = 2
 # train-moe-ring-tp: MOE_TRAIN at 1 layer, one row of 4096 over {sequence:
 # 2, tensor: 2}, 2 steps, routing over the global tokens, against one card
@@ -5238,14 +5305,14 @@ def serve_fsdp_tp_spec(parallelism: Optional[dict] = None) -> dict:
     return dict(spec, parallelism=dict(FSDP_TP_PLAN if parallelism is None else parallelism))
 
 
-def ring_tp_spec(steps: int = 3, planted: Optional[str] = None) -> dict:
+def ring_tp_spec(steps: int = RING_TP_STEPS, planted: Optional[str] = None) -> dict:
     spec = long_context_spec(n_layers=2, steps=steps, parallelism=dict(RING_TP_PLAN))
     if planted:
         spec["planted"] = planted
     return spec
 
 
-def moe_ring_tp_spec(steps: int = 2, planted: Optional[str] = None) -> dict:
+def moe_ring_tp_spec(steps: int = MOE_RING_TP_STEPS, planted: Optional[str] = None) -> dict:
     spec = moe_train_spec(steps, planted)
     spec["model"]["overrides"]["n_layers"] = 1
     spec["parallelism"] = dict(RING_TP_PLAN)
@@ -5391,8 +5458,18 @@ def batch_axes_rank(spec: dict) -> dict:
     """One rank's run of a batch-axes or expert-axis phase
     (``spec["rank_phase"]``): ``dp-logits`` (``_dp_logits_rank``),
     ``moe-ep-logits`` (``_moe_ep_logits_rank``), ``entry`` (``_tp_run`` of
-    ``spec["spec"]``) or ``diverged`` (``_diverged_serve``)."""
+    ``spec["spec"]``), ``diverged`` (``_diverged_serve``),
+    ``untiled-logits`` (``_untiled_logits_rank``), ``tp`` (``tp_rank`` of
+    ``spec["phases"]``) or ``ring-ops`` (``ring_ops_rank`` of
+    ``spec["cases"]``)."""
     _rank_device()
+    t0 = time.monotonic()
+    out = _rank_phase(spec)
+    out.setdefault("phase_wall_s", time.monotonic() - t0)
+    return out
+
+
+def _rank_phase(spec: dict) -> dict:
     phase = spec["rank_phase"]
     if phase == "dp-logits":
         return _dp_logits_rank(spec["plan"])
@@ -5402,6 +5479,12 @@ def batch_axes_rank(spec: dict) -> dict:
         return _tp_run(spec["spec"])
     if phase == "diverged":
         return _diverged_serve(spec["spec"], spec["bad_rank"])
+    if phase == "untiled-logits":
+        return _untiled_logits_rank()
+    if phase == "tp":
+        return tp_rank(spec["phases"], spec["logit_names"])
+    if phase == "ring-ops":
+        return {"cases": ring_ops_rank(spec["cases"])}
     raise ValueError(f"unknown batch-axes phase {phase!r}")
 
 
@@ -5628,6 +5711,7 @@ def run_batch_axes_gates() -> int:
                                    "ring_tp_kernel_timings": times,
                                    "batch_axes": batch_axes_summary(ba),
         "moe_ep": batch_axes_summary(ep),
+        "untiled": untiled_summary(ut),
                                    "phase_seconds": PHASE_SECONDS}))
     log(f"[total] wall {time.monotonic() - started:.1f} s")
     _print_device_lines(torch)
@@ -6068,6 +6152,443 @@ def run_fsdp_over_nccl() -> int:
     return 0
 
 
+# ------------------------------------------------------------------
+# heads that do not tile the tensor axis (module item 4b, part four)
+
+UNTILED_RANKS = 8
+UNTILED_PLAN = {"tensor": UNTILED_RANKS}
+# Pythia-160M (GPT-NeoX preset 160m: d 768, 12 heads of 64, d_ff 3072, V
+# 50304) at UNTILED_LAYERS of its 12 layers: over {tensor: 8}, the plan any
+# 8 ranks get from plan_for_devices, a rank holds 96 of each third's 768
+# columns (one and a half heads) and attends the 2 heads they touch (4,
+# then 2 layers until the script's time asked for fewer: the spawn of 8
+# took 158.8 s at 4, 80.4–103.8 s at 2, untiled-serve 46.2 and 25.1–30.5 s
+# of it, every layer two gloo collectives a decode step over 8 ranks)
+UNTILED_LAYERS = 1
+UNTILED_MODEL = {"family": "gptneox", "preset": "160m",
+                 "overrides": {"n_layers": UNTILED_LAYERS}}
+# untiled-train: one row of 2048 (a multiple of 64 and >= 128, so that K1-K3
+# run at the span's 2 heads), 3 steps, warmup 1 so that the steps move the
+# weights; synthetic data
+UNTILED_TRAIN = {
+    "kind": "jax_xla", "mode": "train", "model": UNTILED_MODEL,
+    "parallelism": dict(UNTILED_PLAN),
+    "train": {"batchSize": 1, "seqLen": 2048, "steps": 3, "learningRate": 3.0e-4,
+              "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
+    "data": {"prefetch": 2},
+}
+# untiled-infer: 8 rows, a prompt of 128 and 32 greedy new tokens; its
+# teacher-forced logits: the first UNTILED_LOGIT_LEN tokens of a fixed row
+# in one feed (a dense cache at the rank's kv span)
+UNTILED_INFER = {
+    "kind": "jax_xla", "mode": "infer", "model": UNTILED_MODEL,
+    "parallelism": dict(UNTILED_PLAN), "train": {"batchSize": 8, "seed": 0},
+    "infer": {"promptLength": 128, "maxNewTokens": 32, "iterations": 1, "temperature": 0.0},
+}
+UNTILED_LOGIT_LEN = 128 + 32
+# untiled-serve: the serve queue's first 4 requests through the paged pool
+UNTILED_SERVE_REQUESTS = 4
+# the planted faults: ``span_offset`` slices a rank's own columns of the
+# span's attention output from the span's first column (its offset
+# dropped), which the logit limit must catch; ``gather_grad_block`` keeps the
+# rank's block of its own gradient in the span gather's backward (no sum
+# over the group), which the grad-norm limit must catch at step 1
+UNTILED_LOGIT_FAULTS = ("span_offset",)
+UNTILED_TRAIN_FAULTS = ("gather_grad_block",)
+# the leaves whose gradient the span gather carries back: GPT-NeoX's fused
+# wqkv and b_qkv (their places in models/gptneox.py::leaves). The whole
+# gradient's norm hides a fault there (the embedding and lm_head carry most
+# of it: a CPU rehearsal at Pythia-160M's widths read gather_grad_block at
+# 0.43 of the grad-norm limit), so untiled-train holds the norm of these
+# leaves' gradient to the grad-norm limit too, every step, and the fault
+# past it at step 1
+SPAN_LEAVES = (1, 2)
+# untiled-gqa: the tiny Llama (4 q / 2 kv heads of 16) over {tensor: 8}, a
+# rank's q and kv columns both under a head (half a q head, a quarter of a
+# kv head), its kv span the kv head its q head reads: a train run in
+# float32 (the dense path, D 16) and a serve run in bf16 (D1 at 1 / 1 heads
+# of 16), each against the same spec on one card
+GQA_MODEL = {"family": "llama", "preset": "tiny"}
+GQA_TRAIN = {
+    "kind": "jax_xla", "mode": "train",
+    "model": dict(GQA_MODEL, overrides={"dtype": "float32"}),
+    "parallelism": dict(UNTILED_PLAN),
+    "train": {"batchSize": 8, "seqLen": 256, "steps": 3, "learningRate": 3.0e-3,
+              "warmupSteps": 1, "weightDecay": 0.1, "seed": 0},
+}
+GQA_SERVE = {
+    "kind": "jax_xla", "mode": "serve", "model": GQA_MODEL, "parallelism": dict(UNTILED_PLAN),
+    "train": {"batchSize": 4, "seed": 0},
+    # 4 requests (8 until the script's time asked for fewer)
+    "serve": {"numRequests": 4, "promptLengthMin": 24, "promptLengthMax": 64,
+              "sharedPrefixLength": 16, "maxNewMin": 16, "maxNewMax": 32, "chunk": 8,
+              "prefillChunk": 8, "kvBlockSize": 16, "attentionPath": "fused",
+              "prefixCache": True},
+}
+UNTILED_PHASES = ("untiled-train", "untiled-infer", "untiled-serve", "untiled-gqa")
+# K1-K3 and D1 at the span shapes: Pythia-160M over {tensor: 8} (2 / 2 heads
+# of 64, untiled-train's row of 2048) and Llama-3-8B over {tensor: 16} (2 q
+# heads and the kv head they read, of 128, at train-tp's tp 4 row shape: one
+# row of 4096), D1 at both on the serve queue's depths (Llama-3-8B over 16
+# ranks is not run end to end)
+UNTILED_TRAIN_SHAPES = {
+    "pythia160m_tp8": dict(PYTHIA_SHAPE, B=1, Hq=2, Hkv=2, D=64),
+    "llama8b_tp16": dict(MAIN_SHAPE, B=1, Hq=2, Hkv=1),
+}
+UNTILED_DECODE_SHAPES = {
+    "pythia160m_tp8": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=2, Hkv=2, D=64),
+    "llama8b_tp16": dict(DECODE_SERVE_QUEUE_SHAPE, Hq=2, Hkv=1),
+}
+
+
+def untiled_train_spec(steps: int = 3, planted: Optional[str] = None) -> dict:
+    import copy
+
+    spec = copy.deepcopy(UNTILED_TRAIN)
+    spec["train"]["steps"] = steps
+    if planted:
+        spec["planted"] = planted
+    return spec
+
+
+def untiled_serve_spec(parallelism: Optional[dict] = None) -> dict:
+    spec = _serve_spec(num_requests=UNTILED_SERVE_REQUESTS)
+    return dict(spec, model=UNTILED_MODEL,
+                parallelism=dict(UNTILED_PLAN if parallelism is None else parallelism))
+
+
+def span_heads(spec: dict, ranks: int) -> tuple:
+    """(q heads, kv heads, head dim) every one of ``ranks`` tensor ranks of
+    ``spec``'s model attends (the spans of parallel/tensor.py::rank_heads),
+    raising when the ranks' spans differ in size."""
+    from nexus_tpu_torch.parallel.tensor import rank_heads
+
+    cfg = _model_config(dict(spec, model=dict({"overrides": {}}, **spec["model"])))
+    seen = {(h.q_heads, h.kv_heads) for h in (
+        rank_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, r, ranks) for r in range(ranks))}
+    if len(seen) != 1:
+        raise AssertionError(f"the ranks' spans differ: {seen}")
+    return (*seen.pop(), cfg.head_dim)
+
+
+@contextlib.contextmanager
+def planted_span(fault: Optional[str]):
+    """One of UNTILED_LOGIT_FAULTS or UNTILED_TRAIN_FAULTS for a block
+    (parallel/tensor.py's attributes patched in this process, never the
+    repo)."""
+    import torch
+    import torch.distributed as dist
+
+    from nexus_tpu_torch.parallel import tensor as T
+
+    own, backward = T.RankHeads.own, T._SpanGather.backward
+
+    def from_span_start(self, out):
+        flat = out.reshape(*out.shape[:2], -1)
+        return flat[..., :self.q_cols] if self.gather_q else flat
+
+    def own_block(ctx, g):  # the rank's block of its own gradient, no sum
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        parts = g.split([n * w for w in ctx.widths], dim=-1)
+        mine = [p.unflatten(-1, (n, w)).select(-2, r) for p, w in zip(parts, ctx.widths)]
+        return torch.cat(mine, dim=-1).contiguous(), None, None
+
+    if fault == "span_offset":
+        T.RankHeads.own = from_span_start
+    elif fault == "gather_grad_block":
+        T._SpanGather.backward = staticmethod(own_block)
+    elif fault not in (None, "clean"):
+        raise ValueError(f"unknown planted fault {fault!r}")
+    try:
+        yield
+    finally:
+        T.RankHeads.own, T._SpanGather.backward = own, staticmethod(backward)
+
+
+@contextlib.contextmanager
+def span_grad_norms():
+    """While open, each train step's norm of the gradient of SPAN_LEAVES
+    lands in the yielded list: over the ranks as ``sharded_norm`` takes
+    the whole gradient's (one collective), on one card the plain norm;
+    floats once it closes."""
+    import torch
+
+    from nexus_tpu_torch.train import trainer as Tr
+
+    seen, norm, update = [], Tr.sharded_norm, Tr.AdamW.update
+
+    def ranked(blocks, copies, mesh):
+        seen.append(norm([blocks[i] for i in SPAN_LEAVES],
+                         copies and [copies[i] for i in SPAN_LEAVES], mesh))
+        return norm(blocks, copies, mesh)
+
+    def single(self, params, grads, opt_state, norm=None):
+        if norm is None:
+            seen.append(torch.sqrt(sum(grads[i].float().square().sum() for i in SPAN_LEAVES)))
+        return update(self, params, grads, opt_state, norm=norm)
+
+    Tr.sharded_norm, Tr.AdamW.update = ranked, single
+    try:
+        yield seen
+    finally:
+        Tr.sharded_norm, Tr.AdamW.update = norm, update
+        seen[:] = [float(x) for x in seen]
+
+
+def check_span_norms(name: str, ranked: dict, single: dict, faults: dict) -> dict:
+    """Every step's SPAN_LEAVES gradient norm over the ranks within
+    TP_TRAIN_NORM_RTOL of one card's, and each planted fault's past it at
+    its steps: {"clean": worst difference, fault: worst over the limit}."""
+    def worst(run):
+        a, b = run["span_norms"], single["span_norms"][:len(run["span_norms"])]
+        if not a or len(a) != len(b):
+            raise AssertionError(f"{name}: span norms of unlike length: {a} vs {b}")
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    out = {"clean": worst(ranked)}
+    out.update({f: worst(run) / TP_TRAIN_NORM_RTOL for f, run in faults.items()})
+    log(f"[{name}] the gradient norm of the leaves the span gather carries (wqkv, b_qkv) a "
+        f"step over ranks {ranked['span_norms']} vs one card {single['span_norms']}: worst "
+        f"difference {out['clean']}, the planted faults' over the limit "
+        f"{ {f: out[f] for f in faults} } (limit {TP_TRAIN_NORM_RTOL}; each fault must "
+        f"exceed 1; {card_label()})")
+    if not out["clean"] <= TP_TRAIN_NORM_RTOL:
+        raise AssertionError(f"{name}: span gradient norms over ranks {out['clean']}, limit "
+                             f"{TP_TRAIN_NORM_RTOL}")
+    passed = [f for f in faults if not out[f] > 1.0]
+    if passed:
+        raise AssertionError(f"{name}: the planted faults pass the limit: {passed} ({out})")
+    return out
+
+
+def untiled_prompt(vocab: int):
+    """The teacher-forced row of untiled-infer's logits."""
+    import numpy as np
+    import torch
+
+    ids = np.random.RandomState(20).randint(0, vocab, size=(1, UNTILED_LOGIT_LEN))
+    return torch.as_tensor(ids, dtype=torch.int32, device="cuda")
+
+
+def untiled_reference_logits():
+    """One card's teacher-forced logits of untiled_prompt (untiled-infer's
+    model and seed), on the host."""
+    import torch
+
+    from nexus_tpu_torch.models import gptneox
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    _free_card()
+    cfg = _model_config(UNTILED_INFER)
+    params = E._decode_params(gptneox, cfg, torch.device("cuda"), UNTILED_INFER["train"]["seed"])
+    out = _teacher_forced(gptneox, params, cfg, untiled_prompt(cfg.vocab_size))
+    del params
+    _free_card()
+    return out
+
+
+def _untiled_logits_rank() -> dict:
+    """This rank's teacher-forced logits of untiled_prompt over {tensor: 8},
+    clean and under each of UNTILED_LOGIT_FAULTS (rank 0 returns them,
+    every rank a checksum of the clean ones), and the heads of its span."""
+    import torch
+
+    from nexus_tpu_torch.models import gptneox
+    from nexus_tpu_torch.models.decoding import local_heads
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, build_mesh, use_mesh
+    from nexus_tpu_torch.parallel.sharding import model_shard
+    from nexus_tpu_torch.runtime import entrypoints as E
+
+    mesh = build_mesh(MeshPlan(**UNTILED_PLAN))
+    cfg = _model_config(UNTILED_INFER)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    with use_mesh(mesh):
+        params = E._decode_params(gptneox, cfg, dev, UNTILED_INFER["train"]["seed"],
+                                  model_shard(mesh))
+        heads = local_heads(params, cfg)
+        tokens = untiled_prompt(cfg.vocab_size).to(dev)
+        for fault in ("clean",) + UNTILED_LOGIT_FAULTS:
+            with planted_span(fault):
+                out[fault] = _teacher_forced(gptneox, params, cfg, tokens)
+    del params
+    _free_card()
+    return {"logits": out if mesh.rank == 0 else None, "heads": heads,
+            "checksum": float(out["clean"].double().sum())}
+
+
+def check_untiled_logits(ref, ranks: list) -> dict:
+    """untiled-infer's teacher-forced logits over the ranks within
+    TP_LOGIT_LIMIT of one card's, the same on every rank, every rank at its
+    span's 2 / 2 heads, and each of UNTILED_LOGIT_FAULTS past the limit:
+    {fault: error over the limit}."""
+    sums = [r["checksum"] for r in ranks]
+    if any(x != sums[0] for x in sums):
+        raise AssertionError(f"untiled-infer: the ranks' logits differ (checksums {sums})")
+    heads = [tuple(r["heads"]) for r in ranks]
+    want = span_heads(UNTILED_INFER, UNTILED_RANKS)[:2]
+    if any(h != want for h in heads):
+        raise AssertionError(f"untiled-infer: the ranks attend {heads}, not their spans' {want}")
+    errs = {fault: float((x - ref).abs().max() / ref.abs().max())
+            for fault, x in ranks[0]["logits"].items()}
+    log(f"[untiled-infer] teacher-forced logits of {UNTILED_LOGIT_LEN} tokens over "
+        f"{UNTILED_PLAN}, max |over ranks - one card| / max |one card| by fault: {errs}; heads "
+        f"by rank {heads} (limit {TP_LOGIT_LIMIT}; the planted faults must exceed it; "
+        f"{card_label()})")
+    if not errs["clean"] <= TP_LOGIT_LIMIT:
+        raise AssertionError(f"untiled-infer: logits over ranks {errs['clean']}, limit "
+                             f"{TP_LOGIT_LIMIT}")
+    passed = [f for f in UNTILED_LOGIT_FAULTS if errs[f] <= TP_LOGIT_LIMIT]
+    if passed:
+        raise AssertionError(f"untiled-infer: the planted faults pass the limit: {passed} "
+                             f"({errs})")
+    return {f: v / TP_LOGIT_LIMIT for f, v in errs.items()}
+
+
+def plan_untiled():
+    """untiled-train, untiled-infer and untiled-serve (a plan of ``run_plans``
+    over UNTILED_RANKS ranks): Pythia-160M over {tensor: 8} against the same
+    specs on one card: every train step within the tensor limits and
+    UNTILED_TRAIN_FAULTS past them, K1-K3 on every rank; the teacher-forced
+    logits within TP_LOGIT_LIMIT and UNTILED_LOGIT_FAULTS past it, the
+    infer's ids the same on every rank; the serve gates with D1 at the
+    span's heads on every rank and the token share against one card."""
+    with span_grad_norms() as seen:
+        single = _single_rank("untiled-train-1card", untiled_train_spec())
+    single["span_norms"] = seen
+    ref = untiled_reference_logits()
+    one_infer = phase_infer(dict(UNTILED_INFER, parallelism={}), "untiled-infer-1card")
+    one_serve = phase_serve("untiled-serve-1card", untiled_serve_spec({}), must_t=(1, 8))
+    specs = {"untiled-train": dict(untiled_train_spec(), span_norms=True)}
+    specs.update({f"untiled-train-{f}": dict(untiled_train_spec(TP_FAULT_STEPS, planted=f),
+                                             span_norms=True)
+                  for f in UNTILED_TRAIN_FAULTS})
+    specs.update({"untiled-infer-logits": {"rank_phase": "untiled-logits"},
+                  "untiled-infer": {"rank_phase": "entry", "spec": UNTILED_INFER},
+                  "untiled-serve": {"rank_phase": "entry", "spec": untiled_serve_spec()}})
+    runs = yield specs
+    ranked = runs["untiled-train"]
+    faults = {f: runs[f"untiled-train-{f}"][0] for f in UNTILED_TRAIN_FAULTS}
+    gates = check_train_tp("untiled-train", ranked[0], single, {})
+    gates["span_norms"] = check_span_norms("untiled-train", ranked[0], single, faults)
+    for f, run in faults.items():  # the whole gradient's norm, for information
+        gates[f] = {k: v / lim for (k, v), lim in zip(
+            step_differences(run, single).items(), (TP_TRAIN_LOSS_RTOL, TP_TRAIN_NORM_RTOL))}
+    log(f"[untiled-train] tokens_per_sec {ranked[0]['tokens_per_sec']} over {UNTILED_RANKS} "
+        f"ranks (gloo), one card {single['tokens_per_sec']}; K1-K3 launches by rank "
+        f"{[r['launches'] for r in ranked]}, peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranked]} ({card_label()})")
+    logits = check_untiled_logits(ref, runs["untiled-infer-logits"])
+    ids = check_batch_infer("untiled-infer", runs["untiled-infer"], one_infer, UNTILED_INFER)
+    serve = runs["untiled-serve"]
+    check_batch_serve("untiled-serve", serve, span_heads(untiled_serve_spec(), UNTILED_RANKS))
+    share = check_tp_share("untiled-serve", one_serve, serve[0])
+    log(f"[untiled-serve] tokens_per_sec {serve[0]['tokens_per_sec']} over {UNTILED_RANKS} ranks "
+        f"(gloo; per chip {serve[0]['tokens_per_sec_per_chip']}), one card "
+        f"{one_serve['tokens_per_sec']}; peak GB by rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in serve]} ({card_label()})")
+    return {"untiled-train": ranked[0], "untiled-train-1card": single,
+            "untiled-train-gates": gates,
+            "untiled-train-by_rank": {"launches": [r["launches"] for r in ranked],
+                                      "peak_mem_gb": [r["peak_mem_gb"] for r in ranked]},
+            "untiled-infer-logits": logits, "untiled-infer-ids": ids,
+            "untiled-infer": runs["untiled-infer"], "untiled-infer-1card": one_infer,
+            "untiled-serve": serve, "untiled-serve-1card": one_serve,
+            "untiled-serve-share": share}
+
+
+def plan_untiled_gqa():
+    """untiled-gqa (a plan of ``run_plans`` over UNTILED_RANKS ranks): the
+    tiny Llama over {tensor: 8}, its q and kv columns both under a head:
+    every train step within the tensor limits of one card's, and the serve
+    gates with D1 at the spans' heads on every rank and the token share
+    against one card."""
+    single = _single_rank("untiled-gqa-train-1card", dict(GQA_TRAIN, parallelism={}),
+                          kernels=())
+    one_serve = phase_serve("untiled-gqa-serve-1card", dict(GQA_SERVE, parallelism={}),
+                            must_t=(1, 8))
+    runs = yield {"untiled-gqa-train": GQA_TRAIN,
+                  "untiled-gqa-serve": {"rank_phase": "entry", "spec": GQA_SERVE}}
+    gates = check_train_tp("untiled-gqa", runs["untiled-gqa-train"][0], single, {})
+    serve = runs["untiled-gqa-serve"]
+    check_batch_serve("untiled-gqa-serve", serve, span_heads(GQA_SERVE, UNTILED_RANKS))
+    share = check_tp_share("untiled-gqa-serve", one_serve, serve[0])
+    return {"untiled-gqa-train": runs["untiled-gqa-train"][0],
+            "untiled-gqa-train-1card": single, "untiled-gqa-gates": gates,
+            "untiled-gqa-train-by_rank": {
+                "launches": [r["launches"] for r in runs["untiled-gqa-train"]],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in runs["untiled-gqa-train"]]},
+            "untiled-gqa-serve": serve, "untiled-gqa-serve-1card": one_serve,
+            "untiled-gqa-serve-share": share}
+
+
+def untiled_plans() -> list:
+    """The phases of the spawn of 8: untiled-train, -infer, -serve and -gqa."""
+    return [plan_untiled(), plan_untiled_gqa()]
+
+
+def untiled_launches(ut: dict, name: str) -> dict:
+    """Kernel ``name``'s launches per rank in each phase of the spawn of 8."""
+    out = {phase: [by[name] for by in ut[f"{phase}-by_rank"]["launches"]]
+           for phase in ("untiled-train", "untiled-gqa-train")}
+    for phase in ("untiled-infer", "untiled-serve", "untiled-gqa-serve"):
+        out[phase] = [r["launches"][name] for r in ut[phase]]
+    return out
+
+
+def untiled_summary(ut: dict) -> dict:
+    """The spawn of 8's runs (rank 0's) by their metrics' keys, its gates
+    as they are."""
+    keys = TT_KEYS + TP_KEYS
+    out = {}
+    for name, run in ut.items():
+        r = run[0] if isinstance(run, list) else run
+        timed_run = isinstance(r, dict) and ("tokens_per_sec" in r or
+                                             "decode_tokens_per_sec" in r)
+        out[name] = {k: r[k] for k in keys if k in r} if timed_run else run
+    return out
+
+
+def phase_untiled_kernels() -> tuple:
+    """K1-K3 at UNTILED_TRAIN_SHAPES and D1 at UNTILED_DECODE_SHAPES (T 1
+    and 8), each held to its plain version and timed beside its bound and
+    the library call: (worst max-abs per kernel, {shape: timings})."""
+    import torch
+
+    worst, times = phase_tp_train_kernels(UNTILED_TRAIN_SHAPES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    worst["fused_paged_decode_attention"] = 0.0
+    for name, base in UNTILED_DECODE_SHAPES.items():
+        for t in (1, 8):
+            ratios = {}
+            err, timing, _ = check_decode(dict(base, T=t), gen, ratios, timed=True)
+            worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
+                                                        err)
+            times[f"{name}_T{t}"] = dict(timing, error_over_limit=ratios["out"])
+            log(f"[untiled-kernels] D1 {name} T={t} (Hq {base['Hq']}, Hkv {base['Hkv']}, D "
+                f"{base['D']}): max-abs {err:.3g}, error over limit {ratios}, timings {timing} "
+                f"({card_label()})")
+    return worst, times
+
+
+def untiled_kernel_rows(times: dict, name: str) -> dict:
+    """Kernel ``name``'s timings at the span shapes, each with its shape and
+    bound (the kernels line)."""
+    out = {}
+    if name == "fused_paged_decode_attention":
+        for label, base in UNTILED_DECODE_SHAPES.items():
+            for t in (1, 8):
+                row = dict(times[f"{label}_T{t}"])
+                row["bound_by"] = "bytes"
+                out[f"{label}_T{t}"] = dict(row, shape=dict(base, T=t))
+        return out
+    for label, shape in UNTILED_TRAIN_SHAPES.items():
+        ms, by = _bounds_ms(shape)[name]
+        out[label] = dict(times[label][name], shape=shape, bound_ms=ms, bound_by=by)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6139,9 +6660,11 @@ def main(argv=None) -> int:
     build_s = timed("build", phase_build)
     worst, shape_times = timed("kernels", phase_kernels)
     times = shape_times["main"]
+    # K1-K3 and D1 at the spans of heads that do not tile the tensor axis
+    untiled_worst, untiled_times = timed("untiled-kernels", phase_untiled_kernels)
     worst["fused_paged_decode_attention"], decode_times, p_bf16 = timed("decode-kernel",
                                                                         phase_decode_kernel)
-    main_run = timed("main", phase_train, "main", _train_spec(n_layers=4, steps=8))
+    main_run = timed("main", phase_train, "main", _train_spec(n_layers=4, steps=MAIN_STEPS))
     timed("remat", phase_train, "remat", _train_spec(n_layers=2, steps=4, remat=True,
                                                      remat_policy="full", ce_chunk=8192))
     infer_run = timed("infer", phase_infer)
@@ -6184,17 +6707,23 @@ def main(argv=None) -> int:
     neox = timed("gptneox-mlp", run_neox_mlp_phases)
     pretrained = timed("pretrained", run_pretrained_phases)
     orbax = timed("orbax", run_orbax_phases)
-    ring = {"ring-ops": timed("ring-ops", phase_ring_ops)}
-    tp = timed("tensor-parallel-serve", run_tp_phases, serve_run)
+    # the phases over ranks: ring-ops, the tensor-parallel serve phases and
+    # three train phases in a spawn of 2, the rest of the train phases in
+    # one of 4 with the batch-axes phases (each spawn's ranks pay torch's
+    # import and the card's set-up once)
+    tt = timed("ring-ops,tensor-parallel-serve,ring-neox,train-tp,train-moe-tp", run_plans, 2,
+               [plan_ring_ops(), plan_tp_phases(serve_run), plan_ring_neox(), plan_train_tp(),
+                plan_train_moe_tp()])
+    ring = {}
+    tp = tt.pop("tensor-parallel")
     worst["fused_paged_decode_attention"] = max(worst["fused_paged_decode_attention"],
                                                 tp["tp-decode-kernel"]["worst"])
-    # the train phases over ranks, three to a spawn of 2 and three to one of
-    # 4 with the batch-axes phases (each spawn's ranks pay torch's import and
-    # the card's set-up once)
-    tt = timed("ring-neox,train-tp,train-moe-tp", run_plans, 2,
-               [plan_ring_neox(), plan_train_tp(), plan_train_moe_tp()])
     tt.update(timed("train-fsdp,ring-fsdp-neox,train-tp-fsdp-neox,train-moe-ep,batch-axes,moe-ep",
                     run_plans, 4, fsdp_plans() + batch_axes_plans() + [plan_moe_ep_serving(tp["serve-moe-tp-1card"])]))
+    # heads that do not tile the tensor axis: the spawn of 8
+    ut = timed("untiled-train,untiled-infer,untiled-serve,untiled-gqa", run_plans,
+               UNTILED_RANKS, untiled_plans())
+    worst = {k: max(v, untiled_worst.get(k, 0.0)) for k, v in worst.items()}
     ep = {k: tt.pop(k) for k in list(tt) if k.startswith(MOE_EP_PHASES)}
     ba = {k: tt.pop(k) for k in list(tt) if k.startswith(BATCH_AXES_PHASES)}
     mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
@@ -6241,6 +6770,12 @@ def main(argv=None) -> int:
             # (D1 at an {expert: 2, tensor: 2} rank's heads)
             "moe_ep_launches": moe_ep_launches(ep, n),
             "ring_tp_visit": ring_tp_visit.get(n),
+            # per rank: the spawn of 8 (K1-K3 and D1 at a rank's span of heads)
+            "untiled_launches": untiled_launches(ut, n),
+            # K1-K3 and D1 at the span shapes (Pythia-160M over 8, Llama-3-8B
+            # over 16), held to their plain versions and timed beside their
+            # bounds and the library call
+            "untiled_spans": untiled_kernel_rows(untiled_times, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -6295,6 +6830,7 @@ def main(argv=None) -> int:
         "moe_train": train_tp_summary(mt),
         "batch_axes": batch_axes_summary(ba),
         "moe_ep": batch_axes_summary(ep),
+        "untiled": untiled_summary(ut),
         "tp_train_kernel_timings": {
             label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
                          for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)

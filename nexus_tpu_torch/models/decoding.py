@@ -25,14 +25,18 @@ Nothing here syncs with the host on the vector-length paths; the fused
 paged read keeps its loop bounds on the device (ops/attention.py).
 
 Tensor parallelism: params cut by ``parallel/sharding.py::shard_params``
-hold a rank's heads (and its block of the MLP and of the vocabulary). The
-scaffold reads the rank's head counts from the weights' shapes
-(``local_heads``; the config keeps the model's, and its ``head_dim``), so
-the caches hold the rank's kv heads, and runs the tensor axis's
-collectives (parallel/tensor.py) over the active mesh's group: the
-vocab-parallel lookup, a reduce after each row-parallel product, and the
-gathered logits that every rank samples alike. Whole params run no
-collective.
+hold a rank's block of the heads' columns (and its block of the MLP and of
+the vocabulary). The scaffold reads the axis's degree from the weights'
+shapes (``tensor_split``; the config keeps the model's counts and its
+``head_dim``) and attends the whole heads the rank's columns touch
+(``heads_of``): its own heads where they tile the axis, else its span,
+gathered over the group (parallel/tensor.py::RankHeads). The caches hold
+the kv heads the rank's attention reads, its kv span (``local_heads``):
+whole kv heads, contiguous, where JAX's cache replicates every kv head.
+The scaffold runs the tensor axis's collectives over the active mesh's
+group: the vocab-parallel lookup, the span's gather where the heads do
+not tile, a reduce after each row-parallel product, and the gathered
+logits that every rank samples alike. Whole params run no collective.
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ from nexus_tpu_torch.ops.sampling import gumbel_draw, row_uniforms, sample_logit
 from nexus_tpu_torch.parallel.comm import agree_any
 from nexus_tpu_torch.parallel.mesh import active_mesh
 from nexus_tpu_torch.parallel.sharding import split_rows
-from nexus_tpu_torch.parallel.tensor import (gather_from_tensor, reduce_from_tensor,
-                                             tensor_mesh, vocab_parallel_embed)
+from nexus_tpu_torch.parallel.tensor import (RankHeads, gather_from_tensor, rank_heads,
+                                             reduce_from_tensor, tensor_mesh,
+                                             vocab_parallel_embed)
 
 _KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
@@ -80,27 +85,46 @@ def _add_planes(cache, shape, dtype, quantized, device):
             cache[key] = torch.zeros(shape, dtype=dtype, device=device)
 
 
-def local_heads(params: Dict[str, Any], cfg: Any):
-    """(q heads, kv heads) the params hold, from the weights' shapes: the
-    config's counts, or a tensor-parallel rank's block of them (params
-    with no attention weights, a stub model's, hold the config's)."""
-    layers, hd = params.get("layers", {}), cfg.head_dim
+def _kv_columns(params: Dict[str, Any]) -> Optional[int]:
+    """The kv columns (kv heads × head dim) the params' attention weights
+    hold, None for params with none (a stub model's)."""
+    layers = params.get("layers", {})
     if "wqkv" in layers:  # GPT-NeoX: q, k and v thirds of one fused leaf (MHA)
-        n = layers["wqkv"].shape[-1] // (3 * hd)
-        return n, n
-    if "wq" in layers:
-        return layers["wq"].shape[-1] // hd, layers["wk"].shape[-1] // hd
-    return getattr(cfg, "n_heads", None), cfg.n_kv_heads
+        return layers["wqkv"].shape[-1] // 3
+    if "wk" in layers:
+        return layers["wk"].shape[-1]
+    return None
 
 
 def tensor_split(params: Dict[str, Any], cfg: Any) -> Tuple[int, Optional[Any]]:
     """(degree, mesh) of the tensor axis the params were cut for: the
-    config's kv heads over those the params hold (1 for whole params), and
-    the active mesh, whose tensor axis must have that many ranks (None for
-    whole params). The scaffold's collectives, the serving engine's
+    model's kv columns over those the params hold (1 for whole params),
+    and the active mesh, whose tensor axis must have that many ranks (None
+    for whole params). The scaffold's collectives, the serving engine's
     lockstep and its per-rank byte counts all read this one answer."""
-    degree = cfg.n_kv_heads // local_heads(params, cfg)[1]
+    local = _kv_columns(params)
+    degree = 1 if local is None else cfg.n_kv_heads * cfg.head_dim // local
     return degree, (None if degree == 1 else tensor_mesh(degree))
+
+
+def heads_of(params: Dict[str, Any], cfg: Any) -> RankHeads:
+    """The heads this rank attends (parallel/tensor.py::RankHeads): the
+    model's for whole params, the span of a tensor rank's column blocks."""
+    degree, mesh = tensor_split(params, cfg)
+    if mesh is None:
+        return rank_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    return rank_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, mesh.index("tensor"), degree,
+                      mesh.group("tensor"))
+
+
+def local_heads(params: Dict[str, Any], cfg: Any):
+    """(q heads, kv heads) this rank's attention and caches run at: the
+    config's counts, or a tensor rank's span of them (``heads_of``; params
+    with no attention weights, a stub model's, hold the config's)."""
+    if _kv_columns(params) is None:
+        return getattr(cfg, "n_heads", None), cfg.n_kv_heads
+    heads = heads_of(params, cfg)
+    return heads.q_heads, heads.kv_heads
 
 
 def tensor_group(params: Dict[str, Any], cfg: Any):
@@ -112,8 +136,8 @@ def tensor_group(params: Dict[str, Any], cfg: Any):
 
 def cache_for(params: Dict[str, Any], cfg: Any, batch: int, max_len: int,
               device) -> Dict[str, Any]:
-    """``init_kv_cache`` at the params' kv heads (a rank's block of them
-    under tensor parallelism) and the config's other shapes."""
+    """``init_kv_cache`` at the kv heads the params' attention reads (a
+    tensor rank's kv span) and the config's other shapes."""
     return init_kv_cache(cfg.n_layers, local_heads(params, cfg)[1], cfg.head_dim, cfg.dtype,
                          batch, max_len, quantized=getattr(cfg, "kv_cache_quantized", False),
                          device=device)
@@ -211,8 +235,10 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
                            finalize: Optional[Callable] = None):
     """Incremental decode: tokens (B, T) appended at ``cache['length']`` →
     (logits (B, T, V) f32, cache). The family supplies its per-layer block
-    as ``layer_fn(cfg, x, layer, attend, cos, sin)``, where ``attend(q, k,
-    v)`` writes k/v into the cache and attends over it.
+    as ``layer_fn(cfg, x, layer, attend, cos, sin, heads=, [reduce=])``,
+    where ``attend(q, k, v)`` writes k/v into the cache and attends over
+    it, ``heads`` is the rank's ``RankHeads`` (``heads_of``) and
+    ``reduce`` a tensor-parallel rank's sum over its group.
 
     Consumed cache keys, never returned (as in the JAX scaffold):
     ``n_valid`` (B,) — per-row count of real tokens in this feed (requires a
@@ -312,8 +338,11 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
         return attend
 
     names = list(params["layers"])
-    # a tensor-parallel layer_fn sums its row-parallel products over the group
-    extra = {} if group is None else {"reduce": lambda y: reduce_from_tensor(y, group)}
+    # the layer_fn attends the rank's heads; a tensor-parallel one sums its
+    # row-parallel products over the group
+    extra = {"heads": heads_of(params, cfg)}
+    if group is not None:
+        extra["reduce"] = lambda y: reduce_from_tensor(y, group)
     for li, stacked in enumerate(zip(*(params["layers"][k].unbind(0) for k in names))):
         before = len(calls)
         x = layer_fn(cfg, x, dict(zip(names, stacked)), make_attend(li), cos, sin, **extra)
@@ -332,19 +361,16 @@ def generic_forward_decode(params: Dict[str, Any], cfg: Any, tokens: torch.Tenso
 def scanned_forward_decode(params, cfg, tokens, cache, ffn: Callable, ffn_sums: bool = False):
     """Llama-block decode (RMSNorm → roped GQA → residual → ``ffn``) over
     the generic scaffold, at the heads the params hold; a tensor-parallel
-    rank sums ``wo``'s partial product (``reduce``), and the FFN's too
-    unless ``ffn_sums``: an FFN that sums its own partial output over its
-    own group (Mixtral's MoE layer, over ``expert`` and ``tensor``)."""
-    hq, hkv = local_heads(params, cfg)
-    hd = cfg.head_dim
-
-    def layer_fn(cfg, x, layer, attend, cos, sin, reduce=lambda y: y):
-        b, t = x.shape[0], x.shape[1]
+    rank attends its span of heads (``heads``, parallel/tensor.py::
+    RankHeads) and sums ``wo``'s partial product (``reduce``), and the
+    FFN's too unless ``ffn_sums``: an FFN that sums its own partial output
+    over its own group (Mixtral's MoE layer, over ``expert`` and
+    ``tensor``)."""
+    def layer_fn(cfg, x, layer, attend, cos, sin, heads, reduce=lambda y: y):
         h = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
-        q = apply_rope((h @ layer["wq"]).reshape(b, t, hq, hd), cos, sin)
-        k = apply_rope((h @ layer["wk"]).reshape(b, t, hkv, hd), cos, sin)
-        v = (h @ layer["wv"]).reshape(b, t, hkv, hd)
-        x = x + reduce(attend(q, k, v).reshape(b, t, hq * hd) @ layer["wo"])
+        q, k, v = heads.split(h @ layer["wq"], h @ layer["wk"], h @ layer["wv"])
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        x = x + reduce(heads.own(attend(q, k, v)) @ layer["wo"])
         h2 = rms_norm(x, layer["ln_mlp"], cfg.norm_eps)
         y = ffn(cfg, h2, layer)
         return x + (y if ffn_sums else reduce(y))

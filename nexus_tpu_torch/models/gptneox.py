@@ -18,8 +18,9 @@ path. The decode entry points run ``models/decoding.py``'s generic scaffold
 with this block and the final LayerNorm; the serving engine reads the
 paged pool through the paged-decode kernel at any of those head dims.
 
-Params cut for a tensor axis train at the rank's heads, as Llama's do
-(models/llama.py): ``wqkv`` / ``b_qkv`` (cut per third) and ``w_in`` /
+Params cut for a tensor axis train at the rank's heads, or at the span of
+heads its columns touch where the heads do not tile the axis, as Llama's
+do (models/llama.py): ``wqkv`` / ``b_qkv`` (cut per third) and ``w_in`` /
 ``b_in`` column-parallel, ``wo`` and ``w_out`` row-parallel, the two
 branches' partial sums reduced in one collective a layer and the
 replicated biases ``b_o`` / ``b_out`` added once after it, the vocabulary
@@ -37,7 +38,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.decoding import tensor_group
+from nexus_tpu_torch.models.decoding import heads_of, tensor_group
 from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
@@ -46,8 +47,9 @@ from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
-from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
-                                             reduce_from_tensor, vocab_parallel_embed)
+from nexus_tpu_torch.parallel.tensor import (RankHeads, copy_to_tensor, gather_from_tensor,
+                                             rank_heads, reduce_from_tensor,
+                                             vocab_parallel_embed)
 
 LAYER_KEYS = ("wqkv", "b_qkv", "wo", "b_o", "w_in", "b_in", "w_out", "b_out", "ln1", "ln1_b",
               "ln2", "ln2_b")
@@ -236,22 +238,22 @@ def _partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 def _qkv(cfg: GPTNeoXConfig, h: torch.Tensor, layer: Dict[str, torch.Tensor],
-         cos: torch.Tensor, sin: torch.Tensor):
-    b, s, _ = h.shape
+         cos: torch.Tensor, sin: torch.Tensor, heads: Optional[RankHeads] = None):
     hd, rot = cfg.head_dim, cfg.rotary_dims
     qkv = h @ layer["wqkv"] + layer["b_qkv"]
     # contiguous thirds, as jnp.split materialises them: the flash kernels
     # take contiguous tensors (the roped q and k are new tensors already).
-    # The heads are the thirds' own: a tensor-parallel rank holds its block
+    # A tensor-parallel rank holds its block of each third: its heads, or
+    # (``heads``: heads that do not tile the axis) the span they touch
     q, k, v = qkv.chunk(3, dim=-1)
-    hq = q.shape[-1] // hd
-    q = _partial_rope(q.reshape(b, s, hq, hd), cos, sin, rot)
-    k = _partial_rope(k.reshape(b, s, hq, hd), cos, sin, rot)
-    return q, k, v.reshape(b, s, hq, hd).contiguous()
+    heads = heads or rank_heads(q.shape[-1] // hd, q.shape[-1] // hd, hd)
+    q, k, v = heads.split(q, k, v)
+    return _partial_rope(q, cos, sin, rot), _partial_rope(k, cos, sin, rot), v.contiguous()
 
 
 def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor], attend,
-                cos: torch.Tensor, sin: torch.Tensor, reduce=None, copy=None) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor, reduce=None, copy=None,
+                heads: Optional[RankHeads] = None) -> torch.Tensor:
     """The NeoX block with attention as ``attend(q, k, v)``: the one copy
     of the block body shared by the train-time forward and the KV-cache
     decode (``generic_forward_decode``'s layer_fn contract). The
@@ -261,12 +263,16 @@ def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tens
     branches' partial products are summed in one collective, then the
     replicated biases ``b_o`` and ``b_out`` are added once. ``copy``
     (training over a tensor axis): the inputs of the column-parallel
-    products, whose gradients it sums over the group."""
-    b, s, _ = x.shape
+    products, whose gradients it sums over the group. ``heads``: the
+    rank's heads (parallel/tensor.py::RankHeads; the thirds are MHA, so
+    its q and kv spans coincide), whose own columns of the attention
+    output ``wo`` takes."""
     copy = copy or (lambda y: y)
+    n = layer["wqkv"].shape[-1] // (3 * cfg.head_dim)
+    heads = heads or rank_heads(n, n, cfg.head_dim)
     q, k, v = _qkv(cfg, copy(layer_norm(x, layer["ln1"], layer["ln1_b"], cfg.norm_eps)), layer,
-                   cos, sin)
-    attn = attend(q, k, v).reshape(b, s, -1) @ layer["wo"]
+                   cos, sin, heads)
+    attn = heads.own(attend(q, k, v)) @ layer["wo"]
     h2 = copy(layer_norm(x, layer["ln2"], layer["ln2_b"], cfg.norm_eps))
     mlp = F.gelu(h2 @ layer["w_in"] + layer["b_in"], approximate="tanh") @ layer["w_out"]
     if reduce is not None:
@@ -275,9 +281,11 @@ def _block_with(cfg: GPTNeoXConfig, x: torch.Tensor, layer: Dict[str, torch.Tens
     return x + (attn + layer["b_o"]) + (mlp + layer["b_out"])
 
 
-def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args, group=None) -> torch.Tensor:
+def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args, group=None,
+           heads: Optional[RankHeads] = None) -> torch.Tensor:
     """One layer of the forward: ``args`` are the layer's tensors in
-    ``LAYER_KEYS`` order, then cos and sin; ``group``: the tensor axis's."""
+    ``LAYER_KEYS`` order, then cos and sin; ``group``: the tensor axis's,
+    ``heads`` the rank's (``models/decoding.py::heads_of``)."""
     layer = dict(zip(LAYER_KEYS, args))
     cos, sin = args[len(LAYER_KEYS):]
 
@@ -290,7 +298,7 @@ def _block(cfg: GPTNeoXConfig, x: torch.Tensor, *args, group=None) -> torch.Tens
         return _block_with(cfg, x, layer, attend, cos, sin)
     return _block_with(cfg, x, layer, attend, cos, sin,
                        reduce=lambda y: reduce_from_tensor(y, group),
-                       copy=lambda y: copy_to_tensor(y, group))
+                       copy=lambda y: copy_to_tensor(y, group), heads=heads)
 
 
 def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Tensor,
@@ -300,6 +308,7 @@ def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Ten
     positions start past the blocks before it."""
     s = tokens.shape[1]
     group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
+    heads = heads_of(params, cfg)
     x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.rotary_dims, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
@@ -307,7 +316,8 @@ def forward_hidden(params: Dict[str, Any], cfg: GPTNeoXConfig, tokens: torch.Ten
     dims = embed_dims(logical_axes(cfg)["layers"], LAYER_KEYS)
 
     def block(x, *a):  # the layer's weights gathered inside what remat wraps
-        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group)
+        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group,
+                      heads=heads)
 
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

@@ -11,6 +11,10 @@ dispatches to the CUDA flash kernels on the card (``ops/attention.py``).
 Params cut for a tensor axis (``parallel/sharding.py::shard_params``) train
 and run at the rank's heads, read from the weights' shapes: Megatron's
 split, as GSPMD partitions JAX's model under ``DEFAULT_LOGICAL_RULES``.
+Where the q or kv heads do not tile the axis (JAX cuts the flat heads ×
+head_dim columns), a rank gathers those columns over the group, attends
+the whole heads its block touches and keeps its own columns of the
+output for ``wo`` (parallel/tensor.py::RankHeads).
 ``wq`` / ``wk`` / ``wv`` and ``w_gate`` / ``w_up`` are column-parallel (their
 input through ``copy_to_tensor``), ``wo`` and ``w_down`` row-parallel (their
 partial sums, in the model dtype, through ``reduce_from_tensor``), the
@@ -33,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.decoding import tensor_group
+from nexus_tpu_torch.models.decoding import heads_of, tensor_group
 from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
@@ -42,8 +46,9 @@ from nexus_tpu_torch.ops.remat import checkpoint_block
 from nexus_tpu_torch.ops.ring_attention import ring_attention_sharded, sequence_offset
 from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
-from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
-                                             reduce_from_tensor, vocab_parallel_embed)
+from nexus_tpu_torch.parallel.tensor import (RankHeads, copy_to_tensor, gather_from_tensor,
+                                             rank_heads, reduce_from_tensor,
+                                             vocab_parallel_embed)
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln_attn", "ln_mlp")
 
@@ -212,23 +217,23 @@ def leaves(params: Dict[str, Any]):
 
 
 def _block(cfg: LlamaConfig, x: torch.Tensor, wq, wk, wv, wo, w_gate, w_up,
-           w_down, ln_attn, ln_mlp, cos, sin, group=None) -> torch.Tensor:
+           w_down, ln_attn, ln_mlp, cos, sin, group=None,
+           heads: Optional[RankHeads] = None) -> torch.Tensor:
     """One layer at the heads the weights hold; ``group``: the tensor
-    axis's, whose ranks hold blocks of the projections (module doc)."""
-    b, s, _ = x.shape
+    axis's, whose ranks hold blocks of the projections (module doc);
+    ``heads``: the heads the rank attends (``models/decoding.py::
+    heads_of``), by default those of the weights' columns."""
     hd = cfg.head_dim
-    hq, hkv = wq.shape[-1] // hd, wk.shape[-1] // hd
+    heads = heads or rank_heads(wq.shape[-1] // hd, wk.shape[-1] // hd, hd)
     h = copy_to_tensor(rms_norm(x, ln_attn, cfg.norm_eps), group)
-    q = (h @ wq).reshape(b, s, hq, hd)
-    k = (h @ wk).reshape(b, s, hkv, hd)
-    v = (h @ wv).reshape(b, s, hkv, hd)
+    q, k, v = heads.split(h @ wq, h @ wk, h @ wv)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cfg.attn_impl == "ring":
         attn = ring_attention_sharded(q, k, v)
     else:
         attn = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    x = x + reduce_from_tensor(attn.reshape(b, s, hq * hd) @ wo, group)
+    x = x + reduce_from_tensor(heads.own(attn) @ wo, group)
 
     h = copy_to_tensor(rms_norm(x, ln_mlp, cfg.norm_eps), group)
     gated = F.silu(h @ w_gate) * (h @ w_up)
@@ -242,6 +247,7 @@ def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
     positions start past the blocks before it."""
     s = tokens.shape[1]
     group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
+    heads = heads_of(params, cfg)
     x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
                             position_offset=position_offset + sequence_offset(s),
@@ -249,7 +255,8 @@ def forward_hidden(params: Dict[str, Any], cfg: LlamaConfig,
     dims = embed_dims(logical_axes(cfg)["layers"], LAYER_KEYS)
 
     def block(x, *a):  # the layer's weights gathered inside what remat wraps
-        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group)
+        return _block(cfg, x, *gather(a[:len(dims)], dims, fsdp), *a[len(dims):], group=group,
+                      heads=heads)
 
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

@@ -16,7 +16,8 @@ window (``sliding_window``, 0 = full causal) through K1-K3's window path.
 Over ranks (module item 4c), as GSPMD partitions JAX's model under
 ``logical_axes``: params cut by ``parallel/sharding.py::shard_params``
 over the model axes hold the rank's heads and vocabulary block (the
-``tensor`` axis: Llama's Megatron split of the attention and the
+``tensor`` axis: Llama's Megatron split of the attention, at the span of
+heads the rank's columns touch where the heads do not tile it, and the
 vocab-parallel loss) and its block of the experts (the ``expert`` axis)
 at its block of d_ff (``tensor``); the router is whole on every rank. The
 MoE layer routes the global token population of the batch axes
@@ -42,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from nexus_tpu_torch.models.decoding import tensor_group
+from nexus_tpu_torch.models.decoding import heads_of, tensor_group
 from nexus_tpu_torch.models.params import LeafCuts
 from nexus_tpu_torch.ops.attention import attention
 from nexus_tpu_torch.ops.losses import chunked_softmax_xent, dense_softmax_xent
@@ -67,8 +68,9 @@ from nexus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from nexus_tpu_torch.parallel.fsdp import embed_dims, embed_group, gather, gather_one, lm_head
 from nexus_tpu_torch.parallel.mesh import active_mesh
 from nexus_tpu_torch.parallel.sharding import split_rows
-from nexus_tpu_torch.parallel.tensor import (copy_to_tensor, gather_from_tensor,
-                                             reduce_from_tensor, vocab_parallel_embed)
+from nexus_tpu_torch.parallel.tensor import (RankHeads, copy_to_tensor, gather_from_tensor,
+                                             rank_heads, reduce_from_tensor,
+                                             vocab_parallel_embed)
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down", "ln_attn",
               "ln_mlp")
@@ -331,23 +333,25 @@ def _moe_ffn(cfg: MixtralConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor]
 
 
 def _block(cfg: MixtralConfig, x, aux, dropped, wq, wk, wv, wo, router, w_gate, w_up, w_down,
-           ln_attn, ln_mlp, cos, sin, group=None, moe=(0, None, None)):
+           ln_attn, ln_mlp, cos, sin, group=None, moe=(0, None, None),
+           heads: Optional[RankHeads] = None):
     """One layer at the heads and experts the weights hold: ``group`` the
-    tensor axis's (Llama's split of the attention), ``moe`` the MoE
-    layer's (first expert, group, token grid) (``_moe_ffn``)."""
-    b, s, _ = x.shape
+    tensor axis's (Llama's split of the attention, at the rank's ``heads``:
+    ``models/decoding.py::heads_of``, by default those of the weights'
+    columns), ``moe`` the MoE layer's (first expert, group, token grid)
+    (``_moe_ffn``)."""
     hd = cfg.head_dim
-    hq, hkv = wq.shape[-1] // hd, wk.shape[-1] // hd
+    heads = heads or rank_heads(wq.shape[-1] // hd, wk.shape[-1] // hd, hd)
     h = copy_to_tensor(rms_norm(x, ln_attn, cfg.norm_eps), group)
-    q = apply_rope((h @ wq).reshape(b, s, hq, hd), cos, sin)
-    k = apply_rope((h @ wk).reshape(b, s, hkv, hd), cos, sin)
-    v = (h @ wv).reshape(b, s, hkv, hd)
+    q, k, v = heads.split(h @ wq, h @ wk, h @ wv)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
     if cfg.attn_impl == "ring":
         # the window truncates the ring statically (ops/ring_attention.py)
         attn = ring_attention_sharded(q, k, v, window=cfg.sliding_window)
     else:
         attn = attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.sliding_window)
-    x = x + reduce_from_tensor(attn.reshape(b, s, hq * hd) @ wo, group)
+    x = x + reduce_from_tensor(heads.own(attn) @ wo, group)
 
     h2 = rms_norm(x, ln_mlp, cfg.norm_eps)
     layer = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
@@ -362,6 +366,7 @@ def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Ten
     before it; under the batch axes routing covers the global batch."""
     s = tokens.shape[1]
     group, fsdp = tensor_group(params, cfg), embed_group(params, cfg)
+    heads = heads_of(params, cfg)
     moe = (*moe_split(params["layers"], cfg), token_grid(active_mesh()))
     x = vocab_parallel_embed(gather_one(params["embed"], 1, fsdp), tokens, group, cfg.dtype)
     cos, sin = rope_cos_sin(s, cfg.head_dim, cfg.rope_theta, dtype=torch.float32,
@@ -370,7 +375,8 @@ def forward_hidden(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Ten
 
     def block(x, aux, dropped, *a):  # the layer's weights gathered inside what remat wraps
         layer = gather(a[:len(dims)], dims, fsdp)
-        return _block(cfg, x, aux, dropped, *layer, *a[len(dims):], group=group, moe=moe)
+        return _block(cfg, x, aux, dropped, *layer, *a[len(dims):], group=group, moe=moe,
+                      heads=heads)
 
     if cfg.remat:
         block = checkpoint_block(block, cfg.remat_policy)

@@ -46,6 +46,16 @@ backward needs after them. Ring attention's shifts (ops/ring_attention.py)
 come before the attention's saved outputs, so every policy replays them
 too, ``dots_attn`` keeping only the flash forward's outputs.
 
+Under a tensor axis whose heads do not tile it (parallel/tensor.py::
+RankHeads) a block gathers the q / kv columns over the tensor group before
+the attention, and slices the rank's own columns of the attention's
+output after it. The gather comes before the attention's saved outputs,
+so every policy replays it, in the same order on every rank; ``dots_attn``
+keeps the attention's own output at the span's heads (K1's out and lse,
+or the dense path's PV product), and the slice, a view of it, is
+recomputed. The gather's backward (a reduce-scatter) runs once, in the
+block's backward.
+
 Under a sharded ``fsdp`` axis a block's first collective is the gather of
 its layer's weights (parallel/fsdp.py: one all-gather a dtype, inside the
 wrapped function): everything after it reads the whole weights, so every

@@ -17,7 +17,10 @@ tensor dims onto mesh axes. The port applies them by hand:
   ``param_shard``). A fused leaf may cut each of several equal runs of a
   dim in turn (GPT-NeoX's ``wqkv``: q, k and v thirds, each by head).
   ``ModelShard.join`` is the inverse: every rank's block of a leaf back
-  into the whole leaf (what a checkpoint holds). In infer and serve the
+  into the whole leaf (what a checkpoint holds). The columns of a flat
+  heads × head_dim dim are cut whether or not the heads tile the axis
+  (JAX's ``qkv`` placement); ``head_span`` gives the whole heads a rank's
+  block of them touches. In infer and serve the
   batch axes keep parameters whole on every rank; in training each
   ``fsdp`` rank holds its block of every leaf with an ``embed`` dim, and
   the layers gather them just in time (parallel/fsdp.py).
@@ -28,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +71,29 @@ def _block(n: int, parts: int, index: int, what: str) -> slice:
         raise ValueError(f"{what} {n} does not split over {parts} ranks")
     size = n // parts
     return slice(index * size, (index + 1) * size)
+
+
+class HeadSpan(NamedTuple):
+    """The whole heads a rank's block of a flat heads × head_dim dim
+    touches: heads ``first`` … ``last``, and where the block's first column
+    lies inside their columns (``offset``)."""
+
+    first: int
+    last: int
+    offset: int
+
+    @property
+    def heads(self) -> int:
+        return self.last - self.first + 1
+
+
+def head_span(n_heads: int, head_dim: int, rank: int, size: int) -> HeadSpan:
+    """The ``HeadSpan`` of block ``rank`` of ``size`` equal blocks of the
+    ``n_heads`` × ``head_dim`` columns (``_block``'s cut): 12 heads of 64
+    over 8 ranks give rank 1 columns 96…191, heads 1…2, offset 32."""
+    cols = _block(n_heads * head_dim, size, rank, "heads x head_dim")
+    first = cols.start // head_dim
+    return HeadSpan(first, (cols.stop - 1) // head_dim, cols.start - first * head_dim)
 
 
 def batch_spec(batch: Dict[str, np.ndarray], mesh: Mesh) -> Dict[str, np.ndarray]:

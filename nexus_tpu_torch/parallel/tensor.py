@@ -3,10 +3,16 @@ where a Megatron split of the projections needs them (the counterpart of
 the placements ``nexus_tpu/parallel/sharding.py`` gives heads, mlp and
 vocab).
 
-A rank holds the columns of its heads in ``wq`` / ``wk`` / ``wv`` (and the
-first layer of the MLP) and the matching rows of ``wo`` (and of the MLP's
-second layer): each row-parallel product gives a partial sum that
-``reduce_from_tensor`` adds up over the ranks (Megatron's *g*). The
+A rank holds its block of the flat heads × head_dim columns of ``wq`` /
+``wk`` / ``wv`` (and of the first layer of the MLP) and the matching rows
+of ``wo`` (and of the MLP's second layer): each row-parallel product gives
+a partial sum that ``reduce_from_tensor`` adds up over the ranks
+(Megatron's *g*). Where the heads tile the axis the block is the rank's
+whole heads, and attention runs on them as they are. Where they do not
+(12 heads over 8 ranks: a rank holds one and a half), the rank gathers the
+columns over the group (``gather_columns``), attends the whole heads its
+block touches (its *span*, ``RankHeads``) and keeps its own columns of the
+output for ``wo``. The
 vocabulary is split too: ``vocab_parallel_embed`` looks up the rows of this
 rank's range and sums, and ``gather_from_tensor`` assembles the logits of
 every rank's range, so every rank samples from the same whole logits.
@@ -17,7 +23,10 @@ Training differentiates through them as ``torch.autograd.Function``s:
 ``copy_to_tensor`` (Megatron's *f*) is the identity forward and an
 all-reduce backward, at the input of every column-parallel product, where
 each rank's gradient holds its own heads' (or columns') share alone; the
-embedding's backward sends each token's gradient to its owner's rows only.
+embedding's backward sends each token's gradient to its owner's rows only;
+``gather_columns``' backward sums the gradient of the gathered columns over
+the group and keeps the rank's block (a reduce-scatter: each rank's
+gradient covers only the columns its span consumed).
 Under no autograd (decoding) each runs its forward alone: one collective
 each, and none for *f*.
 
@@ -27,13 +36,15 @@ through host memory.
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from nexus_tpu_torch.parallel.comm import all_gather, all_reduce
+from nexus_tpu_torch.parallel.comm import all_gather, all_reduce, reduce_scatter
 from nexus_tpu_torch.parallel.mesh import active_mesh
+from nexus_tpu_torch.parallel.sharding import HeadSpan, head_span
 
 
 def tensor_mesh(size: int):
@@ -122,3 +133,120 @@ def gather_from_tensor(x: torch.Tensor, group: Optional[object]) -> torch.Tensor
     ``copy_to_tensor``, which sums the ranks' shares). ``x`` itself without
     a group."""
     return x if group is None else _Gather.apply(x, group)
+
+
+class _SpanGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, widths):
+        ctx.group, ctx.widths = group, widths
+        n = dist.get_world_size(group)
+        whole = all_gather(x.contiguous(), group).view(n, *x.shape)
+        return torch.cat([p.movedim(0, -2).reshape(*x.shape[:-1], n * p.shape[-1])
+                          for p in whole.split(widths, dim=-1)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, widths = dist.get_world_size(ctx.group), ctx.widths
+        parts = g.split([n * w for w in widths], dim=-1)
+        by_rank = torch.cat([p.unflatten(-1, (n, w)).movedim(-2, 0)
+                             for p, w in zip(parts, widths)], dim=-1)
+        mine = reduce_scatter(by_rank, ctx.group)
+        return mine.view(*g.shape[:-1], sum(widths)), None, None
+
+
+def gather_columns(x: torch.Tensor, group, widths: Tuple[int, ...]) -> torch.Tensor:
+    """The whole columns of several flat dims from every rank's blocks:
+    ``x``'s last dim holds this rank's block of each dim in turn
+    (``widths`` wide), and the result each whole dim in turn (every rank's
+    block in rank order), in one all-gather. Its gradient is the sum of
+    the whole gradient over the group, this rank's blocks kept (one
+    reduce-scatter), where ``gather_from_tensor``'s keeps the rank's block
+    of its own gradient alone."""
+    return _SpanGather.apply(x, group, tuple(widths))
+
+
+@dataclass(frozen=True)
+class RankHeads:
+    """The attention heads a tensor rank runs, from its blocks of the q and
+    kv columns: ``q`` the whole q heads its block touches (the span), ``kv``
+    the kv heads those q heads read (GQA: q head h reads kv head h //
+    (n_heads / n_kv_heads)). Where the heads tile the axis the spans are
+    the rank's own heads and nothing is gathered; else ``gather_q`` /
+    ``gather_kv`` say which columns are gathered over ``group`` first.
+    ``q_cols`` / ``kv_cols`` are the widths of the rank's blocks, ``size``
+    the axis's ranks. ``kv_index``: where the span's q and kv heads break
+    the kernels' group rule (q heads 2-4 with groups of 4 read kv heads 0,
+    0, 1), the kv head of each q head, one kv head a q head; None when
+    they keep it."""
+
+    head_dim: int
+    q: HeadSpan
+    kv: HeadSpan
+    q_cols: int
+    kv_cols: int
+    size: int = 1
+    group: Any = None
+    gather_q: bool = False
+    gather_kv: bool = False
+    kv_index: Optional[Tuple[int, ...]] = None
+
+    @property
+    def q_heads(self) -> int:
+        return self.q.heads
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads the kernels read and a cache holds."""
+        return self.kv.heads if self.kv_index is None else len(self.kv_index)
+
+    def split(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """This rank's (B, S, columns) blocks of q, k and v → the span's
+        (B, S, heads, D) q, k and v."""
+        hd = self.head_dim
+        b, s = q.shape[:2]
+        if not self.gather_kv:
+            return (q.reshape(b, s, self.q.heads, hd), k.reshape(b, s, self.kv.heads, hd),
+                    v.reshape(b, s, self.kv.heads, hd))
+        if self.gather_q:
+            widths = (self.q_cols, self.kv_cols, self.kv_cols)
+            q, k, v = gather_columns(torch.cat([q, k, v], -1), self.group, widths).split(
+                [w * self.size for w in widths], -1)
+            q = q[..., self.q.first * hd:(self.q.last + 1) * hd]
+        else:
+            k, v = gather_columns(torch.cat([k, v], -1), self.group,
+                                  (self.kv_cols, self.kv_cols)).chunk(2, -1)
+        cols = slice(self.kv.first * hd, (self.kv.last + 1) * hd)
+        q, k, v = (t.reshape(b, s, -1, hd).contiguous() for t in (q, k[..., cols], v[..., cols]))
+        if self.kv_index is not None:
+            idx = torch.tensor(self.kv_index, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return q, k, v
+
+    def own(self, out: torch.Tensor) -> torch.Tensor:
+        """The span's attention output (B, S, heads, D) → this rank's own
+        columns of it (B, S, q columns), the rows of ``wo`` it holds."""
+        flat = out.reshape(*out.shape[:2], -1)
+        if not self.gather_q:
+            return flat
+        return flat[..., self.q.offset:self.q.offset + self.q_cols]
+
+
+def rank_heads(n_heads: int, n_kv_heads: int, head_dim: int, rank: int = 0, size: int = 1,
+               group=None) -> RankHeads:
+    """The ``RankHeads`` of tensor rank ``rank`` of ``size`` (``group`` its
+    tensor group) for a model of ``n_heads`` q and ``n_kv_heads`` kv heads
+    of ``head_dim``."""
+    group_size = n_heads // n_kv_heads
+    q = head_span(n_heads, head_dim, rank, size)
+    q_cols, kv_cols = n_heads * head_dim // size, n_kv_heads * head_dim // size
+    if n_kv_heads % size == 0:  # then n_heads too: the rank's own heads
+        return RankHeads(head_dim, q, head_span(n_kv_heads, head_dim, rank, size), q_cols,
+                         kv_cols, size, group)
+    reads = [h // group_size for h in range(q.first, q.last + 1)]
+    kv = HeadSpan(reads[0], reads[-1], 0)
+    rep = q.heads // kv.heads
+    kept = q.heads % kv.heads == 0 and all(
+        r - kv.first == i // rep for i, r in enumerate(reads))
+    return RankHeads(head_dim, q, kv, q_cols, kv_cols, size, group, gather_q=n_heads % size != 0,
+                     gather_kv=True,
+                     kv_index=None if kept else tuple(r - kv.first for r in reads))

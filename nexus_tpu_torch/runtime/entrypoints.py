@@ -51,8 +51,8 @@ serve of Llama, GPT-NeoX and Mixtral run over every axis but
 axes, ``tensor`` and ``expert``, whole over ``fsdp`` (random init, a
 checkpoint's, or ``model.weights``; Mixtral's expert stacks over
 ``expert``, a dense family's ranks there replicas, as in training) and of
-the KV cache over ``tensor``; the decode scaffold runs the axes'
-collectives (Mixtral's MoE layer sums its partial outputs over both), and
+the KV cache over ``tensor`` (the kv heads its attention reads); the
+decode scaffold runs the axes' collectives (Mixtral's MoE layer sums its partial outputs over both), and
 the engine runs in lockstep on every rank of the mesh
 (runtime/serving.py). Infer decodes each rank's block of rows over the
 batch axes that tile ``train.batchSize`` (JAX's cache layout;
@@ -61,11 +61,15 @@ MoE layer routes each feed's tokens of the whole batch and speculative
 rounds run in step over the rows' ranks (``use_decode_rows``). The other
 ranks (``sequence``, ``expert``, and batch axes that do not tile the
 rows) hold the same rows, as do serve's over every axis but ``tensor``
-(JAX's paged pool has no batch sharding). A speculative draft whose dims
-do not tile the model axes runs whole on every rank. Over more than one
-rank what is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item: heads that do not tile ``tensor`` (4b part four),
-``pipeline`` (4d). A d_ff, vocabulary or MLP width that does not tile
+(JAX's paged pool has no batch sharding). Heads that do not tile
+``tensor`` run in every mode: each rank holds JAX's block of the flat
+heads × head_dim columns, gathers the columns over the tensor group and
+attends the whole heads its block touches (parallel/tensor.py::
+RankHeads); its caches hold the kv heads that attention reads. A
+speculative draft whose d_ff or vocabulary does not tile the model axes
+runs whole on every rank. Over more than one rank what is not ported yet
+raises ``NotImplementedError`` naming its ROADMAP item: ``pipeline`` (4d).
+q or kv columns, a d_ff, vocabulary or MLP width that do not tile
 ``tensor``, experts that do not tile ``expert``, or in training a d_model
 (the MLP: a layer's input width) that does not tile ``fsdp``, raise
 ``ValueError``: JAX cannot place such a model either.
@@ -163,9 +167,12 @@ def _refuse_unported(runtime: JaxXlaRuntime, mesh) -> None:
             f"ported yet: {', '.join(why)} (ROADMAP 'Port to PyTorch/CUDA')")
 
 
-def _untiled_heads(cfg, size: int) -> list:
-    """The head counts of ``cfg`` a tensor axis of ``size`` does not split."""
-    dims = {"q heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
+def _untiled_columns(cfg, size: int) -> list:
+    """The flat heads × head_dim columns of ``cfg`` a tensor axis of
+    ``size`` does not split (their heads need not tile it: a rank attends
+    the heads its block touches, parallel/tensor.py::RankHeads)."""
+    dims = {"q columns": cfg.n_heads * cfg.head_dim,
+            "kv columns": cfg.n_kv_heads * cfg.head_dim}
     return [f"{name} {n}" for name, n in dims.items() if n % size]
 
 
@@ -189,21 +196,16 @@ def _embed_widths(cfg) -> dict:
 
 
 def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
-    """A target model the parameter axes cannot split. Heads that do not
-    tile ``tensor`` are the port's limit (JAX cuts the flat heads × head_dim
-    columns: item 4b, part four); a d_ff, vocabulary or MLP width that does
-    not tile ``tensor``, experts that do not tile ``expert``, or (training)
-    a d_model or MLP layer input that does not tile ``fsdp``, JAX cannot
-    place either (``jax.device_put`` raises): ValueError."""
+    """A target model the parameter axes cannot split: q or kv columns
+    (heads × head_dim; heads that do not tile ``tensor`` run as the spans
+    their columns touch), a d_ff, vocabulary or MLP width that does not
+    tile ``tensor``, experts that do not tile ``expert``, or (training) a
+    d_model or MLP layer input that does not tile ``fsdp``. JAX cannot
+    place such a model either (``jax.device_put`` raises): ValueError."""
     size = mesh.shape["tensor"]
     if size > 1:
-        bad = _untiled_heads(cfg, size) if hasattr(cfg, "n_heads") else []
-        if bad:
-            raise NotImplementedError(
-                f"the tensor axis of {size} ranks does not tile the model ({', '.join(bad)}); "
-                "sharding heads that do not tile the axis is not ported yet (item 4b, part "
-                "four, ROADMAP 'Port to PyTorch/CUDA')")
-        bad = _untiled_dims(cfg, size)
+        bad = (_untiled_columns(cfg, size) if hasattr(cfg, "n_heads") else []) + _untiled_dims(
+            cfg, size)
         if bad:
             raise ValueError(f"the tensor axis of {size} ranks does not tile the model "
                              f"({', '.join(bad)}): JAX cannot shard such a model either")
@@ -221,15 +223,15 @@ def _refuse_untiled(runtime: JaxXlaRuntime, cfg, mesh) -> None:
 
 def _draft_shard(ref, d_cfg, mesh):
     """The shard a speculative draft runs at: the target's when the
-    draft's family runs over the axis and its dims tile ``tensor`` (a
-    dense draft is then a replica over ``expert``), else None (the draft
-    whole on every rank: a deliberate difference, JAX shards it by
-    GSPMD)."""
+    draft's family runs over the axis and its columns, d_ff and vocabulary
+    tile ``tensor`` (its heads need not; a dense draft is then a replica
+    over ``expert``), else None (the draft whole on every rank: a
+    deliberate difference, JAX shards it by GSPMD)."""
     shard = model_shard(mesh)
     if shard is None:
         return None
     size = shard.tensor[1]
-    if ref.family not in TENSOR_FAMILIES or _untiled_heads(d_cfg, size) + _untiled_dims(
+    if ref.family not in TENSOR_FAMILIES or _untiled_columns(d_cfg, size) + _untiled_dims(
             d_cfg, size):
         logger.info("the draft %s/%s does not tile the tensor axis of %d ranks: it runs whole "
                     "on every rank", ref.family, ref.preset, size)

@@ -58,8 +58,11 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   under ``NEXUS_OBS_JAX_TRACE=1``. The hooks read the engine's clock at
   the JAX engine's points and in its order, and no hook reads a tensor;
 * over ranks: params cut over the active mesh's ``tensor`` axis
-  (parallel/sharding.py::shard_params) hold a rank's heads, and the pool
-  holds the rank's kv heads; over ``expert`` Mixtral's params hold the
+  (parallel/sharding.py::shard_params) hold a rank's block of the heads'
+  columns, and the pool holds the kv heads the rank's attention reads: its
+  own where the heads tile the axis, else its kv span (whole kv heads,
+  contiguous; a kv head may lie in two ranks' pools, where JAX's pool
+  replicates them all); over ``expert`` Mixtral's params hold the
   rank's experts, and its pool the same heads as its expert peers' (JAX's
   pool layout); the ranks of the other axes (``data``, ``fsdp``,
   ``sequence``) are replicas of the same engine on the same queue (JAX's
@@ -67,11 +70,13 @@ batch-invariant, but not JAX's threefry numbers (``_gumbel``).
   the engine in lockstep. The host decisions come out alike on every rank: the
   logits are gathered, so the sampled tokens agree; the clock is rank 0's
   reading broadcast at each read; a cancel is agreed at each chunk
-  boundary; the host tier's budget is the rank's share of the bytes.
+  boundary; the host tier's budget is the share of the bytes that the
+  rank's pool holds (its kv heads over the model's), so every rank spills
+  and restores as the one-rank engine does.
   Under ``NEXUS_SANITIZE`` the lockstep audit all-gathers a digest of the
   host state at each wave and raises on a mismatch instead of hanging.
-  The byte ledger (pool, host tier) counts the model's whole kv heads,
-  summed over the ranks, as JAX's global arrays do.
+  The byte ledger (pool, host tier) counts the model's kv heads once, as
+  JAX's global arrays do.
 """
 
 from __future__ import annotations
@@ -557,7 +562,10 @@ class ServingEngine:
         # lockstep (the tensor ranks the params were cut for, ``tensor_split``,
         # and the replicas over the other axes), agreeing on the clock and a
         # cancel over a host group (and auditing it under NEXUS_SANITIZE)
-        self._tp, _ = tensor_split(params, cfg)
+        tensor_split(params, cfg)  # raises unless the active mesh is the params'
+        # the kv heads the rank's pool holds, and the model's: the rank's
+        # share of the host tier's bytes
+        self._pool_heads = (local_heads(params, cfg)[1], cfg.n_kv_heads)
         mesh = active_mesh()
         self._lockstep = None if mesh is None else mesh.lockstep_group()
         self._clock = clock if self._lockstep is None else AgreedClock(clock, self._lockstep)
@@ -615,8 +623,8 @@ class ServingEngine:
                                            draft=self._draft)
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         per_elem = cfg.head_dim * 1 + 4 if self._quantized else cfg.head_dim * itemsize
-        # the ledger's bytes a position: the model's kv heads, summed over
-        # the tensor ranks (each pool holds its rank's share)
+        # the ledger's bytes a position: the model's kv heads, each once
+        # (as JAX's global pool counts them), whatever the ranks' pools hold
         self._pos_bytes = cfg.n_layers * cfg.n_kv_heads * per_elem * 2
         self._warmed = False
         self._serve_calls = 0
@@ -626,9 +634,10 @@ class ServingEngine:
     # ---------------------------------------------------------------- state
 
     def _build_kv_state(self) -> None:
-        # a tensor-parallel rank spills its own heads' planes: its share of
-        # the budget keeps every spill decision the one-rank engine's
-        self._host_store = (HostBlockStore(self._host_cache_bytes // self._tp,
+        # a tensor-parallel rank spills its pool's heads' planes: its share
+        # of the budget keeps every spill decision the one-rank engine's
+        mine, model = self._pool_heads
+        self._host_store = (HostBlockStore(self._host_cache_bytes * mine // model,
                                            dtype=self._host_cache_dtype)
                             if self._host_tier else None)
         self._alloc = (
@@ -1762,8 +1771,9 @@ class ServingEngine:
                     metrics["restore_hit_requests"] = restore_hit_requests
                     # summed over the tensor ranks, whose stores hold alike
                     # shaped entries of their own heads
-                    metrics["host_cache_bytes"] = hs["bytes"] * self._tp
-                    metrics["host_cache_bytes_peak"] = hs["bytes_peak"] * self._tp
+                    mine, model = self._pool_heads
+                    metrics["host_cache_bytes"] = hs["bytes"] * model // mine
+                    metrics["host_cache_bytes_peak"] = hs["bytes_peak"] * model // mine
                     metrics["host_cache_dtype"] = host_store.dtype
                     metrics["host_cache_evictions"] = alloc.host_evictions
                     # the spilled tier's slot of the partition: entries

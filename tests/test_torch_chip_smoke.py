@@ -1445,13 +1445,15 @@ def test_the_batch_axes_specs_are_the_templates_cut():
     assert serve["parallelism"] == {"fsdp": 2, "tensor": 2}
     assert serve["serve"]["numRequests"] == cs.SERVE_FSDP_TP_REQUESTS
     assert serve["model"]["overrides"] == {"n_layers": cs.BATCH_AXES_LAYERS}
-    assert serve["serve"] == dict(cs._serve_spec()["serve"], numRequests=8)
+    assert serve["serve"] == dict(cs._serve_spec()["serve"],
+                                  numRequests=cs.SERVE_FSDP_TP_REQUESTS)
     ring = cs.ring_tp_spec()
     assert ring["parallelism"] == {"sequence": 2, "tensor": 2}
     assert ring["train"]["seqLen"] == 8192 and ring["model"]["overrides"]["n_layers"] == 2
     moe = cs.moe_ring_tp_spec()
     assert moe["parallelism"] == {"sequence": 2, "tensor": 2}
-    assert moe["model"]["overrides"]["n_layers"] == 1 and moe["train"]["steps"] == 2
+    assert moe["model"]["overrides"]["n_layers"] == 1
+    assert moe["train"]["steps"] == cs.MOE_RING_TP_STEPS
     mlp = cs.mlp_tp_spec()
     assert mlp["model"] == {"family": "mlp", "preset": "small"}
     assert mlp["parallelism"] == {"fsdp": 2, "tensor": 2}
@@ -1818,3 +1820,113 @@ def test_the_batch_infer_gate_takes_the_expert_phases_spec(monkeypatch):
     assert cs.check_batch_infer("x", [run] * 4, run, spec) == {"token_share_vs_one_card": 1.0}
     with pytest.raises(AssertionError, match="rank output"):
         cs.check_batch_infer("x", [dict(run, output_shape=[8, 512 + 64])], run, spec)
+
+
+# ------------- heads that do not tile the tensor axis (item 4b, part four)
+
+
+def test_the_untiled_specs_are_pythia_160m_over_tensor_8():
+    """The spawn of 8 runs Pythia-160M at its published widths over {tensor:
+    8}, the plan 8 ranks keep (plan_for_devices gives it too), cut in depth,
+    rows and requests only; every rank's span holds 2 of the 12 heads."""
+    from nexus_tpu_torch.models import gptneox
+    from nexus_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices
+    from nexus_tpu_torch.parallel.tensor import rank_heads
+
+    assert plan_for_devices(cs.UNTILED_RANKS) == MeshPlan(**cs.UNTILED_PLAN)
+    specs = {"train": cs.untiled_train_spec(), "infer": cs.UNTILED_INFER,
+             "serve": cs.untiled_serve_spec()}
+    for name, spec in specs.items():
+        assert spec["model"]["family"] == "gptneox" and spec["model"]["preset"] == "160m"
+        assert spec["model"]["overrides"] == {"n_layers": cs.UNTILED_LAYERS}
+        assert cs.rank_plan(spec, cs.UNTILED_RANKS) == MeshPlan(tensor=8), name
+        cfg = cs._model_config(spec)
+        assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+            768, 12, 64, 3072, 50304)
+        assert {k: getattr(cfg, k) for k in gptneox.PRESETS["160m"] if k != "n_layers"} == {
+            k: v for k, v in gptneox.PRESETS["160m"].items() if k != "n_layers"}
+        assert cfg.n_heads % 8 and (cfg.n_heads * cfg.head_dim) % 8 == 0
+        assert cs.span_heads(spec, cs.UNTILED_RANKS) == (2, 2, 64)
+        spans = [rank_heads(12, 12, 64, r, 8).q[:2] for r in range(8)]
+        assert spans == [(0, 1), (1, 2), (3, 4), (4, 5), (6, 7), (7, 8), (9, 10), (10, 11)]
+    train = specs["train"]["train"]
+    assert train["seqLen"] % 64 == 0 and train["seqLen"] >= 128  # K1-K3 run
+    assert (train["batchSize"], train["steps"]) == (1, 3)
+    assert (cs.UNTILED_INFER["infer"]["promptLength"],
+            cs.UNTILED_INFER["infer"]["maxNewTokens"]) == (128, 32)
+    assert specs["serve"]["serve"]["numRequests"] == 4
+    assert specs["serve"]["serve"]["attentionPath"] == "fused"  # D1 at the span
+    # untiled-gqa: the tiny Llama's q and kv columns both under a head
+    gqa = cs._model_config(cs.GQA_SERVE)
+    assert (gqa.n_heads, gqa.n_kv_heads) == (4, 2) and gqa.n_kv_heads * gqa.head_dim // 8 < 16
+    assert cs.span_heads(cs.GQA_SERVE, cs.UNTILED_RANKS) == (1, 1, 16)
+
+
+def test_the_untiled_kernel_shapes_are_the_spans():
+    """K1-K3 and D1 run at the span shapes: Pythia-160M over 8 (2 / 2 heads
+    of 64, untiled-train's row) and Llama-3-8B over 16 (2 q heads and the
+    kv head they read, of 128, at train-tp's tp 4 row shape)."""
+    from nexus_tpu_torch.parallel.tensor import rank_heads
+
+    pythia, llama = (cs.UNTILED_TRAIN_SHAPES[k] for k in ("pythia160m_tp8", "llama8b_tp16"))
+    h = rank_heads(12, 12, 64, 3, 8)
+    assert (pythia["Hq"], pythia["Hkv"], pythia["D"]) == (h.q_heads, h.kv_heads, 64)
+    assert (pythia["B"], pythia["Sq"]) == (1, cs.UNTILED_TRAIN["train"]["seqLen"])
+    for r in range(16):
+        h = rank_heads(32, 8, 128, r, 16)
+        assert (llama["Hq"], llama["Hkv"], llama["D"]) == (h.q_heads, h.kv_heads, 128)
+        assert h.kv_index is None  # the kernels' group rule holds
+    tp4 = cs.TP_TRAIN_SHAPES["llama8b_tp4"]
+    assert (llama["B"], llama["Sq"], llama["Sk"]) == (tp4["B"], tp4["Sq"], tp4["Sk"])
+    for label, shape in cs.UNTILED_DECODE_SHAPES.items():
+        train = cs.UNTILED_TRAIN_SHAPES[label]
+        assert (shape["Hq"], shape["Hkv"], shape["D"]) == (train["Hq"], train["Hkv"], train["D"])
+        assert shape["depths"] == cs.DECODE_SERVE_QUEUE_SHAPE["depths"]
+
+
+def test_the_span_faults_patch_and_restore():
+    import torch
+
+    from nexus_tpu_torch.parallel import tensor as T
+
+    own, backward = T.RankHeads.own, T._SpanGather.backward
+    heads = T.rank_heads(12, 12, 4, 1, 8)  # columns 6..11: heads 1..2, offset 2
+    out = torch.arange(2 * 4, dtype=torch.float32).view(1, 1, 2, 4)
+    assert heads.own(out).flatten().tolist() == [2.0, 3.0, 4.0, 5.0, 6.0, 7.0]
+    with cs.planted_span("span_offset"):
+        assert heads.own(out).flatten().tolist() == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+    with cs.planted_span("gather_grad_block"):
+        assert T._SpanGather.backward is not backward
+    assert T.RankHeads.own is own and T._SpanGather.backward is backward
+    with pytest.raises(ValueError, match="unknown planted fault"):
+        with cs.planted_span("nope"):
+            pass
+
+
+def test_the_span_norm_gate_passes_clean_runs_and_catches_faults(monkeypatch):
+    monkeypatch.setattr(cs, "card_label", lambda: "no card")
+    one = {"span_norms": [1.0, 2.0]}
+    clean = {"span_norms": [1.0 * (1 + cs.TP_TRAIN_NORM_RTOL / 2), 2.0]}
+    fault = {"span_norms": [1.0 * (1 + 4 * cs.TP_TRAIN_NORM_RTOL)]}
+    out = cs.check_span_norms("x", clean, one, {"f": fault})
+    assert out["f"] == pytest.approx(4.0)
+    with pytest.raises(AssertionError, match="span gradient norms"):
+        cs.check_span_norms("x", {"span_norms": [1.01, 2.0]}, one, {})
+    with pytest.raises(AssertionError, match="pass the limit"):
+        cs.check_span_norms("x", clean, one, {"f": clean})
+
+
+def test_span_grad_norms_record_the_qkv_leaves_on_one_card():
+    import torch
+
+    from nexus_tpu_torch.train import trainer as Tr
+
+    opt = Tr.build_optimizer(1e-3, warmup_steps=1, total_steps=2)
+    leaves = [torch.zeros(3, requires_grad=True) for _ in range(4)]
+    state = opt.init(leaves)
+    grads = [torch.full((3,), float(i)) for i in range(4)]
+    update = Tr.AdamW.update
+    with cs.span_grad_norms() as seen:
+        opt.update(leaves, grads, state)
+    assert seen == [pytest.approx((3 * 1.0 + 3 * 4.0) ** 0.5)]  # leaves 1 and 2
+    assert Tr.AdamW.update is update

@@ -415,11 +415,17 @@ def test_fsdp_peers_are_the_other_batch_axes_never_tensor(monkeypatch):
                       parallelism={"pipeline": 2, "tensor": 2}), "pipeline axis .item 4d", 4,
                  id="over1-mlp family over the tensor axis .item 4b, part three-2"),
     # Mixtral over sequence beside a tensor axis its 2 kv heads do not tile
-    pytest.param(dict(model={"family": "mixtral"}, parallelism={"sequence": 2, "tensor": 4}),
-                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
-                 id="mixtral-sequence-tensor-4b"),
-    (dict(model={"family": "gptneox", "preset": "tiny"}, parallelism={"tensor": 8}),
-     "does not tile the model .q heads 4.*item 4b", 8),
+    # (item 4b part four: tests/test_torch_untiled_heads.py), beside the
+    # pipeline axis (item 4d)
+    pytest.param(dict(model={"family": "mixtral"},
+                      parallelism={"pipeline": 2, "sequence": 2, "tensor": 4}),
+                 "pipeline axis .item 4d", 16, id="mixtral-sequence-tensor-4b"),
+    # GPT-NeoX's 4 heads over a tensor axis of 8 (item 4b part four), beside
+    # the pipeline axis (item 4d). The id is the one the case was given when
+    # it held the refusal of heads that do not tile the axis
+    pytest.param(dict(model={"family": "gptneox", "preset": "tiny"},
+                      parallelism={"pipeline": 2, "tensor": 8}), "pipeline axis .item 4d", 16,
+                 id="over3-does not tile the model .q heads 4.*item 4b-8"),
 ])
 def test_what_training_over_tensor_still_refuses(monkeypatch, over, match, world):
     from nexus_tpu_torch.runtime import entrypoints

@@ -242,11 +242,12 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
                  id="over2-NotImplementedError-not ported"),
     # the other axes and modes not ported over several ranks. Training over
     # the tensor axis runs since item 4b part two (tests/test_torch_tensor_
-    # train.py), beside a sharded sequence axis since part three; heads that
-    # do not tile the axis (the tiny Llama's 2 kv heads over 4) are part four
-    pytest.param(dict(parallelism={"tensor": 4, "sequence": 2}), NotImplementedError,
-                 "tensor axis of 4 ranks does not tile the model .kv heads 2.*item 4b, part "
-                 "four", 8, id="tensor-4b"),
+    # train.py), beside a sharded sequence axis since part three, with heads
+    # that do not tile the axis (the tiny Llama's 2 kv heads over 4) since
+    # part four (tests/test_torch_untiled_heads.py); beside them the pipeline
+    # axis is still refused (item 4d)
+    pytest.param(dict(parallelism={"tensor": 4, "sequence": 2, "pipeline": 2}),
+                 NotImplementedError, "not ported.*pipeline axis .item 4d", 16, id="tensor-4b"),
     # serving over the expert axis runs since item 4c part two (tests/test_
     # torch_expert_serving.py; training since part one, a replica axis for a
     # dense family); beside it the pipeline axis is still refused (item 4d).
@@ -255,10 +256,13 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
                  NotImplementedError, "not ported.*pipeline axis .item 4d", 4, id="expert-4c"),
     pytest.param(dict(parallelism={"pipeline": 2, "fsdp": 2}), NotImplementedError,
                  "pipeline axis.*item 4d", 4, id="pipeline-4d"),
-    # infer over data runs since item 4b part three: over data beside a
-    # tensor axis its kv heads do not tile, it is part four
-    pytest.param(dict(mode="infer", parallelism={"data": 2, "tensor": 4}), NotImplementedError,
-                 "does not tile the model .kv heads 2.*item 4b, part four", 8, id="infer-4b"),
+    # infer over data runs since item 4b part three, beside a tensor axis its
+    # kv heads do not tile since part four; kv columns (the tiny Llama's 32)
+    # that do not tile it JAX cannot place either (a ValueError naming no
+    # item)
+    pytest.param(dict(mode="infer", parallelism={"data": 2, "tensor": 64}), ValueError,
+                 "tensor axis of 64 ranks does not tile the model .kv columns 32.: JAX cannot",
+                 128, id="infer-4b"),
     # attention other than the ring over a sharded sequence axis would
     # attend within each rank's block alone (JAX gathers the sequence)
     pytest.param(dict(model={"overrides": {"attn_impl": "flash"}},
@@ -270,26 +274,34 @@ def test_entry_point_raises_without_cuda_unless_cpu_is_asked(monkeypatch, device
                  "attn_impl 'xla' over the sequence axis", 2, id="sequence-xla"),
     # a plan that does not tile the ranks is re-planned, as in JAX: 8 ranks
     # get JAX's plan_for_devices(8), tensor 8, which the tiny Llama's 4 heads
-    # do not tile (2 ranks, tensor 2, train since item 4b part two)
-    pytest.param(dict(parallelism={"fsdp": 2, "sequence": 8}), NotImplementedError,
-                 "tensor axis of 8 ranks does not tile.*item 4b", 8, id="replanned-tensor-4b"),
+    # need not tile (item 4b part four), but whose columns must: at d_model
+    # 36 (heads of 9) neither its q nor its kv columns do
+    pytest.param(dict(model={"overrides": {"d_model": 36}}, parallelism={"fsdp": 2,
+                                                                         "sequence": 8}),
+                 ValueError, "tensor axis of 8 ranks does not tile the model .q columns 36, kv "
+                 "columns 18.: JAX cannot", 8, id="replanned-tensor-4b"),
     # infer and serve run over data, fsdp, sequence and tensor (item 4b,
-    # parts one and three: tests/test_torch_batch_axes.py), but not a
-    # target whose kv heads (the tiny Llama's 2) do not tile a tensor axis
-    # of 4 (part four), beside data or alone
-    pytest.param(dict(mode="serve", parallelism={"data": 2, "tensor": 4}), NotImplementedError,
-                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
+    # parts one and three: tests/test_torch_batch_axes.py), and a target
+    # whose kv heads (the tiny Llama's 2) do not tile a tensor axis of 4
+    # since part four, beside data or alone; beside pipeline they are
+    # refused (item 4d), and over kv columns that do not tile the axis JAX
+    # cannot place them either
+    pytest.param(dict(mode="serve", parallelism={"data": 2, "tensor": 4, "pipeline": 2}),
+                 NotImplementedError, "not ported.*pipeline axis .item 4d", 16,
                  id="serve-data-4b"),
-    pytest.param(dict(mode="serve", parallelism={"tensor": 4}), NotImplementedError,
-                 "does not tile the model .kv heads 2.*item 4b", 4, id="serve-untiled-kv-4b"),
+    pytest.param(dict(mode="serve", parallelism={"tensor": 64}), ValueError,
+                 "does not tile the model .kv columns 32.: JAX cannot", 64,
+                 id="serve-untiled-kv-4b"),
     # Mixtral infers over the tensor axis since item 4c (tests/test_torch_
     # moe_parallel.py), with the expert axis beside it since part two
-    # (tests/test_torch_expert_serving.py); a tensor axis its kv heads (the
-    # tiny preset's 2) do not tile is part four of item 4b. The id is the one
-    # of the case from when infer over expert and tensor was refused
+    # (tests/test_torch_expert_serving.py), and over a tensor axis its kv
+    # heads (the tiny preset's 2) do not tile since part four of item 4b;
+    # its kv columns (32) over 64 tensor ranks JAX cannot place either. The
+    # id is the one of the case from when infer over expert and tensor was
+    # refused
     pytest.param(dict(mode="infer", model={"family": "mixtral"},
-                      parallelism={"expert": 2, "tensor": 4}), NotImplementedError,
-                 "does not tile the model .kv heads 2.*item 4b, part four", 8,
+                      parallelism={"expert": 2, "tensor": 64}), ValueError,
+                 "does not tile the model .kv columns 32.: JAX cannot", 128,
                  id="infer-mixtral-tensor-4c"),
     # experts that do not tile the expert axis: JAX cannot place them either
     # (a ValueError naming no item)

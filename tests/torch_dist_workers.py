@@ -303,8 +303,9 @@ def tp_logits(family_name, cfg_kw, jax_params, tokens):
         first, cache = family.forward_decode(params, cfg, toks, cache)
         nxt = first[:, -1].argmax(-1)[:, None]
         second, _ = family.forward_decode(params, cfg, nxt, cache)
+        heads = local_heads(params, cfg)
     return {"prefill": _np(first), "step": _np(second),
-            "heads": local_heads(params, cfg), "cache_heads": cache["k"].shape[3]}
+            "heads": heads, "cache_heads": cache["k"].shape[3]}
 
 
 def tp_engine(cfg_kw, jax_params, queue, engine_kw, family_name="llama"):
