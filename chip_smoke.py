@@ -281,14 +281,33 @@ Phases, each of which raises on failure:
    on every rank, the token share against one card) and ``untiled-gqa``
    (the tiny Llama over {tensor: 8}, its q and kv columns both under a
    head: a float32 train run and a bf16 serve run against one card's);
-23. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
+23. head dim 256 (TPU-kernel items 2 and 3, their head-dim part):
+   ``d256-kernels`` (K1-K3 at D 256 on edge shapes and at train-d256's
+   shape, B 1, S 4096, 8 query heads over 1 kv head, timed beside their
+   bounds and SDPA; D1 at D 256 on edge cases and at 8 rows of 8 / 1 heads
+   on the depths of its timed shapes, T 1 and 8, bf16 and int8 pools), then
+   gemma2b-widths (the Llama template at Gemma-2B's published widths and
+   attention shape, GEMMA2B_WIDTHS) through the entry points:
+   ``train-d256`` (all 18 layers, one row of 4096, remat full, 2 warmup and
+   2 timed steps: the loss falls, K1-K3 launched, peak under 60 GB, the
+   kernels' share of a step), ``infer-d256`` (18 layers, the infer phase's
+   shape), ``serve-d256`` (18 layers, the serve queue's 8 requests, D1 at T
+   1 and 8) and ``serve-d256-int8`` (the int8 pool, 2 requests), and
+   ``logits-d256`` (2 layers: a 512-token forward through K1 and 64 tokens
+   fed through a paged pool, bf16 and int8, through D1, each within
+   TP_LOGIT_LIMIT of the same weights through the kernels' plain versions);
+24. the kernel line (JSON, one object per kernel, with each Mixtral, GPT-NeoX,
    MLP, pretrained, Orbax, ring, tensor-parallel, MoE, batch-axes,
-   expert-axis and untiled-heads phase's launches, K1-K3's timings and
-   bounds at the ring visit of a tensor rank's heads, and K1-K3's and D1's
-   at the untiled spans), each
-   phase's seconds (``[phase-seconds]`` lines), the script's wall time, the
-   card's name and power limit, and as the last line ``{"ok": true,
-   "device": {...}}``.
+   expert-axis, untiled-heads and head-dim-256 phase's launches, K1-K3's
+   timings and bounds at the ring visit of a tensor rank's heads, and
+   K1-K3's and D1's at the untiled spans and at D 256), each phase's
+   seconds (``[phase-seconds]`` lines; a spawn of ranks also splits rank
+   0's into its start, its wait for its runs, gloo staging and the rest),
+   the script's wall time, the card's name and power limit, and as the last
+   line ``{"ok": true, "device": {...}}``.
+
+Every spawn of ranks starts before its plans' one-card references run
+(``EarlyRanks``): the ranks import torch and set up the card meanwhile.
 
     python3 chip_smoke.py --ring-fsdp-neox-nccl
 
@@ -449,6 +468,7 @@ KERNEL_REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
 
 
 # each phase's seconds in this run, in order ([phase-seconds] lines)
@@ -3598,7 +3618,9 @@ def _teacher_forced(family, params, cfg, tokens, paged: bool = False):
         per_row = -(-n // bs)
         scratch = b * per_row
         cache = init_paged_kv_cache(cfg.n_layers, local_heads(params, cfg)[1], cfg.head_dim,
-                                    cfg.dtype, b, scratch + 1, bs, per_row, device=dev)
+                                    cfg.dtype, b, scratch + 1, bs, per_row,
+                                    quantized=getattr(cfg, "kv_cache_quantized", False),
+                                    device=dev)
         cache["block_table"] = torch.arange(scratch, dtype=torch.int32,
                                             device=dev).view(b, per_row)
         no_shared = {"shared_blocks": torch.zeros((), dtype=torch.int32, device=dev),
@@ -4423,46 +4445,145 @@ def train_tp_rank(specs: list, profile: bool = False) -> list:
     planted fault its ``planted`` key names (the faulted runs'
     ranks may part: their checks are the caller's), recording its saves
     when its ``record_saves`` key is set and timing an all-reduce of its
-    ``collective_numel`` elements after it."""
+    ``collective_numel`` elements after it. Each run's metrics add the
+    seconds it staged tensors through host memory for gloo
+    (``staging_s``)."""
+    from nexus_tpu_torch.parallel import comm
+
     out = []
     for spec in specs:
+        staged = comm.STAGING["seconds"]
         if "rank_phase" in spec:  # an infer, serve or logits run of the batch axes
             out.append(batch_axes_rank(spec))
-            continue
-        spec = dict(spec)
-        record = spec.pop("record_saves", False)
-        numel = spec.pop("collective_numel", 0)
-        planted = spec.pop("planted", None)
-        fault = (planted_span(planted) if planted in UNTILED_TRAIN_FAULTS
-                 else planted_train_fault(planted))
-        norms = span_grad_norms() if spec.pop("span_norms", False) else contextlib.nullcontext()
-        with fault, norms as seen:
-            out += train_rank([spec], record_saves=record, collective_numel=numel,
-                              profile=profile)
-        if seen is not None:
-            out[-1]["span_norms"] = list(seen)
+        else:
+            spec = dict(spec)
+            record = spec.pop("record_saves", False)
+            numel = spec.pop("collective_numel", 0)
+            planted = spec.pop("planted", None)
+            fault = (planted_span(planted) if planted in UNTILED_TRAIN_FAULTS
+                     else planted_train_fault(planted))
+            norms = (span_grad_norms() if spec.pop("span_norms", False)
+                     else contextlib.nullcontext())
+            with fault, norms as seen:
+                out += train_rank([spec], record_saves=record, collective_numel=numel,
+                                  profile=profile)
+            if seen is not None:
+                out[-1]["span_norms"] = list(seen)
+        out[-1]["staging_s"] = comm.STAGING["seconds"] - staged
     return out
 
 
-def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -> dict:
-    """{run name: each rank's metrics} of ``specs`` in one spawn of
-    ``world`` ranks; the clean train runs (no ``planted`` or
+def waiting_rank(path: str, t0: float, profile: bool = False,
+                 timeout_s: float = 600.0) -> list:
+    """A rank of ``EarlyRanks``: its card set up, it waits for the specs
+    file ``path`` and runs ``train_tp_rank`` of them (nothing for None).
+    The wait ends in an error after ``timeout_s`` or when the process that
+    spawned the rank is gone, so no rank outlives a parent that never
+    sent. The first run's metrics add the seconds from the spawn's start
+    (``t0``, ``time.time()``) to the rank's card being ready
+    (``rank_start_s``) and those it then waited (``rank_wait_s``)."""
+    import torch
+
+    parent = os.getppid()
+    torch.empty(1, device=_rank_device())  # the CUDA context
+    ready = time.time()
+    while not os.path.exists(path):
+        if os.getppid() != parent:
+            raise RuntimeError("the spawning process ended before it sent the runs")
+        if time.time() - ready > timeout_s:
+            raise TimeoutError(f"no runs sent within {timeout_s:.0f} s")
+        time.sleep(0.05)
+    specs = torch.load(path, weights_only=False)
+    if specs is None:
+        return []
+    waited = time.time() - ready
+    out = train_tp_rank(specs, profile)
+    out[0].update(rank_start_s=ready - t0, rank_wait_s=waited)
+    return out
+
+
+class EarlyRanks:
+    """A spawn of ``world`` ranks (``waiting_rank``) started before its
+    specs are known, in a thread: the ranks import torch, join their group
+    and set up the card while this process runs the plans' one-card
+    references. ``send`` hands them the specs and returns each rank's
+    results; ``close`` ends ranks that were sent nothing. ``timeout_s``
+    bounds both the ranks' wait for their specs and every collective."""
+
+    def __init__(self, world: int, backend: str = "gloo", timeout_s: float = 600.0):
+        import threading
+
+        from nexus_tpu_torch.testing.dist import spawn
+
+        self.dir = tempfile.mkdtemp(prefix="nexus-specs-")
+        self.path = os.path.join(self.dir, "specs.pt")
+        self.result, self.error, self.sent = None, None, False
+
+        def run():
+            try:
+                self.result = spawn(waiting_rank, world, (self.path, time.time(),
+                                                          backend == "nccl", timeout_s),
+                                    backend=backend, threads=2, timeout_s=timeout_s)
+            except BaseException as e:  # re-raised by send
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def send(self, specs: Optional[list]) -> list:
+        import shutil
+
+        import torch
+
+        self.sent = True
+        torch.save(specs, self.path + ".tmp")
+        os.replace(self.path + ".tmp", self.path)  # whole when the ranks see it
+        self.thread.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+    def close(self) -> None:
+        """End the ranks with None when nothing was sent to them (this
+        process failed first); their own errors then are not raised."""
+        if not self.sent:
+            with contextlib.suppress(BaseException):
+                self.send(None)
+
+
+def _train_tp_ranks(name: str, specs: dict, world: int, ranks: EarlyRanks,
+                    backend: str = "gloo") -> dict:
+    """{run name: each rank's metrics} of ``specs`` in the spawn
+    ``ranks`` of ``world`` ranks; the clean train runs (no ``planted`` or
     ``rank_phase`` key) checked by ``check_rank_runs``."""
     import torch
 
-    from nexus_tpu_torch.testing.dist import spawn
+    from nexus_tpu_torch.ops import attention as A
 
     _free_card()
     free, total = torch.cuda.mem_get_info()
-    log(f"[{name}] before the spawn this process holds {torch.cuda.memory_reserved() / 1e9:.2f} "
-        f"GB; the card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    log(f"[{name}] before the ranks get their runs this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB; the card has {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free")
     t0 = time.monotonic()
-    by_rank = spawn(train_tp_rank, world, (list(specs.values()), backend == "nccl"),
-                    backend=backend, threads=2)
+    by_rank = ranks.send(list(specs.values()))
     wall = time.monotonic() - t0
-    log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s; rank 0's seconds by "
-        "run " + json.dumps({run: round(rank0.get("phase_wall_s", 0.0), 1) for run, rank0 in
-                             zip(specs, by_rank[0])}) + f" ({card_label()})")
+    log(f"[{name}] {world} ranks over {backend}, spawn wall {wall:.1f} s after the runs were "
+        "sent; rank 0's seconds by run " + json.dumps(
+            {run: round(rank0.get("phase_wall_s", 0.0), 1) for run, rank0 in
+             zip(specs, by_rank[0])}) + ", staging through host memory by run "
+        + json.dumps({run: round(rank0["staging_s"], 1) for run, rank0 in
+                      zip(specs, by_rank[0])}) + f" ({card_label()})")
+    # rank 0's seconds: process start and CUDA init, then its wait for the
+    # runs (both beside the one-card references), then gloo staging and the
+    # rest of the wall after the runs were sent
+    first = by_rank[0][0]
+    staging = sum(r["staging_s"] for r in by_rank[0])
+    for part, secs in (("start", first["rank_start_s"]), ("wait", first["rank_wait_s"]),
+                       ("gloo-staging", staging), ("rest", wall - staging)):
+        PHASE_SECONDS[f"{name}/{part}"] = round(secs, 1)
+        log(f"[phase-seconds] {name}/{part} {PHASE_SECONDS[f'{name}/{part}']} s")
     out = {}
     for i, (run, spec) in enumerate(specs.items()):
         runs = [rank[i] for rank in by_rank]
@@ -4470,7 +4591,7 @@ def _train_tp_ranks(name: str, specs: dict, world: int, backend: str = "gloo") -
             # the MLP, and a model whose head dim the flash kernels do not
             # take (the tiny presets': the dense path), launch none
             dense = (spec["model"].get("family") == "mlp"
-                     or _model_config(spec).head_dim not in (64, 128))
+                     or _model_config(spec).head_dim not in A.KERNEL_HEAD_DIMS)
             runs = check_rank_runs(run, runs, kernels=() if dense else None)
         out[run] = runs
         out[run][0]["spawn_wall_s"] = wall
@@ -4482,13 +4603,18 @@ def run_plans(world: int, plans: list, backend: str = "gloo") -> dict:
     ranks pay torch's import and the card's set-up once). Each plan is a
     generator: it runs its one-card references, yields its {run: spec},
     is sent {run: each rank's metrics} and returns its phase's result;
-    the results are merged."""
+    the results are merged. The ranks start before the references run
+    (``EarlyRanks``)."""
+    ranks = EarlyRanks(world, backend)
     specs, names = {}, []
-    for plan in plans:
-        mine = next(plan)
-        specs.update(mine)
-        names.append(list(mine))
-    runs = _train_tp_ranks("/".join(n[0] for n in names), specs, world, backend)
+    try:
+        for plan in plans:
+            mine = next(plan)
+            specs.update(mine)
+            names.append(list(mine))
+        runs = _train_tp_ranks("/".join(n[0] for n in names), specs, world, ranks, backend)
+    finally:
+        ranks.close()  # a failure before the runs were sent: end the waiting ranks
     out = {}
     for plan, mine in zip(plans, names):
         try:
@@ -5537,9 +5663,9 @@ def check_batch_infer(name: str, runs: list, one: dict, spec: Optional[dict] = N
 
 
 # what every rank of a serve over ranks reports alike: all but its own peak,
-# wall and launches-by-kernel bookkeeping
+# wall, launches-by-kernel and gloo-staging bookkeeping
 _PER_RANK_KEYS = ("peak_mem_gb", "phase_wall_s", "launches", "missing", "device",
-                  "spawn_wall_s")
+                  "spawn_wall_s", "staging_s", "rank_start_s", "rank_wait_s")
 
 
 def check_batch_serve(name: str, runs: list, heads) -> None:
@@ -6589,6 +6715,248 @@ def untiled_kernel_rows(times: dict, name: str) -> dict:
     return out
 
 
+# ------------------------------------------------- head dim 256 (D 256)
+#
+# gemma2b-widths: a Llama-family model at Gemma-2B's published widths and
+# attention shape (https://huggingface.co/google/gemma-2b, config.json:
+# hidden_size 2048, intermediate_size 16384, num_attention_heads 8,
+# num_key_value_heads 1, head_dim 256, num_hidden_layers 18, vocab_size
+# 256000), reached through the Llama template's overrides: head_dim = 2048
+# / 8, MQA of 8 query heads over 1 kv head. Not Gemma: no GeGLU, tied and
+# scaled embedding or (1 + w) RMSNorm. ~3.03 G parameters, 6.06 GB in bf16.
+GEMMA2B_WIDTHS = {"vocab_size": 256000, "d_model": 2048, "n_layers": 18, "n_heads": 8,
+                  "n_kv_heads": 1, "d_ff": 16384, "max_seq_len": 8192}
+GEMMA2B_MODEL = {"family": "llama", "preset": "1b", "overrides": GEMMA2B_WIDTHS}
+# K1-K3 at train-d256's shape: one row of 4096, 8 query heads over 1 kv head
+D256_SHAPE = dict(B=1, Sq=4096, Sk=4096, Hq=8, Hkv=1, D=256, causal=True, q_offset=0, window=0)
+# D 256's masks and edges: a window, GQA 8 -> 1 and 4 -> 2, both q_offset
+# signs, ragged last 128-row query blocks and key tiles, keys that end
+# mid-tile (37, 100), non-causal
+D256_EDGE_SHAPES = [
+    dict(B=1, Sq=192, Sk=192, Hq=8, Hkv=1, D=256, causal=True, q_offset=0, window=48),
+    dict(B=2, Sq=192, Sk=320, Hq=4, Hkv=2, D=256, causal=True, q_offset=128, window=0),
+    dict(B=1, Sq=256, Sk=192, Hq=8, Hkv=1, D=256, causal=True, q_offset=-64, window=48),
+    dict(B=1, Sq=448, Sk=192, Hq=8, Hkv=1, D=256, causal=False, q_offset=0, window=0),
+    dict(B=1, Sq=320, Sk=320, Hq=8, Hkv=2, D=256, causal=True, q_offset=0, window=96),
+    dict(B=1, Sq=128, Sk=37, Hq=8, Hkv=1, D=256, causal=False, q_offset=0, window=0),
+    dict(B=2, Sq=128, Sk=100, Hq=8, Hkv=2, D=256, causal=True, q_offset=0, window=0),
+]
+# D1 at D 256: bf16 and int8 pools, T 1 to 64 (16-row slices two and four
+# a unit), ragged and stale tables, shared runs, windows, a block of two
+# ring stages (Bs 64) and block sizes that are not a power of two (row by
+# row)
+D256_DECODE_EDGE_SHAPES = [
+    dict(B=3, T=1, Hq=8, Hkv=1, D=256, Bs=32, depths=(1, 200, 97), shared=0, split=None,
+         window=0, int8=False, stale=True),
+    dict(B=4, T=8, Hq=8, Hkv=1, D=256, Bs=32, depths=(8, 300, 129, 64), shared=2, split=2,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=17, Hq=8, Hkv=2, D=256, Bs=16, depths=(40, 300), shared=2, split=2,
+         window=48, int8=False, stale=False),
+    dict(B=3, T=5, Hq=4, Hkv=1, D=256, Bs=24, depths=(50, 300, 7), shared=2, split=2,
+         window=0, int8=True, stale=True),
+    dict(B=2, T=8, Hq=8, Hkv=1, D=256, Bs=12, depths=(100, 37), shared=0, split=None,
+         window=30, int8=False, stale=False),
+    dict(B=16, T=1, Hq=8, Hkv=1, D=256, Bs=64,
+         depths=(1, 4096, 3, 2000, 33, 64, 65, 4000, 7, 1500, 129, 31, 3000, 257, 2, 1024),
+         shared=2, split=2, window=0, int8=True, stale=True),
+    dict(B=3, T=64, Hq=8, Hkv=1, D=256, Bs=32, depths=(300, 700, 520), shared=4, split=4,
+         window=200, int8=False, stale=True),
+]
+# D1's timed shapes at D 256: 8 rows of 8 query heads over 1 kv head, at
+# the depths of DECODE_MAIN_SHAPE and of the serve queue
+D256_DECODE_TIMED = (("d256_main", dict(DECODE_MAIN_SHAPE, Hq=8, Hkv=1, D=256)),
+                     ("d256_serve_queue", dict(DECODE_SERVE_QUEUE_SHAPE, Hq=8, Hkv=1, D=256)))
+# train-d256: all 18 layers (the card holds them: PERF.md's reckoning),
+# one row of 4096, remat full, the vocab-chunked loss, 2 warmup + 2 timed
+D256_TRAIN = {
+    "kind": "jax_xla", "mode": "train",
+    "model": dict(GEMMA2B_MODEL, overrides=dict(GEMMA2B_WIDTHS, remat=True,
+                                                remat_policy="full", ce_chunk=8192)),
+    "train": {"batchSize": 1, "seqLen": 4096, "steps": 4, "learningRate": 3e-4,
+              "warmupSteps": 0, "seed": 0},
+}
+D256_INFER = dict(INFER_SPEC, model=GEMMA2B_MODEL)
+# the logits gate: 2 layers at these widths, the same weights through the
+# kernels and through their plain versions (a 512-token forward through
+# K1; the paged pool's teacher-forced feeds through D1, bf16 and int8)
+D256_LOGIT_LAYERS = 2
+D256_LOGIT_LEN = 512
+D256_PHASES = ("train-d256", "infer-d256", "serve-d256", "serve-d256-int8", "logits-d256")
+
+
+def d256_serve_spec(num_requests: int = SERVE_REQUESTS, **extra) -> dict:
+    """The serve queue at gemma2b-widths, all 18 layers."""
+    return dict(_serve_spec(num_requests=num_requests, **extra), model=GEMMA2B_MODEL)
+
+
+def phase_d256_kernels() -> tuple:
+    """K1-K3 at D 256 (the edge shapes, then D256_SHAPE timed) and D1 at D
+    256 (the edge cases, then D256_DECODE_TIMED at T 1 and 8 on bf16 and
+    int8 pools, timed), each held to its plain version with the limits of
+    the D 64 / 128 rows. Returns (worst max-abs per kernel, {label:
+    timings})."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "fused_paged_decode_attention": 0.0}
+    for shape in D256_EDGE_SHAPES:
+        ratios = {}
+        errs, _, _ = check_kernels(shape, gen, ratios)
+        log(f"[d256-kernels] edge {shape}: max-abs {errs}, error over limit {ratios}")
+        worst.update({k: max(worst[k], v) for k, v in errs.items()})
+    ratios = {}
+    errs, times, inputs = check_kernels(D256_SHAPE, gen, ratios, timed=True)
+    del inputs
+    _free_card()
+    times = {"gemma2b": times}
+    worst.update({k: max(worst[k], v) for k, v in errs.items()})
+    log(f"[d256-kernels] gemma2b shape {D256_SHAPE}: max-abs {errs}, error over limit {ratios}, "
+        f"timings {times['gemma2b']}, bounds {_bounds_ms(D256_SHAPE)} ({card_label()})")
+    name = "fused_paged_decode_attention"
+    for shape in D256_DECODE_EDGE_SHAPES:
+        ratios = {}
+        err, _, _ = check_decode(shape, gen, ratios)
+        worst[name] = max(worst[name], err)
+        log(f"[d256-kernels] D1 edge {shape}: max-abs {err:.3g}, error over limit {ratios}")
+    for label, base in D256_DECODE_TIMED:
+        for t in (1, 8):
+            for int8 in (False, True):
+                ratios = {}
+                key = f"{label}_T{t}" + ("_int8" if int8 else "")
+                err, timing, _ = check_decode(dict(base, T=t, int8=int8), gen, ratios,
+                                              timed=True)
+                worst[name] = max(worst[name], err)
+                times[key] = dict(timing, error_over_limit=ratios["out"])
+                log(f"[d256-kernels] D1 {key}: max-abs {err:.3g}, error over limit {ratios}, "
+                    f"timings {timing} ({card_label()})")
+    return worst, times
+
+
+def d256_kernel_rows(times: dict, name: str) -> dict:
+    """Kernel ``name``'s D-256 timings, each with its shape and bound (the
+    kernels line)."""
+    if name == "fused_paged_decode_attention":
+        out = {}
+        for label, base in D256_DECODE_TIMED:
+            for t in (1, 8):
+                for int8 in (False, True):
+                    key = f"{label}_T{t}" + ("_int8" if int8 else "")
+                    out[key] = dict(times[key], bound_by="bytes",
+                                    shape=dict(base, T=t, int8=int8))
+        return out
+    ms, by = _bounds_ms(D256_SHAPE)[name]
+    return {"gemma2b": dict(times["gemma2b"][name], shape=D256_SHAPE, bound_ms=ms, bound_by=by)}
+
+
+def kernels_share(run: dict, times: dict) -> float:
+    """K1-K3's share of a timed train step at D256_SHAPE: each kernel's
+    launches a step times its device time in the kernel phase, over the
+    step's wall (from tokens/s)."""
+    tr = D256_TRAIN["train"]
+    step_ms = 1e3 * tr["batchSize"] * tr["seqLen"] / run["tokens_per_sec"]
+    per_step = sum(run["launches"][n] / tr["steps"] * times["gemma2b"][n]["device_ms"]
+                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    return per_step / step_ms
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While open, K1 and D1 compute through their plain versions on the
+    card (the logits gate's reference): ``ops.attention.flash_fwd`` (which
+    the dispatcher op calls) and the decode scaffold's D1."""
+    from nexus_tpu_torch.models import decoding as Dec
+    from nexus_tpu_torch.ops import attention as A
+
+    fwd, dec = A.flash_fwd, Dec.fused_paged_decode_attention
+    A.flash_fwd = A.flash_fwd_plain
+    Dec.fused_paged_decode_attention = A.fused_paged_decode_attention_plain
+    try:
+        yield
+    finally:
+        A.flash_fwd, Dec.fused_paged_decode_attention = fwd, dec
+
+
+def phase_logits_d256() -> dict:
+    """gemma2b-widths at D256_LOGIT_LAYERS layers, random weights from a
+    seed: a D256_LOGIT_LEN-token forward (K1) and TP_PROMPT_LEN tokens
+    teacher-forced through a paged pool (D1; bf16 and int8 pools), through
+    the kernels and through their plain versions on the card. Each feed's
+    max |kernels - plain| / max |plain| within TP_LOGIT_LIMIT; K1 and D1
+    launched. Returns {feed: error over the limit} and the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nexus_tpu_torch.models import llama
+    from nexus_tpu_torch.ops import attention as A
+
+    _free_card()
+    cfg = llama.config("1b", **dict(GEMMA2B_WIDTHS, n_layers=D256_LOGIT_LAYERS))
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    for t in llama.leaves(params):
+        t.requires_grad_(False)
+    tokens = torch.as_tensor(np.random.RandomState(21).randint(0, cfg.vocab_size,
+                                                               (1, D256_LOGIT_LEN)),
+                             dtype=torch.int32, device="cuda")
+    int8 = dataclasses.replace(cfg, kv_cache_quantized=True)
+
+    def feeds():
+        with torch.inference_mode():
+            return {"flash": llama.forward(params, cfg, tokens).float().cpu(),
+                    "paged": _teacher_forced(llama, params, cfg, tokens[:, :TP_PROMPT_LEN],
+                                             paged=True),
+                    "paged-int8": _teacher_forced(llama, params, int8,
+                                                  tokens[:, :TP_PROMPT_LEN], paged=True)}
+
+    got, launches, missing = _launches_during(feeds, (A.flash_fwd,
+                                                      A.fused_paged_decode_attention))
+    if missing:
+        raise AssertionError(f"logits-d256: kernels never launched: {missing}")
+    with plain_kernels():
+        want, plain_launches, _ = _launches_during(feeds, ())
+    if any(plain_launches.values()):
+        raise AssertionError(f"logits-d256: the plain run launched {plain_launches}")
+    errs = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max()) for k in got}
+    log(f"[logits-d256] {D256_LOGIT_LAYERS} layers at gemma2b-widths, max |kernels - plain| / "
+        f"max |plain| by feed: {errs} (limit {TP_LOGIT_LIMIT}), launches {launches} "
+        f"({card_label()})")
+    over = {k: v for k, v in errs.items() if not v <= TP_LOGIT_LIMIT}
+    if over:
+        raise AssertionError(f"logits-d256: {over} over the limit {TP_LOGIT_LIMIT}")
+    del params
+    _free_card()
+    return {"error_over_limit": {k: v / TP_LOGIT_LIMIT for k, v in errs.items()},
+            "launches": launches}
+
+
+def run_d256_phases(kernel_times: dict) -> dict:
+    """train-d256, infer-d256, serve-d256 (its queue's 8 requests; D1 at T
+    1 and 8), serve-d256-int8 (the int8 pool, SERVE_VARIANT_REQUESTS) and
+    logits-d256, at gemma2b-widths, all 18 layers but the logits gate's."""
+    out = {"train-d256": phase_train("train-d256", D256_TRAIN)}
+    train = out["train-d256"]
+    train["kernels_share"] = kernels_share(train, kernel_times)
+    check_peak("train-d256", train["peak_mem_gb"])
+    log(f"[train-d256] tokens_per_sec {train['tokens_per_sec']}, mfu {train.get('mfu')}, "
+        f"peak_mem_gb {train['peak_mem_gb']:.2f}, K1-K3's share of a step (their launches "
+        f"by the kernel phase's device times) {train['kernels_share']:.4f} ({card_label()})")
+    out["infer-d256"] = phase_peak_infer("infer-d256", D256_INFER)
+    out["serve-d256"] = phase_serve("serve-d256", d256_serve_spec(), must_t=(1, 8))
+    out["serve-d256-int8"] = phase_serve(
+        "serve-d256-int8", d256_serve_spec(SERVE_VARIANT_REQUESTS, kvPoolDtype="int8"),
+        must_t=(1, 8))
+    out["logits-d256"] = phase_logits_d256()
+    return out
+
+
+def d256_launches(d256: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in each D-256 phase."""
+    return {phase: d256[phase]["launches"][name] for phase in D256_PHASES}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6664,6 +7032,8 @@ def main(argv=None) -> int:
     untiled_worst, untiled_times = timed("untiled-kernels", phase_untiled_kernels)
     worst["fused_paged_decode_attention"], decode_times, p_bf16 = timed("decode-kernel",
                                                                         phase_decode_kernel)
+    # K1-K3 and D1 at head dim 256 (gemma2b-widths)
+    d256_worst, d256_times = timed("d256-kernels", phase_d256_kernels)
     main_run = timed("main", phase_train, "main", _train_spec(n_layers=4, steps=MAIN_STEPS))
     timed("remat", phase_train, "remat", _train_spec(n_layers=2, steps=4, remat=True,
                                                      remat_policy="full", ce_chunk=8192))
@@ -6703,6 +7073,8 @@ def main(argv=None) -> int:
     fleet_spec["model"] = dict(fleet_spec["model"], overrides={"n_layers": FLEET_LAYERS})
     fleet = timed("serve-fleet", phase_serve_fleet, fleet_spec)
     traced = timed("serve-traced", phase_serve_traced, _serve_spec(num_requests=8))
+    # head dim 256: gemma2b-widths trains, infers and serves
+    d256 = timed("d256", run_d256_phases, d256_times)
     mixtral = timed("mixtral", run_mixtral_phases)
     neox = timed("gptneox-mlp", run_neox_mlp_phases)
     pretrained = timed("pretrained", run_pretrained_phases)
@@ -6723,7 +7095,7 @@ def main(argv=None) -> int:
     # heads that do not tile the tensor axis: the spawn of 8
     ut = timed("untiled-train,untiled-infer,untiled-serve,untiled-gqa", run_plans,
                UNTILED_RANKS, untiled_plans())
-    worst = {k: max(v, untiled_worst.get(k, 0.0)) for k, v in worst.items()}
+    worst = {k: max(v, untiled_worst.get(k, 0.0), d256_worst[k]) for k, v in worst.items()}
     ep = {k: tt.pop(k) for k in list(tt) if k.startswith(MOE_EP_PHASES)}
     ba = {k: tt.pop(k) for k in list(tt) if k.startswith(BATCH_AXES_PHASES)}
     mt = {k: tt.pop(k) for k in list(tt) if k.startswith(("train-moe", "moe-"))}
@@ -6776,6 +7148,11 @@ def main(argv=None) -> int:
             # over 16), held to their plain versions and timed beside their
             # bounds and the library call
             "untiled_spans": untiled_kernel_rows(untiled_times, n),
+            # head dim 256: the launches of the gemma2b-widths phases, and the
+            # kernel at D 256 held to its plain version and timed beside its
+            # bound and the library call
+            "d256_launches": d256_launches(d256, n),
+            "d256_timings": d256_kernel_rows(d256_times, n),
             "name": n, "route": "cuda", "source": KERNEL_SOURCES[n], "replaces": KERNEL_REPLACES[n],
             "launches": launches[n], "max_abs_err": worst[n],
             "ms": times[n]["ms"], "device_ms": times[n]["device_ms"],
@@ -6831,6 +7208,8 @@ def main(argv=None) -> int:
         "batch_axes": batch_axes_summary(ba),
         "moe_ep": batch_axes_summary(ep),
         "untiled": untiled_summary(ut),
+        "d256": {phase: {k: run.get(k) for k in MIXTRAL_KEYS + (
+            "kernels_share", "error_over_limit") if k in run} for phase, run in d256.items()},
         "tp_train_kernel_timings": {
             label: dict({n: dict(shape_times[label][n], bound_ms=ms, bound_by=by)
                          for n, (ms, by) in _bounds_ms(shape).items()}, shape=shape)

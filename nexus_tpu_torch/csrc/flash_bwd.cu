@@ -22,14 +22,15 @@
 //     warpgroup and two consumer warpgroups of 64 rows each; setmaxnreg
 //     moves the producer's registers to the consumers;
 //   * the producer (one thread) TMA-loads the Q and dO tiles once, then
-//     streams the K and V tiles (64 keys) of the mask's band through a
-//     three-stage ring; K and V have their own full/empty mbarriers: V is
-//     free once dP = dO V^T has read it, K only after dQ += dS K, one tile
-//     later, so the ring is one stage deeper than the forward's;
-//   * S = Q K^T and dP = dO V^T are wgmma m64n64k16 with all four operands
-//     in shared memory (K-major); P and dS stay in registers, dS cast to
-//     bf16 as the A operand of dQ += dS K (K MN-major, transpose bit), and
-//     dQ accumulates in fp32 registers;
+//     streams the K and V tiles (64 keys; 32 at D 256) of the mask's band
+//     through a three-stage ring; K and V have their own full/empty
+//     mbarriers: V is free once dP = dO V^T has read it, K only after
+//     dQ += dS K, one tile later, so the ring is one stage deeper than the
+//     forward's;
+//   * S = Q K^T and dP = dO V^T are wgmma m64n64k16 (m64n32k16 at D 256)
+//     with all four operands in shared memory (K-major); P and dS stay in
+//     registers, dS cast to bf16 as the A operand of dQ += dS K (K MN-major,
+//     transpose bit), and dQ accumulates in fp32 registers;
 //   * each consumer issues S_i and dP_i together with dQ += dS_{i-1} K_{i-1}
 //     and computes dS_i while that product is on the tensor cores. The two
 //     consumer warpgroups are not made to take turns on the tensor cores
@@ -51,14 +52,18 @@
 
 namespace nexus {
 
+// At D 256 the Q and dO tiles alone take 128 KB, so the key tiles are 32
+// wide (a three-stage ring of 16 KB K and V tiles, 225 KB in all), and a
+// consumer thread holds 128 registers of dQ beside 16 each of S and dP.
 template <int D>
 struct DqTiles {
-  static constexpr int BM = 128, BN = 64, STAGES = 3;
+  static constexpr int BM = 128, BN = D == 256 ? 32 : 64, STAGES = 3;
   static constexpr int Q_BYTES = BM * D * 2;   // a Q or dO tile
   static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
   static constexpr int BARRIERS = 1 + 4 * STAGES;
   static constexpr int SMEM =
       1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + BARRIERS * 8;
+  static_assert(SMEM <= 232448, "a block's shared memory on the H100");
 };
 
 // P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta) of one
@@ -335,9 +340,9 @@ static int launch_dq(const void* q, const void* k, const void* v,
 }  // namespace nexus
 
 // Plain C entries for ctypes; the Python wrapper checks shapes (Sq a
-// multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
-// lse and delta are (B, Hq, Sq) f32. Return the cudaError_t of the launch
-// (or of the tensor maps).
+// multiple of 64, Sk >= 1, D 64, 128 or 256, Hq a multiple of Hkv, contiguous
+// tensors). lse and delta are (B, Hq, Sq) f32. Return the cudaError_t of the
+// launch (or of the tensor maps); any other D returns cudaErrorInvalidValue.
 extern "C" int nexus_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int Sq,
@@ -350,6 +355,9 @@ extern "C" int nexus_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 Hkv, causal, q_offset, window, scale, st);
   if (D == 128)
     return nexus::launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, Hq,
+                                 Hkv, causal, q_offset, window, scale, st);
+  if (D == 256)
+    return nexus::launch_dq<256>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, Hq,
                                  Hkv, causal, q_offset, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,8 @@
 //   * one block per (batch, kv head, 128 keys): a producer warpgroup and two
 //     consumer warpgroups of 64 keys each; setmaxnreg moves the producer's
 //     registers to the consumers, whose dK and dV accumulators alone take 128
-//     registers a thread at D 128;
+//     registers a thread at D 128; at D 256 one block per 64 keys, its two
+//     consumers each owning half of the columns (DkvTiles below);
 //   * the producer (one thread) TMA-loads K and V once, then walks the n_rep
 //     query heads of the group and, for each, the 64-row query tiles of the
 //     mask's band, streaming Q, dO and the matching lse and delta rows through
@@ -41,9 +42,16 @@
 
 namespace nexus {
 
+// At D 256 one consumer's dK and dV of 64 keys would take 256 registers a
+// thread: the two consumer warpgroups then share one 64-key slice (BN 64),
+// each owning half of dK's and dV's columns (DC = D / SPLIT) and computing
+// S^T and dP^T in full. A block then does 12D FLOP a pair where the others
+// do 8D, in D 128's registers.
 template <int D>
 struct DkvTiles {
-  static constexpr int BN = 128, BM = 64, STAGES = 2;
+  static constexpr int SPLIT = D == 256 ? 2 : 1;  // consumers on one key slice
+  static constexpr int DC = D / SPLIT;            // dK / dV columns a consumer owns
+  static constexpr int BN = 128 / SPLIT, BM = 64, STAGES = 2;
   static constexpr int KV_BYTES = BN * D * 2;  // K or V of the block
   static constexpr int Q_BYTES = BM * D * 2;   // a Q or dO tile
   static constexpr int ROW_BYTES = BM * 4;     // lse or delta of a tile
@@ -51,6 +59,7 @@ struct DkvTiles {
   static constexpr int SMEM = 1024 + 2 * KV_BYTES +
                               STAGES * (2 * Q_BYTES + 2 * ROW_BYTES) +
                               BARRIERS * 8;
+  static_assert(SMEM <= 232448, "a block's shared memory on the H100");
 };
 
 // P^T = exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T - delta)
@@ -155,19 +164,23 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
   } else {
-    // consumers: warpgroup cw owns keys c0 + 64 cw .. + 63
+    // consumers: warpgroup cw owns keys c0 + 64 ks .. + 63 and dK / dV
+    // columns DC half .. + DC - 1 (SPLIT 1: ks = cw, half 0)
     regs_inc<kConsumerRegs>();
-    const int cw = wg - 1;
+    constexpr int DC = T::DC;
+    const int cw = wg - 1, ks = cw / T::SPLIT, half = cw % T::SPLIT;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-    const int key0 = c0 + 64 * cw;
+    const int key0 = c0 + 64 * ks;
     const int keys[2] = {key0 + 16 * warp + g, key0 + 16 * warp + g + 8};
-    const uint32_t k_base = smem_u32(sK) + cw * 64 * 128;
-    const uint32_t v_base = smem_u32(sV) + cw * 64 * 128;
+    const uint32_t k_base = smem_u32(sK) + ks * 64 * 128;
+    const uint32_t v_base = smem_u32(sV) + ks * 64 * 128;
+    // the first 64-column region of this consumer's columns in a Q / dO tile
+    const uint32_t col_off = half * (DC / 64) * BM * 128;
     const float scale_log2 = scale * kLog2e;
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DC / 2], dv_acc[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(bar_kv, 0);
     int i = 0;
@@ -219,19 +232,20 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           c_to_a(pa[kk], &st[8 * kk], &st[8 * kk + 4]);
           c_to_a(da[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
         }
-        // dV += P^T dO, dK += dS^T Q: the reduction runs over query rows
+        // dV += P^T dO, dK += dS^T Q over this consumer's columns: the
+        // reduction runs over query rows
         fence_regs<BM / 16>(pa);
         fence_regs<BM / 16>(da);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BM / 16; ++kk) {
-          wgmma_rs<D>(dv_acc, pa[kk], mnmajor_desc(do_base, kk, BM * 128));
-          wgmma_rs<D>(dk_acc, da[kk], mnmajor_desc(q_base, kk, BM * 128));
+          wgmma_rs<DC>(dv_acc, pa[kk], mnmajor_desc(do_base + col_off, kk, BM * 128));
+          wgmma_rs<DC>(dk_acc, da[kk], mnmajor_desc(q_base + col_off, kk, BM * 128));
         }
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<D / 2>(dv_acc);
-        fence_regs<D / 2>(dk_acc);
+        fence_regs<DC / 2>(dv_acc);
+        fence_regs<DC / 2>(dk_acc);
         mbar_arrive(&empty[s]);
       }
     }
@@ -244,8 +258,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       bf16* dkr = dk + kvoff + (long)keys[r] * kv_stride;
       bf16* dvr = dv + kvoff + (long)keys[r] * kv_stride;
 #pragma unroll
-      for (int i2 = 0; i2 < D / 8; ++i2) {
-        const int c = 8 * i2 + 2 * t, e = 4 * i2 + 2 * r;
+      for (int i2 = 0; i2 < DC / 8; ++i2) {
+        const int c = half * DC + 8 * i2 + 2 * t, e = 4 * i2 + 2 * r;
         *reinterpret_cast<uint32_t*>(dkr + c) =
             pack_bf16(dk_acc[e] * scale, dk_acc[e + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvr + c) = pack_bf16(dv_acc[e], dv_acc[e + 1]);
@@ -283,9 +297,10 @@ static int launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace nexus
 
 // Plain C entry for ctypes; the Python wrapper checks shapes (Sq a
-// multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, contiguous tensors).
-// lse and delta are (B, Hq, Sq) f32. Returns the cudaError_t of the launch
-// (or of the tensor maps).
+// multiple of 64, Sk >= 1, D 64, 128 or 256, Hq a multiple of Hkv, contiguous
+// tensors). lse and delta are (B, Hq, Sq) f32. Returns the cudaError_t of
+// the launch (or of the tensor maps); any other D returns
+// cudaErrorInvalidValue.
 extern "C" int nexus_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* delta, void* dk, void* dv,
@@ -298,6 +313,10 @@ extern "C" int nexus_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  Hq, Hkv, causal, q_offset, window, scale, st);
   if (D == 128)
     return nexus::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                  Sk, Hq, Hkv, causal, q_offset, window, scale,
+                                  st);
+  if (D == 256)
+    return nexus::launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
                                   Sk, Hq, Hkv, causal, q_offset, window, scale,
                                   st);
   return (int)cudaErrorInvalidValue;

@@ -17,10 +17,11 @@
 //     warpgroup and two consumer warpgroups of 64 rows each; setmaxnreg
 //     moves the producer's registers to the consumers;
 //   * the producer (one thread) TMA-loads the Q tile once, then streams the
-//     K and V tiles (128 keys) of the mask's band through a two-stage ring
-//     of shared-memory buffers; K and V each have full/empty mbarrier pairs,
+//     K and V tiles (128 keys; 64 at D 256) of the mask's band through a
+//     two-stage ring of shared-memory buffers; K and V each have full/empty mbarrier pairs,
 //     so Q K^T starts before V lands and K is refilled before P V is done;
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
+//   * S = Q K^T is wgmma m64n128k16 (m64n64k16 at D 256) with both operands
+//     in shared memory;
 //     P, cast to bf16 as the TPU kernel casts it to V's dtype, stays in
 //     registers as the A operand of O += P V (V MN-major, transpose bit);
 //   * what bounds the loop once the products run on wgmma is the softmax
@@ -44,14 +45,18 @@
 
 namespace nexus {
 
+// At D 256 a 128-key K/V ring would not fit (Q 64 KB + 4 x 64 KB against
+// 227 KB): its key tiles are 64 wide (Q 64 KB + 4 x 32 KB), and a consumer
+// thread holds 128 registers of O beside 32 of S.
 template <int D>
 struct FwdTiles {
-  static constexpr int BM = 128, BN = 128, STAGES = 2;
+  static constexpr int BM = 128, BN = D == 256 ? 64 : 128, STAGES = 2;
   static constexpr int Q_BYTES = BM * D * 2;   // D/64 regions of BM x 128 B
   static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
   static constexpr int BARRIERS = 1 + 4 * STAGES;
   static constexpr int SMEM =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BARRIERS * 8;
+  static_assert(SMEM <= 232448, "a block's shared memory on the H100");
 };
 
 // Online softmax of one tile of raw scores Q K^T, in place: masks per
@@ -336,8 +341,9 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace nexus
 
 // Plain C entry for ctypes. Shapes are checked by the Python wrapper:
-// Sq a multiple of 64, Sk >= 1, D 64 or 128, Hq a multiple of Hkv, all tensors
-// contiguous. Returns the cudaError_t of the launch (or of the tensor maps).
+// Sq a multiple of 64, Sk >= 1, D 64, 128 or 256, Hq a multiple of Hkv, all
+// tensors contiguous. Returns the cudaError_t of the launch (or of the tensor
+// maps); any other D returns cudaErrorInvalidValue and launches nothing.
 extern "C" int nexus_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int Sq, int Sk,
                                int Hq, int Hkv, int D, int causal,
@@ -349,6 +355,9 @@ extern "C" int nexus_flash_fwd(const void* q, const void* k, const void* v,
                                  q_offset, window, scale, st);
   if (D == 128)
     return nexus::launch_fwd<128>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal,
+                                  q_offset, window, scale, st);
+  if (D == 256)
+    return nexus::launch_fwd<256>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal,
                                   q_offset, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

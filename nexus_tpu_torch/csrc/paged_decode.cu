@@ -30,8 +30,8 @@
 //     dot, bitwise the JAX `_dequant_block`.
 //   * GQA: query head h reads kv head h / (Hq/Hkv); the raw Hkv blocks are
 //     read, never repeated.
-//   * D is 16, 64, 96 or 128 (the tiny presets, Llama and Mixtral at 128,
-//     GPT-NeoX-20B at 96).
+//   * D is 16, 64, 96, 128 or 256 (the tiny presets, Llama and Mixtral at
+//     128, GPT-NeoX-20B at 96, a model at Gemma-2B's widths at 256).
 //
 // What bounds it on the H100: bytes. Every visible position costs
 // 2*Hkv*D*2 bytes of K+V (4 KiB a layer at Llama-3-8B widths) against
@@ -56,7 +56,8 @@
 //     cut into many units and no longer sets the tail, and a short batch
 //     runs in one wave.
 //   * A producer warp and four consumer warps. The producer fills a ring of
-//     STAGES = 4 shared-memory stages of TILE = 64 positions (K then V)
+//     STAGES = 4 shared-memory stages of TILE = 64 positions (K then V; at
+//     D 256 two stages of 32, whose 16-row slices are at least two a unit)
 //     with TMA boxes of one pool block (up to 64 positions) of one kv head
 //     through two 3-d tensor maps over the pool (N*Bs, Hkv, D), encoded per
 //     call on the host (the pool's address changes with the layer); boxes
@@ -119,8 +120,10 @@ using nexus::bf16;
 constexpr int CONSUMERS = 4;                     // consumer warps
 constexpr int THREADS = 32 * (CONSUMERS + 1);    // + the producer warp
 constexpr int ROWS = 16 * CONSUMERS;             // query rows a unit takes
-constexpr int TILE = 64;                         // positions per ring stage
-constexpr int STAGES = 4;
+// positions per ring stage, and stages of the ring: at D 256 a stage of 64
+// bf16 positions (K and V) is 64 KB, so its ring holds two of 32
+constexpr int tile_for(int D) { return D > 128 ? 32 : 64; }
+constexpr int stages_for(int D) { return D > 128 ? 2 : 4; }
 constexpr int MAX_ROWS = 1024;                   // rows B the row table holds
 constexpr int MAX_PARTIALS = 17;                 // partials per query row, at most
 constexpr int UNIT_MIN_POS = 64;                 // a unit's span, in positions
@@ -167,7 +170,11 @@ struct Args {
 // rows of D bytes, dequantized into a bf16 work tile.
 template <int D, bool INT8>
 struct Geo {
-  static_assert(D % 16 == 0 && D <= 128, "head dims of 16-column steps up to 128");
+  static_assert(D % 16 == 0 && D <= 256, "head dims of 16-column steps up to 256");
+  static constexpr int TILE = tile_for(D), STAGES = stages_for(D);
+  // a warp's keys of a stage (TILE / key splits) are a multiple of 16: the
+  // fewest 16-row slices a unit is cut into (1 at TILE 64, 2 at TILE 32)
+  static constexpr int MT_MIN = CONSUMERS * 16 / TILE;
   static constexpr int DP = (D + 63) / 64 * 64;       // columns of a bf16 tile row
   static constexpr int REGIONS = DP / 64;
   static constexpr int REGION = TILE * 128;           // 64 columns of a tile
@@ -186,6 +193,7 @@ struct Geo {
   static constexpr int SMEM =
       1024 + STAGES * STAGE + WORK + MERGE + 2 * QBUF + ROW_TABLE + BARS + LIST;
   static_assert(STAGE % 1024 == 0, "stages must keep the swizzle's alignment");
+  static_assert(SMEM <= 232448, "a block's shared memory on the H100");
 };
 
 __device__ __forceinline__ int warp_sum_i(int x) {
@@ -423,7 +431,7 @@ __device__ __forceinline__ int pool_block(const Args& a, int b, int slot) {
 // apart in each 64-column region); pos0: the virtual
 // position of that key; [lo, hi]: the visible positions of the warp's two
 // rows (g and g + 8).
-template <int D, int NT>
+template <int D, int TILE, int NT>
 __device__ __forceinline__ void attend(const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4],
                                        float (&m)[2], float (&l)[2], uint32_t kb, uint32_t vb,
                                        int pos0, const int (&lo)[2], const int (&hi)[2],
@@ -520,7 +528,7 @@ template <int D>
 __device__ __forceinline__ void dequant_stage(const Args& a, const unsigned char* raw,
                                               unsigned char* work, int b, int g, int p0,
                                               int nvalid, int tid) {
-  constexpr int CPR = D / 16, TILE_BF = Geo<D, true>::TILE_BF;
+  constexpr int CPR = D / 16, TILE = Geo<D, true>::TILE, TILE_BF = Geo<D, true>::TILE_BF;
   for (int i = tid; i < 2 * TILE * CPR; i += 32 * CONSUMERS) {
     const int which = i / (TILE * CPR), rem = i % (TILE * CPR);
     const int row = rem / CPR, c = rem % CPR;
@@ -556,8 +564,10 @@ __device__ __forceinline__ void consume_unit(const Args& a, const Rows& rows, co
                                              uint64_t* qempty, int* list, int& it, int n,
                                              int warp, int lane) {
   using G = Geo<D, INT8>;
+  constexpr int TILE = G::TILE, STAGES = G::STAGES;
   constexpr int KS = CONSUMERS / MT;  // key splits
   constexpr int PW = TILE / KS;       // keys per warp per stage
+  static_assert(PW % 16 == 0, "a warp's keys of a stage: whole 16-key steps");
   const int mt = warp % MT, ks = warp / MT;
   const int tid = warp * 32 + lane;
   const int g4 = lane >> 2, t4 = lane & 3;
@@ -618,7 +628,7 @@ __device__ __forceinline__ void consume_unit(const Args& a, const Rows& rows, co
     }
     const uint32_t kb = nexus::smem_u32(tile) + ks * PW * 128;
     const uint32_t vb = kb + G::TILE_BF;
-    attend<D, PW / 8>(qf, acc, m, l, kb, vb, p0 + ks * PW, lo, hi, a.scale_log2, lane);
+    attend<D, TILE, PW / 8>(qf, acc, m, l, kb, vb, p0 + ks * PW, lo, hi, a.scale_log2, lane);
     if constexpr (INT8) {
       nexus::named_bar_sync(MERGE_BAR, 32 * CONSUMERS);  // the work tile is read
     } else {
@@ -771,6 +781,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     paged_decode_kernel(const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map, Args a) {
   using G = Geo<D, INT8>;
+  constexpr int TILE = G::TILE, STAGES = G::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = nexus::align1024(smem_raw);
   unsigned char* ring = smem;
@@ -915,10 +926,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
     const Unit w = unit_at(a, rows, p, u, lane);
-    if (w.nrows <= 16)
-      consume_unit<D, INT8, 1>(a, rows, p, w, ring, work, area, qbuf, full, empty, qfull,
-                               qempty, list, it, n, warp, lane);
-    else if (w.nrows <= 32)
+    // 16-row slices by the unit's rows, no fewer than the stage's keys allow
+    // (a slice past the rows attends nothing)
+    if constexpr (G::MT_MIN <= 1) {
+      if (w.nrows <= 16) {
+        consume_unit<D, INT8, 1>(a, rows, p, w, ring, work, area, qbuf, full, empty, qfull,
+                                 qempty, list, it, n, warp, lane);
+        continue;
+      }
+    }
+    if (w.nrows <= 32)
       consume_unit<D, INT8, 2>(a, rows, p, w, ring, work, area, qbuf, full, empty, qfull,
                                qempty, list, it, n, warp, lane);
     else
@@ -933,7 +950,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // would be one object for the whole process (a GNU unique symbol), shared
 // with any other build of this source loaded beside it, which would then
 // skip its own attribute call.
-static int per_sm_cache[8][2];
+static int per_sm_cache[16][2];
 
 template <int D, bool INT8>
 int launch(const CUtensorMap& k_map, const CUtensorMap& v_map, Args a, int max_units,
@@ -962,7 +979,8 @@ int launch(const CUtensorMap& k_map, const CUtensorMap& v_map, Args a, int max_u
 
 // part_m, part_l: (B, Hq, T, pmax) f32; part_acc: (B, Hq, T, pmax, D) f32;
 // counters: (B, Hkv) int32, all 0 before the first launch (each launch
-// leaves them at 0). D is 16, 64, 96 or 128. Block sizes that are a power
+// leaves them at 0). D is 16, 64, 96, 128 or 256; any other D returns
+// cudaErrorInvalidValue and launches nothing. Block sizes that are a power
 // of two from 8 up are read by TMA boxes through two tensor maps encoded
 // here, per call (the pools' addresses change with the layer): bf16 boxes
 // of 64 columns (at D 16 and 96 the last one runs past D and lands zeros),
@@ -976,7 +994,8 @@ extern "C" int nexus_paged_decode(
     int N, int Bs, int M, int window, int pmax, int int8, float scale, void* stream) {
   using namespace nexus_decode;
   if (B < 1 || B > MAX_ROWS || Hkv <= 0 || Hq % Hkv || T < 1 || Bs < 1 || M < 1 || N < 1 ||
-      pmax < 2 || pmax > MAX_PARTIALS || (D != 16 && D != 64 && D != 96 && D != 128))
+      pmax < 2 || pmax > MAX_PARTIALS ||
+      (D != 16 && D != 64 && D != 96 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const bf16*>(q);
@@ -998,7 +1017,7 @@ extern "C" int nexus_paged_decode(
   a.pmax = pmax; a.ctas = 1; a.N = N;
   a.scale_log2 = scale * LOG2E;
   const bool pow2 = Bs >= 8 && (Bs & (Bs - 1)) == 0;
-  a.box_rows = pow2 ? std::min(Bs, TILE) : 0;
+  a.box_rows = pow2 ? std::min(Bs, tile_for(D)) : 0;
   CUtensorMap k_map, v_map;
   memset(&k_map, 0, sizeof(k_map));
   memset(&v_map, 0, sizeof(v_map));
@@ -1026,8 +1045,13 @@ extern "C" int nexus_paged_decode(
     case 96:
       return int8 ? launch<96, true>(k_map, v_map, a, max_units, st)
                   : launch<96, false>(k_map, v_map, a, max_units, st);
-    default:
+    case 128:
       return int8 ? launch<128, true>(k_map, v_map, a, max_units, st)
                   : launch<128, false>(k_map, v_map, a, max_units, st);
+    case 256:
+      return int8 ? launch<256, true>(k_map, v_map, a, max_units, st)
+                  : launch<256, false>(k_map, v_map, a, max_units, st);
+    default:  // no instantiation: never another head dim's kernel
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -44,14 +44,15 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # this (Sk may end mid-tile: the kernels mask the keys past it), D one of
 # KERNEL_HEAD_DIMS
 KERNEL_TILE = 64
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 # the head dims the paged-decode kernel takes: GPT-NeoX-20B's 96 and the
-# tiny presets' 16 besides the flash kernels' two
-DECODE_HEAD_DIMS = (16, 64, 96, 128)
+# tiny presets' 16 besides the flash kernels' three
+DECODE_HEAD_DIMS = (16, 64, 96, 128, 256)
 # the flash path's other inputs, which the JAX kernels take and these do not
-_UNPORTED = "ROADMAP 'TPU kernels', item 2: K1-K3 for float32 and head dim 256"
+_UNPORTED = "ROADMAP 'TPU kernels', item 2: K1-K3 for float32 and the other non-bf16 dtypes"
 # the paged-decode kernel's: item 3 of ROADMAP's queue of TPU kernels
-_DECODE_UNPORTED = "ROADMAP 'TPU kernels', item 3: D1 for the other dtypes and head dims"
+_DECODE_UNPORTED = ("ROADMAP 'TPU kernels', item 3: D1 for float32 and the other dtypes, "
+                    "head dims outside DECODE_HEAD_DIMS and more than 1024 rows")
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -394,8 +395,8 @@ def flash_attention(
 def tile_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """The JAX package's shape rule for taking the flash path: sequences
     tile by min(128, S), S ≥ 128, head dim 64, 128 or 256. A CUDA tensor
-    that passes it but that the kernels do not take (float32, head dim
-    256) makes the wrapper raise; it never drops to the dense path."""
+    that passes it but that the kernels do not take (float32) makes the
+    wrapper raise; it never drops to the dense path."""
     return (
         q.shape[1] % min(128, q.shape[1]) == 0
         and k.shape[1] % min(128, k.shape[1]) == 0
@@ -805,7 +806,9 @@ def _check_decode(q, k_pool, v_pool, block_table, k_scale, v_scale):
     if t < 1:
         raise ValueError(f"the paged-decode kernel takes at least one query token, got {t}")
     if b > DECODE_MAX_ROWS:
-        raise ValueError(f"the paged-decode kernel takes at most {DECODE_MAX_ROWS} rows, got {b}")
+        raise NotImplementedError(
+            f"the paged-decode kernel takes at most {DECODE_MAX_ROWS} rows, got {b} "
+            f"({_DECODE_UNPORTED})")
     if block_table.dtype != torch.int32:
         raise TypeError("the paged-decode kernel takes an int32 block table")
     for x in (q, k_pool, v_pool, block_table, k_scale, v_scale):

@@ -13,18 +13,26 @@ elsewhere. They run over a gloo group (``Mesh.host_group``) on host values.
 
 A group's backend decides where a collective runs. NCCL runs on the card.
 Gloo runs on the host: a CUDA tensor is copied into a host buffer, the
-collective runs there, and the result is copied back. Several ranks can
-share one card only over gloo: NCCL refuses two ranks on one card, and
+collective runs there, and the result is copied back. ``STAGING`` counts
+the seconds and bytes of those copies (what a rank's wall time over gloo
+spends moving tensors to and from the host). Several ranks can share one
+card only over gloo: NCCL refuses two ranks on one card, and
 ``check_backend`` raises before it is asked to, never switching backends.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Callable, Dict, List
 
 import torch
 import torch.distributed as dist
+
+# the copies of CUDA tensors to and from gloo's host buffers in this
+# process: seconds (each copy timed after the stream's earlier work) and
+# bytes
+STAGING = {"seconds": 0.0, "bytes": 0}
 
 
 def check_backend(backend: str, world: int, device_count: int) -> None:
@@ -44,9 +52,27 @@ def _wire(x: torch.Tensor, group) -> torch.Tensor:
     are laid out otherwise (an einsum's output strides follow its
     operands' shapes) would combine unlike elements: the copy is always
     row-major."""
-    if x.is_cuda and dist.get_backend(group) == "gloo":
-        return x.detach().to("cpu").contiguous()
-    return x.contiguous()
+    if not (x.is_cuda and dist.get_backend(group) == "gloo"):
+        return x.contiguous()
+    # the stream's earlier work is not staging: wait for it first
+    torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
+    buf = x.detach().to("cpu").contiguous()
+    STAGING["seconds"] += time.perf_counter() - t0
+    STAGING["bytes"] += buf.numel() * buf.element_size()
+    return buf
+
+
+def _back(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A collective's result ``y`` on ``x``'s device: a copy of a host
+    result for a CUDA ``x`` (complete when this returns), else ``y``."""
+    if y.device == x.device:
+        return y
+    t0 = time.perf_counter()
+    out = y.to(x.device)
+    STAGING["seconds"] += time.perf_counter() - t0
+    STAGING["bytes"] += y.numel() * y.element_size()
+    return out
 
 
 def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
@@ -59,7 +85,7 @@ def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
            dist.P2POp(dist.irecv, recv, group=group, group_peer=(me - step) % n)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv.to(x.device)
+    return _back(recv, x)
 
 
 class _RingShift(torch.autograd.Function):
@@ -96,7 +122,7 @@ def all_reduce(x: torch.Tensor, group, mean: bool = False,
     buf = _wire(x, group)
     if buf is x:
         buf = x.clone()
-    return _all_reduce_(buf, group, mean, op).to(x.device)
+    return _back(_all_reduce_(buf, group, mean, op), x)
 
 
 def _all_reduce_(buf: torch.Tensor, group, mean: bool, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -113,7 +139,7 @@ def all_reduce_coalesced(tensors: List[torch.Tensor], group,
     out: List[torch.Tensor] = [None] * len(tensors)  # type: ignore[list-item]
     for idx in by_dtype(tensors):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        flat = _all_reduce_(_wire(flat, group), group, mean).to(flat.device)
+        flat = _back(_all_reduce_(_wire(flat, group), group, mean), flat)
         for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
             out[i] = piece.view(tensors[i].shape)
     return out
@@ -126,7 +152,7 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty(buf.numel() // dist.get_world_size(group), dtype=buf.dtype,
                       device=buf.device)
     dist.reduce_scatter_tensor(out, buf, group=group)
-    return out.to(x.device)
+    return _back(out, x)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -136,7 +162,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty(buf.numel() * dist.get_world_size(group), dtype=buf.dtype,
                       device=buf.device)
     dist.all_gather_into_tensor(out, buf, group=group)
-    return out.to(x.device)
+    return _back(out, x)
 
 
 class AgreedClock:

@@ -258,6 +258,8 @@ def test_fused_at_head_dims_16_and_96_matches_jax(d, pool, n_rep, t):
 
 @pytest.mark.parametrize("d", tattn.DECODE_HEAD_DIMS)
 def test_decode_check_takes_head_dims_16_64_96_and_128(d):
+    """Every head dim of DECODE_HEAD_DIMS, 256 among them since the kernel
+    took it, passes the shape check with bf16 and int8 pools."""
     q = torch.zeros(2, 1, 8, d, dtype=torch.bfloat16)
     pool = torch.zeros(5, 32, 2, d, dtype=torch.bfloat16)
     table = torch.zeros(2, 4, dtype=torch.int32)
@@ -267,7 +269,7 @@ def test_decode_check_takes_head_dims_16_64_96_and_128(d):
 
 
 @pytest.mark.parametrize("d,q_dtype,pool_dtype", [
-    (80, torch.bfloat16, torch.bfloat16), (256, torch.bfloat16, torch.bfloat16),
+    (80, torch.bfloat16, torch.bfloat16), (512, torch.bfloat16, torch.bfloat16),
     (96, torch.float32, torch.float32), (16, torch.bfloat16, torch.float16)])
 def test_decode_refusals_name_kernel_queue_item_3(d, q_dtype, pool_dtype):
     """What D1 does not take (another head dim, a non-bf16 query or pool)
@@ -284,14 +286,14 @@ def test_decode_refusals_name_kernel_queue_item_3(d, q_dtype, pool_dtype):
 @pytest.mark.parametrize("d,dtype", [(16, torch.bfloat16), (96, torch.bfloat16),
                                      (128, torch.float32)])
 def test_the_flash_check_still_refuses_16_96_and_float32_naming_item_2(d, dtype):
-    """The flash kernels keep their head dims (64, 128) and bf16: 16 and 96
-    (which the JAX rule sends to the dense path anyway) and float32 raise
-    naming the flash kernels' item."""
+    """The flash kernels keep their head dims (64, 128, 256) and bf16: 16
+    and 96 (which the JAX rule sends to the dense path anyway) and float32
+    raise naming the flash kernels' item."""
     q = torch.zeros(1, 128, 4, d, dtype=dtype)
     k = torch.zeros(1, 128, 2, d, dtype=dtype)
-    with pytest.raises(NotImplementedError, match="'TPU kernels', item 2: K1-K3 for float32 and head dim 256"):
+    with pytest.raises(NotImplementedError, match="'TPU kernels', item 2: K1-K3 for float32"):
         tattn._check_cuda(q, k, k, causal=True, window=0)
-    assert tattn.KERNEL_HEAD_DIMS == (64, 128)
+    assert tattn.KERNEL_HEAD_DIMS == (64, 128, 256)
     assert not tattn.tile_ok(q, k) or d == 128
 
 

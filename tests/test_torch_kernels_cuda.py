@@ -21,7 +21,8 @@ bf16 rounding and the order of the sums remain.
 import pytest
 import torch
 
-from chip_smoke import (DECODE_EDGE_SHAPES, DECODE_SERVE_QUEUE_SHAPE, DECODE_TIMED_SHAPES,
+from chip_smoke import (D256_DECODE_EDGE_SHAPES, D256_DECODE_TIMED, D256_SHAPE,
+                        DECODE_EDGE_SHAPES, DECODE_SERVE_QUEUE_SHAPE, DECODE_TIMED_SHAPES,
                         KEY_TAIL_SHAPES, TP_TRAIN_SHAPES, check_decode, check_kernels,
                         decode_case, decode_exact_share, decode_planted_faults, excess)
 from nexus_tpu_torch.ops import attention as A
@@ -40,6 +41,12 @@ SHAPES = [
     (1, 192, 320, 4, 2, 64, True, 128, 0),
     # a ragged last 128-row query block, n_rep 8, no mask
     (1, 448, 192, 8, 1, 128, False, 0, 0),
+    # head dim 256: its own tiles (64-key K1 ring, 32-key K2 ring, K3's two
+    # consumers on one key slice), GQA 8 -> 1, masks and ragged edges
+    (1, 192, 192, 8, 1, 256, True, 0, 48),
+    (2, 192, 320, 4, 2, 256, True, 128, 0),
+    (1, 448, 192, 8, 1, 256, False, 0, 0),
+    (1, 128, 37, 8, 1, 256, True, 0, 0),
 ] + [tuple(s[x] for x in ("B", "Sq", "Sk", "Hq", "Hkv", "D", "causal", "q_offset", "window"))
      for s in KEY_TAIL_SHAPES]  # keys that end mid-tile: 1, 37, 100
 
@@ -80,14 +87,16 @@ def test_kernels_match_plain_versions(card, shape):
         _close(got, ref, name)
 
 
-@pytest.mark.parametrize("label", sorted(TP_TRAIN_SHAPES))
+@pytest.mark.parametrize("label", sorted(TP_TRAIN_SHAPES) + ["d256"])
 def test_kernels_match_plain_versions_at_the_tensor_train_rank_shapes(card, label):
     """K1-K3 at the heads one rank of a tensor-parallel train phase holds
-    (Llama-3-8B over tensor 2 and 4, Pythia-1.4B over 2), held to their
-    plain versions with chip_smoke's limits (``check_kernels`` raises past
-    them)."""
+    (Llama-3-8B over tensor 2 and 4, Pythia-1.4B over 2), and at
+    gemma2b-widths' train shape (8 query heads over 1 kv head of 256, one
+    row of 4096), held to their plain versions with chip_smoke's limits
+    (``check_kernels`` raises past them)."""
     ratios = {}
-    check_kernels(TP_TRAIN_SHAPES[label], torch.Generator(device=card).manual_seed(0), ratios)
+    shape = D256_SHAPE if label == "d256" else TP_TRAIN_SHAPES[label]
+    check_kernels(shape, torch.Generator(device=card).manual_seed(0), ratios)
     assert ratios and max(ratios.values()) <= 1.0
 
 
@@ -100,7 +109,7 @@ def test_autograd_function_launches_each_kernel_once(card):
     assert torch.isfinite(q.grad.float()).all() and torch.isfinite(k.grad.float()).all()
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 256)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.float16, 256)])
 def test_flash_shapes_the_kernels_do_not_take_raise_on_the_card(card, dtype, d):
     """The dispatch keeps the JAX shape rule; what passes it but the kernels
     do not take raises and names the ROADMAP item, never runs dense."""
@@ -115,6 +124,10 @@ DECODE_SHAPES = DECODE_EDGE_SHAPES + [dict(base, T=t) for _, base in DECODE_TIME
                                       for t in (1, 8)]
 # feeds past 16 query tokens (several 64-row groups a row), bf16 and int8,
 # with the serve queue's shared run and without one
+# head dim 256: the edge cases and the timed shapes, bf16 and int8 pools
+DECODE_SHAPES += D256_DECODE_EDGE_SHAPES + [dict(base, T=t, int8=int8)
+                                            for _, base in D256_DECODE_TIMED for t in (1, 8)
+                                            for int8 in (False, True)]
 DECODE_SHAPES += [dict(DECODE_SERVE_QUEUE_SHAPE, T=t, int8=int8,
                        **({} if shared else dict(shared=0, split=None)))
                   for t in (17, 32, 64) for int8 in (False, True) for shared in (True, False)]
@@ -130,7 +143,7 @@ def test_paged_decode_matches_its_plain_version(card, shape):
     assert A.fused_paged_decode_attention.launches == before + 1
 
 
-@pytest.mark.parametrize("pool_dtype,d", [(torch.float32, 128), (torch.bfloat16, 256)])
+@pytest.mark.parametrize("pool_dtype,d", [(torch.float32, 128), (torch.float16, 256)])
 def test_paged_decode_raises_on_what_it_does_not_take(card, pool_dtype, d):
     q = torch.randn(1, 1, 4, d, device=card).to(pool_dtype)
     pool = torch.randn(3, 8, 2, d, device=card).to(pool_dtype)
@@ -138,6 +151,39 @@ def test_paged_decode_raises_on_what_it_does_not_take(card, pool_dtype, d):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         A.fused_paged_decode_attention(q, pool, pool, table, torch.zeros(1, dtype=torch.int32,
                                                                           device=card))
+
+
+@pytest.mark.parametrize("entry,d", [("nexus_flash_fwd", 80), ("nexus_flash_bwd_dq", 96),
+                                     ("nexus_flash_bwd_dkv", 32), ("nexus_paged_decode", 80),
+                                     ("nexus_paged_decode", 192)])
+def test_a_head_dim_the_c_entry_does_not_take_returns_an_error_and_launches_nothing(
+        card, monkeypatch, entry, d):
+    """Past the Python checks (patched out here), a C entry given a head
+    dim it has no instantiation for returns cudaErrorInvalidValue (1) and
+    writes nothing: no other head dim's kernel runs on it."""
+    if entry == "nexus_paged_decode":
+        monkeypatch.setattr(A, "_check_decode", lambda *a: None)
+        q = torch.randn(2, 1, 4, d, device=card).to(torch.bfloat16)
+        pool = torch.randn(5, 8, 2, d, device=card).to(torch.bfloat16)
+        table = torch.zeros(2, 2, dtype=torch.int32, device=card)
+        before = A.fused_paged_decode_attention.launches
+        with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+            A.fused_paged_decode_attention(q, pool, pool, table, torch.zeros(
+                2, dtype=torch.int32, device=card))
+        assert A.fused_paged_decode_attention.launches == before
+        torch.cuda.synchronize()
+        return
+    monkeypatch.setattr(A, "_check_cuda", lambda q, k, v, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+    q = torch.randn(1, 128, 4, d, device=card).to(torch.bfloat16)
+    k = torch.randn(1, 128, 2, d, device=card).to(torch.bfloat16)
+    lse = torch.zeros(1, 4, 128, device=card)
+    call = {"nexus_flash_fwd": lambda: A.flash_fwd(q, k, k),
+            "nexus_flash_bwd_dq": lambda: A.flash_bwd_dq(q, k, k, q, lse, lse),
+            "nexus_flash_bwd_dkv": lambda: A.flash_bwd_dkv(q, k, k, q, lse, lse)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        call()
+    torch.cuda.synchronize()
 
 
 def test_paged_decode_planted_faults_fail_the_limits(card):

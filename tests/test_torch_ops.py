@@ -188,7 +188,7 @@ def test_attention_dispatch_uses_xla_on_cpu_and_rejects_unknown():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(d=256), "head_dim.*ROADMAP"),
+    (dict(d=512), "head_dim.*ROADMAP"),
     (dict(sq=96), "multiples of 64"),
     (dict(dtype=torch.float32), "bfloat16.*ROADMAP"),
     (dict(window=16, causal=False), "window requires causal"),
